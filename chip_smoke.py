@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+Usage, from the repository root, on a machine with one CUDA card and the
+CUDA toolkit (``nvcc``):
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase is allowed to carry on past a
+failure):
+
+1. probe   - torch / CUDA versions, the card, its power limit;
+2. build   - every kernel of ``src/repro_torch/csrc`` with nvcc, in parallel;
+3. kernels - each kernel against its plain PyTorch version on the card, at
+             the main path's shapes and at edge cases (fp32 rtol=atol=1e-5,
+             bf16 3e-2, argmax exact); median times of the kernel, the plain
+             version and, where one PyTorch call computes the same
+             function, that call (``library_ms``; the port never calls it);
+4. main    - qwen2-0.5b at full width (24 layers, bf16, random weights from
+             seed 0) serving 8 ragged prompts through ``Engine.generate``
+             with a paged KV cache, greedy, 32 new tokens; the launch
+             counters are reset just before this run and read just after;
+5. tokens  - fp32, full width, 2 layers: the paged engine on the card
+             (kernels), the dense engine on the card and the paged engine on
+             the CPU (plain versions) must emit the same greedy tokens, and
+             the card's prefill logits must match the CPU's within
+             max|d| / max|logit| <= 1e-4.
+
+The last two lines of stdout are the kernel table as JSON and the result
+line ``{"ok": true, "device": {...}}``.  It never imports JAX or the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+BF16_FLOPS = 989e12              # dense tensor-core bf16 peak
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+       torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+PROMPT_LENS = [512, 384, 301, 256, 129, 64, 17, 1]
+MAX_NEW = 32
+PAGE_SIZE = 16
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def gpu_name_and_limit() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Median per-launch device time with CUDA events; the 50 MB L2 cache
+    is flushed before every launch."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+
+    def ms(self, fn, reps: int = 25) -> float:
+        fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(reps):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    tol = TOL[want.dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol,
+                               msg=lambda m: f"{name}: {m}")
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"  ok {name}: max|err| {err:.3g} (rtol=atol={tol['rtol']})")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+def check_flash(dev, timer):
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_plain)
+    rng = np.random.default_rng(0)
+
+    def case(b, h, kvh, sq, sk, dh, dtype, causal, q_offset, kv_valid):
+        q = torch.from_numpy(rng.standard_normal((b, h, sq, dh),
+                                                 np.float32)).to(dev, dtype)
+        k = torch.from_numpy(rng.standard_normal((b, kvh, sk, dh),
+                                                 np.float32)).to(dev, dtype)
+        v = torch.from_numpy(rng.standard_normal((b, kvh, sk, dh),
+                                                 np.float32)).to(dev, dtype)
+        kvv = torch.tensor(kv_valid, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, q_offset=q_offset, kv_valid=kvv)
+        got = flash_attention_bhsd(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        name = (f"flash b{b} h{h}/{kvh} sq{sq} sk{sk} dh{dh} "
+                f"{str(dtype)[6:]} causal={causal} q_offset={q_offset} "
+                f"kv_valid={kv_valid}")
+        return close(name, got, want), (q, k, v, kw)
+
+    # edge cases: ragged kv_valid including 0, S not a tile multiple,
+    # causal and not, q_offset > 0 with Sq < Sk
+    for causal in (True, False):
+        case(3, 4, 2, 100, 100, 64, torch.float32, causal, 0, [100, 0, 37])
+    case(3, 4, 2, 45, 130, 64, torch.float32, True, 85, [130, 90, 120])
+    case(2, 6, 2, 70, 70, 32, torch.float32, True, 0, [70, 5])
+    case(2, 4, 1, 33, 33, 128, torch.float32, False, 0, [33, 20])
+    # the main path's prefill shape (qwen2-0.5b: 14 q heads over 2 kv heads)
+    s = max(PROMPT_LENS)
+    case(8, 14, 2, s, s, 64, torch.float32, True, 0, PROMPT_LENS)
+    err, (q, k, v, kw) = case(8, 14, 2, s, s, 64, torch.bfloat16, True, 0,
+                              PROMPT_LENS)
+
+    ms = timer.ms(lambda: flash_attention_bhsd(q, k, v, **kw))
+    plain_ms = timer.ms(lambda: flash_attention_plain(q, k, v, **kw))
+    g = q.shape[1] // k.shape[1]
+    ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    kpos = torch.arange(s, device=dev)
+    kvv = kw["kv_valid"]
+    mask = ((kpos[None, :] <= kpos[:, None])[None, None]
+            & (kpos[None, None, None, :] < kvv[:, None, None, None]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = timer.ms(lambda: sdpa(q, ke, ve, attn_mask=mask))
+    b, h, sq, dh = q.shape
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b
+    pairs = sum(min(i + 1, L) for L in PROMPT_LENS for i in range(sq))
+    bms, by = bound_ms(nbytes, 4.0 * dh * h * pairs)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:46",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms)
+
+
+def plan_table(lens, extra, ps, rng=None):
+    """Row-major page table as Engine._page_plan lays it out (optionally
+    with shuffled physical ids and garbage past the live pages)."""
+    per_row = [-(-(n + extra) // ps) for n in lens]
+    width = max(per_row)
+    num_pages = -(-(1 + sum(per_row)) // 16) * 16
+    table = np.zeros((len(lens), width), np.int32)
+    ids = np.arange(1, 1 + sum(per_row))
+    if rng is not None:
+        ids = rng.permutation(ids)
+    nxt = 0
+    for i, npg in enumerate(per_row):
+        table[i, :npg] = ids[nxt:nxt + npg]
+        nxt += npg
+        if rng is not None:          # dead entries: in-range garbage
+            table[i, npg:] = rng.integers(0, num_pages, width - npg)
+    return table, num_pages
+
+
+def check_paged(dev, timer):
+    from repro_torch.kernels.paged_decode import (
+        paged_decode_attention_grouped, paged_decode_plain)
+    rng = np.random.default_rng(1)
+
+    def case(lens, kvh, g, dh, ps, dtype, extra, shuffle):
+        b = len(lens)
+        table, num_pages = plan_table(lens, extra, ps,
+                                      rng if shuffle else None)
+
+        def rnd(*shape):
+            return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                    ).to(dev, dtype)
+
+        args = (rnd(b, kvh, g, dh), rnd(num_pages, ps, kvh, dh),
+                rnd(num_pages, ps, kvh, dh),
+                torch.from_numpy(table).to(dev),
+                torch.tensor(lens, dtype=torch.int32, device=dev),
+                rnd(b, kvh, dh), rnd(b, kvh, dh))
+        got = paged_decode_attention_grouped(*args)
+        want = paged_decode_plain(*args)
+        torch.cuda.synchronize()
+        name = (f"paged lens={lens} kvh{kvh} g{g} dh{dh} ps{ps} "
+                f"{str(dtype)[6:]} shuffled={shuffle}")
+        err = close(name, got, want)
+        if 0 in lens:                 # an empty row outputs exactly v_new
+            i = lens.index(0)
+            vn = args[6][i][:, None, :].expand_as(got[i])
+            torch.testing.assert_close(got[i].float(), vn.float(),
+                                       **TOL[dtype])
+        return err, args
+
+    # length 0, 1, a partial page and multi-page lengths; shuffled
+    # (non-contiguous) tables with garbage past the live pages
+    case([0, 1, 10, 40], 2, 7, 64, 16, torch.float32, 4, True)
+    case([0, 1, 5, 33, 64], 2, 4, 32, 8, torch.float32, 3, True)
+    case([3, 17], 1, 7, 128, 16, torch.float32, 2, True)
+    # the main path's decode shape, mid-generation (16 tokens decoded)
+    main_lens = [n + 16 for n in PROMPT_LENS]
+    case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
+    err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
+                     MAX_NEW - 16, False)
+
+    ms = timer.ms(lambda: paged_decode_attention_grouped(*args))
+    plain_ms = timer.ms(lambda: paged_decode_plain(*args))
+    q4, _, _, _, _, kn, _ = args
+    b, kvh, g, dh = q4.shape
+    live_pages = sum(-(-n // PAGE_SIZE) for n in main_lens)
+    nbytes = (2 * (2 * q4.numel() + 2 * kn.numel())       # q, out, k/v_new
+              + 2 * 2 * sum(main_lens) * kvh * dh          # live K and V
+              + 4 * b + 4 * live_pages)                    # lengths, table
+    flops = 4.0 * kvh * g * dh * sum(n + 1 for n in main_lens)
+    bms, by = bound_ms(nbytes, flops)
+    return dict(name="paged_decode", route="cuda",
+                source="src/repro_torch/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/paged_decode.py:51",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def check_argmax(dev, timer, vocab):
+    from repro_torch.kernels.sampling import argmax_plain, block_argmax
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((8, vocab), np.float32)
+    x[0, [5, 100000]] = 50.0                  # tie: the lower index wins
+    x[1, :] = -np.inf                         # all -inf -> index 0
+    x[2, [vocab - 2, vocab - 1]] = 60.0       # tie at the row's end
+    x[3, :] = -np.inf
+    x[3, 77777] = -1.0
+    x[4, [0, 1]] = 70.0                       # tie at the row's start
+    x[5, ::2] = 3.5                           # many ties: index 0
+    x[6, 1::7] = 9.0                          # strided ties: index 1
+    last = None
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = torch.from_numpy(x).to(dev, dtype)
+        got = block_argmax(xt)
+        want = argmax_plain(xt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"argmax {dtype}: kernel {got.tolist()} != plain "
+                 f"{want.tolist()}")
+        log(f"  ok argmax [8,{vocab}] {str(dtype)[6:]}: exact, "
+            f"{got.tolist()}")
+        last = xt
+    ms = timer.ms(lambda: block_argmax(last))
+    plain_ms = timer.ms(lambda: argmax_plain(last))
+    library_ms = timer.ms(lambda: torch.argmax(last, dim=-1))
+    bms, by = bound_ms(2 * last.numel() + 4 * last.shape[0],
+                       float(last.numel()))
+    return dict(name="argmax", route="cuda",
+                source="src/repro_torch/csrc/argmax.cu",
+                replaces="src/repro/kernels/sampling.py:116",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the main path
+# ---------------------------------------------------------------------------
+
+def counters():
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.paged_decode import \
+        paged_decode_attention_grouped
+    from repro_torch.kernels.sampling import block_argmax
+    return {"flash_attention": flash_attention_bhsd,
+            "paged_decode": paged_decode_attention_grouped,
+            "argmax": block_argmax}
+
+
+def main_path(dev):
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    t0 = time.perf_counter()
+    lm = LM(CONFIG, torch.bfloat16, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"  qwen2-0.5b: {n_params} params, bf16, random init (seed 0) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, CONFIG.vocab, n).tolist() for n in PROMPT_LENS]
+    eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024))
+    eng.generate(prompts, max_new_tokens=MAX_NEW)          # warm-up
+    torch.cuda.synchronize()
+
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    syncs0 = eng.host_syncs
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fns.items()}
+    syncs = eng.host_syncs - syncs0
+
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=1)                # prefill + 1 token
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+
+    if syncs != 1:
+        fail(f"generate made {syncs} host syncs, expected 1")
+    if [len(o) for o in out] != [MAX_NEW] * len(prompts):
+        fail(f"unexpected output lengths {[len(o) for o in out]}")
+    if not all(0 <= t < CONFIG.vocab for o in out for t in o):
+        fail("a generated token is outside the vocabulary")
+    n_layers = CONFIG.n_layers
+    want = {"flash_attention": n_layers,
+            "paged_decode": n_layers * (MAX_NEW - 1), "argmax": MAX_NEW}
+    for k, n in want.items():
+        if launches[k] < n:
+            fail(f"{k} launched {launches[k]} times on the main path, "
+                 f"expected at least {n}")
+    dec_tok_s = len(prompts) * (MAX_NEW - 1) / max(t_gen - t_prefill, 1e-9)
+    log(f"  generate: {t_gen * 1e3:.2f} ms for {len(prompts)} x {MAX_NEW} "
+        f"tokens; prefill (+1 token) {t_prefill * 1e3:.2f} ms; decode "
+        f"{dec_tok_s:.1f} tokens/s; host_syncs {syncs}; launches {launches}")
+    log(f"  first tokens: {[o[:4] for o in out]}")
+    return launches
+
+
+def token_check(dev):
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    lm_cpu = LM(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(1))
+    # a random model with sigma-1 tied embeddings mostly echoes its input;
+    # shrinking the table makes the greedy tokens depend on every layer
+    lm_cpu.embed.table.data.mul_(0.1)
+    lm_gpu = LM(cfg, torch.float32, dev)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (37, 20, 5)]
+    sc_paged = ServeConfig(page_size=PAGE_SIZE, max_seq=128)
+    tok = {
+        "card paged": Engine(lm_gpu, sc_paged).generate(prompts, 8),
+        "card dense": Engine(lm_gpu, ServeConfig(max_seq=128)).generate(
+            prompts, 8),
+        "cpu paged": Engine(lm_cpu, sc_paged, device="cpu").generate(
+            prompts, 8),
+    }
+    for k, v in tok.items():
+        log(f"  {k}: {v}")
+    if not tok["card paged"] == tok["card dense"] == tok["cpu paged"]:
+        fail("greedy tokens differ between the card and the CPU")
+
+    logits = {}
+    for name, lm in (("cpu", lm_cpu), ("card", lm_gpu)):
+        eng = Engine(lm, sc_paged, device=lm.device)
+        toks, lens = eng._pad_prompts(prompts)
+        table, num_pages = eng._page_plan(prompts, 8)
+        state = lm.init_decode_state(len(prompts), 128, page_size=PAGE_SIZE,
+                                     num_pages=num_pages,
+                                     table_width=table.shape[1])
+        state["caches"].page_table.copy_(torch.from_numpy(table))
+        with torch.inference_mode():
+            lg, _ = lm.prefill({"tokens": torch.from_numpy(toks).to(lm.device),
+                                "lengths": torch.from_numpy(lens).to(
+                                    lm.device)}, state)
+        logits[name] = lg.float().cpu()
+    rel = ((logits["card"] - logits["cpu"]).abs().max()
+           / logits["cpu"].abs().max()).item()
+    log(f"  prefill logits card vs cpu: max|d|/max|logit| = {rel:.3g}")
+    if not rel <= 1e-4:
+        fail(f"prefill logits differ: {rel} > 1e-4")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAIL: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    log("[1/5] probe")
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    log(f"  device {torch.cuda.get_device_name(0)}, capability "
+        f"{torch.cuda.get_device_capability(0)}, count "
+        f"{torch.cuda.device_count()}")
+    smi = gpu_name_and_limit()
+    log(f"  nvidia-smi: {smi}")
+
+    log("[2/5] build")
+    secs = _build.build_all()
+    log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
+        f"{_build.build_dir()}")
+
+    log("[3/5] kernels vs plain versions")
+    timer = Timer(dev)
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    rows = [check_flash(dev, timer), check_paged(dev, timer),
+            check_argmax(dev, timer, CONFIG.vocab)]
+    for r in rows:
+        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']})")
+    del timer
+
+    log("[4/5] main path: qwen2-0.5b Engine.generate, paged, greedy")
+    launches = main_path(dev)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+
+    log("[5/5] fp32 token check: card paged / card dense / cpu paged")
+    token_check(dev)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(gpu_name_and_limit(), flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

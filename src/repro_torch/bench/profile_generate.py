@@ -1,0 +1,124 @@
+"""Where the time of one ``Engine.generate`` call goes, on one CUDA card.
+
+    python -m repro_torch.bench.profile_generate [--page-size 16]
+        [--json out.json]
+
+Builds qwen2-0.5b at full width and depth (bf16, random weights from seed
+0) and serves the main path of ``chip_smoke.py``: 8 ragged prompts of
+512, 384, 301, 256, 129, 64, 17 and 1 tokens, 32 greedy tokens each,
+with a paged (``--page-size 16``) or dense (``--page-size 0``) KV cache.
+It warms the engine up, then:
+
+* times ``generate`` on the host clock, ending in ``torch.cuda.synchronize``
+  (the whole call, and prefill plus one token alone);
+* runs the same call under ``torch.profiler`` and sums the device time of
+  every CUDA kernel: the device's busy share of the call's wall time, and
+  the kernels that take most of it.
+
+Prints one JSON object (also written to ``--json`` when given).  Needs a
+CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _device_time_us(avg) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(avg, attr):
+            return float(getattr(avg, attr))
+    raise AttributeError("profiler averages carry no device time")
+
+
+PROMPT_LENS = (512, 384, 301, 256, 129, 64, 17, 1)
+MAX_NEW = 32
+
+
+def profile(page_size: int) -> dict:
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.kernels import _build
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    _build.build_all()
+    max_new = MAX_NEW
+    lm = LM(CONFIG, torch.bfloat16).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, CONFIG.vocab, n).tolist()
+               for n in PROMPT_LENS]
+    eng = Engine(lm, ServeConfig(page_size=page_size, max_seq=1024))
+
+    def timed(n_new: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=n_new)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    timed(max_new)                                    # warm-up
+    gen_ms = [timed(max_new) for _ in range(3)]
+    prefill_ms = [timed(1) for _ in range(3)]
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=max_new)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an op's own entry repeats the device time of the
+    # kernels it launched
+    avgs = [a for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA
+            and _device_time_us(a) > 0]
+    busy_ms = sum(_device_time_us(a) for a in avgs) / 1e3
+    top = sorted(avgs, key=_device_time_us, reverse=True)[:10]
+    med_gen, med_pre = float(np.median(gen_ms)), float(np.median(prefill_ms))
+    tokens = len(prompts) * (max_new - 1)
+    return {
+        "page_size": page_size, "max_new": max_new,
+        "prompt_lens": list(PROMPT_LENS),
+        "generate_ms": gen_ms, "prefill_plus_1_ms": prefill_ms,
+        "decode_tokens_per_s": tokens / max(med_gen - med_pre, 1e-9) * 1e3,
+        "decode_step_ms": (med_gen - med_pre) / max(max_new - 1, 1),
+        "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "top_kernels": [{"name": a.key[:90], "calls": a.count,
+                         "device_ms": _device_time_us(a) / 1e3}
+                        for a in top],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_generate: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    res = profile(args.page_size)
+    res.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               torch=torch.__version__, cuda=torch.version.cuda)
+    text = json.dumps(res)
+    print(text)
+    if args.json:
+        with open(args.json, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""Parameter bridge: the JAX package's params tree -> the port's weights.
+
+The JAX ``LM.init`` returns a nested dict whose transformer leaves are
+stacked on a leading layers axis (``blocks/attn/wq`` is ``[L, d, H, Dh]``).
+The port keeps one :class:`~repro_torch.models.transformer.Block` per
+layer with the same leaf names, so the bridge only flattens the tree to
+dotted names and splits the layers axis — no transposes, because both
+sides keep the same weight layouts.  Leaves arrive as numpy arrays (the
+tests convert with ``jax.device_get``); this module never imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+from repro_torch.models.lm import LMConfig
+
+__all__ = ["params_from_jax"]
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def params_from_jax(np_params: Mapping[str, Any], cfg: LMConfig,
+                    dtype: torch.dtype = torch.float32,
+                    device: Union[str, torch.device] = "cpu"
+                    ) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for ``LM(cfg, dtype, device)`` built from the JAX
+    params tree (numpy leaves); load it with ``lm.load_state_dict``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    state: Dict[str, torch.Tensor] = {}
+    for name, leaf in _flatten(np_params).items():
+        arr = np.array(leaf, dtype=np.float32)          # a writable copy
+        if name.startswith("blocks."):
+            if arr.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: leading axis {arr.shape[0]} is "
+                                 f"not n_layers={cfg.n_layers}")
+            rest = name[len("blocks."):]
+            for i in range(cfg.n_layers):
+                state[f"blocks.{i}.{rest}"] = torch.from_numpy(
+                    arr[i].copy()).to(device=device, dtype=dtype)
+        else:
+            state[name] = torch.from_numpy(arr).to(device=device,
+                                                   dtype=dtype)
+    return state

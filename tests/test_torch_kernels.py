@@ -1,0 +1,236 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On this CPU host each wrapper runs its plain PyTorch version (the CUDA
+kernels run only on the card, where ``chip_smoke.py`` holds them against
+the same plain versions).  Here the plain versions are held to the Pallas
+kernels run in interpret mode and to the JAX oracles in
+``repro/kernels/ref.py``, on the same numpy-seeded inputs:
+
+* flash prefill and paged decode, fp32, rtol=atol=1e-5 (the tolerance of
+  ``tests/test_kernels.py`` and ``tests/test_paged_decode.py``);
+* argmax, exactly, including ties and rows of -inf.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
+from repro.kernels.paged_decode import \
+    paged_decode_attention_grouped as jax_paged
+from repro.kernels.sampling import block_argmax as jax_argmax
+from repro_torch.kernels import _build, sampling
+from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                 flash_attention_plain)
+from repro_torch.kernels.paged_decode import (paged_decode_attention_grouped,
+                                              paged_decode_plain)
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash prefill
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # b, h, kvh, sq, sk, dh, causal, q_offset, kv_valid
+    (3, 4, 2, 40, 40, 16, True, 0, [40, 0, 13]),      # ragged, a 0 row
+    (3, 4, 2, 40, 40, 16, False, 0, [40, 0, 13]),     # non-causal ragged
+    (2, 4, 2, 19, 50, 16, True, 31, [50, 44]),        # q_offset, Sq < Sk
+    (1, 7, 1, 37, 37, 8, True, 0, None),              # SMOKE's G=7, Dh=8
+]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,dh,causal,q_offset,kv_valid",
+                         FLASH_CASES)
+def test_flash_plain_matches_pallas_and_oracle(b, h, kvh, sq, sk, dh, causal,
+                                               q_offset, kv_valid):
+    rng = np.random.default_rng(sq * 7 + sk + h)
+    q, k, v = (_normal(rng, b, h, sq, dh), _normal(rng, b, kvh, sk, dh),
+               _normal(rng, b, kvh, sk, dh))
+    kvv = None if kv_valid is None else np.asarray(kv_valid, np.int32)
+    got = flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, q_offset=q_offset,
+        kv_valid=None if kvv is None else torch.from_numpy(kvv))
+    want_pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal, q_offset=q_offset,
+                            kv_valid=None if kvv is None else jnp.asarray(kvv),
+                            bq=32, bk=32, interpret=True)
+    want_ref = ref.flash_attention(
+        jnp.asarray(q).transpose(0, 2, 1, 3), jnp.asarray(k).transpose(
+            0, 2, 1, 3), jnp.asarray(v).transpose(0, 2, 1, 3),
+        causal=causal, q_offset=q_offset,
+        kv_valid=None if kvv is None else jnp.asarray(kvv))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_pallas), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        want_ref).transpose(0, 2, 1, 3), **TOL)
+    if kv_valid is not None and 0 in kv_valid:
+        assert not got[kv_valid.index(0)].any()     # no live key -> 0
+
+
+def test_flash_wrapper_takes_strided_bshd_views_on_cpu():
+    """The model hands BSHD tensors transposed to BHSD; the wrapper accepts
+    the views and, for CPU tensors, returns exactly the plain result."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(_normal(rng, 2, 20, 4, 16))       # [B,S,H,Dh]
+    k = torch.from_numpy(_normal(rng, 2, 20, 2, 16))
+    v = torch.from_numpy(_normal(rng, 2, 20, 2, 16))
+    lens = torch.tensor([20, 9], dtype=torch.int32)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = flash_attention_bhsd(qt, kt, vt, kv_valid=lens)
+    want = flash_attention_plain(qt.contiguous(), kt.contiguous(),
+                                 vt.contiguous(), kv_valid=lens)
+    assert torch.equal(got, want)
+
+
+def test_flash_wrapper_rejects_what_it_does_not_take():
+    q = torch.zeros(1, 4, 8, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(TypeError):
+        flash_attention_bhsd(q, k.double(), k.double())
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_bhsd(q, torch.zeros(1, 3, 8, 16),
+                             torch.zeros(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="kv_valid"):
+        flash_attention_bhsd(q, k, k, kv_valid=torch.tensor([8]))  # int64
+    # a tensor that is neither on the CPU nor on a card never reaches the
+    # plain version: no silent fallback
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention_bhsd(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# paged decode
+# ---------------------------------------------------------------------------
+
+def _paged_case(rng, lens, kvh, g, dh, ps, np_w):
+    """Random pool, shuffled (non-contiguous) page ids per row, in-range
+    garbage in the table entries past each row's live pages."""
+    b = len(lens)
+    p_total = b * np_w + 1
+    ids = rng.permutation(np.arange(1, p_total))[:b * np_w].reshape(b, np_w)
+    for i, n in enumerate(lens):
+        live = -(-n // ps)
+        ids[i, live:] = rng.integers(0, p_total, np_w - live)
+    return (_normal(rng, b, kvh, g, dh), _normal(rng, p_total, ps, kvh, dh),
+            _normal(rng, p_total, ps, kvh, dh), ids.astype(np.int32),
+            np.asarray(lens, np.int32), _normal(rng, b, kvh, dh),
+            _normal(rng, b, kvh, dh))
+
+
+PAGED_CASES = [
+    # lens, kvh, g, dh, ps, np_w
+    ([0, 1, 10, 28], 2, 7, 16, 8, 4),    # empty, one token, partial, multi
+    ([16, 3, 9], 1, 7, 8, 8, 3),         # exactly full pages; SMOKE heads
+    ([5, 31, 0, 12], 2, 4, 16, 16, 2),
+]
+
+
+@pytest.mark.parametrize("lens,kvh,g,dh,ps,np_w", PAGED_CASES)
+def test_paged_plain_matches_pallas(lens, kvh, g, dh, ps, np_w):
+    rng = np.random.default_rng(sum(lens) + ps)
+    args = _paged_case(rng, lens, kvh, g, dh, ps, np_w)
+    got = paged_decode_plain(*(torch.from_numpy(a) for a in args))
+    want = jax_paged(*(jnp.asarray(a) for a in args), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the reference oracle, in the model layout
+    q4, kp, vp, pt, ln, kn, vn = args
+    b, _, _, _ = q4.shape
+    live = np.arange(np_w)[None, :] * ps < ln[:, None]
+    oracle = ref.paged_decode(
+        jnp.asarray(q4.reshape(b, 1, kvh * g, dh)), jnp.asarray(kp),
+        jnp.asarray(vp), jnp.asarray(np.where(live, pt, 0)), jnp.asarray(ln),
+        jnp.asarray(kn[:, None]), jnp.asarray(vn[:, None]))
+    np.testing.assert_allclose(got.numpy().reshape(b, 1, kvh * g, dh),
+                               np.asarray(oracle), **TOL)
+    for i, n in enumerate(lens):
+        if n == 0:                         # an empty row outputs v_new
+            np.testing.assert_allclose(
+                got[i].numpy(), np.broadcast_to(vn[i][:, None], (kvh, g, dh)),
+                **TOL)
+
+
+def test_paged_wrapper_dispatches_cpu_and_validates():
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(a) for a in
+            _paged_case(rng, [3, 7], 2, 4, 16, 4, 3)]
+    assert torch.equal(paged_decode_attention_grouped(*args),
+                       paged_decode_plain(*args))
+    bad = list(args)
+    bad[3] = bad[3].long()                 # page table must be int32
+    with pytest.raises(TypeError, match="int32"):
+        paged_decode_attention_grouped(*bad)
+    bad = list(args)
+    bad[5] = bad[5][:1]                    # k_new of the wrong batch
+    with pytest.raises(ValueError, match="k_new"):
+        paged_decode_attention_grouped(*bad)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        paged_decode_attention_grouped(*(a.to("meta") for a in args))
+
+
+# ---------------------------------------------------------------------------
+# argmax
+# ---------------------------------------------------------------------------
+
+def _tied_logits(rng, b, v):
+    x = rng.standard_normal((b, v)).astype(np.float32)
+    x[0, [3, v - 40]] = 9.0             # equal maxima in different blocks
+    x[1, :] = -np.inf                   # all -inf -> index 0
+    x[2, [v - 2, v - 1]] = 9.0          # a tie at the row's end
+    x[3] = np.round(x[3] * 2.0) / 2.0   # many ties below the max
+    x[4, ::3] = 5.0                     # strided ties: index 0
+    return x
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("b,v", [(8, 384), (5, 130), (6, 1000)])
+def test_argmax_plain_matches_pallas_exactly(b, v, dtype):
+    x = _tied_logits(np.random.default_rng(v + b), b, v)
+    xj = jnp.asarray(x)
+    xt = torch.from_numpy(x)
+    if dtype == "bfloat16":
+        xj = xj.astype(jnp.bfloat16)
+        xt = xt.to(torch.bfloat16)
+    got = sampling.block_argmax(xt)
+    want = jax_argmax(xj, block_rows=8, block_vocab=128, interpret=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jnp.argmax(xj, axis=-1)))
+
+
+def test_sample_greedy_and_unported_methods():
+    x = torch.from_numpy(_tied_logits(np.random.default_rng(1), 5, 64))
+    assert torch.equal(sampling.sample(x), sampling.argmax_plain(x))
+    for method in ("top_k", "top_p"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sampling.sample(x, method=method)
+    with pytest.raises(ValueError):
+        sampling.block_argmax(torch.zeros(3, 0))
+    with pytest.raises(TypeError):
+        sampling.block_argmax(torch.zeros(3, 4, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# the build helper (no nvcc runs here)
+# ---------------------------------------------------------------------------
+
+def test_build_paths_are_content_keyed_and_under_build_dir():
+    root = _build.CSRC.parents[2]
+    assert _build.build_dir() == root / "build" / "repro_torch"
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+        so = _build._so_path(name)
+        assert so.parent == _build.build_dir()
+        assert so.name.startswith(f"{name}-") and so.suffix == ".so"
+        assert so == _build._so_path(name)          # stable hash
+    assert len({_build._so_path(n) for n in _build.SOURCES}) == 3

@@ -1,0 +1,224 @@
+"""The port's model stack against the JAX package, on the CPU, in fp32.
+
+Numerics (``rms_norm``, ``apply_rope``, ``swiglu``) on numpy-seeded inputs;
+then qwen2-0.5b ``SMOKE`` with the JAX ``LM.init`` parameters bridged over
+(``repro_torch.bridge.params_from_jax``): prefill logits and three decode
+steps over ragged prompts, with dense and paged (page_size 4) caches, must
+match the JAX model within fp32 tolerance.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import qwen2_0_5b as jax_cfgs
+from repro.core.features import default_features
+from repro.models import layers as jax_layers
+from repro.models.lm import LM as JaxLM
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_arch
+from repro_torch.configs.qwen2_0_5b import CONFIG, SMOKE
+from repro_torch.models import layers
+from repro_torch.models.lm import LM
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+def test_configs_port_verbatim():
+    assert dataclasses.asdict(CONFIG) == dataclasses.asdict(jax_cfgs.CONFIG)
+    assert dataclasses.asdict(SMOKE) == dataclasses.asdict(jax_cfgs.SMOKE)
+    for ours, theirs in ((CONFIG, jax_cfgs.CONFIG), (SMOKE, jax_cfgs.SMOKE)):
+        assert ours.resolved_head_dim == theirs.resolved_head_dim
+        assert ours.attn_config()._asdict() == theirs.attn_config()._asdict()
+        bc, jbc = ours.block_config(), theirs.block_config()
+        assert (bc.d_ff, bc.norm, bc.mlp, bc.norm_eps) == \
+            (jbc.d_ff, jbc.norm, jbc.mlp, jbc.norm_eps)
+    spec = get_arch("qwen2-0.5b")
+    assert spec.config is CONFIG and spec.smoke is SMOKE
+    assert spec.skipped("long_500k")
+    with pytest.raises(KeyError, match="not yet ported"):
+        get_arch("mistral-large-123b")
+
+
+# ---------------------------------------------------------------------------
+# layer numerics
+# ---------------------------------------------------------------------------
+
+def test_rms_norm_matches_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 56)).astype(np.float32) * 3.0
+    scale = rng.standard_normal(56).astype(np.float32)
+    got = layers.rms_norm(torch.from_numpy(x), torch.from_numpy(scale))
+    want = jax_layers.rms_norm(jnp.asarray(x), {"scale": jnp.asarray(scale)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # bf16 in, bf16 out (computed in fp32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    assert layers.rms_norm(xb, torch.from_numpy(scale)).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_apply_rope_matches_jax(theta):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 9, 7, 8)).astype(np.float32)
+    pos = np.stack([np.arange(9), np.arange(9) + 30]).astype(np.int32)
+    np.testing.assert_allclose(layers.rope_freqs(8, theta).numpy(),
+                               np.asarray(jax_layers.rope_freqs(8, theta)),
+                               **TOL)
+    got = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    want = jax_layers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_swiglu_matches_jax():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 4, 56)).astype(np.float32)
+    wg, wu = (rng.standard_normal((56, 128)).astype(np.float32) / 8
+              for _ in range(2))
+    wd = rng.standard_normal((128, 56)).astype(np.float32) / 11
+    got = layers.swiglu(*(torch.from_numpy(a) for a in (x, wg, wu, wd)))
+    want = jax_layers.swiglu(*(jnp.asarray(a) for a in (x, wg, wu, wd)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_truncated_normal_bounds_and_spread():
+    g = torch.Generator().manual_seed(0)
+    t = layers.truncated_normal_(torch.empty(200_000), 0.5, g)
+    assert t.abs().max().item() <= 1.0                  # +-2 sigma
+    # std of N(0,1) truncated at +-2 is 0.8796
+    assert abs(t.std().item() / 0.5 - 0.8796) < 0.01
+    again = layers.truncated_normal_(torch.empty(200_000), 0.5,
+                                     torch.Generator().manual_seed(0))
+    assert torch.equal(t, again)                        # seeded
+
+
+# ---------------------------------------------------------------------------
+# the LM against JAX on SMOKE
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def smoke_models():
+    jlm = JaxLM(jax_cfgs.SMOKE, default_features().with_(remat_policy="none"),
+                dtype=jnp.float32)
+    jparams = jax.device_get(jax.jit(jlm.init)(jax.random.PRNGKey(0)))
+    lm = LM(SMOKE, torch.float32, device="cpu")
+    lm.load_state_dict(params_from_jax(jparams, SMOKE))
+    return jlm, jparams, lm
+
+
+def test_bridge_covers_every_weight_and_init_matches_spread(smoke_models):
+    jlm, jparams, lm = smoke_models
+    bridged = params_from_jax(jparams, SMOKE)
+    assert set(bridged) == set(lm.state_dict())
+    np.testing.assert_array_equal(
+        lm.blocks[1].attn.wq.numpy(), jparams["blocks"]["attn"]["wq"][1])
+    # the port's own init draws from the same distributions as LM.init
+    ours = LM(SMOKE, torch.float32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    for name, theirs in bridged.items():
+        mine = ours.state_dict()[name]
+        assert mine.shape == theirs.shape, name
+        if theirs.std() > 0:
+            assert abs(mine.std() / theirs.std() - 1) < 0.15, name
+        else:
+            assert torch.equal(mine, theirs), name     # biases 0, norms 1
+
+
+def _jax_state(jlm, b, max_seq, page_size, table):
+    if not page_size:
+        return jlm.init_decode_state(b, max_seq)
+    st = jlm.init_decode_state(b, max_seq, page_size=page_size,
+                               num_pages=int(table.max()) + 1,
+                               table_width=table.shape[1])
+    c = st["caches"]
+    tbl = jnp.broadcast_to(jnp.asarray(table)[None],
+                           (c.length.shape[0],) + table.shape)
+    return {"caches": c._replace(page_table=tbl)}
+
+
+def _port_state(lm, b, max_seq, page_size, table):
+    if not page_size:
+        return lm.init_decode_state(b, max_seq)
+    st = lm.init_decode_state(b, max_seq, page_size=page_size,
+                              num_pages=int(table.max()) + 1,
+                              table_width=table.shape[1])
+    st["caches"].page_table.copy_(torch.from_numpy(table))
+    return st
+
+
+@pytest.mark.parametrize("page_size", [0, 4])
+def test_prefill_and_decode_logits_match_jax(smoke_models, page_size):
+    jlm, jparams, lm = smoke_models
+    jp = jax.tree.map(jnp.asarray, jparams)
+    rng = np.random.default_rng(3)
+    lens = np.array([11, 4, 1], np.int32)
+    b, s, steps, max_seq = len(lens), int(lens.max()), 3, 24
+    toks = rng.integers(0, SMOKE.vocab, (b, s)).astype(np.int32)
+    for i, n in enumerate(lens):
+        toks[i, n:] = 0
+    # a shuffled page table: row b's pages are anywhere in the pool
+    per_row = -(-(lens + steps) // max(page_size, 1))
+    table = np.zeros((b, int(per_row.max())), np.int32)
+    ids = rng.permutation(np.arange(1, 1 + int(per_row.sum())))
+    for i, npg in enumerate(np.cumsum(per_row) - per_row):
+        table[i, :per_row[i]] = ids[npg:npg + per_row[i]]
+
+    jstate = _jax_state(jlm, b, max_seq, page_size, table)
+    jlogits, jstate = jax.jit(jlm.prefill)(
+        jp, {"tokens": jnp.asarray(toks), "lengths": jnp.asarray(lens)},
+        jstate)
+    state = _port_state(lm, b, max_seq, page_size, table)
+    with torch.inference_mode():
+        logits, state = lm.prefill({"tokens": torch.from_numpy(toks),
+                                    "lengths": torch.from_numpy(lens)},
+                                   state)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert state["caches"].length.tolist() == lens.tolist()
+
+    jdecode = jax.jit(jlm.decode_step)
+    for _ in range(steps):
+        nxt = rng.integers(0, SMOKE.vocab, (b, 1)).astype(np.int32)
+        jlogits, jstate = jdecode(jp, jnp.asarray(nxt), jstate)
+        with torch.inference_mode():
+            logits, state = lm.decode_step(torch.from_numpy(nxt), state)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   **TOL)
+    assert state["caches"].length.tolist() == (lens + steps).tolist()
+
+
+def test_untied_lm_head_matches_jax():
+    """Dense configs with their own ``lm_head`` (tie_embeddings=False)."""
+    cfg = dataclasses.replace(SMOKE, tie_embeddings=False, n_layers=1)
+    jlm = JaxLM(dataclasses.replace(jax_cfgs.SMOKE, tie_embeddings=False,
+                                    n_layers=1),
+                default_features().with_(remat_policy="none"),
+                dtype=jnp.float32)
+    jparams = jax.device_get(jax.jit(jlm.init)(jax.random.PRNGKey(1)))
+    lm = LM(cfg, torch.float32, device="cpu")
+    lm.load_state_dict(params_from_jax(jparams, cfg))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 5)).astype(
+        np.int32)
+    jlogits, _ = jax.jit(jlm.prefill)(
+        jax.tree.map(jnp.asarray, jparams), {"tokens": jnp.asarray(toks)},
+        jlm.init_decode_state(2, 8))
+    with torch.inference_mode():
+        logits, _ = lm.prefill({"tokens": torch.from_numpy(toks)},
+                               lm.init_decode_state(2, 8))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+
+
+def test_lm_without_device_raises_on_a_host_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LM(SMOKE)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LM(dataclasses.replace(SMOKE, family="moe"), device="cpu")
