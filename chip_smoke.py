@@ -9,26 +9,43 @@ CUDA toolkit (``nvcc``):
 Phases (any failure exits non-zero; no phase is allowed to carry on past a
 failure):
 
-1. probe   - torch / CUDA versions, the card, its power limit;
-2. build   - every kernel of ``src/repro_torch/csrc`` with nvcc, in parallel;
-3. kernels - each kernel against its plain PyTorch version on the card, at
-             the main path's shapes and at edge cases (fp32 rtol=atol=1e-5,
-             bf16 3e-2, argmax exact); median times of the kernel, the plain
-             version and, where one PyTorch call computes the same
-             function, that call (``library_ms``; the port never calls it);
-4. main    - qwen2-0.5b at full width (24 layers, bf16, random weights from
-             seed 0) serving 8 ragged prompts through ``Engine.generate``
-             with a paged KV cache, greedy, 32 new tokens; the launch
-             counters are reset just before this run and read just after;
-5. tokens  - fp32, full width, 2 layers: the paged engine on the card
-             (kernels), the dense engine on the card and the paged engine on
-             the CPU (plain versions) must emit the same greedy tokens, and
-             the card's prefill logits must match the CPU's within
-             max|d| / max|logit| <= 1e-4.
+1. probe     - torch / CUDA versions, the card, its power limit;
+2. build     - every kernel of ``src/repro_torch/csrc`` with nvcc, in
+               parallel;
+3. kernels   - each kernel against its plain PyTorch version on the card,
+               at the main paths' shapes and at edge cases (fp32
+               rtol=atol=1e-5, bf16 3e-2, argmax exact; the fp paged
+               kernel also with fp32 pages under a bf16 query); median
+               times of the kernel, the plain version and, where one
+               PyTorch call computes the same function, that call
+               (``library_ms``; the port never calls it);
+4. generate  - qwen2-0.5b at full width (24 layers, bf16, random weights
+               from seed 0) serving 8 ragged prompts through
+               ``Engine.generate`` with a paged KV cache, greedy, 32 new
+               tokens;
+5. scheduler - the same model behind ``BatchScheduler`` (8 slots, int8
+               pages of 16 tokens, the prefix cache on): 32 requests
+               sharing a 256-token prefix, ragged suffixes and budgets,
+               priorities 0,1,1,2; every request completes, one host sync
+               per segment, ``KVPool.check()`` and ``scheduler.check()``
+               pass, tokens/s, mean TTFT and segments are printed;
+6. tokens    - fp32, full width, 2 layers: the paged engine on the card
+               (kernels), the dense engine on the card and the paged engine
+               on the CPU (plain versions) must emit the same greedy tokens,
+               and the card's prefill logits must match the CPU's within
+               max|d| / max|logit| <= 1e-4;
+7. sched fp32 - the same 2-layer model: the card's scheduler (paged, model-
+               dtype pages, a fork inside a shared page) must give the
+               card's ``Engine.generate`` tokens and the CPU scheduler's;
+               int8 decode-step logits, card against CPU, within
+               max|d| / max|logit| <= 1e-2 (a code can flip by one where
+               the two devices round K differently).
 
-The last two lines of stdout are the kernel table as JSON and the result
-line ``{"ok": true, "device": {...}}``.  It never imports JAX or the JAX
-package.
+Phases 4 and 5 are the main paths: each is run with every kernel's launch
+counter set to 0 just before it and read just after, and fails if one of
+its kernels never launched.  The last two lines of stdout are the kernel
+table as JSON and the result line ``{"ok": true, "device": {...}}``.  It
+never imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -231,6 +248,17 @@ def check_paged(dev, timer):
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
     err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
                      MAX_NEW - 16, False)
+    # kv_dtype="fp32" on a bf16 model: fp32 pages under a bf16 query
+    q4, kp, vp, pt, ln, kn, vn = args
+    mixed = (q4, kp.float(), vp.float(), pt, ln, kn, vn)
+    got = paged_decode_attention_grouped(*mixed)
+    want = paged_decode_plain(*mixed)
+    torch.cuda.synchronize()
+    close(f"paged lens={main_lens} fp32 pages under bf16 q", got, want)
+    mixed_ms = timer.ms(lambda: paged_decode_attention_grouped(*mixed))
+    mixed_plain_ms = timer.ms(lambda: paged_decode_plain(*mixed))
+    log(f"  paged_decode fp32 pages / bf16 q: {mixed_ms:.4f} ms "
+        f"(plain {mixed_plain_ms:.4f})")
 
     ms = timer.ms(lambda: paged_decode_attention_grouped(*args))
     plain_ms = timer.ms(lambda: paged_decode_plain(*args))
@@ -245,6 +273,76 @@ def check_paged(dev, timer):
     return dict(name="paged_decode", route="cuda",
                 source="src/repro_torch/csrc/paged_decode.cu",
                 replaces="src/repro/kernels/paged_decode.py:51",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def check_paged_q8(dev, timer):
+    from repro_torch.kernels.paged_decode import (
+        paged_decode_attention_q8_grouped, paged_decode_q8_plain)
+    rng = np.random.default_rng(4)
+
+    def case(lens, kvh, g, dh, ps, dtype, extra, shuffle):
+        b = len(lens)
+        table, num_pages = plan_table(lens, extra, ps,
+                                      rng if shuffle else None)
+
+        def rnd(*shape):
+            return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                    ).to(dev, dtype)
+
+        def codes():
+            return torch.from_numpy(rng.integers(
+                -127, 128, (num_pages, ps, kvh, dh)).astype(np.int8)).to(dev)
+
+        def scales():
+            return torch.from_numpy(rng.uniform(
+                0.005, 0.05, (num_pages, ps)).astype(np.float32)).to(dev)
+
+        args = (rnd(b, kvh, g, dh), codes(), codes(), scales(), scales(),
+                torch.from_numpy(table).to(dev),
+                torch.tensor(lens, dtype=torch.int32, device=dev),
+                rnd(b, kvh, dh), rnd(b, kvh, dh))
+        got = paged_decode_attention_q8_grouped(*args)
+        want = paged_decode_q8_plain(*args)
+        torch.cuda.synchronize()
+        name = (f"paged q8 lens={lens} kvh{kvh} g{g} dh{dh} ps{ps} "
+                f"{str(dtype)[6:]} shuffled={shuffle}")
+        err = close(name, got, want)
+        if 0 in lens:                 # an empty row outputs exactly v_new
+            i = lens.index(0)
+            vn = args[8][i][:, None, :].expand_as(got[i])
+            torch.testing.assert_close(got[i].float(), vn.float(),
+                                       **TOL[dtype])
+        return err, args
+
+    # length 0, 1, a partial page and multi-page lengths; shuffled tables
+    # with garbage past the live pages; every supported head dim
+    case([0, 1, 10, 40], 2, 7, 64, 16, torch.float32, 4, True)
+    case([0, 1, 5, 33, 64], 2, 4, 32, 8, torch.float32, 3, True)
+    case([3, 17], 1, 7, 128, 16, torch.float32, 2, True)
+    case([9, 0, 30], 2, 7, 16, 16, torch.bfloat16, 5, True)
+    # the scheduler's decode shape: 8 slots, lengths prompt+16
+    main_lens = [n + 16 for n in PROMPT_LENS]
+    case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
+    err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
+                     MAX_NEW - 16, False)
+
+    ms = timer.ms(lambda: paged_decode_attention_q8_grouped(*args))
+    plain_ms = timer.ms(lambda: paged_decode_q8_plain(*args))
+    q4, _, _, _, _, _, _, kn, _ = args
+    b, kvh, g, dh = q4.shape
+    live_pages = sum(-(-n // PAGE_SIZE) for n in main_lens)
+    # int8 K and V codes of every live token plus its two f32 scales (one
+    # per token row, shared by the KV heads): 264 B per token at Dh 64
+    nbytes = (2 * (2 * q4.numel() + 2 * kn.numel())       # q, out, k/v_new
+              + sum(main_lens) * (2 * kvh * dh + 2 * 4)    # codes + scales
+              + 4 * b + 4 * live_pages)                    # lengths, table
+    flops = 4.0 * kvh * g * dh * sum(n + 1 for n in main_lens)
+    bms, by = bound_ms(nbytes, flops)
+    return dict(name="paged_decode_q8", route="cuda",
+                source="src/repro_torch/csrc/paged_decode_q8.cu",
+                replaces="src/repro/kernels/paged_decode.py:191",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
 
@@ -291,12 +389,22 @@ def check_argmax(dev, timer, vocab):
 
 def counters():
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
-    from repro_torch.kernels.paged_decode import \
-        paged_decode_attention_grouped
+    from repro_torch.kernels.paged_decode import (
+        paged_decode_attention_grouped, paged_decode_attention_q8_grouped)
     from repro_torch.kernels.sampling import block_argmax
     return {"flash_attention": flash_attention_bhsd,
             "paged_decode": paged_decode_attention_grouped,
+            "paged_decode_q8": paged_decode_attention_q8_grouped,
             "argmax": block_argmax}
+
+
+def reset_counters():
+    for f in counters().values():
+        f.launches = 0
+
+
+def read_counters():
+    return {k: f.launches for k, f in counters().items()}
 
 
 def main_path(dev):
@@ -316,15 +424,13 @@ def main_path(dev):
     eng.generate(prompts, max_new_tokens=MAX_NEW)          # warm-up
     torch.cuda.synchronize()
 
-    fns = counters()
-    for f in fns.values():
-        f.launches = 0
+    reset_counters()
     syncs0 = eng.host_syncs
     t0 = time.perf_counter()
     out = eng.generate(prompts, max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in fns.items()}
+    launches = read_counters()
     syncs = eng.host_syncs - syncs0
 
     t0 = time.perf_counter()
@@ -350,6 +456,70 @@ def main_path(dev):
         f"tokens; prefill (+1 token) {t_prefill * 1e3:.2f} ms; decode "
         f"{dec_tok_s:.1f} tokens/s; host_syncs {syncs}; launches {launches}")
     log(f"  first tokens: {[o[:4] for o in out]}")
+    return lm, launches
+
+
+def scheduler_path(dev, lm):
+    """The slice-2 main path: BatchScheduler over int8 pages at full
+    width, with the prefix cache (the workload of
+    ``repro_torch.bench.profile_serve``)."""
+    from repro_torch.bench import profile_serve as ps
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = lm.cfg
+    eng = Engine(lm, ServeConfig(page_size=ps.PAGE_SIZE, max_seq=1024,
+                                 batch_slots=ps.SLOTS, admission_chunk=8,
+                                 kv_dtype="int8"), device=lm.device)
+    # warm-up: the same shapes' first launches, cuBLAS handles, allocator
+    ps.run_scheduler(eng, ps.shared_prefix_workload(
+        cfg.vocab, ps.SLOTS, ps.PREFIX, ps.SUFFIX_LENS, ps.BUDGETS, seed=1))
+    torch.cuda.synchronize()
+    work = ps.shared_prefix_workload(cfg.vocab, ps.REQUESTS, ps.PREFIX,
+                                     ps.SUFFIX_LENS, ps.BUDGETS, seed=0)
+    reset_counters()
+    syncs0 = eng.host_syncs
+    t0 = time.perf_counter()
+    sched, out = ps.run_scheduler(eng, work)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    syncs = eng.host_syncs - syncs0
+    m = sched.metrics
+
+    if sorted(out) != list(range(len(work))):
+        fail(f"scheduler completed {sorted(out)} of {len(work)} requests")
+    for rid, (_, budget, _) in enumerate(work):
+        if len(out[rid]) != budget:
+            fail(f"request {rid}: {len(out[rid])} tokens, budget {budget}")
+        if not all(0 <= t < cfg.vocab for t in out[rid]):
+            fail(f"request {rid}: a token is outside the vocabulary")
+    if syncs != m["segments"]:
+        fail(f"scheduler made {syncs} host syncs for {m['segments']} "
+             f"segments")
+    sched.check()
+    sched.pool.check()
+    if not sched.pool.allocs == sched.pool.releases > 0:
+        fail(f"pool leaked: {sched.pool!r}")
+    if m["prefix_hits"] < ps.REQUESTS - 1:
+        fail(f"prefix hits {m['prefix_hits']} < {ps.REQUESTS - 1}")
+    n_layers = cfg.n_layers
+    misses = m["admissions"] - m["prefix_hits"]
+    want = {"paged_decode_q8": n_layers * m["decode_steps"],
+            "flash_attention": n_layers * misses,
+            "argmax": m["decode_steps"], "paged_decode": 0}
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"{k} launched {launches[k]} times on the scheduler path, "
+                 f"expected {n}")
+    new_tokens = sum(len(t) for t in out.values())
+    ttfts = [r.ttft for r in sched.completed.values()]
+    log(f"  scheduler: {len(out)} requests, {new_tokens} tokens in "
+        f"{wall * 1e3:.2f} ms = {new_tokens / wall:.1f} tokens/s; mean TTFT "
+        f"{np.mean(ttfts) * 1e3:.2f} ms; segments {m['segments']:.0f}; "
+        f"decode steps {m['decode_steps']:.0f}; host_syncs {syncs}; "
+        f"admissions {m['admissions']:.0f}, prefix hits "
+        f"{m['prefix_hits']:.0f}, prefilled {m['prefilled_tokens']:.0f} of "
+        f"{m['prompt_tokens']:.0f} prompt tokens; launches {launches}")
+    log(f"  first tokens: {[out[r][:4] for r in range(4)]}")
     return launches
 
 
@@ -401,6 +571,72 @@ def token_check(dev):
         fail(f"prefill logits differ: {rel} > 1e-4")
 
 
+def sched_token_check(dev):
+    """fp32, 2 layers: the card's scheduler against the card's generate and
+    the CPU scheduler; int8 decode-step logits card against CPU."""
+    from repro_torch.bench.profile_serve import (run_scheduler,
+                                                 shared_prefix_workload)
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    lm_cpu = LM(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(2))
+    lm_cpu.embed.table.data.mul_(0.1)
+    lm_gpu = LM(cfg, torch.float32, dev)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    # a 40-token shared prefix: two full pages of 16 and a fork inside the
+    # third, so admissions map pages read-only AND copy the fork page
+    work = shared_prefix_workload(cfg.vocab, 6, 40, [3, 9, 17, 30],
+                                  [3, 5, 8], seed=5)
+    sc = ServeConfig(page_size=PAGE_SIZE, max_seq=128, batch_slots=3,
+                     admission_chunk=4)
+    sched, card = run_scheduler(Engine(lm_gpu, sc, device=dev), work)
+    _, cpu = run_scheduler(Engine(lm_cpu, sc, device="cpu"), work)
+    gen = Engine(lm_gpu, sc, device=dev).generate([w[0] for w in work],
+                                      max(w[1] for w in work))
+    gen = {rid: gen[rid][:w[1]] for rid, w in enumerate(work)}
+    m = sched.metrics
+    log(f"  card scheduler: {card}")
+    log(f"  prefix hits {m['prefix_hits']:.0f}, pages shared "
+        f"{m['pages_shared']:.0f}, cow copies {m['cow_copies']:.0f}")
+    if not card == gen == cpu:
+        fail(f"greedy tokens differ: card scheduler {card}, card generate "
+             f"{gen}, cpu scheduler {cpu}")
+    if m["cow_copies"] < 1 or m["prefix_hits"] < 1:
+        fail("the fp32 scheduler phase did not exercise the prefix cache")
+
+    logits = {}
+    prompts = [w[0] for w in work[:3]]
+    sc8 = ServeConfig(page_size=PAGE_SIZE, max_seq=128, kv_dtype="int8")
+    for name, lm in (("cpu", lm_cpu), ("card", lm_gpu)):
+        eng = Engine(lm, sc8, device=lm.device)
+        toks, lens = eng._pad_prompts(prompts)
+        table, num_pages = eng._page_plan(prompts, 4)
+        state = lm.init_decode_state(len(prompts), 128, page_size=PAGE_SIZE,
+                                     num_pages=num_pages,
+                                     table_width=table.shape[1],
+                                     kv_dtype=torch.int8)
+        state = eng.set_page_table(state, table)
+        nxt = torch.tensor([[7], [11], [13]], dtype=torch.int32,
+                           device=lm.device)
+        with torch.inference_mode():
+            lm.prefill({"tokens": torch.from_numpy(toks).to(lm.device),
+                        "lengths": torch.from_numpy(lens).to(lm.device)},
+                       state)
+            out = []
+            for _ in range(3):
+                lg, state = lm.decode_step(nxt, state)
+                out.append(lg.float().cpu())
+        logits[name] = torch.stack(out)
+    rel = ((logits["card"] - logits["cpu"]).abs().max()
+           / logits["cpu"].abs().max()).item()
+    log(f"  int8 decode-step logits card vs cpu: max|d|/max|logit| = "
+        f"{rel:.3g}")
+    if not rel <= 1e-2:
+        fail(f"int8 decode logits differ: {rel} > 1e-2")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -411,7 +647,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/5] probe")
+    log("[1/7] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -420,29 +656,42 @@ def main() -> int:
     smi = gpu_name_and_limit()
     log(f"  nvidia-smi: {smi}")
 
-    log("[2/5] build")
+    log("[2/7] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/5] kernels vs plain versions")
+    log("[3/7] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
+            check_paged_q8(dev, timer),
             check_argmax(dev, timer, CONFIG.vocab)]
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} by "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
     del timer
 
-    log("[4/5] main path: qwen2-0.5b Engine.generate, paged, greedy")
-    launches = main_path(dev)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    log("[4/7] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    lm, gen_launches = main_path(dev)
 
-    log("[5/5] fp32 token check: card paged / card dense / cpu paged")
+    log("[5/7] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+        "prefix cache")
+    sched_launches = scheduler_path(dev, lm)
+    del lm
+    torch.cuda.empty_cache()
+    # each kernel's launches on the path that carries it
+    for r in rows:
+        r["launches"] = (sched_launches if r["name"] == "paged_decode_q8"
+                         else gen_launches)[r["name"]]
+
+    log("[6/7] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
+
+    log("[7/7] fp32 scheduler token check: card scheduler / card generate "
+        "/ cpu scheduler; int8 logits card vs cpu")
+    sched_token_check(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,0 +1,90 @@
+"""Shared CLI flags for the port's launchers.
+
+Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` uses:
+
+* :func:`add_kv_args` — ``--kv-dtype {fp32,bf16,int8}`` and
+  ``--no-prefix-cache`` over the paged KV cache (consume with
+  :func:`kv_config_kwargs`, which validates eagerly);
+* :func:`add_robustness_args` — per-request deadlines and bounded
+  admission (consume with :func:`robustness_kwargs`); the reference's
+  ``--snapshot-*`` and ``--chaos`` flags wait for the snapshot and chaos
+  ports (``ROADMAP.md``, queue 1 item 9);
+* :func:`add_json_args` — ``--json PATH`` machine-readable summary.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Dict, Optional
+
+__all__ = ["add_kv_args", "kv_config_kwargs", "add_robustness_args",
+           "robustness_kwargs", "add_json_args"]
+
+
+def add_kv_args(ap: argparse.ArgumentParser) -> None:
+    """``--kv-dtype`` / ``--no-prefix-cache`` (paged KV cache storage)."""
+    ap.add_argument("--kv-dtype", default=None,
+                    choices=["fp32", "bf16", "int8"],
+                    help="paged KV page storage dtype (default: the model "
+                         "dtype); int8 stores quantized codes with "
+                         "per-token f32 scales and decodes through the "
+                         "q8 paged kernel (needs --page-size)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable the shared-prefix radix cache (paged "
+                         "engines dedupe shared prompt prefixes by "
+                         "default: prefill once, map the pages read-only, "
+                         "copy-on-write at the fork page)")
+
+
+def kv_config_kwargs(args: argparse.Namespace,
+                     ap: Optional[argparse.ArgumentParser] = None
+                     ) -> Dict[str, object]:
+    """ServeConfig kwargs from the KV flags, validated eagerly.
+
+    ``--kv-dtype`` without ``--page-size`` is a usage error (dense caches
+    keep the model dtype; silently ignoring the flag would misreport
+    bytes/token)."""
+    kv_dtype = getattr(args, "kv_dtype", None)
+    if kv_dtype and not getattr(args, "page_size", 0):
+        msg = ("--kv-dtype needs a paged KV cache: pass --page-size too "
+               "(dense caches keep the model dtype)")
+        if ap is not None:
+            ap.error(msg)
+        raise ValueError(msg)
+    return {"kv_dtype": kv_dtype,
+            "prefix_cache": not getattr(args, "no_prefix_cache", False)}
+
+
+def add_robustness_args(ap: argparse.ArgumentParser) -> None:
+    """Request-plane robustness flags (consume with
+    :func:`robustness_kwargs`): deadlines and bounded admission."""
+    g = ap.add_argument_group("request-plane robustness")
+    g.add_argument("--deadline-ms", type=float, default=None,
+                   help="per-request total wall deadline; expired rows "
+                        "retire at the next segment boundary")
+    g.add_argument("--ttft-deadline-ms", type=float, default=None,
+                   help="per-request first-token deadline")
+    g.add_argument("--max-queue", type=int, default=None,
+                   help="bound the admission queue; overload is refused "
+                        "in O(1) with a structured retryable rejection "
+                        "(default: unbounded)")
+    g.add_argument("--shed-policy", default="reject-new",
+                   choices=["reject-new", "shed-lowest"],
+                   help="at --max-queue capacity: refuse the arrival, or "
+                        "evict the newest request of the strictly worst "
+                        "priority class (default reject-new)")
+
+
+def robustness_kwargs(args: argparse.Namespace) -> Dict[str, object]:
+    """BatchScheduler kwargs from :func:`add_robustness_args` (the
+    per-request deadline flags are applied at submit time by the caller,
+    not here)."""
+    return {"max_queue": getattr(args, "max_queue", None),
+            "shed_policy": getattr(args, "shed_policy", "reject-new")}
+
+
+def add_json_args(ap: argparse.ArgumentParser,
+                  what: str = "summary") -> None:
+    """``--json PATH`` (machine-readable artifact)."""
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help=f"write a machine-readable {what} here")

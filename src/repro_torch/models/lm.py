@@ -165,20 +165,25 @@ class LM(nn.Module):
     def init_decode_state(self, batch_size: int, max_seq: int,
                           page_size: int = 0,
                           num_pages: Optional[int] = None,
-                          table_width: Optional[int] = None) -> State:
+                          table_width: Optional[int] = None,
+                          kv_dtype: Optional[torch.dtype] = None) -> State:
         """Fresh decode state.  ``page_size > 0`` builds PAGED KV caches: a
         pool of ``num_pages`` pages shared by all rows, addressed through
         per-row page tables of ``table_width`` logical pages (defaults
-        provision the dense worst case).  Caches carry a leading layers
-        axis."""
+        provision the dense worst case).  ``kv_dtype`` overrides the page
+        storage dtype (``torch.int8`` = quantized pages with per-token
+        scales; paged caches only).  Caches carry a leading layers axis."""
         cfg = self.cfg
         ac = cfg.attn_config()
+        if kv_dtype is not None and page_size <= 0:
+            raise ValueError("kv_dtype needs a paged KV cache "
+                             "(page_size > 0)")
         if page_size > 0:
             nppr = -(-max_seq // page_size)
             cache = attn_mod.init_paged_kv_cache(
                 batch_size, num_pages or batch_size * nppr + 1,
                 table_width or nppr, page_size, ac, self.dtype, self.device,
-                layers=cfg.n_layers)
+                layers=cfg.n_layers, kv_dtype=kv_dtype)
         else:
             cache = attn_mod.init_kv_cache(batch_size, max_seq, ac,
                                            self.dtype, self.device,
@@ -192,14 +197,18 @@ class LM(nn.Module):
         ``batch["lengths"]`` [B] int32 (optional) marks each row's true
         prompt length inside right-padded ``tokens``: pad keys are masked
         out of every softmax, the cache records per-row lengths, and the
-        returned logits are each row's LAST REAL token's."""
+        returned logits are each row's LAST REAL token's.
+        ``batch["prefix_len"]`` [B] int32 (paged caches) marks a resident
+        shared prefix: ``tokens`` are the divergent suffix, prefilled at
+        positions ``prefix_len + i`` against the prefix pages."""
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
         x = self._embed(tokens)
         x, caches = tf_mod.apply_stack_decode(
             self.blocks, x, self.cfg.block_config(), state["caches"],
             block_fn=functools.partial(tf_mod.apply_block_prefill,
-                                       lengths=lengths))
+                                       lengths=lengths,
+                                       prefix_len=batch.get("prefix_len")))
         if lengths is not None:
             idx = torch.clamp(lengths.long() - 1, min=0)
             x_last = x[torch.arange(x.shape[0], device=x.device), idx]

@@ -95,13 +95,20 @@ def _block_mlp(p: Block, h: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
 
 def apply_block_prefill(p: Block, x: torch.Tensor, cfg: BlockConfig,
                         cache: Union[KVCache, PagedKVCache], *,
-                        lengths: Optional[torch.Tensor] = None):
+                        lengths: Optional[torch.Tensor] = None,
+                        prefix_len: Optional[torch.Tensor] = None):
     """Prefill one block into a dense or paged cache (one layer's view);
     the attention compute is identical, only the K/V landing zone
-    differs."""
-    if isinstance(cache, PagedKVCache):
+    differs.  ``prefix_len`` [B] (paged only) marks a resident shared
+    prefix: ``x`` is the divergent suffix."""
+    paged = isinstance(cache, PagedKVCache)
+    if prefix_len is not None and not paged:
+        raise ValueError("prefix_len requires a paged KV cache "
+                         "(dense prefill has no resident prefix)")
+    if paged:
         a, new_cache = attn_mod.prefill_into_paged_cache(
-            p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths)
+            p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths,
+            prefix_len=prefix_len)
     else:
         a, new_cache = attn_mod.prefill_into_cache(
             p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths)
@@ -145,8 +152,11 @@ def _dense_layer(caches: KVCache, i: int) -> KVCache:
 
 
 def _paged_layer(caches: PagedKVCache, i: int) -> PagedKVCache:
+    q8 = caches.quantized
     return PagedKVCache(k_pages=caches.k_pages[i], v_pages=caches.v_pages[i],
-                        page_table=caches.page_table, length=caches.length)
+                        page_table=caches.page_table, length=caches.length,
+                        k_scale=caches.k_scale[i] if q8 else None,
+                        v_scale=caches.v_scale[i] if q8 else None)
 
 
 def _apply_stack_decode_paged(blocks: nn.ModuleList, x: torch.Tensor,
@@ -158,7 +168,10 @@ def _apply_stack_decode_paged(blocks: nn.ModuleList, x: torch.Tensor,
     attends its read-only pool slice through the paged kernel, then writes
     the new token into ONE page slot: row b's token lands in physical page
     ``pt[b, length[b] // ps]`` at offset ``length[b] % ps`` (the engine
-    plans that page before the call)."""
+    plans that page before the call).  An int8 cache attends with the
+    layer's scales and quantizes the new token's K/V row on the write
+    (codes plus one scale per row); the token itself was folded into the
+    attention in floating point."""
     b = x.shape[0]
     length, pt = caches.length, caches.page_table
     ps = caches.page_size
@@ -167,11 +180,19 @@ def _apply_stack_decode_paged(blocks: nn.ModuleList, x: torch.Tensor,
     page = pt[rows, col].long()
     off = (length % ps).long()
     for i, p in enumerate(blocks):
-        k_l, v_l = caches.k_pages[i], caches.v_pages[i]
+        layer = _paged_layer(caches, i)
         a, k_t, v_t = attn_mod.paged_decode_attention_token(
-            p.attn, _norm(x, p.ln1, cfg), cfg.attn, k_l, v_l, pt, length)
+            p.attn, _norm(x, p.ln1, cfg), cfg.attn, layer.k_pages,
+            layer.v_pages, pt, length, k_scale=layer.k_scale,
+            v_scale=layer.v_scale)
         h = x + a
         x = h + _block_mlp(p, h, cfg)
-        k_l[page, off] = k_t[:, 0].to(k_l.dtype)
-        v_l[page, off] = v_t[:, 0].to(v_l.dtype)
+        k_t, v_t = k_t[:, 0], v_t[:, 0]
+        if layer.quantized:
+            k_t, k_s = attn_mod.quantize_kv_rows(k_t)
+            v_t, v_s = attn_mod.quantize_kv_rows(v_t)
+            layer.k_scale[page, off] = k_s
+            layer.v_scale[page, off] = v_s
+        layer.k_pages[page, off] = k_t.to(layer.k_pages.dtype)
+        layer.v_pages[page, off] = v_t.to(layer.v_pages.dtype)
     return x, caches._replace(length=length + 1)

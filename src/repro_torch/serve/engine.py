@@ -1,77 +1,161 @@
-"""Serving engine: fused greedy generate over dense or paged KV caches.
+"""Serving engine: fused greedy generate and true continuous batching.
 
-Port of ``repro/serve/engine.py::Engine.generate``.  One call prefills the
-right-padded prompts, then loops sample -> record -> eos-mask -> decode on
-the device, and ends in exactly ONE device->host transfer
-(:meth:`Engine._fetch`, audited by ``engine.host_syncs``).  The JAX
-package's ``lax.while_loop`` exits early once every row is done, which
-needs the done mask on the host; the port instead runs ``max_new_tokens``
-steps and masks finished rows with ``done``/``n`` exactly as the JAX loop
-body does, which returns the same tokens without a sync per step.
+Port of ``repro/serve/engine.py``.  Two layers:
 
-With ``page_size > 0`` the KV cache is a call-sized page pool: the host
-plans a row-major page table (page 0 is the null page), exactly as the
-JAX engine does, and decode attention reads only each row's live pages
-through the paged kernel.
+* :class:`Engine` — the device work.  ``generate()`` prefills the
+  right-padded prompts, then loops sample -> record -> eos-mask -> decode
+  on the device, and ends in exactly ONE device->host transfer
+  (:meth:`Engine._fetch`, audited by ``engine.host_syncs``).  The JAX
+  package's ``lax.while_loop`` exits early once every row is done, which
+  needs the done mask on the host; the port instead runs
+  ``max_new_tokens`` steps and masks finished rows with ``done``/``n``
+  exactly as the JAX loop body does, which returns the same tokens
+  without a sync per step.  The continuous-batching primitives
+  (:meth:`Engine.prefill_slot`, :meth:`Engine.copy_pages`,
+  :meth:`Engine.decode_segment`) update one shared decode state IN PLACE,
+  where the JAX package donates its buffers.
+* :class:`BatchScheduler` — a slot table over that shared state.  Decode
+  runs in power-of-two segments of at most ``admission_chunk`` steps; ONE
+  host sync per segment fetches the tokens; finished rows release their
+  slots and queued requests prefill into them mid-flight at their exact
+  prompt length.  On a paged engine it drives the :class:`KVPool`: exact
+  page allocation at admission, a worst-case reservation (backpressure
+  instead of overcommit), the shared-prefix radix cache with
+  copy-on-write at the fork page, and a page table sliced to the live mix
+  for every segment.  Bounded admission, priorities, deadlines, cancel and
+  drain follow the JAX scheduler.
 
-The continuous-batching ``BatchScheduler``, the prefix cache, int8 pages,
-sampled decoding, speculative decoding and mesh sharding wait for later
-slices (``ROADMAP.md``); the config fields that select them raise
-:class:`NotImplementedError` here rather than being silently ignored.
+With ``page_size > 0`` the KV cache is a page pool (page 0 is the null
+page) read by the paged decode kernels; ``kv_dtype`` stores the pages as
+fp32, bf16 or int8 codes with per-token scales (the q8 kernel).
+
+Sampled decoding, speculative decoding, mesh sharding, serving snapshots
+and chaos injection wait for later slices (``ROADMAP.md``); the arguments
+that select them raise :class:`NotImplementedError` rather than being
+silently ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional, Sequence, Tuple, Union
+import time
+from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.ft.straggler import StragglerDetector
 from repro_torch.kernels import sampling
 from repro_torch.models.lm import LM
-from repro_torch.serve.kv_pool import pages_for
+from repro_torch.serve import kv_pool
+from repro_torch.serve.admission import AdmissionQueue, AdmissionRejected
 
-__all__ = ["ServeConfig", "Engine"]
+__all__ = ["ServeConfig", "Engine", "BatchScheduler", "Request",
+           "KV_DTYPES", "TERMINAL_STATUSES"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     max_seq: int = 1024
-    batch_slots: int = 4            # scheduler only (accepted, unused here)
+    batch_slots: int = 4
     temperature: float = 0.0        # 0 -> greedy (the only ported method)
     top_k: int = 0
     top_p: float = 1.0
     eos_token: int = -1             # -1 -> never stop early
     seed: int = 0
-    admission_chunk: int = 8        # scheduler only (accepted, unused here)
+    admission_chunk: int = 8        # decode steps between admission points
     attn_impl: Optional[str] = None
     impls: Optional[Mapping[str, str]] = None
     # paged KV cache: tokens per page (0 -> dense call-sized caches)
     page_size: int = 0
-    pool_pages: Optional[int] = None    # scheduler only (accepted, unused)
+    # pool capacity in pages (None -> dense worst case + segment headroom)
+    pool_pages: Optional[int] = None
+    # paged KV storage dtype: None keeps the model dtype; "fp32"/"bf16"
+    # store pages in that dtype; "int8" stores codes with per-token f32
+    # scales and decodes through the q8 kernel.  Paged engines only.
     kv_dtype: Optional[str] = None
-    prefix_cache: bool = True       # scheduler only (accepted, unused here)
+    # shared-prefix radix cache (paged engines)
+    prefix_cache: bool = True
+
+
+#: ServeConfig.kv_dtype vocabulary -> page storage dtype
+KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+#: Request.status values that end a request's life (no further tokens)
+TERMINAL_STATUSES = ("done", "expired", "cancelled", "shed", "rejected")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    submit_time: float = 0.0        # set by BatchScheduler.submit
+    first_token_time: float = 0.0   # set when the first token reaches host
+    finished: bool = False          # set by the scheduler (eos or budget)
+    # ---- request-plane robustness (all optional; defaults = old behavior)
+    priority: int = 1               # lower is more urgent (0 interactive,
+                                    # 1 default, 2 batch); shed-lowest
+                                    # evicts the worst class first
+    deadline_ms: Optional[float] = None       # total wall budget from submit
+    ttft_deadline_ms: Optional[float] = None  # first-token wall budget
+    status: str = "new"             # new|queued|active|done|expired|
+                                    # cancelled|shed|rejected
+    cancel_requested: bool = False  # the cancellation token (see cancel())
+    spec: bool = False              # speculative decoding opt-in (spec
+                                    # engines only; ignored elsewhere)
+
+    def cancel(self) -> None:
+        """Request-side cancellation token: the scheduler retires the row
+        (or dequeues the request) at the next segment boundary; no token
+        generated after the flag is observed is ever returned."""
+        self.cancel_requested = True
+
+    @property
+    def terminal(self) -> bool:
+        return self.status in TERMINAL_STATUSES
+
+    @property
+    def done(self) -> bool:
+        return self.finished or len(self.generated) >= self.max_new_tokens
+
+    @property
+    def ttft(self) -> Optional[float]:
+        """Time-to-first-token (segment-granular), None until measured."""
+        if self.first_token_time and self.submit_time:
+            return self.first_token_time - self.submit_time
+        return None
+
+
+State = Dict[str, Any]
 
 
 class Engine:
     def __init__(self, lm: LM, cfg: ServeConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Any = None, spec: Any = None):
         """``device`` defaults to ``cuda`` (raising when there is none);
         ``lm`` must already live there."""
         self.device = resolve_device(device)
         if lm.device != self.device:
             raise ValueError(f"the LM lives on {lm.device}, the engine was "
                              f"asked for {self.device}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded serving over a mesh is not ported yet (ROADMAP.md, "
+                "queue 1 item 14: mesh and fault tolerance)")
+        if spec is not None:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP.md, queue 1 "
+                "item 10)")
         if cfg.temperature > 0.0:
             raise NotImplementedError(
                 "temperature > 0 (sampled top_k/top_p decoding) is not "
                 "ported yet (ROADMAP.md, queue 1 item 5)")
-        if cfg.kv_dtype is not None:
-            raise NotImplementedError(
-                "kv_dtype (fp32/bf16/int8 page storage) is not ported yet "
-                "(ROADMAP.md, queue 1 item 7: int8 pages with kernel #3)")
         if cfg.impls or cfg.attn_impl is not None:
             raise NotImplementedError(
                 "impls/attn_impl kernel pins need the kernel registry, which "
@@ -81,8 +165,72 @@ class Engine:
         self.cfg = cfg
         self.host_syncs = 0             # device->host transfers (audited)
         self.paged = cfg.page_size > 0
+        self.kv_dtype: Optional[torch.dtype] = None
+        if cfg.kv_dtype is not None:
+            if not self.paged:
+                raise ValueError(
+                    f"kv_dtype={cfg.kv_dtype!r} needs a paged KV cache "
+                    "(page_size > 0) — dense caches keep the model dtype")
+            if cfg.kv_dtype not in KV_DTYPES:
+                raise ValueError(
+                    f"unknown kv_dtype {cfg.kv_dtype!r}; choose from "
+                    f"{sorted(KV_DTYPES)}")
+            self.kv_dtype = KV_DTYPES[cfg.kv_dtype]
+        self.quantized = cfg.kv_dtype == "int8"
+        if self.paged:
+            # table/pool headroom: power-of-two segments may overshoot a
+            # request's budget by up to one segment of writes
+            headroom = self.seg_cap
+            self.table_width = kv_pool.table_width_for(
+                cfg.max_seq, cfg.page_size, headroom)
+            self.pool_pages = cfg.pool_pages or kv_pool.recommended_pages(
+                cfg.batch_slots, cfg.max_seq, cfg.page_size, headroom)
 
     # -------------------------------------------------------------- helpers
+    @property
+    def seg_cap(self) -> int:
+        """Largest power-of-two segment: quantized steps never exceed it."""
+        return 1 << (max(self.cfg.admission_chunk, 1).bit_length() - 1)
+
+    def quantize_steps(self, steps: int) -> int:
+        """Round a requested step count UP to a power of two (capped at the
+        admission chunk), as the JAX engine does to bound its compiled
+        segment programs; the scheduler masks the overshoot against each
+        request's ``max_new_tokens``, so no token is ever returned past
+        it, and the port's segments match the JAX scheduler's."""
+        steps = max(int(steps), 1)
+        return min(1 << (steps - 1).bit_length(), self.seg_cap)
+
+    @property
+    def slot_headroom(self) -> int:
+        """Tokens a slot's device length can grow past its budget in one
+        segment: one quantized decode segment."""
+        return self.seg_cap
+
+    def _state_kwargs(self) -> Dict[str, Any]:
+        """init_decode_state kwargs for this engine's cache flavor."""
+        if not self.paged:
+            return {}
+        return dict(page_size=self.cfg.page_size,
+                    num_pages=self.pool_pages,
+                    table_width=self.table_width,
+                    kv_dtype=self.kv_dtype)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without blocking the host: a pinned
+        staging copy, then an asynchronous transfer on the current stream
+        (a pageable copy would wait for every kernel queued before it)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def set_page_table(self, state: State, table: np.ndarray) -> State:
+        """Swap the (host-managed) page table into a decode state."""
+        caches = state["caches"]
+        tbl = self._upload(np.asarray(table, np.int32))
+        return dict(state, caches=caches._replace(page_table=tbl))
+
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         """THE device->host sync point: every transfer is counted here."""
         self.host_syncs += 1
@@ -105,7 +253,7 @@ class Engine:
         laid out row-major after the null page 0, the pool rounded up to
         16 pages (the JAX engine's plan, so both touch the same pages)."""
         ps = self.cfg.page_size
-        per_row = [pages_for(len(p) + max_new, ps) for p in prompts]
+        per_row = [kv_pool.pages_for(len(p) + max_new, ps) for p in prompts]
         table_width = max(per_row)
         num_pages = -(-(1 + sum(per_row)) // 16) * 16
         table = np.zeros((len(prompts), table_width), np.int32)
@@ -134,13 +282,12 @@ class Engine:
             table, num_pages = self._page_plan(prompts, max_new_tokens)
             state = lm.init_decode_state(
                 b, seq_cap, page_size=cfg.page_size, num_pages=num_pages,
-                table_width=table.shape[1])
-            state["caches"].page_table.copy_(torch.from_numpy(table))
+                table_width=table.shape[1], kv_dtype=self.kv_dtype)
+            state = self.set_page_table(state, table)
         else:
             state = lm.init_decode_state(b, seq_cap)
         # the attention-cache family masks pad keys per row via lengths
-        batch = {"tokens": torch.from_numpy(toks).to(dev),
-                 "lengths": torch.from_numpy(lens).to(dev)}
+        batch = {"tokens": self._upload(toks), "lengths": self._upload(lens)}
         logits, state = lm.prefill(batch, state)
 
         out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
@@ -157,3 +304,540 @@ class Engine:
                 logits, state = lm.decode_step(nxt[:, None], state)
         host = self._fetch(torch.cat([out, n[:, None]], dim=1))  # the ONE sync
         return [host[i, :host[i, -1]].tolist() for i in range(b)]
+
+    # ------------------------------------- continuous-batching primitives
+    def init_state(self) -> Tuple[State, torch.Tensor]:
+        """The scheduler's shared decode state over ``batch_slots`` rows and
+        its zeroed logits buffer."""
+        cfg = self.cfg
+        state = self.lm.init_decode_state(cfg.batch_slots, cfg.max_seq,
+                                          **self._state_kwargs())
+        logits = torch.zeros((cfg.batch_slots, self.lm.cfg.vocab),
+                             dtype=self.lm.dtype, device=self.device)
+        return state, logits
+
+    @torch.inference_mode()
+    def prefill_slot(self, state: State, logits_buf: torch.Tensor,
+                     prompt: Sequence[int], slot: int,
+                     table_row: Optional[np.ndarray] = None,
+                     prefix_len: int = 0) -> Tuple[State, torch.Tensor]:
+        """Admission point: prefill ``prompt`` into slot ``slot`` mid-flight.
+
+        Paged engines pass the slot's freshly allocated ``table_row``; the
+        prefill runs over a one-row view that shares the pool, so the K/V
+        land straight in the slot's pages, then the slot's table row,
+        length and logits are written in place.  With ``prefix_len > 0``
+        (prefix-cache hit) ``prompt`` is only the divergent suffix and the
+        resident prefix pages are attended, not recomputed.  Dense engines
+        prefill a one-row twin state and merge it into the slot's row.
+        No host sync: the tokens and table row go up asynchronously."""
+        toks = self._upload(np.asarray([list(prompt)], np.int32))
+        caches = state["caches"]
+        if self.paged:
+            assert table_row is not None, "paged admission needs a table row"
+            row = self._upload(np.asarray(table_row, np.int32)[None])
+            row_view = caches._replace(
+                page_table=row,
+                length=torch.zeros((1,), dtype=torch.int32,
+                                   device=self.device))
+            batch = {"tokens": toks}
+            if prefix_len > 0:
+                batch["prefix_len"] = torch.full(
+                    (1,), prefix_len, dtype=torch.int32, device=self.device)
+            row_logits, new_row = self.lm.prefill(batch, {"caches": row_view})
+            pt = caches.page_table
+            if pt.shape[1] < row.shape[1]:
+                # a segment sliced the table to its live mix: widen it back
+                # (the cut only dropped dead entries, which read as null)
+                pt = torch.nn.functional.pad(pt, (0, row.shape[1]
+                                                  - pt.shape[1]))
+                state = dict(state, caches=caches._replace(page_table=pt))
+            pt[slot] = row[0]
+            caches.length[slot] = new_row["caches"].length[0]
+        else:
+            if prefix_len:
+                raise ValueError("prefix_len needs a paged engine "
+                                 "(dense caches hold no shared prefix)")
+            row_state = self.lm.init_decode_state(1, self.cfg.max_seq)
+            row_logits, row_state = self.lm.prefill({"tokens": toks},
+                                                    row_state)
+            rc = row_state["caches"]
+            caches.k[:, slot] = rc.k[:, 0]
+            caches.v[:, slot] = rc.v[:, 0]
+            caches.length[slot] = rc.length[0]
+        logits_buf[slot] = row_logits[0].to(logits_buf.dtype)
+        return state, logits_buf
+
+    @torch.inference_mode()
+    def copy_pages(self, state: State,
+                   pairs: Sequence[Tuple[int, int]]) -> State:
+        """Copy-on-write at a prefix-cache fork: page ``src -> dst`` for
+        every (src, dst) pair, in every layer's K and V pools and, when
+        quantized, their scale pools.  Issued on the stream before the
+        suffix prefill that reads the destination page."""
+        if not pairs:
+            return state
+        arr = self._upload(np.asarray(list(pairs), np.int64))
+        src, dst = arr[:, 0], arr[:, 1]
+        caches = state["caches"]
+        for pool in (caches.k_pages, caches.v_pages, caches.k_scale,
+                     caches.v_scale):
+            if pool is not None:
+                pool[:, dst] = pool[:, src]
+        return state
+
+    @torch.inference_mode()
+    def decode_segment(self, state: State, logits: torch.Tensor,
+                       steps: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, State]:
+        """``steps`` fused sample -> decode steps over all slots, with no
+        host sync inside.  ``steps`` is quantized UP to a power of two
+        (:meth:`quantize_steps`); the caller masks any overshoot against
+        per-request budgets.  Returns (tokens int32 [B, steps], the logits
+        after the last step, state)."""
+        steps = self.quantize_steps(steps)
+        toks = torch.empty((logits.shape[0], steps), dtype=torch.int32,
+                           device=self.device)
+        for t in range(steps):
+            nxt = sampling.sample(logits, method="greedy")
+            toks[:, t] = nxt
+            logits, state = self.lm.decode_step(nxt[:, None], state)
+        return toks, logits, state
+
+
+class BatchScheduler:
+    """True continuous batching over an Engine's shared decode state.
+
+    A slot table of ``batch_slots`` rows.  Decode runs in multi-token
+    segments (power-of-two quantized, at most ``admission_chunk`` steps; a
+    segment may overshoot the tightest remaining budget by a few on-device
+    tokens, but retire masks every row against its own ``max_new_tokens``
+    — no token is ever RETURNED past a request's budget).  After each
+    segment ONE host sync fetches the segment's tokens; finished rows (eos
+    or budget) release their slots immediately and queued requests
+    prefill into the freed slots at their exact prompt length before the
+    next segment — no full-batch barrier, no wave drains.
+
+    On a paged engine (``ServeConfig.page_size > 0``) the scheduler also
+    drives the KV pool (:class:`repro_torch.serve.kv_pool.KVPool`):
+    admission maps resident shared-prefix pages read-only (copy-on-write at
+    the fork page), allocates the rest of the context and RESERVES the
+    request's worst case (deferring when the pool cannot promise it —
+    backpressure instead of overcommit); each segment pre-extends active
+    rows to cover its writes and uploads a page table sliced to the live
+    mix; retirement returns the pages, keeping indexed prefix pages for
+    future hits.
+
+    Request-plane robustness, as in the JAX scheduler: bounded admission
+    (:class:`repro_torch.serve.admission.AdmissionQueue`: ``max_queue``,
+    ``shed_policy``, bounded head-of-line bypass), priorities, deadlines
+    and cancellation (expired or cancelled rows retire at the next segment
+    boundary, the segment's tokens for them discarded, the event recorded
+    in ``ft_events``), :meth:`drain`, and ``run(max_segments=N)`` with
+    active requests re-queued with their progress.  Every segment's wall
+    time feeds a straggler detector.  Serving snapshots and chaos
+    injection are not ported yet.
+    """
+
+    def __init__(self, engine: Engine,
+                 admission_chunk: Optional[int] = None,
+                 straggler_threshold: float = 4.0,
+                 straggler_min_ratio: float = 1.5,
+                 max_queue: Optional[int] = None,
+                 shed_policy: str = "reject-new",
+                 max_bypass: int = 4,
+                 snapshot_dir: Optional[str] = None,
+                 snapshot_every: int = 0,
+                 chaos: Any = None):
+        if snapshot_dir is not None or snapshot_every:
+            raise NotImplementedError(
+                "serving snapshots (snapshot_dir/snapshot_every, restore) "
+                "are not ported yet (ROADMAP.md, queue 1 item 9: snapshots "
+                "through checkpoint/store.py)")
+        if chaos is not None:
+            raise NotImplementedError(
+                "chaos injection (ft/chaos.py) is not ported yet "
+                "(ROADMAP.md, queue 1 item 9)")
+        self.engine = engine
+        self.admission_chunk = (admission_chunk
+                                or engine.cfg.admission_chunk)
+        self.queue = AdmissionQueue(max_queue=max_queue,
+                                    shed_policy=shed_policy,
+                                    max_bypass=max_bypass)
+        self.max_bypass = int(max_bypass)
+        self.requests: Dict[int, Request] = {}   # every submitted rid
+        self.completed: Dict[int, Request] = {}
+        self.aborted: Dict[int, Request] = {}    # expired/cancelled/shed
+        self.metrics: Dict[str, float] = {
+            "segments": 0, "admissions": 0, "decode_steps": 0,
+            # prefix-cache telemetry (paged engines; zero otherwise)
+            "prefix_hits": 0,        # admissions with a non-empty match
+            "prompt_tokens": 0,      # total prompt tokens submitted
+            "prefilled_tokens": 0,   # tokens actually prefilled (suffixes)
+            "pages_shared": 0,       # full prefix pages mapped read-only
+            "cow_copies": 0,         # copy-on-write page copies issued
+            # request-plane robustness telemetry
+            "expired": 0, "cancelled": 0, "sheds": 0, "rejections": 0,
+            "bypasses": 0, "snapshots": 0, "restores": 0,
+        }
+        self.admission_log: List[Tuple[int, int]] = []   # (rid, slot)
+        self.pool: Optional[kv_pool.KVPool] = None   # per run(), paged only
+        self.draining = False
+        self._running = False
+        # live run state (instance attrs so drain()/check() can see them
+        # between segments; only meaningful while _running)
+        self._slots: List[Optional[Request]] = []
+        self._remaining = np.zeros(0, np.int64)
+        self._slot_len = np.zeros(0, np.int64)
+        self.ft_events: List[Dict[str, Any]] = []
+        # segment walls feed the straggler detector on every engine
+        self.straggler = StragglerDetector(threshold=straggler_threshold,
+                                           min_ratio=straggler_min_ratio)
+
+    def submit(self, req: Request) -> None:
+        """Queue one request, or refuse it in O(1).
+
+        Raises ValueError on malformed requests and
+        :class:`repro_torch.serve.admission.AdmissionRejected` — carrying a
+        structured, usually retryable :class:`Rejection` — when the
+        bounded queue refuses the arrival (``reason="queue_full"``), the
+        scheduler is draining, or ``shed-lowest`` found nothing less
+        urgent to evict.  A successful push may instead shed a queued
+        lower-priority request; the victim lands in ``aborted`` with
+        ``status="shed"`` and an ft event."""
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.rid}: max_new_tokens must be >= 1, got "
+                f"{req.max_new_tokens}")
+        if len(req.prompt) + req.max_new_tokens > self.engine.cfg.max_seq:
+            raise ValueError(
+                f"request {req.rid}: prompt ({len(req.prompt)}) + max_new "
+                f"({req.max_new_tokens}) exceeds max_seq "
+                f"({self.engine.cfg.max_seq})")
+        req.submit_time = time.perf_counter()
+        self.requests[req.rid] = req
+        try:
+            victim = self.queue.push(req)
+        except AdmissionRejected as e:
+            req.status = "rejected"
+            self.metrics["rejections"] += 1
+            self.ft_events.append(dict(
+                type="reject", rid=req.rid, reason=e.rejection.reason,
+                retryable=e.rejection.retryable,
+                retry_after_s=e.rejection.retry_after_s,
+                segment=int(self.metrics["segments"])))
+            raise
+        req.status = "queued"
+        if victim is not None:
+            victim.status = "shed"
+            self.aborted[victim.rid] = victim
+            self.metrics["sheds"] += 1
+            self.ft_events.append(dict(
+                type="shed", rid=victim.rid, priority=victim.priority,
+                by_rid=req.rid, segment=int(self.metrics["segments"])))
+
+    def cancel(self, rid: int) -> bool:
+        """Host-side cancellation: flag ``rid`` for retirement at the next
+        segment boundary (queued requests are dequeued immediately when no
+        run is active).  Returns False for unknown/already-terminal rids —
+        cancelling a finished request is a no-op, not an error."""
+        req = self.requests.get(rid)
+        if req is None or req.terminal:
+            return False
+        req.cancel_requested = True
+        if not self._running and self.queue.remove(req):
+            self._finish_abnormal(req, "cancel")
+        return True
+
+    def drain(self) -> Dict[int, Request]:
+        """Graceful drain: stop admission, finish accepted work.
+
+        Future submits are refused (``reason="draining"``, not retryable
+        — the process is going away); requests already queued or
+        in-flight run to completion.  Returns ``completed``."""
+        self.draining = True
+        self.queue.close()
+        if not self._running:
+            return self.run()
+        return self.completed
+
+    # --------------------------------------------- lifecycle bookkeeping
+    def _expiry_reason(self, req: Request, now: float) -> Optional[str]:
+        """Why ``req`` should be expired at this boundary, or None."""
+        age_ms = (now - req.submit_time) * 1e3
+        if req.deadline_ms is not None and age_ms > req.deadline_ms:
+            return "deadline"
+        if (req.ttft_deadline_ms is not None and not req.first_token_time
+                and age_ms > req.ttft_deadline_ms):
+            return "ttft_deadline"
+        return None
+
+    def _finish_abnormal(self, req: Request, reason: str) -> None:
+        """Terminal bookkeeping for a cancelled/expired request: it never
+        reaches ``completed`` and gains no further tokens (tokens already
+        delivered in earlier segments stay — they were observable)."""
+        req.status = "cancelled" if reason == "cancel" else "expired"
+        self.aborted[req.rid] = req
+        kind = "cancel" if reason == "cancel" else "expiry"
+        self.metrics["cancelled" if reason == "cancel" else "expired"] += 1
+        self.ft_events.append(dict(
+            type=kind, rid=req.rid, reason=reason,
+            generated=len(req.generated),
+            segment=int(self.metrics["segments"])))
+
+    def _release_slot(self, i: int) -> None:
+        self._slots[i] = None
+        self._remaining[i] = 0
+        self._slot_len[i] = 0
+        if self.pool is not None:
+            self.pool.release(i)
+
+    def _sweep_queue(self, now: float) -> None:
+        """Drop cancelled/expired requests before they ever prefill."""
+        for req in list(self.queue.ordered()):
+            reason = ("cancel" if req.cancel_requested
+                      else self._expiry_reason(req, now))
+            if reason:
+                self.queue.remove(req)
+                self._finish_abnormal(req, reason)
+
+    def _fits(self, req: Request) -> bool:
+        """Could ``req`` reserve its worst case right now?  (Resume
+        requests measure prompt + progress.)"""
+        if self.pool is None:
+            return True
+        full_len = len(req.prompt) + len(req.generated)
+        worst = (full_len + (req.max_new_tokens - len(req.generated))
+                 + self.engine.slot_headroom)
+        _, shared = self.pool.match_prefix(req.prompt + req.generated)
+        return self.pool.can_reserve(worst, shared_pages=shared)
+
+    def _pick_admission(self) -> Optional[Request]:
+        """Next admissible queued request under the bounded-bypass rule:
+        priority-FIFO order, but once the head has been bypassed
+        ``max_bypass`` times the queue blocks until the head fits."""
+        head = self.queue.head()
+        if head is None:
+            return None
+        for idx, req in enumerate(self.queue.ordered()):
+            if self._fits(req):
+                if idx > 0:
+                    self.queue.note_bypass(head)
+                    self.metrics["bypasses"] += 1
+                return req
+            if idx == 0 and self.queue.bypasses(head) >= self.max_bypass:
+                return None           # head blocked: let pages drain to it
+        return None
+
+    def check(self) -> None:
+        """Scheduler-level invariants (on top of ``KVPool.check``)."""
+        live = {r.rid for r in self._slots if r is not None}
+        queued = {r.rid for r in self.queue.ordered()}
+        done = set(self.completed)
+        dead = set(self.aborted)
+        for a, b, what in ((live, queued, "active+queued"),
+                           (live, done, "active+completed"),
+                           (live, dead, "active+aborted"),
+                           (queued, done, "queued+completed"),
+                           (queued, dead, "queued+aborted"),
+                           (done, dead, "completed+aborted")):
+            assert not (a & b), f"request in two states ({what}): {a & b}"
+        for i, req in enumerate(self._slots):
+            if req is None:
+                continue
+            assert req.status == "active", \
+                f"slot {i}: status {req.status!r} while resident"
+            assert len(req.generated) <= req.max_new_tokens, \
+                f"slot {i}: generated past budget"
+            if self.pool is not None:
+                assert self.pool.slot_pages(i) > 0, \
+                    f"slot {i}: active with no pages"
+        for rid in done:
+            assert self.completed[rid].status == "done", \
+                f"completed request {rid} has status " \
+                f"{self.completed[rid].status!r}"
+        if self.pool is not None:
+            self.pool.check()
+
+    def _requeue_active(self) -> int:
+        """Push every in-flight request back onto the queue with its
+        progress (earliest-admitted ends up at the head), releasing slots
+        and pages — the ``run(max_segments=...)`` early-exit path."""
+        order = {rid: k for k, (rid, _s) in enumerate(self.admission_log)}
+        live = [(order.get(r.rid, 0), i, r)
+                for i, r in enumerate(self._slots) if r is not None]
+        for _, i, req in sorted(live, reverse=True):
+            self._release_slot(int(i))
+            req.status = "queued"
+            self.queue.push_front(req)
+        return len(live)
+
+    def _admit(self, i: int, req: Request, state: State,
+               logits: torch.Tensor) -> Tuple[State, torch.Tensor]:
+        """Admit ``req`` into free slot ``i``: map its shared prefix,
+        reserve and allocate its pages, copy the fork page, prefill the
+        rest (JAX ``run()``'s admission block)."""
+        eng = self.engine
+        full = list(req.prompt) + list(req.generated)
+        budget = req.max_new_tokens - len(req.generated)
+        table_row = None
+        prefix_len = 0
+        if self.pool is not None:
+            # exactly ceil(len/page) pages for the context (minus full-page
+            # prefix hits, mapped read-only by refcount bump) and a
+            # RESERVATION of the worst case (budget + segment overshoot);
+            # _pick_admission already proved can_reserve for it
+            worst = len(full) + budget + eng.slot_headroom
+            admit = self.pool.admit_prefix(i, full)
+            prefix_len = admit.matched_len
+            cow_pairs = [admit.cow] if admit.cow is not None else []
+            self.pool.reserve(i, worst)
+            self.pool.alloc(i, len(full))
+            table_row = self.pool.tables[i]
+            # the fork page must hold the shared tokens before the suffix
+            # prefill reads (and partially rewrites) it: the copy is
+            # issued first, in stream order
+            state = eng.copy_pages(state, cow_pairs)
+            self.metrics["prefix_hits"] += int(prefix_len > 0)
+            self.metrics["pages_shared"] += admit.shared_full
+            self.metrics["cow_copies"] += len(cow_pairs)
+        self.queue.remove(req)
+        # resume path (max_segments re-queue): ``full`` replays prompt +
+        # progress through prefill and the row decodes its remaining budget
+        state, logits = eng.prefill_slot(state, logits, full[prefix_len:], i,
+                                         table_row=table_row,
+                                         prefix_len=prefix_len)
+        if self.pool is not None:
+            # index the now-resident context pages for the NEXT admission
+            self.pool.register_prefix(i, full)
+        req.status = "active"
+        self._slots[i] = req
+        self._remaining[i] = budget
+        self._slot_len[i] = len(full)
+        self.metrics["admissions"] += 1
+        self.metrics["prompt_tokens"] += len(full)
+        self.metrics["prefilled_tokens"] += len(full) - prefix_len
+        self.admission_log.append((req.rid, i))
+        return state, logits
+
+    def _retire(self, i: int, toks: np.ndarray, produced: int,
+                now: float) -> None:
+        """Retire or extend slot ``i`` after a segment: cancelled/expired
+        rows release their slot with the segment's tokens DISCARDED;
+        others take at most their remaining budget (overshoot masked),
+        cut at eos."""
+        cfg = self.engine.cfg
+        req = self._slots[i]
+        reason = ("cancel" if req.cancel_requested
+                  else self._expiry_reason(req, now))
+        if reason:
+            self._release_slot(i)
+            self._finish_abnormal(req, reason)
+            return
+        if not req.generated and not req.first_token_time:
+            req.first_token_time = now
+        take = toks[:min(produced, self._remaining[i])]
+        finished = False
+        if cfg.eos_token >= 0:
+            hits = np.nonzero(take == cfg.eos_token)[0]
+            if hits.size:
+                take = take[:hits[0] + 1]
+                finished = True
+        req.generated.extend(int(t) for t in take)
+        self._remaining[i] = req.max_new_tokens - len(req.generated)
+        if finished or self._remaining[i] <= 0:
+            req.finished = True
+            req.status = "done"
+            self.completed[req.rid] = req
+            self._release_slot(i)
+            self.queue.note_service_time(now - req.submit_time)
+
+    @torch.inference_mode()
+    def run(self, max_segments: Optional[int] = None) -> Dict[int, Request]:
+        """Drive the queue to completion (or for ``max_segments`` decode
+        segments — in-flight requests then re-queue with their progress
+        kept)."""
+        eng, cfg = self.engine, self.engine.cfg
+        if not self.queue:
+            return self.completed
+        nslots = cfg.batch_slots
+        if eng.paged:
+            self.pool = kv_pool.KVPool(eng.pool_pages, cfg.page_size, nslots,
+                                       eng.table_width,
+                                       prefix_cache=cfg.prefix_cache)
+        state, logits = eng.init_state()
+        slots = self._slots = [None] * nslots
+        remaining = self._remaining = np.zeros(nslots, np.int64)
+        # device-side row length (includes segment overshoot the request
+        # never sees — the page a token was WRITTEN to must stay covered)
+        slot_len = self._slot_len = np.zeros(nslots, np.int64)
+        self._running = True
+        seg_run = 0     # segments executed by THIS call (max_segments)
+
+        try:
+            while self.queue or any(s is not None for s in slots):
+                # cancelled/expired requests never reach a slot
+                self._sweep_queue(time.perf_counter())
+                # ---- admission: freed slots take queued requests
+                # mid-flight, in (priority, arrival) order with bounded
+                # head-of-line bypass
+                for i in range(nslots):
+                    if slots[i] is not None:
+                        continue
+                    req = self._pick_admission()
+                    if req is None:
+                        break
+                    state, logits = self._admit(i, req, state, logits)
+
+                active = np.array([s is not None for s in slots])
+                if not active.any():
+                    if not self.queue:
+                        break
+                    raise RuntimeError(
+                        f"request {self.queue.head().rid}: needs more pages "
+                        f"than the whole pool can promise ({self.pool!r})")
+                # requested steps fit the tightest active budget; the
+                # engine quantizes UP to a power of two and overshoot is
+                # masked against each request's budget at retire time
+                steps = eng.quantize_steps(
+                    min(self.admission_chunk, int(remaining[active].min())))
+                if self.pool is not None:
+                    # cover every page this segment can write, then hand
+                    # the device a table sliced to the width the LIVE mix
+                    # needs (x4-page buckets, as the JAX scheduler cuts
+                    # them): decode reads track actual context, not
+                    # max_seq.  Entries past a row's live pages are never
+                    # read, so the cut only drops dead entries.
+                    live = np.nonzero(active)[0]
+                    for i in live:
+                        self.pool.ensure(int(i), int(slot_len[i]) + steps)
+                    width = max(self.pool.slot_pages(int(i)) for i in live)
+                    bucket = min(-(-max(width, 1) // 4) * 4, eng.table_width)
+                    state = eng.set_page_table(
+                        state, self.pool.table()[:, :bucket])
+                seg_t0 = time.perf_counter()
+                toks, logits, state = eng.decode_segment(state, logits,
+                                                         steps)
+                toks_np = eng._fetch(toks)          # ONE sync per segment
+                steps = toks_np.shape[1]
+                slot_len[active] += steps
+                self.metrics["segments"] += 1
+                self.metrics["decode_steps"] += steps
+                seg_run += 1
+                now = time.perf_counter()
+                verdict = self.straggler.record(now - seg_t0)
+                if verdict.is_straggler:
+                    self.ft_events.append(dict(
+                        type="straggler",
+                        segment=int(self.metrics["segments"]),
+                        wall_s=now - seg_t0, ema_s=verdict.ema))
+                # ---- retire: finished/expired/cancelled rows release
+                # their slots immediately
+                for i in np.nonzero(active)[0]:
+                    self._retire(int(i), toks_np[i], steps, now)
+                if max_segments is not None and seg_run >= max_segments:
+                    break
+        finally:
+            self._running = False
+        self._requeue_active()
+        return self.completed

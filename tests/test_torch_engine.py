@@ -4,8 +4,9 @@ qwen2-0.5b ``SMOKE`` in fp32 with the JAX ``LM.init`` parameters bridged
 over (the embedding table scaled by 0.1 on both sides, so the random model
 does not just echo its last input token): greedy tokens over ragged
 prompts must equal the JAX engine's, dense and paged, with one host sync
-per call.  Also: eos, the unported ServeConfig fields, the no-GPU rule,
-and that importing the port never imports JAX or the JAX package.
+per call.  Also: eos, ``kv_dtype`` pages, the unported ServeConfig fields,
+the no-GPU rule, and that importing the port (the scheduler, the pool
+and the launcher included) never imports JAX or the JAX package.
 """
 
 import dataclasses
@@ -86,7 +87,7 @@ def test_paged_equals_dense_and_eos_stops_rows(models):
 
 def test_unported_serve_options_raise_and_scheduler_fields_pass(models):
     _, _, lm, prompts = models
-    for kw in (dict(temperature=0.7), dict(kv_dtype="int8"),
+    for kw in (dict(temperature=0.7),
                dict(impls={"attention": "pallas_flash"}),
                dict(attn_impl="pallas_flash")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -95,6 +96,10 @@ def test_unported_serve_options_raise_and_scheduler_fields_pass(models):
                                  batch_slots=2, admission_chunk=3,
                                  pool_pages=5), device="cpu")
     assert eng.generate(prompts[:1], 2)
+    # kv_dtype is ported: paged generate stores fp32 or int8 pages
+    for kv in ("fp32", "int8"):
+        assert Engine(lm, ServeConfig(max_seq=64, page_size=4, kv_dtype=kv),
+                      device="cpu").generate(prompts[:2], 3)
     with pytest.raises(ValueError, match="max_seq"):
         eng.generate(prompts, 60)
     # field names and defaults follow the JAX ServeConfig
@@ -114,7 +119,11 @@ def test_engine_without_device_raises_on_a_host_without_cuda(models,
 def test_importing_the_port_never_imports_jax_or_the_jax_package():
     names = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert "repro_torch.serve.engine" in names and len(names) >= 15
+    for mod in ("repro_torch.serve.engine", "repro_torch.serve.kv_pool",
+                "repro_torch.serve.admission", "repro_torch.ft.straggler",
+                "repro_torch.launch.cli", "repro_torch.launch.serve"):
+        assert mod in names
+    assert len(names) >= 21
     src = str(Path(repro_torch.__file__).resolve().parents[1])
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"

@@ -6,8 +6,12 @@ the same plain versions).  Here the plain versions are held to the Pallas
 kernels run in interpret mode and to the JAX oracles in
 ``repro/kernels/ref.py``, on the same numpy-seeded inputs:
 
-* flash prefill and paged decode, fp32, rtol=atol=1e-5 (the tolerance of
-  ``tests/test_kernels.py`` and ``tests/test_paged_decode.py``);
+* flash prefill and paged decode (fp and int8 pages), fp32,
+  rtol=atol=1e-5 (the tolerance of ``tests/test_kernels.py``,
+  ``tests/test_paged_decode.py`` and ``tests/test_prefix_cache.py``);
+* fp32 pages under a bf16 query (``kv_dtype="fp32"`` on a bf16 model),
+  rtol=atol=1e-2: one bf16 rounding of the output apart;
+* the int8 KV quantizer: codes bit-equal to the JAX package's;
 * argmax, exactly, including ties and rows of -inf.
 """
 
@@ -20,12 +24,17 @@ from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
 from repro.kernels.paged_decode import \
     paged_decode_attention_grouped as jax_paged
+from repro.kernels.paged_decode import \
+    paged_decode_attention_q8_grouped as jax_paged_q8
+from repro.models.attention import quantize_kv_rows as jax_quantize
 from repro.kernels.sampling import block_argmax as jax_argmax
 from repro_torch.kernels import _build, sampling
 from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                  flash_attention_plain)
-from repro_torch.kernels.paged_decode import (paged_decode_attention_grouped,
-                                              paged_decode_plain)
+from repro_torch.kernels.paged_decode import (
+    paged_decode_attention_grouped, paged_decode_attention_q8_grouped,
+    paged_decode_plain, paged_decode_q8_plain)
+from repro_torch.models.attention import quantize_kv_rows
 
 torch.set_num_threads(1)
 
@@ -177,6 +186,115 @@ def test_paged_wrapper_dispatches_cpu_and_validates():
         paged_decode_attention_grouped(*(a.to("meta") for a in args))
 
 
+def test_paged_fp32_pages_under_bf16_query_match_pallas():
+    """``kv_dtype="fp32"`` on a bf16 model: the pages stay fp32 while q and
+    k_new/v_new are bf16; both versions cast every load to fp32."""
+    rng = np.random.default_rng(21)
+    q4, kp, vp, pt, ln, kn, vn = _paged_case(rng, [0, 1, 10, 28], 2, 7, 16,
+                                             8, 4)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q4, kn, vn)]
+    args = (bf[0], torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(pt), torch.from_numpy(ln), bf[1], bf[2])
+    got = paged_decode_attention_grouped(*args)
+    assert got.dtype == torch.bfloat16
+    jb = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in bf]
+    want = jax_paged(jb[0], jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+                     jnp.asarray(ln), jb[1], jb[2], interpret=True)
+    assert want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# int8 paged decode
+# ---------------------------------------------------------------------------
+
+def _q8_case(rng, lens, kvh, g, dh, ps, np_w):
+    """int8 codes and [P,ps] scales in place of fp pages (the scales of
+    ``tests/test_prefix_cache.py``), the rest as :func:`_paged_case`."""
+    q4, _, _, pt, ln, kn, vn = _paged_case(rng, lens, kvh, g, dh, ps, np_w)
+    p_total = len(lens) * np_w + 1
+    kp, vp = (rng.integers(-127, 128, (p_total, ps, kvh, dh)).astype(np.int8)
+              for _ in range(2))
+    ksc, vsc = (rng.uniform(0.005, 0.05, (p_total, ps)).astype(np.float32)
+                for _ in range(2))
+    return q4, kp, vp, ksc, vsc, pt, ln, kn, vn
+
+
+Q8_CASES = [
+    # lens, kvh, g, dh, ps, np_w
+    ([0, 1, 10, 28], 2, 7, 16, 8, 4),    # empty, one token, partial, multi
+    ([16, 3, 9], 1, 7, 8, 8, 3),         # full pages; SMOKE's heads
+    ([5, 31, 0, 12], 2, 4, 16, 16, 2),
+    ([33, 64, 1], 2, 7, 64, 16, 5),      # qwen2-0.5b's head dim
+]
+
+
+@pytest.mark.parametrize("lens,kvh,g,dh,ps,np_w", Q8_CASES)
+def test_paged_q8_plain_matches_pallas_and_oracle(lens, kvh, g, dh, ps, np_w):
+    rng = np.random.default_rng(sum(lens) + 7 * ps + dh)
+    args = _q8_case(rng, lens, kvh, g, dh, ps, np_w)
+    q4, kp, vp, ksc, vsc, pt, ln, kn, vn = args
+    got = paged_decode_q8_plain(*(torch.from_numpy(a) for a in args))
+    want = jax_paged_q8(*(jnp.asarray(a) for a in args), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the quantized oracle, in the model layout, over the live pages only
+    b = len(lens)
+    live = np.arange(np_w)[None, :] * ps < ln[:, None]
+    oracle = ref.paged_decode_q8(
+        jnp.asarray(q4.reshape(b, 1, kvh * g, dh)), jnp.asarray(kp),
+        jnp.asarray(vp), jnp.asarray(np.where(live, pt, 0)), jnp.asarray(ln),
+        jnp.asarray(kn[:, None]), jnp.asarray(vn[:, None]),
+        k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc))
+    np.testing.assert_allclose(got.numpy().reshape(b, 1, kvh * g, dh),
+                               np.asarray(oracle), **TOL)
+    for i, n in enumerate(lens):
+        if n == 0:                         # an empty row outputs v_new
+            np.testing.assert_allclose(
+                got[i].numpy(), np.broadcast_to(vn[i][:, None], (kvh, g, dh)),
+                **TOL)
+
+
+def test_paged_q8_wrapper_dispatches_cpu_and_validates():
+    rng = np.random.default_rng(6)
+    args = [torch.from_numpy(a) for a in
+            _q8_case(rng, [3, 7], 2, 4, 16, 4, 3)]
+    assert torch.equal(paged_decode_attention_q8_grouped(*args),
+                       paged_decode_q8_plain(*args))
+    bad = list(args)
+    bad[1] = bad[1].float()                # fp pages are the fp kernel's
+    with pytest.raises(TypeError, match="int8"):
+        paged_decode_attention_q8_grouped(*bad)
+    bad = list(args)
+    bad[3] = bad[3][:, :2]                 # scales must be [P, ps]
+    with pytest.raises(ValueError, match="k_scale"):
+        paged_decode_attention_q8_grouped(*bad)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        paged_decode_attention_q8_grouped(*(a.to("meta") for a in args))
+    fp = [args[0], args[1], args[2], *args[5:]]
+    with pytest.raises(TypeError, match="pages"):   # int8 into the fp kernel
+        paged_decode_attention_grouped(*fp)
+
+
+def test_quantize_kv_rows_codes_match_jax_bit_for_bit():
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((5, 9, 2, 16)) * rng.uniform(
+        0.01, 10.0, (5, 9, 1, 1))).astype(np.float32)
+    # exact ties at the rounding boundary: amax 127 makes the scale 1.0, so
+    # x.5 values must round half to even on both sides
+    x[0, 0] = 0.0
+    x[0, 0, 0, :6] = [127.0, 2.5, -3.5, 0.5, -0.5, 1.5]
+    x[0, 1] = 0.0                           # an all-zero row: eps scale
+    codes, scale = quantize_kv_rows(torch.from_numpy(x))
+    jcodes, jscale = jax_quantize(jnp.asarray(x))
+    assert codes.dtype == torch.int8 and scale.dtype == torch.float32
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_allclose(scale.numpy(), np.asarray(jscale), rtol=0,
+                               atol=1e-7)
+    assert codes[0, 0, 0, :6].tolist() == [127, 2, -4, 0, 0, 2]
+
+
 # ---------------------------------------------------------------------------
 # argmax
 # ---------------------------------------------------------------------------
@@ -233,4 +351,5 @@ def test_build_paths_are_content_keyed_and_under_build_dir():
         assert so.parent == _build.build_dir()
         assert so.name.startswith(f"{name}-") and so.suffix == ".so"
         assert so == _build._so_path(name)          # stable hash
-    assert len({_build._so_path(n) for n in _build.SOURCES}) == 3
+    assert len({_build._so_path(n) for n in _build.SOURCES}) == \
+        len(_build.SOURCES) == 4

@@ -3,8 +3,9 @@
 Numerics (``rms_norm``, ``apply_rope``, ``swiglu``) on numpy-seeded inputs;
 then qwen2-0.5b ``SMOKE`` with the JAX ``LM.init`` parameters bridged over
 (``repro_torch.bridge.params_from_jax``): prefill logits and three decode
-steps over ragged prompts, with dense and paged (page_size 4) caches, must
-match the JAX model within fp32 tolerance.
+steps over ragged prompts, with dense and paged (page_size 4) caches, and
+paged caches stored as fp32, bf16 or int8 with a suffix prefilled against a
+resident prefix, must match the JAX model within fp32 tolerance.
 """
 
 import dataclasses
@@ -193,6 +194,64 @@ def test_prefill_and_decode_logits_match_jax(smoke_models, page_size):
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    **TOL)
     assert state["caches"].length.tolist() == (lens + steps).tolist()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "fp32", "bf16", "int8"])
+def test_paged_kv_dtype_suffix_prefill_and_decode_match_jax(smoke_models,
+                                                            kv_dtype):
+    """Pages stored as fp32, bf16 or int8 codes with per-token scales: a
+    prefix prefilled into the pages, the rest of the prompt prefilled as a
+    suffix against them (``batch["prefix_len"]``, the prefix-cache hit
+    path), then decode steps — logits, and the int8 codes and scales, must
+    match the JAX model's."""
+    jlm, jparams, lm = smoke_models
+    jp = jax.tree.map(jnp.asarray, jparams)
+    jdt = {None: None, "fp32": jnp.float32, "bf16": jnp.bfloat16,
+           "int8": jnp.int8}[kv_dtype]
+    tdt = {None: None, "fp32": torch.float32, "bf16": torch.bfloat16,
+           "int8": torch.int8}[kv_dtype]
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, SMOKE.vocab, (1, 11)).astype(np.int32)
+    table = np.array([[3, 1, 5, 2]], np.int32)      # ps 4: 16 tokens
+    jst = jlm.init_decode_state(1, 16, page_size=4, num_pages=6,
+                                table_width=4, kv_dtype=jdt)
+    jc = jst["caches"]
+    jst = {"caches": jc._replace(page_table=jnp.broadcast_to(
+        jnp.asarray(table)[None], (jc.length.shape[0],) + table.shape))}
+    st = lm.init_decode_state(1, 16, page_size=4, num_pages=6, table_width=4,
+                              kv_dtype=tdt)
+    st["caches"].page_table.copy_(torch.from_numpy(table))
+    jprefill = jax.jit(jlm.prefill)
+    for part, extra in ((toks[:, :6], {}),
+                        (toks[:, 6:], {"prefix_len": np.array([6], np.int32)})):
+        jlogits, jst = jprefill(
+            jp, {"tokens": jnp.asarray(part),
+                 **{k: jnp.asarray(v) for k, v in extra.items()}}, jst)
+        with torch.inference_mode():
+            logits, st = lm.prefill(
+                {"tokens": torch.from_numpy(part),
+                 **{k: torch.from_numpy(v) for k, v in extra.items()}}, st)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert st["caches"].length.tolist() == [11]
+    jdecode = jax.jit(jlm.decode_step)
+    for _ in range(3):
+        nxt = rng.integers(0, SMOKE.vocab, (1, 1)).astype(np.int32)
+        jlogits, jst = jdecode(jp, jnp.asarray(nxt), jst)
+        with torch.inference_mode():
+            logits, st = lm.decode_step(torch.from_numpy(nxt), st)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    c, jc = st["caches"], jst["caches"]
+    assert c.k_pages.dtype == (tdt or torch.float32)
+    assert c.quantized == (kv_dtype == "int8")
+    if c.quantized:
+        live = table[0].tolist()
+        codes = c.k_pages[:, live].numpy()
+        jcodes = np.asarray(jc.k_pages[:, live])
+        # a code may differ by one where fp32 rounding of K lands on .5
+        assert np.abs(codes.astype(int) - jcodes.astype(int)).max() <= 1
+        assert (codes == jcodes).mean() > 0.999
+        np.testing.assert_allclose(c.v_scale[:, live].numpy(),
+                                   np.asarray(jc.v_scale[:, live]), **TOL)
 
 
 def test_untied_lm_head_matches_jax():
