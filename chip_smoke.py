@@ -39,11 +39,28 @@ failure):
                card's ``Engine.generate`` tokens and the CPU scheduler's;
                int8 decode-step logits, card against CPU, within
                max|d| / max|logit| <= 1e-2 (a code can flip by one where
-               the two devices round K differently).
+               the two devices round K differently);
+8. case kernels - the tool layer's case-study kernels against their plain
+               versions (fp32 rtol=atol=1e-5, bf16 3e-2): STREAM triad at
+               N = 128, 4096, 128*513 and 2^27, fp32 and bf16, one CTA at
+               the small N, unaligned views; Jacobi-7 at T = 1..4 on
+               (10,18,130), (16,26,130), (37,45,99) (ragged edge tiles,
+               bit-equal across tiles) and 512^3; times as in phase 3
+               (``library_ms``: ``torch.add(b, c, alpha=s, out=a)`` for the
+               triad; a ``conv3d`` with the 6-neighbour filter, TF32 off,
+               is timed beside one naive sweep);
+9. perfctr   - the case studies at full size (triad 2^27 fp32, 100
+               samples; Jacobi 512^3, 4 naive sweeps against one T=4
+               wavefront) through ``PerfCtr`` marker regions with the HBM
+               and ROOFLINE groups, then the bandwidth map (16 KiB .. 2
+               GiB); fails if a region records no launch, if its
+               ``LAUNCHES`` differ from the wrapper counters, or if a
+               working set over 4x L2 reads above 105% of the data-sheet
+               HBM bandwidth.
 
-Phases 4 and 5 are the main paths: each is run with every kernel's launch
-counter set to 0 just before it and read just after, and fails if one of
-its kernels never launched.  The last two lines of stdout are the kernel
+Phases 4, 5 and 9 are the main paths: each is run with its kernels'
+launch counters set to 0 just before it and read just after, and fails if
+one of its kernels never launched.  The last two lines of stdout are the kernel
 table as JSON and the result line ``{"ok": true, "device": {...}}``.  It
 never imports JAX or the JAX package.
 """
@@ -66,6 +83,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense tensor-core bf16 peak
+F32_FLOPS = 67e12                # fp32 on CUDA cores (triad, stencil)
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 PROMPT_LENS = [512, 384, 301, 256, 129, 64, 17, 1]
@@ -111,9 +129,9 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS
+    t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -637,6 +655,164 @@ def sched_token_check(dev):
         fail(f"int8 decode logits differ: {rel} > 1e-2")
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the tool layer's case studies (STREAM triad, Jacobi-7)
+# ---------------------------------------------------------------------------
+
+TRIAD_N = 1 << 27                 # 512 MiB per fp32 array, 1.5 GiB in all
+STENCIL = (512, 512, 512)
+SWEEPS = 4
+
+
+def check_triad(dev, timer):
+    from repro_torch.kernels.stream_triad import (stream_triad,
+                                                  stream_triad_plain)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    err, last = 0.0, None
+    for n in (128, 4096, 128 * 513, TRIAD_N):
+        for dtype in (torch.float32, torch.bfloat16):
+            b = torch.randn(n, generator=gen, device=dev).to(dtype)
+            c = torch.randn(n, generator=gen, device=dev).to(dtype)
+            for pipelined in (True, False) if n < TRIAD_N else (True,):
+                got = stream_triad(b, c, pipelined=pipelined)
+                want = stream_triad_plain(b, c)
+                torch.cuda.synchronize()
+                e = close(f"triad N={n} {str(dtype)[6:]} pipelined="
+                          f"{pipelined}", got, want)
+            if n == TRIAD_N and dtype == torch.float32:
+                err, last = e, (b, c)
+        # views that start 4 bytes past a 16-byte boundary: scalar path
+        buf = torch.randn(n + 1, generator=gen, device=dev)
+        close(f"triad N={n} fp32 unaligned views",
+              stream_triad(buf[1:], buf[:-1]),
+              stream_triad_plain(buf[1:], buf[:-1]))
+    b, c = last
+    a = torch.empty_like(b)
+    ms = timer.ms(lambda: stream_triad(b, c))
+    plain_ms = timer.ms(lambda: stream_triad_plain(b, c))
+    library_ms = timer.ms(lambda: torch.add(b, c, alpha=2.5, out=a))
+    bms, by = bound_ms(3 * 4 * TRIAD_N, 2.0 * TRIAD_N, F32_FLOPS)
+    b16, c16 = b.bfloat16(), c.bfloat16()
+    log(f"  triad N=2^27 bf16: {timer.ms(lambda: stream_triad(b16, c16)):.4f}"
+        f" ms (bound {bound_ms(3 * 2 * TRIAD_N, 0.0)[0]:.4f})")
+    return dict(name="stream_triad", route="cuda",
+                source="src/repro_torch/csrc/stream_triad.cu",
+                replaces="src/repro/kernels/stream_triad.py:32",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms)
+
+
+def check_jacobi(dev, timer):
+    from repro_torch.kernels.jacobi7 import (jacobi7_naive,
+                                             jacobi7_valid_plain,
+                                             jacobi7_wavefront)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = 0.0
+    # (37, 45, 99) is no multiple of any tile: ragged edge tiles everywhere
+    for shape in ((10, 18, 130), (16, 26, 130), (37, 45, 99), STENCIL):
+        x = torch.randn(shape, generator=gen, device=dev)
+        for t in range(1, SWEEPS + 1):
+            got = (jacobi7_naive(x) if t == 1
+                   else jacobi7_wavefront(x, sweeps=t))
+            e = close(f"jacobi7 {shape} T={t}", got,
+                      jacobi7_valid_plain(x, t))
+            if shape == STENCIL and t == SWEEPS:
+                err = e
+        if shape == (37, 45, 99):     # the tile must not change a bit
+            for tile in ((4, 8, 32), (3, 5, 7), (16, 16, 16)):
+                if not torch.equal(jacobi7_wavefront(x, sweeps=3, tile=tile),
+                                   jacobi7_wavefront(x, sweeps=3)):
+                    fail(f"jacobi7 result depends on the tile ({tile})")
+            log("  ok jacobi7 (37, 45, 99) T=3: bit-equal across tiles")
+    ms = timer.ms(lambda: jacobi7_wavefront(x, sweeps=SWEEPS))
+    plain_ms = timer.ms(lambda: jacobi7_valid_plain(x, SWEEPS))
+    nbytes = 4 * (x.numel() + np.prod([s - 2 * SWEEPS for s in STENCIL]))
+    flops = 6.0 * sum(np.prod([s - 2 * t for s in STENCIL])
+                      for t in range(1, SWEEPS + 1))
+    bms, by = bound_ms(float(nbytes), float(flops), F32_FLOPS)
+    # one naive sweep, against one cuDNN convolution with the same filter
+    w = torch.zeros((1, 1, 3, 3, 3), device=dev)
+    for i in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+              (1, 1, 2)):
+        w[(0, 0) + i] = 1.0 / 6.0
+    conv = torch.nn.functional.conv3d
+    x5 = x[None, None]
+    close("conv3d yardstick vs one naive sweep", conv(x5, w)[0, 0],
+          jacobi7_naive(x))
+    naive_ms = timer.ms(lambda: jacobi7_naive(x))
+    naive_plain_ms = timer.ms(lambda: jacobi7_valid_plain(x, 1))
+    conv_ms = timer.ms(lambda: conv(x5, w))
+    nbytes1 = 4 * (x.numel() + np.prod([s - 2 for s in STENCIL]))
+    naive_bound = bound_ms(nbytes1, 6.0 * np.prod([s - 2 for s in STENCIL]),
+                           F32_FLOPS)
+    log(f"  jacobi7 naive {STENCIL} one sweep: {naive_ms:.4f} ms (plain "
+        f"{naive_plain_ms:.4f}, conv3d {conv_ms:.4f}, bound "
+        f"{naive_bound[0]:.4f} by {naive_bound[1]})")
+    return dict(name="jacobi7", route="cuda",
+                source="src/repro_torch/csrc/jacobi7.cu",
+                replaces="src/repro/kernels/jacobi7.py:60",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def case_counters():
+    from repro_torch.kernels.jacobi7 import jacobi7_sweeps
+    from repro_torch.kernels.stream_triad import stream_triad
+    return {"stream_triad": stream_triad, "jacobi7": jacobi7_sweeps}
+
+
+def perfctr_path(dev):
+    """This slice's main path: both case studies at full size through
+    ``PerfCtr`` marker regions (the benches' own ``run``), then the
+    bandwidth map.  Kernels were warmed up at these shapes in phase 8, so
+    the regions run no untimed call and every launch counts."""
+    from repro_torch.bench import bench_jacobi_traffic, bench_stream_pinning
+    from repro_torch.core.bandwidth import measure_map, model_map, render_map
+    from repro_torch.core.perfctr import PerfCtr
+    ctr = PerfCtr(groups=("HBM", "ROOFLINE"), device=dev)
+    for f in case_counters().values():
+        f.launches = 0
+    stream = bench_stream_pinning.run(ctr, n=TRIAD_N, samples=100, warmup=0)
+    jac = bench_jacobi_traffic.run(ctr, shape=STENCIL, sweeps=SWEEPS,
+                                   repeats=10, warmup=0)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in case_counters().items()}
+    log(ctr.report())
+    log(bench_jacobi_traffic.render(jac))
+    per_kernel = {"stream_triad": 0.0, "jacobi7": 0.0}
+    for name, m in ctr.regions.items():
+        n = m.events["LAUNCHES"]
+        if n < 1:
+            fail(f"perfctr region {name!r} recorded no launch")
+        per_kernel["stream_triad" if name.startswith("triad")
+                   else "jacobi7"] += n
+    if per_kernel != {k: float(v) for k, v in launches.items()}:
+        fail(f"region LAUNCHES {per_kernel} != wrapper counters {launches}")
+    hbm = ctr.chip.hbm_bw
+    gbps = stream["gbps_median"]
+    log(f"  triad 2^27 fp32: median {stream['median_s'] * 1e3:.4f} ms "
+        f"[q1 {stream['q1_s'] * 1e3:.4f}, q3 {stream['q3_s'] * 1e3:.4f}] "
+        f"= {gbps:.1f} GB/s (best {stream['gbps_best']:.1f}), "
+        f"{gbps * 1e9 / hbm:.3f} of the data-sheet {hbm / 1e9:.0f} GB/s")
+    if stream["gbps_best"] * 1e9 > 1.05 * hbm:
+        fail(f"triad reads {stream['gbps_best']:.1f} GB/s, over 105% of "
+             f"the HBM peak")
+
+    pts = measure_map(device=dev, chip=ctr.chip)
+    log(render_map(pts, title=f"bandwidth map — {ctr.chip.name} (measured, "
+                              f"triad kernel, L2 not flushed)"))
+    log(render_map(model_map(ctr.chip),
+                   title=f"bandwidth map — {ctr.chip.name} (data sheet)"))
+    for p in pts:
+        if (p.working_set_bytes >= 4 * ctr.chip.l2_bytes
+                and p.bandwidth_best > 1.05 * hbm):
+            fail(f"bandwidth map: {p.bandwidth_best / 1e9:.1f} GB/s at "
+                 f"{p.working_set_bytes} B, over 105% of the HBM peak")
+    if pts[-1].working_set_bytes < 0.99 * 2**31:
+        fail("the bandwidth map stops short of 2 GiB")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -647,7 +823,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/7] probe")
+    log("[1/9] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -655,13 +831,21 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
     smi = gpu_name_and_limit()
     log(f"  nvidia-smi: {smi}")
+    from repro_torch.core import hwinfo
+    chip = hwinfo.current_chip(dev)
+    bad = hwinfo.check_device(chip, torch.cuda.get_device_properties(dev))
+    if bad:
+        fail(f"data sheet {chip.name} disagrees with the device: {bad}")
+    log(f"  data sheet {chip.name}: {chip.sm_count} SMs, L2 "
+        f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
+        f"the device's properties")
 
-    log("[2/7] build")
+    log("[2/9] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/7] kernels vs plain versions")
+    log("[3/9] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -673,10 +857,10 @@ def main() -> int:
             f"{r['bound_by']})")
     del timer
 
-    log("[4/7] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    log("[4/9] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/7] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    log("[5/9] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
         "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
@@ -686,12 +870,28 @@ def main() -> int:
         r["launches"] = (sched_launches if r["name"] == "paged_decode_q8"
                          else gen_launches)[r["name"]]
 
-    log("[6/7] fp32 token check: card paged / card dense / cpu paged")
+    log("[6/9] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/7] fp32 scheduler token check: card scheduler / card generate "
+    log("[7/9] fp32 scheduler token check: card scheduler / card generate "
         "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
+
+    log("[8/9] case-study kernels vs plain versions: STREAM triad, Jacobi-7")
+    timer = Timer(dev)
+    case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
+    del timer
+    for r in case_rows:
+        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
+            f"{r['bound_by']})")
+
+    log("[9/9] main path 3: the case studies through PerfCtr marker regions "
+        "(HBM, ROOFLINE), the bandwidth map")
+    case_launches = perfctr_path(dev)
+    for r in case_rows:
+        r["launches"] = case_launches[r["name"]]
+    rows += case_rows
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -30,7 +30,8 @@ __all__ = ["SOURCES", "CSRC", "build_dir", "build_all", "library", "check",
            "P", "I", "L", "F"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention", "paged_decode", "paged_decode_q8", "argmax")
+SOURCES = ("flash_attention", "paged_decode", "paged_decode_q8", "argmax",
+           "stream_triad", "jacobi7")
 _HEADERS = ("common.cuh", "paged_attend.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

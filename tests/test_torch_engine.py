@@ -121,9 +121,18 @@ def test_importing_the_port_never_imports_jax_or_the_jax_package():
         repro_torch.__path__, "repro_torch."))
     for mod in ("repro_torch.serve.engine", "repro_torch.serve.kv_pool",
                 "repro_torch.serve.admission", "repro_torch.ft.straggler",
-                "repro_torch.launch.cli", "repro_torch.launch.serve"):
+                "repro_torch.launch.cli", "repro_torch.launch.serve",
+                "repro_torch.kernels.stream_triad",
+                "repro_torch.kernels.jacobi7", "repro_torch.core.hwinfo",
+                "repro_torch.core.events", "repro_torch.core.groups",
+                "repro_torch.core.perfctr", "repro_torch.core.marker",
+                "repro_torch.core.roofline", "repro_torch.core.bandwidth",
+                "repro_torch.bench.bench_bandwidth_map",
+                "repro_torch.bench.bench_stream_pinning",
+                "repro_torch.bench.bench_stencil_pinning",
+                "repro_torch.bench.bench_jacobi_traffic"):
         assert mod in names
-    assert len(names) >= 21
+    assert len(names) >= 35
     src = str(Path(repro_torch.__file__).resolve().parents[1])
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
