@@ -15,7 +15,11 @@ failure):
 3. kernels   - each kernel against its plain PyTorch version on the card,
                at the main paths' shapes and at edge cases (fp32
                rtol=atol=1e-5, bf16 3e-2, argmax exact; the fp paged
-               kernel also with fp32 pages under a bf16 query); median
+               kernel also with fp32 pages under a bf16 query; the SSD
+               scan, a reordered sum, at fp32 rtol=2e-4, atol=2e-5:
+               ragged S, S < chunk, dv over two tiles, normalize, a
+               carried state, log_f = -30, mLSTM's dk = dv = 512, the
+               flat [512,512,64] layout and zamba2's generate call); median
                times of the kernel, the plain version and, where one
                PyTorch call computes the same function, that call
                (``library_ms``; the port never calls it);
@@ -40,7 +44,21 @@ failure):
                int8 decode-step logits, card against CPU, within
                max|d| / max|logit| <= 1e-2 (a code can flip by one where
                the two devices round K differently);
-8. case kernels - the tool layer's case-study kernels against their plain
+8. zamba2 generate - zamba2-1.2b at full width and depth (38 Mamba2
+               layers, the shared block at 7 points, bf16, random weights
+               from seed 0): 8 prompts of 512 tokens through
+               ``Engine.generate`` with dense KV, 32 greedy tokens; the SSD
+               kernel launches 38 times, flash 7;
+9. zamba2 scheduler - the same model behind ``BatchScheduler`` (8 slots,
+               dense KV, max_seq 1024): 16 requests of 64-512-token
+               prompts, budgets 16-48; every request completes, one host
+               sync per segment, ``scheduler.check()`` passes, tokens/s and
+               mean TTFT are printed;
+10. zamba2 tokens - fp32, full width, 7 layers (two groups, the second
+               partial): greedy tokens on the card (kernels) equal the
+               CPU's (plain versions) on 300-token prompts, and prefill
+               logits agree within max|d| / max|logit| <= 1e-4;
+11. case kernels - the tool layer's case-study kernels against their plain
                versions (fp32 rtol=atol=1e-5, bf16 3e-2): STREAM triad at
                N = 128, 4096, 128*513 and 2^27, fp32 and bf16, one CTA at
                the small N, unaligned views; Jacobi-7 at T = 1..4 on
@@ -49,7 +67,7 @@ failure):
                (``library_ms``: ``torch.add(b, c, alpha=s, out=a)`` for the
                triad; a ``conv3d`` with the 6-neighbour filter, TF32 off,
                is timed beside one naive sweep);
-9. perfctr   - the case studies at full size (triad 2^27 fp32, 100
+12. perfctr  - the case studies at full size (triad 2^27 fp32, 100
                samples; Jacobi 512^3, 4 naive sweeps against one T=4
                wavefront) through ``PerfCtr`` marker regions with the HBM
                and ROOFLINE groups, then the bandwidth map (16 KiB .. 2
@@ -58,11 +76,13 @@ failure):
                working set over 4x L2 reads above 105% of the data-sheet
                HBM bandwidth.
 
-Phases 4, 5 and 9 are the main paths: each is run with its kernels'
-launch counters set to 0 just before it and read just after, and fails if
-one of its kernels never launched.  The last two lines of stdout are the kernel
-table as JSON and the result line ``{"ok": true, "device": {...}}``.  It
-never imports JAX or the JAX package.
+Phases 4, 5, 8, 9 and 12 are the main paths: each is run with its
+kernels' launch counters set to 0 just before it and read just after, and
+fails if one of its kernels never launched (or, on the serving paths,
+launched another number of times than the path implies).  The last two
+lines of stdout are the kernel table as JSON and the result line
+``{"ok": true, "device": {...}}``.  It never imports JAX or the JAX
+package.
 """
 
 from __future__ import annotations
@@ -401,6 +421,143 @@ def check_argmax(dev, timer, vocab):
                 bound_by=by, library_ms=library_ms)
 
 
+ZAMBA_PROMPTS = 8                  # zamba2 generate: 8 prompts x 512 tokens
+ZAMBA_PROMPT_LEN = 512
+# a reordered scan; in fp32 the atol is relative to the output's largest
+# magnitude: every fp32 evaluation rounds the decays exp(Bc_t - Bc_j) with
+# a relative error of ~|Bc| eps (|Bc| reaches ~180 over a 256-step chunk),
+# so an element that cancels to near 0 keeps an error on the scale of its
+# terms, not of itself
+SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
+           torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+
+def ssd_tol(want: torch.Tensor) -> dict:
+    tol = dict(SSD_TOL[want.dtype])
+    if want.dtype == torch.float32:
+        tol["atol"] *= max(1.0, want.abs().max().item())
+    return tol
+
+
+def ssd_inputs(rng, dev, b, s, h, dk, dv, dtype, *, positive=False,
+               lf_value=None, broadcast=False, state=False):
+    """Model-layout ssd_scan inputs.  Scores q.k have unit variance; with
+    ``positive`` q, k >= 0 keep the normalizer q.n away from 0, where fp32
+    cancellation alone would exceed the tolerance.  ``broadcast`` gives q, k
+    as views over one head (stride 0), as Mamba2 passes them."""
+    def qk():
+        x = rng.standard_normal((b, s, 1 if broadcast else h, dk),
+                                np.float32) * dk ** -0.25
+        t = torch.from_numpy(np.abs(x) if positive else x).to(dev, dtype)
+        return t.expand(b, s, h, dk) if broadcast else t
+
+    q, k = qk(), qk()
+    v = torch.from_numpy(rng.standard_normal((b, s, h, dv), np.float32)
+                         ).to(dev, dtype)
+    lf = (np.full((b, s, h), lf_value, np.float32) if lf_value is not None
+          else -np.logaddexp(rng.standard_normal((b, s, h)), 0.0))
+    li = -np.logaddexp(rng.standard_normal((b, s, h)), 0.0)
+    gates = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+             for a in (lf, li)]
+    st = None
+    if state:
+        st = (torch.from_numpy(rng.standard_normal((b, h, dk, dv),
+                                                   np.float32)).to(dev),
+              torch.from_numpy(np.abs(rng.standard_normal(
+                  (b, h, dk), np.float32))).to(dev))
+    return (q, k, v, *gates), st
+
+
+def check_ssd(dev, timer):
+    """Kernel #5 against its plain version: the main path's call (zamba2
+    generate: 8 x 512 tokens, 64 heads of P = N = 64, q/k broadcast over
+    heads, a carried state), the flat [512, 512, 64] layout, edge cases and
+    mLSTM's dk = dv = 512 state."""
+    from repro_torch.kernels.ssd_scan import ssd_flops, ssd_scan
+    from repro_torch.models.linear_scan import _chunked_linear_attention
+    rng = np.random.default_rng(8)
+
+    def plain(args, chunk, normalize, st):
+        return _chunked_linear_attention(*args, chunk_size=chunk,
+                                         normalize=normalize,
+                                         initial_state=st)
+
+    def case(name, shape, dtype, chunk, normalize=False, **kw):
+        args, st = ssd_inputs(rng, dev, *shape, dtype, **kw)
+        y, (c, n) = ssd_scan(*args, chunk=chunk, normalize=normalize,
+                             initial_state=st)
+        yp, (cp, np_) = plain(args, chunk, normalize, st)
+        torch.cuda.synchronize()
+        errs = []
+        for what, got, want in (("y", y, yp), ("C", c, cp), ("n", n, np_)):
+            tol = ssd_tol(want)
+            torch.testing.assert_close(got.float(), want.float(), **tol,
+                                       msg=lambda m: f"{name} {what}: {m}")
+            errs.append((got.float() - want.float()).abs().max().item())
+        scaled = " x max|.|" if dtype == torch.float32 else ""
+        log(f"  ok ssd_scan {name} {tuple(shape)} {str(dtype)[6:]} chunk "
+            f"{chunk} normalize={normalize}: max|err| y {errs[0]:.3g} "
+            f"(max|y| {yp.abs().max().item():.3g}), C {errs[1]:.3g}, n "
+            f"{errs[2]:.3g} (rtol {SSD_TOL[dtype]['rtol']}, atol "
+            f"{SSD_TOL[dtype]['atol']}{scaled})")
+        return errs[0], args, st
+
+    case("ragged S", (3, 37, 2, 64, 64), torch.float32, 16)
+    case("S < chunk, odd dims", (2, 45, 3, 16, 32), torch.float32, 64,
+         state=True)
+    case("dv in 2 tiles", (1, 130, 2, 32, 96), torch.float32, 64)
+    case("normalize", (2, 300, 2, 64, 64), torch.float32, 128, True,
+         positive=True)
+    case("initial state", (2, 300, 4, 64, 64), torch.float32, 256,
+         state=True, broadcast=True)
+    case("log_f = -30", (2, 300, 2, 64, 64), torch.float32, 256,
+         lf_value=-30.0, state=True)
+    case("mLSTM dk=dv=512", (1, 512, 4, 512, 512), torch.float32, 256, True,
+         positive=True)
+    case("mLSTM dk=dv=512", (1, 512, 4, 512, 512), torch.bfloat16, 256,
+         True, positive=True)
+    # the flat layout of the Pallas entry, [BH,S,d] as [BH,S,1,d], at the
+    # generate shape
+    args, _ = ssd_inputs(rng, dev, 512, 512, 1, 64, 64, torch.bfloat16)
+    y, _ = ssd_scan(*args, chunk=256)
+    yp, _ = plain(args, 256, False, None)
+    torch.cuda.synchronize()
+    close("ssd_scan flat [512,512,64] bf16 chunk 256", y, yp)
+    flat_ms = timer.ms(lambda: ssd_scan(*args, chunk=256))
+    # the main path's call, in bf16 and in fp32
+    shape = (ZAMBA_PROMPTS, ZAMBA_PROMPT_LEN, 64, 64, 64)
+    case("zamba2 generate", shape, torch.float32, 256, state=True,
+         broadcast=True)
+    err, args, st = case("zamba2 generate", shape, torch.bfloat16, 256,
+                         state=True, broadcast=True)
+    ms = timer.ms(lambda: ssd_scan(*args, chunk=256, initial_state=st))
+    plain_ms = timer.ms(lambda: plain(args, 256, False, st))
+
+    def distinct(t):
+        n = t.element_size()
+        for size, stride in zip(t.shape, t.stride()):
+            n *= size if stride else 1
+        return n
+
+    b, s, h, dk = args[0].shape
+    dv = args[2].shape[3]
+    state_bytes = 4 * (b * h * dk * dv + b * h * dk)
+    nbytes = (sum(distinct(t) for t in args) + state_bytes      # in
+              + distinct(args[2]) + state_bytes)                 # y, C, n
+    flops = float(ssd_flops(b, h, s, dk, dv, 256))
+    bms, by = bound_ms(nbytes, flops)
+    log(f"  ssd_scan main call: {ms:.4f} ms, {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; bound {bms:.4f} ms by {by} (989 TFLOP/s "
+        f"tensor-core peak); fp32 CUDA cores at peak "
+        f"{flops / F32_FLOPS * 1e3:.4f} ms; flat [512,512,64] bf16 "
+        f"{flat_ms:.4f} ms")
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:35",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the main path
 # ---------------------------------------------------------------------------
@@ -410,10 +567,11 @@ def counters():
     from repro_torch.kernels.paged_decode import (
         paged_decode_attention_grouped, paged_decode_attention_q8_grouped)
     from repro_torch.kernels.sampling import block_argmax
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"flash_attention": flash_attention_bhsd,
             "paged_decode": paged_decode_attention_grouped,
             "paged_decode_q8": paged_decode_attention_q8_grouped,
-            "argmax": block_argmax}
+            "argmax": block_argmax, "ssd_scan": ssd_scan}
 
 
 def reset_counters():
@@ -464,7 +622,8 @@ def main_path(dev):
         fail("a generated token is outside the vocabulary")
     n_layers = CONFIG.n_layers
     want = {"flash_attention": n_layers,
-            "paged_decode": n_layers * (MAX_NEW - 1), "argmax": MAX_NEW}
+            "paged_decode": n_layers * (MAX_NEW - 1), "argmax": MAX_NEW,
+            "ssd_scan": 0}
     for k, n in want.items():
         if launches[k] < n:
             fail(f"{k} launched {launches[k]} times on the main path, "
@@ -523,7 +682,7 @@ def scheduler_path(dev, lm):
     misses = m["admissions"] - m["prefix_hits"]
     want = {"paged_decode_q8": n_layers * m["decode_steps"],
             "flash_attention": n_layers * misses,
-            "argmax": m["decode_steps"], "paged_decode": 0}
+            "argmax": m["decode_steps"], "paged_decode": 0, "ssd_scan": 0}
     for k, n in want.items():
         if launches[k] != n:
             fail(f"{k} launched {launches[k]} times on the scheduler path, "
@@ -656,7 +815,165 @@ def sched_token_check(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: the tool layer's case studies (STREAM triad, Jacobi-7)
+# phases 8-10: zamba2-1.2b (hybrid: Mamba2 + a shared block), dense KV
+# ---------------------------------------------------------------------------
+
+ZAMBA_REQUESTS = 16
+
+
+def zamba_generate_path(dev):
+    """Main path 3: zamba2-1.2b at full width and depth through
+    ``Engine.generate``: 8 prompts of 512 tokens, 32 greedy tokens, dense
+    KV; each prefill runs the SSD kernel once per Mamba2 layer and the
+    flash kernel once per shared-block application."""
+    from repro_torch.configs.zamba2_1_2b import CONFIG
+    from repro_torch.models.lm import LM, _hybrid_groups
+    from repro_torch.serve.engine import Engine, ServeConfig
+    t0 = time.perf_counter()
+    lm = LM(CONFIG, torch.bfloat16, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"  zamba2-1.2b: {n_params} params, bf16 (A_log, dt_bias, D fp32), "
+        f"random init (seed 0) in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, CONFIG.vocab, ZAMBA_PROMPT_LEN).tolist()
+               for _ in range(ZAMBA_PROMPTS)]
+    eng = Engine(lm, ServeConfig(max_seq=1024), device=dev)
+    eng.generate(prompts, max_new_tokens=MAX_NEW)          # warm-up
+    torch.cuda.synchronize()
+
+    reset_counters()
+    syncs0 = eng.host_syncs
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = read_counters()
+    syncs = eng.host_syncs - syncs0
+
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=1)                # prefill + 1 token
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+
+    if syncs != 1:
+        fail(f"zamba2 generate made {syncs} host syncs, expected 1")
+    if [len(o) for o in out] != [MAX_NEW] * len(prompts):
+        fail(f"unexpected output lengths {[len(o) for o in out]}")
+    if not all(0 <= t < CONFIG.vocab for o in out for t in o):
+        fail("a generated token is outside the vocabulary")
+    groups = len(_hybrid_groups(CONFIG.n_layers, CONFIG.attn_every))
+    want = {"ssd_scan": CONFIG.n_layers, "flash_attention": groups,
+            "argmax": MAX_NEW, "paged_decode": 0, "paged_decode_q8": 0}
+    if launches != want:
+        fail(f"zamba2 generate launched {launches}, expected {want}")
+    dec_tok_s = len(prompts) * (MAX_NEW - 1) / max(t_gen - t_prefill, 1e-9)
+    log(f"  generate: {t_gen * 1e3:.2f} ms for {len(prompts)} x {MAX_NEW} "
+        f"tokens after {ZAMBA_PROMPT_LEN}-token prompts; prefill (+1 token) "
+        f"{t_prefill * 1e3:.2f} ms; decode {dec_tok_s:.1f} tokens/s; "
+        f"host_syncs {syncs}; launches {launches}")
+    log(f"  first tokens: {[o[:4] for o in out]}")
+    return lm, launches
+
+
+def zamba_scheduler_path(lm):
+    """Main path 4: zamba2-1.2b behind ``BatchScheduler`` with dense KV:
+    16 requests of 64-512-token prompts, budgets 16-48, 8 slots; each
+    admission prefills one row at its exact length and merges its SSD
+    state, conv tail and KV caches into the slot."""
+    from repro_torch.bench.profile_serve import run_scheduler
+    from repro_torch.models.lm import _hybrid_groups
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = lm.cfg
+    rng = np.random.default_rng(11)
+    work = [(rng.integers(1, cfg.vocab, int(n)).tolist(), int(b), 1)
+            for n, b in zip(rng.integers(64, 513, ZAMBA_REQUESTS),
+                            rng.integers(16, 49, ZAMBA_REQUESTS))]
+    eng = Engine(lm, ServeConfig(max_seq=1024, batch_slots=8,
+                                 admission_chunk=8), device=lm.device)
+    reset_counters()
+    syncs0 = eng.host_syncs
+    t0 = time.perf_counter()
+    sched, out = run_scheduler(eng, work)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    syncs = eng.host_syncs - syncs0
+    m = sched.metrics
+    if sorted(out) != list(range(len(work))):
+        fail(f"zamba2 scheduler completed {sorted(out)} of {len(work)}")
+    for rid, (_, budget, _) in enumerate(work):
+        if len(out[rid]) != budget:
+            fail(f"request {rid}: {len(out[rid])} tokens, budget {budget}")
+        if not all(0 <= t < cfg.vocab for t in out[rid]):
+            fail(f"request {rid}: a token is outside the vocabulary")
+    if syncs != m["segments"]:
+        fail(f"zamba2 scheduler made {syncs} host syncs for "
+             f"{m['segments']} segments")
+    sched.check()
+    groups = len(_hybrid_groups(cfg.n_layers, cfg.attn_every))
+    want = {"ssd_scan": cfg.n_layers * m["admissions"],
+            "flash_attention": groups * m["admissions"],
+            "argmax": m["decode_steps"], "paged_decode": 0,
+            "paged_decode_q8": 0}
+    if launches != want:
+        fail(f"zamba2 scheduler launched {launches}, expected {want}")
+    new_tokens = sum(len(t) for t in out.values())
+    ttfts = [r.ttft for r in sched.completed.values()]
+    log(f"  scheduler: {len(out)} requests ({sum(len(w[0]) for w in work)} "
+        f"prompt tokens), {new_tokens} tokens in {wall * 1e3:.2f} ms = "
+        f"{new_tokens / wall:.1f} tokens/s; mean TTFT "
+        f"{np.mean(ttfts) * 1e3:.2f} ms; segments {m['segments']:.0f}; "
+        f"decode steps {m['decode_steps']:.0f}; host_syncs {syncs}; "
+        f"admissions {m['admissions']:.0f}; launches {launches}")
+    return launches
+
+
+def zamba_token_check(dev):
+    """fp32, full width, 7 layers (groups of 6 and 1): the card (kernels)
+    and the CPU (plain versions) must emit the same greedy tokens, and the
+    prefill logits must agree within max|d| / max|logit| <= 1e-4."""
+    from repro_torch.configs.zamba2_1_2b import CONFIG
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = dataclasses.replace(CONFIG, n_layers=7)
+    lm_cpu = LM(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(4))
+    lm_cpu.embed.table.data.mul_(0.1)
+    lm_gpu = LM(cfg, torch.float32, dev)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    rng = np.random.default_rng(12)
+    # 300 tokens: a full chunk of 256 and a ragged one, equal lengths
+    prompts = [rng.integers(0, cfg.vocab, 300).tolist() for _ in range(2)]
+    sc = ServeConfig(max_seq=512)
+    launches0 = ssd_scan.launches
+    tok = {"card": Engine(lm_gpu, sc, device=dev).generate(prompts, 8),
+           "cpu": Engine(lm_cpu, sc, device="cpu").generate(prompts, 8)}
+    if ssd_scan.launches - launches0 != cfg.n_layers:
+        fail("the fp32 zamba2 card run did not go through the ssd kernel")
+    for k, v in tok.items():
+        log(f"  {k}: {v}")
+    if tok["card"] != tok["cpu"]:
+        fail("zamba2 greedy tokens differ between the card and the CPU")
+    logits = {}
+    for name, lm in (("cpu", lm_cpu), ("card", lm_gpu)):
+        toks = torch.tensor(prompts, dtype=torch.int32, device=lm.device)
+        with torch.inference_mode():
+            lg, _ = lm.prefill({"tokens": toks},
+                               lm.init_decode_state(len(prompts), 512))
+        logits[name] = lg.float().cpu()
+    rel = ((logits["card"] - logits["cpu"]).abs().max()
+           / logits["cpu"].abs().max()).item()
+    log(f"  zamba2 prefill logits card vs cpu: max|d|/max|logit| = "
+        f"{rel:.3g}")
+    if not rel <= 1e-4:
+        fail(f"zamba2 prefill logits differ: {rel} > 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: the tool layer's case studies (STREAM triad, Jacobi-7)
 # ---------------------------------------------------------------------------
 
 TRIAD_N = 1 << 27                 # 512 MiB per fp32 array, 1.5 GiB in all
@@ -764,7 +1081,7 @@ def case_counters():
 def perfctr_path(dev):
     """This slice's main path: both case studies at full size through
     ``PerfCtr`` marker regions (the benches' own ``run``), then the
-    bandwidth map.  Kernels were warmed up at these shapes in phase 8, so
+    bandwidth map.  Kernels were warmed up at these shapes in phase 11, so
     the regions run no untimed call and every launch counts."""
     from repro_torch.bench import bench_jacobi_traffic, bench_stream_pinning
     from repro_torch.core.bandwidth import measure_map, model_map, render_map
@@ -823,7 +1140,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/9] probe")
+    log("[1/12] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -840,44 +1157,57 @@ def main() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    log("[2/9] build")
+    log("[2/12] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/9] kernels vs plain versions")
+    log("[3/12] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
             check_paged_q8(dev, timer),
-            check_argmax(dev, timer, CONFIG.vocab)]
+            check_argmax(dev, timer, CONFIG.vocab), check_ssd(dev, timer)]
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
     del timer
 
-    log("[4/9] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    log("[4/12] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/9] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    log("[5/12] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
         "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
-    # each kernel's launches on the path that carries it
-    for r in rows:
-        r["launches"] = (sched_launches if r["name"] == "paged_decode_q8"
-                         else gen_launches)[r["name"]]
 
-    log("[6/9] fp32 token check: card paged / card dense / cpu paged")
+    log("[6/12] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/9] fp32 scheduler token check: card scheduler / card generate "
+    log("[7/12] fp32 scheduler token check: card scheduler / card generate "
         "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    log("[8/9] case-study kernels vs plain versions: STREAM triad, Jacobi-7")
+    log("[8/12] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    lm, zamba_launches = zamba_generate_path(dev)
+
+    log("[9/12] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    zamba_scheduler_path(lm)
+    del lm
+    torch.cuda.empty_cache()
+    # each kernel's launches on the path that carries it
+    for r in rows:
+        r["launches"] = {"paged_decode_q8": sched_launches,
+                         "ssd_scan": zamba_launches}.get(
+                             r["name"], gen_launches)[r["name"]]
+
+    log("[10/12] fp32 zamba2 token check: card / cpu, 7 layers")
+    zamba_token_check(dev)
+
+    log("[11/12] case-study kernels vs plain versions: STREAM triad, "
+        "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
     del timer
@@ -886,8 +1216,8 @@ def main() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    log("[9/9] main path 3: the case studies through PerfCtr marker regions "
-        "(HBM, ROOFLINE), the bandwidth map")
+    log("[12/12] main path 5: the case studies through PerfCtr marker "
+        "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]

@@ -1,13 +1,15 @@
 """Where the time of one ``Engine.generate`` call goes, on one CUDA card.
 
-    python -m repro_torch.bench.profile_generate [--page-size 16]
-        [--json out.json]
+    python -m repro_torch.bench.profile_generate [--arch qwen2-0.5b]
+        [--page-size 16] [--json out.json]
 
-Builds qwen2-0.5b at full width and depth (bf16, random weights from seed
-0) and serves the main path of ``chip_smoke.py``: 8 ragged prompts of
-512, 384, 301, 256, 129, 64, 17 and 1 tokens, 32 greedy tokens each,
-with a paged (``--page-size 16``) or dense (``--page-size 0``) KV cache.
-It warms the engine up, then:
+Builds ``--arch`` at full width and depth (bf16, random weights from seed
+0) and serves its ``generate`` path of ``chip_smoke.py``, 32 greedy tokens
+per prompt: for qwen2-0.5b 8 ragged prompts of 512, 384, 301, 256, 129,
+64, 17 and 1 tokens with a paged (``--page-size 16``, the default) or
+dense (``--page-size 0``) KV cache; for zamba2-1.2b 8 prompts of 512
+tokens with dense KV (the hybrid family has no pages).  It warms the
+engine up, then:
 
 * times ``generate`` on the host clock, ending in ``torch.cuda.synchronize``
   (the whole call, and prefill plus one token alone);
@@ -38,22 +40,26 @@ def _device_time_us(avg) -> float:
     raise AttributeError("profiler averages carry no device time")
 
 
-PROMPT_LENS = (512, 384, 301, 256, 129, 64, 17, 1)
+#: prompt lengths per arch: ragged for an attention-cache family, equal
+#: for a recurrent one (its prefill cannot mask pads)
+PROMPT_LENS = {"qwen2-0.5b": (512, 384, 301, 256, 129, 64, 17, 1),
+               "zamba2-1.2b": (512,) * 8}
 MAX_NEW = 32
 
 
-def profile(page_size: int) -> dict:
-    from repro_torch.configs.qwen2_0_5b import CONFIG
+def profile(arch: str, page_size: int) -> dict:
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import Engine, ServeConfig
     _build.build_all()
+    cfg = get_arch(arch).config
     max_new = MAX_NEW
-    lm = LM(CONFIG, torch.bfloat16).init(
+    lm = LM(cfg, torch.bfloat16).init(
         torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, CONFIG.vocab, n).tolist()
-               for n in PROMPT_LENS]
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in PROMPT_LENS[arch]]
     eng = Engine(lm, ServeConfig(page_size=page_size, max_seq=1024))
 
     def timed(n_new: int) -> float:
@@ -84,8 +90,8 @@ def profile(page_size: int) -> dict:
     med_gen, med_pre = float(np.median(gen_ms)), float(np.median(prefill_ms))
     tokens = len(prompts) * (max_new - 1)
     return {
-        "page_size": page_size, "max_new": max_new,
-        "prompt_lens": list(PROMPT_LENS),
+        "arch": arch, "page_size": page_size, "max_new": max_new,
+        "prompt_lens": list(PROMPT_LENS[arch]),
         "generate_ms": gen_ms, "prefill_plus_1_ms": prefill_ms,
         "decode_tokens_per_s": tokens / max(med_gen - med_pre, 1e-9) * 1e3,
         "decode_step_ms": (med_gen - med_pre) / max(max_new - 1, 1),
@@ -99,9 +105,16 @@ def profile(page_size: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    choices=sorted(PROMPT_LENS))
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="KV page size (default: 16 for qwen2-0.5b, 0 = "
+                         "dense for zamba2-1.2b)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
+    page_size = args.page_size
+    if page_size is None:
+        page_size = 16 if args.arch == "qwen2-0.5b" else 0
     if not torch.cuda.is_available():
         print("profile_generate: no CUDA device", file=sys.stderr)
         return 2
@@ -109,7 +122,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    res = profile(args.page_size)
+    res = profile(args.arch, page_size)
     res.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                torch=torch.__version__, cuda=torch.version.cuda)
     text = json.dumps(res)

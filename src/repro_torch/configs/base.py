@@ -35,7 +35,7 @@ class ArchSpec:
 _REGISTRY: Dict[str, ArchSpec] = {}
 
 #: architectures whose config module has been ported so far
-ALL_ARCH_IDS = ["qwen2-0.5b"]
+ALL_ARCH_IDS = ["qwen2-0.5b", "zamba2-1.2b"]
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ALL_ARCH_IDS}
 

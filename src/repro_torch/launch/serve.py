@@ -4,9 +4,14 @@
         --requests 32 --slots 8 --page-size 16 --kv-dtype int8 \\
         --shared-prefix 256 --json serve.json
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+        --requests 16 --slots 8 --prompt-len 256 --max-seq 1024
+
 Runs the continuous-batching ``BatchScheduler`` over synthetic prompts
 (deterministic, numpy seed 0) and prints tokens/s, time-to-first-token,
-segments, admissions and the engine's audited host-sync count.  There is
+segments, admissions and the engine's audited host-sync count.  The
+hybrid zamba2-1.2b serves with dense KV only: ``--page-size`` (with or
+without ``--kv-dtype``) gives the engine's error for it.  There is
 no checkpoint in the repository: the weights are random, from a
 ``torch.Generator`` seeded with 0.  ``--device cpu`` runs the kernels'
 plain PyTorch versions on the host (use ``--smoke-dims``).

@@ -27,7 +27,11 @@ Port of ``repro/serve/engine.py``.  Two layers:
 
 With ``page_size > 0`` the KV cache is a page pool (page 0 is the null
 page) read by the paged decode kernels; ``kv_dtype`` stores the pages as
-fp32, bf16 or int8 codes with per-token scales (the q8 kernel).
+fp32, bf16 or int8 codes with per-token scales (the q8 kernel).  Only the
+attention-cache families (:data:`MASKED_FAMILIES`) take pages and ragged
+``lengths``; the hybrid family serves with dense KV, equal-length rows in
+``generate`` and exact-length single-row admissions in the scheduler, as
+in the JAX engine.
 
 Sampled decoding, speculative decoding, mesh sharding, serving snapshots
 and chaos injection wait for later slices (``ROADMAP.md``); the arguments
@@ -53,7 +57,7 @@ from repro_torch.serve import kv_pool
 from repro_torch.serve.admission import AdmissionQueue, AdmissionRejected
 
 __all__ = ["ServeConfig", "Engine", "BatchScheduler", "Request",
-           "KV_DTYPES", "TERMINAL_STATUSES"]
+           "KV_DTYPES", "TERMINAL_STATUSES", "MASKED_FAMILIES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +86,13 @@ class ServeConfig:
 
 #: ServeConfig.kv_dtype vocabulary -> page storage dtype
 KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+#: families whose prefill masks right-padding per row (``lengths``); the
+#: recurrent-state families (xlstm, hybrid) cannot un-run a pad token
+#: through a running state: they serve equal-length waves in ``generate``
+#: and exact-length single-row admissions in the scheduler, with dense KV
+MASKED_FAMILIES = ("dense", "moe", "vlm")
 
 
 #: Request.status values that end a request's life (no further tokens)
@@ -165,6 +176,10 @@ class Engine:
         self.cfg = cfg
         self.host_syncs = 0             # device->host transfers (audited)
         self.paged = cfg.page_size > 0
+        if self.paged and lm.cfg.family not in MASKED_FAMILIES:
+            raise ValueError(
+                f"page_size={cfg.page_size} needs an attention-cache "
+                f"family ({MASKED_FAMILIES}), not {lm.cfg.family!r}")
         self.kv_dtype: Optional[torch.dtype] = None
         if cfg.kv_dtype is not None:
             if not self.paged:
@@ -286,8 +301,11 @@ class Engine:
             state = self.set_page_table(state, table)
         else:
             state = lm.init_decode_state(b, seq_cap)
-        # the attention-cache family masks pad keys per row via lengths
-        batch = {"tokens": self._upload(toks), "lengths": self._upload(lens)}
+        # attention-cache families mask pad keys per row via lengths;
+        # recurrent ones run pads as context (equal lengths are exact)
+        batch = {"tokens": self._upload(toks)}
+        if lm.cfg.family in MASKED_FAMILIES:
+            batch["lengths"] = self._upload(lens)
         logits, state = lm.prefill(batch, state)
 
         out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
@@ -329,12 +347,14 @@ class Engine:
         length and logits are written in place.  With ``prefix_len > 0``
         (prefix-cache hit) ``prompt`` is only the divergent suffix and the
         resident prefix pages are attended, not recomputed.  Dense engines
-        prefill a one-row twin state and merge it into the slot's row.
-        No host sync: the tokens and table row go up asynchronously."""
+        prefill a one-row twin state at the prompt's exact length and merge
+        EVERY leaf of it into the slot's row (KV, lengths and, for the
+        hybrid family, the SSD state and conv tail).  No host sync: the
+        tokens and table row go up asynchronously."""
         toks = self._upload(np.asarray([list(prompt)], np.int32))
-        caches = state["caches"]
         if self.paged:
             assert table_row is not None, "paged admission needs a table row"
+            caches = state["caches"]
             row = self._upload(np.asarray(table_row, np.int32)[None])
             row_view = caches._replace(
                 page_table=row,
@@ -361,10 +381,7 @@ class Engine:
             row_state = self.lm.init_decode_state(1, self.cfg.max_seq)
             row_logits, row_state = self.lm.prefill({"tokens": toks},
                                                     row_state)
-            rc = row_state["caches"]
-            caches.k[:, slot] = rc.k[:, 0]
-            caches.v[:, slot] = rc.v[:, 0]
-            caches.length[slot] = rc.length[0]
+            _merge_row(state, row_state, slot)
         logits_buf[slot] = row_logits[0].to(logits_buf.dtype)
         return state, logits_buf
 
@@ -403,6 +420,21 @@ class Engine:
             toks[:, t] = nxt
             logits, state = self.lm.decode_step(nxt[:, None], state)
         return toks, logits, state
+
+
+def _merge_row(big: Any, row: Any, slot: int) -> None:
+    """Scatter a one-row decode state into row ``slot`` of ``big``, in
+    place, leaf by leaf (the JAX engine's ``_merge_impl``).  Every leaf is
+    ``[layers, B, ...]`` except the per-row lengths ``[B]``."""
+    if isinstance(big, torch.Tensor):
+        axis = 0 if big.dim() == 1 else 1
+        big.select(axis, slot).copy_(row.select(axis, 0))
+    elif isinstance(big, Mapping):
+        for key in big:
+            _merge_row(big[key], row[key], slot)
+    else:                                   # tuples and NamedTuples
+        for b_leaf, r_leaf in zip(big, row):
+            _merge_row(b_leaf, r_leaf, slot)
 
 
 class BatchScheduler:

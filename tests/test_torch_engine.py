@@ -4,9 +4,11 @@ qwen2-0.5b ``SMOKE`` in fp32 with the JAX ``LM.init`` parameters bridged
 over (the embedding table scaled by 0.1 on both sides, so the random model
 does not just echo its last input token): greedy tokens over ragged
 prompts must equal the JAX engine's, dense and paged, with one host sync
-per call.  Also: eos, ``kv_dtype`` pages, the unported ServeConfig fields,
-the no-GPU rule, and that importing the port (the scheduler, the pool
-and the launcher included) never imports JAX or the JAX package.
+per call.  The same for zamba2-1.2b ``SMOKE`` (hybrid: Mamba2 plus a
+shared block) on equal-length prompts longer than a chunk, with dense KV
+only.  Also: eos, ``kv_dtype`` pages, the unported ServeConfig fields, the
+no-GPU rule, and that importing the port (the scheduler, the pool, the
+launcher and the SSD scan included) never imports JAX or the JAX package.
 """
 
 import dataclasses
@@ -24,12 +26,14 @@ import torch
 
 import repro_torch
 from repro.configs.qwen2_0_5b import SMOKE as JAX_SMOKE
+from repro.configs.zamba2_1_2b import SMOKE as JAX_ZAMBA_SMOKE
 from repro.core.features import default_features
 from repro.models.lm import LM as JaxLM
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs.qwen2_0_5b import SMOKE
+from repro_torch.configs.zamba2_1_2b import SMOKE as ZAMBA_SMOKE
 from repro_torch.models.lm import LM
 from repro_torch.serve.engine import Engine, ServeConfig
 
@@ -108,6 +112,37 @@ def test_unported_serve_options_raise_and_scheduler_fields_pass(models):
     assert ours == theirs
 
 
+@pytest.fixture(scope="module")
+def zamba_models():
+    jlm = JaxLM(JAX_ZAMBA_SMOKE, default_features().with_(
+        remat_policy="none"), dtype=jnp.float32)
+    jparams = jax.device_get(jax.jit(jlm.init)(jax.random.PRNGKey(0)))
+    jparams["embed"]["table"] = jparams["embed"]["table"] * 0.1
+    lm = LM(ZAMBA_SMOKE, torch.float32, device="cpu")
+    lm.load_state_dict(params_from_jax(jparams, ZAMBA_SMOKE))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, ZAMBA_SMOKE.vocab, 20).tolist()
+               for _ in range(3)]
+    return jlm, jax.tree.map(jnp.asarray, jparams), lm, prompts
+
+
+def test_zamba2_generate_matches_jax_engine(zamba_models):
+    jlm, jparams, lm, prompts = zamba_models
+    want = JaxEngine(jlm, jparams, JaxServeConfig(max_seq=64)).generate(
+        prompts, MAX_NEW)
+    eng = Engine(lm, ServeConfig(max_seq=64), device="cpu")
+    got = eng.generate(prompts, MAX_NEW)
+    assert got == want
+    assert eng.host_syncs == 1
+    assert len({tuple(t) for t in got}) > 1
+    # the recurrent family takes no page pool, as in the reference
+    for sc in (dict(page_size=4), dict(page_size=4, kv_dtype="int8")):
+        with pytest.raises(ValueError, match="attention-cache family"):
+            Engine(lm, ServeConfig(max_seq=64, **sc), device="cpu")
+        with pytest.raises(ValueError, match="attention-cache family"):
+            JaxEngine(jlm, jparams, JaxServeConfig(max_seq=64, **sc))
+
+
 def test_engine_without_device_raises_on_a_host_without_cuda(models,
                                                               monkeypatch):
     _, _, lm, _ = models
@@ -130,9 +165,12 @@ def test_importing_the_port_never_imports_jax_or_the_jax_package():
                 "repro_torch.bench.bench_bandwidth_map",
                 "repro_torch.bench.bench_stream_pinning",
                 "repro_torch.bench.bench_stencil_pinning",
-                "repro_torch.bench.bench_jacobi_traffic"):
+                "repro_torch.bench.bench_jacobi_traffic",
+                "repro_torch.kernels.ssd_scan",
+                "repro_torch.models.linear_scan", "repro_torch.models.ssm",
+                "repro_torch.configs.zamba2_1_2b"):
         assert mod in names
-    assert len(names) >= 35
+    assert len(names) >= 39
     src = str(Path(repro_torch.__file__).resolve().parents[1])
     code = ("import importlib, json, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"

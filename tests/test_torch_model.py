@@ -17,13 +17,18 @@ import pytest
 import torch
 
 from repro.configs import qwen2_0_5b as jax_cfgs
+from repro.configs import zamba2_1_2b as jax_zamba
 from repro.core.features import default_features
 from repro.models import layers as jax_layers
+from repro.models import lm as jax_lm_mod
 from repro.models.lm import LM as JaxLM
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_arch
 from repro_torch.configs.qwen2_0_5b import CONFIG, SMOKE
+from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA_CONFIG
+from repro_torch.configs.zamba2_1_2b import SMOKE as ZAMBA_SMOKE
 from repro_torch.models import layers
+from repro_torch.models import lm as lm_mod
 from repro_torch.models.lm import LM
 
 torch.set_num_threads(1)
@@ -281,3 +286,127 @@ def test_lm_without_device_raises_on_a_host_without_cuda(monkeypatch):
         LM(SMOKE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LM(dataclasses.replace(SMOKE, family="moe"), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family: zamba2-1.2b SMOKE (Mamba2 + one shared block)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def zamba_models():
+    jlm = JaxLM(jax_zamba.SMOKE, default_features().with_(
+        remat_policy="none"), dtype=jnp.float32)
+    jparams = jax.device_get(jax.jit(jlm.init)(jax.random.PRNGKey(0)))
+    lm = LM(ZAMBA_SMOKE, torch.float32, device="cpu")
+    lm.load_state_dict(params_from_jax(jparams, ZAMBA_SMOKE))
+    return jlm, jparams, lm
+
+
+def test_zamba2_config_ports_verbatim():
+    assert dataclasses.asdict(ZAMBA_CONFIG) == \
+        dataclasses.asdict(jax_zamba.CONFIG)
+    assert dataclasses.asdict(ZAMBA_SMOKE) == \
+        dataclasses.asdict(jax_zamba.SMOKE)
+    for ours, theirs in ((ZAMBA_CONFIG, jax_zamba.CONFIG),
+                         (ZAMBA_SMOKE, jax_zamba.SMOKE)):
+        assert ours.mamba_config()._asdict() == \
+            theirs.mamba_config()._asdict()
+        mc = ours.mamba_config()
+        assert (mc.d_inner, mc.num_heads, mc.conv_channels) == \
+            (theirs.mamba_config().d_inner, theirs.mamba_config().num_heads,
+             theirs.mamba_config().conv_channels)
+    assert (ZAMBA_CONFIG.mamba_config().d_inner,
+            ZAMBA_CONFIG.mamba_config().num_heads,
+            ZAMBA_CONFIG.mamba_config().conv_channels) == (4096, 64, 4224)
+    assert lm_mod._hybrid_groups(38, 6) == jax_lm_mod._hybrid_groups(38, 6)
+    assert len(lm_mod._hybrid_groups(38, 6)) == 7
+    spec = get_arch("zamba2-1.2b")
+    assert spec.config is ZAMBA_CONFIG and spec.smoke is ZAMBA_SMOKE
+    assert spec.source == "arXiv:2411.15242; hf"
+
+
+def test_zamba2_bridge_covers_every_weight(zamba_models):
+    _, jparams, lm = zamba_models
+    bridged = params_from_jax(jparams, ZAMBA_SMOKE)
+    assert set(bridged) == set(lm.state_dict())
+    np.testing.assert_array_equal(lm.mamba[2].in_proj.numpy(),
+                                  jparams["mamba"]["in_proj"][2])
+    np.testing.assert_array_equal(lm.shared_attn.attn.wq.numpy(),
+                                  jparams["shared_attn"]["attn"]["wq"])
+    ours = LM(ZAMBA_SMOKE, torch.float32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    for name, theirs in bridged.items():
+        mine = ours.state_dict()[name]
+        assert mine.shape == theirs.shape, name
+        if name.endswith(("A_log", "D", "conv_b", "scale")):
+            torch.testing.assert_close(mine, theirs)
+        elif not name.endswith("dt_bias"):
+            assert abs(mine.std() / theirs.std() - 1) < 0.2, name
+
+
+def test_zamba2_prefill_and_decode_logits_match_jax(zamba_models):
+    jlm, jparams, lm = zamba_models
+    jp = jax.tree.map(jnp.asarray, jparams)
+    rng = np.random.default_rng(19)
+    b, s, steps, max_seq = 2, 37, 3, 48        # 37 > 2 chunks of 16
+    toks = rng.integers(0, ZAMBA_SMOKE.vocab, (b, s)).astype(np.int32)
+    jlogits, jstate = jax.jit(jlm.prefill)(
+        jp, {"tokens": jnp.asarray(toks)}, jlm.init_decode_state(b, max_seq))
+    state = lm.init_decode_state(b, max_seq)
+    assert state["mamba"]["ssd"][0].shape == (4, b, 8, 16, 16)
+    assert state["attn_caches"].k.shape == (2, b, max_seq, 4, 16)
+    with torch.inference_mode():
+        logits, state = lm.prefill({"tokens": torch.from_numpy(toks)}, state)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=1e-4, atol=1e-4)
+    jdecode = jax.jit(jlm.decode_step)
+    for _ in range(steps):
+        nxt = rng.integers(0, ZAMBA_SMOKE.vocab, (b, 1)).astype(np.int32)
+        jlogits, jstate = jdecode(jp, jnp.asarray(nxt), jstate)
+        with torch.inference_mode():
+            logits, state = lm.decode_step(torch.from_numpy(nxt), state)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   rtol=1e-4, atol=1e-4)
+    assert state["attn_caches"].length.tolist() == [s + steps] * b
+    for got, want in ((state["mamba"]["ssd"][0], jstate["mamba"]["ssd"][0]),
+                      (state["mamba"]["conv"], jstate["mamba"]["conv"]),
+                      (state["attn_caches"].k, jstate["attn_caches"].k)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_zamba2_state_rules(zamba_models):
+    _, _, lm = zamba_models
+    with pytest.raises(ValueError, match="attention-cache family"):
+        lm.init_decode_state(2, 16, page_size=4)
+    with pytest.raises(ValueError, match="kv_dtype needs"):
+        lm.init_decode_state(2, 16, kv_dtype=torch.int8)
+    toks = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="lengths"):
+        lm.prefill({"tokens": toks, "lengths": torch.tensor([5, 3])},
+                   lm.init_decode_state(2, 16))
+
+
+def test_zamba2_bf16_keeps_the_decay_leaves_fp32(zamba_models):
+    _, jparams, _ = zamba_models
+    lm = LM(ZAMBA_SMOKE, torch.bfloat16, device="cpu")
+    lm.load_state_dict(params_from_jax(jparams, ZAMBA_SMOKE,
+                                       dtype=torch.bfloat16))
+    for i, blk in enumerate(lm.mamba):
+        for leaf in ("A_log", "dt_bias", "D"):
+            got = getattr(blk, leaf)
+            assert got.dtype == torch.float32, leaf
+            np.testing.assert_array_equal(got.numpy(),
+                                          jparams["mamba"][leaf][i])
+        assert blk.in_proj.dtype == torch.bfloat16
+    fresh = LM(ZAMBA_SMOKE, torch.bfloat16, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    assert fresh.mamba[0].dt_bias.dtype == torch.float32
+    with torch.inference_mode():
+        logits, st = fresh.prefill(
+            {"tokens": torch.ones((1, 20), dtype=torch.int32)},
+            fresh.init_decode_state(1, 24))
+    assert logits.dtype == torch.bfloat16 and torch.isfinite(
+        logits.float()).all()
+    assert st["mamba"]["ssd"][0].dtype == torch.float32
+    assert st["attn_caches"].k.dtype == torch.bfloat16

@@ -9,6 +9,10 @@ Over dense and paged engines, page storage in the model dtype, fp32 and
 int8, and the prefix cache on and off, every request's greedy tokens and
 the admission / prefix metrics must equal the JAX scheduler's.
 
+The hybrid family (zamba2-1.2b ``SMOKE``, dense KV): ragged prompts
+admitted one row at a time at their exact length give the JAX scheduler's
+tokens and each request the tokens of a one-prompt ``generate``.
+
 Then the reference's request-lifecycle scenarios that need no snapshot or
 chaos (``tests/test_robustness.py``: deadlines, cancel, shed, bounded
 bypass, drain), run through both schedulers with the same outcomes; the
@@ -26,6 +30,7 @@ import pytest
 import torch
 
 from repro.configs.qwen2_0_5b import SMOKE as JAX_SMOKE
+from repro.configs.zamba2_1_2b import SMOKE as JAX_ZAMBA_SMOKE
 from repro.core.features import default_features
 from repro.models.lm import LM as JaxLM
 from repro.models.lm import LMConfig as JaxLMConfig
@@ -33,6 +38,7 @@ from repro.serve import engine as jax_engine
 from repro.serve.admission import AdmissionRejected as JaxAdmissionRejected
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs.qwen2_0_5b import SMOKE
+from repro_torch.configs.zamba2_1_2b import SMOKE as ZAMBA_SMOKE
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.models.lm import LM, LMConfig
 from repro_torch.serve import engine
@@ -149,6 +155,36 @@ def test_scheduler_paths_agree_in_fp32(smoke):
     eng = engine.Engine(lm, engine.ServeConfig(max_seq=64), device="cpu")
     for rid, (prompt, budget) in enumerate(work):
         assert eng.generate([prompt], budget)[0] == runs[0][rid]
+
+
+def test_zamba2_scheduler_matches_jax_and_single_prompt_generate():
+    """Recurrent state over dense KV: every admission merges the row's SSD
+    state, conv tail and 2 KV caches into its slot."""
+    jlm, jparams, lm = _pair(JAX_ZAMBA_SMOKE, ZAMBA_SMOKE, 0,
+                             embed_scale=0.1)
+    rng = np.random.default_rng(6)
+    work = [(rng.integers(1, ZAMBA_SMOKE.vocab, n).tolist(), budget)
+            for n, budget in zip((19, 5, 23, 3, 17, 30, 8),
+                                 (5, 3, 7, 2, 6, 4, 5))]
+    sc = dict(max_seq=64, batch_slots=3, admission_chunk=4)
+    jsched, want = _run(jax_engine, jax_engine.Engine(
+        jlm, jparams, jax_engine.ServeConfig(**sc)), work)
+    eng = engine.Engine(lm, engine.ServeConfig(**sc), device="cpu")
+    sched, got = _run(engine, eng, work)
+    assert got == want
+    for rid, (_, budget) in enumerate(work):
+        assert len(got[rid]) == budget
+    assert len({tuple(t) for t in got.values()}) > 3
+    for k in ("admissions", "segments", "decode_steps", "prompt_tokens"):
+        assert sched.metrics[k] == jsched.metrics[k], k
+    assert [rid for rid, _ in sched.admission_log] == \
+        [rid for rid, _ in jsched.admission_log]
+    assert eng.host_syncs == sched.metrics["segments"] > 1
+    assert sched.metrics["admissions"] > 3
+    sched.check()
+    single = engine.Engine(lm, engine.ServeConfig(max_seq=64), device="cpu")
+    for rid, (prompt, budget) in enumerate(work):
+        assert single.generate([prompt], budget)[0] == got[rid]
 
 
 def test_engine_primitives_stay_on_the_device_between_segments(smoke):
@@ -444,3 +480,21 @@ def test_serve_launcher_writes_the_summary(tmp_path):
     with pytest.raises(NotImplementedError, match="temperature"):
         serve_launcher.main(["--arch", "qwen2-0.5b", "--smoke-dims",
                              "--device", "cpu", "--temperature", "0.7"])
+
+
+def test_serve_launcher_runs_zamba2_with_dense_kv(tmp_path):
+    path = tmp_path / "zamba.json"
+    assert serve_launcher.main([
+        "--arch", "zamba2-1.2b", "--smoke-dims", "--device", "cpu",
+        "--requests", "4", "--slots", "2", "--prompt-len", "18",
+        "--max-new", "5", "--json", str(path)]) == 0
+    d = json.loads(path.read_text())
+    assert d["device"] == "cpu" and d["requests"] == 4
+    assert d["new_tokens"] == 4 * 5
+    assert d["host_syncs"] == d["segments"] > 0
+    assert d["pool_occupancy"] is None and d["prefix_hit_rate"] is None
+    for extra in (["--page-size", "8"],
+                  ["--page-size", "8", "--kv-dtype", "int8"]):
+        with pytest.raises(ValueError, match="attention-cache family"):
+            serve_launcher.main(["--arch", "zamba2-1.2b", "--smoke-dims",
+                                 "--device", "cpu", *extra])
