@@ -14,7 +14,13 @@ failure):
                parallel;
 3. kernels   - each kernel against its plain PyTorch version on the card,
                at the main paths' shapes and at edge cases (fp32
-               rtol=atol=1e-5, bf16 3e-2, argmax exact; the fp paged
+               rtol=atol=1e-5, bf16 3e-2, argmax exact; flash in fp32 and
+               bf16 at ragged kv_valid with a 0 row (exactly 0), causal
+               and not, q_offset with Sq < Sk, every head dim, many kv
+               tiles, BSHD views at qwen2's and zamba2's shapes, and beside
+               SDPA's flash backend on full-length rows; argmax with ties
+               and NaN either side of its split boundaries, views from
+               column 1, V = 32000, B = 1 and 64; the fp paged
                kernel also with fp32 pages under a bf16 query; the SSD
                scan, a reordered sum, at fp32 rtol=2e-4, atol=2e-5:
                ragged S, S < chunk, dv over two tiles, normalize, a
@@ -22,7 +28,9 @@ failure):
                flat [512,512,64] layout and zamba2's generate call); median
                times of the kernel, the plain version and, where one
                PyTorch call computes the same function, that call
-               (``library_ms``; the port never calls it);
+               (``library_ms``; the port never calls it); the host's
+               microseconds a call for flash and argmax beside their
+               library calls;
 4. generate  - qwen2-0.5b at full width (24 layers, bf16, random weights
                from seed 0) serving 8 ragged prompts through
                ``Engine.generate`` with a paged KV cache, greedy, 32 new
@@ -149,6 +157,19 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work (the
+    device runs behind): what a call costs a host-bound decode step."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / peak
@@ -174,13 +195,16 @@ def check_flash(dev, timer):
                                                      flash_attention_plain)
     rng = np.random.default_rng(0)
 
-    def case(b, h, kvh, sq, sk, dh, dtype, causal, q_offset, kv_valid):
-        q = torch.from_numpy(rng.standard_normal((b, h, sq, dh),
-                                                 np.float32)).to(dev, dtype)
-        k = torch.from_numpy(rng.standard_normal((b, kvh, sk, dh),
-                                                 np.float32)).to(dev, dtype)
-        v = torch.from_numpy(rng.standard_normal((b, kvh, sk, dh),
-                                                 np.float32)).to(dev, dtype)
+    def case(b, h, kvh, sq, sk, dh, dtype, causal, q_offset, kv_valid,
+             bshd=False):
+        def rnd(n, s):              # BSHD transposed to BHSD, as the model
+            if bshd:
+                return torch.from_numpy(rng.standard_normal(
+                    (b, s, n, dh), np.float32)).to(dev, dtype).transpose(1, 2)
+            return torch.from_numpy(rng.standard_normal(
+                (b, n, s, dh), np.float32)).to(dev, dtype)
+
+        q, k, v = rnd(h, sq), rnd(kvh, sk), rnd(kvh, sk)
         kvv = torch.tensor(kv_valid, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, q_offset=q_offset, kv_valid=kvv)
         got = flash_attention_bhsd(q, k, v, **kw)
@@ -188,18 +212,33 @@ def check_flash(dev, timer):
         torch.cuda.synchronize()
         name = (f"flash b{b} h{h}/{kvh} sq{sq} sk{sk} dh{dh} "
                 f"{str(dtype)[6:]} causal={causal} q_offset={q_offset} "
-                f"kv_valid={kv_valid}")
+                f"kv_valid={kv_valid}{' bshd views' if bshd else ''}")
+        for i, n in enumerate(kv_valid):
+            if n == 0 and got[i].any():
+                fail(f"{name}: row {i} has no live key but is not 0")
         return close(name, got, want), (q, k, v, kw)
 
-    # edge cases: ragged kv_valid including 0, S not a tile multiple,
-    # causal and not, q_offset > 0 with Sq < Sk
-    for causal in (True, False):
-        case(3, 4, 2, 100, 100, 64, torch.float32, causal, 0, [100, 0, 37])
-    case(3, 4, 2, 45, 130, 64, torch.float32, True, 85, [130, 90, 120])
-    case(2, 6, 2, 70, 70, 32, torch.float32, True, 0, [70, 5])
-    case(2, 4, 1, 33, 33, 128, torch.float32, False, 0, [33, 20])
-    # the main path's prefill shape (qwen2-0.5b: 14 q heads over 2 kv heads)
+    # edge cases, in fp32 (CUDA cores) and bf16 (tensor cores): ragged
+    # kv_valid including 0, S not a multiple of 64, causal and not,
+    # q_offset > 0 with Sq < Sk, every head dim, many kv tiles through the
+    # two-stage ring
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            case(3, 4, 2, 100, 100, 64, dtype, causal, 0, [100, 0, 37])
+        case(3, 4, 2, 45, 130, 64, dtype, True, 85, [130, 90, 120])
+        case(2, 4, 2, 70, 70, 16, dtype, True, 0, [70, 0])
+        case(2, 6, 2, 70, 70, 32, dtype, True, 0, [70, 5])
+        case(2, 4, 1, 33, 33, 128, dtype, False, 0, [33, 20])
+    case(1, 4, 2, 1000, 1000, 64, torch.bfloat16, True, 0, [1000])
+    case(2, 2, 1, 200, 1500, 128, torch.bfloat16, False, 0, [1500, 1399])
+    # the main paths' prefill shapes: qwen2-0.5b (14 q heads over 2 kv
+    # heads) and zamba2-1.2b's shared block (32 heads, G = 1), as the
+    # model passes them (BSHD views)
     s = max(PROMPT_LENS)
+    case(8, 14, 2, s, s, 64, torch.bfloat16, True, 0, PROMPT_LENS, bshd=True)
+    case(ZAMBA_PROMPTS, 32, 32, ZAMBA_PROMPT_LEN, ZAMBA_PROMPT_LEN, 64,
+         torch.bfloat16, True, 0, [ZAMBA_PROMPT_LEN] * ZAMBA_PROMPTS,
+         bshd=True)
     case(8, 14, 2, s, s, 64, torch.float32, True, 0, PROMPT_LENS)
     err, (q, k, v, kw) = case(8, 14, 2, s, s, 64, torch.bfloat16, True, 0,
                               PROMPT_LENS)
@@ -214,6 +253,22 @@ def check_flash(dev, timer):
             & (kpos[None, None, None, :] < kvv[:, None, None, None]))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = timer.ms(lambda: sdpa(q, ke, ve, attn_mask=mask))
+    # the yardstick above takes SDPA off its flash backend (a boolean
+    # mask); beside it, SDPA's flash backend on full-length causal rows
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    full = dict(causal=True, kv_valid=torch.full_like(kvv, s))
+    full_ms = timer.ms(lambda: flash_attention_bhsd(q, k, v, **full))
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            t = timer.ms(lambda: sdpa(q, ke, ve, is_causal=True))
+        sdpa_flash_ms = f"{t:.4f} ms"
+    except RuntimeError as e:       # a yardstick only: say why it is missing
+        sdpa_flash_ms = f"not available ({str(e).splitlines()[0]})"
+    log(f"  flash bf16 [8,14,512,64] full-length causal rows: kernel "
+        f"{full_ms:.4f} ms, SDPA flash backend (is_causal) {sdpa_flash_ms}")
+    log(f"  flash host us a call: wrapper "
+        f"{host_us(lambda: flash_attention_bhsd(q, k, v, **kw)):.2f}, SDPA "
+        f"with the mask {host_us(lambda: sdpa(q, ke, ve, attn_mask=mask)):.2f}")
     b, h, sq, dh = q.shape
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b
     pairs = sum(min(i + 1, L) for L in PROMPT_LENS for i in range(sq))
@@ -386,8 +441,22 @@ def check_paged_q8(dev, timer):
 
 
 def check_argmax(dev, timer, vocab):
-    from repro_torch.kernels.sampling import argmax_plain, block_argmax
+    from repro_torch.kernels.sampling import (argmax_boundary_logits,
+                                              argmax_plain, argmax_plan,
+                                              block_argmax)
     rng = np.random.default_rng(2)
+
+    def exact(name, xt):
+        got = block_argmax(xt)
+        want = argmax_plain(xt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"argmax {name}: kernel {got.tolist()} != plain "
+                 f"{want.tolist()}")
+        shown = got.tolist() if got.numel() <= 8 else f"{got.numel()} rows"
+        log(f"  ok argmax {name} {tuple(xt.shape)} plan "
+            f"{argmax_plan(*xt.shape)}: exact, {shown}")
+
     x = rng.standard_normal((8, vocab), np.float32)
     x[0, [5, 100000]] = 50.0                  # tie: the lower index wins
     x[1, :] = -np.inf                         # all -inf -> index 0
@@ -400,18 +469,29 @@ def check_argmax(dev, timer, vocab):
     last = None
     for dtype in (torch.float32, torch.bfloat16):
         xt = torch.from_numpy(x).to(dev, dtype)
-        got = block_argmax(xt)
-        want = argmax_plain(xt)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"argmax {dtype}: kernel {got.tolist()} != plain "
-                 f"{want.tolist()}")
-        log(f"  ok argmax [8,{vocab}] {str(dtype)[6:]}: exact, "
-            f"{got.tolist()}")
+        exact(f"{str(dtype)[6:]} main", xt)
+        # ties and NaN at the split boundaries; a view whose rows start one
+        # element past a 16-byte boundary (and drift: the row stride is
+        # odd); zamba2's vocab; one row and 64 rows
+        for b, v in ((8, vocab), (8, 32000), (1, vocab), (64, vocab),
+                     (64, 32000), (3, 130)):
+            xb = torch.from_numpy(argmax_boundary_logits(rng, b, v)
+                                  ).to(dev, dtype)
+            exact(f"{str(dtype)[6:]} split boundaries", xb)
+            wide = torch.from_numpy(argmax_boundary_logits(rng, b, v + 1)
+                                    ).to(dev, dtype)
+            exact(f"{str(dtype)[6:]} view from column 1", wide[:, 1:])
+        for shift in range(1, 5):           # B = 1 through every row kind
+            xb = argmax_boundary_logits(rng, 5, vocab)[shift:shift + 1]
+            exact(f"{str(dtype)[6:]} one row, kind {shift}",
+                  torch.from_numpy(xb).to(dev, dtype))
         last = xt
     ms = timer.ms(lambda: block_argmax(last))
     plain_ms = timer.ms(lambda: argmax_plain(last))
     library_ms = timer.ms(lambda: torch.argmax(last, dim=-1))
+    log(f"  argmax host us a call: wrapper "
+        f"{host_us(lambda: block_argmax(last)):.2f}, torch.argmax "
+        f"{host_us(lambda: torch.argmax(last, dim=-1)):.2f}")
     bms, by = bound_ms(2 * last.numel() + 4 * last.shape[0],
                        float(last.numel()))
     return dict(name="argmax", route="cuda",

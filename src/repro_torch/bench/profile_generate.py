@@ -15,7 +15,9 @@ engine up, then:
   (the whole call, and prefill plus one token alone);
 * runs the same call under ``torch.profiler`` and sums the device time of
   every CUDA kernel: the device's busy share of the call's wall time, and
-  the kernels that take most of it.
+  the kernels that take most of it;
+* profiles prefill plus one token alone the same way, and lists the device
+  time and launches of the port's own kernels in both calls.
 
 Prints one JSON object (also written to ``--json`` when given).  Needs a
 CUDA card; exits non-zero without one.
@@ -45,6 +47,38 @@ def _device_time_us(avg) -> float:
 PROMPT_LENS = {"qwen2-0.5b": (512, 384, 301, 256, 129, 64, 17, 1),
                "zamba2-1.2b": (512,) * 8}
 MAX_NEW = 32
+#: the port's kernels by the names of their ``__global__`` functions
+PORT_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel",
+                "paged_decode_kernel", "paged_decode_q8_kernel",
+                "argmax_kernel", "ssd_scan_kernel")
+
+
+def _profiled(fn):
+    """Run ``fn`` under ``torch.profiler``: (wall ms, the CUDA kernels'
+    averages with device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an op's own entry repeats the device time of the
+    # kernels it launched
+    return wall_ms, [a for a in prof.key_averages()
+                     if a.device_type == torch.autograd.DeviceType.CUDA
+                     and _device_time_us(a) > 0]
+
+
+def _port_kernels(avgs) -> dict:
+    out = {}
+    for a in avgs:
+        for name in PORT_KERNELS:
+            if f"{name}<" in a.key or f"{name}(" in a.key:
+                k = out.setdefault(name, {"calls": 0, "device_ms": 0.0})
+                k["calls"] += a.count
+                k["device_ms"] += _device_time_us(a) / 1e3
+    return out
 
 
 def profile(arch: str, page_size: int) -> dict:
@@ -73,19 +107,11 @@ def profile(arch: str, page_size: int) -> dict:
     gen_ms = [timed(max_new) for _ in range(3)]
     prefill_ms = [timed(1) for _ in range(3)]
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=max_new)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: an op's own entry repeats the device time of the
-    # kernels it launched
-    avgs = [a for a in prof.key_averages()
-            if a.device_type == torch.autograd.DeviceType.CUDA
-            and _device_time_us(a) > 0]
+    wall_ms, avgs = _profiled(
+        lambda: eng.generate(prompts, max_new_tokens=max_new))
     busy_ms = sum(_device_time_us(a) for a in avgs) / 1e3
+    pre_wall_ms, pre_avgs = _profiled(
+        lambda: eng.generate(prompts, max_new_tokens=1))
     top = sorted(avgs, key=_device_time_us, reverse=True)[:10]
     med_gen, med_pre = float(np.median(gen_ms)), float(np.median(prefill_ms))
     tokens = len(prompts) * (max_new - 1)
@@ -100,6 +126,11 @@ def profile(arch: str, page_size: int) -> dict:
         "top_kernels": [{"name": a.key[:90], "calls": a.count,
                          "device_ms": _device_time_us(a) / 1e3}
                         for a in top],
+        "port_kernels": _port_kernels(avgs),
+        "prefill_plus_1_profiled_wall_ms": pre_wall_ms,
+        "prefill_plus_1_device_busy_ms":
+            sum(_device_time_us(a) for a in pre_avgs) / 1e3,
+        "prefill_plus_1_port_kernels": _port_kernels(pre_avgs),
     }
 
 

@@ -1,0 +1,75 @@
+// PTX building blocks for the port's tensor-core kernels: 16-byte
+// asynchronous copies into shared memory (cp.async, with a zero-fill form
+// for rows past a tensor's end), ldmatrix fragment loads and the bf16
+// mma.sync.m16n8k16 product with fp32 accumulators.
+//
+// Fragment layouts follow the PTX ISA ("Matrix fragments for
+// mma.m16n8k16"): with lane = 4 * g + t (g = lane / 4, t = lane % 4),
+//   A 16x16 (row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..2t+1),
+//                        a[2] = (g, 2t+8..+9), a[3] = (g+8, 2t+8..+9);
+//   B 16x8 (k x n):      b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8..+9, n g);
+//   C 16x8 (fp32):       c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..2t+1).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// copy 16 bytes global -> shared; src_bytes < 16 zero-fills the rest
+// (src_bytes = 0 reads nothing, so `src` need only be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed on the way into registers
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x16 bf16) * b (16x8 bf16), fp32 accumulators
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> one register of two bf16 (lo in the low half), rounded
+// to nearest even
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}

@@ -11,11 +11,14 @@ that want every kernel ready up front.
 
 Every entry point takes its pointers and the CUDA stream as ``c_void_p``
 and returns the ``cudaGetLastError()`` of its launch; :func:`check` turns
-a non-zero code into an exception.
+a non-zero code into an exception.  :func:`launch_on` gives a wrapper the
+device guard and the raw stream handle for a launch at a fraction of the
+host cost of ``torch.cuda.device`` and ``torch.cuda.current_stream``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,15 +27,17 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import ContextManager, Dict, Optional, Sequence, Tuple
+
+import torch
 
 __all__ = ["SOURCES", "CSRC", "build_dir", "build_all", "library", "check",
-           "P", "I", "L", "F"]
+           "launch_on", "P", "I", "L", "F"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention", "paged_decode", "paged_decode_q8", "argmax",
            "stream_triad", "jacobi7", "ssd_scan")
-_HEADERS = ("common.cuh", "paged_attend.cuh")
+_HEADERS = ("common.cuh", "paged_attend.cuh", "tensor_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,6 +49,7 @@ F = ctypes.c_float
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_NO_GUARD = contextlib.nullcontext()
 
 
 def build_dir() -> Path:
@@ -140,3 +146,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} "
                            f"(cudaError_t {err})")
+
+
+def launch_on(dev: torch.device) -> Tuple[ContextManager, int]:
+    """``(guard, stream)`` for a launch on CUDA device ``dev``.
+
+    A kernel launches on the calling thread's current device, so ``guard``
+    makes ``dev`` current for the launch: a no-op context when it already
+    is (the common case), else ``torch.cuda.device``.  ``stream`` is the
+    raw handle of ``dev``'s current stream, read without building a
+    ``torch.cuda.Stream`` object."""
+    cur = torch.cuda.current_device()
+    idx = cur if dev.index is None else dev.index
+    guard = _NO_GUARD if idx == cur else torch.cuda.device(idx)
+    return guard, torch._C._cuda_getCurrentRawStream(idx)

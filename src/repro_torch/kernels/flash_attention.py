@@ -2,7 +2,10 @@
 
 Port of ``repro/kernels/flash_attention.py`` (the Pallas ``_flash_kernel``).
 The kernel is ``csrc/flash_attention.cu``; its source note says what bounds
-it on an H100 and how it is laid out.  Contract, shared by both versions:
+it on an H100 and how it is laid out.  bf16 runs on the tensor cores (P is
+rounded to bf16 before the PV product, the denominator and the output
+accumulate in fp32); fp32 runs on the CUDA cores in fp32 throughout.
+Contract, shared by both versions:
 
 * q ``[B,H,Sq,Dh]``, k/v ``[B,KVH,Sk,Dh]`` -> out ``[B,H,Sq,Dh]`` in q's
   dtype; GQA maps q head ``h`` to kv head ``h // (H // KVH)``;
@@ -110,23 +113,29 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"the flash kernel supports head dims "
                          f"{SUPPORTED_HEAD_DIMS}, got {dh}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if qs[3] != 1 or ks[3] != 1 or vs[3] != 1:
         raise ValueError("the flash kernel needs a contiguous head dim")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    strides = qs[:3] + ks[:3] + vs[:3]
+    if q.dtype == torch.bfloat16 and (any(p % 16 for p in ptrs)
+                                      or any(st % 8 for st in strides)):
+        raise ValueError("the bf16 flash kernel copies 16-byte row chunks: "
+                         "q/k/v must start on 16 bytes with batch, head "
+                         "and seq strides that are multiples of 8")
     if kv_valid is None:
         kv_valid = torch.full((b,), sk, dtype=torch.int32, device=q.device)
     elif not kv_valid.is_contiguous():
         raise ValueError("kv_valid must be contiguous")
-    out = torch.empty((b, h, sq, dh), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    out = q.new_empty((b, h, sq, dh))           # contiguous
+    strides = (ctypes.c_int64 * 12)(*strides, h * sq * dh, sq * dh, dh)
     lib = _build.library("flash_attention", _SIG)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    guard, stream = _build.launch_on(q.device)
+    with guard:
         err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kv_valid.data_ptr(), b, h, kvh, sq, sk, dh, int(q_offset),
-            int(bool(causal)), 1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
-            ctypes.cast(strides, ctypes.c_void_p), stream)
+            *ptrs, out.data_ptr(), kv_valid.data_ptr(), b, h, kvh, sq, sk,
+            dh, int(q_offset), int(bool(causal)), 1.0 / math.sqrt(dh),
+            _DTYPE_CODE[q.dtype], strides, stream)
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention_bhsd.launches += 1
     return out

@@ -3,6 +3,8 @@
 Port of ``repro/kernels/sampling.py`` for ``method="greedy"``: the Pallas
 ``_argmax_kernel`` behind ``block_argmax`` becomes ``csrc/argmax.cu``
 (its source note says what bounds it on an H100 and how it is laid out).
+The kernel splits each row over a few CTAs, one thread block cluster per
+row; :func:`argmax_plan` chooses the split.
 Greedy ignores the PRNG by contract, so tokens are held bit for bit to
 ``torch.argmax`` and to the JAX package: the lowest index among equal
 maxima wins.  ``top_k`` / ``top_p`` (filtering plus the Gumbel shift) wait
@@ -15,15 +17,70 @@ no fallback).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["sample", "block_argmax", "argmax_plain"]
+__all__ = ["sample", "block_argmax", "argmax_plain", "argmax_plan",
+           "argmax_boundary_logits"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SIG = {"argmax_rows": (_build.P, _build.P, _build.I, _build.I,
-                        _build.L, _build.I, _build.P)}
+_SIG = {"argmax_rows": (_build.P, _build.P, _build.I, _build.I, _build.L,
+                        _build.I, _build.I, _build.I, _build.P)}
+
+#: CTAs a row at most: the portable thread block cluster size
+ARGMAX_MAX_SPLIT = 8
+#: elements a CTA at least: below that a split costs more than it reads
+ARGMAX_MIN_CHUNK = 4096
+#: CTAs a launch aims at: two per SM of an H100 SXM (132 SMs)
+ARGMAX_TARGET_CTAS = 264
+
+
+@functools.lru_cache(maxsize=64)
+def argmax_plan(b: int, v: int) -> tuple:
+    """``(split, chunk)`` for ``b`` rows of ``v`` logits: CTA ``r`` of a
+    row scans ``[r * chunk, min(v, (r + 1) * chunk))``.  ``chunk`` is a
+    multiple of 8 elements (16 bytes of bf16), so an aligned row splits on
+    16-byte boundaries, and every CTA gets at least one element."""
+    want = min(ARGMAX_MAX_SPLIT, -(-v // ARGMAX_MIN_CHUNK),
+               -(-ARGMAX_TARGET_CTAS // max(b, 1)))
+    chunk = -(-v // want)
+    chunk = -(-chunk // 8) * 8
+    return -(-v // chunk), chunk
+
+
+def argmax_boundary_logits(rng: np.random.Generator, b: int, v: int,
+                           peak: float = 60.0) -> np.ndarray:
+    """fp32 logits [b, v] that put ties and NaN on both sides of each
+    split boundary of :func:`argmax_plan`, by row kind (row ``i`` is kind
+    ``i % 5``): 0, equal maxima ``peak`` either side of every cut; 1, NaN
+    either side of a cut (the first wins); 2, the max just before a cut and
+    NaN after it; 3, NaN just before a cut and the max after it; 4, all
+    ``-inf`` (index 0).  The kernel's checks on the card and its CPU
+    emulation both use it."""
+    x = rng.standard_normal((b, v), np.float32)
+    split, chunk = argmax_plan(b, v)
+    cuts = [r * chunk for r in range(1, split)] or [v // 2]
+    for i in range(b):
+        c = cuts[i % len(cuts)]
+        kind = i % 5
+        if kind == 0:
+            for cc in cuts:
+                x[i, [cc - 1, cc]] = peak
+        elif kind == 1:
+            x[i, [c - 1, c]] = np.nan
+        elif kind == 2:
+            x[i, c - 1] = peak
+            x[i, [c, min(c + 3, v - 1)]] = np.nan
+        elif kind == 3:
+            x[i, c - 1] = np.nan
+            x[i, [c, min(c + 5, v - 1)]] = [peak, np.nan]
+        else:
+            x[i] = -np.inf
+    return x
 
 
 def argmax_plain(x: torch.Tensor) -> torch.Tensor:
@@ -42,19 +99,24 @@ def block_argmax(x: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"block_argmax takes fp32 or bf16, got {x.dtype}")
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return argmax_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"block_argmax runs on cpu or cuda, not {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"block_argmax runs on cpu or cuda, not {dev}")
     if x.stride(1) != 1:
         raise ValueError("block_argmax needs a contiguous vocab dim")
     b, v = x.shape
-    out = torch.empty((b,), dtype=torch.int32, device=x.device)
+    if b > 65535:
+        raise ValueError(f"block_argmax takes at most 65535 rows, got {b}")
+    split, chunk = argmax_plan(b, v)
+    out = x.new_empty((b,), dtype=torch.int32)
     lib = _build.library("argmax", _SIG)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    guard, stream = _build.launch_on(dev)
+    with guard:
         err = lib.argmax_rows(x.data_ptr(), out.data_ptr(), b, v,
-                              x.stride(0), _DTYPE_CODE[x.dtype], stream)
+                              x.stride(0), split, chunk,
+                              _DTYPE_CODE[x.dtype], stream)
     _build.check(lib, err, "argmax_rows")
     block_argmax.launches += 1
     return out

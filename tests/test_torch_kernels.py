@@ -13,7 +13,17 @@ kernels run in interpret mode and to the JAX oracles in
   rtol=atol=1e-2: one bf16 rounding of the output apart;
 * the int8 KV quantizer: codes bit-equal to the JAX package's;
 * argmax, exactly, including ties and rows of -inf.
+
+Two kernels' numerics are emulated here, since their CUDA code runs only
+on the card: the bf16 flash kernel's tensor-core rounding (P rounded to
+bf16 before PV, fp32 accumulation, bf16 output), held to the plain
+version and the Pallas kernel within the card's bf16 tolerance; and the
+argmax kernel's split of a row over a cluster of CTAs (its plan, each
+CTA's scalar head, 16-byte body and scalar tail, and the combine), held
+to ``jnp.argmax`` on ties and NaN at the split boundaries.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +39,8 @@ from repro.kernels.paged_decode import \
 from repro.models.attention import quantize_kv_rows as jax_quantize
 from repro.kernels.sampling import block_argmax as jax_argmax
 from repro_torch.kernels import _build, sampling
-from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+from repro_torch.kernels.flash_attention import (NEG_INF,
+                                                 flash_attention_bhsd,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_decode import (
     paged_decode_attention_grouped, paged_decode_attention_q8_grouped,
@@ -84,6 +95,67 @@ def test_flash_plain_matches_pallas_and_oracle(b, h, kvh, sq, sk, dh, causal,
         want_ref).transpose(0, 2, 1, 3), **TOL)
     if kv_valid is not None and 0 in kv_valid:
         assert not got[kv_valid.index(0)].any()     # no live key -> 0
+
+
+def _flash_bf16_tensor_core_emulation(q, k, v, *, causal, kv_valid,
+                                      bk=64):
+    """The arithmetic of the bf16 kernel in ``csrc/flash_attention.cu``, in
+    torch on the CPU: bf16 q, k, v; S = Q K^T exact products summed in fp32;
+    masks as the TPU kernel's; an online softmax over 64-key tiles in the
+    log2 domain; P in fp32 for the denominator and rounded to bf16 for the
+    PV product, which accumulates in fp32; the output rounded to bf16."""
+    b, h, sq, dh = q.shape
+    g = h // k.shape[1]
+    sk = k.shape[2]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scale_log2 = (1.0 / math.sqrt(dh)) * 1.4426950408889634
+    qpos = torch.arange(sq)
+    m = torch.full((b, h, sq, 1), NEG_INF)
+    den = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, dh))
+    for j0 in range(0, sk, bk):
+        kpos = torch.arange(j0, min(j0 + bk, sk))
+        s = q.float() @ kf[:, :, j0:j0 + bk].transpose(-1, -2)
+        ok = (kpos[None, :] < kv_valid[:, None])[:, None, None, :]
+        if causal:
+            ok = ok & (kpos[None, :] <= qpos[:, None])[None, None]
+        s = torch.where(ok, s * scale_log2, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s - m_new), 0.0)
+        den = den * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, j0:j0 + bk]
+        m = m_new
+    return (acc / den.clamp_min(1e-20)).to(torch.bfloat16)
+
+
+def test_flash_bf16_tensor_core_rounding_meets_card_tolerance():
+    """bf16 at Sk = 512, Dh = 64, G = 2, ragged kv_valid with a 0 row: the
+    tensor-core kernel's rounding against the plain version (fp32 math on
+    the bf16 inputs) and the Pallas kernel in interpret mode.  The card
+    holds the kernel to the plain version at rtol = atol = 3e-2
+    (``chip_smoke.py``); observed here: max |emulated - plain| 7.8e-3,
+    max |emulated - Pallas| 7.8e-3 (one bf16 ulp in [1, 2); max |out| is
+    2.7, and plain and Pallas differ by 9.8e-4), so the tolerance is met
+    with a factor of ~4 to spare."""
+    rng = np.random.default_rng(15)
+    b, h, kvh, s, dh = 3, 2, 1, 512, 64
+    q, k, v = (torch.from_numpy(_normal(rng, b, n, s, dh)).to(torch.bfloat16)
+               for n in (h, kvh, kvh))
+    kvv = torch.tensor([512, 301, 0], dtype=torch.int32)
+    got = _flash_bf16_tensor_core_emulation(q, k, v, causal=True,
+                                            kv_valid=kvv)
+    plain = flash_attention_plain(q, k, v, causal=True, kv_valid=kvv)
+    pallas = jax_flash(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                         for t in (q, k, v)),
+                       causal=True, kv_valid=jnp.asarray(kvv.numpy()),
+                       bq=32, bk=32, interpret=True)
+    pallas = torch.from_numpy(np.array(pallas.astype(jnp.float32)))
+    for want in (plain.float(), pallas):
+        torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+        assert (got.float() - want).abs().max().item() <= 1e-2
+    assert not got[2].float().any()                 # no live key -> 0
 
 
 def test_flash_wrapper_takes_strided_bshd_views_on_cpu():
@@ -324,6 +396,98 @@ def test_argmax_plain_matches_pallas_exactly(b, v, dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jnp.argmax(xj, axis=-1)))
+
+
+# (b, v) -> CTAs a row: 8 (the portable cluster) when the row is long and
+# the batch small, fewer when a CTA would get under 4096 elements or the
+# launch would pass ~2 CTAs per SM
+ARGMAX_PLANS = [(1, 130, 1), (1, 32000, 8), (1, 151936, 8), (8, 130, 1),
+                (8, 32000, 8), (8, 151936, 8), (64, 130, 1), (64, 32000, 5),
+                (64, 151936, 5)]
+
+
+@pytest.mark.parametrize("b,v,split", ARGMAX_PLANS)
+def test_argmax_plan_splits_cover_the_row(b, v, split):
+    got, chunk = sampling.argmax_plan(b, v)
+    assert got == split
+    assert 1 <= split <= sampling.ARGMAX_MAX_SPLIT
+    assert chunk % 8 == 0                       # 16-byte splits of bf16
+    bounds = [(r * chunk, min(v, (r + 1) * chunk)) for r in range(split)]
+    assert all(lo < hi for lo, hi in bounds)    # every CTA non-empty
+    assert bounds[0][0] == 0 and bounds[-1][1] == v
+    assert all(a[1] == c[0] for a, c in zip(bounds, bounds[1:]))
+    # the plan's rule: as many CTAs as the cluster, the 4096-element floor
+    # a CTA and the ~264-CTA target allow (chunk rounding to 8 elements
+    # never drops a CTA at these sizes)
+    assert split == min(sampling.ARGMAX_MAX_SPLIT,
+                        -(-v // sampling.ARGMAX_MIN_CHUNK),
+                        -(-sampling.ARGMAX_TARGET_CTAS // b))
+
+
+def _better(v1, i1, v2, i2):
+    """``better()`` of ``csrc/argmax.cu``: NaN above numbers, then the
+    larger value, then the lower index."""
+    n1, n2 = np.isnan(v1), np.isnan(v2)
+    if n1 or n2:
+        return i1 < i2 if n1 and n2 else bool(n1)
+    if v1 != v2:
+        return v1 > v2
+    return i1 < i2
+
+
+def _split_argmax_emulation(x, offset, elem_bytes, order_rng):
+    """The argmax kernel's split and combine on rows of ``x`` whose first
+    element sits ``offset`` elements past a 16-byte boundary: per CTA the
+    scalar head up to the boundary, 16-byte vectors, the scalar tail (which
+    must tile the CTA's range exactly), its best candidate, then the
+    cluster's combine in a random order."""
+    b, v = x.shape
+    vec = 16 // elem_bytes
+    split, chunk = sampling.argmax_plan(b, v)
+    out = []
+    for row in x:
+        cands = []
+        for r in range(split):
+            lo, hi = r * chunk, min(v, (r + 1) * chunk)
+            mis = (offset + lo) % vec
+            body = min(hi, lo + (vec - mis if mis else 0))
+            nvec = (hi - body) // vec
+            tail = body + nvec * vec
+            head_i = list(range(lo, body))
+            body_i = list(range(body, tail))
+            tail_i = list(range(tail, hi))
+            assert (offset + body) % vec == 0 or body == hi
+            assert len(tail_i) < vec and len(head_i) < vec
+            seen = np.asarray(head_i + body_i + tail_i)
+            assert np.array_equal(seen, np.arange(lo, hi))
+            best = (-np.inf, np.iinfo(np.int32).max)
+            for i in order_rng.permutation(seen):     # any visiting order
+                if _better(row[i], i, *best):
+                    best = (row[i], i)
+            cands.append(best)
+        best = (-np.inf, np.iinfo(np.int32).max)
+        for c in (cands[i] for i in order_rng.permutation(split)):
+            if _better(*c, *best):
+                best = c
+        out.append(best[1])
+    return np.asarray(out, np.int32)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("b,v,offset", [(5, 32000, 0), (5, 32000, 1),
+                                        (10, 130, 3), (5, 151936, 1),
+                                        (64, 4200, 0)])
+def test_argmax_split_then_combine_matches_jnp(b, v, offset, dtype):
+    rng = np.random.default_rng(b * v + offset)
+    x = sampling.argmax_boundary_logits(rng, b, v)
+    xj = jnp.asarray(x)
+    if dtype == "bfloat16":
+        xj = xj.astype(jnp.bfloat16)
+    want = np.asarray(jnp.argmax(xj, axis=-1))
+    vals = np.asarray(xj.astype(jnp.float32))
+    got = _split_argmax_emulation(vals, offset,
+                                  2 if dtype == "bfloat16" else 4, rng)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_sample_greedy_and_unported_methods():
