@@ -21,7 +21,11 @@ failure):
                SDPA's flash backend on full-length rows; argmax with ties
                and NaN either side of its split boundaries, views from
                column 1, V = 32000, B = 1 and 64; the fp paged
-               kernel also with fp32 pages under a bf16 query; the SSD
+               kernel also with fp32 pages under a bf16 query; the int8
+               paged kernel across its cluster split (a row of 38 pages,
+               rows shorter than the cluster, G = 32 at Dh 128, pages of
+               8 and 32, the scheduler's 64-page table; a row of no past
+               token exactly v_new); the SSD
                scan, a reordered sum, at fp32 rtol=2e-4, atol=2e-5:
                ragged S, S < chunk, dv over two tiles, normalize, a
                carried state, log_f = -30, mLSTM's dk = dv = 512, the
@@ -30,7 +34,7 @@ failure):
                PyTorch call computes the same function, that call
                (``library_ms``; the port never calls it); the host's
                microseconds a call for flash and argmax beside their
-               library calls;
+               library calls, and for the int8 paged wrapper;
 4. generate  - qwen2-0.5b at full width (24 layers, bf16, random weights
                from seed 0) serving 8 ragged prompts through
                ``Engine.generate`` with a paged KV cache, greedy, 32 new
@@ -69,11 +73,12 @@ failure):
 11. case kernels - the tool layer's case-study kernels against their plain
                versions (fp32 rtol=atol=1e-5, bf16 3e-2): STREAM triad at
                N = 128, 4096, 128*513 and 2^27, fp32 and bf16, one CTA at
-               the small N, unaligned views; Jacobi-7 at T = 1..4 on
+               the small N, unaligned views, bit-equal across block_rows
+               and one CTA; Jacobi-7 at T = 1..4 on
                (10,18,130), (16,26,130), (37,45,99) (ragged edge tiles,
                bit-equal across tiles) and 512^3; times as in phase 3
                (``library_ms``: ``torch.add(b, c, alpha=s, out=a)`` for the
-               triad; a ``conv3d`` with the 6-neighbour filter, TF32 off,
+               triad, also printed in bf16; a ``conv3d`` with the 6-neighbour filter, TF32 off,
                is timed beside one naive sweep);
 12. perfctr  - the case studies at full size (triad 2^27 fp32, 100
                samples; Jacobi 512^3, 4 naive sweeps against one T=4
@@ -280,11 +285,12 @@ def check_flash(dev, timer):
                 bound_by=by, library_ms=library_ms)
 
 
-def plan_table(lens, extra, ps, rng=None):
+def plan_table(lens, extra, ps, rng=None, width=None):
     """Row-major page table as Engine._page_plan lays it out (optionally
-    with shuffled physical ids and garbage past the live pages)."""
+    with shuffled physical ids and garbage past the live pages, and
+    widened to ``width`` pages a row, as the scheduler's pool tables)."""
     per_row = [-(-(n + extra) // ps) for n in lens]
-    width = max(per_row)
+    width = max(max(per_row), width or 0)
     num_pages = -(-(1 + sum(per_row)) // 16) * 16
     table = np.zeros((len(lens), width), np.int32)
     ids = np.arange(1, 1 + sum(per_row))
@@ -372,13 +378,14 @@ def check_paged(dev, timer):
 
 def check_paged_q8(dev, timer):
     from repro_torch.kernels.paged_decode import (
-        paged_decode_attention_q8_grouped, paged_decode_q8_plain)
+        paged_decode_attention_q8_grouped, paged_decode_q8_plain,
+        q8_split_plan)
     rng = np.random.default_rng(4)
 
-    def case(lens, kvh, g, dh, ps, dtype, extra, shuffle):
+    def case(lens, kvh, g, dh, ps, dtype, extra, shuffle, width=None):
         b = len(lens)
         table, num_pages = plan_table(lens, extra, ps,
-                                      rng if shuffle else None)
+                                      rng if shuffle else None, width)
 
         def rnd(*shape):
             return torch.from_numpy(rng.standard_normal(shape, np.float32)
@@ -399,14 +406,15 @@ def check_paged_q8(dev, timer):
         got = paged_decode_attention_q8_grouped(*args)
         want = paged_decode_q8_plain(*args)
         torch.cuda.synchronize()
+        split = q8_split_plan(b, kvh, table.shape[1])
         name = (f"paged q8 lens={lens} kvh{kvh} g{g} dh{dh} ps{ps} "
-                f"{str(dtype)[6:]} shuffled={shuffle}")
+                f"{str(dtype)[6:]} shuffled={shuffle} NP={table.shape[1]} "
+                f"split={split}")
         err = close(name, got, want)
-        if 0 in lens:                 # an empty row outputs exactly v_new
-            i = lens.index(0)
-            vn = args[8][i][:, None, :].expand_as(got[i])
-            torch.testing.assert_close(got[i].float(), vn.float(),
-                                       **TOL[dtype])
+        for i, n in enumerate(lens):  # an empty row outputs exactly v_new
+            if n == 0 and not torch.equal(
+                    got[i], args[8][i][:, None, :].expand_as(got[i])):
+                fail(f"{name}: row {i} has no past token but is not v_new")
         return err, args
 
     # length 0, 1, a partial page and multi-page lengths; shuffled tables
@@ -415,14 +423,30 @@ def check_paged_q8(dev, timer):
     case([0, 1, 5, 33, 64], 2, 4, 32, 8, torch.float32, 3, True)
     case([3, 17], 1, 7, 128, 16, torch.float32, 2, True)
     case([9, 0, 30], 2, 7, 16, 16, torch.bfloat16, 5, True)
+    # the cluster split: a row of 38 pages (past 8 CTAs x 4 ring slots)
+    # beside rows shorter than the cluster, a row of 0 pages and a
+    # partial one; G = 32 at Dh 128; pages of 8 and 32 tokens; the
+    # scheduler's table width (64 pages a row) far past the live pages
+    for dtype in (torch.float32, torch.bfloat16):
+        case([600, 0, 5, 20, 47], 2, 7, 64, 16, dtype, 3, True)
+        case([300, 1, 0, 65], 1, 32, 128, 16, dtype, 2, True)
+        case([250, 7, 0, 40], 2, 7, 64, 8, dtype, 1, True)
+        case([900, 33, 0, 64], 2, 4, 32, 32, dtype, 5, True)
+        case([500, 16, 0, 3], 2, 7, 64, 16, dtype, 0, False, width=64)
     # the scheduler's decode shape: 8 slots, lengths prompt+16
     main_lens = [n + 16 for n in PROMPT_LENS]
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
+    case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16, MAX_NEW - 16,
+         False, width=64)
     err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
                      MAX_NEW - 16, False)
 
     ms = timer.ms(lambda: paged_decode_attention_q8_grouped(*args))
     plain_ms = timer.ms(lambda: paged_decode_q8_plain(*args))
+    log(f"  paged_decode_q8 host us a call: wrapper "
+        f"{host_us(lambda: paged_decode_attention_q8_grouped(*args)):.2f} "
+        f"(kernel timer {ms:.4f} ms, split "
+        f"{q8_split_plan(len(main_lens), 2, args[5].shape[1])} CTAs a row)")
     q4, _, _, _, _, _, _, kn, _ = args
     b, kvh, g, dh = q4.shape
     live_pages = sum(-(-n // PAGE_SIZE) for n in main_lens)
@@ -1078,6 +1102,18 @@ def check_triad(dev, timer):
                           f"{pipelined}", got, want)
             if n == TRIAD_N and dtype == torch.float32:
                 err, last = e, (b, c)
+            if n == 128 * 513:       # the schedule never changes a bit
+                base = stream_triad(b, c)
+                for rows in (1, 3, 256):
+                    if not torch.equal(stream_triad(b, c, block_rows=rows),
+                                       base):
+                        fail(f"triad N={n} {dtype}: block_rows={rows} "
+                             f"changes the result")
+                if not torch.equal(stream_triad(b, c, pipelined=False),
+                                   base):
+                    fail(f"triad N={n} {dtype}: one CTA changes the result")
+                log(f"  ok triad N={n} {str(dtype)[6:]}: bit-equal across "
+                    f"block_rows 1, 3, 256, default and one CTA")
         # views that start 4 bytes past a 16-byte boundary: scalar path
         buf = torch.randn(n + 1, generator=gen, device=dev)
         close(f"triad N={n} fp32 unaligned views",
@@ -1090,8 +1126,11 @@ def check_triad(dev, timer):
     library_ms = timer.ms(lambda: torch.add(b, c, alpha=2.5, out=a))
     bms, by = bound_ms(3 * 4 * TRIAD_N, 2.0 * TRIAD_N, F32_FLOPS)
     b16, c16 = b.bfloat16(), c.bfloat16()
+    a16 = torch.empty_like(b16)
     log(f"  triad N=2^27 bf16: {timer.ms(lambda: stream_triad(b16, c16)):.4f}"
-        f" ms (bound {bound_ms(3 * 2 * TRIAD_N, 0.0)[0]:.4f})")
+        f" ms, torch.add bf16 "
+        f"{timer.ms(lambda: torch.add(b16, c16, alpha=2.5, out=a16)):.4f} "
+        f"ms (bound {bound_ms(3 * 2 * TRIAD_N, 0.0)[0]:.4f})")
     return dict(name="stream_triad", route="cuda",
                 source="src/repro_torch/csrc/stream_triad.cu",
                 replaces="src/repro/kernels/stream_triad.py:32",

@@ -1,0 +1,217 @@
+"""Device-only and host time of the decode and triad kernels, on one card.
+
+    python -m repro_torch.bench.profile_kernels [--json out.json]
+    PYTHONPATH=<other tree>/src python src/repro_torch/bench/profile_kernels.py
+
+Runs the int8 paged decode kernel (#3) and the fp paged decode kernel
+(#2) at ``chip_smoke.py`` phase 3's main shape (q4 [8,2,7,64] bf16,
+pages of 16 tokens, lengths prompt+16 for prompts 512..1, the page table
+as ``plan_table`` lays it out) and the same q8 call at the scheduler's
+table width (64 pages a row), and the STREAM triad (#6) at N = 2^27 in
+fp32 and bf16 beside ``torch.add(b, c, alpha=2.5, out=a)``.  For each
+call it reports:
+
+* ``device_us``: device time a launch under ``torch.profiler``, 100
+  launches with the 50 MB L2 flushed before each (the flush kernel is
+  left out of the sum);
+* ``device_us_warm``: the same, launches back to back (L2 warm);
+* ``timer_ms``: ``chip_smoke.py``'s ``Timer`` reading (median of 25
+  launches between CUDA events, the L2 flushed before each), which counts
+  a call's host enqueue where it outlasts the flush;
+* ``host_us``: host microseconds a call takes to enqueue its work;
+
+and for the triad in each dtype, ``turns`` pairs of ``Timer`` readings,
+the kernel's and then ``torch.add``'s, so the two are compared in
+alternation on one card: the median ratio and how many pairs the kernel
+won (``--turns``, default 8).
+
+The second form runs this file against another tree's ``repro_torch``
+(the parent commit unpacked with ``git archive``), so two versions are
+compared in one call on one card.  Prints one JSON object; needs a CUDA
+card and exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.bench.profile_generate import _device_time_us
+
+PROMPT_LENS = (512, 384, 301, 256, 129, 64, 17, 1)
+DECODED = 16                 # phase 3's lengths: prompt + 16 tokens
+EXTRA = 16                   # table room past the lengths (32 new - 16)
+PAGE_SIZE = 16
+SCHED_WIDTH = 64             # max_seq 1024 over 16-token pages
+TRIAD_N = 1 << 27
+FLUSH_BYTES = 64 << 20
+
+
+class Probe:
+    def __init__(self, dev):
+        self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def timer_ms(self, fn, reps: int = 25) -> float:
+        """``chip_smoke.py``'s ``Timer.ms``, unchanged."""
+        fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(reps):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    def device_us(self, fn, flush: bool, n: int = 100) -> float:
+        """Device time a call: every CUDA kernel the calls launched, the
+        flush's fill kernel left out, over ``n`` calls."""
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                if flush:
+                    self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_time_us(a) for a in prof.key_averages()
+                    if a.device_type == torch.autograd.DeviceType.CUDA
+                    and "Fill" not in a.key)
+        return total / n
+
+    @staticmethod
+    def host_us(fn, n: int = 200) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def all(self, fn) -> dict:
+        return dict(device_us=self.device_us(fn, True),
+                    device_us_warm=self.device_us(fn, False),
+                    timer_ms=self.timer_ms(fn), host_us=self.host_us(fn))
+
+
+def paged_inputs(dev, q8: bool, width=None, seed: int = 4):
+    """Phase 3's main decode call: row-major page table (ids 1..), room
+    for EXTRA more tokens a row, optionally widened to ``width``."""
+    rng = np.random.default_rng(seed)
+    lens = [n + DECODED for n in PROMPT_LENS]
+    kvh, g, dh, ps = 2, 7, 64, PAGE_SIZE
+    per_row = [-(-(n + EXTRA) // ps) for n in lens]
+    np_w = max(width or 0, max(per_row))
+    num_pages = -(-(1 + sum(per_row)) // 16) * 16
+    table = np.zeros((len(lens), np_w), np.int32)
+    nxt = 1
+    for i, npg in enumerate(per_row):
+        table[i, :npg] = np.arange(nxt, nxt + npg)
+        nxt += npg
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, torch.bfloat16)
+
+    def codes():
+        return torch.from_numpy(rng.integers(
+            -127, 128, (num_pages, ps, kvh, dh)).astype(np.int8)).to(dev)
+
+    def scales():
+        return torch.from_numpy(rng.uniform(
+            0.005, 0.05, (num_pages, ps)).astype(np.float32)).to(dev)
+
+    b = len(lens)
+    pt = torch.from_numpy(table).to(dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if q8:
+        return (rnd(b, kvh, g, dh), codes(), codes(), scales(), scales(), pt,
+                ln, rnd(b, kvh, dh), rnd(b, kvh, dh))
+    return (rnd(b, kvh, g, dh), rnd(num_pages, ps, kvh, dh),
+            rnd(num_pages, ps, kvh, dh), pt, ln, rnd(b, kvh, dh),
+            rnd(b, kvh, dh))
+
+
+def in_turns(probe: Probe, fn, ref, turns: int) -> dict:
+    """``turns`` pairs of Timer readings, ``fn`` then ``ref``."""
+    pairs = [(probe.timer_ms(fn), probe.timer_ms(ref)) for _ in range(turns)]
+    return dict(ms=statistics.median(p[0] for p in pairs),
+                ref_ms=statistics.median(p[1] for p in pairs),
+                ratio=statistics.median(p[0] / p[1] for p in pairs),
+                wins=sum(p[0] <= p[1] for p in pairs), turns=turns)
+
+
+def profile(dev, turns: int) -> dict:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_decode import (
+        paged_decode_attention_grouped, paged_decode_attention_q8_grouped)
+    from repro_torch.kernels.stream_triad import stream_triad
+    _build.build_all()
+    probe = Probe(dev)
+    out = {}
+    args = paged_inputs(dev, q8=True)
+    out["paged_decode_q8"] = probe.all(
+        lambda: paged_decode_attention_q8_grouped(*args))
+    wide = paged_inputs(dev, q8=True, width=SCHED_WIDTH)
+    out["paged_decode_q8_np64"] = probe.all(
+        lambda: paged_decode_attention_q8_grouped(*wide))
+    fp = paged_inputs(dev, q8=False)
+    out["paged_decode"] = probe.all(
+        lambda: paged_decode_attention_grouped(*fp))
+    del args, wide, fp
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        b = torch.randn(TRIAD_N, generator=gen, device=dev).to(dtype)
+        c = torch.randn(TRIAD_N, generator=gen, device=dev).to(dtype)
+        a = torch.empty_like(b)
+        out[f"stream_triad_{tag}"] = probe.all(lambda: stream_triad(b, c))
+        out[f"torch_add_{tag}"] = probe.all(
+            lambda: torch.add(b, c, alpha=2.5, out=a))
+        out[f"stream_triad_{tag}_vs_torch_add"] = in_turns(
+            probe, lambda: stream_triad(b, c),
+            lambda: torch.add(b, c, alpha=2.5, out=a), turns)
+        del a, b, c
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--turns", type=int, default=8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    import repro_torch
+    res = dict(kernels=profile(torch.device("cuda", 0), args.turns),
+               package=str(repro_torch.__file__),
+               device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               torch=torch.__version__, cuda=torch.version.cuda)
+    text = json.dumps(res)
+    print(text)
+    if args.json:
+        with open(args.json, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -84,8 +84,8 @@ def measure_map(sizes: Optional[List[int]] = None, *, repeats: int = 5,
     """Measured triad bandwidth over a working-set sweep.  ``device=None``
     means ``cuda``; on the CPU the wrapper runs its plain version, timed
     with ``perf_counter``."""
-    from repro_torch.kernels.stream_triad import (LANES, stream_triad,
-                                                  triad_bytes)
+    from repro_torch.kernels.stream_triad import (LANES, default_block_rows,
+                                                  stream_triad, triad_bytes)
     dev = resolve_device(device)
     chip = chip or hwinfo.current_chip(dev)
     esize = torch.empty((), dtype=dtype).element_size()
@@ -94,9 +94,11 @@ def measure_map(sizes: Optional[List[int]] = None, *, repeats: int = 5,
     for ws in sizes or DEFAULT_SIZES:
         rows = max(ws // (3 * esize) // LANES, 1)
         n = rows * LANES
-        # enough CTAs to fill the card (8 per SM) at every working set, so
-        # the map shows the memory level and not the kernel's schedule
-        block_rows = max(1, min(256, rows // (8 * max(chip.sm_count, 1))))
+        # one CTA a tile: tiles smaller than the kernel's default where
+        # that gives enough CTAs to fill the card (8 per SM), so the map
+        # shows the memory level and not the kernel's schedule
+        block_rows = max(1, min(default_block_rows(esize),
+                                rows // (8 * max(chip.sm_count, 1))))
         # distinct streams, so no backend can fold b and c into one
         b = torch.randn(n, generator=gen, device=dev).to(dtype)
         c = torch.randn(n, generator=gen, device=dev).to(dtype)

@@ -5,92 +5,165 @@
 // kernel (paged_decode.cu) over int8 codes: pages [P,ps,KVH,Dh] int8 with
 // one f32 scale per (page, position) in k_scale/v_scale [P,ps], shared by
 // every KV head of that token row.  Codes are dequantized in registers as
-// code * scale[page, pos] right after the load; the new token's K/V stay
-// in the model dtype (it is not in a page yet).  Only live pages
-// j*ps < length[b] are read, the partial last page is masked with -2e38,
-// the new token is folded in last and the divide clamps l at 1e-20, so
-// length == 0 outputs exactly v_new.
+// code * scale[page, pos] at the dot product and at the PV update; the new
+// token's K/V stay in the model dtype (it is not in a page yet).  Only
+// live pages j*ps < length[b] are read, the partial last page is masked
+// with -2e38, the new token is folded in last and the divide clamps l at
+// 1e-20, so length == 0 outputs exactly v_new.
 //
-// What bounds it on this card: device memory, as for the fp kernel, and at
-// decode batch sizes the latency of few blocks (B*KVH = 16 blocks for 132
-// SMs at the main shape).  Its design is about bytes: device memory sees
-// only the int8 codes (16-byte vector loads, one token row of one head is
-// Dh bytes) and one f32 scale per token, half the page bytes of bf16; the
-// dequantized page is staged in shared memory in fp32 and consumed by the
-// same per-warp online softmax as the fp kernel (paged_attend.cuh), one
-// block per (kv head, batch row) serving all G query heads so a page is
-// read once.  Accumulation is fp32; q and the output stay in the model
-// dtype.  A split-K variant is later work.
-#include "paged_attend.cuh"
+// What bounds it on this card: at decode batch sizes, latency.  The bytes
+// are few (int8 codes, 264 B a token at Dh 64 with its two scales: 0.47
+// MB, 0.15 us at 3.35 TB/s, at the main shape), so the time is the chain
+// of dependent steps a block walks: a grid of one block per (kv head,
+// batch row), 16 blocks for 132 SMs, walking up to 33 pages one at a time
+// with no load in flight while a page is consumed, was ~480x its byte
+// bound.  Its design (paged_split.cuh): flash-decoding over a thread block
+// cluster.  The grid is (S, KVH, B), a cluster of S <= 8 CTAs along x per
+// (kv head, batch row), S chosen by the wrapper from shapes only (128 CTAs
+// at the main shape); CTA r takes its share of the row's live pages,
+// computed on the device from lengths[b].  A CTA keeps a ring of kStages
+// pages of int8 codes and their scales in shared memory, filled by
+// cp.async (16 bytes a copy; a token row of one head is Dh bytes at a
+// stride of KVH*Dh) while earlier pages are consumed, so up to kStages - 1
+// pages are in flight behind the one being read.  One warp per query head
+// of the group; its lanes split a key's head dims in 16-dim slices, so a
+// page of 16 keys at Dh 64 keeps all 32 lanes busy.  The cluster's
+// partials merge in rank 0 through distributed shared memory: one launch,
+// no global scratch, no second pass.  Accumulation is fp32; q and the
+// output stay in the model dtype.
+#include "paged_split.cuh"
+#include "tensor_core.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kVec = 16;                   // bytes per vector load
+constexpr int kStages = 4;               // pages in the shared-memory ring
+constexpr int kVec = 16;                 // bytes a cp.async
+
+// bytes of one ring slot: K and V codes [ps][DH] each, then the two
+// [ps] f32 scales, rounded up to 16 bytes (the wrapper's twin:
+// paged_decode.py::q8_smem_bytes)
+__host__ __device__ inline int slot_bytes(int ps, int dh) {
+  return 2 * ps * dh + (8 * ps + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t smem_bytes(int ps, int dh, int g) {
+  return (size_t)kStages * slot_bytes(ps, dh) + sizeof(float) * g * (dh + 2);
+}
 
 template <typename T, int DH>
-__global__ void paged_decode_q8_kernel(const T* __restrict__ q4,
-                                       const int8_t* __restrict__ kp,
-                                       const int8_t* __restrict__ vp,
-                                       const float* __restrict__ ksc,
-                                       const float* __restrict__ vsc,
-                                       const int* __restrict__ pt,
-                                       const int* __restrict__ lengths,
-                                       const T* __restrict__ kn,
-                                       const T* __restrict__ vn,
-                                       T* __restrict__ out, int KVH, int G,
-                                       int ps, int NP, float scale) {
-  static_assert(DH % kVec == 0, "a token row must be whole 16-byte vectors");
-  constexpr int VPR = DH / kVec;           // vectors per token row
-  extern __shared__ float smem[];
-  float* ks = smem;                        // [ps][DH + 1]
-  float* vs = ks + ps * (DH + 1);          // [ps][DH]
-  float* qs = vs + ps * DH;                // [G][DH], pre-scaled
+__global__ void __launch_bounds__(1024)
+paged_decode_q8_kernel(const T* __restrict__ q4,
+                       const int8_t* __restrict__ kp,
+                       const int8_t* __restrict__ vp,
+                       const float* __restrict__ ksc,
+                       const float* __restrict__ vsc,
+                       const int* __restrict__ pt,
+                       const int* __restrict__ lengths,
+                       const T* __restrict__ kn, const T* __restrict__ vn,
+                       T* __restrict__ out, int KVH, int G, int ps, int NP,
+                       float scale) {
+  using L = split::Lanes<DH>;
+  constexpr int S16 = split::kSlice;
+  constexpr int VPR = DH / kVec;         // 16-byte copies per token row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slot = slot_bytes(ps, DH);
+  float* part_base = reinterpret_cast<float*>(smem + kStages * slot);
+  const split::Partial part{part_base + G * DH, part_base + G * DH + G,
+                            part_base};   // m [G], l [G], acc [G][DH]
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = gridDim.x;               // the cluster spans x
+  const int rank = blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int g = tid / 32, lane = tid % 32;
+  const int kg = lane / L::LPK, ds = lane % L::LPK;
   const int64_t head = (int64_t)b * KVH + h;
 
-  for (int idx = tid; idx < G * DH; idx += nthr)
-    qs[idx] = load_f32(q4, head * G * DH + idx) * scale;
+  float q[S16];                          // this lane's slice, pre-scaled
+  {
+    const T* qrow = q4 + (head * G + g) * DH + ds * S16;
+#pragma unroll
+    for (int k = 0; k < S16; ++k) q[k] = load_f32(qrow, k) * scale;
+  }
 
   const int len = max(lengths[b], 0);
   const int n_pages = min((len + ps - 1) / ps, NP);
+  int j0, j1;
+  split::page_range(rank, S, n_pages, j0, j1);
   const int64_t tok_stride = (int64_t)KVH * DH;
   const int64_t page_stride = (int64_t)ps * tok_stride;
-  const float* qg = qs + g * DH;
+  const int* row_pt = pt + (int64_t)b * NP;
 
-  PagedSoftmax<DH> sm;
-  sm.init();
-  for (int j = 0; j < n_pages; ++j) {
-    __syncthreads();          // q staged / the previous page consumed
-    const int64_t page = pt[(int64_t)b * NP + j];
-    const int64_t base = page * page_stride + (int64_t)h * DH;
+  // every thread copies its share of page j into ring slot j % kStages
+  auto fetch = [&](int j) {
+    unsigned char* dst = smem + (j % kStages) * slot;
+    const int64_t page = row_pt[j];
+    const int8_t* kb = kp + page * page_stride + (int64_t)h * DH;
+    const int8_t* vb = vp + page * page_stride + (int64_t)h * DH;
     for (int idx = tid; idx < ps * VPR; idx += nthr) {
       const int t = idx / VPR, c = (idx % VPR) * kVec;
-      const int64_t off = base + t * tok_stride + c;
-      const int4 kraw = *reinterpret_cast<const int4*>(kp + off);
-      const int4 vraw = *reinterpret_cast<const int4*>(vp + off);
-      const float k_s = ksc[page * ps + t], v_s = vsc[page * ps + t];
-      const unsigned w[4] = {(unsigned)kraw.x, (unsigned)kraw.y,
-                             (unsigned)kraw.z, (unsigned)kraw.w};
-      const unsigned x[4] = {(unsigned)vraw.x, (unsigned)vraw.y,
-                             (unsigned)vraw.z, (unsigned)vraw.w};
-#pragma unroll
-      for (int u = 0; u < kVec; ++u) {
-        // byte u of the vector (little-endian), sign-extended
-        const int sh = 24 - 8 * (u % 4);
-        const int kc = static_cast<int>(w[u / 4] << sh) >> 24;
-        const int vc = static_cast<int>(x[u / 4] << sh) >> 24;
-        ks[t * (DH + 1) + c + u] = (float)kc * k_s;
-        vs[t * DH + c + u] = (float)vc * v_s;
-      }
+      cp_async16(smem_u32(dst + t * DH + c), kb + t * tok_stride + c, kVec);
+      cp_async16(smem_u32(dst + (ps + t) * DH + c), vb + t * tok_stride + c,
+                 kVec);
     }
-    __syncthreads();
-    sm.consume(ks, vs, qg, ps, j * ps, len, lane);
+    float* sc = reinterpret_cast<float*>(dst + 2 * ps * DH);
+    for (int idx = tid; idx < 2 * ps; idx += nthr)
+      split::cp_async4(sc + idx, idx < ps ? ksc + page * ps + idx
+                                          : vsc + page * ps + (idx - ps));
+  };
+
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (j0 + i < j1) fetch(j0 + i);
+    cp_async_commit();
   }
-  if (n_pages == 0) __syncthreads();        // q staged before it is read
-  sm.finish(qg, kn, vn, head * DH, out + (head * G + g) * DH, lane);
+  split::Softmax<DH> sm;
+  sm.init();
+  for (int j = j0; j < j1; ++j) {
+    cp_async_wait<kStages - 2>();        // page j has landed
+    __syncthreads();                     // ... for every thread; page j-1
+                                         // is consumed by every warp
+    if (j + kStages - 1 < j1) fetch(j + kStages - 1);
+    cp_async_commit();
+    const unsigned char* src = smem + (j % kStages) * slot;
+    const int8_t* kc = reinterpret_cast<const int8_t*>(src);
+    const int8_t* vc = kc + ps * DH;
+    const float* k_s = reinterpret_cast<const float*>(src + 2 * ps * DH);
+    const float* v_s = k_s + ps;
+    for (int t0 = 0; t0 < ps; t0 += L::KPP) {
+      const int t = t0 + kg;
+      const bool in_page = t < ps;
+      const bool ok = in_page && j * ps + t < len;
+      float d = 0.f, v[S16];
+      if (in_page) {
+        const int4 kraw =
+            *reinterpret_cast<const int4*>(kc + t * DH + ds * S16);
+        const int4 vraw =
+            *reinterpret_cast<const int4*>(vc + t * DH + ds * S16);
+        const int8_t* ke = reinterpret_cast<const int8_t*>(&kraw);
+        const int8_t* ve = reinterpret_cast<const int8_t*>(&vraw);
+#pragma unroll
+        for (int k = 0; k < S16; ++k) {
+          d += q[k] * (float)ke[k];
+          v[k] = (float)ve[k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < S16; ++k) v[k] = 0.f;
+      }
+      d = split::xor_sum<1, L::LPK>(d);  // the key's dot over its lanes
+      const float s = ok ? d * k_s[t] : REPRO_NEG_INF;
+      sm.fold(s, ok, v, ok ? v_s[t] : 0.f);
+    }
+  }
+  sm.store(part, g, lane);
+  cluster.sync();                        // every CTA's partial is written
+  if (rank == 0)
+    split::combine_and_finish<DH>(cluster, part, S, g, lane, q, kn, vn,
+                                  head * DH, out + (head * G + g) * DH);
+  cluster.sync();                        // no CTA leaves while rank 0 reads
 }
 
 template <typename T>
@@ -101,26 +174,42 @@ struct Launcher {
   const int *pt, *lengths;
   const void *kn, *vn;
   void* out;
-  int B, KVH, G, ps, NP;
+  int B, KVH, G, ps, NP, n_split;
   float scale;
   cudaStream_t stream;
 
   template <int DH>
   cudaError_t run() const {
-    const size_t smem = sizeof(float) * paged_smem_floats(ps, DH, G);
+    const size_t smem = smem_bytes(ps, DH, G);
     if (smem > 48 * 1024) return cudaErrorInvalidValue;
-    dim3 grid(KVH, B);
-    paged_decode_q8_kernel<T, DH><<<grid, 32 * G, smem, stream>>>(
-        static_cast<const T*>(q4), kp, vp, ksc, vsc, pt, lengths,
-        static_cast<const T*>(kn), static_cast<const T*>(vn),
-        static_cast<T*>(out), KVH, G, ps, NP, scale);
-    return cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_split, KVH, B);
+    cfg.blockDim = dim3(32 * G, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n_split;  // one cluster per (kv head, row)
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, paged_decode_q8_kernel<T, DH>, static_cast<const T*>(q4), kp,
+        vp, ksc, vsc, pt, lengths, static_cast<const T*>(kn),
+        static_cast<const T*>(vn), static_cast<T*>(out), KVH, G, ps, NP,
+        scale);
+    return err != cudaSuccess ? err : cudaGetLastError();
   }
 
   cudaError_t dispatch(int Dh) const {
-#define REPRO_LAUNCH(D) run<D>()
-    REPRO_DISPATCH_DH(Dh, REPRO_LAUNCH)
-#undef REPRO_LAUNCH
+    switch (Dh) {
+      case 16: return run<16>();
+      case 32: return run<32>();
+      case 64: return run<64>();
+      case 128: return run<128>();
+      default: return cudaErrorInvalidValue;
+    }
   }
 };
 
@@ -128,8 +217,9 @@ struct Launcher {
 
 // All tensors contiguous on the device, the pages 16-byte aligned;
 // k_scale/v_scale [P,ps] f32; page_table [B,NP] and lengths [B] int32.
-// G (query heads per kv head) must be in [1, 32].  `dtype` is the dtype of
-// q4, k_new, v_new and out.
+// G (query heads per kv head) must be in [1, 32]; `n_split` CTAs a row,
+// in [1, 8] (the wrapper's q8_split_plan).  `dtype` is the dtype of q4,
+// k_new, v_new and out.
 REPRO_EXPORT int paged_decode_q8_fwd(const void* q4, const void* k_pages,
                                      const void* v_pages, const void* k_scale,
                                      const void* v_scale,
@@ -137,9 +227,12 @@ REPRO_EXPORT int paged_decode_q8_fwd(const void* q4, const void* k_pages,
                                      const void* lengths, const void* k_new,
                                      const void* v_new, void* out, int B,
                                      int KVH, int G, int Dh, int ps, int NP,
-                                     float scale, int dtype, void* stream) {
+                                     int n_split, float scale, int dtype,
+                                     void* stream) {
   if (B == 0) return cudaSuccess;
-  if (G < 1 || G > 32 || ps < 1 || KVH < 1) return cudaErrorInvalidValue;
+  if (G < 1 || G > 32 || ps < 1 || KVH < 1 || NP < 0 || B > 65535 ||
+      KVH > 65535 || n_split < 1 || n_split > split::kMaxSplit)
+    return cudaErrorInvalidValue;
   const int8_t* kp = static_cast<const int8_t*>(k_pages);
   const int8_t* vp = static_cast<const int8_t*>(v_pages);
   const float* ksc = static_cast<const float*>(k_scale);
@@ -150,11 +243,12 @@ REPRO_EXPORT int paged_decode_q8_fwd(const void* q4, const void* k_pages,
   cudaError_t err;
   if (dtype == kF32) {
     const Launcher<float> l{q4, kp, vp, ksc, vsc, pt, lens, k_new, v_new,
-                            out, B, KVH, G, ps, NP, scale, s};
+                            out, B, KVH, G, ps, NP, n_split, scale, s};
     err = l.dispatch(Dh);
   } else if (dtype == kBF16) {
     const Launcher<__nv_bfloat16> l{q4, kp, vp, ksc, vsc, pt, lens, k_new,
-                                    v_new, out, B, KVH, G, ps, NP, scale, s};
+                                    v_new, out, B, KVH, G, ps, NP, n_split,
+                                    scale, s};
     err = l.dispatch(Dh);
   } else {
     err = cudaErrorInvalidValue;

@@ -37,7 +37,8 @@ __all__ = ["SOURCES", "CSRC", "build_dir", "build_all", "library", "check",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention", "paged_decode", "paged_decode_q8", "argmax",
            "stream_triad", "jacobi7", "ssd_scan")
-_HEADERS = ("common.cuh", "paged_attend.cuh", "tensor_core.cuh")
+_HEADERS = ("common.cuh", "paged_attend.cuh", "paged_split.cuh",
+            "tensor_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

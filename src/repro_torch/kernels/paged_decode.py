@@ -3,8 +3,10 @@
 Port of ``repro/kernels/paged_decode.py``: the Pallas ``_paged_kernel``
 (fp pages) becomes ``csrc/paged_decode.cu`` and ``_paged_kernel_q8``
 (int8 pages) becomes ``csrc/paged_decode_q8.cu``; their source notes say
-what bounds them on an H100 and how they are laid out.  Contract, shared
-by all four versions:
+what bounds them on an H100 and how they are laid out.  The int8 kernel
+splits each row's pages over a thread block cluster of
+:func:`q8_split_plan` CTAs and merges their partial softmaxes in one
+launch.  Contract, shared by all four versions:
 
 * q4 ``[B,KVH,G,Dh]``; pages ``[P,ps,KVH,Dh]`` (one layer's pool);
   page_table ``[B,NP]`` int32; lengths ``[B]`` int32 (past tokens — the new
@@ -27,6 +29,7 @@ CUDA tensors launch the kernel (or raise — there is no fallback).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -35,6 +38,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["paged_decode_attention_grouped", "paged_decode_plain",
            "paged_decode_attention_q8_grouped", "paged_decode_q8_plain",
+           "q8_split_plan", "q8_smem_bytes",
            "SUPPORTED_HEAD_DIMS"]
 
 NEG_INF = -2.0e38
@@ -51,7 +55,34 @@ _SIG_Q8 = {"paged_decode_q8_fwd": (
     _build.P, _build.P, _build.P,              # q4 kp vp ksc vsc pt lens
                                                # kn vn out
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
-    _build.F, _build.I, _build.P)}             # B KVH G Dh ps NP scale dt st
+    _build.I, _build.F, _build.I, _build.P)}   # B KVH G Dh ps NP split
+                                               # scale dt stream
+#: CTAs a row at most: the portable thread block cluster size
+Q8_MAX_SPLIT = 8
+#: CTAs a launch aims at: one per SM of an H100 SXM (132 SMs)
+Q8_TARGET_CTAS = 132
+#: pages of int8 codes in each CTA's shared-memory ring
+Q8_STAGES = 4
+
+
+@functools.lru_cache(maxsize=64)
+def q8_split_plan(b: int, kvh: int, np_w: int) -> int:
+    """CTAs (one thread block cluster) per (kv head, batch row) of the
+    int8 kernel, from shapes only: as many as the cluster, the table's
+    ``np_w`` pages and a one-wave launch of ~132 CTAs allow.  It never
+    reads ``lengths`` (on the card: a read would sync the host)."""
+    return max(1, min(Q8_MAX_SPLIT, np_w,
+                      -(-Q8_TARGET_CTAS // max(b * kvh, 1))))
+
+
+def q8_smem_bytes(ps: int, dh: int, g: int) -> int:
+    """Shared memory of one CTA of the int8 kernel: a ring of
+    :data:`Q8_STAGES` slots, each the K and V codes ``[ps][dh]`` and their
+    two ``[ps]`` f32 scales (rounded up to 16 bytes), then the partials
+    (m, l, acc ``[dh]``) of its ``g`` query heads
+    (``csrc/paged_decode_q8.cu::smem_bytes``)."""
+    slot = 2 * ps * dh + -(-8 * ps // 16) * 16
+    return Q8_STAGES * slot + 4 * g * (dh + 2)
 
 
 def _check(q4, k_pages, v_pages, page_table, lengths, k_new, v_new,
@@ -151,8 +182,9 @@ def paged_decode_q8_plain(q4: torch.Tensor, k_pages: torch.Tensor,
     return _attend(q4, k_ctx, v_ctx, lengths, k_new, v_new)
 
 
-def _launch_checks(what, q4, k_pages, tensors):
-    """What the CUDA kernels take, beyond the shared contract."""
+def _launch_checks(what, q4, k_pages, tensors, smem):
+    """What the CUDA kernels take, beyond the shared contract; ``smem``:
+    the kernel's shared-memory bytes at these shapes."""
     if q4.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {q4.device}")
     _, _, g, dh = q4.shape
@@ -163,7 +195,7 @@ def _launch_checks(what, q4, k_pages, tensors):
     if not 1 <= g <= 32:
         raise ValueError(f"the {what} kernel serves 1..32 query heads per "
                          f"kv head, got {g}")
-    if 4 * (ps * (2 * dh + 1) + g * dh) > 48 * 1024:
+    if smem > 48 * 1024:
         raise ValueError(f"page_size {ps} x head dim {dh} does not fit the "
                          f"{what} kernel's 48 KB of shared memory")
     if not all(t.is_contiguous() for t in tensors):
@@ -187,8 +219,10 @@ def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
         return paged_decode_plain(q4, k_pages, v_pages, page_table, lengths,
                                   k_new, v_new)
     tensors = (q4, k_pages, v_pages, page_table, lengths, k_new, v_new)
-    _launch_checks("paged decode", q4, k_pages, tensors)
     b, kvh, g, dh = q4.shape
+    ps = k_pages.shape[1]
+    _launch_checks("paged decode", q4, k_pages, tensors,
+                   4 * (ps * (2 * dh + 1) + g * dh))
     out = torch.empty_like(q4)
     lib = _build.library("paged_decode", _SIG)
     with torch.cuda.device(q4.device):
@@ -229,18 +263,20 @@ def paged_decode_attention_q8_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
                                      page_table, lengths, k_new, v_new)
     tensors = (q4, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
                k_new, v_new)
-    _launch_checks("q8 paged decode", q4, k_pages, tensors)
+    b, kvh, g, dh = q4.shape
+    ps, np_w = k_pages.shape[1], page_table.shape[1]
+    _launch_checks("q8 paged decode", q4, k_pages, tensors,
+                   q8_smem_bytes(ps, dh, g))
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("the q8 paged kernel loads 16-byte vectors: the "
                          "pages must start 16-byte aligned")
-    b, kvh, g, dh = q4.shape
     out = torch.empty_like(q4)
     lib = _build.library("paged_decode_q8", _SIG_Q8)
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream(q4.device).cuda_stream
+    guard, stream = _build.launch_on(q4.device)
+    with guard:
         err = lib.paged_decode_q8_fwd(
             *(t.data_ptr() for t in tensors), out.data_ptr(), b, kvh, g, dh,
-            k_pages.shape[1], page_table.shape[1], 1.0 / math.sqrt(dh),
+            ps, np_w, q8_split_plan(b, kvh, np_w), 1.0 / math.sqrt(dh),
             _DTYPE_CODE[q4.dtype], stream)
     _build.check(lib, err, "paged_decode_q8_fwd")
     paged_decode_attention_q8_grouped.launches += 1

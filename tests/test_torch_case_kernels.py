@@ -11,7 +11,10 @@ oracles of ``repro/kernels/ref.py``:
   rtol=2e-4 atol=2e-5, bf16 3e-2 — JAX rounds ``s*c`` and then the sum,
   the port rounds once);
 * Jacobi at rtol=1e-4, atol=1e-5 (the reference's stencil tolerance);
-* the traffic model and the triad byte model exactly.
+* the traffic model and the triad byte model exactly;
+* the triad kernel's schedule (:func:`triad_plan`'s grid and tiles, each
+  thread's 16-byte vectors and scalar tail), emulated: it writes every
+  element exactly once.
 """
 
 import jax.numpy as jnp
@@ -32,8 +35,10 @@ from repro_torch.kernels.jacobi7 import (SMEM_PER_BLOCK, jacobi7_naive,
                                          jacobi7_wavefront, kernel_bytes,
                                          lattice_updates, smem_footprint,
                                          traffic_model)
-from repro_torch.kernels.stream_triad import (stream_triad,
-                                              stream_triad_plain, triad_bytes)
+from repro_torch.kernels.stream_triad import (TRIAD_THREADS,
+                                              stream_triad,
+                                              stream_triad_plain, triad_bytes,
+                                              triad_plan)
 
 torch.set_num_threads(1)
 
@@ -81,6 +86,70 @@ def test_triad_block_rows_does_not_change_the_result():
     base = stream_triad(b, c)
     for rows in (1, 3, 256):
         assert torch.equal(stream_triad(b, c, block_rows=rows), base)
+
+
+def _tile_coverage(length, esize, vector_ok):
+    """Writes per element of one tile of ``length`` elements, as the
+    kernel's threads take it: with ``vector_ok`` thread x takes the
+    16-byte vectors x, x + 256, ..., then every thread the scalar tail x,
+    x + 256, ...; without it, the scalars only."""
+    kn = 16 // esize
+    counts = np.zeros(length, np.int64)
+    tail = 0
+    if vector_ok:
+        nvec = length // kn
+        for x in range(TRIAD_THREADS):
+            for v in range(x, nvec, TRIAD_THREADS):
+                counts[v * kn:(v + 1) * kn] += 1
+        tail = nvec * kn
+    for x in range(TRIAD_THREADS):
+        counts[tail + x::TRIAD_THREADS] += 1
+    return counts
+
+
+@pytest.mark.parametrize("n", [128, 128 * 3, 128 * 513, 1 << 27])
+@pytest.mark.parametrize("esize", [4, 2])
+def test_triad_schedule_writes_every_element_once(n, esize):
+    schedules = [(None, True), (1, True), (3, True), (256, True)]
+    if n < 1 << 20:                        # one CTA over the whole array
+        schedules.append((None, False))
+    for rows, pipelined in schedules:
+        grid, tile = triad_plan(n, esize, rows, pipelined)
+        assert tile % 128 == 0 and grid >= 1
+        tiles = -(-n // tile)
+        if not pipelined:
+            assert (grid, tile) == (1, n)
+        elif rows is None:                 # one vector a thread a tile
+            assert tile == min(TRIAD_THREADS * 16 // esize, n)
+        else:
+            assert tile == min(rows * 128, n)
+        if pipelined:                      # one CTA a tile
+            assert grid == tiles
+        # CTA i takes tiles i, i + grid, ...: each tile exactly once
+        taken = np.concatenate([np.arange(i, tiles, grid)
+                                for i in range(grid)])
+        np.testing.assert_array_equal(np.sort(taken), np.arange(tiles))
+        # aligned views take the vector path, unaligned ones the scalars;
+        # within the tiles (all full but the last) every element once
+        for vector_ok in (True, False):
+            for length in {tile, n - (tiles - 1) * tile}:
+                assert (_tile_coverage(length, esize, vector_ok) == 1).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_triad_schedule_and_alignment_never_change_the_result(dtype):
+    n = 128 * 513
+    buf = torch.from_numpy(_normal(3, n + 1)).to(TORCH[dtype])
+    b, c = buf[:-1].clone(), buf[1:].clone()
+    base = stream_triad(b, c)
+    assert torch.equal(base, stream_triad_plain(b, c))
+    for rows in (None, 1, 3, 256):
+        for pipelined in (True, False):
+            assert torch.equal(stream_triad(b, c, block_rows=rows,
+                                            pipelined=pipelined), base)
+    # views that start one element past a 16-byte boundary
+    assert torch.equal(stream_triad(buf[1:], buf[:-1]),
+                       stream_triad_plain(buf[1:], buf[:-1]))
 
 
 def test_triad_rejects_unaligned_and_mismatched():

@@ -14,15 +14,19 @@ kernels run in interpret mode and to the JAX oracles in
 * the int8 KV quantizer: codes bit-equal to the JAX package's;
 * argmax, exactly, including ties and rows of -inf.
 
-Two kernels' numerics are emulated here, since their CUDA code runs only
-on the card: the bf16 flash kernel's tensor-core rounding (P rounded to
-bf16 before PV, fp32 accumulation, bf16 output), held to the plain
-version and the Pallas kernel within the card's bf16 tolerance; and the
+Three kernels' numerics are emulated here, since their CUDA code runs
+only on the card: the bf16 flash kernel's tensor-core rounding (P rounded
+to bf16 before PV, fp32 accumulation, bf16 output), held to the plain
+version and the Pallas kernel within the card's bf16 tolerance; the
 argmax kernel's split of a row over a cluster of CTAs (its plan, each
 CTA's scalar head, 16-byte body and scalar tail, and the combine), held
-to ``jnp.argmax`` on ties and NaN at the split boundaries.
+to ``jnp.argmax`` on ties and NaN at the split boundaries; and the int8
+paged kernel's split of a row's pages over a cluster (its plan, each
+CTA's page range and partial softmax, and the combine in any order), held
+to the plain version and the Pallas kernel at the fp32 tolerance.
 """
 
+import inspect
 import math
 
 import jax.numpy as jnp
@@ -43,8 +47,9 @@ from repro_torch.kernels.flash_attention import (NEG_INF,
                                                  flash_attention_bhsd,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_decode import (
-    paged_decode_attention_grouped, paged_decode_attention_q8_grouped,
-    paged_decode_plain, paged_decode_q8_plain)
+    Q8_MAX_SPLIT, paged_decode_attention_grouped,
+    paged_decode_attention_q8_grouped, paged_decode_plain,
+    paged_decode_q8_plain, q8_smem_bytes, q8_split_plan)
 from repro_torch.models.attention import quantize_kv_rows
 
 torch.set_num_threads(1)
@@ -349,6 +354,135 @@ def test_paged_q8_wrapper_dispatches_cpu_and_validates():
         paged_decode_attention_grouped(*fp)
 
 
+# (b, kvh, np_w) -> CTAs a row: the portable cluster of 8 when the launch
+# has few rows, fewer when the table is narrower or the launch would pass
+# one wave of ~132 CTAs
+Q8_PLANS = [(8, 2, 34, 8), (8, 2, 64, 8), (1, 1, 1, 1), (3, 2, 5, 5),
+            (32, 2, 64, 3), (64, 2, 64, 2), (66, 2, 64, 1), (200, 8, 64, 1)]
+
+
+def q8_page_range(rank, split, n_pages):
+    """The live pages ``[j0, j1)`` that CTA ``rank`` of a row's ``split``
+    takes (``csrc/paged_split.cuh::page_range``, computed on the device
+    from ``lengths``)."""
+    return rank * n_pages // split, (rank + 1) * n_pages // split
+
+
+@pytest.mark.parametrize("b,kvh,np_w,split", Q8_PLANS)
+def test_q8_split_plan_reads_only_shapes(b, kvh, np_w, split):
+    # the plan takes shapes and nothing else: lengths live on the card
+    assert list(inspect.signature(q8_split_plan).parameters) == \
+        ["b", "kvh", "np_w"]
+    got = q8_split_plan(b, kvh, np_w)
+    assert got == split
+    assert 1 <= got <= Q8_MAX_SPLIT == 8 and got <= np_w
+    # every live-page count a row can have splits into consecutive ranges
+    # that cover it, balanced to within one page
+    for n in range(np_w + 1):
+        ranges = [q8_page_range(r, got, n) for r in range(got)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a[1] == c[0] for a, c in zip(ranges, ranges[1:]))
+        sizes = [j1 - j0 for j0, j1 in ranges]
+        assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+
+
+def test_q8_smem_footprint_fits_every_shape_the_card_checks():
+    # ring of 4 pages (codes + scales) and the partials of G heads
+    assert q8_smem_bytes(16, 64, 7) == 4 * (2 * 16 * 64 + 128) + 4 * 7 * 66
+    assert q8_smem_bytes(3, 16, 1) == 4 * (2 * 3 * 16 + 32) + 4 * 18
+    # every shape the card checks fits 48 KB; pages of 32 at Dh 128 with
+    # G = 32 do not (nor did they for the fp32-staging kernel before)
+    for ps, dh, g in ((16, 64, 7), (16, 128, 32), (8, 64, 7), (32, 32, 4),
+                      (32, 128, 7)):
+        assert q8_smem_bytes(ps, dh, g) <= 48 * 1024
+    assert q8_smem_bytes(32, 128, 32) > 48 * 1024
+
+
+def _q8_split_emulation(args, split, order_rng):
+    """The int8 kernel's cluster split in fp32 numpy: CTA ``r`` of a row
+    takes the live pages ``q8_page_range(r, split, n_pages)`` (``n_pages``
+    from ``lengths``, at most the table's width) through the page table
+    and keeps a partial (m, l, acc) per query head, the neutral (-2e38, 0,
+    0) when its range is empty; rank 0 merges the partials in a random
+    order, folds the new token in last and divides by max(l, 1e-20)."""
+    q4, kp, vp, ksc, vsc, pt, ln, kn, vn = args
+    b, kvh, g, dh = q4.shape
+    ps, np_w = kp.shape[1], pt.shape[1]
+    neg = np.float32(NEG_INF)
+    out = np.empty_like(q4)
+    for bi in range(b):
+        n_pages = min(-(-max(int(ln[bi]), 0) // ps), np_w)
+        ranges = [q8_page_range(r, split, n_pages) for r in range(split)]
+        for h in range(kvh):
+            q = q4[bi, h] * np.float32(1.0 / math.sqrt(dh))      # [g, dh]
+            parts = []
+            for j0, j1 in ranges:
+                m = np.full(g, neg, np.float32)
+                l = np.zeros(g, np.float32)
+                acc = np.zeros((g, dh), np.float32)
+                for j in range(j0, j1):
+                    assert j * ps < ln[bi]      # only live pages are read
+                    page = pt[bi, j]
+                    live = j * ps + np.arange(ps) < ln[bi]
+                    s = (q @ kp[page, :, h].astype(np.float32).T) \
+                        * ksc[page][None]                       # [g, ps]
+                    s = np.where(live[None], s, neg)
+                    m_new = np.maximum(m, s.max(-1))
+                    alpha = np.exp(m - m_new)
+                    p = np.where(live[None], np.exp(s - m_new[:, None]), 0)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + (p * vsc[page][None]) \
+                        @ vp[page, :, h].astype(np.float32)
+                    m = m_new
+                parts.append((m, l, acc))
+            m = np.max([pm for pm, _, _ in parts], axis=0)
+            l = np.zeros(g, np.float32)
+            acc = np.zeros((g, dh), np.float32)
+            for i in order_rng.permutation(split):    # any merge order
+                pm, pl_, pa = parts[i]
+                w = np.exp(pm - m)
+                l = l + pl_ * w
+                acc = acc + pa * w[:, None]
+            s_t = q @ kn[bi, h]                                   # [g]
+            m_new = np.maximum(m, s_t)
+            alpha = np.exp(m - m_new)
+            p_t = np.exp(s_t - m_new)
+            den = np.maximum(l * alpha + p_t, np.float32(1e-20))
+            out[bi, h] = (acc * alpha[:, None]
+                          + p_t[:, None] * vn[bi, h][None]) / den[:, None]
+    return out
+
+
+Q8_SPLIT_CASES = [
+    # lens, kvh, g, dh, ps, np_w: rows of 0 pages, 1 partial page, fewer
+    # pages than the cluster and many more; tables far wider than the
+    # live pages
+    ([0, 3, 20, 70, 129], 2, 7, 16, 8, 40),
+    ([0, 1, 64, 17], 1, 4, 64, 16, 24),
+    ([5, 0, 33], 2, 3, 32, 4, 9),
+]
+
+
+@pytest.mark.parametrize("lens,kvh,g,dh,ps,np_w", Q8_SPLIT_CASES)
+def test_q8_split_then_combine_matches_plain_and_pallas(lens, kvh, g, dh, ps,
+                                                         np_w):
+    rng = np.random.default_rng(sum(lens) * 3 + np_w)
+    args = _q8_case(rng, lens, kvh, g, dh, ps, np_w)
+    plain = paged_decode_q8_plain(*(torch.from_numpy(a) for a in args))
+    pallas = np.asarray(jax_paged_q8(*(jnp.asarray(a) for a in args),
+                                     interpret=True))
+    vn = args[8]
+    # every split the plan can choose at this table width
+    for split in range(1, min(Q8_MAX_SPLIT, np_w) + 1):
+        got = _q8_split_emulation(args, split, rng)
+        np.testing.assert_allclose(got, plain.numpy(), **TOL)
+        np.testing.assert_allclose(got, pallas, **TOL)
+        for i, n in enumerate(lens):
+            if n == 0:                     # exactly v_new, every split
+                np.testing.assert_array_equal(
+                    got[i], np.broadcast_to(vn[i][:, None], (kvh, g, dh)))
+
+
 def test_quantize_kv_rows_codes_match_jax_bit_for_bit():
     rng = np.random.default_rng(8)
     x = (rng.standard_normal((5, 9, 2, 16)) * rng.uniform(
@@ -488,6 +622,28 @@ def test_argmax_split_then_combine_matches_jnp(b, v, offset, dtype):
     got = _split_argmax_emulation(vals, offset,
                                   2 if dtype == "bfloat16" else 4, rng)
     np.testing.assert_array_equal(got, want)
+
+
+def test_argmax_over_a_row_with_nan_follows_jnp_not_the_pallas_kernel():
+    """A recorded departure: the Pallas kernel drops every 128-column
+    block that holds a NaN (``jnp.max`` is NaN there, ``x == NaN`` matches
+    nothing and ``NaN > cur`` is false), so it disagrees with its own
+    family oracle, ``jnp.argmax``; the port follows ``jnp.argmax`` and
+    ``torch.argmax``: the first NaN wins."""
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((8, 300)).astype(np.float32)
+    x[:, 200] = 50.0                       # the max, in block 1
+    x[0, 5] = np.nan                       # a NaN in block 0
+    x[1, 250] = np.nan                     # a NaN in the max's block
+    got = sampling.block_argmax(torch.from_numpy(x)).numpy()
+    want = np.asarray(jnp.argmax(jnp.asarray(x), axis=-1))
+    pallas = np.asarray(jax_argmax(jnp.asarray(x), block_rows=8,
+                                   block_vocab=128, interpret=True))
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == 5 and got[1] == 250
+    assert pallas[0] == 200                # block 0 dropped: the max wins
+    assert pallas[1] not in (200, 250)     # block 1 dropped with the max
+    np.testing.assert_array_equal(pallas[2:], want[2:])
 
 
 def test_sample_greedy_and_unported_methods():
