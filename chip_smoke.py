@@ -20,12 +20,12 @@ failure):
                tiles, BSHD views at qwen2's and zamba2's shapes, and beside
                SDPA's flash backend on full-length rows; argmax with ties
                and NaN either side of its split boundaries, views from
-               column 1, V = 32000, B = 1 and 64; the fp paged
-               kernel also with fp32 pages under a bf16 query; the int8
-               paged kernel across its cluster split (a row of 38 pages,
-               rows shorter than the cluster, G = 32 at Dh 128, pages of
-               8 and 32, the scheduler's 64-page table; a row of no past
-               token exactly v_new); the SSD
+               column 1, V = 32000, B = 1 and 64; both paged kernels
+               across their cluster split (a row of 38 pages, rows
+               shorter than the cluster, G = 32 at Dh 128, pages of 8 and
+               32, the scheduler's 64-page table; a row of no past token
+               exactly v_new), the fp kernel in fp32, bf16 and with fp32
+               pages under a bf16 query; the SSD
                scan, a reordered sum, at fp32 rtol=2e-4, atol=2e-5:
                ragged S, S < chunk, dv over two tiles, normalize, a
                carried state, log_f = -30, mLSTM's dk = dv = 512, the
@@ -34,7 +34,8 @@ failure):
                PyTorch call computes the same function, that call
                (``library_ms``; the port never calls it); the host's
                microseconds a call for flash and argmax beside their
-               library calls, and for the int8 paged wrapper;
+               library calls, and for both paged wrappers with their
+               split;
 4. generate  - qwen2-0.5b at full width (24 layers, bf16, random weights
                from seed 0) serving 8 ragged prompts through
                ``Engine.generate`` with a paged KV cache, greedy, 32 new
@@ -74,12 +75,16 @@ failure):
                versions (fp32 rtol=atol=1e-5, bf16 3e-2): STREAM triad at
                N = 128, 4096, 128*513 and 2^27, fp32 and bf16, one CTA at
                the small N, unaligned views, bit-equal across block_rows
-               and one CTA; Jacobi-7 at T = 1..4 on
-               (10,18,130), (16,26,130), (37,45,99) (ragged edge tiles,
-               bit-equal across tiles) and 512^3; times as in phase 3
-               (``library_ms``: ``torch.add(b, c, alpha=s, out=a)`` for the
-               triad, also printed in bf16; a ``conv3d`` with the 6-neighbour filter, TF32 off,
-               is timed beside one naive sweep);
+               and one CTA; Jacobi-7 at T = 1..4 on (10,18,130),
+               (16,26,130), (37,45,99) (ragged edge columns, bit-equal
+               across tiles and streamed x extents; also T = 6 and 8, and
+               T = 9 refused) and 512^3 (bit-equal
+               across 16- and 4-byte copies and tiles); times as in phase
+               3 (``library_ms``: ``torch.add(b, c, alpha=s, out=a)`` for
+               the triad, also printed in bf16; a ``conv3d`` with the
+               6-neighbour filter, cuDNN's TF32 off, is timed beside one
+               naive sweep; the T = 4 wavefront against 4 naive sweeps in
+               ms, MLUPS and declared GB/s);
 12. perfctr  - the case studies at full size (triad 2^27 fp32, 100
                samples; Jacobi 512^3, 4 naive sweeps against one T=4
                wavefront) through ``PerfCtr`` marker regions with the HBM
@@ -307,34 +312,37 @@ def plan_table(lens, extra, ps, rng=None, width=None):
 
 def check_paged(dev, timer):
     from repro_torch.kernels.paged_decode import (
-        paged_decode_attention_grouped, paged_decode_plain)
+        paged_decode_attention_grouped, paged_decode_plain, split_plan)
     rng = np.random.default_rng(1)
 
-    def case(lens, kvh, g, dh, ps, dtype, extra, shuffle):
+    def case(lens, kvh, g, dh, ps, dtype, extra, shuffle, width=None,
+             page_dtype=None):
         b = len(lens)
         table, num_pages = plan_table(lens, extra, ps,
-                                      rng if shuffle else None)
+                                      rng if shuffle else None, width)
 
-        def rnd(*shape):
+        def rnd(*shape, dt=dtype):
             return torch.from_numpy(rng.standard_normal(shape, np.float32)
-                                    ).to(dev, dtype)
+                                    ).to(dev, dt)
 
-        args = (rnd(b, kvh, g, dh), rnd(num_pages, ps, kvh, dh),
-                rnd(num_pages, ps, kvh, dh),
+        pdt = page_dtype or dtype
+        args = (rnd(b, kvh, g, dh), rnd(num_pages, ps, kvh, dh, dt=pdt),
+                rnd(num_pages, ps, kvh, dh, dt=pdt),
                 torch.from_numpy(table).to(dev),
                 torch.tensor(lens, dtype=torch.int32, device=dev),
                 rnd(b, kvh, dh), rnd(b, kvh, dh))
         got = paged_decode_attention_grouped(*args)
         want = paged_decode_plain(*args)
         torch.cuda.synchronize()
+        np_w = table.shape[1]
         name = (f"paged lens={lens} kvh{kvh} g{g} dh{dh} ps{ps} "
-                f"{str(dtype)[6:]} shuffled={shuffle}")
+                f"{str(dtype)[6:]} pages {str(pdt)[6:]} shuffled={shuffle} "
+                f"NP={np_w} split={split_plan(b, kvh, np_w)}")
         err = close(name, got, want)
-        if 0 in lens:                 # an empty row outputs exactly v_new
-            i = lens.index(0)
-            vn = args[6][i][:, None, :].expand_as(got[i])
-            torch.testing.assert_close(got[i].float(), vn.float(),
-                                       **TOL[dtype])
+        for i, n in enumerate(lens):  # an empty row outputs exactly v_new
+            if n == 0 and not torch.equal(
+                    got[i], args[6][i][:, None, :].expand_as(got[i])):
+                fail(f"{name}: row {i} has no past token but is not v_new")
         return err, args
 
     # length 0, 1, a partial page and multi-page lengths; shuffled
@@ -342,6 +350,20 @@ def check_paged(dev, timer):
     case([0, 1, 10, 40], 2, 7, 64, 16, torch.float32, 4, True)
     case([0, 1, 5, 33, 64], 2, 4, 32, 8, torch.float32, 3, True)
     case([3, 17], 1, 7, 128, 16, torch.float32, 2, True)
+    case([9, 0, 30], 2, 7, 16, 16, torch.bfloat16, 5, True)
+    # the cluster split: a row of 38 pages (past 8 CTAs x 4 ring slots)
+    # beside rows shorter than the cluster, a row of 0 pages and a
+    # partial one; G = 32 at Dh 128 (fp32 pages take the shared-memory
+    # opt-in); pages of 8 and 32 tokens; the scheduler's table width (64
+    # pages a row) far past the live pages; fp32, bf16 and fp32 pages
+    # under a bf16 query
+    for dtype, pdt in ((torch.float32, None), (torch.bfloat16, None),
+                       (torch.bfloat16, torch.float32)):
+        case([600, 0, 5, 20, 47], 2, 7, 64, 16, dtype, 3, True, None, pdt)
+        case([300, 1, 0, 65], 1, 32, 128, 16, dtype, 2, True, None, pdt)
+        case([250, 7, 0, 40], 2, 7, 64, 8, dtype, 1, True, None, pdt)
+        case([900, 33, 0, 64], 2, 4, 32, 32, dtype, 5, True, None, pdt)
+        case([500, 16, 0, 3], 2, 7, 64, 16, dtype, 0, False, 64, pdt)
     # the main path's decode shape, mid-generation (16 tokens decoded)
     main_lens = [n + 16 for n in PROMPT_LENS]
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
@@ -361,6 +383,10 @@ def check_paged(dev, timer):
 
     ms = timer.ms(lambda: paged_decode_attention_grouped(*args))
     plain_ms = timer.ms(lambda: paged_decode_plain(*args))
+    log(f"  paged_decode host us a call: wrapper "
+        f"{host_us(lambda: paged_decode_attention_grouped(*args)):.2f} "
+        f"(kernel timer {ms:.4f} ms, split "
+        f"{split_plan(len(main_lens), 2, args[3].shape[1])} CTAs a row)")
     q4, _, _, _, _, kn, _ = args
     b, kvh, g, dh = q4.shape
     live_pages = sum(-(-n // PAGE_SIZE) for n in main_lens)
@@ -378,8 +404,7 @@ def check_paged(dev, timer):
 
 def check_paged_q8(dev, timer):
     from repro_torch.kernels.paged_decode import (
-        paged_decode_attention_q8_grouped, paged_decode_q8_plain,
-        q8_split_plan)
+        paged_decode_attention_q8_grouped, paged_decode_q8_plain, split_plan)
     rng = np.random.default_rng(4)
 
     def case(lens, kvh, g, dh, ps, dtype, extra, shuffle, width=None):
@@ -406,7 +431,7 @@ def check_paged_q8(dev, timer):
         got = paged_decode_attention_q8_grouped(*args)
         want = paged_decode_q8_plain(*args)
         torch.cuda.synchronize()
-        split = q8_split_plan(b, kvh, table.shape[1])
+        split = split_plan(b, kvh, table.shape[1])
         name = (f"paged q8 lens={lens} kvh{kvh} g{g} dh{dh} ps{ps} "
                 f"{str(dtype)[6:]} shuffled={shuffle} NP={table.shape[1]} "
                 f"split={split}")
@@ -446,7 +471,7 @@ def check_paged_q8(dev, timer):
     log(f"  paged_decode_q8 host us a call: wrapper "
         f"{host_us(lambda: paged_decode_attention_q8_grouped(*args)):.2f} "
         f"(kernel timer {ms:.4f} ms, split "
-        f"{q8_split_plan(len(main_lens), 2, args[5].shape[1])} CTAs a row)")
+        f"{split_plan(len(main_lens), 2, args[5].shape[1])} CTAs a row)")
     q4, _, _, _, _, _, _, kn, _ = args
     b, kvh, g, dh = q4.shape
     live_pages = sum(-(-n // PAGE_SIZE) for n in main_lens)
@@ -1139,12 +1164,16 @@ def check_triad(dev, timer):
 
 
 def check_jacobi(dev, timer):
-    from repro_torch.kernels.jacobi7 import (jacobi7_naive,
+    from repro_torch.kernels.jacobi7 import (BLOCK_X, MAX_SWEEPS, TILE_YZ,
+                                             jacobi7_naive,
                                              jacobi7_valid_plain,
-                                             jacobi7_wavefront)
+                                             jacobi7_wavefront,
+                                             kernel_bytes, lattice_updates)
     gen = torch.Generator(device=dev).manual_seed(7)
     err = 0.0
-    # (37, 45, 99) is no multiple of any tile: ragged edge tiles everywhere
+    default = (BLOCK_X, *TILE_YZ)
+    # (37, 45, 99) is no multiple of any tile: ragged edge columns
+    # everywhere, z rows not 16-byte aligned (4-byte copies)
     for shape in ((10, 18, 130), (16, 26, 130), (37, 45, 99), STENCIL):
         x = torch.randn(shape, generator=gen, device=dev)
         for t in range(1, SWEEPS + 1):
@@ -1155,26 +1184,66 @@ def check_jacobi(dev, timer):
             if shape == STENCIL and t == SWEEPS:
                 err = e
         if shape == (37, 45, 99):     # the tile must not change a bit
-            for tile in ((4, 8, 32), (3, 5, 7), (16, 16, 16)):
+            base = jacobi7_wavefront(x, sweeps=3)
+            for tile in ((4, 8, 32), (3, 5, 7), (16, 16, 16), (8, 16, 64),
+                         (16, 32, 64), (64, 16, 64)):
                 if not torch.equal(jacobi7_wavefront(x, sweeps=3, tile=tile),
-                                   jacobi7_wavefront(x, sweeps=3)):
+                                   base):
                     fail(f"jacobi7 result depends on the tile ({tile})")
-            log("  ok jacobi7 (37, 45, 99) T=3: bit-equal across tiles")
+            log(f"  ok jacobi7 (37, 45, 99) T=3: bit-equal across tiles "
+                f"(default {default}, x columns of 3 to 64 planes)")
+            # the deepest fusions a launch takes (on a tile whose planes
+            # fit), and one past them
+            small = (16, 8, 32)
+            for t in (6, MAX_SWEEPS):
+                close(f"jacobi7 {shape} T={t} tile {small}",
+                      jacobi7_wavefront(x, sweeps=t, tile=small),
+                      jacobi7_valid_plain(x, t))
+            try:
+                jacobi7_wavefront(x, sweeps=MAX_SWEEPS + 1, tile=small)
+            except ValueError as e:
+                if "fuses at most" not in str(e):
+                    raise
+                log(f"  ok jacobi7 T={MAX_SWEEPS + 1} refused on the card")
+            else:
+                fail(f"jacobi7 ran T={MAX_SWEEPS + 1} sweeps in one launch")
+    # 16-byte copies (z rows aligned) against the same data through
+    # 4-byte copies (a view one element past a 16-byte boundary), and the
+    # default tile against others streaming other x extents, at 512^3
+    buf = torch.empty(x.numel() + 1, device=dev)
+    xu = buf[1:].view(STENCIL)
+    xu.copy_(x)
+    for t in (1, SWEEPS):
+        base = jacobi7_wavefront(x, sweeps=t)
+        others = [("4-byte copies", jacobi7_wavefront(xu, sweeps=t))]
+        # (bz = 60: no whole 32-byte sectors a row, stores transposed)
+        for tile in ((64, 16, 64), (256, 16, 64), (8, 16, 64), (64, 16, 60)):
+            others.append((f"tile {tile}",
+                           jacobi7_wavefront(x, sweeps=t, tile=tile)))
+        for what, got in others:
+            if not torch.equal(got, base):
+                fail(f"jacobi7 {STENCIL} T={t}: {what} changes the result")
+    log(f"  ok jacobi7 {STENCIL} T=1, {SWEEPS}: bit-equal across 16- and "
+        f"4-byte copies, direct and transposed stores, and tiles "
+        f"(default {default}, 64|256|8 x 16 x 64, 64 x 16 x 60)")
+    del buf, xu
     ms = timer.ms(lambda: jacobi7_wavefront(x, sweeps=SWEEPS))
     plain_ms = timer.ms(lambda: jacobi7_valid_plain(x, SWEEPS))
     nbytes = 4 * (x.numel() + np.prod([s - 2 * SWEEPS for s in STENCIL]))
     flops = 6.0 * sum(np.prod([s - 2 * t for s in STENCIL])
                       for t in range(1, SWEEPS + 1))
     bms, by = bound_ms(float(nbytes), float(flops), F32_FLOPS)
-    # one naive sweep, against one cuDNN convolution with the same filter
+    # one naive sweep, against one cuDNN convolution with the same filter;
+    # cuDNN's fp32 convolutions default to TF32, so it is switched off
+    torch.backends.cudnn.allow_tf32 = False
     w = torch.zeros((1, 1, 3, 3, 3), device=dev)
     for i in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
               (1, 1, 2)):
         w[(0, 0) + i] = 1.0 / 6.0
     conv = torch.nn.functional.conv3d
     x5 = x[None, None]
-    close("conv3d yardstick vs one naive sweep", conv(x5, w)[0, 0],
-          jacobi7_naive(x))
+    close("conv3d yardstick (cudnn.allow_tf32 = False) vs one naive sweep",
+          conv(x5, w)[0, 0], jacobi7_naive(x))
     naive_ms = timer.ms(lambda: jacobi7_naive(x))
     naive_plain_ms = timer.ms(lambda: jacobi7_valid_plain(x, 1))
     conv_ms = timer.ms(lambda: conv(x5, w))
@@ -1182,8 +1251,27 @@ def check_jacobi(dev, timer):
     naive_bound = bound_ms(nbytes1, 6.0 * np.prod([s - 2 for s in STENCIL]),
                            F32_FLOPS)
     log(f"  jacobi7 naive {STENCIL} one sweep: {naive_ms:.4f} ms (plain "
-        f"{naive_plain_ms:.4f}, conv3d {conv_ms:.4f}, bound "
+        f"{naive_plain_ms:.4f}, conv3d with TF32 off {conv_ms:.4f}, bound "
         f"{naive_bound[0]:.4f} by {naive_bound[1]})")
+
+    # the paper's order: one T-sweep wavefront against T naive sweeps
+    def naive_steps():
+        y = x
+        for _ in range(SWEEPS):
+            y = jacobi7_naive(y)
+        return y
+
+    four = timer.ms(naive_steps)
+    updates = lattice_updates(STENCIL, SWEEPS)
+    four_bytes = sum(kernel_bytes([n - 2 * k for n in STENCIL], 1, default)
+                     for k in range(SWEEPS))
+    log(f"  jacobi7 {STENCIL} {SWEEPS} steps: wavefront T={SWEEPS} "
+        f"{ms:.4f} ms ({updates / ms / 1e3:.0f} MLUPS, "
+        f"{kernel_bytes(STENCIL, SWEEPS, default) / ms / 1e6:.1f} GB/s "
+        f"declared) against {SWEEPS} naive sweeps {four:.4f} ms "
+        f"({updates / four / 1e3:.0f} MLUPS, {four_bytes / four / 1e6:.1f} "
+        f"GB/s declared): the wavefront is "
+        f"{'faster' if ms < four else 'slower'}")
     return dict(name="jacobi7", route="cuda",
                 source="src/repro_torch/csrc/jacobi7.cu",
                 replaces="src/repro/kernels/jacobi7.py:60",

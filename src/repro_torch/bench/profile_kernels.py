@@ -1,4 +1,5 @@
-"""Device-only and host time of the decode and triad kernels, on one card.
+"""Device-only and host time of the decode and case-study kernels, on one
+card.
 
     python -m repro_torch.bench.profile_kernels [--json out.json]
     PYTHONPATH=<other tree>/src python src/repro_torch/bench/profile_kernels.py
@@ -7,9 +8,10 @@ Runs the int8 paged decode kernel (#3) and the fp paged decode kernel
 (#2) at ``chip_smoke.py`` phase 3's main shape (q4 [8,2,7,64] bf16,
 pages of 16 tokens, lengths prompt+16 for prompts 512..1, the page table
 as ``plan_table`` lays it out) and the same q8 call at the scheduler's
-table width (64 pages a row), and the STREAM triad (#6) at N = 2^27 in
-fp32 and bf16 beside ``torch.add(b, c, alpha=2.5, out=a)``.  For each
-call it reports:
+table width (64 pages a row), the STREAM triad (#6) at N = 2^27 in fp32
+and bf16 beside ``torch.add(b, c, alpha=2.5, out=a)``, and Jacobi-7 (#7)
+at 512^3 fp32 with its default tile, one T = 4 launch and one naive
+(T = 1) sweep.  For each call it reports:
 
 * ``device_us``: device time a launch under ``torch.profiler``, 100
   launches with the 50 MB L2 flushed before each (the flush kernel is
@@ -51,6 +53,7 @@ EXTRA = 16                   # table room past the lengths (32 new - 16)
 PAGE_SIZE = 16
 SCHED_WIDTH = 64             # max_seq 1024 over 16-token pages
 TRIAD_N = 1 << 27
+STENCIL = (512, 512, 512)
 FLUSH_BYTES = 64 << 20
 
 
@@ -158,6 +161,7 @@ def in_turns(probe: Probe, fn, ref, turns: int) -> dict:
 
 def profile(dev, turns: int) -> dict:
     from repro_torch.kernels import _build
+    from repro_torch.kernels.jacobi7 import jacobi7_naive, jacobi7_wavefront
     from repro_torch.kernels.paged_decode import (
         paged_decode_attention_grouped, paged_decode_attention_q8_grouped)
     from repro_torch.kernels.stream_triad import stream_triad
@@ -174,6 +178,11 @@ def profile(dev, turns: int) -> dict:
     out["paged_decode"] = probe.all(
         lambda: paged_decode_attention_grouped(*fp))
     del args, wide, fp
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(STENCIL, generator=gen, device=dev)
+    out["jacobi7_T4"] = probe.all(lambda: jacobi7_wavefront(x, sweeps=4))
+    out["jacobi7_T1"] = probe.all(lambda: jacobi7_naive(x))
+    del x
     gen = torch.Generator(device=dev).manual_seed(6)
     for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         b = torch.randn(TRIAD_N, generator=gen, device=dev).to(dtype)

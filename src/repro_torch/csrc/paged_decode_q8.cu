@@ -32,13 +32,12 @@
 // no global scratch, no second pass.  Accumulation is fp32; q and the
 // output stay in the model dtype.
 #include "paged_split.cuh"
-#include "tensor_core.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kStages = 4;               // pages in the shared-memory ring
+constexpr int kStages = split::kStages;
 constexpr int kVec = 16;                 // bytes a cp.async
 
 // bytes of one ring slot: K and V codes [ps][DH] each, then the two
@@ -79,7 +78,7 @@ paged_decode_q8_kernel(const T* __restrict__ q4,
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int g = tid / 32, lane = tid % 32;
-  const int kg = lane / L::LPK, ds = lane % L::LPK;
+  const int ds = lane % L::LPK;
   const int64_t head = (int64_t)b * KVH + h;
 
   float q[S16];                          // this lane's slice, pre-scaled
@@ -97,9 +96,8 @@ paged_decode_q8_kernel(const T* __restrict__ q4,
   const int64_t page_stride = (int64_t)ps * tok_stride;
   const int* row_pt = pt + (int64_t)b * NP;
 
-  // every thread copies its share of page j into ring slot j % kStages
-  auto fetch = [&](int j) {
-    unsigned char* dst = smem + (j % kStages) * slot;
+  // every thread copies its share of page j into ring slot `dst`
+  auto fetch = [&](int j, unsigned char* dst) {
     const int64_t page = row_pt[j];
     const int8_t* kb = kp + page * page_stride + (int64_t)h * DH;
     const int8_t* vb = vp + page * page_stride + (int64_t)h * DH;
@@ -111,53 +109,32 @@ paged_decode_q8_kernel(const T* __restrict__ q4,
     }
     float* sc = reinterpret_cast<float*>(dst + 2 * ps * DH);
     for (int idx = tid; idx < 2 * ps; idx += nthr)
-      split::cp_async4(sc + idx, idx < ps ? ksc + page * ps + idx
-                                          : vsc + page * ps + (idx - ps));
+      cp_async4(sc + idx, idx < ps ? ksc + page * ps + idx
+                                   : vsc + page * ps + (idx - ps));
   };
-
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (j0 + i < j1) fetch(j0 + i);
-    cp_async_commit();
-  }
-  split::Softmax<DH> sm;
-  sm.init();
-  for (int j = j0; j < j1; ++j) {
-    cp_async_wait<kStages - 2>();        // page j has landed
-    __syncthreads();                     // ... for every thread; page j-1
-                                         // is consumed by every warp
-    if (j + kStages - 1 < j1) fetch(j + kStages - 1);
-    cp_async_commit();
-    const unsigned char* src = smem + (j % kStages) * slot;
+  // this lane's slice of key t: int8 codes as floats, and their scales
+  auto row = [&](const unsigned char* src, int t, float& d,
+                 float (&v)[S16], float& k_s, float& v_s) {
     const int8_t* kc = reinterpret_cast<const int8_t*>(src);
     const int8_t* vc = kc + ps * DH;
-    const float* k_s = reinterpret_cast<const float*>(src + 2 * ps * DH);
-    const float* v_s = k_s + ps;
-    for (int t0 = 0; t0 < ps; t0 += L::KPP) {
-      const int t = t0 + kg;
-      const bool in_page = t < ps;
-      const bool ok = in_page && j * ps + t < len;
-      float d = 0.f, v[S16];
-      if (in_page) {
-        const int4 kraw =
-            *reinterpret_cast<const int4*>(kc + t * DH + ds * S16);
-        const int4 vraw =
-            *reinterpret_cast<const int4*>(vc + t * DH + ds * S16);
-        const int8_t* ke = reinterpret_cast<const int8_t*>(&kraw);
-        const int8_t* ve = reinterpret_cast<const int8_t*>(&vraw);
+    const float* scales = reinterpret_cast<const float*>(src + 2 * ps * DH);
+    const int4 kraw = *reinterpret_cast<const int4*>(kc + t * DH + ds * S16);
+    const int4 vraw = *reinterpret_cast<const int4*>(vc + t * DH + ds * S16);
+    const int8_t* ke = reinterpret_cast<const int8_t*>(&kraw);
+    const int8_t* ve = reinterpret_cast<const int8_t*>(&vraw);
 #pragma unroll
-        for (int k = 0; k < S16; ++k) {
-          d += q[k] * (float)ke[k];
-          v[k] = (float)ve[k];
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < S16; ++k) v[k] = 0.f;
-      }
-      d = split::xor_sum<1, L::LPK>(d);  // the key's dot over its lanes
-      const float s = ok ? d * k_s[t] : REPRO_NEG_INF;
-      sm.fold(s, ok, v, ok ? v_s[t] : 0.f);
+    for (int k = 0; k < S16; ++k) {
+      d += q[k] * (float)ke[k];
+      v[k] = (float)ve[k];
     }
-  }
+    k_s = scales[t];
+    v_s = scales[ps + t];
+  };
+
+  split::Softmax<DH> sm;
+  sm.init();
+  split::walk_pages<DH, kStages>(sm, smem, slot, j0, j1, ps, len, lane,
+                                 fetch, row);
   sm.store(part, g, lane);
   cluster.sync();                        // every CTA's partial is written
   if (rank == 0)
@@ -182,35 +159,13 @@ struct Launcher {
   cudaError_t run() const {
     const size_t smem = smem_bytes(ps, DH, G);
     if (smem > 48 * 1024) return cudaErrorInvalidValue;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n_split, KVH, B);
-    cfg.blockDim = dim3(32 * G, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = n_split;  // one cluster per (kv head, row)
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, paged_decode_q8_kernel<T, DH>, static_cast<const T*>(q4), kp,
-        vp, ksc, vsc, pt, lengths, static_cast<const T*>(kn),
-        static_cast<const T*>(vn), static_cast<T*>(out), KVH, G, ps, NP,
-        scale);
-    return err != cudaSuccess ? err : cudaGetLastError();
+    return split::launch_split(
+        paged_decode_q8_kernel<T, DH>, n_split, KVH, B, G, smem, stream,
+        static_cast<const T*>(q4), kp, vp, ksc, vsc, pt, lengths,
+        static_cast<const T*>(kn), static_cast<const T*>(vn),
+        static_cast<T*>(out), KVH, G, ps, NP, scale);
   }
 
-  cudaError_t dispatch(int Dh) const {
-    switch (Dh) {
-      case 16: return run<16>();
-      case 32: return run<32>();
-      case 64: return run<64>();
-      case 128: return run<128>();
-      default: return cudaErrorInvalidValue;
-    }
-  }
 };
 
 }  // namespace
@@ -244,12 +199,12 @@ REPRO_EXPORT int paged_decode_q8_fwd(const void* q4, const void* k_pages,
   if (dtype == kF32) {
     const Launcher<float> l{q4, kp, vp, ksc, vsc, pt, lens, k_new, v_new,
                             out, B, KVH, G, ps, NP, n_split, scale, s};
-    err = l.dispatch(Dh);
+    err = split::dispatch_dh(Dh, l);
   } else if (dtype == kBF16) {
     const Launcher<__nv_bfloat16> l{q4, kp, vp, ksc, vsc, pt, lens, k_new,
                                     v_new, out, B, KVH, G, ps, NP, n_split,
                                     scale, s};
-    err = l.dispatch(Dh);
+    err = split::dispatch_dh(Dh, l);
   } else {
     err = cudaErrorInvalidValue;
   }

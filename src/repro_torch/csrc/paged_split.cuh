@@ -1,7 +1,9 @@
 // Split-K (flash-decoding) paged decode over a thread block cluster: the
-// page split, the lane layout, the per-warp online softmax over 16-dim
-// slices and the combine of the cluster's partials (paged_decode_q8.cu;
-// the fp kernel can take the same pieces with its own page loads).
+// page split, the lane layout, the page loop through a cp.async ring, the
+// per-warp online softmax over 16-dim slices, the combine of the
+// cluster's partials and the cluster launch, shared by the fp kernel
+// (paged_decode.cu) and the int8 kernel (paged_decode_q8.cu), which differ
+// only in how a page is copied and how a lane reads its slice of a key.
 //
 // A row's (kv head, batch row) is served by a cluster of S CTAs along x.
 // CTA r takes the live pages [r * n / S, (r + 1) * n / S) of the row's n
@@ -23,6 +25,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace split {
 
@@ -30,6 +33,7 @@ namespace cg = cooperative_groups;
 
 constexpr int kSlice = 16;        // head dims a lane holds
 constexpr int kMaxSplit = 8;      // the portable cluster size
+constexpr int kStages = 4;        // pages in each CTA's shared-memory ring
 
 template <int DH>
 struct Lanes {
@@ -43,14 +47,6 @@ __device__ __forceinline__ void page_range(int rank, int S, int n, int& j0,
                                            int& j1) {
   j0 = (int)((long long)rank * n / S);
   j1 = (int)((long long)(rank + 1) * n / S);
-}
-
-// 4-byte asynchronous copy global -> shared (the 16-byte form is
-// cp_async16 in tensor_core.cuh)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src));
 }
 
 // sum over the lanes whose index differs in the bits [from, to)
@@ -180,6 +176,85 @@ __device__ __forceinline__ void combine_and_finish(
                      (acc[k] * alpha + p_t * load_f32(vn, off + d)) / den);
     }
   }
+}
+
+// The page loop: this CTA's pages [j0, j1) pass through a ring of STAGES
+// slots of `slot` bytes at `ring`, up to STAGES - 1 pages in flight behind
+// the one being read.  fetch(j, dst) issues the cp.async copies of page j
+// into dst (every thread its share); row(src, t, d, v, ks, vs) gives this
+// lane's 16-dim slice of key t of the page at src: d = q . k over the
+// slice, v the value slice, ks and vs the key's and value's scales.
+// Positions j * ps + t >= len (the partial last page) are masked.
+template <int DH, int STAGES, typename Fetch, typename Row>
+__device__ __forceinline__ void walk_pages(Softmax<DH>& sm,
+                                           unsigned char* ring, int slot,
+                                           int j0, int j1, int ps, int len,
+                                           int lane, Fetch fetch, Row row) {
+  using L = Lanes<DH>;
+  const int kg = lane / L::LPK;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (j0 + i < j1) fetch(j0 + i, ring + ((j0 + i) % STAGES) * slot);
+    cp_async_commit();
+  }
+  for (int j = j0; j < j1; ++j) {
+    cp_async_wait<STAGES - 2>();         // page j has landed
+    __syncthreads();                     // ... for every thread; page j-1
+                                         // is consumed by every warp
+    const int next = j + STAGES - 1;
+    if (next < j1) fetch(next, ring + (next % STAGES) * slot);
+    cp_async_commit();
+    const unsigned char* src = ring + (j % STAGES) * slot;
+    for (int t0 = 0; t0 < ps; t0 += L::KPP) {
+      const int t = t0 + kg;
+      const bool in_page = t < ps;
+      const bool ok = in_page && j * ps + t < len;
+      float d = 0.f, v[kSlice], ks = 0.f, vs = 0.f;
+      if (in_page) {
+        row(src, t, d, v, ks, vs);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSlice; ++k) v[k] = 0.f;
+      }
+      d = xor_sum<1, L::LPK>(d);         // the key's dot over its lanes
+      const float s = ok ? d * ks : REPRO_NEG_INF;
+      sm.fold(s, ok, v, ok ? vs : 0.f);
+    }
+  }
+}
+
+// launcher.run<DH>() for the head dims the paged kernels take
+template <typename Launcher>
+cudaError_t dispatch_dh(int Dh, const Launcher& launcher) {
+  switch (Dh) {
+    case 16: return launcher.template run<16>();
+    case 32: return launcher.template run<32>();
+    case 64: return launcher.template run<64>();
+    case 128: return launcher.template run<128>();
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Launch a paged kernel on a grid (S, KVH, B) of 32 G threads a CTA (one
+// warp a query head), a cluster of S CTAs along x per (kv head, batch
+// row); returns the launch's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_split(void (*kernel)(Params...), int S, int KVH, int B,
+                         int G, size_t smem, cudaStream_t stream,
+                         Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, KVH, B);
+  cfg.blockDim = dim3(32 * G, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace split

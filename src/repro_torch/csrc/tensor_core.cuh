@@ -1,7 +1,7 @@
-// PTX building blocks for the port's tensor-core kernels: 16-byte
-// asynchronous copies into shared memory (cp.async, with a zero-fill form
-// for rows past a tensor's end), ldmatrix fragment loads and the bf16
-// mma.sync.m16n8k16 product with fp32 accumulators.
+// PTX building blocks for the port's kernels: 16-byte and 4-byte
+// asynchronous copies into shared memory (cp.async, the 16-byte form with
+// a zero-fill for rows past a tensor's end), ldmatrix fragment loads and
+// the bf16 mma.sync.m16n8k16 product with fp32 accumulators.
 //
 // Fragment layouts follow the PTX ISA ("Matrix fragments for
 // mma.m16n8k16"): with lane = 4 * g + t (g = lane / 4, t = lane % 4),
@@ -25,6 +25,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes));
+}
+
+// copy 4 bytes global -> shared (rows whose start is not 16-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

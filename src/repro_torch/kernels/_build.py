@@ -31,16 +31,19 @@ from typing import ContextManager, Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "CSRC", "build_dir", "build_all", "library", "check",
-           "launch_on", "P", "I", "L", "F"]
+__all__ = ["SOURCES", "CSRC", "SMEM_OPT_IN", "build_dir", "build_all",
+           "library", "check", "launch_on", "P", "I", "L", "F"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention", "paged_decode", "paged_decode_q8", "argmax",
            "stream_triad", "jacobi7", "ssd_scan")
-_HEADERS = ("common.cuh", "paged_attend.cuh", "paged_split.cuh",
-            "tensor_core.cuh")
+_HEADERS = ("common.cuh", "paged_split.cuh", "tensor_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: dynamic shared memory a block may opt in to on sm_90, 227 KiB
+#: (``csrc/common.cuh::kMaxSmemOptIn``)
+SMEM_OPT_IN = 232448
 
 # ctypes argument kinds for the signature tables in the kernel modules
 P = ctypes.c_void_p

@@ -13,10 +13,16 @@ sweeps, ``[X,Y,Z] -> [X-2T, Y-2T, Z-2T]``, each
                                residency per output tile (temporal blocking).
 
 On the TPU the residency is an x-slab of whole Y-Z planes in VMEM; on the
-card it is one output tile ``(block_x, 16, 64)`` plus a halo of T per
-side in shared memory.  :func:`smem_footprint` gives its bytes and a tile
-that does not fit the 227 KiB a block may have is refused with an error —
+card a CTA owns an output column of ``block_x`` points along x and a
+32 x 64 tile in y-z, and streams its input box (a halo of T a side)
+through shared memory plane by plane along x: a ring of input planes and
+two planes for each intermediate sweep, one thread a 4-point chunk of a
+plane (2.5D blocking).  :func:`smem_footprint` gives those planes' bytes
+and :func:`block_threads` the threads, neither of which depends on
+``block_x``; a y-z tile whose planes do not fit the 227 KiB a block may
+have, or that needs more than 1024 threads, is refused with an error —
 the stencil bench's Fig. 11 "wrong placement" verdict — never shrunk.
+One launch fuses at most :data:`MAX_SWEEPS` sweeps.
 :func:`traffic_model` is the reference's Table I model, copied unchanged;
 :func:`kernel_bytes` is what this kernel moves, halos counted.
 
@@ -39,12 +45,24 @@ from repro_torch.kernels import _build
 __all__ = ["jacobi7_naive", "jacobi7_wavefront", "jacobi7_sweeps",
            "jacobi7_sweep_plain",
            "jacobi7_valid_plain", "traffic_model", "smem_footprint",
-           "kernel_bytes", "lattice_updates", "SMEM_PER_BLOCK", "TILE_YZ"]
+           "kernel_bytes", "lattice_updates", "SMEM_PER_BLOCK", "TILE_YZ",
+           "BLOCK_X", "RING_PLANES", "MAX_THREADS", "MAX_SWEEPS",
+           "block_threads"]
 
 #: dynamic shared memory one block may opt in to on sm_90 (227 KiB)
-SMEM_PER_BLOCK = 232448
-#: the tile's y and z extents; ``block_x`` sets its x extent
-TILE_YZ = (16, 64)
+SMEM_PER_BLOCK = _build.SMEM_OPT_IN
+#: the tile's y and z extents; ``block_x`` sets its x extent (chosen on
+#: an H100 with ``bench_stencil_pinning`` at 512^3: the fastest at T = 4)
+TILE_YZ = (32, 64)
+#: the x extent a CTA streams by default (the reference's slab width is 8;
+#: here it only sets how many planes a column walks)
+BLOCK_X = 128
+#: input planes in each CTA's cp.async ring (``csrc/jacobi7.cu::kRing``)
+RING_PLANES = 6
+#: threads a block may have: one a 4-point chunk of a plane
+MAX_THREADS = 1024
+#: sweeps one launch of the kernel fuses
+MAX_SWEEPS = 8
 _SIG = {"jacobi7_fwd": (_build.P, _build.P, _build.I, _build.I, _build.I,
                         _build.I, _build.F, _build.I, _build.I, _build.I,
                         _build.P)}
@@ -71,15 +89,27 @@ def jacobi7_valid_plain(x: torch.Tensor, sweeps: int = 1,
     return x
 
 
+def _pitch(sweeps: int, bz: int) -> int:
+    """A plane's row pitch: the box's z extent rounded up to 4 elements."""
+    return -(-(bz + 2 * sweeps) // 4) * 4
+
+
 def smem_footprint(sweeps: int, tile: Tile, dtype_bytes: int = 4) -> int:
-    """Shared-memory bytes one CTA needs: the input tile with its halo of
-    T per side, plus (for T >= 2) the second buffer that holds sweep 1."""
-    bx, by, bz = tile
+    """Shared-memory bytes one CTA needs (``csrc/jacobi7.cu::smem_bytes``):
+    :data:`RING_PLANES` input planes and two planes for each of sweeps
+    1..T-1, every plane the y-z box ``(by+2T) x (bz+2T)`` with its rows
+    padded to a multiple of 4 elements.  The x extent ``bx`` streams
+    through and costs nothing."""
+    _, by, bz = tile
     t = sweeps
-    inp = (bx + 2 * t) * (by + 2 * t) * (bz + 2 * t)
-    mid = ((bx + 2 * t - 2) * (by + 2 * t - 2) * (bz + 2 * t - 2)
-           if t >= 2 else 0)
-    return (inp + mid) * dtype_bytes
+    plane = (by + 2 * t) * _pitch(t, bz)
+    return (RING_PLANES + 2 * (t - 1)) * plane * dtype_bytes
+
+
+def block_threads(sweeps: int, tile: Tile) -> int:
+    """Threads one CTA needs: one a 4-point chunk of a padded plane."""
+    _, by, bz = tile
+    return (by + 2 * sweeps) * _pitch(sweeps, bz) // 4
 
 
 def _out_shape(shape, sweeps: int) -> Tuple[int, int, int]:
@@ -88,10 +118,11 @@ def _out_shape(shape, sweeps: int) -> Tuple[int, int, int]:
 
 def kernel_bytes(shape, sweeps: int, tile: Tile,
                  dtype_bytes: int = 4) -> int:
-    """HBM bytes one call moves: every tile reads its output extent plus a
-    halo of T per side (halos re-read by neighbours count again), and the
-    output is written once.  Tiles are a Cartesian grid, so the sum over
-    tiles factorises per dimension."""
+    """HBM bytes one call moves: every CTA reads its box — its column's
+    output extent plus a halo of T per side — exactly once (halos re-read
+    by neighbouring columns count again), and the output is written once.
+    Columns are a Cartesian grid, so the sum over them factorises per
+    dimension: ``o + ceil(o / b) * 2T``."""
     out = _out_shape(shape, sweeps)
     read = 1
     for o, b in zip(out, tile):
@@ -124,11 +155,12 @@ def traffic_model(shape: Tuple[int, int, int], sweeps: int,
 
 
 def jacobi7_sweeps(x: torch.Tensor, sweeps: int, *,
-                   omega: float = 1.0 / 6.0, block_x: int = 8,
+                   omega: float = 1.0 / 6.0, block_x: int = BLOCK_X,
                    tile: Optional[Tile] = None) -> torch.Tensor:
     """The wrapper of ``csrc/jacobi7.cu`` behind both entries: T valid
     sweeps of ``x`` with output tile ``tile`` (default
-    ``(block_x, 16, 64)``).  CUDA tensors count one launch in
+    ``(block_x, 32, 64)``: a column of ``block_x`` points along x over a
+    32 x 64 y-z tile).  CUDA tensors count one launch in
     ``jacobi7_sweeps.launches``."""
     if x.dim() != 3:
         raise ValueError(f"jacobi7 takes [X,Y,Z], got {tuple(x.shape)}")
@@ -143,15 +175,19 @@ def jacobi7_sweeps(x: torch.Tensor, sweeps: int, *,
     tile = tuple(tile) if tile is not None else (block_x, *TILE_YZ)
     if len(tile) != 3 or min(tile) < 1:
         raise ValueError(f"tile must be 3 positive extents, got {tile}")
-    need = smem_footprint(sweeps, tile)
-    if need > SMEM_PER_BLOCK:
+    need, threads = smem_footprint(sweeps, tile), block_threads(sweeps, tile)
+    if need > SMEM_PER_BLOCK or threads > MAX_THREADS:
         raise ValueError(
             f"jacobi7 tile {tile} at T={sweeps} needs {need} B of shared "
-            f"memory, over the {SMEM_PER_BLOCK} B a block may have: wrong "
-            f"placement, choose a smaller tile")
+            f"memory and {threads} threads, over the {SMEM_PER_BLOCK} B and "
+            f"{MAX_THREADS} threads a block may have: wrong placement, "
+            f"choose a smaller tile")
     if x.device.type == "cpu":
         out = jacobi7_valid_plain(x, sweeps, omega)
     elif x.device.type == "cuda":
+        if sweeps > MAX_SWEEPS:
+            raise ValueError(f"the jacobi7 kernel fuses at most "
+                             f"{MAX_SWEEPS} sweeps a launch, got {sweeps}")
         out = _launch(x.contiguous(), sweeps, omega, tile, out_shape)
     else:
         raise ValueError(f"jacobi7 runs on cpu or cuda, not {x.device}")
@@ -167,8 +203,8 @@ def _launch(x: torch.Tensor, sweeps: int, omega: float, tile: Tile,
             out_shape) -> torch.Tensor:
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     lib = _build.library("jacobi7", _SIG)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    guard, stream = _build.launch_on(x.device)
+    with guard:
         err = lib.jacobi7_fwd(x.data_ptr(), out.data_ptr(), *x.shape, sweeps,
                               omega, *tile, stream)
     _build.check(lib, err, "jacobi7_fwd")
@@ -182,18 +218,18 @@ jacobi7_sweeps.launches = 0
 
 
 def jacobi7_naive(x: torch.Tensor, *, omega: float = 1.0 / 6.0,
-                  block_x: int = 8, tile: Optional[Tile] = None
+                  block_x: int = BLOCK_X, tile: Optional[Tile] = None
                   ) -> torch.Tensor:
     """One valid sweep: [X,Y,Z] -> [X-2,Y-2,Z-2] (call T times for T
-    steps).  ``tile`` overrides ``(block_x, 16, 64)``."""
+    steps).  ``tile`` overrides ``(block_x, 32, 64)``."""
     return jacobi7_sweeps(x, 1, omega=omega, block_x=block_x, tile=tile)
 
 
 def jacobi7_wavefront(x: torch.Tensor, *, sweeps: int = 4,
-                      omega: float = 1.0 / 6.0, block_x: int = 8,
+                      omega: float = 1.0 / 6.0, block_x: int = BLOCK_X,
                       tile: Optional[Tile] = None) -> torch.Tensor:
-    """T valid sweeps in one shared-memory residency per output tile:
+    """T valid sweeps in one pass over each column's input box:
     [X,Y,Z] -> [X-2T,Y-2T,Z-2T].  ``tile`` overrides
-    ``(block_x, 16, 64)``."""
+    ``(block_x, 32, 64)``."""
     return jacobi7_sweeps(x, sweeps, omega=omega, block_x=block_x,
                           tile=tile)

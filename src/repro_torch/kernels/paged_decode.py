@@ -3,10 +3,10 @@
 Port of ``repro/kernels/paged_decode.py``: the Pallas ``_paged_kernel``
 (fp pages) becomes ``csrc/paged_decode.cu`` and ``_paged_kernel_q8``
 (int8 pages) becomes ``csrc/paged_decode_q8.cu``; their source notes say
-what bounds them on an H100 and how they are laid out.  The int8 kernel
-splits each row's pages over a thread block cluster of
-:func:`q8_split_plan` CTAs and merges their partial softmaxes in one
-launch.  Contract, shared by all four versions:
+what bounds them on an H100 and how they are laid out.  Both kernels
+split each row's pages over a thread block cluster of :func:`split_plan`
+CTAs and merge their partial softmaxes in one launch
+(``csrc/paged_split.cuh``).  Contract, shared by all four versions:
 
 * q4 ``[B,KVH,G,Dh]``; pages ``[P,ps,KVH,Dh]`` (one layer's pool);
   page_table ``[B,NP]`` int32; lengths ``[B]`` int32 (past tokens — the new
@@ -38,7 +38,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["paged_decode_attention_grouped", "paged_decode_plain",
            "paged_decode_attention_q8_grouped", "paged_decode_q8_plain",
-           "q8_split_plan", "q8_smem_bytes",
+           "split_plan", "fp_smem_bytes", "q8_smem_bytes",
            "SUPPORTED_HEAD_DIMS"]
 
 NEG_INF = -2.0e38
@@ -48,8 +48,8 @@ _SIG = {"paged_decode_fwd": (
     _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.P,                                  # q4 kp vp pt lens kn vn out
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
-    _build.F, _build.I, _build.I, _build.P)}   # B KVH G Dh ps NP scale
-                                               # dt page_dt stream
+    _build.I, _build.F, _build.I, _build.I,    # B KVH G Dh ps NP split
+    _build.P)}                                 # scale dt page_dt stream
 _SIG_Q8 = {"paged_decode_q8_fwd": (
     _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
     _build.P, _build.P, _build.P,              # q4 kp vp ksc vsc pt lens
@@ -58,31 +58,43 @@ _SIG_Q8 = {"paged_decode_q8_fwd": (
     _build.I, _build.F, _build.I, _build.P)}   # B KVH G Dh ps NP split
                                                # scale dt stream
 #: CTAs a row at most: the portable thread block cluster size
-Q8_MAX_SPLIT = 8
+MAX_SPLIT = 8
 #: CTAs a launch aims at: one per SM of an H100 SXM (132 SMs)
-Q8_TARGET_CTAS = 132
-#: pages of int8 codes in each CTA's shared-memory ring
-Q8_STAGES = 4
+TARGET_CTAS = 132
+#: pages in each CTA's shared-memory ring (``csrc/paged_split.cuh``)
+STAGES = 4
+#: dynamic shared memory one block may opt in to on sm_90 (227 KiB)
+SMEM_PER_BLOCK = _build.SMEM_OPT_IN
+#: the int8 kernel's shared memory takes no opt-in
+Q8_SMEM_LIMIT = 48 * 1024
 
 
 @functools.lru_cache(maxsize=64)
-def q8_split_plan(b: int, kvh: int, np_w: int) -> int:
-    """CTAs (one thread block cluster) per (kv head, batch row) of the
-    int8 kernel, from shapes only: as many as the cluster, the table's
+def split_plan(b: int, kvh: int, np_w: int) -> int:
+    """CTAs (one thread block cluster) per (kv head, batch row) of either
+    paged kernel, from shapes only: as many as the cluster, the table's
     ``np_w`` pages and a one-wave launch of ~132 CTAs allow.  It never
     reads ``lengths`` (on the card: a read would sync the host)."""
-    return max(1, min(Q8_MAX_SPLIT, np_w,
-                      -(-Q8_TARGET_CTAS // max(b * kvh, 1))))
+    return max(1, min(MAX_SPLIT, np_w, -(-TARGET_CTAS // max(b * kvh, 1))))
+
+
+def fp_smem_bytes(ps: int, dh: int, g: int, page_bytes: int) -> int:
+    """Shared memory of one CTA of the fp kernel: a ring of :data:`STAGES`
+    slots, each the K and V rows ``[ps][dh]`` of one head in the pages'
+    dtype (``page_bytes`` an element), then the partials (m, l, acc
+    ``[dh]``) of its ``g`` query heads
+    (``csrc/paged_decode.cu::smem_bytes``)."""
+    return STAGES * 2 * ps * dh * page_bytes + 4 * g * (dh + 2)
 
 
 def q8_smem_bytes(ps: int, dh: int, g: int) -> int:
     """Shared memory of one CTA of the int8 kernel: a ring of
-    :data:`Q8_STAGES` slots, each the K and V codes ``[ps][dh]`` and their
+    :data:`STAGES` slots, each the K and V codes ``[ps][dh]`` and their
     two ``[ps]`` f32 scales (rounded up to 16 bytes), then the partials
     (m, l, acc ``[dh]``) of its ``g`` query heads
     (``csrc/paged_decode_q8.cu::smem_bytes``)."""
     slot = 2 * ps * dh + -(-8 * ps // 16) * 16
-    return Q8_STAGES * slot + 4 * g * (dh + 2)
+    return STAGES * slot + 4 * g * (dh + 2)
 
 
 def _check(q4, k_pages, v_pages, page_table, lengths, k_new, v_new,
@@ -182,9 +194,10 @@ def paged_decode_q8_plain(q4: torch.Tensor, k_pages: torch.Tensor,
     return _attend(q4, k_ctx, v_ctx, lengths, k_new, v_new)
 
 
-def _launch_checks(what, q4, k_pages, tensors, smem):
+def _launch_checks(what, q4, k_pages, tensors, smem, smem_limit):
     """What the CUDA kernels take, beyond the shared contract; ``smem``:
-    the kernel's shared-memory bytes at these shapes."""
+    the kernel's shared-memory bytes at these shapes, at most
+    ``smem_limit``."""
     if q4.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {q4.device}")
     _, _, g, dh = q4.shape
@@ -195,11 +208,15 @@ def _launch_checks(what, q4, k_pages, tensors, smem):
     if not 1 <= g <= 32:
         raise ValueError(f"the {what} kernel serves 1..32 query heads per "
                          f"kv head, got {g}")
-    if smem > 48 * 1024:
-        raise ValueError(f"page_size {ps} x head dim {dh} does not fit the "
-                         f"{what} kernel's 48 KB of shared memory")
+    if smem > smem_limit:
+        raise ValueError(f"page_size {ps} x head dim {dh} x {g} heads needs "
+                         f"{smem} B, over the {what} kernel's {smem_limit} "
+                         f"B of shared memory")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"the {what} kernel takes contiguous tensors")
+    if k_pages.data_ptr() % 16 or tensors[2].data_ptr() % 16:
+        raise ValueError(f"the {what} kernel copies 16-byte vectors: the "
+                         f"pages must start 16-byte aligned")
 
 
 def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
@@ -220,16 +237,17 @@ def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
                                   k_new, v_new)
     tensors = (q4, k_pages, v_pages, page_table, lengths, k_new, v_new)
     b, kvh, g, dh = q4.shape
-    ps = k_pages.shape[1]
+    ps, np_w = k_pages.shape[1], page_table.shape[1]
     _launch_checks("paged decode", q4, k_pages, tensors,
-                   4 * (ps * (2 * dh + 1) + g * dh))
+                   fp_smem_bytes(ps, dh, g, k_pages.element_size()),
+                   SMEM_PER_BLOCK)
     out = torch.empty_like(q4)
     lib = _build.library("paged_decode", _SIG)
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream(q4.device).cuda_stream
+    guard, stream = _build.launch_on(q4.device)
+    with guard:
         err = lib.paged_decode_fwd(
             *(t.data_ptr() for t in tensors), out.data_ptr(), b, kvh, g, dh,
-            k_pages.shape[1], page_table.shape[1], 1.0 / math.sqrt(dh),
+            ps, np_w, split_plan(b, kvh, np_w), 1.0 / math.sqrt(dh),
             _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype], stream)
     _build.check(lib, err, "paged_decode_fwd")
     paged_decode_attention_grouped.launches += 1
@@ -266,17 +284,14 @@ def paged_decode_attention_q8_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
     b, kvh, g, dh = q4.shape
     ps, np_w = k_pages.shape[1], page_table.shape[1]
     _launch_checks("q8 paged decode", q4, k_pages, tensors,
-                   q8_smem_bytes(ps, dh, g))
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("the q8 paged kernel loads 16-byte vectors: the "
-                         "pages must start 16-byte aligned")
+                   q8_smem_bytes(ps, dh, g), Q8_SMEM_LIMIT)
     out = torch.empty_like(q4)
     lib = _build.library("paged_decode_q8", _SIG_Q8)
     guard, stream = _build.launch_on(q4.device)
     with guard:
         err = lib.paged_decode_q8_fwd(
             *(t.data_ptr() for t in tensors), out.data_ptr(), b, kvh, g, dh,
-            ps, np_w, q8_split_plan(b, kvh, np_w), 1.0 / math.sqrt(dh),
+            ps, np_w, split_plan(b, kvh, np_w), 1.0 / math.sqrt(dh),
             _DTYPE_CODE[q4.dtype], stream)
     _build.check(lib, err, "paged_decode_q8_fwd")
     paged_decode_attention_q8_grouped.launches += 1

@@ -14,8 +14,16 @@ oracles of ``repro/kernels/ref.py``:
 * the traffic model and the triad byte model exactly;
 * the triad kernel's schedule (:func:`triad_plan`'s grid and tiles, each
   thread's 16-byte vectors and scalar tail), emulated: it writes every
-  element exactly once.
+  element exactly once;
+* the Jacobi kernel's 2.5D plane-streaming schedule (the ring of input
+  planes, each level's planes, registers and neighbour lanes, the store
+  paths, ragged edge columns), emulated in fp32: bit-equal to the plain
+  sweeps for T = 1..4 and every tile, within the stencil tolerance of the
+  Pallas kernel, and reading each column's box exactly once, as
+  :func:`kernel_bytes` counts.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,9 +37,10 @@ from repro.kernels.jacobi7 import traffic_model as jax_traffic_model
 from repro.kernels.stream_triad import stream_triad as jax_triad
 from repro.kernels.stream_triad import triad_bytes as jax_triad_bytes
 from repro_torch.core import events
-from repro_torch.kernels.jacobi7 import (SMEM_PER_BLOCK, jacobi7_naive,
-                                         jacobi7_sweep_plain, jacobi7_sweeps,
-                                         jacobi7_valid_plain,
+from repro_torch.kernels.jacobi7 import (MAX_THREADS, RING_PLANES,
+                                         SMEM_PER_BLOCK, block_threads,
+                                         jacobi7_naive, jacobi7_sweep_plain,
+                                         jacobi7_sweeps, jacobi7_valid_plain,
                                          jacobi7_wavefront, kernel_bytes,
                                          lattice_updates, smem_footprint,
                                          traffic_model)
@@ -231,6 +240,170 @@ def test_jacobi_wavefront_equals_composed_naive_sweeps():
                        jacobi7_sweep_plain(jacobi7_sweep_plain(x)))
 
 
+def _plane_streaming_emulation(x, sweeps, tile, vec, omega=1.0 / 6.0):
+    """``csrc/jacobi7.cu``'s 2.5D schedule in fp32 numpy, column by column.
+
+    Planes are flat ``(by+2T) x pitch`` arrays (rows padded to 4); thread
+    ``t`` of a CTA owns the 4-point chunk at ``4t`` of every plane (row
+    ``t // (pitch/4)``), and a warp is 32 consecutive threads.  A column's
+    input box (its true output extent plus T a side) streams along x:
+    input plane p lands in ring slot p % RING_PLANES, copied row by row
+    (4-element vectors with a zero-filled partial last one when ``vec``,
+    else element by element).  Once plane p has landed, every thread
+    loads its chunk of it, and level s computes its plane p - 2s on every
+    chunk that meets the points at least s from the box's edge: x-1, x
+    and x+1 of level s-1 from the thread's own values of the last three
+    steps (its registers), z-1 and z+1 past the chunk's ends from the
+    neighbouring threads' values (shuffles; the first and last lane of a
+    warp read level s-1's previous plane instead), y+-1 from that plane
+    (the ring, or one of the level's two buffers); levels below T store
+    their plane in buffer i % 2, level T writes the points inside its
+    domain to the output (through the ring slot of plane p-2 unless the
+    output rows are whole 32-byte sectors: the slot is then clobbered,
+    and nothing may read it again).  Shared planes and registers start
+    as NaN, and a register no step wrote is NaN, so reading anything no
+    copy or level wrote for this use breaks the result.  Asserts that each step reads
+    the planes it expects and that a copy never lands in a slot a later
+    step reads; returns the output and how many times each input point
+    was read."""
+    t = sweeps
+    xs, ys, zs = x.shape
+    ox, oy, oz = xs - 2 * t, ys - 2 * t, zs - 2 * t
+    bx, by, bz = tile
+    pitch = -(-(bz + 2 * t) // 4) * 4
+    cpr, rows = pitch // 4, by + 2 * t
+    plane = rows * pitch
+    tid = np.arange(-(-rows * cpr // 32) * 32)          # whole warps
+    jr, kz = tid // cpr, 4 * (tid % cpr)
+    c = np.minimum(4 * tid, plane - 4)                  # idle threads clamp
+    pts = c[:, None] + np.arange(4)                     # [threads, 4]
+    first, last = tid % 32 == 0, tid % 32 == 31
+    out = np.full((ox, oy, oz), np.nan, np.float32)
+    reads = np.zeros(x.shape, np.int64)
+    writes = np.zeros(out.shape, np.int64)
+    om, nan = np.float32(omega), np.float32(np.nan)
+    direct = oz % 8 == 0 and bz % 8 == 0      # output rows whole sectors
+    for x0 in range(0, ox, bx):
+        for y0 in range(0, oy, by):
+            for z0 in range(0, oz, bz):
+                lx = min(bx, ox - x0) + 2 * t
+                ly = min(by, oy - y0) + 2 * t
+                lz = min(bz, oz - z0) + 2 * t
+                live = {s: (jr >= s) & (jr < ly - s) & (kz + 4 > s)
+                        & (kz < lz - s) for s in range(1, t + 1)}
+                ring = np.full((RING_PLANES, plane), nan, np.float32)
+                held = [-1] * RING_PLANES
+                levels = np.full((max(t - 1, 0), 2, plane), nan, np.float32)
+                lheld = [[-1, -1] for _ in range(t - 1)]
+                # registers: level s's chunk two steps ago and one step ago
+                prev2 = np.full((t, len(tid), 4), nan, np.float32)
+                prev1 = prev2.copy()
+
+                def fetch(p, step):
+                    slot = p % RING_PLANES
+                    # no step from `step` on reads the plane it replaces
+                    assert held[slot] < max(step - 1, 0)
+                    dst, src = ring[slot], x[x0 + p, y0:y0 + ly]
+                    width = 4 if vec else 1
+                    for j in range(ly):
+                        for v in range(0, lz, width):
+                            n = min(width, lz - v)
+                            d = j * pitch + v
+                            dst[d:d + n] = src[j, z0 + v:z0 + v + n]
+                            dst[d + n:d + width] = 0.0      # zero-fill
+                    reads[x0 + p, y0:y0 + ly, z0:z0 + lz] += 1
+                    held[slot] = p
+
+                for p in range(RING_PLANES - 3):
+                    if p < lx:
+                        fetch(p, 0)
+                for p in range(lx):
+                    assert held[p % RING_PLANES] == p        # has landed
+                    if p + RING_PLANES - 3 < lx:
+                        fetch(p + RING_PLANES - 3, p)
+                    now = np.full_like(prev1, nan)
+                    now[0] = ring[p % RING_PLANES][pts]
+                    for s in range(1, t + 1):
+                        i = p - 2 * s
+                        if i < 0:
+                            continue
+                        if s == 1:
+                            assert held[(i + 1) % RING_PLANES] == i + 1
+                            ctr = ring[(i + 1) % RING_PLANES]
+                        else:
+                            assert lheld[s - 2][(i + 1) % 2] == i + 1
+                            ctr = levels[s - 2][(i + 1) % 2]
+                        mid = prev1[s - 1]
+                        zl = np.roll(mid[:, 3], 1)          # lane - 1
+                        zr = np.roll(mid[:, 0], -1)         # lane + 1
+                        sel = live[s]
+                        cc, pp = c[sel], pts[sel]
+                        # every read stays inside the plane
+                        assert (pp - pitch).min() >= 0 and \
+                            (pp + pitch).max() < plane and \
+                            (cc + 4).max() < plane
+                        zl = np.where(first, ctr[c - 1], zl)[sel]
+                        zr = np.where(last, ctr[np.minimum(c + 4, plane - 1)],
+                                      zr)[sel]
+                        md = mid[sel]
+                        v = prev2[s - 1][sel] + now[s - 1][sel]
+                        v = v + ctr[pp - pitch]
+                        v = v + ctr[pp + pitch]
+                        v = v + np.concatenate([zl[:, None], md[:, :3]], 1)
+                        v = v + np.concatenate([md[:, 1:], zr[:, None]], 1)
+                        v = v * om
+                        if s < t:
+                            levels[s - 1][i % 2][pp] = v
+                            lheld[s - 1][i % 2] = i
+                            now[s][sel] = v
+                            continue
+                        if not direct:
+                            # the stores go out transposed through the
+                            # slot of plane p-2: nothing may read it again
+                            ring[(p - 2) % RING_PLANES] = nan
+                            held[(p - 2) % RING_PLANES] = -1
+                        z = kz[sel][:, None] + np.arange(4)
+                        inside = (z >= t) & (z < lz - t)
+                        r = np.broadcast_to(jr[sel][:, None] - t, z.shape)
+                        idx = (x0 + i, y0 + r[inside], z0 + z[inside] - t)
+                        out[idx] = v[inside]
+                        writes[idx] += 1
+                    prev2, prev1 = prev1, now
+    assert (writes == 1).all()
+    return out, reads
+
+
+STREAM_CASES = [
+    # shape, tiles: (37, 45, 99) is no multiple of any tile (ragged edge
+    # columns, z rows unaligned: 4-byte copies); (30, 26, 44) takes the
+    # 16-byte copies with a partial last vector; columns from one plane
+    # deep to the whole x extent
+    ((37, 45, 99), [(64, 16, 64), (4, 8, 32), (3, 5, 7), (16, 16, 16)]),
+    ((30, 26, 44), [(64, 16, 64), (8, 8, 12), (5, 7, 16), (1, 3, 4)]),
+]
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape,tiles", STREAM_CASES)
+def test_plane_streaming_schedule_matches_plain_and_pallas(shape, tiles,
+                                                           sweeps):
+    x = _normal(9 + sweeps, *shape)
+    plain = jacobi7_valid_plain(torch.from_numpy(x), sweeps).numpy()
+    jax_fn = jax_naive if sweeps == 1 else functools.partial(
+        jax_wavefront, sweeps=sweeps)
+    pallas = np.asarray(jax_fn(jnp.asarray(x)))
+    for tile in tiles:
+        vec = shape[2] % 4 == 0 and tile[2] % 4 == 0
+        got, reads = _plane_streaming_emulation(x, sweeps, tile, vec)
+        # the order of the sums is the plain sweep's: bit-equal, any tile
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_allclose(got, pallas, **STENCIL_TOL)
+        # each column reads its box once: kernel_bytes counts exactly that
+        out_bytes = 4 * plain.size
+        assert 4 * int(reads.sum()) + out_bytes == \
+            kernel_bytes(shape, sweeps, tile)
+
+
 @pytest.mark.parametrize("shape,sweeps,block_x", [
     ((64, 128, 256), 4, 8), ((24, 48, 96), 2, 8), ((512, 512, 512), 4, 16),
     ((512, 512, 512), 1, 1)])
@@ -256,14 +429,29 @@ def test_kernel_bytes_counts_halos_per_tile():
 
 
 def test_smem_footprint_and_refusal_of_a_tile_that_does_not_fit():
-    assert smem_footprint(4, (8, 16, 64)) == 4 * (16 * 24 * 72
-                                                  + 14 * 22 * 70)
-    assert smem_footprint(1, (8, 16, 64)) == 4 * 10 * 18 * 66
-    assert smem_footprint(4, (8, 16, 64)) <= SMEM_PER_BLOCK
-    assert smem_footprint(4, (16, 16, 64)) > SMEM_PER_BLOCK
-    x = torch.zeros(40, 40, 90)
-    with pytest.raises(ValueError, match="wrong placement"):
-        jacobi7_wavefront(x, sweeps=4, tile=(16, 16, 64))
+    # a ring of 6 input planes and 2 planes for each of sweeps 1..T-1,
+    # each the y-z box (by+2T) x (bz+2T) with rows padded to 4; one thread
+    # a 4-point chunk of a plane
+    assert smem_footprint(4, (8, 16, 64)) == 4 * (6 + 2 * 3) * 24 * 72
+    assert smem_footprint(1, (8, 16, 64)) == 4 * 6 * 18 * 68
+    assert smem_footprint(3, (3, 5, 7)) == 4 * (6 + 2 * 2) * 11 * 16
+    assert block_threads(4, (8, 16, 64)) == 24 * 18
+    assert block_threads(1, (8, 16, 64)) == 18 * 17
+    # the x extent streams through and costs neither
+    assert smem_footprint(4, (64, 16, 64)) == smem_footprint(4, (8, 16, 64))
+    assert block_threads(4, (64, 16, 64)) == block_threads(4, (8, 16, 64))
+    assert smem_footprint(4, (64, 16, 64)) <= SMEM_PER_BLOCK // 2
+    assert smem_footprint(4, (64, 32, 64)) <= SMEM_PER_BLOCK
+    assert block_threads(4, (64, 32, 64)) <= MAX_THREADS
+    # refused: planes over 227 KiB; a plane of more chunks than threads
+    assert smem_footprint(4, (8, 64, 128)) > SMEM_PER_BLOCK
+    assert smem_footprint(1, (8, 64, 128)) <= SMEM_PER_BLOCK < \
+        4 * block_threads(1, (8, 64, 128)) * 4 * 16
+    assert block_threads(1, (8, 64, 128)) > MAX_THREADS
+    x = torch.zeros(40, 80, 140)
+    for t, tile in ((4, (8, 64, 128)), (1, (8, 64, 128))):
+        with pytest.raises(ValueError, match="wrong placement"):
+            jacobi7_wavefront(x, sweeps=t, tile=tile)
     with pytest.raises(ValueError, match="leave nothing"):
         jacobi7_wavefront(torch.zeros(8, 20, 20), sweeps=4)
     with pytest.raises(TypeError, match="fp32"):

@@ -20,10 +20,12 @@ to bf16 before PV, fp32 accumulation, bf16 output), held to the plain
 version and the Pallas kernel within the card's bf16 tolerance; the
 argmax kernel's split of a row over a cluster of CTAs (its plan, each
 CTA's scalar head, 16-byte body and scalar tail, and the combine), held
-to ``jnp.argmax`` on ties and NaN at the split boundaries; and the int8
-paged kernel's split of a row's pages over a cluster (its plan, each
-CTA's page range and partial softmax, and the combine in any order), held
-to the plain version and the Pallas kernel at the fp32 tolerance.
+to ``jnp.argmax`` on ties and NaN at the split boundaries; and both paged
+kernels' split of a row's pages over a cluster (their plan, each CTA's
+page range and partial softmax, and the combine in any order), held to
+the plain versions and the Pallas kernels: int8 pages and fp32 at the
+fp32 tolerance, bf16 outputs (bf16 pages, or fp32 pages under a bf16
+query) one bf16 rounding apart.
 """
 
 import inspect
@@ -47,9 +49,9 @@ from repro_torch.kernels.flash_attention import (NEG_INF,
                                                  flash_attention_bhsd,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_decode import (
-    Q8_MAX_SPLIT, paged_decode_attention_grouped,
+    MAX_SPLIT, SMEM_PER_BLOCK, fp_smem_bytes, paged_decode_attention_grouped,
     paged_decode_attention_q8_grouped, paged_decode_plain,
-    paged_decode_q8_plain, q8_smem_bytes, q8_split_plan)
+    paged_decode_q8_plain, q8_smem_bytes, split_plan)
 from repro_torch.models.attention import quantize_kv_rows
 
 torch.set_num_threads(1)
@@ -370,12 +372,13 @@ def q8_page_range(rank, split, n_pages):
 
 @pytest.mark.parametrize("b,kvh,np_w,split", Q8_PLANS)
 def test_q8_split_plan_reads_only_shapes(b, kvh, np_w, split):
-    # the plan takes shapes and nothing else: lengths live on the card
-    assert list(inspect.signature(q8_split_plan).parameters) == \
+    # the plan (both paged kernels') takes shapes and nothing else:
+    # lengths live on the card
+    assert list(inspect.signature(split_plan).parameters) == \
         ["b", "kvh", "np_w"]
-    got = q8_split_plan(b, kvh, np_w)
+    got = split_plan(b, kvh, np_w)
     assert got == split
-    assert 1 <= got <= Q8_MAX_SPLIT == 8 and got <= np_w
+    assert 1 <= got <= MAX_SPLIT == 8 and got <= np_w
     # every live-page count a row can have splits into consecutive ranges
     # that cover it, balanced to within one page
     for n in range(np_w + 1):
@@ -398,16 +401,20 @@ def test_q8_smem_footprint_fits_every_shape_the_card_checks():
     assert q8_smem_bytes(32, 128, 32) > 48 * 1024
 
 
-def _q8_split_emulation(args, split, order_rng):
-    """The int8 kernel's cluster split in fp32 numpy: CTA ``r`` of a row
+def _split_emulation(q4, k_rows, v_rows, ksc, vsc, pt, ln, kn, vn, split,
+                     order_rng):
+    """Both paged kernels' cluster split in fp32 numpy: CTA ``r`` of a row
     takes the live pages ``q8_page_range(r, split, n_pages)`` (``n_pages``
     from ``lengths``, at most the table's width) through the page table
     and keeps a partial (m, l, acc) per query head, the neutral (-2e38, 0,
     0) when its range is empty; rank 0 merges the partials in a random
-    order, folds the new token in last and divides by max(l, 1e-20)."""
-    q4, kp, vp, ksc, vsc, pt, ln, kn, vn = args
+    order, folds the new token in last and divides by max(l, 1e-20).
+    ``k_rows``/``v_rows`` are the pages as fp32 (int8 codes, or fp pages
+    cast as the kernel reads them) and ``ksc``/``vsc`` their ``[P,ps]``
+    scales (ones for fp pages)."""
+    q4, kn, vn = (a.astype(np.float32) for a in (q4, kn, vn))
     b, kvh, g, dh = q4.shape
-    ps, np_w = kp.shape[1], pt.shape[1]
+    ps, np_w = k_rows.shape[1], pt.shape[1]
     neg = np.float32(NEG_INF)
     out = np.empty_like(q4)
     for bi in range(b):
@@ -424,15 +431,14 @@ def _q8_split_emulation(args, split, order_rng):
                     assert j * ps < ln[bi]      # only live pages are read
                     page = pt[bi, j]
                     live = j * ps + np.arange(ps) < ln[bi]
-                    s = (q @ kp[page, :, h].astype(np.float32).T) \
-                        * ksc[page][None]                       # [g, ps]
-                    s = np.where(live[None], s, neg)
+                    s = (q @ k_rows[page, :, h].T) * ksc[page][None]
+                    s = np.where(live[None], s, neg)            # [g, ps]
                     m_new = np.maximum(m, s.max(-1))
                     alpha = np.exp(m - m_new)
                     p = np.where(live[None], np.exp(s - m_new[:, None]), 0)
                     l = l * alpha + p.sum(-1)
                     acc = acc * alpha[:, None] + (p * vsc[page][None]) \
-                        @ vp[page, :, h].astype(np.float32)
+                        @ v_rows[page, :, h]
                     m = m_new
                 parts.append((m, l, acc))
             m = np.max([pm for pm, _, _ in parts], axis=0)
@@ -471,16 +477,116 @@ def test_q8_split_then_combine_matches_plain_and_pallas(lens, kvh, g, dh, ps,
     plain = paged_decode_q8_plain(*(torch.from_numpy(a) for a in args))
     pallas = np.asarray(jax_paged_q8(*(jnp.asarray(a) for a in args),
                                      interpret=True))
-    vn = args[8]
     # every split the plan can choose at this table width
-    for split in range(1, min(Q8_MAX_SPLIT, np_w) + 1):
-        got = _q8_split_emulation(args, split, rng)
+    q4, kp, vp, ksc, vsc, pt, ln, kn, vn = args
+    for split in range(1, min(MAX_SPLIT, np_w) + 1):
+        got = _split_emulation(q4, kp.astype(np.float32),
+                               vp.astype(np.float32), ksc, vsc, pt, ln, kn,
+                               vn, split, rng)
         np.testing.assert_allclose(got, plain.numpy(), **TOL)
         np.testing.assert_allclose(got, pallas, **TOL)
         for i, n in enumerate(lens):
             if n == 0:                     # exactly v_new, every split
                 np.testing.assert_array_equal(
                     got[i], np.broadcast_to(vn[i][:, None], (kvh, g, dh)))
+
+
+def _bf16(a):
+    """fp32 numpy rounded to bf16 and back, as the card stores it."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+# the fp kernel's page dtype under each query dtype: bf16 pages under a
+# bf16 model, fp32 under fp32, and kv_dtype="fp32" on a bf16 model
+FP_PAGE_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
+                  ("bfloat16", "float32")]
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype", FP_PAGE_DTYPES)
+@pytest.mark.parametrize("lens,kvh,g,dh,ps,np_w", Q8_SPLIT_CASES)
+def test_fp_split_then_combine_matches_plain_and_pallas(lens, kvh, g, dh, ps,
+                                                         np_w, q_dtype,
+                                                         page_dtype):
+    """The fp kernel's cluster split (``csrc/paged_decode.cu``): the same
+    page ranges, partials and merge as the int8 kernel's, over K/V rows
+    in the pages' dtype cast to fp32 as they are read (scales of 1)."""
+    rng = np.random.default_rng(sum(lens) * 5 + np_w)
+    q4, kp, vp, pt, ln, kn, vn = _paged_case(rng, lens, kvh, g, dh, ps, np_w)
+    if q_dtype == "bfloat16":
+        q4, kn, vn = _bf16(q4), _bf16(kn), _bf16(vn)
+    if page_dtype == "bfloat16":
+        kp, vp = _bf16(kp), _bf16(vp)
+    tq = {"float32": torch.float32, "bfloat16": torch.bfloat16}[q_dtype]
+    tp = {"float32": torch.float32, "bfloat16": torch.bfloat16}[page_dtype]
+    jq = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[q_dtype]
+    jp = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[page_dtype]
+    targs = (torch.from_numpy(q4).to(tq), torch.from_numpy(kp).to(tp),
+             torch.from_numpy(vp).to(tp), torch.from_numpy(pt),
+             torch.from_numpy(ln), torch.from_numpy(kn).to(tq),
+             torch.from_numpy(vn).to(tq))
+    plain = paged_decode_attention_grouped(*targs)
+    assert plain.dtype == tq
+    pallas = jax_paged(jnp.asarray(q4).astype(jq), jnp.asarray(kp).astype(jp),
+                       jnp.asarray(vp).astype(jp), jnp.asarray(pt),
+                       jnp.asarray(ln), jnp.asarray(kn).astype(jq),
+                       jnp.asarray(vn).astype(jq), interpret=True)
+    pallas = np.asarray(pallas.astype(jnp.float32))
+    ones = np.ones(kp.shape[:2], np.float32)
+    # fp32 outputs at the fp32 tolerance; bf16 outputs one rounding apart
+    tol = TOL if q_dtype == "float32" else dict(rtol=1e-2, atol=1e-2)
+    for split in range(1, min(MAX_SPLIT, np_w) + 1):
+        got = _split_emulation(q4, kp, vp, ones, ones, pt, ln, kn, vn, split,
+                               rng)
+        got = torch.from_numpy(got).to(tq).float().numpy()
+        np.testing.assert_allclose(got, plain.float().numpy(), **tol)
+        np.testing.assert_allclose(got, pallas, **tol)
+        for i, n in enumerate(lens):
+            if n == 0:                     # exactly v_new, every split
+                np.testing.assert_array_equal(
+                    got[i], np.broadcast_to(vn[i][:, None], (kvh, g, dh)))
+
+
+def test_fp_smem_bytes_fit_every_shape_the_card_checks():
+    # ring of 4 pages of K and V rows in the pages' dtype, then the
+    # partials of G heads
+    assert fp_smem_bytes(16, 64, 7, 2) == 4 * 2 * 16 * 64 * 2 + 4 * 7 * 66
+    assert fp_smem_bytes(16, 128, 32, 4) == 4 * 2 * 16 * 128 * 4 \
+        + 4 * 32 * 130
+    # fp32 pages at Dh 128 pass the 48 KB a block has without the opt-in,
+    # and every shape the card checks (pages of 8, 16 and 32 tokens, G up
+    # to 32, fp32 or bf16 pages) fits the 227 KiB it may opt in to
+    assert fp_smem_bytes(16, 128, 7, 4) > 48 * 1024
+    for ps, dh, g in ((16, 64, 7), (16, 128, 32), (8, 64, 7), (32, 32, 4),
+                      (16, 16, 7), (32, 128, 32)):
+        for page_bytes in (2, 4):
+            assert fp_smem_bytes(ps, dh, g, page_bytes) <= SMEM_PER_BLOCK
+    assert fp_smem_bytes(128, 128, 32, 4) > SMEM_PER_BLOCK
+
+
+# the fp cases chip_smoke.py checks: (lens, kvh, page size, table width)
+FP_CARD_CASES = [
+    ([n + 16 for n in (512, 384, 301, 256, 129, 64, 17, 1)], 2, 16, 34),
+    ([600, 0, 5, 20, 47], 2, 16, 38), ([300, 1, 0, 65], 1, 16, 19),
+    ([250, 7, 0, 40], 2, 8, 32), ([900, 33, 0, 64], 2, 32, 29),
+    ([500, 16, 0, 3], 2, 16, 64)]
+
+
+@pytest.mark.parametrize("lens,kvh,ps,np_w", FP_CARD_CASES)
+def test_fp_split_plan_spreads_long_rows_over_the_cluster(lens, kvh, ps,
+                                                          np_w):
+    b = len(lens)
+    split = split_plan(b, kvh, np_w)
+    # one wave: under one CTA a row past the ~132 the launch aims at
+    assert split == 1 or split * b * kvh < 132 + b * kvh
+    if b * kvh <= 16:                 # few rows: the whole cluster each
+        assert split == min(MAX_SPLIT, np_w)
+    # the longest row's pages spread to within one page over the CTAs,
+    # so no CTA walks more than ceil(n / S) of them
+    n = min(-(-max(lens) // ps), np_w)
+    sizes = [j1 - j0 for j0, j1 in
+             (q8_page_range(r, split, n) for r in range(split))]
+    assert sum(sizes) == n and max(sizes) == -(-n // split)
+    assert split_plan(8, 2, 34) == 8            # 128 CTAs at the main shape
 
 
 def test_quantize_kv_rows_codes_match_jax_bit_for_bit():
