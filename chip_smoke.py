@@ -26,10 +26,16 @@ failure):
                32, the scheduler's 64-page table; a row of no past token
                exactly v_new), the fp kernel in fp32, bf16 and with fp32
                pages under a bf16 query; the SSD
-               scan, a reordered sum, at fp32 rtol=2e-4, atol=2e-5:
-               ragged S, S < chunk, dv over two tiles, normalize, a
-               carried state, log_f = -30, mLSTM's dk = dv = 512, the
-               flat [512,512,64] layout and zamba2's generate call); median
+               scan, a reordered sum, at fp32 rtol=2e-4, atol=2e-5 (C and
+               n at that tolerance for bf16 inputs too): ragged S, S <
+               chunk, dv over two tiles, normalize, a carried state, log_f
+               = -30, mLSTM's dk = dv = 512, the bf16 route's edges (4-byte
+               rows, chunk 1024), the flat [512,512,64] layout, the
+               scheduler's one-row admissions (B = 1, S = 64, 300, 512,
+               timed) and zamba2's generate call, with the device time of
+               the bf16 route's three passes; a bf16 call must run those
+               three ``__global__`` functions and an fp32 call the CUDA-core
+               one, by name under ``torch.profiler``); median
                times of the kernel, the plain version and, where one
                PyTorch call computes the same function, that call
                (``library_ms``; the port never calls it); the host's
@@ -597,11 +603,21 @@ def ssd_inputs(rng, dev, b, s, h, dk, dv, dtype, *, positive=False,
     return (q, k, v, *gates), st
 
 
+#: the bf16 route's three passes and the fp32 route's kernel, by the names
+#: of their ``__global__`` functions
+SSD_PASSES = ("ssd_local_states_kernel", "ssd_state_pass_kernel",
+              "ssd_outputs_kernel")
+SSD_FP32 = "ssd_scan_kernel"
+
+
 def check_ssd(dev, timer):
     """Kernel #5 against its plain version: the main path's call (zamba2
     generate: 8 x 512 tokens, 64 heads of P = N = 64, q/k broadcast over
-    heads, a carried state), the flat [512, 512, 64] layout, edge cases and
-    mLSTM's dk = dv = 512 state."""
+    heads, a carried state), the scheduler's one-row admissions (B = 1 at
+    S = 64, 300, 512), the flat [512, 512, 64] layout, edge cases and
+    mLSTM's dk = dv = 512 state; which ``__global__`` functions each dtype
+    runs (bf16: the three tensor-core passes, fp32: the CUDA-core kernel)."""
+    from repro_torch.bench.profile_kernels import device_us_by_kernel
     from repro_torch.kernels.ssd_scan import ssd_flops, ssd_scan
     from repro_torch.models.linear_scan import _chunked_linear_attention
     rng = np.random.default_rng(8)
@@ -645,6 +661,16 @@ def check_ssd(dev, timer):
          positive=True)
     case("mLSTM dk=dv=512", (1, 512, 4, 512, 512), torch.bfloat16, 256,
          True, positive=True)
+    # the bf16 route's edges: ragged S over key and row tiles, dk and dv
+    # padded to 64 (dv over two tiles), 4-byte copies (rows of 40 bytes),
+    # normalize, a carried state
+    case("ragged S", (3, 37, 2, 64, 64), torch.bfloat16, 16)
+    case("S < chunk, dv in 2 tiles", (2, 45, 3, 16, 96), torch.bfloat16, 64,
+         state=True)
+    case("4-byte rows", (2, 200, 3, 20, 36), torch.bfloat16, 128, True,
+         positive=True, state=True)
+    case("chunk 1024", (1, 1100, 2, 64, 64), torch.bfloat16, 1024,
+         state=True, broadcast=True)
     # the flat layout of the Pallas entry, [BH,S,d] as [BH,S,1,d], at the
     # generate shape
     args, _ = ssd_inputs(rng, dev, 512, 512, 1, 64, 64, torch.bfloat16)
@@ -653,14 +679,37 @@ def check_ssd(dev, timer):
     torch.cuda.synchronize()
     close("ssd_scan flat [512,512,64] bf16 chunk 256", y, yp)
     flat_ms = timer.ms(lambda: ssd_scan(*args, chunk=256))
+    # the scheduler's one-row admissions (zamba2, B = 1, a carried state)
+    for s in (64, 300, 512):
+        _, a1, st1 = case(f"admission S={s}", (1, s, 64, 64, 64),
+                          torch.bfloat16, 256, state=True, broadcast=True)
+        adm_ms = timer.ms(lambda: ssd_scan(*a1, chunk=256,
+                                           initial_state=st1))
+        log(f"  ssd_scan admission B=1 S={s} bf16: {adm_ms:.4f} ms")
     # the main path's call, in bf16 and in fp32
     shape = (ZAMBA_PROMPTS, ZAMBA_PROMPT_LEN, 64, 64, 64)
-    case("zamba2 generate", shape, torch.float32, 256, state=True,
-         broadcast=True)
+    _, a32, st32 = case("zamba2 generate", shape, torch.float32, 256,
+                        state=True, broadcast=True)
     err, args, st = case("zamba2 generate", shape, torch.bfloat16, 256,
                          state=True, broadcast=True)
     ms = timer.ms(lambda: ssd_scan(*args, chunk=256, initial_state=st))
     plain_ms = timer.ms(lambda: plain(args, 256, False, st))
+    # each dtype reaches its own route, and only it
+    names = SSD_PASSES + (SSD_FP32,)
+    split = device_us_by_kernel(
+        lambda: ssd_scan(*args, chunk=256, initial_state=st), names)
+    if set(split) != set(SSD_PASSES):
+        fail(f"a bf16 ssd_scan call ran {sorted(split)}, not the tensor-core "
+             f"passes {list(SSD_PASSES)}")
+    f32 = device_us_by_kernel(
+        lambda: ssd_scan(*a32, chunk=256, initial_state=st32), names)
+    if set(f32) != {SSD_FP32}:
+        fail(f"an fp32 ssd_scan call ran {sorted(f32)}, not {SSD_FP32}")
+    log(f"  ok ssd_scan routes: bf16 runs {list(SSD_PASSES)}, fp32 runs "
+        f"{SSD_FP32} ({f32[SSD_FP32]:.1f} us a call)")
+    del a32, st32
+    b, s, h, dk = args[0].shape
+    dv = args[2].shape[3]
 
     def distinct(t):
         n = t.element_size()
@@ -668,8 +717,6 @@ def check_ssd(dev, timer):
             n *= size if stride else 1
         return n
 
-    b, s, h, dk = args[0].shape
-    dv = args[2].shape[3]
     state_bytes = 4 * (b * h * dk * dv + b * h * dk)
     nbytes = (sum(distinct(t) for t in args) + state_bytes      # in
               + distinct(args[2]) + state_bytes)                 # y, C, n
@@ -679,7 +726,8 @@ def check_ssd(dev, timer):
         f"{nbytes / 1e6:.1f} MB; bound {bms:.4f} ms by {by} (989 TFLOP/s "
         f"tensor-core peak); fp32 CUDA cores at peak "
         f"{flops / F32_FLOPS * 1e3:.4f} ms; flat [512,512,64] bf16 "
-        f"{flat_ms:.4f} ms")
+        f"{flat_ms:.4f} ms; device us a call by pass: "
+        + ", ".join(f"{n} {split[n]:.1f}" for n in SSD_PASSES))
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:35",

@@ -48,9 +48,12 @@ PROMPT_LENS = {"qwen2-0.5b": (512, 384, 301, 256, 129, 64, 17, 1),
                "zamba2-1.2b": (512,) * 8}
 MAX_NEW = 32
 #: the port's kernels by the names of their ``__global__`` functions
+#: (the SSD scan: the bf16 route's three passes, the fp32 route's kernel)
 PORT_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel",
                 "paged_decode_kernel", "paged_decode_q8_kernel",
-                "argmax_kernel", "ssd_scan_kernel")
+                "argmax_kernel", "ssd_local_states_kernel",
+                "ssd_state_pass_kernel", "ssd_outputs_kernel",
+                "ssd_scan_kernel")
 
 
 def _profiled(fn):

@@ -1,5 +1,5 @@
-"""Device-only and host time of the decode and case-study kernels, on one
-card.
+"""Device-only and host time of the decode, SSD and case-study kernels, on
+one card.
 
     python -m repro_torch.bench.profile_kernels [--json out.json]
     PYTHONPATH=<other tree>/src python src/repro_torch/bench/profile_kernels.py
@@ -11,7 +11,11 @@ as ``plan_table`` lays it out) and the same q8 call at the scheduler's
 table width (64 pages a row), the STREAM triad (#6) at N = 2^27 in fp32
 and bf16 beside ``torch.add(b, c, alpha=2.5, out=a)``, and Jacobi-7 (#7)
 at 512^3 fp32 with its default tile, one T = 4 launch and one naive
-(T = 1) sweep.  For each call it reports:
+(T = 1) sweep, and the SSD scan (#5) at zamba2's generate call
+([8,512,64,64,64], q and k broadcast over heads, a carried state, chunk
+256) in bf16 and fp32, at the scheduler's one-row admission (B = 1, S =
+512) and at mLSTM's dk = dv = 512 (B = 1, 4 heads, S = 512, normalize) in
+bf16.  For each call it reports:
 
 * ``device_us``: device time a launch under ``torch.profiler``, 100
   launches with the 50 MB L2 flushed before each (the flush kernel is
@@ -21,6 +25,9 @@ at 512^3 fp32 with its default tile, one T = 4 launch and one naive
   launches between CUDA events, the L2 flushed before each), which counts
   a call's host enqueue where it outlasts the flush;
 * ``host_us``: host microseconds a call takes to enqueue its work;
+* ``by_kernel`` (SSD rows): device us a call in each ``__global__``
+  function the call ran (L2 flushed), so the bf16 route's three passes
+  and the fp32 route's kernel show apart;
 
 and for the triad in each dtype, ``turns`` pairs of ``Timer`` readings,
 the kernel's and then ``torch.add``'s, so the two are compared in
@@ -55,6 +62,17 @@ SCHED_WIDTH = 64             # max_seq 1024 over 16-token pages
 TRIAD_N = 1 << 27
 STENCIL = (512, 512, 512)
 FLUSH_BYTES = 64 << 20
+#: the SSD scan's ``__global__`` functions: the bf16 route's three passes
+#: and the fp32 route's kernel
+SSD_KERNELS = ("ssd_local_states_kernel", "ssd_state_pass_kernel",
+               "ssd_outputs_kernel", "ssd_scan_kernel")
+#: (b, s, h, dk, dv, dtype, normalize) of the SSD rows
+SSD_SHAPES = {
+    "ssd_scan_generate_bf16": (8, 512, 64, 64, 64, torch.bfloat16, False),
+    "ssd_scan_generate_fp32": (8, 512, 64, 64, 64, torch.float32, False),
+    "ssd_scan_admission_bf16": (1, 512, 64, 64, 64, torch.bfloat16, False),
+    "ssd_scan_mlstm_bf16": (1, 512, 4, 512, 512, torch.bfloat16, True),
+}
 
 
 class Probe:
@@ -112,6 +130,56 @@ class Probe:
                     timer_ms=self.timer_ms(fn), host_us=self.host_us(fn))
 
 
+def device_us_by_kernel(fn, names, n: int = 5, flush=None) -> dict:
+    """Device microseconds a call of ``fn`` spends in each ``__global__``
+    function of ``names`` that it launches, under ``torch.profiler`` over
+    ``n`` calls (zeroing ``flush`` before each, when given); a name it
+    never launches is absent."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for a in prof.key_averages():
+        if a.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if f"{name}<" in a.key or f"{name}(" in a.key:
+                out[name] = out.get(name, 0.0) + _device_time_us(a) / n
+    return out
+
+
+def ssd_inputs(dev, b, s, h, dk, dv, dtype, normalize, seed: int = 5):
+    """ssd_scan arguments in the model layout: q, k of one head broadcast
+    over ``h`` (Mamba2's single group; |.| for ``normalize``, mLSTM-like),
+    gates -softplus(N(0,1)), and a carried fp32 state."""
+    rng = np.random.default_rng(seed)
+
+    def qk():
+        x = rng.standard_normal((b, s, 1, dk), np.float32) * dk ** -0.25
+        x = np.abs(x) if normalize else x
+        return torch.from_numpy(x).to(dev, dtype).expand(b, s, h, dk)
+
+    def gate():
+        return torch.from_numpy(-np.logaddexp(
+            rng.standard_normal((b, s, h)), 0.0).astype(np.float32)).to(dev)
+
+    q, k = qk(), qk()
+    v = torch.from_numpy(rng.standard_normal((b, s, h, dv), np.float32)
+                         ).to(dev, dtype)
+    st = (torch.from_numpy(rng.standard_normal((b, h, dk, dv), np.float32)
+                           ).to(dev),
+          torch.from_numpy(np.abs(rng.standard_normal((b, h, dk),
+                                                      np.float32))).to(dev))
+    return (q, k, v, gate(), gate()), st
+
+
 def paged_inputs(dev, q8: bool, width=None, seed: int = 4):
     """Phase 3's main decode call: row-major page table (ids 1..), room
     for EXTRA more tokens a row, optionally widened to ``width``."""
@@ -164,10 +232,22 @@ def profile(dev, turns: int) -> dict:
     from repro_torch.kernels.jacobi7 import jacobi7_naive, jacobi7_wavefront
     from repro_torch.kernels.paged_decode import (
         paged_decode_attention_grouped, paged_decode_attention_q8_grouped)
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.stream_triad import stream_triad
     _build.build_all()
     probe = Probe(dev)
     out = {}
+    for name, (b, s, h, dk, dv, dtype, norm) in SSD_SHAPES.items():
+        args, st = ssd_inputs(dev, b, s, h, dk, dv, dtype, norm)
+
+        def call():
+            return ssd_scan(*args, chunk=256, normalize=norm,
+                            initial_state=st)
+
+        out[name] = probe.all(call)
+        out[name]["by_kernel"] = device_us_by_kernel(call, SSD_KERNELS, 20,
+                                                     flush=probe.flush)
+        del args, st
     args = paged_inputs(dev, q8=True)
     out["paged_decode_q8"] = probe.all(
         lambda: paged_decode_attention_q8_grouped(*args))

@@ -106,15 +106,16 @@ def collect() -> Iterator[EventCounts]:
         stack.pop()
 
 
-def record_launch(*, flops: float, arg_bytes: float, out_bytes: float
-                  ) -> None:
-    """Declare one wrapper call; a no-op when no collection is open.  The
-    declaring kernels do their math in fp32 on CUDA cores, so their FLOPs
-    count in FLOPS_F32 too."""
+def record_launch(*, flops: float, arg_bytes: float, out_bytes: float,
+                  f32: bool = True) -> None:
+    """Declare one wrapper call; a no-op when no collection is open.  With
+    ``f32`` (the default) the call does its math in fp32 on CUDA cores and
+    its FLOPs count in FLOPS_F32 too; a tensor-core call passes False."""
     for ev in _open():
         c = ev.counts
         c["FLOPS_TOTAL"] += flops
-        c["FLOPS_F32"] += flops
+        if f32:
+            c["FLOPS_F32"] += flops
         c["HBM_ARG_BYTES"] += arg_bytes
         c["HBM_OUT_BYTES"] += out_bytes
         c["BYTES_ACCESSED"] += arg_bytes + out_bytes

@@ -80,3 +80,79 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// ---- wgmma (sm_90a only): one warpgroup (four consecutive warps) computes
+// a 64 x 64 fp32 tile, B (and A, in the _ss form) read from shared memory
+// through a matrix descriptor.  The accumulator fragment of warp w is the
+// mma.sync C fragment of rows 16w..16w+15, one 8-column block per d[n];
+// the A register fragment of the _rs form is the mma.sync A fragment of
+// the warp's 16 rows.
+
+// descriptor of a bf16 matrix in a 64 x 64 tile whose 128-byte rows hold
+// 16-byte chunks XOR-swizzled by (row % 8) (the 128-byte swizzle; the tile
+// 1024-byte aligned): lbo / sbo in bytes (sbo: the stride between groups
+// of 8 rows, 1024 here; lbo: unused by a K-major operand, the stride
+// between 8-row groups along K for an MN-major one)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// makes this thread's shared-memory writes (st.shared, cp.async) visible
+// to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+#define REPRO_WG_D(d)                                                       \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),               \
+      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),           \
+      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),           \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),           \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),           \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),           \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),           \
+      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define REPRO_WG_D_LIST                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+
+// d += A (64 x 16, shared, K-major) * B (16 x 64, shared; TB = 1: stored
+// MN-major, i.e. [k][n])
+template <int TB>
+__device__ __forceinline__ void wgmma_64x64x16_ss(float (&d)[8][4],
+                                                  uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WG_D_LIST
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : REPRO_WG_D(d)
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// d += A (64 x 16, registers) * B (16 x 64, shared; TB as above)
+template <int TB>
+__device__ __forceinline__ void wgmma_64x64x16_rs(float (&d)[8][4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WG_D_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : REPRO_WG_D(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}

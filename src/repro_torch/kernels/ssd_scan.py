@@ -4,8 +4,11 @@ its plain twin and the sequential oracle.
 Port of ``repro/kernels/ssd_scan.py`` (the Pallas ``_ssd_kernel`` behind
 ``ssd_scan_flat``) and of its model-layout adapter ``kernels/ops.py::
 ssd_scan``.  The kernel is ``csrc/ssd_scan.cu``; its source note says what
-bounds it on an H100 and how it is laid out.  Contract, shared by every
-version here:
+bounds it on an H100 and how it is laid out: bf16 runs three passes on the
+tensor cores (local chunk states, the pass over states, the outputs) over a
+scratch buffer this wrapper allocates at the size the library reports
+(``ssd_scan_scratch_bytes``), fp32 the CUDA-core kernel of the first
+port.  Contract, shared by every version here:
 
 * q, k ``[B,S,H,dk]``, v ``[B,S,H,dv]`` (fp32 or bf16), log_f, log_i
   ``[B,S,H]`` fp32, each <= 0;
@@ -22,7 +25,8 @@ is the flattening to ``[BH,S,d]`` that ``ops.ssd_scan`` does, without a
 copy (the Pallas entry's flat ``[BH,S,d]`` is the view ``[BH,S,1,d]``);
 q and k may be views broadcast over heads.  :func:`ssd_scan_ref` is the
 sequential oracle of ``repro/kernels/ref.py::ssd_scan``.  Each call
-declares its FLOPs and bytes to :mod:`repro_torch.core.events`.
+declares its FLOPs and bytes to :mod:`repro_torch.core.events` (the bf16
+route's scratch is traffic, not work, and is left out).
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ from repro_torch.kernels import _build
 from repro_torch.models.linear_scan import (_chunked_linear_attention,
                                             sequential_linear_attention)
 
-__all__ = ["ssd_scan", "ssd_scan_ref", "ssd_flops", "MAX_STATE_DIM",
-           "MAX_CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_ref", "ssd_flops", "copy_width",
+           "MAX_STATE_DIM", "MAX_CHUNK"]
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
@@ -50,7 +54,9 @@ _SIG = {"ssd_scan_fwd": (
     _build.P, _build.P, _build.P, _build.P, _build.P,     # c0 n0 y c n
     _build.I, _build.I, _build.I, _build.I, _build.I,     # B H S dk dv
     _build.I, _build.I, _build.F, _build.I,               # chunk norm eps dt
-    _build.P, _build.P)}                                  # strides stream
+    _build.P, _build.I, _build.P, _build.L,               # strides wide scr
+    _build.P),                                            # stream
+    "ssd_scan_scratch_bytes": (_build.I,) * 6 + (_build.P,)}  # sizes, out
 
 
 def ssd_flops(b: int, h: int, s: int, dk: int, dv: int, chunk: int) -> int:
@@ -63,6 +69,26 @@ def ssd_flops(b: int, h: int, s: int, dk: int, dv: int, chunk: int) -> int:
         n = min(c, s - start)
         per += 4 * n * dk * dv + n * (n + 1) * (dk + dv) + 2 * n * dk
     return b * h * per
+
+
+def copy_width(*tensors: torch.Tensor) -> int:
+    """The bf16 kernel's copy width for the rows of ``tensors`` (q, k, v):
+    16 bytes when every row starts 16-byte aligned, 4 when every row starts
+    4-byte aligned and holds an even number of elements; raises otherwise
+    (the kernel copies no narrower).  A dim of size 1 has no stride that
+    matters."""
+    def aligned(t, elems):
+        return t.data_ptr() % (elems * t.element_size()) == 0 and all(
+            st % elems == 0 for size, st in zip(t.shape[:3], t.stride()[:3])
+            if size > 1)
+
+    if all(aligned(t, 8) for t in tensors):
+        return 16
+    if all(aligned(t, 2) and t.shape[3] % 2 == 0 for t in tensors):
+        return 4
+    raise ValueError("the bf16 ssd_scan kernel copies rows of 16 or 4 bytes: "
+                     "every row of q, k, v must start on 4 bytes and hold an "
+                     "even number of elements")
 
 
 def _distinct_bytes(t: torch.Tensor) -> int:
@@ -133,7 +159,8 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         arg_bytes=sum(_distinct_bytes(t) for t in (q, k, v, log_f, log_i))
         + state_in,
         out_bytes=y.numel() * y.element_size()
-        + 4 * (b * h * dk * dv + b * h * dk))
+        + 4 * (b * h * dk * dv + b * h * dk),
+        f32=q.device.type == "cpu" or v.dtype == torch.float32)
     return y, state
 
 
@@ -149,33 +176,42 @@ def _launch(q, k, v, log_f, log_i, c, normalize, eps, initial_state):
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the ssd_scan kernel needs a contiguous feature dim")
     lf, li = log_f.float(), log_i.float()
-    dev = q.device
-    y = torch.empty((b, s, h, dv), dtype=v.dtype, device=dev)
-    c_out = torch.empty((b, h, dk, dv), dtype=torch.float32, device=dev)
-    n_out = torch.empty((b, h, dk), dtype=torch.float32, device=dev)
+    y = v.new_empty((b, s, h, dv))
+    c_out = lf.new_empty((b, h, dk, dv))
+    n_out = lf.new_empty((b, h, dk))
     c0 = n0 = None
     if initial_state is not None:
         c0 = initial_state[0].float().contiguous()
         n0 = initial_state[1].float().contiguous()
+    lib = _build.library("ssd_scan", _SIG)
+    wide, scratch, nbytes = 1, None, 0
+    if v.dtype == torch.bfloat16:            # the tensor-core route
+        wide = int(copy_width(q, k, v) == 16)
+        size = ctypes.c_longlong()
+        _build.check(lib, lib.ssd_scan_scratch_bytes(
+            b, h, s, dk, dv, c, ctypes.byref(size)), "ssd_scan_scratch_bytes")
+        nbytes = size.value
+        scratch = lf.new_empty((nbytes,), dtype=torch.uint8)
     strides = (ctypes.c_int64 * 15)(
         *(st for t in (q, k, v, lf, li) for st in t.stride()[:3]))
-    lib = _build.library("ssd_scan", _SIG)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    guard, stream = _build.launch_on(q.device)
+    with guard:
         err = lib.ssd_scan_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
             li.data_ptr(), None if c0 is None else c0.data_ptr(),
             None if n0 is None else n0.data_ptr(), y.data_ptr(),
             c_out.data_ptr(), n_out.data_ptr(), b, h, s, dk, dv, c,
             int(bool(normalize)), float(eps), _DTYPE_CODE[v.dtype],
-            ctypes.cast(strides, ctypes.c_void_p), stream)
+            strides, wide, None if scratch is None else scratch.data_ptr(),
+            nbytes, stream)
     _build.check(lib, err, "ssd_scan_fwd")
     ssd_scan.launches += 1
     return y, (c_out, n_out)
 
 
-#: kernel launches made through the wrapper (a plain counter; reset it by
-#: assignment)
+#: calls that launched the kernel (a plain counter; reset it by assignment):
+#: one a wrapper call, though a bf16 call launches three ``__global__``
+#: functions, its three passes
 ssd_scan.launches = 0
 
 

@@ -287,3 +287,229 @@ def test_segments_shorter_than_the_conv_carry_the_older_tail(block):
     _close(torch.cat(parts, 1), want)
     _close(st["conv"], want_st["conv"])
     _close(st["ssd"][0], want_st["ssd"][0])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's arithmetic: three passes, tensor-core rounding points
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _ssd_three_pass_emulation(q, k, v, log_f, log_i, *, chunk,
+                              normalize=False, eps=1e-6, initial_state=None,
+                              tensor_core=True):
+    """The arithmetic of ``csrc/ssd_scan.cu``'s bf16 route, in torch on the
+    CPU, in its three passes:
+
+    (a) every chunk's local state on its own: the inclusive cumsum Bc of
+        log_f, w_j = exp(total - Bc_j + li_j), ``dC = (k * w)^T v`` with
+        ``k * w`` split into a bf16 hi and lo part (two products against
+        the exact bf16 v, summed in fp32), ``dn = sum_j k_j w_j`` in fp32
+        and the chunk's ``total``;
+    (b) the pass over states: ``C_prev[c] = running`` (rounded to bf16 as
+        the B operand of the inter-chunk product), ``running =
+        exp(total_c) running + dC_c``; n alike in fp32; the last running
+        state is (C, n);
+    (c) every chunk's output: ``exp(Bc_t) (q_t @ C_prev)`` (the row scale
+        applied to the fp32 product) plus ``P @ V`` with P = (q k^T, exact
+        products summed in fp32) times the decay exp(Bc_t - Bc_j + li_j),
+        masked before the exp; P rounded to bf16 for the product, its row
+        sum taken in fp32 for the normalizer ``max(|exp(Bc_t) q_t . n_prev
+        + rowsum|, eps)``.
+
+    With ``tensor_core=False`` nothing is rounded: the three-pass order
+    alone, in fp32.  Not emulated: the kernel takes a tile's decay as a
+    row factor times a key factor where the tile's keys span at most 64 in
+    Bc, which changes P by fp32 rounding (~1e-6 relative), far below the
+    bf16 rounding of P."""
+    r16 = _bf16 if tensor_core else (lambda x: x)
+    b, s, h, dk = q.shape
+    c = min(chunk, s)
+    qf, kf, vf, lf, li = (a.float() for a in (q, k, v, log_f, log_i))
+    spans = [slice(c0, min(s, c0 + c)) for c0 in range(0, s, c)]
+    local = []                                        # (a)
+    for sl in spans:
+        bc = torch.cumsum(lf[:, sl], 1)               # [B,L,H]
+        total = bc[:, -1]
+        kw = kf[:, sl] * torch.exp(total[:, None] - bc + li[:, sl])[..., None]
+        hi = r16(kw)
+        dc = torch.einsum("blhk,blhv->bhkv", hi, vf[:, sl])
+        if tensor_core:
+            dc = dc + torch.einsum("blhk,blhv->bhkv", _bf16(kw - hi),
+                                   vf[:, sl])
+        local.append((bc, total, dc, kw.sum(1)))
+    if initial_state is None:
+        C = torch.zeros((b, h, dk, v.shape[3]))
+        n = torch.zeros((b, h, dk))
+    else:
+        C, n = (a.float() for a in initial_state)
+    prev = []                                         # (b)
+    for _, total, dc, dn in local:
+        prev.append((r16(C), n))
+        C = torch.exp(total)[..., None, None] * C + dc
+        n = torch.exp(total)[..., None] * n + dn
+    ys = []                                           # (c)
+    for sl, (bc, _, _, _), (cp, np_) in zip(spans, local, prev):
+        g = torch.exp(bc)
+        y = torch.einsum("bthk,bhkv->bthv", qf[:, sl], cp) * g[..., None]
+        gap = bc[:, :, None] - bc[:, None, :] + li[:, None, sl]  # [B,t,j,H]
+        tri = torch.tril(torch.ones(gap.shape[1], gap.shape[2],
+                                    dtype=torch.bool))[None, :, :, None]
+        p = torch.einsum("bthk,bjhk->btjh", qf[:, sl], kf[:, sl]) * \
+            torch.where(tri, torch.exp(gap), 0.0)
+        y = y + torch.einsum("btjh,bjhv->bthv", r16(p), vf[:, sl])
+        if normalize:
+            den = (torch.einsum("bthk,bhk->bth", qf[:, sl], np_) * g
+                   + p.sum(2)).abs()
+            y = y / den.clamp_min(eps)[..., None]
+        ys.append(y)
+    return torch.cat(ys, 1).to(v.dtype), (C, n)
+
+
+def _emulation_inputs(seed, b, s, h, dk, dv, *, positive=False,
+                      broadcast=False, state=False):
+    """bf16 q, k (broadcast over heads as Mamba2 passes them), v; fp32
+    gates; an fp32 carried state (C0 [B,H,dk,dv], n0 >= 0)."""
+    rng = np.random.default_rng(seed)
+
+    def qk():
+        x = rng.standard_normal((b, s, 1 if broadcast else h, dk),
+                                np.float32) * dk ** -0.25
+        t = torch.from_numpy(np.abs(x) if positive else x).bfloat16()
+        return t.expand(b, s, h, dk)
+
+    q, k = qk(), qk()
+    v = torch.from_numpy(rng.standard_normal((b, s, h, dv),
+                                             np.float32)).bfloat16()
+    lf, li = (torch.from_numpy(-np.logaddexp(
+        rng.standard_normal((b, s, h)), 0.0).astype(np.float32))
+        for _ in range(2))
+    st = None
+    if state:
+        st = (torch.from_numpy(rng.standard_normal((b, h, dk, dv),
+                                                   np.float32)),
+              torch.from_numpy(np.abs(rng.standard_normal((b, h, dk),
+                                                          np.float32))))
+    return (q, k, v, lf, li), st
+
+
+def _fp32_state_tol(want):
+    """``chip_smoke.py::ssd_tol`` for an fp32 C or n: rtol 2e-4, atol 2e-5
+    times max(1, max|want|)."""
+    return dict(rtol=2e-4, atol=2e-5 * max(1.0, want.abs().max().item()))
+
+
+BF16_EMULATION = [
+    # name, (b, s, h, dk, dv), chunk, normalize, broadcast q/k, state
+    ("zamba2 heads", (1, 512, 4, 64, 64), 256, False, True, False),
+    ("zamba2 heads, carried state", (1, 512, 4, 64, 64), 256, False, True,
+     True),
+    ("ragged S", (2, 300, 2, 64, 64), 256, False, False, False),
+    ("mLSTM dk=dv=512, normalize", (1, 300, 1, 512, 512), 256, True, False,
+     False),
+]
+
+
+@pytest.mark.parametrize("name,shape,chunk,normalize,broadcast,state",
+                         BF16_EMULATION, ids=[c[0] for c in BF16_EMULATION])
+def test_ssd_bf16_tensor_core_emulation_meets_card_tolerance(
+        name, shape, chunk, normalize, broadcast, state):
+    """The bf16 route's arithmetic (``_ssd_three_pass_emulation``) against
+    the sequential oracle ``ref.ssd_scan`` and, without a carried state,
+    the Pallas kernel in interpret mode (with one, the JAX package's
+    chunked form), both in fp32 on the same bf16 values.  The card holds
+    the kernel to its plain version at bf16 rtol = atol = 3e-2 on y and at
+    the fp32 ``ssd_tol`` on C and n (``chip_smoke.py::check_ssd``).
+    Observed here (references in fp32, the emulation's y in bf16): y
+    within 0.022 of both references at max|y| 6.8 (zamba2 heads), 0.028 at
+    8.3 (with a carried state), 0.021 at 5.7 (ragged S), 0.014 at 3.4
+    (mLSTM): about one bf16 ulp of the output; C within 1.0e-5 at max|C|
+    1.6-2.3 and n within 2.2e-6, under the fp32 tolerance's atol of
+    3.2e-5..4.7e-5 by a factor of 3 or more.  Rounding k*w to bf16 once
+    instead of hi + lo puts C ~3e-3 off, ~70x that tolerance (this
+    emulation with the lo product dropped); C_prev rounded to bf16 leaves
+    y's error unchanged at these magnitudes."""
+    args, st = _emulation_inputs(len(name), *shape, positive=normalize,
+                                 broadcast=broadcast, state=state)
+    y, (c, n) = _ssd_three_pass_emulation(*args, chunk=chunk,
+                                          normalize=normalize,
+                                          initial_state=st)
+    assert y.dtype == torch.bfloat16
+    jargs = _j([a.float().numpy() for a in args])
+    jst = None if st is None else tuple(_j([a.numpy() for a in st]))
+    wants = [ref.ssd_scan(*jargs, normalize=normalize, initial_state=jst)]
+    if st is None:
+        wants.append(ops.ssd_scan(*jargs, chunk=chunk, normalize=normalize,
+                                  interpret=True))
+    else:
+        wants.append(jax_ls._chunked_linear_attention(
+            *jargs, chunk_size=chunk, normalize=normalize,
+            initial_state=jst))
+    for wy, (wc, wn) in wants:
+        wy, wc, wn = (torch.from_numpy(np.array(a)) for a in (wy, wc, wn))
+        torch.testing.assert_close(y.float(), wy, rtol=3e-2, atol=3e-2)
+        torch.testing.assert_close(c, wc, **_fp32_state_tol(wc))
+        torch.testing.assert_close(n, wn, **_fp32_state_tol(wn))
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("state", [False, True])
+def test_ssd_three_pass_decomposition_equals_the_chunked_plain_form(
+        state, normalize):
+    """In fp32 with nothing rounded, the kernel's order (every chunk's
+    local state, the pass over states, then every chunk's output) equals
+    ``_chunked_linear_attention`` within the fp32 tolerance, with and
+    without a carried state, over a ragged last chunk."""
+    args, st = _emulation_inputs(19, 2, 100, 3, 16, 24, positive=normalize,
+                                 state=state)
+    args = [a.float() for a in args]
+    y, (c, n) = _ssd_three_pass_emulation(*args, chunk=32,
+                                          normalize=normalize,
+                                          initial_state=st,
+                                          tensor_core=False)
+    want_y, (want_c, want_n) = linear_scan._chunked_linear_attention(
+        *args, chunk_size=32, normalize=normalize, initial_state=st)
+    for got, want in ((y, want_y), (c, want_c), (n, want_n)):
+        _close(got, want)
+
+
+def test_copy_width_reads_alignment_from_pointers_and_strides():
+    """16-byte copies for the model layout (q, k broadcast views into the
+    projection, v contiguous), 4-byte for even rows that start on 4 bytes,
+    refusal for rows of an odd element count."""
+    xbc = torch.zeros(2, 10, 4224, dtype=torch.bfloat16)   # zamba2's layout
+    q = xbc[..., 4160:].reshape(2, 10, 1, 64).expand(2, 10, 64, 64)
+    k = xbc[..., 4096:4160].reshape(2, 10, 1, 64).expand(2, 10, 64, 64)
+    v = torch.zeros(2, 10, 64, 64, dtype=torch.bfloat16)
+    assert ssd.copy_width(q, k, v) == 16
+    odd20 = torch.zeros(1, 9, 3, 20, dtype=torch.bfloat16)  # rows of 40 B
+    assert ssd.copy_width(odd20, odd20, v[:1, :9, :3]) == 4
+    assert ssd.copy_width(v[..., 2:34], v[..., 2:34], v[..., 2:34]) == 4
+    shifted = torch.zeros(1, 9, 3, 66, dtype=torch.bfloat16)[..., 1:65]
+    odd = torch.zeros(1, 9, 3, 17, dtype=torch.bfloat16)
+    for bad in (shifted, odd):                  # rows on 2 bytes; odd rows
+        with pytest.raises(ValueError, match="16 or 4 bytes"):
+            ssd.copy_width(bad, bad, bad)
+    # a dim of size 1 never moves a row, whatever its stride
+    one = torch.zeros(1, 9, 1, 64, dtype=torch.bfloat16).as_strided(
+        (1, 9, 1, 64), (3, 64, 5, 1))
+    assert ssd.copy_width(one, one, one) == 16
+
+
+def test_ssd_scan_declares_fp32_flops_only_where_they_run_in_fp32():
+    """The plain twin (a CPU call) computes in fp32, so its FLOPs count in
+    FLOPS_F32 whatever the input dtype; a tensor-core launch declares
+    ``f32=False`` and leaves FLOPS_F32 alone."""
+    from repro_torch.core import events
+    q, k, v, lf, li = _t(_inputs(20, 1, 8, 2, 4, 4))
+    with events.collect() as ev:
+        ssd.ssd_scan(q.bfloat16(), k.bfloat16(), v.bfloat16(), lf, li,
+                     chunk=4)
+        events.record_launch(flops=10.0, arg_bytes=1.0, out_bytes=1.0,
+                             f32=False)
+    flops = ssd.ssd_flops(1, 2, 8, 4, 4, 4)
+    assert ev.counts["FLOPS_TOTAL"] == flops + 10.0
+    assert ev.counts["FLOPS_F32"] == flops
+    assert ev.counts["LAUNCHES"] == 2
