@@ -98,15 +98,40 @@ failure):
                GiB); fails if a region records no launch, if its
                ``LAUNCHES`` differ from the wrapper counters, or if a
                working set over 4x L2 reads above 105% of the data-sheet
-               HBM bandwidth.
+               HBM bandwidth;
+13. sampled  - qwen2-0.5b at full width and depth (bf16, the embedding
+               scaled by 0.1 as in phase 6, pages of 16, the 8 ragged
+               prompts of phase 4, 32 new tokens) through
+               ``Engine.generate`` at temperature 0.7 with top_k 50, then
+               top_p 0.9: the same seed twice gives the same tokens, one
+               host sync a call (the draws must move a first step whose
+               mean top-1 probability is under 0.5), and #4 launches 32
+               times a call, #1 24 and #2 744; one step's #4 launch equals
+               its plain twin over the same Gumbel-shifted logits (a
+               top_k row is -inf outside its 50 tokens, and one row has a
+               single finite entry); tokens/s;
+14. speculative - K = 4 with a 2-layer draft sharing the target's
+               embedding, final norm, head and first two blocks: in fp32
+               (the embedding scaled by 0.1, as in phase 6) spec greedy
+               tokens equal target-only greedy tokens, fused and streamed;
+               in bf16 (phase 13's model) the accept rate, rounds, host
+               syncs and tokens/s
+               beside target-only's; then a ``BatchScheduler`` (8 slots,
+               bf16 pages of 16, 16 requests, half with ``spec=True``):
+               every request completes, one host sync a segment,
+               ``KVPool.check()`` and ``scheduler.check()`` pass.  Each run
+               must launch #1 once a layer of each prefill, #2 (K+1) x 2
+               times a round and #4 K+3 times a round (``y``, the K+1 draft
+               samples, the verify's argmax).
 
-Phases 4, 5, 8, 9 and 12 are the main paths: each is run with its
+Phases 4, 5, 8, 9, 12, 13 and 14 are the main paths: each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
 launched another number of times than the path implies).  The last two
-lines of stdout are the kernel table as JSON and the result line
-``{"ok": true, "device": {...}}``.  It never imports JAX or the JAX
-package.
+lines of stdout are the kernel table as JSON (``launches`` from the path
+that carries each kernel, ``launches_by_path`` from every path that runs
+it) and the result line ``{"ok": true, "device": {...}}``.  It never
+imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -1385,6 +1410,283 @@ def perfctr_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 13-14: sampled and speculative decoding
+# ---------------------------------------------------------------------------
+
+SAMPLED = (("top_k 50", dict(top_k=50)), ("top_p 0.9", dict(top_p=0.9)))
+TEMPERATURE = 0.7
+SPEC_K = 4
+DRAFT_LAYERS = 2
+SPEC_REQUESTS = 16
+
+
+def qwen2(dev, dtype, embed_scale=1.0):
+    """qwen2-0.5b at full width and depth, random weights from seed 0."""
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.models.lm import LM
+    lm = LM(CONFIG, dtype, dev).init(torch.Generator(device=dev).manual_seed(0))
+    lm.embed.table.data.mul_(embed_scale)
+    return lm
+
+
+def matched_draft(lm):
+    """The target's first DRAFT_LAYERS blocks with its embedding, final norm
+    and (tied) head, shared, not copied: a draft that agrees with the
+    target as far as its first blocks decide."""
+    from repro_torch.models.lm import LM
+    dcfg = dataclasses.replace(lm.cfg, name=f"{lm.cfg.name}-draft"
+                               f"{DRAFT_LAYERS}", n_layers=DRAFT_LAYERS)
+    draft = LM(dcfg, lm.dtype, lm.device)
+    draft.embed = lm.embed
+    draft.final_norm = lm.final_norm
+    draft.blocks = torch.nn.ModuleList(list(lm.blocks[:DRAFT_LAYERS]))
+    return draft
+
+
+def expect_launches(where, launches, want):
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"{k} launched {launches[k]} times on the {where}, "
+                 f"expected {n}")
+
+
+def sampled_path(dev, lm):
+    """Phase 13: sampled ``Engine.generate`` (top_k, then top_p) at full
+    width; every token is kernel #4 over Gumbel-shifted logits."""
+    from repro_torch.kernels.sampling import (argmax_plain, block_argmax,
+                                              filtered_logits, gumbel_shift)
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = lm.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in PROMPT_LENS]
+    greedy = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024)
+                    ).generate(prompts, max_new_tokens=MAX_NEW)
+    n_layers = cfg.n_layers
+    want = {"flash_attention": n_layers,
+            "paged_decode": n_layers * (MAX_NEW - 1), "argmax": MAX_NEW,
+            "paged_decode_q8": 0, "ssd_scan": 0}
+    launches = None
+    for name, filt in SAMPLED:
+        eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024,
+                                     temperature=TEMPERATURE, seed=5,
+                                     **filt))
+        outs, walls = [], []
+        for _ in range(2):
+            reset_counters()
+            syncs0 = eng.host_syncs
+            t0 = time.perf_counter()
+            outs.append(eng.generate(prompts, max_new_tokens=MAX_NEW))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = read_counters()
+            expect_launches(f"sampled generate ({name})", launches, want)
+            if eng.host_syncs - syncs0 != 1:
+                fail(f"sampled generate made {eng.host_syncs - syncs0} "
+                     f"host syncs, expected 1")
+        if outs[0] != outs[1]:
+            fail(f"sampled generate ({name}): the same seed gave other "
+                 f"tokens")
+        if [len(o) for o in outs[0]] != [MAX_NEW] * len(prompts) or not all(
+                0 <= t < cfg.vocab for o in outs[0] for t in o):
+            fail(f"sampled generate ({name}): bad output")
+        # one step's #4 launch against its plain twin over the SAME
+        # shifted logits (a top_k row is -inf outside its 50 tokens; the
+        # edge row has one finite entry, at the vocabulary's end)
+        toks, lens = eng._check_call(prompts, MAX_NEW, None)
+        with torch.inference_mode():
+            logits, _ = eng._prefill_call(toks, lens, prompts, MAX_NEW)
+            x = filtered_logits(logits, temperature=TEMPERATURE,
+                                k=filt.get("top_k", 0),
+                                p=filt.get("top_p", 1.0))
+            top1 = torch.softmax(x.float(), dim=-1).amax(dim=-1)
+            x = gumbel_shift(x, torch.Generator(device=dev).manual_seed(9))
+            x[0] = -torch.inf
+            x[0, -1] = 0.0
+            got, plain = block_argmax(x), argmax_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain) or int(got[0]) != cfg.vocab - 1:
+            fail(f"argmax over shifted logits ({name}): kernel "
+                 f"{got.tolist()} != plain {plain.tolist()}")
+        kept = int(torch.isfinite(x[1]).sum())
+        # the draws are live: a first step whose distributions are spread
+        # (mean top-1 probability < 0.5) cannot give the greedy token in
+        # every row but by a chance under 0.5^8
+        p1 = float(top1.mean())
+        first_greedy = all(o[0] == g[0] for o, g in zip(outs[0], greedy))
+        if first_greedy and p1 < 0.5:
+            fail(f"sampled generate ({name}): every first token is the "
+                 f"greedy one at a mean top-1 probability of {p1:.3f}")
+        n_greedy = sum(a == b for o, g in zip(outs[0], greedy)
+                       for a, b in zip(o, g))
+        log(f"  sampled generate ({name}, T {TEMPERATURE}): "
+            f"{len(prompts) * MAX_NEW / walls[1]:.1f} tokens/s "
+            f"({walls[1] * 1e3:.2f} ms a call, {walls[0] * 1e3:.2f} the "
+            f"first); the same seed twice gives the same tokens; host_syncs "
+            f"1 a call; #4 over the shifted logits equals its plain twin "
+            f"({kept} finite logits in row 1); the first step's mean top-1 "
+            f"probability {p1:.4f}, {n_greedy} of "
+            f"{len(prompts) * MAX_NEW} tokens equal greedy's; launches "
+            f"{launches}")
+        log(f"  first tokens: {[o[:4] for o in outs[1]]}")
+    return launches
+
+
+def spec_fused_launches(rounds, cfg, k=SPEC_K, greedy=True):
+    """Launches one spec ``generate`` implies: both prompt prefills (#1),
+    K+1 draft decode steps a round (#2), and #4 for ``y``, the K+1 draft
+    samples and, greedy, the verify's argmax."""
+    return {"flash_attention": cfg.n_layers + DRAFT_LAYERS,
+            "paged_decode": rounds * (k + 1) * DRAFT_LAYERS,
+            "argmax": rounds * (k + 2 + int(greedy)),
+            "paged_decode_q8": 0, "ssd_scan": 0}
+
+
+def spec_path(dev, lm):
+    """Phase 14: speculative decoding, K = 4, the 2-layer matched draft:
+    fp32 parity with target-only greedy (fused and streamed), bf16 against
+    target-only, then a mixed spec / non-spec BatchScheduler."""
+    from repro_torch.serve.engine import (BatchScheduler, Engine, Request,
+                                          ServeConfig)
+    from repro_torch.serve.spec import SpecConfig
+    cfg = lm.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in PROMPT_LENS]
+    sc = ServeConfig(page_size=PAGE_SIZE, max_seq=1024)
+    blind = -(-MAX_NEW // (SPEC_K + 1))
+
+    # ---- fp32: the reference's own invariant (the embedding scaled by 0.1,
+    # as in phase 6, so tokens depend on every layer)
+    lm32 = qwen2(dev, torch.float32, embed_scale=0.1)
+    d32 = matched_draft(lm32)
+    spec = SpecConfig(draft_config=d32.cfg, num_draft_tokens=SPEC_K)
+    want = Engine(lm32, sc).generate(prompts, max_new_tokens=MAX_NEW)
+    eng = Engine(lm32, sc, spec=spec, draft_lm=d32)
+    reset_counters()
+    syncs0 = eng.host_syncs
+    fused = eng.generate(prompts, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    st = dict(eng.spec_stats)
+    expect_launches("fp32 spec generate", read_counters(),
+                    spec_fused_launches(st["rounds"], cfg))
+    fused_syncs = eng.host_syncs - syncs0
+    if fused_syncs != st["rounds"] - blind + 1:
+        fail(f"fp32 spec generate made {fused_syncs} syncs over "
+             f"{st['rounds']} rounds")
+    events = []
+    reset_counters()
+    streamed = eng.generate(prompts, max_new_tokens=MAX_NEW,
+                            stream_cb=lambda i, t, d: events.append(len(t)))
+    torch.cuda.synchronize()
+    expect_launches("fp32 spec streaming", read_counters(),
+                    spec_fused_launches(eng.spec_stats["rounds"], cfg))
+    log(f"  fp32 target-only: {[o[:6] for o in want]}")
+    if fused != want or streamed != want:
+        fail(f"fp32 greedy spec tokens differ from target-only: fused "
+             f"{fused}, streamed {streamed}, target-only {want}")
+    log(f"  fp32 spec greedy == target-only greedy, fused and streamed; "
+        f"accept rate {st['accept_rate']:.4f} ({st['accepted']} of "
+        f"{st['proposed']}), rounds {st['rounds']}, host_syncs "
+        f"{fused_syncs}; streaming: {len(events)} callback "
+        f"waves for {sum(events)} tokens in {eng.spec_stats['rounds']} "
+        f"rounds")
+    del lm32, d32, eng
+    torch.cuda.empty_cache()
+
+    # ---- bf16 at full width: spec beside target-only
+    draft = matched_draft(lm)
+    spec = SpecConfig(draft_config=draft.cfg, num_draft_tokens=SPEC_K)
+    base = Engine(lm, sc)
+    eng = Engine(lm, sc, spec=spec, draft_lm=draft)
+    rates = {}
+    for name, e in (("target-only", base), ("spec", eng)):
+        out0 = e.generate(prompts, max_new_tokens=MAX_NEW)      # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        syncs0 = e.host_syncs
+        t0 = time.perf_counter()
+        out = e.generate(prompts, max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        if out != out0:
+            fail(f"bf16 {name} generate is not deterministic")
+        rates[name] = (len(prompts) * MAX_NEW / wall, wall,
+                       e.host_syncs - syncs0, out)
+    st = dict(eng.spec_stats)
+    expect_launches("bf16 spec generate", launches,
+                    spec_fused_launches(st["rounds"], cfg))
+    gen_launches = launches
+    same = sum(a == b for a, b in zip(rates["spec"][3],
+                                      rates["target-only"][3]))
+    log(f"  bf16 target-only: {rates['target-only'][0]:.1f} tokens/s "
+        f"({rates['target-only'][1] * 1e3:.2f} ms, host_syncs "
+        f"{rates['target-only'][2]})")
+    log(f"  bf16 spec K={SPEC_K}, {DRAFT_LAYERS}-layer matched draft: "
+        f"{rates['spec'][0]:.1f} tokens/s ({rates['spec'][1] * 1e3:.2f} ms, "
+        f"host_syncs {rates['spec'][2]}); accept rate "
+        f"{st['accept_rate']:.4f} ({st['accepted']} of {st['proposed']}), "
+        f"rounds {st['rounds']}; rows equal to target-only {same} of "
+        f"{len(prompts)}; launches {launches}")
+
+    # ---- the scheduler: 8 slots, bf16 pages, half the requests spec
+    seng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024,
+                                  batch_slots=8, admission_chunk=8),
+                  spec=spec, draft_lm=draft)
+    srng = np.random.default_rng(7)
+    work = [(srng.integers(1, cfg.vocab, int(srng.integers(16, 257))
+                           ).tolist(), int(srng.integers(16, 49)), r % 2 == 0)
+            for r in range(SPEC_REQUESTS)]
+
+    def run():
+        sched = BatchScheduler(seng)
+        for rid, (p, budget, sp) in enumerate(work):
+            sched.submit(Request(rid=rid, prompt=p, max_new_tokens=budget,
+                                 spec=sp))
+        return sched, sched.run()
+
+    run()                                                    # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    syncs0 = seng.host_syncs
+    t0 = time.perf_counter()
+    sched, out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    m = sched.metrics
+    if sorted(out) != list(range(SPEC_REQUESTS)):
+        fail(f"spec scheduler completed {sorted(out)}")
+    for rid, (_, budget, _) in enumerate(work):
+        if len(out[rid].generated) != budget:
+            fail(f"spec request {rid}: {len(out[rid].generated)} tokens, "
+                 f"budget {budget}")
+    if seng.host_syncs - syncs0 != m["segments"]:
+        fail(f"spec scheduler made {seng.host_syncs - syncs0} host syncs "
+             f"for {m['segments']} segments")
+    sched.check()
+    sched.pool.check()
+    if not sched.pool.allocs == sched.pool.releases > 0:
+        fail(f"spec scheduler leaked pages: {sched.pool!r}")
+    misses = m["admissions"] - m["prefix_hits"]
+    seg = int(m["segments"])
+    expect_launches("spec scheduler", launches, {
+        "flash_attention": cfg.n_layers * misses
+        + DRAFT_LAYERS * m["admissions"],
+        "paged_decode": seg * (SPEC_K + 1) * DRAFT_LAYERS,
+        "argmax": seg * (SPEC_K + 3), "paged_decode_q8": 0, "ssd_scan": 0})
+    new_tokens = sum(len(r.generated) for r in out.values())
+    rate = m["draft_accepted"] / max(m["draft_proposed"], 1)
+    log(f"  spec scheduler: {SPEC_REQUESTS} requests "
+        f"({sum(w[2] for w in work)} spec), {new_tokens} "
+        f"tokens in {wall * 1e3:.2f} ms = {new_tokens / wall:.1f} tokens/s; "
+        f"rounds {seg} = segments = host_syncs {seng.host_syncs - syncs0}; "
+        f"accept rate {rate:.4f} ({m['draft_accepted']:.0f} of "
+        f"{m['draft_proposed']:.0f}); KVPool.check() and scheduler.check() "
+        f"pass; launches {launches}")
+    return gen_launches, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -1395,7 +1697,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/12] probe")
+    log("[1/14] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -1412,12 +1714,12 @@ def main() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    log("[2/12] build")
+    log("[2/14] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/12] kernels vs plain versions")
+    log("[3/14] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -1429,26 +1731,26 @@ def main() -> int:
             f"{r['bound_by']})")
     del timer
 
-    log("[4/12] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    log("[4/14] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/12] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    log("[5/14] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
         "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    log("[6/12] fp32 token check: card paged / card dense / cpu paged")
+    log("[6/14] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/12] fp32 scheduler token check: card scheduler / card generate "
+    log("[7/14] fp32 scheduler token check: card scheduler / card generate "
         "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    log("[8/12] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    log("[8/14] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    log("[9/12] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    log("[9/14] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -1458,10 +1760,10 @@ def main() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    log("[10/12] fp32 zamba2 token check: card / cpu, 7 layers")
+    log("[10/14] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    log("[11/12] case-study kernels vs plain versions: STREAM triad, "
+    log("[11/14] case-study kernels vs plain versions: STREAM triad, "
         "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -1471,15 +1773,39 @@ def main() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    log("[12/12] main path 5: the case studies through PerfCtr marker "
+    log("[12/14] main path 5: the case studies through PerfCtr marker "
         "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
+    log("[13/14] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+        "top_p), paged")
+    # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
+    # model echoes its last token with a near one-hot distribution, so
+    # neither the draws nor the draft's rejections would matter
+    lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
+    sampled_launches = sampled_path(dev, lm)
+
+    log("[14/14] main path 7: speculative decoding, K = 4, 2-layer matched "
+        "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
+    spec_launches, spec_sched_launches = spec_path(dev, lm)
+    del lm
+    torch.cuda.empty_cache()
+    by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
+               "zamba2_generate": zamba_launches,
+               "sampled_generate": sampled_launches,
+               "spec_generate": spec_launches,
+               "spec_scheduler": spec_sched_launches}
+    for r in rows:
+        r["launches_by_path"] = (
+            {"perfctr": r["launches"]} if r in case_rows else
+            {p: c[r["name"]] for p, c in by_path.items() if c[r["name"]]})
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     print(gpu_name_and_limit(), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)

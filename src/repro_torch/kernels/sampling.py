@@ -1,14 +1,25 @@
-"""Sampling: greedy decoding through a row-wise argmax kernel.
+"""Sampling: greedy, top-k and top-p decoding through a row-wise argmax
+kernel.
 
-Port of ``repro/kernels/sampling.py`` for ``method="greedy"``: the Pallas
-``_argmax_kernel`` behind ``block_argmax`` becomes ``csrc/argmax.cu``
-(its source note says what bounds it on an H100 and how it is laid out).
-The kernel splits each row over a few CTAs, one thread block cluster per
-row; :func:`argmax_plan` chooses the split.
-Greedy ignores the PRNG by contract, so tokens are held bit for bit to
-``torch.argmax`` and to the JAX package: the lowest index among equal
-maxima wins.  ``top_k`` / ``top_p`` (filtering plus the Gumbel shift) wait
-for the sampled-decoding item of ``ROADMAP.md``.
+Port of ``repro/kernels/sampling.py``: the Pallas ``_argmax_kernel``
+behind ``block_argmax`` becomes ``csrc/argmax.cu`` (its source note says
+what bounds it on an H100 and how it is laid out).  The kernel splits each
+row over a few CTAs, one thread block cluster per row; :func:`argmax_plan`
+chooses the split.
+
+Every token is an argmax through :func:`block_argmax`:
+
+* ``greedy`` ignores the generator by contract, so tokens are held bit for
+  bit to ``torch.argmax`` and to the JAX package: the lowest index among
+  equal maxima wins;
+* ``top_k`` / ``top_p`` are ``argmax(filtered(logits / T) + gumbel)``, the
+  Gumbel-argmax trick, as the reference's ``_run_pallas_topk`` /
+  ``_run_pallas_topp`` run it: :func:`filtered_logits` and
+  :func:`gumbel_shift` are plain tensor ops, the argmax is the kernel.
+  The draw comes from an explicit ``torch.Generator`` on the logits'
+  device.  CPU draws (mt19937) and CUDA draws (Philox) differ, and both
+  differ from JAX's threefry, so sampled tokens are held to the reference
+  in distribution and, inside the port, to themselves under one seed.
 
 :func:`block_argmax` dispatches on the tensor's device: CPU tensors run
 :func:`argmax_plain`, CUDA tensors launch the kernel (or raise — there is
@@ -18,14 +29,19 @@ no fallback).
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["sample", "block_argmax", "argmax_plain", "argmax_plan",
-           "argmax_boundary_logits"]
+__all__ = ["sample", "sample_ref", "filtered_logits", "gumbel_shift",
+           "block_argmax", "argmax_plain", "argmax_plan",
+           "argmax_boundary_logits", "METHODS"]
+
+#: sampling methods, as the reference's registry names them
+METHODS = ("greedy", "top_k", "top_p")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"argmax_rows": (_build.P, _build.P, _build.I, _build.I, _build.L,
@@ -127,12 +143,84 @@ def block_argmax(x: torch.Tensor) -> torch.Tensor:
 block_argmax.launches = 0
 
 
-def sample(logits: torch.Tensor, *, method: str = "greedy") -> torch.Tensor:
+def filtered_logits(logits: torch.Tensor, *, temperature: float = 1.0,
+                    k: int = 0, p: float = 1.0) -> torch.Tensor:
+    """Scale by 1/T and mask everything outside the top-k / nucleus set
+    with ``-inf``, op for op as the reference.
+
+    ``k=0`` / ``p=1.0`` are exact no-ops (no extra float ops).  The nucleus
+    is the smallest prefix of the descending probabilities whose sum
+    reaches ``p``; its cutoff is a value, so the sort's tie order does not
+    matter."""
+    x = logits
+    if temperature != 1.0:
+        x = x / temperature
+    if k:
+        thresh = torch.topk(x, min(int(k), x.shape[-1]), dim=-1
+                            ).values[..., -1:]
+        x = torch.where(x >= thresh, x, -torch.inf)
+    if p < 1.0:
+        xs = torch.sort(x, dim=-1, descending=True).values
+        probs = torch.softmax(xs, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < p        # smallest set with cum >= p
+        cutoff = torch.where(keep, xs, torch.inf).amin(dim=-1, keepdim=True)
+        x = torch.where(x >= cutoff, x, -torch.inf)
+    return x
+
+
+def gumbel_shift(x: torch.Tensor, generator: torch.Generator
+                 ) -> torch.Tensor:
+    """``x + gumbel``: the argmax of this is a categorical draw.
+
+    ``u`` is drawn in ``x``'s dtype on ``[finfo.tiny, 1)``, as
+    ``jax.random.gumbel`` draws it (a 0 would give ``+inf`` and fix the
+    token), and the shift is ``-log(-log(u))``.  One draw of ``x.shape``
+    from ``generator``, which must live on ``x``'s device."""
+    tiny = torch.finfo(x.dtype).tiny
+    u = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                   device=x.device).clamp_(min=tiny)
+    return x - torch.log(-torch.log(u))
+
+
+def _shifted(logits: torch.Tensor, generator: Optional[torch.Generator],
+             method: str, temperature: float, k: int, p: float
+             ) -> torch.Tensor:
+    if method == "top_k":
+        x = filtered_logits(logits, temperature=temperature, k=k)
+    elif method == "top_p":
+        x = filtered_logits(logits, temperature=temperature, p=p)
+    else:
+        raise ValueError(f"unknown sampling method {method!r}; choose from "
+                         f"{METHODS}")
+    if generator is None:
+        raise ValueError(f"sampling method {method!r} needs a generator")
+    return gumbel_shift(x, generator)
+
+
+def sample_ref(logits: torch.Tensor,
+               generator: Optional[torch.Generator] = None, *,
+               method: str = "greedy", temperature: float = 1.0, k: int = 0,
+               p: float = 1.0) -> torch.Tensor:
+    """The plain version of :func:`sample`: the same filter and draw, then
+    :func:`argmax_plain` on any device."""
+    if method == "greedy":
+        return argmax_plain(logits)
+    return argmax_plain(_shifted(logits, generator, method, temperature, k,
+                                 p))
+
+
+def sample(logits: torch.Tensor,
+           generator: Optional[torch.Generator] = None, *,
+           method: str = "greedy", temperature: float = 1.0, k: int = 0,
+           p: float = 1.0) -> torch.Tensor:
     """One sampling step: logits [B, V] -> tokens int32 [B].
 
-    Only ``greedy`` is ported (it needs no random numbers)."""
-    if method != "greedy":
-        raise NotImplementedError(
-            f"sampling method {method!r} is not ported yet (ROADMAP.md, "
-            f"queue 1 item 5: sampled top_k/top_p decoding)")
-    return block_argmax(logits)
+    ``greedy`` takes no random numbers; ``top_k`` keeps the ``k`` best of
+    ``logits / temperature``, ``top_p`` the nucleus of mass ``p``, and
+    both take one Gumbel draw of ``[B, V]`` from ``generator`` before
+    :func:`block_argmax` (kernel #4 on the card) picks the token."""
+    if method == "greedy":
+        return block_argmax(logits)
+    return block_argmax(_shifted(logits, generator, method, temperature, k,
+                                 p))

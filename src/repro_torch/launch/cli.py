@@ -9,6 +9,9 @@ Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` uses:
   admission (consume with :func:`robustness_kwargs`); the reference's
   ``--snapshot-*`` and ``--chaos`` flags wait for the snapshot and chaos
   ports (``ROADMAP.md``, queue 1 item 9);
+* :func:`add_spec_args` — ``--draft``, ``--spec-tokens`` and
+  ``--accept-policy`` (consume with :func:`spec_kwargs`, which validates
+  the pairing eagerly);
 * :func:`add_json_args` — ``--json PATH`` machine-readable summary.
 """
 
@@ -18,7 +21,8 @@ import argparse
 from typing import Dict, Optional
 
 __all__ = ["add_kv_args", "kv_config_kwargs", "add_robustness_args",
-           "robustness_kwargs", "add_json_args"]
+           "robustness_kwargs", "add_spec_args", "spec_kwargs",
+           "add_json_args"]
 
 
 def add_kv_args(ap: argparse.ArgumentParser) -> None:
@@ -81,6 +85,64 @@ def robustness_kwargs(args: argparse.Namespace) -> Dict[str, object]:
     not here)."""
     return {"max_queue": getattr(args, "max_queue", None),
             "shed_policy": getattr(args, "shed_policy", "reject-new")}
+
+
+def add_spec_args(ap: argparse.ArgumentParser) -> None:
+    """Speculative-decoding flags (consume with :func:`spec_kwargs`)."""
+    g = ap.add_argument_group("speculative decoding")
+    g.add_argument("--draft", default=None, metavar="CONFIG",
+                   help="pair this arch as the draft model (e.g. --arch "
+                        "qwen2-0.5b --draft qwen2-0.5b): the engine drafts "
+                        "K tokens per round and verifies them with the "
+                        "target in one multi-token prefill (needs "
+                        "--page-size; greedy fp32 tokens equal target-only "
+                        "decode)")
+    g.add_argument("--spec-tokens", type=int, default=4, metavar="K",
+                   help="draft lookahead per speculative round "
+                        "(default 4)")
+    g.add_argument("--accept-policy", default="auto",
+                   choices=["auto", "greedy", "rejection"],
+                   help="draft acceptance rule: greedy exact-prefix match "
+                        "(temperature 0), rejection-sampling correction "
+                        "(temperature > 0), or auto by temperature "
+                        "(default auto)")
+
+
+def spec_kwargs(args: argparse.Namespace, target_cfg,
+                serve_cfg=None,
+                ap: Optional[argparse.ArgumentParser] = None
+                ) -> Dict[str, object]:
+    """``{"spec": SpecConfig}`` from the :func:`add_spec_args` flags,
+    validated EAGERLY (vocab mismatch, a non-decoder family, a missing
+    paged cache) before any weights are built;
+    ``{}`` when ``--draft`` was not passed.  ``--draft`` resolves through
+    :func:`repro_torch.configs.get_arch`, smoke dims when the target's
+    are."""
+    def fail(msg: str):
+        if ap is not None:
+            ap.error(msg)
+        raise ValueError(msg)
+
+    draft = getattr(args, "draft", None)
+    if not draft:
+        if getattr(args, "spec_tokens", 4) != 4 \
+                or getattr(args, "accept_policy", "auto") != "auto":
+            fail("--spec-tokens/--accept-policy need --draft (no draft "
+                 "model, no speculative decoding)")
+        return {}
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.spec import SpecConfig
+    arch = get_arch(draft)
+    dcfg = (arch.smoke if getattr(args, "smoke_dims", False)
+            else arch.config)
+    spec = SpecConfig(draft_config=dcfg,
+                      num_draft_tokens=getattr(args, "spec_tokens", 4),
+                      accept_policy=getattr(args, "accept_policy", "auto"))
+    try:
+        spec.validate(target_cfg, serve_cfg)
+    except ValueError as e:
+        fail(str(e))
+    return {"spec": spec}
 
 
 def add_json_args(ap: argparse.ArgumentParser,

@@ -7,19 +7,30 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --requests 16 --slots 8 --prompt-len 256 --max-seq 1024
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+        --page-size 16 --temperature 0.7 --draft qwen2-0.5b \\
+        --spec-tokens 4 --instrument --json spec.json
+
 Runs the continuous-batching ``BatchScheduler`` over synthetic prompts
 (deterministic, numpy seed 0) and prints tokens/s, time-to-first-token,
 segments, admissions and the engine's audited host-sync count.  The
 hybrid zamba2-1.2b serves with dense KV only: ``--page-size`` (with or
 without ``--kv-dtype``) gives the engine's error for it.  There is
 no checkpoint in the repository: the weights are random, from a
-``torch.Generator`` seeded with 0.  ``--device cpu`` runs the kernels'
-plain PyTorch versions on the host (use ``--smoke-dims``).
+``torch.Generator`` seeded with 0 (the ``--draft`` model's with 1).
+``--device cpu`` runs the kernels' plain PyTorch versions on the host
+(use ``--smoke-dims``, which applies to the draft too).
 
-Not ported yet (``ROADMAP.md``): ``--temperature > 0`` (raises), and the
-JAX launcher's ``--mesh``, ``--draft``, ``--tune``, ``--impl``,
-``--instrument``, ``--ckpt-dir``, ``--chaos`` and ``--snapshot-*`` flags
-(absent: argparse refuses them).
+``--temperature > 0`` samples (top-p with p = 1: plain categorical).
+``--draft`` pairs a draft model for speculative decoding (every request
+opts in; needs ``--page-size``), and the summary gains a ``spec`` block.
+``--instrument`` probes the ``serve.prefill`` / ``serve.decode`` regions
+through ``PerfCtr``, prints its report and writes the regions' calls and
+seconds into the summary.
+
+Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh``,
+``--tune``, ``--impl``, ``--ckpt-dir``, ``--chaos`` and ``--snapshot-*``
+flags (absent: argparse refuses them).
 """
 
 from __future__ import annotations
@@ -47,11 +58,12 @@ def main(argv=None) -> int:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="only 0 (greedy) is ported; > 0 raises")
+                    help="0 (default) decodes greedily; > 0 samples")
     ap.add_argument("--admission-chunk", type=int, default=8,
                     help="decode steps between admission points")
     cli.add_json_args(ap, what="serve summary")
     cli.add_robustness_args(ap)
+    cli.add_spec_args(ap)
     ap.add_argument("--priority-mix", default=None, metavar="P[,P...]",
                     help="cycle synthetic requests through these priority "
                          "classes (lower = more urgent; e.g. 0,1,1,2)")
@@ -66,6 +78,8 @@ def main(argv=None) -> int:
                     help="prepend this many shared system-prompt tokens "
                          "to every synthetic request (exercises the "
                          "prefix cache: the prefix prefills once)")
+    ap.add_argument("--instrument", action="store_true",
+                    help="probe serve regions through PerfCtr and report")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_arch
@@ -82,10 +96,22 @@ def main(argv=None) -> int:
         admission_chunk=args.admission_chunk,
         page_size=args.page_size, pool_pages=args.pool_pages,
         **cli.kv_config_kwargs(args, ap))
+    # --draft validates the pairing eagerly (vocab, family, page size)
+    # before any weights are built
+    spec_kw = cli.spec_kwargs(args, cfg, serve_cfg, ap)
     lm = LM(cfg, torch.bfloat16, args.device)
     gen = torch.Generator(device=lm.device).manual_seed(0)
     lm.init(gen)
-    eng = Engine(lm, serve_cfg, device=lm.device)
+    draft_lm = None
+    if spec_kw:
+        sc = spec_kw["spec"]
+        draft_lm = LM(sc.draft_config, torch.bfloat16, lm.device).init(
+            torch.Generator(device=lm.device).manual_seed(1))
+        print(f"[serve] speculative decoding: draft={args.draft} "
+              f"K={sc.num_draft_tokens} "
+              f"policy={sc.resolve_policy(args.temperature)}")
+    eng = Engine(lm, serve_cfg, device=lm.device, draft_lm=draft_lm,
+                 **spec_kw)
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, bf16, "
           f"random weights (seed 0) on {lm.device}")
     if eng.paged:
@@ -93,6 +119,13 @@ def main(argv=None) -> int:
               f"pool_pages={eng.pool_pages} table_width={eng.table_width} "
               f"kv_dtype={args.kv_dtype or 'model'} "
               f"prefix_cache={'on' if not args.no_prefix_cache else 'off'}")
+
+    ctr = None
+    if args.instrument:
+        from repro_torch.core.perfctr import PerfCtr
+        ctr = PerfCtr(device=lm.device)
+        eng.instrument(ctr, prompt_len=args.prompt_len)
+        print("[serve] instrumented serve.prefill/serve.decode regions")
 
     sched = BatchScheduler(eng, **cli.robustness_kwargs(args))
     prios = ([int(p) for p in args.priority_mix.split(",")]
@@ -107,7 +140,8 @@ def main(argv=None) -> int:
                 rid=rid, prompt=prompt, max_new_tokens=args.max_new,
                 priority=prios[rid % len(prios)],
                 deadline_ms=args.deadline_ms,
-                ttft_deadline_ms=args.ttft_deadline_ms))
+                ttft_deadline_ms=args.ttft_deadline_ms,
+                spec=bool(spec_kw)))
         except AdmissionRejected as e:
             r = e.rejection
             print(f"[serve] req {rid} rejected ({r.reason}, "
@@ -131,6 +165,16 @@ def main(argv=None) -> int:
         print(f"[serve] robustness: rejections={m['rejections']:.0f} "
               f"sheds={m['sheds']:.0f} expired={m['expired']:.0f} "
               f"cancelled={m['cancelled']:.0f}")
+    spec_summary = None
+    if spec_kw:
+        rate = m["draft_accepted"] / max(m["draft_proposed"], 1)
+        print(f"[serve] speculative: rounds={m['spec_rounds']:.0f} "
+              f"proposed={m['draft_proposed']:.0f} "
+              f"accepted={m['draft_accepted']:.0f} "
+              f"accept_rate={rate:.2f}")
+        spec_summary = {"draft": args.draft,
+                        "k": spec_kw["spec"].num_draft_tokens,
+                        "rounds": m["spec_rounds"], "accept_rate": rate}
     hit = None
     if sched.pool is not None:
         hit = ((m["prompt_tokens"] - m["prefilled_tokens"])
@@ -141,6 +185,9 @@ def main(argv=None) -> int:
               f"occupancy={sched.pool.occupancy():.2f}")
     for rid in sorted(done)[:4]:
         print(f"  req {rid}: {done[rid].generated[:12]}")
+    if ctr is not None:
+        print()
+        print(ctr.report())
     if args.json:
         with open(args.json, "w") as fh:
             json.dump({
@@ -163,6 +210,10 @@ def main(argv=None) -> int:
                 "sheds": m["sheds"],
                 "expired": m["expired"],
                 "cancelled": m["cancelled"],
+                "spec": spec_summary,
+                "regions": ({name: {"calls": r.calls, "time_s": r.time_s}
+                             for name, r in ctr.regions.items()}
+                            if ctr is not None else None),
             }, fh, indent=2, sort_keys=True)
         print(f"[serve] wrote {args.json}")
     return 0

@@ -245,8 +245,8 @@ class LM(nn.Module):
                                            layers=cfg.n_layers)
         return {"caches": cache}
 
-    def prefill(self, batch: Dict[str, torch.Tensor], state: State
-                ) -> Tuple[torch.Tensor, State]:
+    def prefill(self, batch: Dict[str, torch.Tensor], state: State,
+                all_logits: bool = False) -> Tuple[torch.Tensor, State]:
         """Process the prompt; returns (last-token logits [B,V], state).
 
         ``batch["lengths"]`` [B] int32 (optional) marks each row's true
@@ -259,7 +259,12 @@ class LM(nn.Module):
 
         The hybrid family cannot mask a pad out of a running recurrent
         state, so it takes neither: every row is prefilled at the full
-        width of ``tokens`` (serve equal lengths, or one row at a time)."""
+        width of ``tokens`` (serve equal lengths, or one row at a time).
+
+        ``all_logits=True`` returns the head over every position, [B,S,V],
+        instead of the last token's: the verify of speculative decoding
+        (every suffix position's next-token distribution from one forward
+        pass)."""
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
         x = self._embed(tokens)
@@ -270,12 +275,14 @@ class LM(nn.Module):
                     "no lengths or prefix_len (a recurrent state cannot "
                     "mask a pad)")
             x, new_state = self._hybrid_stack(x, state, prefill=True)
-            return self._head(x[:, -1]), new_state
+            return self._head(x if all_logits else x[:, -1]), new_state
         x, caches = tf_mod.apply_stack_decode(
             self.blocks, x, self.cfg.block_config(), state["caches"],
             block_fn=functools.partial(tf_mod.apply_block_prefill,
                                        lengths=lengths,
                                        prefix_len=batch.get("prefix_len")))
+        if all_logits:
+            return self._head(x), {"caches": caches}
         if lengths is not None:
             idx = torch.clamp(lengths.long() - 1, min=0)
             x_last = x[torch.arange(x.shape[0], device=x.device), idx]

@@ -1,4 +1,5 @@
-"""Serving engine: fused greedy generate and true continuous batching.
+"""Serving engine: fused generate, speculative decoding and true
+continuous batching.
 
 Port of ``repro/serve/engine.py``.  Two layers:
 
@@ -10,10 +11,13 @@ Port of ``repro/serve/engine.py``.  Two layers:
   needs the done mask on the host; the port instead runs
   ``max_new_tokens`` steps and masks finished rows with ``done``/``n``
   exactly as the JAX loop body does, which returns the same tokens
-  without a sync per step.  The continuous-batching primitives
-  (:meth:`Engine.prefill_slot`, :meth:`Engine.copy_pages`,
-  :meth:`Engine.decode_segment`) update one shared decode state IN PLACE,
-  where the JAX package donates its buffers.
+  without a sync per step.  ``generate_reference`` is the per-token loop
+  (one sample and one sync a token), the fused loop's oracle;
+  ``generate(stream_cb=...)`` streams through the same loop.  The
+  continuous-batching primitives (:meth:`Engine.prefill_slot`,
+  :meth:`Engine.copy_pages`, :meth:`Engine.decode_segment`) update one
+  shared decode state IN PLACE, where the JAX package donates its
+  buffers.
 * :class:`BatchScheduler` — a slot table over that shared state.  Decode
   runs in power-of-two segments of at most ``admission_chunk`` steps; ONE
   host sync per segment fetches the tokens; finished rows release their
@@ -25,6 +29,40 @@ Port of ``repro/serve/engine.py``.  Two layers:
   for every segment.  Bounded admission, priorities, deadlines, cancel and
   drain follow the JAX scheduler.
 
+**Sampling.**  ``ServeConfig.temperature > 0`` samples ``top_k`` (when
+``top_k > 0``) or ``top_p`` tokens: the filter and the Gumbel shift are
+plain tensor ops and the argmax is kernel #4 (``kernels/sampling.py``).
+``generate``, ``generate_reference``, streaming and each
+``BatchScheduler.run`` own a ``torch.Generator`` on the engine's device
+seeded from ``ServeConfig.seed``, as the JAX engine seeds
+``jax.random.key(cfg.seed)``; every decode step draws one ``[B, V]``, in
+step order, so the three static-batch loops return the same tokens.  In
+the scheduler one stream is shared across slots, so a request's samples
+depend on what it was co-scheduled with (greedy stays replayable).
+
+**Speculative decoding** (``spec=SpecConfig``, ``draft_lm=``; paged
+engines of an attention-cache family): each round samples ``y``, runs
+K+1 draft decode steps, verifies ``[y, d_1..d_K]`` in one target prefill
+with ``prefix_len`` and ``all_logits``, accepts through
+:func:`repro_torch.serve.spec.accept_speculative` and rewinds both
+caches' per-row lengths.  The JAX package runs the whole round loop as
+one program with one sync; a round commits 1..K+1 tokens, so the port
+cannot know the round count ahead.  Its fused ``generate`` runs
+``ceil(max_new / (K + 1))`` rounds (the least any call needs) without a
+sync, then reads one all-done flag per further round (each read counted
+in ``host_syncs``; the last read carries the tokens), capped at
+``max_new`` rounds as the reference's loop condition is.  The scheduler
+runs one round per segment with one sync.  Draft pages live in the same
+pool as the target's, in a second slot namespace (pool slot
+``batch_slots + i`` mirrors target slot ``i``).
+
+**Instrumentation.**  :meth:`Engine.instrument` attaches a
+:class:`repro_torch.core.perfctr.PerfCtr` and probes the
+``serve.prefill`` / ``serve.decode`` regions; the port's probe executes
+what it measures, so it runs on a throwaway decode state.  From then on
+every prefill and decode of the engine and its schedulers accumulates
+into the regions through ``PerfCtr.region_timer``.
+
 With ``page_size > 0`` the KV cache is a page pool (page 0 is the null
 page) read by the paged decode kernels; ``kv_dtype`` stores the pages as
 fp32, bf16 or int8 codes with per-token scales (the q8 kernel).  Only the
@@ -33,7 +71,7 @@ attention-cache families (:data:`MASKED_FAMILIES`) take pages and ragged
 ``generate`` and exact-length single-row admissions in the scheduler, as
 in the JAX engine.
 
-Sampled decoding, speculative decoding, mesh sharding, serving snapshots
+Mesh sharding, kernel pins, ``extra_batch`` inputs, serving snapshots
 and chaos injection wait for later slices (``ROADMAP.md``); the arguments
 that select them raise :class:`NotImplementedError` rather than being
 silently ignored.
@@ -41,10 +79,11 @@ silently ignored.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -55,16 +94,24 @@ from repro_torch.kernels import sampling
 from repro_torch.models.lm import LM
 from repro_torch.serve import kv_pool
 from repro_torch.serve.admission import AdmissionQueue, AdmissionRejected
+from repro_torch.serve.spec import SpecConfig, accept_speculative
 
 __all__ = ["ServeConfig", "Engine", "BatchScheduler", "Request",
-           "KV_DTYPES", "TERMINAL_STATUSES", "MASKED_FAMILIES"]
+           "KV_DTYPES", "TERMINAL_STATUSES", "MASKED_FAMILIES",
+           "PREFILL_REGION", "DECODE_REGION"]
+
+PREFILL_REGION = "serve.prefill"
+DECODE_REGION = "serve.decode"
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     max_seq: int = 1024
     batch_slots: int = 4
-    temperature: float = 0.0        # 0 -> greedy (the only ported method)
+    temperature: float = 0.0        # 0 -> greedy
+    # sampled decode (temperature > 0): top_k > 0 keeps the k best logits,
+    # else top_p < 1.0 keeps the nucleus; the defaults (0, 1.0) are plain
+    # categorical sampling of logits / temperature
     top_k: int = 0
     top_p: float = 1.0
     eos_token: int = -1             # -1 -> never stop early
@@ -148,9 +195,19 @@ State = Dict[str, Any]
 class Engine:
     def __init__(self, lm: LM, cfg: ServeConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 mesh: Any = None, spec: Any = None):
+                 mesh: Any = None, spec: Optional[SpecConfig] = None,
+                 draft_lm: Optional[LM] = None, perfctr: Any = None):
         """``device`` defaults to ``cuda`` (raising when there is none);
-        ``lm`` must already live there."""
+        ``lm`` must already live there.
+
+        ``spec``: a :class:`repro_torch.serve.spec.SpecConfig` pairing a
+        draft model with this target for speculative decoding (paged
+        engines only).  The port's ``LM`` carries its weights, so the
+        reference's ``draft_params`` is ``draft_lm``: an ``LM`` of
+        ``spec.draft_config`` on the engine's device.  ``perfctr``: a
+        :class:`repro_torch.core.perfctr.PerfCtr` whose ``serve.prefill``
+        / ``serve.decode`` regions time this engine's work (see
+        :meth:`instrument`)."""
         self.device = resolve_device(device)
         if lm.device != self.device:
             raise ValueError(f"the LM lives on {lm.device}, the engine was "
@@ -159,14 +216,6 @@ class Engine:
             raise NotImplementedError(
                 "sharded serving over a mesh is not ported yet (ROADMAP.md, "
                 "queue 1 item 14: mesh and fault tolerance)")
-        if spec is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md, queue 1 "
-                "item 10)")
-        if cfg.temperature > 0.0:
-            raise NotImplementedError(
-                "temperature > 0 (sampled top_k/top_p decoding) is not "
-                "ported yet (ROADMAP.md, queue 1 item 5)")
         if cfg.impls or cfg.attn_impl is not None:
             raise NotImplementedError(
                 "impls/attn_impl kernel pins need the kernel registry, which "
@@ -174,6 +223,7 @@ class Engine:
                 "slice dispatches by tensor device")
         self.lm = lm
         self.cfg = cfg
+        self.perfctr = perfctr
         self.host_syncs = 0             # device->host transfers (audited)
         self.paged = cfg.page_size > 0
         if self.paged and lm.cfg.family not in MASKED_FAMILIES:
@@ -192,14 +242,43 @@ class Engine:
                     f"{sorted(KV_DTYPES)}")
             self.kv_dtype = KV_DTYPES[cfg.kv_dtype]
         self.quantized = cfg.kv_dtype == "int8"
+        # ---- speculative decoding: a draft model riding in the same pool
+        self.spec = spec
+        self.draft_lm: Optional[LM] = None
+        self.spec_stats: Dict[str, Any] = {}
+        if spec is not None:
+            spec.validate(lm.cfg, cfg)
+            if draft_lm is None:
+                raise ValueError(
+                    "Engine(spec=...) needs draft_lm (the draft model, an "
+                    "LM of spec.draft_config on the engine's device)")
+            if draft_lm.cfg != spec.draft_config:
+                raise ValueError(
+                    f"draft_lm is {draft_lm.cfg.name!r}, spec.draft_config "
+                    f"is {spec.draft_config.name!r}: build the draft LM "
+                    f"from the spec's config")
+            if draft_lm.device != self.device:
+                raise ValueError(f"the draft LM lives on {draft_lm.device}, "
+                                 f"the engine on {self.device}")
+            self.draft_lm = draft_lm
+        self.spec_policy = (spec.resolve_policy(cfg.temperature)
+                            if spec is not None else None)
         if self.paged:
             # table/pool headroom: power-of-two segments may overshoot a
-            # request's budget by up to one segment of writes
+            # request's budget by up to one segment of writes; a spec
+            # round writes up to K+1 verify tokens past the committed
+            # length before the rewind
             headroom = self.seg_cap
+            if spec is not None:
+                headroom = max(headroom, spec.num_draft_tokens + 1)
             self.table_width = kv_pool.table_width_for(
                 cfg.max_seq, cfg.page_size, headroom)
-            self.pool_pages = cfg.pool_pages or kv_pool.recommended_pages(
+            base_pages = kv_pool.recommended_pages(
                 cfg.batch_slots, cfg.max_seq, cfg.page_size, headroom)
+            # draft pages mirror the target's token for token: the second
+            # namespace doubles the pool's worst case
+            self.pool_pages = cfg.pool_pages or (
+                2 * base_pages if spec is not None else base_pages)
 
     # -------------------------------------------------------------- helpers
     @property
@@ -219,8 +298,38 @@ class Engine:
     @property
     def slot_headroom(self) -> int:
         """Tokens a slot's device length can grow past its budget in one
-        segment: one quantized decode segment."""
+        segment: a quantized decode segment for plain engines, one K+1
+        verify window for spec engines (rounds are their segments)."""
+        if self.spec is not None:
+            return self.spec.num_draft_tokens + 1
         return self.seg_cap
+
+    @property
+    def sampling_method(self) -> str:
+        """The sampling method this engine decodes with."""
+        cfg = self.cfg
+        if cfg.temperature <= 0.0:
+            return "greedy"
+        return "top_k" if cfg.top_k else "top_p"
+
+    def _sample(self, logits: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """One sampling step: greedy takes no random numbers; sampled
+        methods draw one ``[B, V]`` Gumbel shift from ``generator``, and
+        kernel #4 picks every token."""
+        cfg = self.cfg
+        return sampling.sample(logits, generator, method=self.sampling_method,
+                               temperature=max(cfg.temperature, 1e-6),
+                               k=cfg.top_k, p=cfg.top_p)
+
+    def _generator(self) -> torch.Generator:
+        """A fresh stream on the engine's device seeded from
+        ``ServeConfig.seed`` (the JAX engine's ``jax.random.key(seed)``)."""
+        return torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+
+    def _region_timer(self, region: str):
+        return (self.perfctr.region_timer(region) if self.perfctr is not None
+                else contextlib.nullcontext())
 
     def _state_kwargs(self) -> Dict[str, Any]:
         """init_decode_state kwargs for this engine's cache flavor."""
@@ -278,23 +387,41 @@ class Engine:
             nxt += npages
         return table, num_pages
 
-    # ----------------------------------------------------------------- API
-    @torch.inference_mode()
-    def generate(self, prompts: Sequence[Sequence[int]],
-                 max_new_tokens: int = 32) -> List[List[int]]:
-        """Static-batch greedy generation: one host sync per call."""
-        cfg, lm, dev = self.cfg, self.lm, self.device
+    def _spec_plan(self, prompts: Sequence[Sequence[int]],
+                   max_new: int) -> Tuple[np.ndarray, int]:
+        """Call-sized page plan for one spec namespace: every row gets
+        pages for prompt + budget + the K+1 verify overshoot."""
+        return self._page_plan(prompts,
+                               max_new + self.spec.num_draft_tokens + 1)
+
+    def _check_call(self, prompts: Sequence[Sequence[int]], max_new: int,
+                    extra_batch: Optional[Mapping[str, Any]]
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Pad the prompts and refuse what this engine cannot serve."""
+        if extra_batch:
+            raise NotImplementedError(
+                "extra_batch (patch embeddings, source features) feeds the "
+                "vlm and encdec families, which are not ported yet "
+                "(ROADMAP.md, queue 1 item 12)")
         toks, lens = self._pad_prompts(prompts)
-        if toks.shape[1] + max_new_tokens > cfg.max_seq:
+        if toks.shape[1] + max_new > self.cfg.max_seq:
             raise ValueError(
-                f"prompt ({toks.shape[1]}) + max_new ({max_new_tokens}) "
-                f"exceeds max_seq ({cfg.max_seq})")
+                f"prompt ({toks.shape[1]}) + max_new ({max_new}) "
+                f"exceeds max_seq ({self.cfg.max_seq})")
+        return toks, lens
+
+    def _prefill_call(self, toks: np.ndarray, lens: np.ndarray,
+                      prompts: Sequence[Sequence[int]], max_new: int
+                      ) -> Tuple[torch.Tensor, State]:
+        """The static-batch prefill every plain loop starts from: a state
+        sized to THIS call's worst case (a call-sized page plan on paged
+        engines), pad keys masked per row for attention-cache families."""
+        cfg, lm = self.cfg, self.lm
         b = len(prompts)
-        # size the cache to THIS call's worst case, not cfg.max_seq
-        need = toks.shape[1] + max_new_tokens
+        need = toks.shape[1] + max_new
         seq_cap = min(cfg.max_seq, -(-need // 32) * 32)
         if self.paged:
-            table, num_pages = self._page_plan(prompts, max_new_tokens)
+            table, num_pages = self._page_plan(prompts, max_new)
             state = lm.init_decode_state(
                 b, seq_cap, page_size=cfg.page_size, num_pages=num_pages,
                 table_width=table.shape[1], kv_dtype=self.kv_dtype)
@@ -306,22 +433,99 @@ class Engine:
         batch = {"tokens": self._upload(toks)}
         if lm.cfg.family in MASKED_FAMILIES:
             batch["lengths"] = self._upload(lens)
-        logits, state = lm.prefill(batch, state)
+        with self._region_timer(PREFILL_REGION):
+            return lm.prefill(batch, state)
 
-        out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        n = torch.zeros((b,), dtype=torch.int32, device=dev)
-        for t in range(max_new_tokens):
-            nxt = sampling.sample(logits, method="greedy")
-            emit = ~done
-            out[:, t] = torch.where(emit, nxt, 0)
-            n += emit.to(torch.int32)
-            if cfg.eos_token >= 0:
-                done |= emit & (nxt == cfg.eos_token)
-            if t + 1 < max_new_tokens:      # the last step's logits go unused
-                logits, state = lm.decode_step(nxt[:, None], state)
-        host = self._fetch(torch.cat([out, n[:, None]], dim=1))  # the ONE sync
+    # ----------------------------------------------------------------- API
+    @torch.inference_mode()
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens: int = 32,
+                 extra_batch: Optional[Mapping[str, Any]] = None,
+                 stream_cb: Optional[Callable] = None) -> List[List[int]]:
+        """Static-batch generation: one host sync per call.
+
+        ``stream_cb(row, tokens, done)`` opts into streaming: it fires once
+        per row per step with the newly committed tokens (one token on a
+        plain engine, a verified block of up to K+1 on a spec engine) and
+        trades the single sync for one per step.  Streamed tokens are the
+        fused path's tokens.  ``extra_batch`` (the vlm/encdec families'
+        inputs) raises until those families are ported."""
+        toks, lens = self._check_call(prompts, max_new_tokens, extra_batch)
+        if self.spec is not None:
+            return self._generate_spec(toks, lens, prompts, max_new_tokens,
+                                       stream_cb)
+        if stream_cb is not None:
+            return self._token_loop(toks, lens, prompts, max_new_tokens,
+                                    stream_cb)
+        cfg, dev = self.cfg, self.device
+        b = len(prompts)
+        logits, state = self._prefill_call(toks, lens, prompts,
+                                           max_new_tokens)
+        gen = self._generator()
+        with self._region_timer(DECODE_REGION):
+            out = torch.zeros((b, max_new_tokens), dtype=torch.int32,
+                              device=dev)
+            done = torch.zeros((b,), dtype=torch.bool, device=dev)
+            n = torch.zeros((b,), dtype=torch.int32, device=dev)
+            for t in range(max_new_tokens):
+                nxt = self._sample(logits, gen)
+                emit = ~done
+                out[:, t] = torch.where(emit, nxt, 0)
+                n += emit.to(torch.int32)
+                if cfg.eos_token >= 0:
+                    done |= emit & (nxt == cfg.eos_token)
+                if t + 1 < max_new_tokens:  # the last logits go unused
+                    logits, state = self.lm.decode_step(nxt[:, None], state)
+            host = self._fetch(torch.cat([out, n[:, None]], dim=1))
         return [host[i, :host[i, -1]].tolist() for i in range(b)]
+
+    @torch.inference_mode()
+    def generate_reference(self, prompts: Sequence[Sequence[int]],
+                           max_new_tokens: int = 32,
+                           extra_batch: Optional[Mapping[str, Any]] = None
+                           ) -> List[List[int]]:
+        """The per-token loop: one sample and one host sync per generated
+        token, stopping once every row is done — the fused loop's oracle
+        and the serving benches' baseline.
+
+        The JAX package's loop runs pads as context over a dense
+        ``max_seq`` cache (its oracle on equal-length prompts); the port's
+        starts from ``generate``'s own prefill and draws the same ``[B, V]``
+        per step, so it returns ``generate``'s tokens on ragged prompts
+        too, greedy and sampled."""
+        toks, lens = self._check_call(prompts, max_new_tokens, extra_batch)
+        return self._token_loop(toks, lens, prompts, max_new_tokens, None)
+
+    def _token_loop(self, toks: np.ndarray, lens: np.ndarray,
+                    prompts: Sequence[Sequence[int]], max_new: int,
+                    stream_cb: Optional[Callable]) -> List[List[int]]:
+        """The host-stepped loop behind ``generate_reference`` and plain
+        streaming (the JAX engine's ``_generate_stream``): a callback per
+        row per token when ``stream_cb`` is given."""
+        cfg = self.cfg
+        b = len(prompts)
+        logits, state = self._prefill_call(toks, lens, prompts, max_new)
+        gen = self._generator()
+        out: List[List[int]] = [[] for _ in range(b)]
+        done = np.zeros(b, bool)
+        with self._region_timer(DECODE_REGION):
+            for _t in range(max_new):
+                nxt = self._sample(logits, gen)
+                nxt_np = self._fetch(nxt)       # per-token sync (the point)
+                for i in range(b):
+                    if done[i]:
+                        continue
+                    out[i].append(int(nxt_np[i]))
+                    if cfg.eos_token >= 0 and nxt_np[i] == cfg.eos_token:
+                        done[i] = True
+                    if len(out[i]) >= max_new:
+                        done[i] = True
+                    if stream_cb is not None:
+                        stream_cb(i, [int(nxt_np[i])], bool(done[i]))
+                if done.all():
+                    break
+                logits, state = self.lm.decode_step(nxt[:, None], state)
+        return out
 
     # ------------------------------------- continuous-batching primitives
     def init_state(self) -> Tuple[State, torch.Tensor]:
@@ -333,6 +537,34 @@ class Engine:
         logits = torch.zeros((cfg.batch_slots, self.lm.cfg.vocab),
                              dtype=self.lm.dtype, device=self.device)
         return state, logits
+
+    def _paged_row_prefill(self, lm: LM, state: State, toks: torch.Tensor,
+                           slot: int, table_row: np.ndarray,
+                           prefix_len: int = 0
+                           ) -> Tuple[torch.Tensor, State]:
+        """Prefill ONE row of ``lm`` straight into the shared page pool: a
+        one-row view of the pool takes the slot's table row, so the K/V
+        land in the slot's pages; then the slot's table row and length
+        are written in place.  Returns (the row's logits [1, V], state)."""
+        caches = state["caches"]
+        row = self._upload(np.asarray(table_row, np.int32)[None])
+        row_view = caches._replace(
+            page_table=row,
+            length=torch.zeros((1,), dtype=torch.int32, device=self.device))
+        batch = {"tokens": toks}
+        if prefix_len > 0:
+            batch["prefix_len"] = torch.full(
+                (1,), prefix_len, dtype=torch.int32, device=self.device)
+        row_logits, new_row = lm.prefill(batch, {"caches": row_view})
+        pt = caches.page_table
+        if pt.shape[1] < row.shape[1]:
+            # a segment sliced the table to its live mix: widen it back
+            # (the cut only dropped dead entries, which read as null)
+            pt = torch.nn.functional.pad(pt, (0, row.shape[1] - pt.shape[1]))
+            state = dict(state, caches=caches._replace(page_table=pt))
+        pt[slot] = row[0]
+        caches.length[slot] = new_row["caches"].length[0]
+        return row_logits, state
 
     @torch.inference_mode()
     def prefill_slot(self, state: State, logits_buf: torch.Tensor,
@@ -352,37 +584,21 @@ class Engine:
         hybrid family, the SSD state and conv tail).  No host sync: the
         tokens and table row go up asynchronously."""
         toks = self._upload(np.asarray([list(prompt)], np.int32))
-        if self.paged:
-            assert table_row is not None, "paged admission needs a table row"
-            caches = state["caches"]
-            row = self._upload(np.asarray(table_row, np.int32)[None])
-            row_view = caches._replace(
-                page_table=row,
-                length=torch.zeros((1,), dtype=torch.int32,
-                                   device=self.device))
-            batch = {"tokens": toks}
-            if prefix_len > 0:
-                batch["prefix_len"] = torch.full(
-                    (1,), prefix_len, dtype=torch.int32, device=self.device)
-            row_logits, new_row = self.lm.prefill(batch, {"caches": row_view})
-            pt = caches.page_table
-            if pt.shape[1] < row.shape[1]:
-                # a segment sliced the table to its live mix: widen it back
-                # (the cut only dropped dead entries, which read as null)
-                pt = torch.nn.functional.pad(pt, (0, row.shape[1]
-                                                  - pt.shape[1]))
-                state = dict(state, caches=caches._replace(page_table=pt))
-            pt[slot] = row[0]
-            caches.length[slot] = new_row["caches"].length[0]
-        else:
-            if prefix_len:
-                raise ValueError("prefix_len needs a paged engine "
-                                 "(dense caches hold no shared prefix)")
-            row_state = self.lm.init_decode_state(1, self.cfg.max_seq)
-            row_logits, row_state = self.lm.prefill({"tokens": toks},
-                                                    row_state)
-            _merge_row(state, row_state, slot)
-        logits_buf[slot] = row_logits[0].to(logits_buf.dtype)
+        with self._region_timer(PREFILL_REGION):
+            if self.paged:
+                assert table_row is not None, \
+                    "paged admission needs a table row"
+                row_logits, state = self._paged_row_prefill(
+                    self.lm, state, toks, slot, table_row, prefix_len)
+            else:
+                if prefix_len:
+                    raise ValueError("prefix_len needs a paged engine "
+                                     "(dense caches hold no shared prefix)")
+                row_state = self.lm.init_decode_state(1, self.cfg.max_seq)
+                row_logits, row_state = self.lm.prefill({"tokens": toks},
+                                                        row_state)
+                _merge_row(state, row_state, slot)
+            logits_buf[slot] = row_logits[0].to(logits_buf.dtype)
         return state, logits_buf
 
     @torch.inference_mode()
@@ -394,32 +610,278 @@ class Engine:
         suffix prefill that reads the destination page."""
         if not pairs:
             return state
-        arr = self._upload(np.asarray(list(pairs), np.int64))
-        src, dst = arr[:, 0], arr[:, 1]
-        caches = state["caches"]
-        for pool in (caches.k_pages, caches.v_pages, caches.k_scale,
-                     caches.v_scale):
-            if pool is not None:
-                pool[:, dst] = pool[:, src]
+        with self._region_timer(PREFILL_REGION):
+            arr = self._upload(np.asarray(list(pairs), np.int64))
+            src, dst = arr[:, 0], arr[:, 1]
+            caches = state["caches"]
+            for pool in (caches.k_pages, caches.v_pages, caches.k_scale,
+                         caches.v_scale):
+                if pool is not None:
+                    pool[:, dst] = pool[:, src]
         return state
 
     @torch.inference_mode()
     def decode_segment(self, state: State, logits: torch.Tensor,
-                       steps: int
+                       steps: int,
+                       generator: Optional[torch.Generator] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, State]:
         """``steps`` fused sample -> decode steps over all slots, with no
         host sync inside.  ``steps`` is quantized UP to a power of two
         (:meth:`quantize_steps`); the caller masks any overshoot against
-        per-request budgets.  Returns (tokens int32 [B, steps], the logits
-        after the last step, state)."""
+        per-request budgets.  ``generator`` is the scheduler's stream
+        (sampled engines; greedy ignores it), threaded through as the JAX
+        engine threads its ``rng``.  Returns (tokens int32 [B, steps], the
+        logits after the last step, state)."""
         steps = self.quantize_steps(steps)
         toks = torch.empty((logits.shape[0], steps), dtype=torch.int32,
                            device=self.device)
         for t in range(steps):
-            nxt = sampling.sample(logits, method="greedy")
+            nxt = self._sample(logits, generator)
             toks[:, t] = nxt
             logits, state = self.lm.decode_step(nxt[:, None], state)
         return toks, logits, state
+
+    # ------------------------------------------------ speculative decoding
+    @staticmethod
+    def _with_lengths(state: State, lengths: torch.Tensor) -> State:
+        """Rewrite a paged state's per-row lengths, the one length every
+        layer's prefill and decode read (the rollback: rejected draft
+        positions fall out of the attended window; the next round's writes
+        overwrite their pages)."""
+        caches = state["caches"]
+        return dict(state, caches=caches._replace(
+            length=lengths.to(torch.int32)))
+
+    @torch.inference_mode()
+    def draft_prefill_slot(self, dstate: State, prompt: Sequence[int],
+                           slot: int, table_row: np.ndarray) -> State:
+        """Admission hook: land ``prompt``'s draft KV in the draft
+        namespace's pages.  No prefix sharing (draft pages never enter the
+        prefix index) and the logits are thrown away: rounds derive the
+        pending token from the carried TARGET logits."""
+        toks = self._upload(np.asarray([list(prompt)], np.int32))
+        with self._region_timer(PREFILL_REGION):
+            _logits, dstate = self._paged_row_prefill(
+                self.draft_lm, dstate, toks, slot, table_row)
+        return dstate
+
+    @torch.inference_mode()
+    def spec_segment(self, state: State, dstate: State, logits: torch.Tensor,
+                     generator: torch.Generator, spec_mask: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                State, State]:
+        """One draft -> verify -> accept -> rewind round over all rows, no
+        host sync (the JAX engine's ``_spec_round``; the scheduler runs one
+        a segment, ``generate`` loops it).
+
+        Returns ``(seg [B,K+1], counts [B], logits', state', dstate')``:
+        ``seg[:, 0]`` is the pending token ``y`` sampled from the carried
+        logits, ``seg[:, 1:counts]`` the accepted draft tokens (``counts =
+        a + 1``), and ``logits'`` carries the next round's corrected
+        distribution (:mod:`repro_torch.serve.spec`).  Rows with
+        ``spec_mask=False`` force ``a = 0``: one token a round.  Both
+        states' pages are written in place."""
+        k = self.spec.num_draft_tokens
+        y = self._sample(logits, generator)
+        cur_len = state["caches"].length                 # [B], y excluded
+        # K+1 draft steps: the last one only lands d_K's KV, so the draft
+        # cache covers every position the rewind can keep (a = K)
+        cur, drafts, qlogits = y, [], []
+        for _ in range(k + 1):
+            lg, dstate = self.draft_lm.decode_step(cur[:, None], dstate)
+            cur = self._sample(lg, generator)
+            drafts.append(cur)
+            qlogits.append(lg)
+        draft_toks = torch.stack(drafts[:k], dim=1)      # [B,K]
+        suffix = torch.cat([y[:, None], draft_toks], dim=1)
+        # target verify: the WHOLE suffix in one prefill over the pages,
+        # K+1 next-token distributions for one forward pass
+        o, state = self.lm.prefill({"tokens": suffix, "prefix_len": cur_len},
+                                   state, all_logits=True)  # [B,K+1,V]
+        acc, carry = accept_speculative(
+            draft_toks, torch.stack(qlogits[:k], dim=1), o, generator,
+            policy=self.spec_policy, temperature=self.cfg.temperature,
+            spec_mask=spec_mask)
+        new_len = cur_len + acc + 1
+        return (suffix, acc + 1, carry, self._with_lengths(state, new_len),
+                self._with_lengths(dstate, new_len.clone()))
+
+    def _spec_prefill(self, toks: np.ndarray, lens: np.ndarray,
+                      prompts: Sequence[Sequence[int]], max_new: int
+                      ) -> Tuple[torch.Tensor, State, State]:
+        """Both models' call-sized paged states and prompt prefills (the
+        draft's logits are thrown away)."""
+        cfg = self.cfg
+        b = len(prompts)
+        table, num_pages = self._spec_plan(prompts, max_new)
+        seq_cap = -(-(toks.shape[1] + max_new + self.spec.num_draft_tokens
+                      + 1) // 32) * 32
+        states = []
+        for lm in (self.lm, self.draft_lm):
+            st = lm.init_decode_state(
+                b, seq_cap, page_size=cfg.page_size, num_pages=num_pages,
+                table_width=table.shape[1], kv_dtype=self.kv_dtype)
+            states.append(self.set_page_table(st, table))
+        batch = {"tokens": self._upload(toks), "lengths": self._upload(lens)}
+        with self._region_timer(PREFILL_REGION):
+            logits, state = self.lm.prefill(batch, states[0])
+            _dl, dstate = self.draft_lm.prefill(batch, states[1])
+        return logits, state, dstate
+
+    def _generate_spec(self, toks: np.ndarray, lens: np.ndarray,
+                       prompts: Sequence[Sequence[int]], max_new: int,
+                       stream_cb: Optional[Callable]) -> List[List[int]]:
+        """Speculative generate: device-side rounds with the early-exit
+        reads of the module note, or one sync and one ``stream_cb`` wave
+        per round with a callback.  Sets ``self.spec_stats``."""
+        logits, state, dstate = self._spec_prefill(toks, lens, prompts,
+                                                   max_new)
+        gen = self._generator()
+        b = len(prompts)
+        spec_mask = torch.ones((b,), dtype=torch.bool, device=self.device)
+        with self._region_timer(DECODE_REGION):
+            if stream_cb is None:
+                out, rounds, prop, accn = self._spec_fused(
+                    logits, state, dstate, gen, spec_mask, max_new)
+            else:
+                out, rounds, prop, accn = self._spec_stream(
+                    logits, state, dstate, gen, spec_mask, max_new,
+                    stream_cb)
+        self.spec_stats = dict(proposed=prop, accepted=accn,
+                               accept_rate=accn / max(prop, 1),
+                               rounds=rounds)
+        return out
+
+    def _spec_fused(self, logits, state, dstate, gen, spec_mask,
+                    max_new: int) -> Tuple[List[List[int]], int, int, int]:
+        """The fused round loop (the JAX engine's ``_make_spec_fused``
+        body): deliver through the first eos and never past the budget;
+        finished rows freeze, so their lengths and carried logits stay
+        put.  Returns (tokens, rounds, proposed, accepted)."""
+        cfg, dev = self.cfg, self.device
+        k = self.spec.num_draft_tokens
+        b = logits.shape[0]
+        # column max_new is a trash column for the undelivered positions
+        out = torch.zeros((b, max_new + 1), dtype=torch.int32, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        n = torch.zeros((b,), dtype=torch.int32, device=dev)
+        prop = torch.zeros((b,), dtype=torch.int32, device=dev)
+        accn = torch.zeros((b,), dtype=torch.int32, device=dev)
+        j = torch.arange(k + 1, dtype=torch.int32, device=dev)[None, :]
+        rows = torch.arange(b, device=dev)[:, None]
+        min_rounds = -(-max_new // (k + 1))
+        rounds = 0
+        while True:
+            old_len = state["caches"].length
+            old_dlen = dstate["caches"].length
+            old_logits = logits
+            seg, counts, logits, state, dstate = self.spec_segment(
+                state, dstate, logits, gen, spec_mask)
+            rounds += 1
+            emit = ~done
+            within = j < counts[:, None]
+            if cfg.eos_token >= 0:
+                iseos = (seg == cfg.eos_token) & within
+                first = torch.where(iseos, j, k + 1).amin(dim=1)
+            else:
+                first = torch.full((b,), k + 1, dtype=torch.int32,
+                                   device=dev)
+            # tokens delivered this round: through the first eos, and never
+            # past the budget
+            allowed = torch.minimum(counts, first + 1)
+            inc = torch.where(emit, torch.minimum(
+                allowed, (max_new - n).clamp(min=0)), 0)
+            valid = j < inc[:, None]
+            pos = torch.where(valid, n[:, None] + j, max_new)
+            out[rows, pos.long()] = torch.where(valid, seg, 0)
+            n = n + inc
+            done = done | (emit & ((first < counts) | (n >= max_new)))
+            # freeze finished rows: their junk rounds stop moving the
+            # committed lengths and the carried logits
+            state = self._with_lengths(state, torch.where(
+                emit, state["caches"].length, old_len))
+            dstate = self._with_lengths(dstate, torch.where(
+                emit, dstate["caches"].length, old_dlen))
+            logits = torch.where(emit[:, None], logits, old_logits)
+            live = emit & spec_mask
+            prop = prop + live.to(torch.int32) * k
+            accn = accn + torch.where(live, counts - 1, 0)
+            if rounds >= min_rounds:
+                host = self._fetch(torch.cat(
+                    [out[:, :max_new], n[:, None], done[:, None].int(),
+                     prop[:, None], accn[:, None]], dim=1))
+                if host[:, max_new + 1].all() or rounds >= max_new:
+                    break
+        toks = [host[i, :host[i, max_new]].tolist() for i in range(b)]
+        return (toks, rounds, int(host[:, max_new + 2].sum()),
+                int(host[:, max_new + 3].sum()))
+
+    def _spec_stream(self, logits, state, dstate, gen, spec_mask,
+                     max_new: int, stream_cb: Callable
+                     ) -> Tuple[List[List[int]], int, int, int]:
+        """Blockwise streaming: one round, one sync and one callback wave
+        per round; ``stream_cb(row, accepted_tokens, done)`` fires once per
+        row per round that delivered tokens."""
+        cfg = self.cfg
+        k = self.spec.num_draft_tokens
+        b = logits.shape[0]
+        outs: List[List[int]] = [[] for _ in range(b)]
+        done = np.zeros(b, bool)
+        proposed = accepted = rounds = 0
+        for _round in range(max_new):
+            if done.all():
+                break
+            seg, counts, logits, state, dstate = self.spec_segment(
+                state, dstate, logits, gen, spec_mask)
+            rounds += 1
+            host = self._fetch(torch.cat([seg, counts[:, None]], dim=1))
+            for i in range(b):
+                if done[i]:
+                    continue
+                proposed += k
+                accepted += int(host[i, -1]) - 1
+                take = host[i, :host[i, -1]][:max_new - len(outs[i])]
+                if cfg.eos_token >= 0:
+                    hits = np.nonzero(take == cfg.eos_token)[0]
+                    if hits.size:
+                        take = take[:hits[0] + 1]
+                        done[i] = True
+                outs[i].extend(int(t) for t in take)
+                if len(outs[i]) >= max_new:
+                    done[i] = True
+                if take.size:
+                    stream_cb(i, [int(t) for t in take], bool(done[i]))
+        return outs, rounds, proposed, accepted
+
+    # ----------------------------------------------------- instrumentation
+    @torch.inference_mode()
+    def instrument(self, perfctr: Any, prompt_len: int = 16) -> None:
+        """Attach a :class:`repro_torch.core.perfctr.PerfCtr` and probe the
+        serving regions.
+
+        The JAX tool reads ``serve.prefill`` / ``serve.decode`` events from
+        compiled artifacts without running them; the port's
+        ``PerfCtr.probe`` executes what it measures (the documented
+        departure of ``core/perfctr.py``).  So the probes run
+        ``lm.prefill`` on ``prompt_len`` tokens and ``lm.decode_step`` on a
+        THROWAWAY decode state of ``batch_slots`` rows (the probed prefill
+        writes its state in place: never the engine's or a scheduler's).
+        From then on every ``generate``, ``generate_reference`` and
+        scheduler segment accumulates into the same regions through
+        ``PerfCtr.region_timer``."""
+        self.perfctr = perfctr
+        cfg = self.cfg
+        b = cfg.batch_slots
+        state = self.lm.init_decode_state(b, cfg.max_seq,
+                                          **self._state_kwargs())
+        toks = torch.zeros((b, prompt_len), dtype=torch.int32,
+                           device=self.device)
+        with perfctr.marker(PREFILL_REGION):
+            perfctr.probe(self.lm.prefill, {"tokens": toks}, state,
+                          repeats=1)
+        with perfctr.marker(DECODE_REGION):
+            perfctr.probe(self.lm.decode_step, toks[:, :1], state,
+                          repeats=1)
 
 
 def _merge_row(big: Any, row: Any, slot: int) -> None:
@@ -459,6 +921,13 @@ class BatchScheduler:
     rows to cover its writes and uploads a page table sliced to the live
     mix; retirement returns the pages, keeping indexed prefix pages for
     future hits.
+
+    On a spec engine every segment is ONE spec round over all slots (rows
+    with ``Request.spec`` draft; the others commit one token a round), and
+    each row's draft twin holds pages in the pool's second namespace:
+    reserved and allocated at admission, released with the row, audited by
+    :meth:`check`.  ``metrics`` gains ``spec_rounds``, ``draft_proposed``
+    and ``draft_accepted``.
 
     Request-plane robustness, as in the JAX scheduler: bounded admission
     (:class:`repro_torch.serve.admission.AdmissionQueue`: ``max_queue``,
@@ -512,6 +981,11 @@ class BatchScheduler:
             "expired": 0, "cancelled": 0, "sheds": 0, "rejections": 0,
             "bypasses": 0, "snapshots": 0, "restores": 0,
         }
+        if engine.spec is not None:
+            # speculative decoding telemetry (accept rate =
+            # draft_accepted / draft_proposed over spec rows)
+            self.metrics.update(spec_rounds=0, draft_proposed=0,
+                                draft_accepted=0)
         self.admission_log: List[Tuple[int, int]] = []   # (rid, slot)
         self.pool: Optional[kv_pool.KVPool] = None   # per run(), paged only
         self.draining = False
@@ -623,6 +1097,11 @@ class BatchScheduler:
         self._slot_len[i] = 0
         if self.pool is not None:
             self.pool.release(i)
+            if self.engine.spec is not None:
+                # the row's draft-namespace twin goes with it: a leaked
+                # draft page would strand pool pages (KVPool.check() audits
+                # the shared free list across both namespaces)
+                self.pool.release(self.engine.cfg.batch_slots + i)
 
     def _sweep_queue(self, now: float) -> None:
         """Drop cancelled/expired requests before they ever prefill."""
@@ -642,6 +1121,12 @@ class BatchScheduler:
         worst = (full_len + (req.max_new_tokens - len(req.generated))
                  + self.engine.slot_headroom)
         _, shared = self.pool.match_prefix(req.prompt + req.generated)
+        if self.engine.spec is not None:
+            # spec engines admit into BOTH namespaces: the draft twin
+            # reserves the same worst case with no prefix sharing
+            per_ns = min(kv_pool.pages_for(worst, self.pool.page_size),
+                         self.pool.table_width)
+            return (2 * per_ns - shared) <= self.pool.unpromised()
         return self.pool.can_reserve(worst, shared_pages=shared)
 
     def _pick_admission(self) -> Optional[Request]:
@@ -684,6 +1169,10 @@ class BatchScheduler:
             if self.pool is not None:
                 assert self.pool.slot_pages(i) > 0, \
                     f"slot {i}: active with no pages"
+                if self.engine.spec is not None:
+                    ds = self.engine.cfg.batch_slots + i
+                    assert self.pool.slot_pages(ds) > 0, \
+                        f"slot {i}: active with no draft pages"
         for rid in done:
             assert self.completed[rid].status == "done", \
                 f"completed request {rid} has status " \
@@ -705,11 +1194,14 @@ class BatchScheduler:
         return len(live)
 
     def _admit(self, i: int, req: Request, state: State,
-               logits: torch.Tensor) -> Tuple[State, torch.Tensor]:
+               dstate: Optional[State], logits: torch.Tensor
+               ) -> Tuple[State, Optional[State], torch.Tensor]:
         """Admit ``req`` into free slot ``i``: map its shared prefix,
-        reserve and allocate its pages, copy the fork page, prefill the
-        rest (JAX ``run()``'s admission block)."""
+        reserve and allocate its pages (and its draft twin's on a spec
+        engine), copy the fork page, prefill the rest (JAX ``run()``'s
+        admission block)."""
         eng = self.engine
+        nslots = eng.cfg.batch_slots
         full = list(req.prompt) + list(req.generated)
         budget = req.max_new_tokens - len(req.generated)
         table_row = None
@@ -726,6 +1218,10 @@ class BatchScheduler:
             self.pool.reserve(i, worst)
             self.pool.alloc(i, len(full))
             table_row = self.pool.tables[i]
+            if eng.spec is not None:
+                # the draft twin: full context, no sharing
+                self.pool.reserve(nslots + i, worst)
+                self.pool.alloc(nslots + i, len(full))
             # the fork page must hold the shared tokens before the suffix
             # prefill reads (and partially rewrites) it: the copy is
             # issued first, in stream order
@@ -739,6 +1235,9 @@ class BatchScheduler:
         state, logits = eng.prefill_slot(state, logits, full[prefix_len:], i,
                                          table_row=table_row,
                                          prefix_len=prefix_len)
+        if eng.spec is not None:
+            dstate = eng.draft_prefill_slot(dstate, full, i,
+                                            self.pool.tables[nslots + i])
         if self.pool is not None:
             # index the now-resident context pages for the NEXT admission
             self.pool.register_prefix(i, full)
@@ -750,7 +1249,7 @@ class BatchScheduler:
         self.metrics["prompt_tokens"] += len(full)
         self.metrics["prefilled_tokens"] += len(full) - prefix_len
         self.admission_log.append((req.rid, i))
-        return state, logits
+        return state, dstate, logits
 
     def _retire(self, i: int, toks: np.ndarray, produced: int,
                 now: float) -> None:
@@ -788,16 +1287,27 @@ class BatchScheduler:
     def run(self, max_segments: Optional[int] = None) -> Dict[int, Request]:
         """Drive the queue to completion (or for ``max_segments`` decode
         segments — in-flight requests then re-queue with their progress
-        kept)."""
+        kept).  One ``torch.Generator`` seeded from ``ServeConfig.seed``
+        feeds every sampled segment of the run."""
         eng, cfg = self.engine, self.engine.cfg
         if not self.queue:
             return self.completed
         nslots = cfg.batch_slots
+        spec = eng.spec
         if eng.paged:
-            self.pool = kv_pool.KVPool(eng.pool_pages, cfg.page_size, nslots,
-                                       eng.table_width,
+            # spec engines run TWO page namespaces over one free list: pool
+            # slot i is row i's target pages, slot nslots+i its draft pages
+            # (never indexed in the prefix trie)
+            pool_slots = 2 * nslots if spec is not None else nslots
+            self.pool = kv_pool.KVPool(eng.pool_pages, cfg.page_size,
+                                       pool_slots, eng.table_width,
                                        prefix_cache=cfg.prefix_cache)
         state, logits = eng.init_state()
+        dstate = None
+        if spec is not None:
+            dstate = eng.draft_lm.init_decode_state(nslots, cfg.max_seq,
+                                                    **eng._state_kwargs())
+        gen = eng._generator()
         slots = self._slots = [None] * nslots
         remaining = self._remaining = np.zeros(nslots, np.int64)
         # device-side row length (includes segment overshoot the request
@@ -819,7 +1329,8 @@ class BatchScheduler:
                     req = self._pick_admission()
                     if req is None:
                         break
-                    state, logits = self._admit(i, req, state, logits)
+                    state, dstate, logits = self._admit(i, req, state,
+                                                        dstate, logits)
 
                 active = np.array([s is not None for s in slots])
                 if not active.any():
@@ -828,33 +1339,78 @@ class BatchScheduler:
                     raise RuntimeError(
                         f"request {self.queue.head().rid}: needs more pages "
                         f"than the whole pool can promise ({self.pool!r})")
-                # requested steps fit the tightest active budget; the
-                # engine quantizes UP to a power of two and overshoot is
-                # masked against each request's budget at retire time
-                steps = eng.quantize_steps(
-                    min(self.admission_chunk, int(remaining[active].min())))
-                if self.pool is not None:
-                    # cover every page this segment can write, then hand
-                    # the device a table sliced to the width the LIVE mix
-                    # needs (x4-page buckets, as the JAX scheduler cuts
-                    # them): decode reads track actual context, not
-                    # max_seq.  Entries past a row's live pages are never
-                    # read, so the cut only drops dead entries.
-                    live = np.nonzero(active)[0]
+                live = np.nonzero(active)[0]
+                if spec is not None:
+                    # one spec round per segment: a row's device length can
+                    # grow by up to K+1 (exactly counts[i], fetched below);
+                    # cover BOTH namespaces first, then slice both tables
+                    # to the bucket the live mix needs
+                    grow = spec.num_draft_tokens + 1
                     for i in live:
-                        self.pool.ensure(int(i), int(slot_len[i]) + steps)
-                    width = max(self.pool.slot_pages(int(i)) for i in live)
+                        self.pool.ensure(int(i), int(slot_len[i]) + grow)
+                        self.pool.ensure(nslots + int(i),
+                                         int(slot_len[i]) + grow)
+                    width = max(max(self.pool.slot_pages(int(i)),
+                                    self.pool.slot_pages(nslots + int(i)))
+                                for i in live)
                     bucket = min(-(-max(width, 1) // 4) * 4, eng.table_width)
-                    state = eng.set_page_table(
-                        state, self.pool.table()[:, :bucket])
-                seg_t0 = time.perf_counter()
-                toks, logits, state = eng.decode_segment(state, logits,
-                                                         steps)
-                toks_np = eng._fetch(toks)          # ONE sync per segment
-                steps = toks_np.shape[1]
-                slot_len[active] += steps
+                    tbl = self.pool.table()
+                    state = eng.set_page_table(state, tbl[:nslots, :bucket])
+                    dstate = eng.set_page_table(dstate,
+                                                tbl[nslots:, :bucket])
+                    spec_mask = eng._upload(np.array(
+                        [s is not None and s.spec for s in slots]))
+                    seg_t0 = time.perf_counter()
+                    with eng._region_timer(DECODE_REGION):
+                        toks, counts, logits, state, dstate = \
+                            eng.spec_segment(state, dstate, logits, gen,
+                                             spec_mask)
+                        host = eng._fetch(torch.cat(  # ONE sync a segment
+                            [toks, counts[:, None]], dim=1))
+                    toks_np = host[:, :-1]
+                    produced = host[:, -1].astype(np.int64)
+                    self.metrics["decode_steps"] += 1
+                    self.metrics["spec_rounds"] += 1
+                    for i in live:
+                        if slots[i].spec:
+                            self.metrics["draft_proposed"] += \
+                                spec.num_draft_tokens
+                            self.metrics["draft_accepted"] += \
+                                int(produced[i]) - 1
+                else:
+                    # requested steps fit the tightest active budget; the
+                    # engine quantizes UP to a power of two and overshoot
+                    # is masked against each request's budget at retire
+                    steps = eng.quantize_steps(
+                        min(self.admission_chunk,
+                            int(remaining[active].min())))
+                    if self.pool is not None:
+                        # cover every page this segment can write, then
+                        # hand the device a table sliced to the width the
+                        # LIVE mix needs (x4-page buckets, as the JAX
+                        # scheduler cuts them): decode reads track actual
+                        # context, not max_seq.  Entries past a row's live
+                        # pages are never read, so the cut only drops dead
+                        # entries.
+                        for i in live:
+                            self.pool.ensure(int(i),
+                                             int(slot_len[i]) + steps)
+                        width = max(self.pool.slot_pages(int(i))
+                                    for i in live)
+                        bucket = min(-(-max(width, 1) // 4) * 4,
+                                     eng.table_width)
+                        state = eng.set_page_table(
+                            state, self.pool.table()[:, :bucket])
+                    seg_t0 = time.perf_counter()
+                    with eng._region_timer(DECODE_REGION):
+                        toks, logits, state = eng.decode_segment(
+                            state, logits, steps, gen)
+                        toks_np = eng._fetch(toks)  # ONE sync per segment
+                    steps = toks_np.shape[1]
+                    produced = np.full(nslots, steps, np.int64)
+                    self.metrics["decode_steps"] += steps
+                slot_len[active] += produced[active]
                 self.metrics["segments"] += 1
-                self.metrics["decode_steps"] += steps
                 seg_run += 1
                 now = time.perf_counter()
                 verdict = self.straggler.record(now - seg_t0)
@@ -864,9 +1420,10 @@ class BatchScheduler:
                         segment=int(self.metrics["segments"]),
                         wall_s=now - seg_t0, ema_s=verdict.ema))
                 # ---- retire: finished/expired/cancelled rows release
-                # their slots immediately
-                for i in np.nonzero(active)[0]:
-                    self._retire(int(i), toks_np[i], steps, now)
+                # their slots immediately (spec rows take at most their
+                # accepted count)
+                for i in live:
+                    self._retire(int(i), toks_np[i], int(produced[i]), now)
                 if max_segments is not None and seg_run >= max_segments:
                     break
         finally:

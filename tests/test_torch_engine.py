@@ -6,7 +6,8 @@ does not just echo its last input token): greedy tokens over ragged
 prompts must equal the JAX engine's, dense and paged, with one host sync
 per call.  The same for zamba2-1.2b ``SMOKE`` (hybrid: Mamba2 plus a
 shared block) on equal-length prompts longer than a chunk, with dense KV
-only.  Also: eos, ``kv_dtype`` pages, the unported ServeConfig fields, the
+only.  Also: eos, ``kv_dtype`` pages, the unported ServeConfig fields and
+``extra_batch``, sampled decoding now running, the
 no-GPU rule, and that importing the port (the scheduler, the pool, the
 launcher and the SSD scan included) never imports JAX or the JAX package.
 """
@@ -91,8 +92,7 @@ def test_paged_equals_dense_and_eos_stops_rows(models):
 
 def test_unported_serve_options_raise_and_scheduler_fields_pass(models):
     _, _, lm, prompts = models
-    for kw in (dict(temperature=0.7),
-               dict(impls={"attention": "pallas_flash"}),
+    for kw in (dict(impls={"attention": "pallas_flash"}),
                dict(attn_impl="pallas_flash")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(lm, ServeConfig(page_size=4, **kw), device="cpu")
@@ -100,6 +100,15 @@ def test_unported_serve_options_raise_and_scheduler_fields_pass(models):
                                  batch_slots=2, admission_chunk=3,
                                  pool_pages=5), device="cpu")
     assert eng.generate(prompts[:1], 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        eng.generate(prompts[:1], 2, extra_batch={"patch_embeds": 0})
+    # temperature > 0 is ported: sampled top-k / top-p decoding runs
+    for kw in (dict(temperature=0.7), dict(temperature=0.7, top_k=5),
+               dict(temperature=0.7, top_p=0.9)):
+        sampled = Engine(lm, ServeConfig(max_seq=64, page_size=4, **kw),
+                         device="cpu").generate(prompts[:2], 3)
+        assert [len(t) for t in sampled] == [3, 3]
+        assert all(0 <= tok < SMOKE.vocab for t in sampled for tok in t)
     # kv_dtype is ported: paged generate stores fp32 or int8 pages
     for kv in ("fp32", "int8"):
         assert Engine(lm, ServeConfig(max_seq=64, page_size=4, kv_dtype=kv),

@@ -755,9 +755,21 @@ def test_argmax_over_a_row_with_nan_follows_jnp_not_the_pallas_kernel():
 def test_sample_greedy_and_unported_methods():
     x = torch.from_numpy(_tied_logits(np.random.default_rng(1), 5, 64))
     assert torch.equal(sampling.sample(x), sampling.argmax_plain(x))
+    # top_k / top_p are ported: a Gumbel draw, then the argmax kernel
+    y = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (5, 64)).astype(np.float32))
+    top3 = torch.topk(y, 3, dim=-1).indices
     for method in ("top_k", "top_p"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gen = torch.Generator().manual_seed(4)
+        tok = sampling.sample(y, gen, method=method, temperature=0.8, k=3,
+                              p=0.5)
+        assert tok.dtype == torch.int32 and tok.shape == (5,)
+        if method == "top_k":
+            assert all(int(t) in top3[i].tolist() for i, t in enumerate(tok))
+        with pytest.raises(ValueError, match="generator"):
             sampling.sample(x, method=method)
+    with pytest.raises(ValueError, match="unknown sampling method"):
+        sampling.sample(x, torch.Generator(), method="beam")
     with pytest.raises(ValueError):
         sampling.block_argmax(torch.zeros(3, 0))
     with pytest.raises(TypeError):

@@ -43,6 +43,7 @@ from repro_torch.launch import serve as serve_launcher
 from repro_torch.models.lm import LM, LMConfig
 from repro_torch.serve import engine
 from repro_torch.serve.admission import AdmissionRejected
+from repro_torch.serve.spec import SpecConfig
 
 torch.set_num_threads(1)
 
@@ -230,8 +231,17 @@ def test_engine_validation_and_unported_arguments(smoke):
     eng = engine.Engine(lm, engine.ServeConfig(max_seq=64), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
         engine.Engine(lm, engine.ServeConfig(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        engine.Engine(lm, engine.ServeConfig(), device="cpu", spec=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+        eng.generate([[1, 2]], 2, extra_batch={"src_feats": 0})
+    # speculative decoding is ported: the target as its own draft runs and
+    # gives the target-only greedy tokens
+    paged = engine.ServeConfig(max_seq=64, page_size=8)
+    spec_eng = engine.Engine(lm, paged, device="cpu",
+                             spec=SpecConfig(draft_config=lm.cfg,
+                                             num_draft_tokens=2),
+                             draft_lm=lm)
+    assert spec_eng.generate([[1, 2, 3]], 4) == engine.Engine(
+        lm, paged, device="cpu").generate([[1, 2, 3]], 4)
     for kw in (dict(snapshot_dir="snaps"), dict(snapshot_every=2),
                dict(chaos=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
@@ -477,9 +487,16 @@ def test_serve_launcher_writes_the_summary(tmp_path):
     with pytest.raises(SystemExit):         # unported flags are refused
         serve_launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
                              "--chaos", "3"])
-    with pytest.raises(NotImplementedError, match="temperature"):
-        serve_launcher.main(["--arch", "qwen2-0.5b", "--smoke-dims",
-                             "--device", "cpu", "--temperature", "0.7"])
+    with pytest.raises(SystemExit):         # --mesh is not ported
+        serve_launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
+                             "--mesh", "1x1"])
+    # --temperature > 0 is ported: the launcher samples
+    sampled = tmp_path / "sampled.json"
+    assert serve_launcher.main(["--arch", "qwen2-0.5b", "--smoke-dims",
+                                "--device", "cpu", "--temperature", "0.7",
+                                "--requests", "2", "--max-new", "3",
+                                "--json", str(sampled)]) == 0
+    assert json.loads(sampled.read_text())["new_tokens"] == 2 * 3
 
 
 def test_serve_launcher_runs_zamba2_with_dense_kv(tmp_path):
