@@ -122,9 +122,31 @@ failure):
                ``KVPool.check()`` and ``scheduler.check()`` pass.  Each run
                must launch #1 once a layer of each prefill, #2 (K+1) x 2
                times a round and #4 K+3 times a round (``y``, the K+1 draft
-               samples, the verify's argmax).
+               samples, the verify's argmax);
+15. snapshots and chaos - (a) fp32, full width, 2 layers (phase 7's
+               model, the embedding scaled by 0.1), fp32 pages of 16, the
+               prefix cache on: a ``BatchScheduler`` with a snapshot every
+               segment is stopped after 2 segments, a FRESH ``Engine``
+               restores the newest snapshot and runs to the end; every
+               request's tokens must equal an uninterrupted card run's and
+               the restore must use the page index (#1, #2, #4 launch).
+               (b) phase 5's model and traffic at full width and depth
+               (bf16, the embedding scaled by 0.1 as in phases 13-14, int8
+               pages): tokens/s with snapshots every 0 and every 1
+               segment in turns (0, 1, 1, 0; the tokens must not move),
+               then ``ChaosSchedule.smoke()`` with a snapshot every 2
+               segments, killed after 8 and restored on a fresh engine:
+               every event applied (flap and death skipped on one card),
+               ``KVPool.check()`` and ``scheduler.check()`` after every
+               event, the corrupted snapshot refused by the loader and by
+               ``Engine.restore``, every request terminal, #1, #3 and #4
+               launched.  Host syncs = segments + snapshots that carry an
+               index on every snapshot run.  Snapshot bytes and write ms,
+               index pages, restore ms, tokens/s and the share of
+               restored tokens equal to the uninterrupted run are printed
+               beside the card's name and power limit.
 
-Phases 4, 5, 8, 9, 12, 13 and 14 are the main paths: each is run with its
+Phases 4, 5, 8, 9, 12, 13, 14 and 15 are the main paths: each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
 launched another number of times than the path implies).  The last two
@@ -1687,6 +1709,282 @@ def spec_path(dev, lm):
     return gen_launches, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serving snapshots, restore and chaos injection
+# ---------------------------------------------------------------------------
+
+SNAP_BUDGETS = [9, 12, 16]
+SNAP_KILL = 2           # (a): segments before the kill
+CHAOS_KILL = 8          # (b): segments before the kill, past every event
+
+
+def snapshot_dir():
+    """A fresh directory for snapshots inside the checkout's git-ignored
+    build tree."""
+    import tempfile
+    base = ROOT / "build" / "snapshots"
+    base.mkdir(parents=True, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=base)
+
+
+def instrument_snapshots(sched, writes, applies):
+    """Time every snapshot write (with its file's bytes and index pages)
+    and the restore's page write-back, each ended by a synchronize."""
+    write, apply = sched._write_snapshot, sched._apply_restore_index
+
+    def timed_write(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = write(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        if path is not None:
+            writes.append((dt, Path(path).stat().st_size,
+                           sched.ft_events[-1]["index_pages"]))
+        return path
+
+    def timed_apply(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply(state)
+        torch.cuda.synchronize()
+        applies.append(time.perf_counter() - t0)
+        return out
+
+    sched._write_snapshot = timed_write
+    sched._apply_restore_index = timed_apply
+
+
+def indexed_snapshots(sched):
+    return sum(1 for e in sched.ft_events
+               if e["type"] == "snapshot" and e["index_pages"])
+
+
+def check_snapshot_syncs(where, eng, syncs0, sched):
+    syncs = eng.host_syncs - syncs0
+    want = sched.metrics["segments"] + indexed_snapshots(sched)
+    if syncs != want:
+        fail(f"{where}: {syncs} host syncs, expected segments "
+             f"{sched.metrics['segments']:.0f} + indexed snapshots "
+             f"{indexed_snapshots(sched)}")
+
+
+def snap_stats(writes):
+    ms = [w[0] * 1e3 for w in writes]
+    nbytes = [w[1] for w in writes]
+    pages = [w[2] for w in writes]
+    return (f"{len(writes)} snapshots, {min(nbytes)}-{max(nbytes)} bytes "
+            f"(median {statistics.median(nbytes):.0f}), index pages "
+            f"{min(pages)}-{max(pages)}, write {min(ms):.2f}-{max(ms):.2f} "
+            f"ms (median {statistics.median(ms):.2f})")
+
+
+def first_divergence(got, want):
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        if a != b:
+            k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            return f"request {rid} first differs at token {k}: {a} vs {b}"
+    return "none"
+
+
+def snapshot_parity(dev, smi):
+    """Phase 15(a): fp32, full width, 2 layers, fp32 pages of 16 and the
+    prefix cache: killed after SNAP_KILL segments with a snapshot after
+    each, restored on a FRESH engine, run to the end; every request's
+    tokens must equal an uninterrupted card run's."""
+    from repro_torch.bench.profile_serve import shared_prefix_workload
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import (BatchScheduler, Engine, Request,
+                                          ServeConfig)
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    lm = LM(cfg, torch.float32, dev).init(
+        torch.Generator(device=dev).manual_seed(2))
+    lm.embed.table.data.mul_(0.1)
+    work = shared_prefix_workload(cfg.vocab, 6, 40, [3, 9, 17, 30],
+                                  SNAP_BUDGETS, seed=5)
+    sc = ServeConfig(page_size=PAGE_SIZE, max_seq=128, batch_slots=3,
+                     admission_chunk=4, kv_dtype="fp32")
+
+    def submit(sched):
+        for rid, (p, budget, prio) in enumerate(work):
+            sched.submit(Request(rid=rid, prompt=p, max_new_tokens=budget,
+                                 priority=prio))
+        return sched
+
+    base = submit(BatchScheduler(Engine(lm, sc, device=dev)))
+    base.run()
+    want = {rid: list(r.generated) for rid, r in base.completed.items()}
+    writes, applies = [], []
+    with snapshot_dir() as d:
+        reset_counters()
+        eng = Engine(lm, sc, device=dev)
+        sched = submit(BatchScheduler(eng, snapshot_dir=d, snapshot_every=1))
+        instrument_snapshots(sched, writes, applies)
+        sched.run(max_segments=SNAP_KILL)
+        check_snapshot_syncs("15(a) killed run", eng, 0, sched)
+        if len(sched.completed) >= len(work):
+            fail("15(a): the kill left nothing to restore")
+        snap = store.latest_snapshot(d)
+        eng2 = Engine(lm, sc, device=dev)               # fresh pool, fresh state
+        t0 = time.perf_counter()
+        sched2 = eng2.restore(snap)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        instrument_snapshots(sched2, [], applies)
+        sched2.run()
+        torch.cuda.synchronize()
+        launches = read_counters()
+    got = {rid: list(r.generated) for rid, r in sched2.completed.items()}
+    restore_ev = [e for e in sched2.ft_events if e["type"] == "restore"][0]
+    log(f"  15(a) uninterrupted: {want}")
+    if got != want:
+        fail(f"15(a): restored fp32 tokens differ from the uninterrupted "
+             f"run: {first_divergence(got, want)}")
+    if restore_ev["index_pages"] <= 0:
+        fail(f"15(a): the restore used no page index: {restore_ev}")
+    if sched2.metrics["prefix_hits"] < 1:
+        fail("15(a): no restored request hit the page index")
+    check_snapshot_syncs("15(a) restored run", eng2, 0, sched2)
+    sched2.check()
+    expect = {"flash_attention": 1, "paged_decode": 1, "argmax": 1}
+    for k in expect:
+        if launches[k] < 1:
+            fail(f"15(a): {k} never launched on the snapshot path")
+    log(f"  15(a) killed after {SNAP_KILL} segments; restored on a fresh "
+        f"engine: {restore_ev['index_pages']} index pages, "
+        f"{restore_ev['pending']} pending, load {load_ms:.2f} ms + page "
+        f"write-back {applies[0] * 1e3:.3f} ms; tokens == uninterrupted "
+        f"(fp32 pages, card); {snap_stats(writes)}; launches {launches} "
+        f"[{smi}]")
+    return launches
+
+
+def chaos_path(dev, lm, smi):
+    """Phase 15(b): qwen2-0.5b full width and depth, bf16, phase 5's
+    traffic over int8 pages: tokens/s with snapshots every 0 and 1
+    segments, then ``ChaosSchedule.smoke()`` with snapshots every 2,
+    killed after CHAOS_KILL segments and restored on a fresh engine."""
+    from repro_torch.bench import profile_serve as ps
+    from repro_torch.checkpoint import store
+    from repro_torch.ft.chaos import ChaosSchedule
+    from repro_torch.serve.engine import (BatchScheduler, Engine, Request,
+                                          ServeConfig)
+    cfg = lm.cfg
+    sc = ServeConfig(page_size=ps.PAGE_SIZE, max_seq=1024,
+                     batch_slots=ps.SLOTS, admission_chunk=8,
+                     kv_dtype="int8")
+    eng = Engine(lm, sc, device=dev)
+    ps.run_scheduler(eng, ps.shared_prefix_workload(
+        cfg.vocab, ps.SLOTS, ps.PREFIX, ps.SUFFIX_LENS, ps.BUDGETS, seed=1))
+    work = ps.shared_prefix_workload(cfg.vocab, ps.REQUESTS, ps.PREFIX,
+                                     ps.SUFFIX_LENS, ps.BUDGETS, seed=0)
+
+    def submit(sched):
+        for rid, (p, budget, prio) in enumerate(work):
+            sched.submit(Request(rid=rid, prompt=p, max_new_tokens=budget,
+                                 priority=prio))
+        return sched
+
+    rates, outs, writes = {}, {}, []
+    for every in (0, 1, 1, 0):
+        with snapshot_dir() as d:
+            kw = dict(snapshot_dir=d, snapshot_every=1) if every else {}
+            sched = submit(BatchScheduler(eng, **kw))
+            if every:
+                instrument_snapshots(sched, writes, [])
+            torch.cuda.synchronize()
+            syncs0 = eng.host_syncs
+            t0 = time.perf_counter()
+            sched.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check_snapshot_syncs(f"15(b) snapshot_every={every}", eng, syncs0,
+                             sched)
+        toks = {rid: list(r.generated) for rid, r in sched.completed.items()}
+        if sorted(toks) != list(range(len(work))):
+            fail(f"15(b) snapshot_every={every}: completed {sorted(toks)}")
+        outs.setdefault(every, toks)
+        if toks != outs[every] or toks != outs[0]:
+            fail("15(b): snapshots changed the tokens of a bf16 run")
+        rates.setdefault(every, []).append(
+            sum(len(t) for t in toks.values()) / wall)
+    base = outs[0]
+    log(f"  15(b) tokens/s, snapshot_every 0: "
+        f"{', '.join(f'{r:.1f}' for r in rates[0])}; snapshot_every 1: "
+        f"{', '.join(f'{r:.1f}' for r in rates[1])} (turns 0, 1, 1, 0); "
+        f"{snap_stats(writes)} [{smi}]")
+
+    chaos = ChaosSchedule.smoke()
+    applies = []
+    with snapshot_dir() as d:
+        reset_counters()
+        eng1 = Engine(lm, sc, device=dev)
+        sched = submit(BatchScheduler(eng1, snapshot_dir=d, snapshot_every=2,
+                                      chaos=chaos))
+        sched.run(max_segments=CHAOS_KILL)
+        check_snapshot_syncs("15(b) chaos run", eng1, 0, sched)
+        cs = chaos.summary()
+        if cs["applied"] != len(chaos.events):
+            fail(f"15(b): chaos applied {cs['applied']} of "
+                 f"{len(chaos.events)} events: {cs}")
+        if sorted(cs["skipped"]) != ["device_death", "heartbeat_flap"]:
+            fail(f"15(b): unexpected skips {cs['skipped']}")
+        notes = {e["kind"]: e.get("note", "") for e in sched.ft_events
+                 if e["type"] == "chaos"}
+        if not notes["snapshot_corrupt"].startswith("corrupted + detected"):
+            fail(f"15(b): snapshot_corrupt: {notes['snapshot_corrupt']!r}")
+        bad = sorted(Path(d).glob("*.corrupt"))
+        if not bad:
+            fail("15(b): no corrupted snapshot on disk")
+        try:
+            Engine(lm, sc, device=dev).restore(str(bad[0]))
+        except store.SnapshotCorrupt:
+            pass
+        else:
+            fail(f"15(b): Engine.restore accepted {bad[0].name}")
+        snap = store.latest_snapshot(d)
+        eng2 = Engine(lm, sc, device=dev)
+        t0 = time.perf_counter()
+        sched2 = eng2.restore(snap)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        instrument_snapshots(sched2, [], applies)
+        t0 = time.perf_counter()
+        sched2.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+    check_snapshot_syncs("15(b) restored run", eng2, 0, sched2)
+    sched2.check()
+    sched2.pool.check()
+    restore_ev = [e for e in sched2.ft_events if e["type"] == "restore"][0]
+    for rid in range(len(work)):
+        if not sched2.requests[rid].terminal:
+            fail(f"15(b): request {rid} ended {sched2.requests[rid].status}")
+    got = {rid: list(r.generated) for rid, r in sched2.completed.items()}
+    same = sum(int(a == b) for rid, t in got.items()
+               for a, b in zip(t, base[rid]))
+    total = sum(len(t) for t in got.values())
+    for k in ("flash_attention", "paged_decode_q8", "argmax"):
+        if launches[k] < 1:
+            fail(f"15(b): {k} never launched on the chaos path")
+    kinds = [e["kind"] for e in sched.ft_events if e["type"] == "chaos"]
+    log(f"  15(b) chaos (smoke schedule, snapshots every 2): events "
+        f"{kinds}, {cs['checks']} invariant closures (KVPool.check + "
+        f"scheduler.check), corrupt {bad[0].name} refused by the loader "
+        f"and Engine.restore; killed after {CHAOS_KILL} segments with "
+        f"{len(sched.completed)} done")
+    log(f"  15(b) restore from {Path(snap).name}: "
+        f"{restore_ev['index_pages']} index pages, {restore_ev['pending']} "
+        f"pending, load {load_ms:.2f} ms + page write-back "
+        f"{applies[0] * 1e3:.3f} ms; the rest ran in {wall * 1e3:.2f} ms; "
+        f"{len(got)} done, {len(sched2.aborted)} aborted, all terminal; "
+        f"tokens equal to the uninterrupted run {same} of {total} "
+        f"({same / max(total, 1):.4f}); launches {launches} [{smi}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -1697,7 +1995,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/14] probe")
+    log("[1/15] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -1714,12 +2012,12 @@ def main() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    log("[2/14] build")
+    log("[2/15] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/14] kernels vs plain versions")
+    log("[3/15] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -1731,26 +2029,26 @@ def main() -> int:
             f"{r['bound_by']})")
     del timer
 
-    log("[4/14] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    log("[4/15] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/14] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    log("[5/15] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
         "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    log("[6/14] fp32 token check: card paged / card dense / cpu paged")
+    log("[6/15] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/14] fp32 scheduler token check: card scheduler / card generate "
+    log("[7/15] fp32 scheduler token check: card scheduler / card generate "
         "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    log("[8/14] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    log("[8/15] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    log("[9/14] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    log("[9/15] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -1760,10 +2058,10 @@ def main() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    log("[10/14] fp32 zamba2 token check: card / cpu, 7 layers")
+    log("[10/15] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    log("[11/14] case-study kernels vs plain versions: STREAM triad, "
+    log("[11/15] case-study kernels vs plain versions: STREAM triad, "
         "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -1773,14 +2071,14 @@ def main() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    log("[12/14] main path 5: the case studies through PerfCtr marker "
+    log("[12/15] main path 5: the case studies through PerfCtr marker "
         "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    log("[13/14] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    log("[13/15] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
         "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -1788,16 +2086,24 @@ def main() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    log("[14/14] main path 7: speculative decoding, K = 4, 2-layer matched "
+    log("[14/15] main path 7: speculative decoding, K = 4, 2-layer matched "
         "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
+
+    log("[15/15] main path 8: serving snapshots and chaos: (a) fp32 "
+        "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
+        "smoke schedule, killed and restored")
+    snap_launches = snapshot_parity(dev, smi)
+    chaos_launches = chaos_path(dev, lm, smi)
     del lm
     torch.cuda.empty_cache()
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
                "spec_generate": spec_launches,
-               "spec_scheduler": spec_sched_launches}
+               "spec_scheduler": spec_sched_launches,
+               "snapshot_restore_fp32": snap_launches,
+               "chaos_restore_int8": chaos_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"]} if r in case_rows else

@@ -5,10 +5,9 @@ Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` uses:
 * :func:`add_kv_args` — ``--kv-dtype {fp32,bf16,int8}`` and
   ``--no-prefix-cache`` over the paged KV cache (consume with
   :func:`kv_config_kwargs`, which validates eagerly);
-* :func:`add_robustness_args` — per-request deadlines and bounded
-  admission (consume with :func:`robustness_kwargs`); the reference's
-  ``--snapshot-*`` and ``--chaos`` flags wait for the snapshot and chaos
-  ports (``ROADMAP.md``, queue 1 item 9);
+* :func:`add_robustness_args` — per-request deadlines, bounded
+  admission, serving snapshots and seeded chaos injection (consume with
+  :func:`robustness_kwargs`, which validates eagerly);
 * :func:`add_spec_args` — ``--draft``, ``--spec-tokens`` and
   ``--accept-policy`` (consume with :func:`spec_kwargs`, which validates
   the pairing eagerly);
@@ -61,7 +60,8 @@ def kv_config_kwargs(args: argparse.Namespace,
 
 def add_robustness_args(ap: argparse.ArgumentParser) -> None:
     """Request-plane robustness flags (consume with
-    :func:`robustness_kwargs`): deadlines and bounded admission."""
+    :func:`robustness_kwargs`): deadlines, bounded admission, snapshots,
+    seeded chaos injection."""
     g = ap.add_argument_group("request-plane robustness")
     g.add_argument("--deadline-ms", type=float, default=None,
                    help="per-request total wall deadline; expired rows "
@@ -77,14 +77,42 @@ def add_robustness_args(ap: argparse.ArgumentParser) -> None:
                    help="at --max-queue capacity: refuse the arrival, or "
                         "evict the newest request of the strictly worst "
                         "priority class (default reject-new)")
+    g.add_argument("--snapshot-dir", default=None,
+                   help="write crash-safe serving snapshots here (queue, "
+                        "per-request progress, KV prefix index) and on "
+                        "drain/exit")
+    g.add_argument("--snapshot-every", type=int, default=0,
+                   help="snapshot interval in decode segments (0 = only "
+                        "at exit; needs --snapshot-dir)")
+    g.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                   help="drive a seeded ChaosSchedule through the run "
+                        "(fault injection with invariant checks after "
+                        "every event; same seed = same faults)")
 
 
-def robustness_kwargs(args: argparse.Namespace) -> Dict[str, object]:
+def robustness_kwargs(args: argparse.Namespace,
+                      ap: Optional[argparse.ArgumentParser] = None
+                      ) -> Dict[str, object]:
     """BatchScheduler kwargs from :func:`add_robustness_args` (the
     per-request deadline flags are applied at submit time by the caller,
-    not here)."""
-    return {"max_queue": getattr(args, "max_queue", None),
-            "shed_policy": getattr(args, "shed_policy", "reject-new")}
+    not here).  Validates eagerly: ``--snapshot-every`` without
+    ``--snapshot-dir`` is a usage error."""
+    if getattr(args, "snapshot_every", 0) and \
+            not getattr(args, "snapshot_dir", None):
+        msg = "--snapshot-every needs --snapshot-dir"
+        if ap is not None:
+            ap.error(msg)
+        raise ValueError(msg)
+    out: Dict[str, object] = {
+        "max_queue": getattr(args, "max_queue", None),
+        "shed_policy": getattr(args, "shed_policy", "reject-new"),
+        "snapshot_dir": getattr(args, "snapshot_dir", None),
+        "snapshot_every": getattr(args, "snapshot_every", 0),
+    }
+    if getattr(args, "chaos", None) is not None:
+        from repro_torch.ft.chaos import ChaosSchedule
+        out["chaos"] = ChaosSchedule(seed=args.chaos)
+    return out
 
 
 def add_spec_args(ap: argparse.ArgumentParser) -> None:

@@ -26,11 +26,15 @@ no checkpoint in the repository: the weights are random, from a
 opts in; needs ``--page-size``), and the summary gains a ``spec`` block.
 ``--instrument`` probes the ``serve.prefill`` / ``serve.decode`` regions
 through ``PerfCtr``, prints its report and writes the regions' calls and
-seconds into the summary.
+seconds into the summary.  ``--snapshot-dir`` (with ``--snapshot-every
+N``) writes crash-safe serving snapshots, which ``Engine.restore``
+reads back (either package's); ``--chaos SEED`` drives a seeded
+``ChaosSchedule`` through the run.  The summary counts ``snapshots``,
+``restores`` and the chaos schedule's events.
 
 Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh``,
-``--tune``, ``--impl``, ``--ckpt-dir``, ``--chaos`` and ``--snapshot-*``
-flags (absent: argparse refuses them).
+``--tune``, ``--impl`` and ``--ckpt-dir`` flags (absent: argparse
+refuses them).
 """
 
 from __future__ import annotations
@@ -127,7 +131,10 @@ def main(argv=None) -> int:
         eng.instrument(ctr, prompt_len=args.prompt_len)
         print("[serve] instrumented serve.prefill/serve.decode regions")
 
-    sched = BatchScheduler(eng, **cli.robustness_kwargs(args))
+    sched = BatchScheduler(eng, **cli.robustness_kwargs(args, ap))
+    if sched.chaos is not None:
+        print(f"[serve] chaos schedule armed: seed={args.chaos}, "
+              f"{len(sched.chaos.events)} events")
     prios = ([int(p) for p in args.priority_mix.split(",")]
              if args.priority_mix else [1])
     rng = np.random.default_rng(0)
@@ -161,10 +168,15 @@ def main(argv=None) -> int:
     print(f"[serve] segments={m['segments']:.0f} "
           f"admissions={m['admissions']:.0f} "
           f"host_syncs={eng.host_syncs}{ttft_s}")
-    if any(m[k] for k in ("expired", "cancelled", "sheds", "rejections")):
+    if any(m[k] for k in ("expired", "cancelled", "sheds", "rejections",
+                          "snapshots", "restores")):
         print(f"[serve] robustness: rejections={m['rejections']:.0f} "
               f"sheds={m['sheds']:.0f} expired={m['expired']:.0f} "
-              f"cancelled={m['cancelled']:.0f}")
+              f"cancelled={m['cancelled']:.0f} "
+              f"snapshots={m['snapshots']:.0f} "
+              f"restores={m['restores']:.0f}")
+    if sched.chaos is not None:
+        print(f"[serve] chaos: {sched.chaos.summary()}")
     spec_summary = None
     if spec_kw:
         rate = m["draft_accepted"] / max(m["draft_proposed"], 1)
@@ -210,6 +222,10 @@ def main(argv=None) -> int:
                 "sheds": m["sheds"],
                 "expired": m["expired"],
                 "cancelled": m["cancelled"],
+                "snapshots": m["snapshots"],
+                "restores": m["restores"],
+                "chaos": (sched.chaos.summary()
+                          if sched.chaos is not None else None),
                 "spec": spec_summary,
                 "regions": ({name: {"calls": r.calls, "time_s": r.time_s}
                              for name, r in ctr.regions.items()}

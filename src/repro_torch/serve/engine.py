@@ -71,16 +71,29 @@ attention-cache families (:data:`MASKED_FAMILIES`) take pages and ragged
 ``generate`` and exact-length single-row admissions in the scheduler, as
 in the JAX engine.
 
-Mesh sharding, kernel pins, ``extra_batch`` inputs, serving snapshots
-and chaos injection wait for later slices (``ROADMAP.md``); the arguments
-that select them raise :class:`NotImplementedError` rather than being
-silently ignored.
+**Snapshots and chaos.**  With ``snapshot_dir`` set the scheduler writes
+crash-safe serving snapshots (``repro_torch/checkpoint/store.py``, the
+JAX package's file format, so either package restores the other's):
+every ``snapshot_every`` segments and at exit.  A snapshot holds the
+queue, every request's progress and the prefix index with its pages'
+contents, fetched from the card in one transfer counted in
+``host_syncs``; so with snapshots on, host syncs = segments + snapshots
+that carry an index.  :meth:`Engine.restore` rebuilds a scheduler from
+one: the saved pages are written into the fresh pool's tensors in place
+before the first admission, and every pending request replays
+``prompt + generated`` through prefill over them.  ``chaos`` ticks a
+:class:`repro_torch.ft.chaos.ChaosSchedule` at every segment boundary.
+
+Mesh sharding, kernel pins and ``extra_batch`` inputs wait for later
+slices (``ROADMAP.md``); the arguments that select them raise
+:class:`NotImplementedError` rather than being silently ignored.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple, Union)
@@ -88,6 +101,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.device import resolve_device
 from repro_torch.ft.straggler import StragglerDetector
 from repro_torch.kernels import sampling
@@ -355,10 +369,26 @@ class Engine:
         tbl = self._upload(np.asarray(table, np.int32))
         return dict(state, caches=caches._replace(page_table=tbl))
 
-    def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        """THE device->host sync point: every transfer is counted here."""
+    def _fetch(self, t: Union[torch.Tensor, Mapping[str, torch.Tensor]]
+               ) -> Union[np.ndarray, Dict[str, torch.Tensor]]:
+        """THE device->host sync point: every transfer is counted here.
+
+        A tensor comes back as a numpy array.  A mapping of tensors (a
+        snapshot's page contents) comes back as host tensors of the same
+        dtypes and shapes, moved in ONE transfer of their bytes, so bf16,
+        which numpy lacks, survives bit for bit."""
         self.host_syncs += 1
-        return t.cpu().numpy()
+        if isinstance(t, torch.Tensor):
+            return t.cpu().numpy()
+        flat = [v.contiguous().reshape(-1).view(torch.uint8)
+                for v in t.values()]
+        host = torch.cat(flat).cpu()
+        out, off = {}, 0
+        for (key, v), b in zip(t.items(), flat):
+            chunk = host[off:off + b.numel()].clone()
+            out[key] = chunk.view(v.dtype).reshape(v.shape)
+            off += b.numel()
+        return out
 
     def _pad_prompts(self, prompts: Sequence[Sequence[int]]
                      ) -> Tuple[np.ndarray, np.ndarray]:
@@ -883,6 +913,13 @@ class Engine:
             perfctr.probe(self.lm.decode_step, toks[:, :1], state,
                           repeats=1)
 
+    def restore(self, path: str, **scheduler_kwargs) -> "BatchScheduler":
+        """Rebuild a :class:`BatchScheduler` from a serving snapshot
+        written by a previous run, of this package or the JAX one (crash
+        recovery / planned restart).  See :meth:`BatchScheduler.restore`
+        for the parity contract."""
+        return BatchScheduler.restore(self, path, **scheduler_kwargs)
+
 
 def _merge_row(big: Any, row: Any, slot: int) -> None:
     """Scatter a one-row decode state into row ``slot`` of ``big``, in
@@ -936,8 +973,18 @@ class BatchScheduler:
     boundary, the segment's tokens for them discarded, the event recorded
     in ``ft_events``), :meth:`drain`, and ``run(max_segments=N)`` with
     active requests re-queued with their progress.  Every segment's wall
-    time feeds a straggler detector.  Serving snapshots and chaos
-    injection are not ported yet.
+    time feeds a straggler detector.
+
+    With ``snapshot_dir`` set, a crash-safe serving snapshot (queue,
+    progress, the prefix index and its pages' contents) is written every
+    ``snapshot_every`` segments and at exit, keeping the newest
+    ``snapshot_keep``; :meth:`restore` rebuilds a scheduler from one, of
+    this package or the JAX one.  A
+    :class:`repro_torch.ft.chaos.ChaosSchedule` passed as ``chaos`` is
+    ticked at every segment boundary (fault injection with invariant
+    checks).  The port serves on one card: ``heartbeats`` is None, so
+    chaos's flap and death events take their single-device skip (the
+    mesh and ``inject_failure`` are ``ROADMAP.md`` queue 1 item 14).
     """
 
     def __init__(self, engine: Engine,
@@ -948,17 +995,8 @@ class BatchScheduler:
                  shed_policy: str = "reject-new",
                  max_bypass: int = 4,
                  snapshot_dir: Optional[str] = None,
-                 snapshot_every: int = 0,
+                 snapshot_every: int = 0, snapshot_keep: int = 3,
                  chaos: Any = None):
-        if snapshot_dir is not None or snapshot_every:
-            raise NotImplementedError(
-                "serving snapshots (snapshot_dir/snapshot_every, restore) "
-                "are not ported yet (ROADMAP.md, queue 1 item 9: snapshots "
-                "through checkpoint/store.py)")
-        if chaos is not None:
-            raise NotImplementedError(
-                "chaos injection (ft/chaos.py) is not ported yet "
-                "(ROADMAP.md, queue 1 item 9)")
         self.engine = engine
         self.admission_chunk = (admission_chunk
                                 or engine.cfg.admission_chunk)
@@ -989,7 +1027,13 @@ class BatchScheduler:
         self.admission_log: List[Tuple[int, int]] = []   # (rid, slot)
         self.pool: Optional[kv_pool.KVPool] = None   # per run(), paged only
         self.draining = False
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_every = int(snapshot_every)
+        self.snapshot_keep = int(snapshot_keep)
+        self.chaos = chaos
         self._running = False
+        self._wall_inflate = 1.0       # chaos slow/hung segment multiplier
+        self._restore_index = None     # pool index payload from restore()
         # live run state (instance attrs so drain()/check() can see them
         # between segments; only meaningful while _running)
         self._slots: List[Optional[Request]] = []
@@ -999,6 +1043,9 @@ class BatchScheduler:
         # segment walls feed the straggler detector on every engine
         self.straggler = StragglerDetector(threshold=straggler_threshold,
                                            min_ratio=straggler_min_ratio)
+        # one card, no heartbeats: chaos's heartbeat_flap and device_death
+        # events see None and record their single-device skip
+        self.heartbeats = None
 
     def submit(self, req: Request) -> None:
         """Queue one request, or refuse it in O(1).
@@ -1060,7 +1107,8 @@ class BatchScheduler:
 
         Future submits are refused (``reason="draining"``, not retryable
         — the process is going away); requests already queued or
-        in-flight run to completion.  Returns ``completed``."""
+        in-flight run to completion, and with ``snapshot_dir`` set a
+        final snapshot is written on exit.  Returns ``completed``."""
         self.draining = True
         self.queue.close()
         if not self._running:
@@ -1147,7 +1195,8 @@ class BatchScheduler:
         return None
 
     def check(self) -> None:
-        """Scheduler-level invariants (on top of ``KVPool.check``)."""
+        """Scheduler-level invariants (the chaos harness calls this after
+        every injected event, on top of ``KVPool.check``)."""
         live = {r.rid for r in self._slots if r is not None}
         queued = {r.rid for r in self.queue.ordered()}
         done = set(self.completed)
@@ -1179,6 +1228,200 @@ class BatchScheduler:
                 f"{self.completed[rid].status!r}"
         if self.pool is not None:
             self.pool.check()
+
+    # ------------------------------------------------ crash-safe snapshots
+    @staticmethod
+    def _req_to_dict(req: Request) -> Dict[str, Any]:
+        return dict(rid=req.rid, prompt=list(req.prompt),
+                    generated=list(req.generated),
+                    max_new_tokens=req.max_new_tokens,
+                    priority=req.priority, deadline_ms=req.deadline_ms,
+                    ttft_deadline_ms=req.ttft_deadline_ms,
+                    status=req.status, finished=req.finished,
+                    spec=req.spec)
+
+    @staticmethod
+    def _req_from_dict(d: Dict[str, Any]) -> Request:
+        return Request(rid=int(d["rid"]), prompt=list(d["prompt"]),
+                       generated=list(d["generated"]),
+                       max_new_tokens=int(d["max_new_tokens"]),
+                       priority=int(d.get("priority", 1)),
+                       deadline_ms=d.get("deadline_ms"),
+                       ttft_deadline_ms=d.get("ttft_deadline_ms"),
+                       status=str(d.get("status", "queued")),
+                       finished=bool(d.get("finished", False)),
+                       spec=bool(d.get("spec", False)))
+
+    def _snapshot_config(self) -> Dict[str, Any]:
+        """The engine settings a restore must match (the JAX scheduler's
+        keys and values, so either package checks the other's)."""
+        eng = self.engine
+        cfg = eng.cfg
+        return dict(max_seq=cfg.max_seq, batch_slots=cfg.batch_slots,
+                    temperature=cfg.temperature, eos_token=cfg.eos_token,
+                    seed=cfg.seed, page_size=cfg.page_size,
+                    kv_dtype=cfg.kv_dtype, prefix_cache=cfg.prefix_cache,
+                    pool_pages=eng.pool_pages if eng.paged else None,
+                    vocab=eng.lm.cfg.vocab,
+                    spec=(eng.spec.signature() if eng.spec is not None
+                          else None))
+
+    def _export_index(self, state: State) -> Optional[Dict[str, Any]]:
+        """Serialize the prefix trie + its device page CONTENTS — the
+        part of the KV state a restore can reuse without recompute.  The
+        pages come to the host in one audited transfer (``_fetch``)."""
+        if self.pool is None or not self.engine.cfg.prefix_cache:
+            return None
+        nodes = self.pool.export_index()
+        if not nodes:
+            return None
+        ids = [n["page"] for n in nodes]
+        caches = state["caches"]
+        idx = self.engine._upload(np.asarray(ids, np.int64))
+        fetch = {"k": caches.k_pages[:, idx], "v": caches.v_pages[:, idx]}
+        if caches.k_scale is not None:
+            fetch["k_scale"] = caches.k_scale[:, idx]
+            fetch["v_scale"] = caches.v_scale[:, idx]
+        pages: Dict[str, Any] = dict(self.engine._fetch(fetch))
+        pages["ids"] = ids
+        return {"nodes": nodes, "pages": pages}
+
+    def _write_snapshot(self, state: Optional[State],
+                        reason: str = "interval") -> Optional[str]:
+        """Atomically persist the request plane (``store.
+        save_serving_snapshot``): every non-terminal request with its
+        progress, completed/aborted outcomes, metrics/events, and the
+        reusable prefix-page contents; then drop all but the newest
+        ``snapshot_keep``.  The ``snapshot`` event also carries the
+        index's page count (0: no index, no transfer)."""
+        if not self.snapshot_dir:
+            return None
+        seg = int(self.metrics["segments"])
+        # pending order: in-flight first (by admission order), then queue
+        order = {rid: k for k, (rid, _s) in enumerate(self.admission_log)}
+        inflight = sorted((r for r in self._slots if r is not None),
+                          key=lambda r: order.get(r.rid, 0))
+        pending = [self._req_to_dict(r)
+                   for r in list(inflight) + list(self.queue.ordered())]
+        index = self._export_index(state) if state is not None else None
+        payload = dict(
+            config=self._snapshot_config(), segment=seg, reason=reason,
+            pending=pending,
+            completed=[self._req_to_dict(r)
+                       for r in self.completed.values()],
+            aborted=[self._req_to_dict(r) for r in self.aborted.values()],
+            metrics=dict(self.metrics), ft_events=list(self.ft_events),
+            index=index)
+        path = os.path.join(self.snapshot_dir, f"snap_{seg:08d}.snap")
+        store.save_serving_snapshot(path, payload)
+        self.metrics["snapshots"] += 1
+        self.ft_events.append(dict(
+            type="snapshot", segment=seg, path=path, reason=reason,
+            pending=len(pending),
+            index_pages=len(index["pages"]["ids"]) if index else 0))
+        for old in store.list_snapshots(
+                self.snapshot_dir)[:-self.snapshot_keep]:
+            try:
+                os.unlink(old)
+            except OSError:
+                pass
+        return path
+
+    @classmethod
+    def restore(cls, engine: Engine, path: str, **kwargs
+                ) -> "BatchScheduler":
+        """Rebuild a scheduler from a serving snapshot (either package's).
+
+        Non-terminal requests re-queue with their progress: at admission
+        each replays ``prompt + generated`` through prefill — hitting the
+        restored prefix-page index for everything the snapshot retained
+        (those tokens never recompute), replaying from the prompt for the
+        rest — then decodes its remaining budget.  fp32 greedy tokens
+        equal an uninterrupted run's.  Completed/aborted outcomes are
+        pre-populated; deadlines restart from restore time (wall clocks
+        don't survive a process).
+
+        Raises :class:`repro_torch.checkpoint.SnapshotCorrupt` on a
+        damaged file and ValueError when the snapshot's engine config is
+        incompatible (different ``max_seq``/``page_size``/sampling/spec —
+        the tokens could not match).  A pool-size mismatch only drops the
+        page index (replay instead of resume)."""
+        snap = store.load_serving_snapshot(path)
+        sc = snap.get("config", {})
+        cfg = engine.cfg
+        for key, actual in (("max_seq", cfg.max_seq),
+                            ("page_size", cfg.page_size),
+                            ("temperature", cfg.temperature),
+                            ("eos_token", cfg.eos_token),
+                            ("seed", cfg.seed),
+                            ("vocab", engine.lm.cfg.vocab)):
+            if sc.get(key) != actual:
+                raise ValueError(
+                    f"snapshot {path}: config mismatch on {key!r} "
+                    f"(snapshot {sc.get(key)!r} != engine {actual!r})")
+        snap_spec = sc.get("spec")
+        eng_spec = (engine.spec.signature() if engine.spec is not None
+                    else None)
+        if ((tuple(snap_spec) if snap_spec else None)
+                != (tuple(eng_spec) if eng_spec else None)):
+            raise ValueError(
+                f"snapshot {path}: config mismatch on 'spec' "
+                f"(snapshot {snap_spec!r} != engine {eng_spec!r}) — "
+                f"restoring under a different draft pairing could not "
+                f"reproduce the token stream")
+        sched = cls(engine, **kwargs)
+        now = time.perf_counter()
+        for d in snap.get("completed", []):
+            req = cls._req_from_dict(d)
+            sched.completed[req.rid] = req
+            sched.requests[req.rid] = req
+        for d in snap.get("aborted", []):
+            req = cls._req_from_dict(d)
+            sched.aborted[req.rid] = req
+            sched.requests[req.rid] = req
+        pending = [cls._req_from_dict(d) for d in snap.get("pending", [])]
+        for req in reversed(pending):
+            req.status = "queued"
+            req.submit_time = now
+            sched.requests[req.rid] = req
+            sched.queue.push_front(req)
+        index = snap.get("index")
+        if index and engine.paged and (
+                sc.get("pool_pages") != engine.pool_pages
+                or not cfg.prefix_cache):
+            index = None                  # page ids invalid: full replay
+        sched._restore_index = index if engine.paged else None
+        sched.metrics["restores"] += 1
+        sched.ft_events.append(dict(
+            type="restore", path=path,
+            snapshot_segment=int(snap.get("segment", 0)),
+            pending=len(pending),
+            index_pages=(len(index["pages"]["ids"]) if index else 0)))
+        return sched
+
+    def _apply_restore_index(self, state: State) -> State:
+        """Adopt the snapshot's prefix trie into the fresh pool and write
+        the saved page contents into the pool's tensors on the engine's
+        device, in place (before the first admission)."""
+        index, self._restore_index = self._restore_index, None
+        if not index or self.pool is None:
+            return state
+        if not self.pool.adopt_index(index["nodes"]):
+            return state
+        pages = index["pages"]
+        eng = self.engine
+        idx = eng._upload(np.asarray(pages["ids"], np.int64))
+        caches = state["caches"]
+        for pool, key in ((caches.k_pages, "k"), (caches.v_pages, "v"),
+                          (caches.k_scale, "k_scale"),
+                          (caches.v_scale, "v_scale")):
+            vals = pages.get(key)
+            if pool is None or vals is None:
+                continue
+            if isinstance(vals, np.ndarray):     # read-only frombuffer view
+                vals = torch.from_numpy(vals.copy())
+            pool[:, idx] = vals.to(device=eng.device, dtype=pool.dtype)
+        return state
 
     def _requeue_active(self) -> int:
         """Push every in-flight request back onto the queue with its
@@ -1230,8 +1473,10 @@ class BatchScheduler:
             self.metrics["pages_shared"] += admit.shared_full
             self.metrics["cow_copies"] += len(cow_pairs)
         self.queue.remove(req)
-        # resume path (max_segments re-queue): ``full`` replays prompt +
-        # progress through prefill and the row decodes its remaining budget
+        # resume path (restore / max_segments re-queue): ``full`` replays
+        # prompt + progress through prefill — resident prefix pages are
+        # attended, not recomputed — and the row decodes its remaining
+        # budget
         state, logits = eng.prefill_slot(state, logits, full[prefix_len:], i,
                                          table_row=table_row,
                                          prefix_len=prefix_len)
@@ -1287,8 +1532,10 @@ class BatchScheduler:
     def run(self, max_segments: Optional[int] = None) -> Dict[int, Request]:
         """Drive the queue to completion (or for ``max_segments`` decode
         segments — in-flight requests then re-queue with their progress
-        kept).  One ``torch.Generator`` seeded from ``ServeConfig.seed``
-        feeds every sampled segment of the run."""
+        kept, and with ``snapshot_dir`` set an exit snapshot is written:
+        the controlled half of the kill-and-restore story).  One
+        ``torch.Generator`` seeded from ``ServeConfig.seed`` feeds every
+        sampled segment of the run."""
         eng, cfg = self.engine, self.engine.cfg
         if not self.queue:
             return self.completed
@@ -1308,6 +1555,7 @@ class BatchScheduler:
             dstate = eng.draft_lm.init_decode_state(nslots, cfg.max_seq,
                                                     **eng._state_kwargs())
         gen = eng._generator()
+        state = self._apply_restore_index(state)
         slots = self._slots = [None] * nslots
         remaining = self._remaining = np.zeros(nslots, np.int64)
         # device-side row length (includes segment overshoot the request
@@ -1336,6 +1584,14 @@ class BatchScheduler:
                 if not active.any():
                     if not self.queue:
                         break
+                    if self.pool is not None and self.pool.seized:
+                        # chaos pool exhaustion starved admission dry:
+                        # return the seized pages rather than deadlock
+                        freed = self.pool.unseize()
+                        self.ft_events.append(dict(
+                            type="pool_relief", pages=freed,
+                            segment=int(self.metrics["segments"])))
+                        continue
                     raise RuntimeError(
                         f"request {self.queue.head().rid}: needs more pages "
                         f"than the whole pool can promise ({self.pool!r})")
@@ -1413,20 +1669,33 @@ class BatchScheduler:
                 self.metrics["segments"] += 1
                 seg_run += 1
                 now = time.perf_counter()
-                verdict = self.straggler.record(now - seg_t0)
+                # chaos slow/hung-segment injection inflates the OBSERVED
+                # wall (the detector path under test) without sleeping
+                seg_wall = (now - seg_t0) * self._wall_inflate
+                self._wall_inflate = 1.0
+                verdict = self.straggler.record(seg_wall)
                 if verdict.is_straggler:
                     self.ft_events.append(dict(
                         type="straggler",
                         segment=int(self.metrics["segments"]),
-                        wall_s=now - seg_t0, ema_s=verdict.ema))
+                        wall_s=seg_wall, ema_s=verdict.ema))
                 # ---- retire: finished/expired/cancelled rows release
                 # their slots immediately (spec rows take at most their
                 # accepted count)
                 for i in live:
                     self._retire(int(i), toks_np[i], int(produced[i]), now)
+                if (self.snapshot_dir and self.snapshot_every
+                        and int(self.metrics["segments"])
+                        % self.snapshot_every == 0):
+                    self._write_snapshot(state)
+                if self.chaos is not None:
+                    self.chaos.tick(self, int(self.metrics["segments"]))
                 if max_segments is not None and seg_run >= max_segments:
                     break
         finally:
             self._running = False
-        self._requeue_active()
+        requeued = self._requeue_active()
+        if self.snapshot_dir:
+            self._write_snapshot(
+                state, reason="exit" if not requeued else "early_exit")
         return self.completed

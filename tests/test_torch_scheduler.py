@@ -219,7 +219,7 @@ def test_engine_primitives_stay_on_the_device_between_segments(smoke):
     assert toks[1].tolist() == want
 
 
-def test_engine_validation_and_unported_arguments(smoke):
+def test_engine_validation_and_unported_arguments(smoke, tmp_path):
     _, _, lm = smoke
     with pytest.raises(ValueError, match="paged"):
         engine.Engine(lm, engine.ServeConfig(kv_dtype="int8"), device="cpu")
@@ -242,10 +242,15 @@ def test_engine_validation_and_unported_arguments(smoke):
                              draft_lm=lm)
     assert spec_eng.generate([[1, 2, 3]], 4) == engine.Engine(
         lm, paged, device="cpu").generate([[1, 2, 3]], 4)
-    for kw in (dict(snapshot_dir="snaps"), dict(snapshot_every=2),
-               dict(chaos=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-            engine.BatchScheduler(eng, **kw)
+    # snapshots and chaos are ported: the scheduler takes their arguments
+    # (tests/test_torch_snapshot.py and test_torch_chaos.py run them)
+    from repro_torch.ft.chaos import ChaosSchedule
+    armed = engine.BatchScheduler(eng, snapshot_dir=str(tmp_path),
+                                  snapshot_every=2, snapshot_keep=1,
+                                  chaos=ChaosSchedule.smoke())
+    assert (armed.snapshot_dir, armed.snapshot_every,
+            armed.snapshot_keep) == (str(tmp_path), 2, 1)
+    assert armed.heartbeats is None and armed.chaos is not None
     sched = engine.BatchScheduler(eng)
     with pytest.raises(ValueError, match="max_seq"):
         sched.submit(engine.Request(rid=0, prompt=[1] * 60,
@@ -484,9 +489,9 @@ def test_serve_launcher_writes_the_summary(tmp_path):
     with pytest.raises(SystemExit):         # --kv-dtype needs --page-size
         serve_launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
                              "--kv-dtype", "int8"])
-    with pytest.raises(SystemExit):         # unported flags are refused
+    with pytest.raises(SystemExit):         # --snapshot-every needs a dir
         serve_launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
-                             "--chaos", "3"])
+                             "--chaos", "3", "--snapshot-every", "2"])
     with pytest.raises(SystemExit):         # --mesh is not ported
         serve_launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
                              "--mesh", "1x1"])

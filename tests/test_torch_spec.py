@@ -225,9 +225,9 @@ def test_scheduler_mixed_batch_parity(base_engine, spec_engine):
 def test_cancel_and_expire_on_spec_rows_leave_the_closure(spec_engine,
                                                           monkeypatch):
     """The reference's chaos events ``cancel_request`` and
-    ``expire_request`` at segment boundaries (the chaos harness is not
-    ported): flip a spec row's cancel flag after round 1 and a non-spec
-    row's deadline after round 2."""
+    ``expire_request`` at segment boundaries, by hand: flip a spec row's
+    cancel flag after round 1 and a non-spec row's deadline after round 2
+    (``tests/test_torch_chaos.py`` runs the events themselves)."""
     sched = BatchScheduler(spec_engine)
     reqs = [Request(rid=i, prompt=[3 + i, 7, 11], max_new_tokens=20,
                     spec=(i % 2 == 0)) for i in range(4)]
