@@ -144,9 +144,19 @@ failure):
                index on every snapshot run.  Snapshot bytes and write ms,
                index pages, restore ms, tokens/s and the share of
                restored tokens equal to the uninterrupted run are printed
-               beside the card's name and power limit.
+               beside the card's name and power limit;
+16. serving benches - ``repro_torch.bench``'s ``bench_serve``,
+               ``bench_paged_decode``, ``bench_flash_prefill`` and
+               ``bench_spec`` (``run()`` at the JAX benches' default
+               sizes), then ``bench_serve`` and ``bench_spec`` at
+               qwen2-0.5b's full width (``--smoke`` reps and lengths):
+               every correctness claim must hold (a failed claim raises);
+               each speed bar's value and met/unmet is printed beside the
+               card's name and power limit (a missed bar is printed, not
+               fatal); each run must launch the kernels it serves through.
 
-Phases 4, 5, 8, 9, 12, 13, 14 and 15 are the main paths: each is run with its
+Phases 4, 5, 8, 9, 12, 13, 14, 15 and each run of 16 are the main paths:
+each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
 launched another number of times than the path implies).  The last two
@@ -1985,6 +1995,60 @@ def chaos_path(dev, lm, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serving benches
+# ---------------------------------------------------------------------------
+
+#: (path name, bench module, run() kwargs, kernels its run must launch)
+SERVING_BENCHES = (
+    ("bench_serve", "bench_serve", {},
+     ("flash_attention", "paged_decode", "argmax")),
+    ("bench_paged_decode", "bench_paged_decode", {},
+     ("flash_attention", "paged_decode", "paged_decode_q8", "argmax")),
+    ("bench_flash_prefill", "bench_flash_prefill", {}, ("flash_attention",)),
+    ("bench_spec", "bench_spec", {},
+     ("flash_attention", "paged_decode", "argmax")),
+    ("bench_serve_qwen2", "bench_serve",
+     {"arch": "qwen2-0.5b", "smoke": True},
+     ("flash_attention", "paged_decode", "argmax")),
+    ("bench_spec_qwen2", "bench_spec",
+     {"arch": "qwen2-0.5b", "smoke": True},
+     ("flash_attention", "paged_decode", "argmax")),
+)
+
+
+def serving_benches(dev, smi):
+    """Phase 16: the four serving benches' ``run()`` at the JAX benches'
+    default sizes, then ``bench_serve`` and ``bench_spec`` at qwen2-0.5b's
+    full width (``--smoke`` reps and lengths).  A failed correctness
+    claim raises out of the bench and fails the script; a missed speed
+    bar is printed, not fatal.  Each run is its own path: counters set to
+    0 before it and read after."""
+    import importlib
+    by_path = {}
+    for path, name, kw, kernels in SERVING_BENCHES:
+        mod = importlib.import_module(f"repro_torch.bench.{name}")
+        csv = []
+        reset_counters()
+        t0 = time.perf_counter()
+        summary = mod.run(csv, device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counters()
+        for k in kernels:
+            if launches[k] < 1:
+                fail(f"{path}: {k} never launched")
+        by_path[path] = launches
+        log(f"  {path} ({kw or 'default size'}): every claim held in "
+            f"{secs:.1f} s; launches {launches}")
+        for row in csv:
+            log(f"    {row[0]}: {row[1]:.2f} ({row[2]})")
+        for bar, b in summary.get("bars", {}).items():
+            log(f"  bar {path}.{bar}: {b['value']:.4f} against "
+                f"{b['bar']}: {'met' if b['met'] else 'MISSED'} [{smi}]")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -1995,7 +2059,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/15] probe")
+    log("[1/16] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -2012,12 +2076,12 @@ def main() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    log("[2/15] build")
+    log("[2/16] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/15] kernels vs plain versions")
+    log("[3/16] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -2029,26 +2093,26 @@ def main() -> int:
             f"{r['bound_by']})")
     del timer
 
-    log("[4/15] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    log("[4/16] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/15] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    log("[5/16] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
         "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    log("[6/15] fp32 token check: card paged / card dense / cpu paged")
+    log("[6/16] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/15] fp32 scheduler token check: card scheduler / card generate "
+    log("[7/16] fp32 scheduler token check: card scheduler / card generate "
         "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    log("[8/15] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    log("[8/16] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    log("[9/15] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    log("[9/16] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -2058,10 +2122,10 @@ def main() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    log("[10/15] fp32 zamba2 token check: card / cpu, 7 layers")
+    log("[10/16] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    log("[11/15] case-study kernels vs plain versions: STREAM triad, "
+    log("[11/16] case-study kernels vs plain versions: STREAM triad, "
         "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -2071,14 +2135,14 @@ def main() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    log("[12/15] main path 5: the case studies through PerfCtr marker "
+    log("[12/16] main path 5: the case studies through PerfCtr marker "
         "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    log("[13/15] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    log("[13/16] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
         "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -2086,16 +2150,22 @@ def main() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    log("[14/15] main path 7: speculative decoding, K = 4, 2-layer matched "
+    log("[14/16] main path 7: speculative decoding, K = 4, 2-layer matched "
         "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    log("[15/15] main path 8: serving snapshots and chaos: (a) fp32 "
+    log("[15/16] main path 8: serving snapshots and chaos: (a) fp32 "
         "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
         "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
     chaos_launches = chaos_path(dev, lm, smi)
     del lm
+    torch.cuda.empty_cache()
+
+    log("[16/16] main path 9: the serving benches (serve, paged decode, "
+        "flash prefill, spec) at their default sizes, serve and spec at "
+        "qwen2-0.5b full width")
+    bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
@@ -2103,7 +2173,7 @@ def main() -> int:
                "spec_generate": spec_launches,
                "spec_scheduler": spec_sched_launches,
                "snapshot_restore_fp32": snap_launches,
-               "chaos_restore_int8": chaos_launches}
+               "chaos_restore_int8": chaos_launches, **bench_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"]} if r in case_rows else

@@ -36,9 +36,7 @@ plain versions on the host (its times are the host's, not the card's).
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import subprocess
 import tempfile
 import time
 from typing import Dict, List
@@ -46,6 +44,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.bench.common import card_line, finish, setup_device, sync
 from repro_torch.checkpoint import store
 from repro_torch.ft.chaos import ChaosSchedule
 from repro_torch.models.lm import LM, LMConfig
@@ -82,12 +81,8 @@ def _ttfts(done) -> List[float]:
     return [r.ttft for r in done.values() if r.ttft is not None]
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def run(csv: list, smoke: bool = False, device="cuda") -> Dict:
+    device = torch.device(device)
     n_req, plen, max_new = 6, 8, 16
     lm = _lm(smoke, device)
     vocab = lm.cfg.vocab
@@ -99,10 +94,10 @@ def run(csv: list, smoke: bool = False, device="cuda") -> Dict:
         sched = BatchScheduler(eng)
         for r in _requests(vocab, n_req, plen, max_new):
             sched.submit(r)
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         base_done = sched.run()
-        _sync(device)
+        sync(device)
         t_base = time.perf_counter() - t0
     base_toks = {rid: list(r.generated) for rid, r in base_done.items()}
     ntok = sum(len(t) for t in base_toks.values())
@@ -242,28 +237,11 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="write the summary here")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        from repro_torch.kernels import _build
-        _build.build_all()
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
-    else:
-        card = "cpu (host times)"
-    print(f"[bench_chaos] device {device}: {card}")
+    device = setup_device(args.device)
+    print(f"[bench_chaos] device {device}: {card_line(device)}")
     csv: list = []
     summary = run(csv, smoke=args.smoke, device=device)
-    print("name,us_per_call,derived")
-    for name, us, derived in csv:
-        print(f"{name},{us:.2f},{derived}")
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump({"smoke": args.smoke, "device": str(device),
-                       "card": card, **summary}, f, indent=1)
-        print(f"[bench_chaos] wrote {args.json}")
-    return 0
+    return finish("bench_chaos", csv, summary, args, device)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,21 @@
 The JAX package reads its events from compiled XLA artifacts (HLO text,
 ``cost_analysis``, ``memory_analysis``) without running the program.
 PyTorch has no such artifact, so the port turns the source around: every
-kernel wrapper of the tool layer's case studies declares, at each call,
-the FLOPs and the HBM bytes its kernel's model gives for the call's
-shapes (each input read once, each output written once, halos counted),
-and :func:`record_launch` adds them to every collection open on the
-calling thread.  :mod:`repro_torch.core.perfctr` opens those collections
-around executed code and times it with CUDA events.
+kernel wrapper declares, at each call, the FLOPs and the HBM bytes its
+kernel's model gives for the call's shapes (each input read once, each
+output written once, halos counted), and :func:`record_launch` adds them
+to every collection open on the calling thread.  The plain PyTorch work
+of a model step (GEMMs, weights, the dense engine's masked decode)
+declares its share through :func:`record_ops`, which counts no launch.
+:mod:`repro_torch.core.perfctr` opens those collections around executed
+code and times it with CUDA events.
+
+Where a launch's work depends on the data (the live pages of each row,
+a ragged ``kv_valid``), :func:`record_launch_from` takes the small
+tensor that decides it: on the card an asynchronous copy to pinned host
+memory, no sync, and the wrapper's model turns the host values into
+counts when the collection closes (which waits for that copy).  Nothing
+is copied while no collection is open.
 
 Events (uppercase, LIKWID style, same names as the JAX package's where
 the meaning carries):
@@ -35,9 +44,15 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
-__all__ = ["EventCounts", "DECLARED_EVENTS", "collect", "record_launch"]
+import torch
+
+__all__ = ["EventCounts", "DECLARED_EVENTS", "collect", "active",
+           "record_launch", "record_ops", "record_launch_from"]
+
+#: (flops, arg_bytes, out_bytes) of one call, from host values
+Model = Callable[..., Tuple[float, float, float]]
 
 DECLARED_EVENTS = ("FLOPS_TOTAL", "FLOPS_F32", "BYTES_ACCESSED",
                    "HBM_ARG_BYTES", "HBM_OUT_BYTES", "LAUNCHES",
@@ -49,6 +64,10 @@ class EventCounts:
     """A bag of event counts for one measured region."""
 
     counts: Dict[str, float]
+    # data-dependent launches whose counts wait for their host copies:
+    # (ready event or None, host tensor, model, f32)
+    pending: List[tuple] = dataclasses.field(default_factory=list,
+                                             repr=False, compare=False)
 
     def __getitem__(self, k: str) -> float:
         return self.counts.get(k, 0.0)
@@ -104,6 +123,22 @@ def collect() -> Iterator[EventCounts]:
         yield ev
     finally:
         stack.pop()
+        _settle(ev)
+
+
+def active() -> bool:
+    """Whether a collection is open on this thread."""
+    return bool(_open())
+
+
+def _add(c: Dict[str, float], flops: float, arg_bytes: float,
+         out_bytes: float, f32: bool) -> None:
+    c["FLOPS_TOTAL"] += flops
+    if f32:
+        c["FLOPS_F32"] += flops
+    c["HBM_ARG_BYTES"] += arg_bytes
+    c["HBM_OUT_BYTES"] += out_bytes
+    c["BYTES_ACCESSED"] += arg_bytes + out_bytes
 
 
 def record_launch(*, flops: float, arg_bytes: float, out_bytes: float,
@@ -112,11 +147,46 @@ def record_launch(*, flops: float, arg_bytes: float, out_bytes: float,
     ``f32`` (the default) the call does its math in fp32 on CUDA cores and
     its FLOPs count in FLOPS_F32 too; a tensor-core call passes False."""
     for ev in _open():
-        c = ev.counts
-        c["FLOPS_TOTAL"] += flops
-        if f32:
-            c["FLOPS_F32"] += flops
-        c["HBM_ARG_BYTES"] += arg_bytes
-        c["HBM_OUT_BYTES"] += out_bytes
-        c["BYTES_ACCESSED"] += arg_bytes + out_bytes
-        c["LAUNCHES"] += 1
+        _add(ev.counts, flops, arg_bytes, out_bytes, f32)
+        ev.counts["LAUNCHES"] += 1
+
+
+def record_ops(*, flops: float, arg_bytes: float, out_bytes: float,
+               f32: bool = True) -> None:
+    """Declare plain PyTorch work (no kernel of the port's): its FLOPs and
+    bytes count, it adds no launch."""
+    for ev in _open():
+        _add(ev.counts, flops, arg_bytes, out_bytes, f32)
+
+
+def record_launch_from(t: torch.Tensor, model: Model,
+                       f32: bool = True) -> None:
+    """Declare one wrapper call whose counts depend on the values of the
+    small tensor ``t``: ``model(host_array)`` gives (flops, arg_bytes,
+    out_bytes).  A no-op when no collection is open.  A CUDA ``t`` is
+    copied to pinned host memory on the current stream without a sync (a
+    later in-place write to ``t`` does not reach the copy); the model runs
+    when each collection closes."""
+    stack = _open()
+    if not stack:
+        return
+    if t.device.type != "cuda":
+        flops, arg_bytes, out_bytes = model(t.detach().cpu().numpy())
+        record_launch(flops=flops, arg_bytes=arg_bytes,
+                      out_bytes=out_bytes, f32=f32)
+        return
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t.detach(), non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    for ev in stack:
+        ev.counts["LAUNCHES"] += 1
+        ev.pending.append((ready, host, model, f32))
+
+
+def _settle(ev: EventCounts) -> None:
+    """Count the data-dependent launches of a closing collection."""
+    for ready, host, model, f32 in ev.pending:
+        ready.synchronize()
+        _add(ev.counts, *model(host.numpy()), f32)
+    ev.pending.clear()

@@ -23,15 +23,18 @@ BSHD tensors transposed to BHSD) as long as the head dim is contiguous.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import events
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_bhsd", "flash_attention_plain",
-           "SUPPORTED_HEAD_DIMS"]
+           "flash_traffic", "SUPPORTED_HEAD_DIMS"]
 
 NEG_INF = -2.0e38
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -100,14 +103,56 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (and count one launch
     in ``flash_attention_bhsd.launches``); CPU tensors run the plain
-    version.  ``q_offset`` is a host int; ``kv_valid`` lives with q."""
+    version.  ``q_offset`` is a host int; ``kv_valid`` lives with q.  Each
+    call declares :func:`flash_traffic` to the open event collections."""
     _check(q, k, v, kv_valid)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset, kv_valid=kv_valid)
-    if q.device.type != "cuda":
+        out = flash_attention_plain(q, k, v, causal=causal,
+                                    q_offset=q_offset, kv_valid=kv_valid)
+    elif q.device.type == "cuda":
+        out = _launch(q, k, v, causal, q_offset, kv_valid)
+    else:
         raise ValueError(f"flash attention runs on cpu or cuda, not "
                          f"{q.device}")
+    if events.active():
+        b, h, sq, dh = q.shape
+        model = functools.partial(flash_traffic, h=h, kvh=k.shape[1], sq=sq,
+                                  sk=k.shape[2], dh=dh,
+                                  itemsize=q.element_size(), causal=causal,
+                                  q_offset=int(q_offset))
+        f32 = q.dtype == torch.float32   # bf16 runs on the tensor cores
+        if kv_valid is None:
+            flops, arg_bytes, out_bytes = model(np.full(b, k.shape[2]))
+            events.record_launch(flops=flops, arg_bytes=arg_bytes,
+                                 out_bytes=out_bytes, f32=f32)
+        else:
+            events.record_launch_from(kv_valid, model, f32=f32)
+    return out
+
+
+def flash_traffic(kv_valid: np.ndarray, *, h: int, kvh: int, sq: int,
+                  sk: int, dh: int, itemsize: int, causal: bool,
+                  q_offset: int) -> Tuple[float, float, float]:
+    """(FLOPs, bytes read, bytes written) of one call, from each row's
+    valid keys: QK^T and PV over the live (query, key) pairs only (a
+    causal query ``i`` sees ``min(kv_valid, q_offset + i + 1)`` keys), q
+    and the output once, each row's K/V up to the last key any query
+    sees, and ``kv_valid``."""
+    kv = np.clip(np.asarray(kv_valid, np.int64), 0, sk)
+    if causal:
+        reach = q_offset + np.arange(1, sq + 1)
+        pairs = np.minimum(kv[:, None], reach[None, :]).sum()
+        rows = np.minimum(kv, max(q_offset + sq, 0)).sum()
+    else:
+        pairs, rows = sq * kv.sum(), kv.sum()
+    qo = kv.size * h * sq * dh * itemsize
+    return (4.0 * dh * h * float(pairs),
+            float(qo + 2 * kvh * dh * itemsize * rows + 4 * kv.size),
+            float(qo))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            q_offset: int, kv_valid: Optional[torch.Tensor]) -> torch.Tensor:
     b, h, sq, dh = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if dh not in SUPPORTED_HEAD_DIMS:

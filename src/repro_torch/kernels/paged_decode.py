@@ -31,14 +31,17 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import events
 from repro_torch.kernels import _build
 
 __all__ = ["paged_decode_attention_grouped", "paged_decode_plain",
            "paged_decode_attention_q8_grouped", "paged_decode_q8_plain",
-           "split_plan", "fp_smem_bytes", "q8_smem_bytes",
+           "split_plan", "fp_smem_bytes", "q8_smem_bytes", "paged_traffic",
            "SUPPORTED_HEAD_DIMS"]
 
 NEG_INF = -2.0e38
@@ -219,6 +222,37 @@ def _launch_checks(what, q4, k_pages, tensors, smem, smem_limit):
                          f"pages must start 16-byte aligned")
 
 
+def paged_traffic(lengths: np.ndarray, *, kvh: int, g: int, dh: int,
+                  ps: int, q_itemsize: int, page_itemsize: int,
+                  scales: bool) -> Tuple[float, float, float]:
+    """(FLOPs, bytes read, bytes written) of one call, from each row's
+    past tokens: every live page (``ceil(length / ps)`` a row) of K and V
+    once, with its two f32 scales a token for int8 pages and its table
+    entry; q, the new K/V, ``lengths`` and the output once; QK^T and PV
+    over the past tokens and the new one."""
+    lens = np.maximum(np.asarray(lengths, np.int64), 0)
+    live = int(((lens + ps - 1) // ps).sum())
+    b = lens.size
+    per_token = 2 * kvh * dh * page_itemsize + (8 if scales else 0)
+    out = b * kvh * g * dh * q_itemsize
+    arg = (out + 2 * b * kvh * dh * q_itemsize + 4 * b
+           + live * (ps * per_token + 4))
+    return (4.0 * dh * kvh * g * float((lens + 1).sum()), float(arg),
+            float(out))
+
+
+def _declare(q4: torch.Tensor, k_pages: torch.Tensor, lengths: torch.Tensor,
+             scales: bool) -> None:
+    """Declare one call's :func:`paged_traffic` (fp32 math on the CUDA
+    cores, every dtype) to the open event collections."""
+    if events.active():
+        _, kvh, g, dh = q4.shape
+        events.record_launch_from(lengths, functools.partial(
+            paged_traffic, kvh=kvh, g=g, dh=dh, ps=k_pages.shape[1],
+            q_itemsize=q4.element_size(),
+            page_itemsize=k_pages.element_size(), scales=scales))
+
+
 def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
                                    v_pages: torch.Tensor,
                                    page_table: torch.Tensor,
@@ -233,8 +267,10 @@ def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
     _check(q4, k_pages, v_pages, page_table, lengths, k_new, v_new,
            tuple(_DTYPE_CODE))
     if q4.device.type == "cpu":
-        return paged_decode_plain(q4, k_pages, v_pages, page_table, lengths,
-                                  k_new, v_new)
+        out = paged_decode_plain(q4, k_pages, v_pages, page_table, lengths,
+                                 k_new, v_new)
+        _declare(q4, k_pages, lengths, scales=False)
+        return out
     tensors = (q4, k_pages, v_pages, page_table, lengths, k_new, v_new)
     b, kvh, g, dh = q4.shape
     ps, np_w = k_pages.shape[1], page_table.shape[1]
@@ -251,6 +287,7 @@ def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
             _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype], stream)
     _build.check(lib, err, "paged_decode_fwd")
     paged_decode_attention_grouped.launches += 1
+    _declare(q4, k_pages, lengths, scales=False)
     return out
 
 
@@ -277,8 +314,10 @@ def paged_decode_attention_q8_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
            (torch.int8,))
     _check_scales(k_pages, k_scale, v_scale)
     if q4.device.type == "cpu":
-        return paged_decode_q8_plain(q4, k_pages, v_pages, k_scale, v_scale,
-                                     page_table, lengths, k_new, v_new)
+        out = paged_decode_q8_plain(q4, k_pages, v_pages, k_scale, v_scale,
+                                    page_table, lengths, k_new, v_new)
+        _declare(q4, k_pages, lengths, scales=True)
+        return out
     tensors = (q4, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
                k_new, v_new)
     b, kvh, g, dh = q4.shape
@@ -295,6 +334,7 @@ def paged_decode_attention_q8_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
             _DTYPE_CODE[q4.dtype], stream)
     _build.check(lib, err, "paged_decode_q8_fwd")
     paged_decode_attention_q8_grouped.launches += 1
+    _declare(q4, k_pages, lengths, scales=True)
     return out
 
 

@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import events
 from repro_torch.kernels import _build
 
 __all__ = ["sample", "sample_ref", "filtered_logits", "gumbel_shift",
@@ -117,7 +118,9 @@ def block_argmax(x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"block_argmax takes fp32 or bf16, got {x.dtype}")
     dev = x.device
     if dev.type == "cpu":
-        return argmax_plain(x)
+        out = argmax_plain(x)
+        _declare(x)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"block_argmax runs on cpu or cuda, not {dev}")
     if x.stride(1) != 1:
@@ -135,7 +138,15 @@ def block_argmax(x: torch.Tensor) -> torch.Tensor:
                               _DTYPE_CODE[x.dtype], stream)
     _build.check(lib, err, "argmax_rows")
     block_argmax.launches += 1
+    _declare(x)
     return out
+
+
+def _declare(x: torch.Tensor) -> None:
+    """One call's traffic: the B x V logits read once, B int32 indices
+    written; comparisons, no FLOPs."""
+    events.record_launch(flops=0.0, arg_bytes=x.numel() * x.element_size(),
+                         out_bytes=4 * x.shape[0])
 
 
 #: kernel launches made through the wrapper (a plain counter; reset it by

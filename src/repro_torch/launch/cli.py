@@ -8,6 +8,10 @@ Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` uses:
 * :func:`add_robustness_args` — per-request deadlines, bounded
   admission, serving snapshots and seeded chaos injection (consume with
   :func:`robustness_kwargs`, which validates eagerly);
+* :func:`add_ft_args` — the straggler detector's ``--straggler-threshold``
+  and ``--straggler-min-ratio`` (consume with :func:`ft_kwargs`); the
+  mesh half, ``--ft-timeout-steps`` and ``--ft-confirm``, is parsed and
+  refused until the mesh is ported (``ROADMAP.md``, queue 1 item 14);
 * :func:`add_spec_args` — ``--draft``, ``--spec-tokens`` and
   ``--accept-policy`` (consume with :func:`spec_kwargs`, which validates
   the pairing eagerly);
@@ -20,8 +24,8 @@ import argparse
 from typing import Dict, Optional
 
 __all__ = ["add_kv_args", "kv_config_kwargs", "add_robustness_args",
-           "robustness_kwargs", "add_spec_args", "spec_kwargs",
-           "add_json_args"]
+           "robustness_kwargs", "add_ft_args", "ft_kwargs", "add_spec_args",
+           "spec_kwargs", "add_json_args"]
 
 
 def add_kv_args(ap: argparse.ArgumentParser) -> None:
@@ -113,6 +117,47 @@ def robustness_kwargs(args: argparse.Namespace,
         from repro_torch.ft.chaos import ChaosSchedule
         out["chaos"] = ChaosSchedule(seed=args.chaos)
     return out
+
+
+def add_ft_args(ap: argparse.ArgumentParser) -> None:
+    """Fault-tolerance tunables (consume with :func:`ft_kwargs`)."""
+    g = ap.add_argument_group("fault tolerance")
+    g.add_argument("--ft-timeout-steps", type=int, default=None,
+                   help="segments a device may miss heartbeats before it "
+                        "counts as missing (mesh serving: not ported yet, "
+                        "ROADMAP.md queue 1 item 14)")
+    g.add_argument("--ft-confirm", type=int, default=None,
+                   help="consecutive missing observations before a death "
+                        "is confirmed (mesh serving: not ported yet, "
+                        "ROADMAP.md queue 1 item 14)")
+    g.add_argument("--straggler-threshold", type=float, default=4.0,
+                   help="EMA deviations a segment wall must exceed to be "
+                        "flagged a straggler (default 4.0)")
+    g.add_argument("--straggler-min-ratio", type=float, default=1.5,
+                   help="minimum wall/EMA ratio for a straggler flag — "
+                        "suppresses noise on fast segments (default 1.5)")
+
+
+def ft_kwargs(args: argparse.Namespace,
+              ap: Optional[argparse.ArgumentParser] = None
+              ) -> Dict[str, object]:
+    """BatchScheduler kwargs from the :func:`add_ft_args` flags.  The
+    mesh half (``--ft-timeout-steps``, ``--ft-confirm``) tunes the
+    heartbeat governor of sharded serving, which the port does not have
+    yet: passing either is refused, not ignored."""
+    for flag in ("ft_timeout_steps", "ft_confirm"):
+        if getattr(args, flag, None) is not None:
+            msg = (f"--{flag.replace('_', '-')} tunes the mesh's heartbeat "
+                   f"governor, which is not ported yet (ROADMAP.md, queue 1 "
+                   f"item 14: mesh and fault tolerance); the port serves "
+                   f"on one card")
+            if ap is not None:
+                ap.error(msg)
+            raise NotImplementedError(msg)
+    return {
+        "straggler_threshold": getattr(args, "straggler_threshold", 4.0),
+        "straggler_min_ratio": getattr(args, "straggler_min_ratio", 1.5),
+    }
 
 
 def add_spec_args(ap: argparse.ArgumentParser) -> None:

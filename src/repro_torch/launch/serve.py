@@ -30,11 +30,14 @@ seconds into the summary.  ``--snapshot-dir`` (with ``--snapshot-every
 N``) writes crash-safe serving snapshots, which ``Engine.restore``
 reads back (either package's); ``--chaos SEED`` drives a seeded
 ``ChaosSchedule`` through the run.  The summary counts ``snapshots``,
-``restores`` and the chaos schedule's events.
+``restores`` and the chaos schedule's events.  ``--straggler-threshold``
+and ``--straggler-min-ratio`` tune the scheduler's straggler detector
+(flags land in the summary's ``ft_events``).
 
 Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh``,
 ``--tune``, ``--impl`` and ``--ckpt-dir`` flags (absent: argparse
-refuses them).
+refuses them); ``--ft-timeout-steps`` and ``--ft-confirm`` parse and are
+refused with item 14's citation.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ def main(argv=None) -> int:
                     help="decode steps between admission points")
     cli.add_json_args(ap, what="serve summary")
     cli.add_robustness_args(ap)
+    cli.add_ft_args(ap)
     cli.add_spec_args(ap)
     ap.add_argument("--priority-mix", default=None, metavar="P[,P...]",
                     help="cycle synthetic requests through these priority "
@@ -85,6 +89,7 @@ def main(argv=None) -> int:
     ap.add_argument("--instrument", action="store_true",
                     help="probe serve regions through PerfCtr and report")
     args = ap.parse_args(argv)
+    ft_kw = cli.ft_kwargs(args, ap)     # refuses the mesh half eagerly
 
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import LM
@@ -131,7 +136,7 @@ def main(argv=None) -> int:
         eng.instrument(ctr, prompt_len=args.prompt_len)
         print("[serve] instrumented serve.prefill/serve.decode regions")
 
-    sched = BatchScheduler(eng, **cli.robustness_kwargs(args, ap))
+    sched = BatchScheduler(eng, **ft_kw, **cli.robustness_kwargs(args, ap))
     if sched.chaos is not None:
         print(f"[serve] chaos schedule armed: seed={args.chaos}, "
               f"{len(sched.chaos.events)} events")

@@ -14,6 +14,18 @@ FP32_LEAVES`), as the JAX package computes with them in fp32.
 ``LM`` runs on ``cuda`` unless it is built with ``device="cpu"``; with no
 GPU and no explicit request it raises (:func:`repro_torch.device.
 resolve_device`).
+
+**Declared traffic.**  The JAX package reads a step's bytes and FLOPs
+from its compiled artifact.  Here the kernels declare their own launches
+(:mod:`repro_torch.core.events`) and :meth:`LM.prefill` /
+:meth:`LM.decode_step` declare, once a call, the plain PyTorch work no
+kernel declares (:meth:`LM._declare_ops`): every weight read once (the
+embedding only as the gathered rows, the head's ``[d, V]`` once), the
+GEMM FLOPs, the K/V written into the cache, the dense engine's masked
+decode over its WHOLE ``[B, Smax, KVH, Dh]`` K and V buffers whatever the
+rows hold, the prefix-cache suffix prefill's gather of the table's pages,
+and the hybrid family's recurrent state.  So an event collection around
+a step counts the whole step, as the artifact does.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from repro_torch.core import events
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -39,6 +52,11 @@ __all__ = ["LMConfig", "LM", "PORTED_FAMILIES"]
 
 #: families ``LM`` serves so far (the rest: ROADMAP.md, queue 1 item 12)
 PORTED_FAMILIES = ("dense", "hybrid")
+
+#: weights a token multiplies once a step (2 FLOPs an element): the
+#: attention projections, the MLP and the Mamba2 projections and conv
+MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "in_proj", "conv_w", "out_proj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,12 +293,19 @@ class LM(nn.Module):
                     "no lengths or prefix_len (a recurrent state cannot "
                     "mask a pad)")
             x, new_state = self._hybrid_stack(x, state, prefill=True)
+            if events.active():
+                self._declare_ops(tokens, state, prefill=True,
+                                  all_logits=all_logits)
             return self._head(x if all_logits else x[:, -1]), new_state
         x, caches = tf_mod.apply_stack_decode(
             self.blocks, x, self.cfg.block_config(), state["caches"],
             block_fn=functools.partial(tf_mod.apply_block_prefill,
                                        lengths=lengths,
                                        prefix_len=batch.get("prefix_len")))
+        if events.active():
+            self._declare_ops(tokens, state, prefill=True,
+                              all_logits=all_logits,
+                              suffix="prefix_len" in batch)
         if all_logits:
             return self._head(x), {"caches": caches}
         if lengths is not None:
@@ -293,6 +318,8 @@ class LM(nn.Module):
     def decode_step(self, tokens: torch.Tensor, state: State
                     ) -> Tuple[torch.Tensor, State]:
         """tokens: [B,1] -> (logits [B,V], new state)."""
+        if events.active():
+            self._declare_ops(tokens, state, prefill=False)
         x = self._embed(tokens)
         if self.cfg.family == "hybrid":
             x, new_state = self._hybrid_stack(x, state, prefill=False)
@@ -300,6 +327,71 @@ class LM(nn.Module):
         x, caches = tf_mod.apply_stack_decode(
             self.blocks, x, self.cfg.block_config(), state["caches"])
         return self._head(x)[:, 0], {"caches": caches}
+
+    # ===================================================== declared traffic
+    @functools.cached_property
+    def _weight_model(self) -> Tuple[int, int, int]:
+        """(matmul elements a token multiplies, bytes of every weight but
+        the embedding, bytes of the head's [d, V]).  The hybrid family's
+        shared block counts once a step in bytes and once an application
+        in FLOPs."""
+        apps = (len(_hybrid_groups(self.cfg.n_layers, self.cfg.attn_every))
+                if self.cfg.family == "hybrid" else 1)
+        elems = nbytes = 0
+        for name, p in self.named_parameters():
+            if name == "embed.table":
+                continue
+            nbytes += p.numel() * p.element_size()
+            if name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS:
+                elems += p.numel() * (apps if name.startswith("shared_attn.")
+                                      else 1)
+        head = (self.cfg.d_model * self.cfg.vocab
+                * self.embed.table.element_size())
+        if not self.cfg.tie_embeddings:
+            nbytes -= head
+        return elems, nbytes, head
+
+    def _declare_ops(self, tokens: torch.Tensor, state: State, *,
+                     prefill: bool, all_logits: bool = False,
+                     suffix: bool = False) -> None:
+        """Declare this call's plain PyTorch work (see the module note):
+        no launch, its FLOPs and bytes, from shapes only."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        ac = cfg.attn_config()
+        h, kvh, dh = ac.num_heads, ac.num_kv_heads, ac.head_dim
+        isz = self.embed.table.element_size()
+        elems, wbytes, hbytes = self._weight_model
+        heads = b * s if all_logits else b
+        flops = 2.0 * (b * s * elems + heads * cfg.d_model * cfg.vocab)
+        arg = wbytes + hbytes + b * s * (cfg.d_model * isz + 4)
+        out = heads * cfg.vocab * isz
+        if cfg.family == "hybrid":
+            caches = state["attn_caches"]
+            ms = state["mamba"]
+            rec = sum(t.numel() * t.element_size()
+                      for t in (*ms["ssd"], ms["conv"]))
+            arg += rec                  # the recurrent state, read
+            out += rec                  # and written back
+        else:
+            caches = state["caches"]
+        row_kv = kvh * dh * caches[0].element_size()   # one token, K or V
+        layers = caches[0].shape[0]
+        paged = isinstance(caches, attn_mod.PagedKVCache)
+        scale = 4 if paged and caches.quantized else 0
+        out += 2 * layers * b * s * (row_kv + scale)   # the K/V written
+        if prefill and suffix:
+            # the plain suffix prefill gathers every page the table lists
+            ctx = caches.page_table.shape[1] * caches.page_size
+            arg += 2 * layers * b * ctx * (row_kv + scale)
+            flops += 4.0 * layers * b * h * s * (ctx + s) * dh
+        elif not prefill and not paged:
+            # masked dense decode: the whole K and V buffers, every row
+            smax = caches.k.shape[2]
+            arg += 2 * layers * b * smax * row_kv
+            flops += 4.0 * layers * b * h * smax * dh
+        events.record_ops(flops=flops, arg_bytes=arg, out_bytes=out,
+                          f32=self.dtype == torch.float32)
 
     def _hybrid_stack(self, x: torch.Tensor, state: State, prefill: bool
                       ) -> Tuple[torch.Tensor, State]:

@@ -28,7 +28,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref
 from repro.kernels.jacobi7 import jacobi7_naive as jax_naive

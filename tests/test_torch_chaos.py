@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core.features import default_features
 from repro.ft import chaos as jax_chaos

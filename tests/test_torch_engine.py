@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro_torch
 from repro.configs.qwen2_0_5b import SMOKE as JAX_SMOKE

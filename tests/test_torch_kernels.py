@@ -34,7 +34,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash

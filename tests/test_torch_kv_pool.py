@@ -15,7 +15,7 @@ import types
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.serve import admission as jax_admission
 from repro.serve import kv_pool as jax_kv_pool

@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs import qwen2_0_5b as jax_cfgs
 from repro.configs import zamba2_1_2b as jax_zamba

@@ -18,7 +18,7 @@ import threading
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import bandwidth as jax_bandwidth
 from repro.core import groups as jax_groups

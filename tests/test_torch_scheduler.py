@@ -27,7 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs.qwen2_0_5b import SMOKE as JAX_SMOKE
 from repro.configs.zamba2_1_2b import SMOKE as JAX_ZAMBA_SMOKE

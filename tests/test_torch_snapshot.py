@@ -32,7 +32,7 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.checkpoint import store as jax_store
 from repro.configs.qwen2_0_5b import SMOKE as JAX_SMOKE
