@@ -153,9 +153,33 @@ failure):
                every correctness claim must hold (a failed claim raises);
                each speed bar's value and met/unmet is printed beside the
                card's name and power limit (a missed bar is printed, not
-               fatal); each run must launch the kernels it serves through.
+               fatal); each run must launch the kernels it serves through;
+17. tool layer and registry - ``topology.probe()`` reads the real card
+               (not synthetic, 1 chip, 132 SMs, L2 50 MiB, memory within
+               10%, ``check_device`` empty, the name ``nvidia-smi``
+               gives), ``python -m repro_torch.launch.topology -g --json``
+               reads 1 chip, ``launch.pin --compare`` and ``launch.features
+               --set ... --export --torch-settings`` run; qwen2-0.5b at full
+               width and depth in fp32 (the embedding scaled by 0.1), pages
+               of 16, 4 prompts, 16 greedy tokens: the default kernels
+               (#1 24, #2 360, #4 16 launches) and the torch pins
+               (``attention=torch_flash,paged_decode=torch_paged``) set
+               through ``ServeConfig.impls``, ``REPRO_IMPL`` and the
+               launcher's ``--impl`` (its own fp32 model) give equal
+               tokens, the pinned runs launch #1 and #2 zero times; the
+               int8 scheduler with ``paged_decode=torch_paged_q8`` gives
+               the default's tokens with #3 launched 0 times;
+               ``registry.run`` of ``ssd_scan`` (fp32 and bf16, a carried
+               state), ``stream_triad`` and ``jacobi7`` (wavefront and
+               naive), each kernel impl against the plain one within
+               phases 3 and 11's tolerances; the host microseconds a paged
+               decode call costs through ``registry.run`` beside the direct
+               wrapper; ``python -m repro_torch.bench --only
+               marker_overhead,perfctr,stream_pinning`` (both overhead
+               cases printed beside the card's name and power limit).
 
-Phases 4, 5, 8, 9, 12, 13, 14, 15 and each run of 16 are the main paths:
+Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16 and 17's serving runs
+are the main paths:
 each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
@@ -187,6 +211,11 @@ BF16_FLOPS = 989e12              # dense tensor-core bf16 peak
 F32_FLOPS = 67e12                # fp32 on CUDA cores (triad, stencil)
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+#: fp32 logits that went through a whole model, held to each other:
+#: max|d| / max|logit| (phases 6 and 17); over int8 pages (phases 7 and
+#: 17) a difference in the last bit can move a quantized code by one
+LOGITS_REL_TOL = 1e-4
+LOGITS_REL_TOL_INT8 = 1e-2
 PROMPT_LENS = [512, 384, 301, 256, 129, 64, 17, 1]
 MAX_NEW = 32
 PAGE_SIZE = 16
@@ -978,8 +1007,8 @@ def token_check(dev):
     rel = ((logits["card"] - logits["cpu"]).abs().max()
            / logits["cpu"].abs().max()).item()
     log(f"  prefill logits card vs cpu: max|d|/max|logit| = {rel:.3g}")
-    if not rel <= 1e-4:
-        fail(f"prefill logits differ: {rel} > 1e-4")
+    if not rel <= LOGITS_REL_TOL:
+        fail(f"prefill logits differ: {rel} > {LOGITS_REL_TOL}")
 
 
 def sched_token_check(dev):
@@ -1044,8 +1073,8 @@ def sched_token_check(dev):
            / logits["cpu"].abs().max()).item()
     log(f"  int8 decode-step logits card vs cpu: max|d|/max|logit| = "
         f"{rel:.3g}")
-    if not rel <= 1e-2:
-        fail(f"int8 decode logits differ: {rel} > 1e-2")
+    if not rel <= LOGITS_REL_TOL_INT8:
+        fail(f"int8 decode logits differ: {rel} > {LOGITS_REL_TOL_INT8}")
 
 
 # ---------------------------------------------------------------------------
@@ -2049,6 +2078,482 @@ def serving_benches(dev, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the tool layer (topology, pin, features) and the kernel registry
+# ---------------------------------------------------------------------------
+
+#: the torch pins of phase 17: both serving families on their plain impls
+TORCH_PINS = {"attention": "torch_flash", "paged_decode": "torch_paged"}
+TORCH_PIN_SPEC = "attention=torch_flash,paged_decode=torch_paged"
+REGISTRY_NEW = 16
+
+
+def run_cli(args, timeout=300):
+    """``python -m <args>`` from the repository root, with ``src`` on the
+    path; fails the script on a non-zero exit."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        fail(f"python -m {' '.join(args)} exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    return res.stdout
+
+
+def in_process(main, argv):
+    """(return value, stdout) of a CLI ``main(argv)`` run in this process."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rv = main(argv)
+    return rv, buf.getvalue()
+
+
+def topology_check(dev, smi):
+    """Phase 17(a): the probed card, the topology CLI, pin and features."""
+    from repro_torch.core import hwinfo, topology
+    from repro_torch.launch import features as features_cli
+    from repro_torch.launch import pin as pin_cli
+    topo = topology.probe()
+    props = torch.cuda.get_device_properties(dev)
+    chip = topo.chips[0] if topo.chips else None
+    if topo.synthetic or topo.total_chips != 1:
+        fail(f"probe(): synthetic={topo.synthetic}, "
+             f"{topo.total_chips} chips")
+    if chip.core_count != 132 or topo.chip_spec.sm_count != 132:
+        fail(f"probe(): {chip.core_count} SMs, data sheet "
+             f"{topo.chip_spec.sm_count}")
+    if topo.chip_spec.l2_bytes != 50 * 2**20 or \
+            getattr(props, "L2_cache_size", topo.chip_spec.l2_bytes) \
+            != topo.chip_spec.l2_bytes:
+        fail(f"probe(): L2 {topo.chip_spec.l2_bytes} B, device "
+             f"{getattr(props, 'L2_cache_size', None)} B")
+    if not 0.9 <= props.total_memory / topo.chip_spec.hbm_bytes <= 1.1:
+        fail(f"probe(): memory {props.total_memory} B against the data "
+             f"sheet's {topo.chip_spec.hbm_bytes} B")
+    if topo.check_device:
+        fail(f"probe(): check_device {list(topo.check_device)}")
+    smi_name = smi.split(",")[0].strip()
+    if smi_name != torch.cuda.get_device_name(0) or \
+            hwinfo.lookup_chip(smi_name) is not topo.chip_spec:
+        fail(f"nvidia-smi names {smi_name!r}, torch "
+             f"{torch.cuda.get_device_name(0)!r}, the probe's sheet "
+             f"{topo.chip_spec.name}")
+    log(topo.render(graphical=True))
+    log(f"  probe(): {topo.total_chips} card, {chip.core_count} SMs, L2 "
+        f"{topo.chip_spec.l2_bytes} B, memory {props.total_memory} B, "
+        f"check_device empty, {smi_name!r} as nvidia-smi names it")
+    out = ROOT / "build" / "topology.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    run_cli(["repro_torch.launch.topology", "-g", "--json", str(out)])
+    got = json.loads(out.read_text())
+    if got["chips"] != 1 or got["synthetic"] or got["sm_count"] != [132] \
+            or got["check_device"]:
+        fail(f"launch.topology --json: {got}")
+    log(f"  python -m repro_torch.launch.topology -g --json: {got['chips']} "
+        f"chip, {got['chip']}, SMs {got['sm_count']}, synthetic "
+        f"{got['synthetic']}")
+    rv, text = in_process(pin_cli.main, ["--compare"])
+    rows = [ln.split() for ln in text.splitlines()[1:]]
+    hops = {(r[0], r[1]): float(r[2]) for r in rows}
+    if rv != 0 or hops[("compact", "0")] != 1.0 or \
+            hops[("ring", "1")] != 1.0:
+        fail(f"launch.pin --compare: {text}")
+    log("  launch.pin --compare:\n" + text.rstrip())
+    rv, text = in_process(features_cli.main, [
+        "--set", "remat_policy=full", "matmul_precision=high", "--export",
+        "--torch-settings"])
+    if rv != 0 or "export REPRO_FEATURE_REMAT_POLICY=full" not in text or \
+            "set_float32_matmul_precision('high')" not in text:
+        fail(f"launch.features --set ... --export: {text}")
+    log("  launch.features --set remat_policy=full matmul_precision=high "
+        "--export --torch-settings: ok")
+
+
+class LogitsRecorder:
+    """Records, in order, the logits every ``Engine._sample`` call of the
+    engines built while it is open samples from (prefill's, then each
+    decode step's), so two runs can be held to each other step by step,
+    not only by their greedy tokens."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        from repro_torch.serve.engine import Engine
+        self._orig = Engine._sample
+        orig, steps = self._orig, self.steps
+
+        def sample(eng, logits, generator):
+            steps.append(logits.detach().float().clone())  # no sync
+            return orig(eng, logits, generator)
+
+        Engine._sample = sample
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve.engine import Engine
+        Engine._sample = self._orig
+        return False
+
+
+def logits_parity(where, got, want, tol=None):
+    """Every recorded step of ``got`` against ``want``: max|d| over the
+    step's max|logit| within ``tol`` (default :data:`LOGITS_REL_TOL`,
+    phase 6's fp32 test of logits that went through a whole model; a
+    kernel's own fp32 tolerance, phase 3's 1e-5, is a bound for one call:
+    the 24 layers' differences in summation order come to ~2e-5 absolute
+    in the prefill logits).  Returns the largest |difference| and the
+    largest ratio."""
+    tol = LOGITS_REL_TOL if tol is None else tol
+    if len(got) != len(want):
+        fail(f"{where}: {len(got)} sampled steps against {len(want)}")
+    worst = rel = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        d = (g - w).abs().max().item()
+        r = d / max(w.abs().max().item(), 1e-30)
+        if not r <= tol:
+            fail(f"{where}: logits of step {i}: max|d| {d} = {r:.3g} of "
+                 f"max|logit| > {tol}")
+        worst, rel = max(worst, d), max(rel, r)
+    return worst, rel
+
+
+def distinct_tokens(out):
+    """(distinct tokens over all rows, the fewest distinct in one row)."""
+    rows = out.values() if isinstance(out, dict) else out
+    rows = [list(r) for r in rows]
+    return (len({t for r in rows for t in r}),
+            min(len(set(r)) for r in rows))
+
+
+def registry_serving_path(dev, smi):
+    """Phase 17(b): qwen2-0.5b at full width and depth in fp32 (the
+    embedding scaled by 0.1, as in phase 6) on a paged engine, 4 prompts,
+    16 greedy tokens: the default selection against the torch pins set
+    through ``ServeConfig.impls``, ``REPRO_IMPL`` and the launcher's
+    ``--impl``; then the int8 scheduler against ``torch_paged_q8``."""
+    import os
+    from repro_torch.bench import profile_serve as ps
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.serve.engine import Engine, ServeConfig
+    lm = qwen2(dev, torch.float32, embed_scale=0.1)
+    cfg = lm.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in PROMPT_LENS[:4]]
+    paged = dict(page_size=PAGE_SIZE, max_seq=1024)
+    Engine(lm, ServeConfig(**paged)).generate(prompts, REGISTRY_NEW)
+    torch.cuda.synchronize()
+    n_layers = cfg.n_layers
+    default_want = {"flash_attention": n_layers,
+                    "paged_decode": n_layers * (REGISTRY_NEW - 1),
+                    "argmax": REGISTRY_NEW, "paged_decode_q8": 0,
+                    "ssd_scan": 0}
+    pinned_want = dict(default_want, flash_attention=0, paged_decode=0)
+    runs = {}
+
+    def generate(name, eng, want):
+        reset_counters()
+        with LogitsRecorder() as rec:
+            t0 = time.perf_counter()
+            out = eng.generate(prompts, REGISTRY_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counters()
+        expect_launches(f"registry path ({name})", launches, want)
+        runs[name] = (out, launches, wall, rec.steps)
+
+    generate("default", Engine(lm, ServeConfig(**paged)), default_want)
+    generate("ServeConfig.impls", Engine(lm, ServeConfig(
+        **paged, impls=TORCH_PINS)), pinned_want)
+    os.environ["REPRO_IMPL"] = TORCH_PIN_SPEC
+    try:
+        generate("REPRO_IMPL", Engine(lm, ServeConfig(**paged)),
+                 pinned_want)
+    finally:
+        del os.environ["REPRO_IMPL"]
+    want, want_logits = runs["default"][0], runs["default"][3]
+    for name, (out, launches, wall, steps) in runs.items():
+        if out != want:
+            fail(f"registry path: {name} tokens {out} != default {want}")
+        err, rel = logits_parity(f"registry path: {name}", steps,
+                                 want_logits)
+        log(f"  {name}: {wall * 1e3:.2f} ms for 4 x {REGISTRY_NEW} fp32 "
+            f"tokens, launches {launches}; logits of {len(steps)} steps "
+            f"against the default's: max|d| {err:.3g}, max|d|/max|logit| "
+            f"{rel:.3g} [{smi}]")
+    log(f"  fp32 greedy tokens equal under the default kernels and the "
+        f"torch pins {TORCH_PINS}: {[o[:4] for o in want]}; "
+        f"{distinct_tokens(want)[0]} distinct tokens, the fewest in a row "
+        f"{distinct_tokens(want)[1]}; logits held step by step, max|d| "
+        f"<= {LOGITS_REL_TOL} of max|logit|")
+    selection_cost(lm, prompts, paged, smi)
+
+    # the launcher's --impl (its own model: seed 0, fp32, 4 requests)
+    argv = ["--arch", "qwen2-0.5b", "--dtype", "fp32", "--requests", "4",
+            "--max-new", str(REGISTRY_NEW), "--page-size", str(PAGE_SIZE),
+            "--max-seq", "1024", "--slots", "4", "--prompt-len", "64"]
+    launcher = {}
+    for name, extra in (("launcher default", []),
+                        ("launcher --impl", ["--impl", TORCH_PIN_SPEC])):
+        out = ROOT / "build" / f"serve_{len(launcher)}.json"
+        reset_counters()
+        with LogitsRecorder() as rec:
+            rv, _ = in_process(serve_launcher.main,
+                               argv + extra + ["--json", str(out)])
+            torch.cuda.synchronize()
+        launches = read_counters()
+        summary = json.loads(out.read_text())
+        if rv != 0 or len(summary["tokens"]) != 4:
+            fail(f"{name}: rc {rv}, summary {summary}")
+        launcher[name] = (summary, launches, rec.steps)
+        log(f"  {name}: impls {summary['impls']}, {summary['tok_s']:.1f} "
+            f"tokens/s, launches {launches} [{smi}]")
+    (s0, l0, g0), (s1, l1, g1) = launcher.values()
+    if s0["tokens"] != s1["tokens"]:
+        fail(f"launcher --impl tokens {s1['tokens']} != default "
+             f"{s0['tokens']}")
+    err, rel = logits_parity("launcher --impl", g1, g0)
+    log(f"  launcher --impl: tokens equal ({distinct_tokens(s0['tokens'])[0]}"
+        f" distinct), logits of {len(g0)} sampled steps against the "
+        f"default's: max|d| {err:.3g}, max|d|/max|logit| {rel:.3g}")
+    if l0["flash_attention"] < 1 or l0["paged_decode"] < 1 or \
+            l1["flash_attention"] or l1["paged_decode"]:
+        fail(f"launcher launches: default {l0}, --impl {l1}")
+    if s1["impls"] != TORCH_PINS:
+        fail(f"launcher --impl pinned {s1['impls']}")
+
+    # the int8 scheduler: the default (#3) against torch_paged_q8
+    work = ps.shared_prefix_workload(cfg.vocab, 8, 64, ps.SUFFIX_LENS,
+                                     ps.BUDGETS, seed=0)
+    q8 = {}
+    for name, impls in (("default", None),
+                        ("torch_paged_q8", {"paged_decode":
+                                            "torch_paged_q8"})):
+        eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024,
+                                     batch_slots=4, kv_dtype="int8",
+                                     impls=impls))
+        reset_counters()
+        with LogitsRecorder() as rec:
+            sched, out = ps.run_scheduler(eng, work)
+            torch.cuda.synchronize()
+        launches = read_counters()
+        sched.check()
+        sched.pool.check()
+        q8[name] = (out, launches, sched.metrics["decode_steps"], rec.steps)
+    (o0, l0, steps, g0), (o1, l1, _, g1) = q8.values()
+    if o0 != o1:
+        fail(f"int8 scheduler: torch_paged_q8 tokens differ from the "
+             f"default's: {o1} != {o0}")
+    if l0["paged_decode_q8"] != n_layers * steps or l1["paged_decode_q8"]:
+        fail(f"int8 scheduler launches: default {l0}, torch_paged_q8 {l1}")
+    err, rel = logits_parity("int8 scheduler torch_paged_q8", g1, g0,
+                             LOGITS_REL_TOL_INT8)
+    log(f"  int8 scheduler: default and torch_paged_q8 give equal fp32 "
+        f"tokens ({len(o0)} requests, {distinct_tokens(o0)[0]} distinct "
+        f"tokens); logits of {len(g0)} sampled steps (every slot) within "
+        f"{LOGITS_REL_TOL_INT8} of max|logit|: max|d| {err:.3g}, "
+        f"max|d|/max|logit| {rel:.3g}; #3 launched "
+        f"{l0['paged_decode_q8']} and 0 times")
+    del lm
+    torch.cuda.empty_cache()
+    return runs["default"][1], q8["default"][1]
+
+
+def selection_cost(lm, prompts, paged, smi, rounds=8):
+    """What the registry costs a generate call, two ways: the host us of
+    the engine's per-call context (one env snapshot, entered once a
+    ``generate``) and of one ``registry.run`` against the runner the
+    heuristic picks, and the wall of a fp32 ``generate`` with every
+    ``registry.run`` against the same generate with selection bypassed
+    (each family's default runner called straight), alternated in this
+    process (A B B A, ``rounds`` times)."""
+    from repro_torch.kernels import registry
+    from repro_torch.serve.engine import Engine, ServeConfig
+    eng = Engine(lm, ServeConfig(**paged))
+
+    def enter_ctx():
+        with eng._impl_ctx():
+            pass
+
+    ctx_us = statistics.median(host_us(enter_ctx) for _ in range(3))
+    # the runners the CUDA heuristics pick (phase 17's counts hold them)
+    default = {"attention": "cuda_flash", "paged_decode": "cuda_paged"}
+    runners = {f: registry.get_spec(f, n).fn for f, n in default.items()}
+    selecting = registry.run
+
+    def bypass(family, *args, impl=None, **kwargs):
+        return runners[family](*args, **kwargs)
+
+    walls = {"registry.run": [], "selection bypassed": []}
+    for _ in range(rounds):
+        for name in ("registry.run", "selection bypassed",
+                     "selection bypassed", "registry.run"):
+            registry.run = bypass if name != "registry.run" else selecting
+            try:
+                t0 = time.perf_counter()
+                eng.generate(prompts, REGISTRY_NEW)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                registry.run = selecting
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    low = {k: min(v) for k, v in walls.items()}
+    calls = lm.cfg.n_layers * REGISTRY_NEW      # flash + paged a generate
+    log(f"  the engine's per-call context (env snapshot, no pin): "
+        f"{ctx_us:.2f} host us, once a generate [{smi}]")
+    for k, v in walls.items():
+        log(f"  fp32 generate 4 x {REGISTRY_NEW}, {k}: median "
+            f"{med[k]:.2f} ms, least {low[k]:.2f} (runs "
+            f"{[round(x, 2) for x in v]}) [{smi}]")
+    a, b = "registry.run", "selection bypassed"
+    log(f"  registry / bypassed: median {med[a] / med[b]:.4f}, least "
+        f"{low[a] / low[b]:.4f} ({calls} registry calls a generate)")
+    return ctx_us, med
+
+
+def registry_families_check(dev, smi):
+    """Phase 17(c): ``registry.run`` of ssd_scan, stream_triad and jacobi7,
+    each kernel impl against the plain one on the card (phases 3 and 11's
+    tolerances); the host microseconds a paged decode call costs through
+    the registry beside the direct wrapper."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.jacobi7 import jacobi7_sweeps, \
+        jacobi7_valid_plain
+    from repro_torch.kernels.paged_decode import \
+        paged_decode_attention_grouped
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.stream_triad import stream_triad
+    rng = np.random.default_rng(17)
+    for dtype in (torch.float32, torch.bfloat16):
+        args, st = ssd_inputs(rng, dev, 2, 300, 4, 64, 64, dtype, state=True)
+        n0 = ssd_scan.launches
+        y, (c, n) = registry.run("ssd_scan", *args, impl="cuda_ssd",
+                                 chunk=256, initial_state=st)
+        yp, (cp, np_) = registry.run("ssd_scan", *args, impl="torch_scan",
+                                     chunk=256, initial_state=st)
+        torch.cuda.synchronize()
+        if ssd_scan.launches != n0 + 1:
+            fail("registry ssd_scan: cuda_ssd did not launch once, or "
+                 "torch_scan launched")
+        name = f"registry ssd_scan cuda_ssd vs torch_scan {str(dtype)[6:]}"
+        # phase 3's tolerances: y at its dtype's, C and n (fp32) at fp32's
+        for what, got, want in (("y", y, yp), ("C", c, cp), ("n", n, np_)):
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **ssd_tol(want),
+                                       msg=lambda m: f"{name} {what}: {m}")
+        log(f"  ok {name}: max|err| y "
+            f"{(y.float() - yp.float()).abs().max().item():.3g}")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b = torch.randn(1 << 20, generator=gen, device=dev)
+    c = torch.randn(1 << 20, generator=gen, device=dev)
+    n0 = stream_triad.launches
+    got = registry.run("stream_triad", b, c, impl="cuda_triad")
+    want = registry.run("stream_triad", b, c, impl="torch_triad")
+    if stream_triad.launches != n0 + 1:
+        fail("registry stream_triad: cuda_triad did not launch once")
+    close("registry stream_triad cuda_triad vs torch_triad 2^20 fp32", got,
+          want)
+    x = torch.randn(37, 45, 99, generator=gen, device=dev)
+    want = jacobi7_valid_plain(x, 3)
+    n0 = jacobi7_sweeps.launches
+    for impl, launches in (("wavefront", 1), ("naive", 3)):
+        got = registry.run("jacobi7", x, impl=impl, sweeps=3)
+        torch.cuda.synchronize()
+        if jacobi7_sweeps.launches != n0 + launches:
+            fail(f"registry jacobi7 {impl}: {jacobi7_sweeps.launches - n0} "
+                 f"launches, expected {launches}")
+        n0 = jacobi7_sweeps.launches
+        close(f"registry jacobi7 {impl} T=3 (37,45,99) vs the plain sweeps",
+              got, want)
+
+    # a head dim the flash kernel lacks: the heuristic still selects it,
+    # and its wrapper raises rather than run the plain version
+    from repro_torch.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+    q = torch.randn(1, 16, 4, 48, generator=gen, device=dev)
+    kv = torch.randn(1, 16, 2, 48, generator=gen, device=dev)
+    if 48 in SUPPORTED_HEAD_DIMS or \
+            registry.select("attention", sq=16, sk=16, dh=48,
+                            backend="cuda") != "cuda_flash":
+        fail("registry attention: head dim 48 does not select cuda_flash")
+    try:
+        registry.run("attention", q, kv, kv)
+    except ValueError as e:
+        log(f"  registry attention at head dim 48 on the card: the kernel "
+            f"is selected and raises ({e})")
+    else:
+        fail("registry attention: head dim 48 ran on the card")
+
+    # host cost: phase 4's decode call (8 rows, KVH 2, G 7, Dh 64, pages
+    # of 16) through the registry and straight to the wrapper
+    lens = [n + MAX_NEW for n in PROMPT_LENS]
+    table, num_pages = plan_table(lens, 1, PAGE_SIZE)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, torch.bfloat16)
+
+    args = (rnd(8, 2, 7, 64), rnd(num_pages, PAGE_SIZE, 2, 64),
+            rnd(num_pages, PAGE_SIZE, 2, 64), torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev),
+            rnd(8, 2, 64), rnd(8, 2, 64))
+    # the engine runs every call inside one env snapshot
+    runs = {"direct wrapper": [], "registry.run": [],
+            "registry.run in env_snapshot": []}
+    for _ in range(3):
+        runs["direct wrapper"].append(
+            host_us(lambda: paged_decode_attention_grouped(*args)))
+        runs["registry.run"].append(
+            host_us(lambda: registry.run("paged_decode", *args)))
+        with registry.env_snapshot():
+            runs["registry.run in env_snapshot"].append(
+                host_us(lambda: registry.run("paged_decode", *args)))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    d = med["direct wrapper"]
+    log(f"  host us a paged decode call (bf16, phase 4's decode shape), "
+        f"median of 3 x 200 [{smi}]:")
+    for k, v in runs.items():
+        log(f"    {k}: {med[k]:.2f} (+{med[k] - d:.2f}; runs "
+            f"{[round(x, 2) for x in v]})")
+    return med
+
+
+def tool_benches(smi):
+    """Phase 17(d): the tool benches through the runner."""
+    out = ROOT / "build" / "tool_benches.json"
+    run_cli(["repro_torch.bench", "--only",
+             "marker_overhead,perfctr,stream_pinning", "--json", str(out)],
+            timeout=600)
+    report = json.loads(out.read_text())
+    benches = {b["name"]: b for b in report["benches"]}
+    for name, b in benches.items():
+        if b["status"] != "ok":
+            fail(f"bench {name}: {b['status']}")
+    mo = benches["marker_overhead"]["summary"]
+    for case in ("matmul", "paged_decode"):
+        r = mo[case]
+        log(f"  marker overhead, {case}: bare {r['bare_us']:.2f} us/call, "
+            f"measured {r['measured_us']:.2f} us/call, overhead "
+            f"{r['overhead'] * 100:+.2f}% (runs {r['bare_runs_us']} / "
+            f"{r['measured_runs_us']}) [{smi}]")
+    pf = benches["perfctr"]["summary"]
+    log(f"  perfctr listing: Benchmark {pf['benchmark_calls']} calls, "
+        f"{pf['benchmark_flops']:.4g} FLOPs declared, "
+        f"{pf['us_per_call']:.2f} us/call [{smi}]")
+    sp = benches["stream_pinning"]["summary"]
+    pl = sp["placement"]
+    log(f"  stream pinning: compact 2D {pl['mesh_cost']['compact']}, ring "
+        f"1D {pl['flat_cost']['ring']}, unpinned 2D median "
+        f"{pl['unpinned_2d']['median']}; triad 2^27 median "
+        f"{sp['median_s'] * 1e3:.4f} ms = {sp['gbps_median']:.1f} GB/s "
+        f"[{smi}]")
+    return {"marker_overhead": mo, "perfctr": pf, "stream_pinning": sp}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -2059,7 +2564,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/16] probe")
+    log("[1/17] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -2076,12 +2581,12 @@ def main() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    log("[2/16] build")
+    log("[2/17] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/16] kernels vs plain versions")
+    log("[3/17] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -2093,26 +2598,26 @@ def main() -> int:
             f"{r['bound_by']})")
     del timer
 
-    log("[4/16] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    log("[4/17] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/16] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    log("[5/17] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
         "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    log("[6/16] fp32 token check: card paged / card dense / cpu paged")
+    log("[6/17] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/16] fp32 scheduler token check: card scheduler / card generate "
+    log("[7/17] fp32 scheduler token check: card scheduler / card generate "
         "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    log("[8/16] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    log("[8/17] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    log("[9/16] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    log("[9/17] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -2122,10 +2627,10 @@ def main() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    log("[10/16] fp32 zamba2 token check: card / cpu, 7 layers")
+    log("[10/17] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    log("[11/16] case-study kernels vs plain versions: STREAM triad, "
+    log("[11/17] case-study kernels vs plain versions: STREAM triad, "
         "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -2135,14 +2640,14 @@ def main() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    log("[12/16] main path 5: the case studies through PerfCtr marker "
+    log("[12/17] main path 5: the case studies through PerfCtr marker "
         "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    log("[13/16] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    log("[13/17] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
         "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -2150,11 +2655,11 @@ def main() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    log("[14/16] main path 7: speculative decoding, K = 4, 2-layer matched "
+    log("[14/17] main path 7: speculative decoding, K = 4, 2-layer matched "
         "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    log("[15/16] main path 8: serving snapshots and chaos: (a) fp32 "
+    log("[15/17] main path 8: serving snapshots and chaos: (a) fp32 "
         "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
         "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -2162,10 +2667,19 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    log("[16/16] main path 9: the serving benches (serve, paged decode, "
+    log("[16/17] main path 9: the serving benches (serve, paged decode, "
         "flash prefill, spec) at their default sizes, serve and spec at "
         "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
+    torch.cuda.empty_cache()
+
+    log("[17/17] main path 10: the tool layer (topology, pin, features) "
+        "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
+        "default kernels against the torch pins three ways")
+    topology_check(dev, smi)
+    reg_launches, reg_q8_launches = registry_serving_path(dev, smi)
+    registry_families_check(dev, smi)
+    tool_benches(smi)
     torch.cuda.empty_cache()
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
@@ -2173,7 +2687,9 @@ def main() -> int:
                "spec_generate": spec_launches,
                "spec_scheduler": spec_sched_launches,
                "snapshot_restore_fp32": snap_launches,
-               "chaos_restore_int8": chaos_launches, **bench_launches}
+               "chaos_restore_int8": chaos_launches, **bench_launches,
+               "registry_generate_fp32": reg_launches,
+               "registry_scheduler_int8": reg_q8_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"]} if r in case_rows else

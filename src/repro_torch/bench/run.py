@@ -6,9 +6,10 @@ Counterpart of ``benchmarks/run.py`` for the port:
         [--json PATH] [--only serve,spec,...]
 
 runs the serving benches (``serve``, ``paged_decode``, ``flash_prefill``,
-``spec``, ``chaos``) and the tool layer's case studies
-(``stream_pinning``, ``stencil_pinning``, ``jacobi_traffic``,
-``bandwidth_map``), each with ``--smoke`` and ``--device`` passed on.
+``spec``, ``chaos``), the perfctr tool's own benches (``marker_overhead``,
+``perfctr``) and the tool layer's case studies (``stream_pinning``,
+``stencil_pinning``, ``jacobi_traffic``, ``bandwidth_map``), each with
+``--smoke`` and ``--device`` passed on.
 ``--device`` defaults to ``cuda`` (raises without a GPU); every kernel is
 built before the first bench.  A bench whose correctness claim fails
 raises; the runner prints the traceback, marks it FAILED and goes on.
@@ -28,7 +29,8 @@ from typing import Dict, List
 
 from repro_torch.bench import (bench_bandwidth_map, bench_chaos,
                                bench_flash_prefill, bench_jacobi_traffic,
-                               bench_paged_decode, bench_serve, bench_spec,
+                               bench_marker_overhead, bench_paged_decode,
+                               bench_perfctr, bench_serve, bench_spec,
                                bench_stencil_pinning, bench_stream_pinning)
 from repro_torch.bench.common import card_line, missed_bars, setup_device
 
@@ -40,6 +42,11 @@ SERVING = {
     "spec": bench_spec,                    # speculative vs target-only
     "chaos": bench_chaos,                  # robustness under faults
 }
+#: the perfctr tool's benches, the same ``run(csv, smoke=, device=)``
+TOOLS = {
+    "marker_overhead": bench_marker_overhead,  # zero-overhead claim
+    "perfctr": bench_perfctr,                  # the §II-A listing
+}
 #: the case studies, driven through their ``main(argv)``
 CASE_STUDIES = {
     "stream_pinning": bench_stream_pinning,    # Figs 4-10
@@ -47,13 +54,13 @@ CASE_STUDIES = {
     "jacobi_traffic": bench_jacobi_traffic,    # Table I
     "bandwidth_map": bench_bandwidth_map,      # paper VI future plans
 }
-BENCHES = {**SERVING, **CASE_STUDIES}
+BENCHES = {**SERVING, **TOOLS, **CASE_STUDIES}
 
 
 def run_bench(name: str, csv: list, smoke: bool, device) -> Dict:
     """One bench's summary."""
-    if name in SERVING:
-        return SERVING[name].run(csv, smoke=smoke, device=device)
+    if name in SERVING or name in TOOLS:
+        return BENCHES[name].run(csv, smoke=smoke, device=device)
     argv = ["--device", str(device)] + (["--smoke"] if smoke else [])
     return CASE_STUDIES[name].main(argv)
 

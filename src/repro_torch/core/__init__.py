@@ -1,23 +1,30 @@
 """repro_torch.core — the LIKWID tool layer, retargeted at one GPU.
 
-Ported so far (the rest of ``repro/core`` — topology, pin, features, the
-compile-artifact session and the perf report — waits for a later slice):
-
 ==================  ========================================================
 paper tool          module
 ==================  ========================================================
 data sheets         :mod:`repro_torch.core.hwinfo`
+likwid-topology     :mod:`repro_torch.core.topology` (the card and its SMs
+                    from ``torch.cuda``; a synthesized pod for placement)
+likwid-pin          :mod:`repro_torch.core.pin` (device orders over a
+                    topology)
 likwid-perfCtr      :mod:`repro_torch.core.perfctr` (events / groups /
                     marker); events are the kernels' declared models,
                     times come from CUDA events
+likwid-features     :mod:`repro_torch.core.features` (the switchable
+                    state and the PyTorch settings it implies)
 ==================  ========================================================
 
 plus the §VI future-plan deliverables: :mod:`repro_torch.core.roofline`
-and :mod:`repro_torch.core.bandwidth` (the "bandwidth map").
+and :mod:`repro_torch.core.bandwidth` (the "bandwidth map").  Their CLIs
+are ``python -m repro_torch.launch.{topology,pin,features}``; the kernel
+registry that pins an implementation per family is
+:mod:`repro_torch.kernels.registry`.  Not ported yet (``ROADMAP.md``): the
+compile-artifact session and cache, the perf report and the perfctr CLI.
 """
 
 from repro_torch.core import hwinfo, events, groups, perfctr, marker, \
-    roofline, bandwidth  # noqa: F401
+    roofline, bandwidth, topology, pin, features  # noqa: F401
 
 __all__ = ["hwinfo", "events", "groups", "perfctr", "marker", "roofline",
-           "bandwidth"]
+           "bandwidth", "topology", "pin", "features"]

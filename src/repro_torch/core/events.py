@@ -30,7 +30,8 @@ BYTES_ACCESSED      HBM bytes declared: HBM_ARG_BYTES + HBM_OUT_BYTES
 HBM_ARG_BYTES       input bytes read
 HBM_OUT_BYTES       output bytes written
 LAUNCHES            wrapper calls: kernel launches on the card, plain-
-                    version calls on the CPU
+                    version calls on the CPU (a plain impl the kernel
+                    registry picks declares its work as ops, no launch)
 HBM_PEAK_BYTES      ``torch.cuda.max_memory_allocated`` over a measured
                     call (0 on the CPU)
 ==================  ======================================================
@@ -49,7 +50,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 __all__ = ["EventCounts", "DECLARED_EVENTS", "collect", "active",
-           "record_launch", "record_ops", "record_launch_from"]
+           "record_launch", "record_ops", "record_launch_from",
+           "record_ops_from"]
 
 #: (flops, arg_bytes, out_bytes) of one call, from host values
 Model = Callable[..., Tuple[float, float, float]]
@@ -167,20 +169,33 @@ def record_launch_from(t: torch.Tensor, model: Model,
     copied to pinned host memory on the current stream without a sync (a
     later in-place write to ``t`` does not reach the copy); the model runs
     when each collection closes."""
+    _record_from(t, model, f32, launch=True)
+
+
+def record_ops_from(t: torch.Tensor, model: Model, f32: bool = True) -> None:
+    """:func:`record_launch_from` for plain PyTorch work: the same
+    data-dependent counts, no launch."""
+    _record_from(t, model, f32, launch=False)
+
+
+def _record_from(t: torch.Tensor, model: Model, f32: bool,
+                 launch: bool) -> None:
     stack = _open()
     if not stack:
         return
+    record = record_launch if launch else record_ops
     if t.device.type != "cuda":
         flops, arg_bytes, out_bytes = model(t.detach().cpu().numpy())
-        record_launch(flops=flops, arg_bytes=arg_bytes,
-                      out_bytes=out_bytes, f32=f32)
+        record(flops=flops, arg_bytes=arg_bytes, out_bytes=out_bytes,
+               f32=f32)
         return
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t.detach(), non_blocking=True)
     ready = torch.cuda.Event()
     ready.record()
     for ev in stack:
-        ev.counts["LAUNCHES"] += 1
+        if launch:
+            ev.counts["LAUNCHES"] += 1
         ev.pending.append((ready, host, model, f32))
 
 

@@ -34,7 +34,7 @@ from repro_torch.core import events
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_bhsd", "flash_attention_plain",
-           "flash_traffic", "SUPPORTED_HEAD_DIMS"]
+           "flash_traffic", "declare_flash", "SUPPORTED_HEAD_DIMS"]
 
 NEG_INF = -2.0e38
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -114,20 +114,33 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         raise ValueError(f"flash attention runs on cpu or cuda, not "
                          f"{q.device}")
-    if events.active():
-        b, h, sq, dh = q.shape
-        model = functools.partial(flash_traffic, h=h, kvh=k.shape[1], sq=sq,
-                                  sk=k.shape[2], dh=dh,
-                                  itemsize=q.element_size(), causal=causal,
-                                  q_offset=int(q_offset))
-        f32 = q.dtype == torch.float32   # bf16 runs on the tensor cores
-        if kv_valid is None:
-            flops, arg_bytes, out_bytes = model(np.full(b, k.shape[2]))
-            events.record_launch(flops=flops, arg_bytes=arg_bytes,
-                                 out_bytes=out_bytes, f32=f32)
-        else:
-            events.record_launch_from(kv_valid, model, f32=f32)
+    declare_flash(q, k, kv_valid, causal=causal, q_offset=q_offset)
     return out
+
+
+def declare_flash(q: torch.Tensor, k: torch.Tensor,
+                  kv_valid: Optional[torch.Tensor], *, causal: bool,
+                  q_offset: int, launch: bool = True) -> None:
+    """Declare one call's :func:`flash_traffic` to the open event
+    collections: as a launch from the wrapper, as plain work
+    (``launch=False``) from the registry's plain impls."""
+    if not events.active():
+        return
+    b, h, sq, dh = q.shape
+    model = functools.partial(flash_traffic, h=h, kvh=k.shape[1], sq=sq,
+                              sk=k.shape[2], dh=dh,
+                              itemsize=q.element_size(), causal=causal,
+                              q_offset=int(q_offset))
+    f32 = q.dtype == torch.float32       # bf16 runs on the tensor cores
+    if kv_valid is None:
+        flops, arg_bytes, out_bytes = model(np.full(b, k.shape[2]))
+        record = events.record_launch if launch else events.record_ops
+        record(flops=flops, arg_bytes=arg_bytes, out_bytes=out_bytes,
+               f32=f32)
+    elif launch:
+        events.record_launch_from(kv_valid, model, f32=f32)
+    else:
+        events.record_ops_from(kv_valid, model, f32=f32)
 
 
 def flash_traffic(kv_valid: np.ndarray, *, h: int, kvh: int, sq: int,

@@ -42,7 +42,7 @@ from repro_torch.kernels import _build
 __all__ = ["paged_decode_attention_grouped", "paged_decode_plain",
            "paged_decode_attention_q8_grouped", "paged_decode_q8_plain",
            "split_plan", "fp_smem_bytes", "q8_smem_bytes", "paged_traffic",
-           "SUPPORTED_HEAD_DIMS"]
+           "declare_paged", "SUPPORTED_HEAD_DIMS"]
 
 NEG_INF = -2.0e38
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -241,13 +241,18 @@ def paged_traffic(lengths: np.ndarray, *, kvh: int, g: int, dh: int,
             float(out))
 
 
-def _declare(q4: torch.Tensor, k_pages: torch.Tensor, lengths: torch.Tensor,
-             scales: bool) -> None:
+def declare_paged(q4: torch.Tensor, k_pages: torch.Tensor,
+                  lengths: torch.Tensor, scales: bool,
+                  launch: bool = True) -> None:
     """Declare one call's :func:`paged_traffic` (fp32 math on the CUDA
-    cores, every dtype) to the open event collections."""
+    cores, every dtype) to the open event collections: as a launch from
+    the wrappers, as plain work (``launch=False``) from the registry's
+    plain impls."""
     if events.active():
         _, kvh, g, dh = q4.shape
-        events.record_launch_from(lengths, functools.partial(
+        record = (events.record_launch_from if launch
+                  else events.record_ops_from)
+        record(lengths, functools.partial(
             paged_traffic, kvh=kvh, g=g, dh=dh, ps=k_pages.shape[1],
             q_itemsize=q4.element_size(),
             page_itemsize=k_pages.element_size(), scales=scales))
@@ -269,7 +274,7 @@ def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
     if q4.device.type == "cpu":
         out = paged_decode_plain(q4, k_pages, v_pages, page_table, lengths,
                                  k_new, v_new)
-        _declare(q4, k_pages, lengths, scales=False)
+        declare_paged(q4, k_pages, lengths, scales=False)
         return out
     tensors = (q4, k_pages, v_pages, page_table, lengths, k_new, v_new)
     b, kvh, g, dh = q4.shape
@@ -287,7 +292,7 @@ def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
             _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype], stream)
     _build.check(lib, err, "paged_decode_fwd")
     paged_decode_attention_grouped.launches += 1
-    _declare(q4, k_pages, lengths, scales=False)
+    declare_paged(q4, k_pages, lengths, scales=False)
     return out
 
 
@@ -316,7 +321,7 @@ def paged_decode_attention_q8_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
     if q4.device.type == "cpu":
         out = paged_decode_q8_plain(q4, k_pages, v_pages, k_scale, v_scale,
                                     page_table, lengths, k_new, v_new)
-        _declare(q4, k_pages, lengths, scales=True)
+        declare_paged(q4, k_pages, lengths, scales=True)
         return out
     tensors = (q4, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
                k_new, v_new)
@@ -334,7 +339,7 @@ def paged_decode_attention_q8_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
             _DTYPE_CODE[q4.dtype], stream)
     _build.check(lib, err, "paged_decode_q8_fwd")
     paged_decode_attention_q8_grouped.launches += 1
-    _declare(q4, k_pages, lengths, scales=True)
+    declare_paged(q4, k_pages, lengths, scales=True)
     return out
 
 

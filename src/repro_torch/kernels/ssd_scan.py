@@ -41,8 +41,8 @@ from repro_torch.kernels import _build
 from repro_torch.models.linear_scan import (_chunked_linear_attention,
                                             sequential_linear_attention)
 
-__all__ = ["ssd_scan", "ssd_scan_ref", "ssd_flops", "copy_width",
-           "MAX_STATE_DIM", "MAX_CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_ref", "ssd_flops", "declare_ssd",
+           "copy_width", "MAX_STATE_DIM", "MAX_CHUNK"]
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
@@ -152,16 +152,25 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            eps, initial_state)
     else:
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {q.device}")
-    state_in = 0 if initial_state is None else \
-        4 * (b * h * dk * dv + b * h * dk)
-    events.record_launch(
-        flops=ssd_flops(b, h, s, dk, dv, chunk),
-        arg_bytes=sum(_distinct_bytes(t) for t in (q, k, v, log_f, log_i))
-        + state_in,
-        out_bytes=y.numel() * y.element_size()
-        + 4 * (b * h * dk * dv + b * h * dk),
-        f32=q.device.type == "cpu" or v.dtype == torch.float32)
+    declare_ssd(q, k, v, log_f, log_i, y, chunk, initial_state is not None,
+                f32=q.device.type == "cpu" or v.dtype == torch.float32)
     return y, state
+
+
+def declare_ssd(q, k, v, log_f, log_i, y, chunk: int, carried: bool, *,
+                f32: bool, launch: bool = True) -> None:
+    """Declare one call's FLOPs (:func:`ssd_flops`) and bytes (the
+    inputs' distinct bytes, the carried state in and the state out) to
+    the open event collections: as a launch from the wrapper, as plain
+    work (``launch=False``) from the registry's plain impl."""
+    b, s, h, dk = q.shape
+    dv = v.shape[3]
+    state = 4 * (b * h * dk * dv + b * h * dk)
+    record = events.record_launch if launch else events.record_ops
+    record(flops=ssd_flops(b, h, s, dk, dv, chunk),
+           arg_bytes=sum(_distinct_bytes(t) for t in (q, k, v, log_f, log_i))
+           + (state if carried else 0),
+           out_bytes=y.numel() * y.element_size() + state, f32=f32)
 
 
 def _launch(q, k, v, log_f, log_i, c, normalize, eps, initial_state):

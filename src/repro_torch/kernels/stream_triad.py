@@ -31,7 +31,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["stream_triad", "stream_triad_plain", "triad_bytes",
            "triad_flops", "triad_plan", "default_block_rows",
-           "LANES"]
+           "declare_triad", "LANES"]
 
 LANES = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,10 +109,19 @@ def stream_triad(b: torch.Tensor, c: torch.Tensor, *, s: float = 2.5,
                     pipelined)
     else:
         raise ValueError(f"stream_triad runs on cpu or cuda, not {b.device}")
-    nbytes = b.element_size()
-    events.record_launch(flops=triad_flops(n), arg_bytes=2 * n * nbytes,
-                         out_bytes=n * nbytes)
+    declare_triad(b)
     return a
+
+
+def declare_triad(b: torch.Tensor, launch: bool = True) -> None:
+    """Declare one triad over ``b``'s length and dtype (two streams read,
+    one written) to the open event collections: as a launch from the
+    wrapper, as plain work (``launch=False``) from the registry's plain
+    impl."""
+    n, nbytes = b.shape[0], b.element_size()
+    record = events.record_launch if launch else events.record_ops
+    record(flops=triad_flops(n), arg_bytes=2 * n * nbytes,
+           out_bytes=n * nbytes)
 
 
 def _launch(b: torch.Tensor, c: torch.Tensor, s: float,

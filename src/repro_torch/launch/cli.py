@@ -15,17 +15,61 @@ Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` uses:
 * :func:`add_spec_args` — ``--draft``, ``--spec-tokens`` and
   ``--accept-policy`` (consume with :func:`spec_kwargs`, which validates
   the pairing eagerly);
-* :func:`add_json_args` — ``--json PATH`` machine-readable summary.
+* :func:`add_json_args` — ``--json PATH`` machine-readable summary;
+* :func:`add_impl_args` — ``--impl FAM=NAME[,...]`` kernel pins per
+  registry family (and the deprecated ``--attn-impl``, whose shared
+  warning is :func:`warn_legacy_attn_impl`); the serving launcher hands
+  both to ``ServeConfig``.  ``--tune``, ``resolve_impls`` and
+  ``impl_context`` come with their first callers, the registry's tune
+  half and the dry-run tools (``ROADMAP.md``, queue 1 items 11 and 14).
 """
 
 from __future__ import annotations
 
 import argparse
+import warnings
 from typing import Dict, Optional
 
 __all__ = ["add_kv_args", "kv_config_kwargs", "add_robustness_args",
            "robustness_kwargs", "add_ft_args", "ft_kwargs", "add_spec_args",
-           "spec_kwargs", "add_json_args"]
+           "spec_kwargs", "add_json_args", "add_impl_args",
+           "warn_legacy_attn_impl"]
+
+#: ``--attn-impl`` names: the port's legacy single names and the JAX
+#: package's spellings of the same two
+LEGACY_ATTN_CHOICES = ("cuda_flash", "torch_flash", "full", "paged_decode",
+                       "pallas_flash", "jnp_flash")
+
+
+def add_impl_args(ap: argparse.ArgumentParser, *,
+                  legacy_attn: bool = False) -> None:
+    """``--impl`` (+ deprecated ``--attn-impl``)."""
+    ap.add_argument("--impl", default=None, metavar="FAM=NAME[,...]",
+                    help="pin kernel impls per registry family, e.g. "
+                         "attention=torch_flash,paged_decode=torch_paged "
+                         "(the JAX package's names map one to one; "
+                         "default: kernels/registry.py picks by device "
+                         "and shape)")
+    if legacy_attn:
+        ap.add_argument("--attn-impl", default=None,
+                        choices=list(LEGACY_ATTN_CHOICES),
+                        help="DEPRECATED single-name spelling of --impl "
+                             "(pins the attention impl and the decode "
+                             "side; paged_decode pins the CUDA paged "
+                             "kernel on the decode side only)")
+
+
+def warn_legacy_attn_impl(name: Optional[str]) -> None:
+    """The ONE shared deprecation warning for ``--attn-impl``."""
+    if name is None:
+        return
+    warnings.warn(
+        f"--attn-impl {name} is deprecated; spell it through --impl "
+        f"(e.g. --impl attention={name}) — the single name expands via "
+        f"registry.LEGACY_ATTN_MAP onto the attention AND paged_decode "
+        f"families", DeprecationWarning, stacklevel=2)
+    print(f"[cli] --attn-impl {name} is deprecated; prefer --impl "
+          f"(registry grammar)")
 
 
 def add_kv_args(ap: argparse.ArgumentParser) -> None:

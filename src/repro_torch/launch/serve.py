@@ -34,10 +34,19 @@ reads back (either package's); ``--chaos SEED`` drives a seeded
 and ``--straggler-min-ratio`` tune the scheduler's straggler detector
 (flags land in the summary's ``ft_events``).
 
+``--impl FAM=NAME[,...]`` pins kernel impls per registry family (the
+port's names, e.g. ``attention=torch_flash,paged_decode=torch_paged``, or
+the JAX package's, which map one to one); a bad spec exits non-zero.
+The deprecated ``--attn-impl NAME`` expands onto the attention and
+paged_decode families and prints the shared deprecation line.  The
+engine validates both and the summary lists the pins.  ``--dtype fp32``
+serves the model in fp32 (default bf16), and the summary's ``tokens``
+holds every request's generated tokens.
+
 Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh``,
-``--tune``, ``--impl`` and ``--ckpt-dir`` flags (absent: argparse
-refuses them); ``--ft-timeout-steps`` and ``--ft-confirm`` parse and are
-refused with item 14's citation.
+``--tune`` and ``--ckpt-dir`` flags (absent: argparse refuses them);
+``--ft-timeout-steps`` and ``--ft-confirm`` parse and are refused with
+item 14's citation.
 """
 
 from __future__ import annotations
@@ -59,6 +68,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke-dims", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
+                    help="the model's dtype (default bf16)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -68,6 +79,7 @@ def main(argv=None) -> int:
                     help="0 (default) decodes greedily; > 0 samples")
     ap.add_argument("--admission-chunk", type=int, default=8,
                     help="decode steps between admission points")
+    cli.add_impl_args(ap, legacy_attn=True)
     cli.add_json_args(ap, what="serve summary")
     cli.add_robustness_args(ap)
     cli.add_ft_args(ap)
@@ -92,36 +104,48 @@ def main(argv=None) -> int:
     ft_kw = cli.ft_kwargs(args, ap)     # refuses the mesh half eagerly
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import registry
     from repro_torch.models.lm import LM
     from repro_torch.serve.admission import AdmissionRejected
     from repro_torch.serve.engine import (BatchScheduler, Engine, Request,
                                           ServeConfig)
 
+    try:
+        impls = registry.parse_impl_spec(args.impl) if args.impl else None
+    except ValueError as e:
+        ap.error(str(e))
+    # --attn-impl stays the ServeConfig spelling (the engine validates and
+    # expands it itself); the warning path is the shared one
+    cli.warn_legacy_attn_impl(args.attn_impl)
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke_dims else spec.config
     serve_cfg = ServeConfig(
         max_seq=args.max_seq, batch_slots=args.slots,
         temperature=args.temperature,
         admission_chunk=args.admission_chunk,
+        attn_impl=args.attn_impl, impls=impls,
         page_size=args.page_size, pool_pages=args.pool_pages,
         **cli.kv_config_kwargs(args, ap))
     # --draft validates the pairing eagerly (vocab, family, page size)
     # before any weights are built
     spec_kw = cli.spec_kwargs(args, cfg, serve_cfg, ap)
-    lm = LM(cfg, torch.bfloat16, args.device)
+    lm = LM(cfg, dtype, args.device)
     gen = torch.Generator(device=lm.device).manual_seed(0)
     lm.init(gen)
     draft_lm = None
     if spec_kw:
         sc = spec_kw["spec"]
-        draft_lm = LM(sc.draft_config, torch.bfloat16, lm.device).init(
+        draft_lm = LM(sc.draft_config, dtype, lm.device).init(
             torch.Generator(device=lm.device).manual_seed(1))
         print(f"[serve] speculative decoding: draft={args.draft} "
               f"K={sc.num_draft_tokens} "
               f"policy={sc.resolve_policy(args.temperature)}")
     eng = Engine(lm, serve_cfg, device=lm.device, draft_lm=draft_lm,
                  **spec_kw)
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, bf16, "
+    if impls:
+        print(f"[serve] kernel impls pinned: {impls}")
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, {args.dtype}, "
           f"random weights (seed 0) on {lm.device}")
     if eng.paged:
         print(f"[serve] paged KV cache: page_size={args.page_size} "
@@ -209,6 +233,10 @@ def main(argv=None) -> int:
         with open(args.json, "w") as fh:
             json.dump({
                 "device": str(lm.device),
+                "dtype": args.dtype,
+                "impls": eng.impl_pins,
+                "tokens": {str(rid): list(r.generated)
+                           for rid, r in sorted(done.items())},
                 "requests": len(done), "new_tokens": total_new,
                 "tok_s": total_new / dt, "host_syncs": eng.host_syncs,
                 "mean_ttft_ms": (float(np.mean(ttfts)) * 1e3

@@ -13,15 +13,17 @@ writes its K/V into the cache buffers it is given, and decode writes one
 token per row.  The functions still return the cache (with its new
 ``length``) so call sites read like the JAX package's.
 
-Prefill attention always goes through
-:func:`repro_torch.kernels.flash_attention.flash_attention_bhsd` (the CUDA
-kernel for CUDA tensors, its plain twin for CPU tensors); the kernel masks
-ragged edges itself, so no shape heuristic sits in front of it.  Paged
-decode goes through
-:func:`repro_torch.kernels.paged_decode.paged_decode_attention_grouped`
-(fp pages) or ``paged_decode_attention_q8_grouped`` (int8 pages); a
+Prefill attention and paged decode go through the kernel registry
+(:mod:`repro_torch.kernels.registry`), as in the JAX package: the
+``attention`` family picks kernel #1 (``cuda_flash``) for CUDA tensors
+and, on the CPU, the reference's non-TPU choice (``full`` up to
+``chunk_threshold``, then the flash kernel's plain version); the
+``paged_decode`` family picks kernel #2 or #3 (int8 pages) for CUDA
+tensors and their plain versions on the CPU.  A pin (``use_impl``,
+``REPRO_IMPL``, ``ServeConfig.impls``) overrides either choice.  A
 prefix-cache hit prefills its suffix with plain ops, as the JAX package
-does.  Dense decode has no kernel in the JAX package either; it is plain PyTorch.
+does.  Dense decode has no kernel in the JAX package either; it is plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -32,16 +34,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_attention import flash_attention_bhsd
-from repro_torch.kernels.paged_decode import (
-    paged_decode_attention_grouped, paged_decode_attention_q8_grouped)
+from repro_torch.kernels import registry
 from repro_torch.models.layers import apply_rope, truncated_normal_
 
 __all__ = ["AttnConfig", "Attention", "KVCache", "init_kv_cache",
            "prefill_into_cache", "decode_attention", "PagedKVCache",
            "init_paged_kv_cache", "prefill_into_paged_cache",
            "paged_decode_attention_token", "KV_QUANT_EPS",
-           "quantize_kv_rows", "dequantize_gathered"]
+           "quantize_kv_rows", "dequantize_gathered", "full_attention"]
 
 NEG_INF = -2.0e38
 
@@ -168,18 +168,55 @@ def init_kv_cache(batch: int, max_seq: int, cfg: AttnConfig,
                                       device=device))
 
 
+def _full_attention_offset(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, q_offset: int, causal: bool,
+                           kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """Masked softmax over materialized scores for queries at key
+    positions ``q_offset + i`` (``repro/models/attention.py``'s naive
+    ``_full_attention_offset``): probabilities in fp32, cast to q's dtype
+    before the PV product."""
+    sq, sk = q.shape[1], k.shape[1]
+    scores = _gqa_scores(q, k).float()                     # [B,KVH,G,Sq,Sk]
+    kpos = torch.arange(sk, device=q.device)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        scores = torch.where(kpos[None, :] <= qpos[:, None], scores, NEG_INF)
+    if kv_len is not None:
+        ok = kpos[None, :] < kv_len[:, None]               # [B,Sk]
+        scores = torch.where(ok[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _gqa_out(probs, v)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   q_offset: int = 0, causal: bool = True,
+                   kv_len: Optional[torch.Tensor] = None,
+                   chunk_size: int = 512, chunk_threshold: int = 2048
+                   ) -> torch.Tensor:
+    """The registry's ``full`` attention: q [B,Sq,H,Dh], k/v
+    [B,Sk,KVH,Dh] -> [B,Sq,H,Dh].  Above ``chunk_threshold`` queries (and
+    ``q_offset == 0``) it runs in query chunks of ``chunk_size`` against
+    the full keys, the reference's ``_chunked_attention`` memory guard."""
+    sq = q.shape[1]
+    if sq <= chunk_threshold or q_offset != 0:
+        return _full_attention_offset(q, k, v, q_offset, causal, kv_len)
+    return torch.cat([_full_attention_offset(q[:, i:i + chunk_size], k, v,
+                                             i, causal, kv_len)
+                      for i in range(0, sq, chunk_size)], dim=1)
+
+
 def _prefill_qkv_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                         lengths: Optional[torch.Tensor] = None):
-    """The cache-agnostic half of prefill: project q/k/v and run the flash
-    kernel (ragged ``lengths`` masked inside it).  Returns (attn out
-    [B,S,H,Dh], k, v)."""
+    """The cache-agnostic half of prefill: project q/k/v and run the
+    registry's prefill attention (ragged ``lengths`` masked inside it).
+    Returns (attn out [B,S,H,Dh], k, v)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=cfg.causal,
-                               q_offset=0, kv_valid=lengths)
-    return out.transpose(1, 2), k, v
+    out = registry.run("attention", q, k, v, q_offset=0, causal=cfg.causal,
+                       kv_len=lengths, chunk_size=cfg.chunk_size,
+                       chunk_threshold=cfg.chunk_threshold)
+    return out, k, v
 
 
 def _new_lengths(lengths: Optional[torch.Tensor], b: int, s: int,
@@ -474,19 +511,16 @@ def paged_decode_attention_token(p: Attention, x: torch.Tensor,
     """One-token decode against READ-ONLY pages (one layer's pool).
 
     Attention reads only the pages each row's table lists, through the
-    paged kernel (its int8 variant when ``k_scale``/``v_scale`` are
-    given); the new token's K/V ``[B,1,KVH,Dh]`` are returned UNQUANTIZED
-    for the caller to write into its page."""
+    registry's ``paged_decode`` family (its int8 impls when
+    ``k_scale``/``v_scale`` are given); the new token's K/V
+    ``[B,1,KVH,Dh]`` are returned UNQUANTIZED for the caller to write
+    into its page."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, length[:, None])
     kvh, dh = cfg.num_kv_heads, cfg.head_dim
     q4 = q.reshape(b, kvh, cfg.num_heads // kvh, dh)
     k_new, v_new = k.reshape(b, kvh, dh), v.reshape(b, kvh, dh)
-    if k_scale is not None:
-        out = paged_decode_attention_q8_grouped(
-            q4, k_pages, v_pages, k_scale, v_scale, page_table, length,
-            k_new, v_new)
-    else:
-        out = paged_decode_attention_grouped(
-            q4, k_pages, v_pages, page_table, length, k_new, v_new)
+    kw = {} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)
+    out = registry.run("paged_decode", q4, k_pages, v_pages, page_table,
+                       length, k_new, v_new, **kw)
     return _out_proj(p, out.reshape(b, 1, cfg.num_heads, dh)), k, v

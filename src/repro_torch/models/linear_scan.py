@@ -15,9 +15,9 @@ with f_t = exp(log_f_t) in (0,1], i_t = exp(log_i_t), log_f, log_i <= 0.
 * :func:`decode_step_linear_attention` — the one-token serving update.
 
 The JAX package routes ``chunked_linear_attention`` through its kernel
-registry; until the registry is ported the routed entry is
-:func:`repro_torch.kernels.ssd_scan.ssd_scan`, which dispatches by tensor
-device (the plain form here for CPU tensors, the CUDA kernel otherwise).
+registry, and so does the port: the ``ssd_scan`` family of
+:mod:`repro_torch.kernels.registry` (``torch_scan`` is the chunked form
+here, ``cuda_ssd`` the CUDA kernel).
 All math is fp32; ``y`` comes back in ``v``'s dtype.
 """
 

@@ -7,9 +7,9 @@ head dim P)::
     y_t = C_t @ h_t + D * x_t
 
 is gated linear attention with q=C, k=B, v=dt*x, log_f=-dt*exp(A_log),
-log_i=0 — evaluated by :func:`repro_torch.kernels.ssd_scan.ssd_scan` (the
-CUDA kernel for CUDA tensors, the chunked plain twin for CPU tensors).
-C and B are shared by the heads of a group; the port hands the kernel a
+log_i=0 — evaluated through the kernel registry's ``ssd_scan`` family
+(kernel #5 for CUDA tensors, the chunked plain twin for CPU tensors; a
+pin overrides either), with the segment's carried state.  C and B are shared by the heads of a group; the port hands the kernel a
 view broadcast over heads instead of a repeated copy.
 
 Block layout follows Mamba2: in_proj -> (z, x, B, C, dt); short causal
@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels import registry
 from repro_torch.models.layers import rms_norm, truncated_normal_
 from repro_torch.models.linear_scan import decode_step_linear_attention
 from repro_torch.models.transformer import RMSNorm
@@ -193,9 +193,9 @@ def apply_mamba2_block(p: Mamba2Block, x_in: torch.Tensor,
     xbc = _causal_conv(xbc_pre, p.conv_w, p.conv_b, tail=tail)
     q, k, v, log_f, xh = _ssd_qkv(xbc, dt_pre, p, cfg)
     ssd0 = initial_state["ssd"] if initial_state is not None else None
-    y, ssd = ssd_scan(q, k, v, log_f, torch.zeros_like(log_f),
-                      chunk=cfg.chunk_size, normalize=False,
-                      initial_state=ssd0)
+    y, ssd = registry.run("ssd_scan", q, k, v, log_f,
+                          torch.zeros_like(log_f), chunk=cfg.chunk_size,
+                          normalize=False, initial_state=ssd0)
     y = y + xh * p.D.to(y.dtype)[None, None, :, None]           # skip
     b, s = x_in.shape[:2]
     y = y.reshape(b, s, cfg.d_inner)

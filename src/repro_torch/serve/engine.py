@@ -84,8 +84,16 @@ before the first admission, and every pending request replays
 ``prompt + generated`` through prefill over them.  ``chaos`` ticks a
 :class:`repro_torch.ft.chaos.ChaosSchedule` at every segment boundary.
 
-Mesh sharding, kernel pins and ``extra_batch`` inputs wait for later
-slices (``ROADMAP.md``); the arguments that select them raise
+**Kernel pins.**  ``ServeConfig.impls`` (``{family: impl}``, the port's
+names or the JAX package's, :mod:`repro_torch.kernels.registry`) and the
+legacy ``attn_impl`` are validated at construction with the JAX engine's
+errors and entered as a :func:`registry.use_impl` context around every
+prefill, decode step and segment, so a pin wins over ``REPRO_IMPL`` and
+the heuristic, as in the JAX engine.  A ``torch_*`` pin on the card runs
+the plain version and launches no kernel of its family.
+
+Mesh sharding and ``extra_batch`` inputs wait for later slices
+(``ROADMAP.md``); the arguments that select them raise
 :class:`NotImplementedError` rather than being silently ignored.
 """
 
@@ -93,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
@@ -104,7 +113,7 @@ import torch
 from repro_torch.checkpoint import store
 from repro_torch.device import resolve_device
 from repro_torch.ft.straggler import StragglerDetector
-from repro_torch.kernels import sampling
+from repro_torch.kernels import registry, sampling
 from repro_torch.models.lm import LM
 from repro_torch.serve import kv_pool
 from repro_torch.serve.admission import AdmissionQueue, AdmissionRejected
@@ -206,6 +215,15 @@ class Request:
 State = Dict[str, Any]
 
 
+def _pinned(method: Callable) -> Callable:
+    """Run an :class:`Engine` entry point inside its kernel pins."""
+    @functools.wraps(method)
+    def inner(self, *args, **kwargs):
+        with self._impl_ctx():
+            return method(self, *args, **kwargs)
+    return inner
+
+
 class Engine:
     def __init__(self, lm: LM, cfg: ServeConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -230,11 +248,6 @@ class Engine:
             raise NotImplementedError(
                 "sharded serving over a mesh is not ported yet (ROADMAP.md, "
                 "queue 1 item 14: mesh and fault tolerance)")
-        if cfg.impls or cfg.attn_impl is not None:
-            raise NotImplementedError(
-                "impls/attn_impl kernel pins need the kernel registry, which "
-                "is not ported yet (ROADMAP.md, queue 1 item 11); this "
-                "slice dispatches by tensor device")
         self.lm = lm
         self.cfg = cfg
         self.perfctr = perfctr
@@ -256,6 +269,7 @@ class Engine:
                     f"{sorted(KV_DTYPES)}")
             self.kv_dtype = KV_DTYPES[cfg.kv_dtype]
         self.quantized = cfg.kv_dtype == "int8"
+        self.impl_pins = self._validate_pins(cfg)
         # ---- speculative decoding: a draft model riding in the same pool
         self.spec = spec
         self.draft_lm: Optional[LM] = None
@@ -293,6 +307,56 @@ class Engine:
             # namespace doubles the pool's worst case
             self.pool_pages = cfg.pool_pages or (
                 2 * base_pages if spec is not None else base_pages)
+
+    def _validate_pins(self, cfg: ServeConfig) -> Dict[str, str]:
+        """The per-family kernel pins of ``cfg`` (the legacy ``attn_impl``
+        expansion with ``impls`` on top, inner wins per family), checked
+        at construction with the JAX engine's errors: unknown names, a
+        paged_decode pin on a dense engine, an fp pin on int8 pages or an
+        int8 pin on fp pages."""
+        pins: Dict[str, str] = {}
+        decode_pin = "paged_decode" in (cfg.impls or {})
+        if cfg.attn_impl is not None:
+            mapping = registry.legacy_mapping(cfg.attn_impl)
+            if mapping is None:
+                raise ValueError(
+                    f"unknown attention impl {cfg.attn_impl!r}; "
+                    f"choose from {tuple(registry.LEGACY_ATTN_MAP)}")
+            pins.update(mapping)
+            # the legacy "paged_decode" name pins the decode side only
+            decode_pin |= "attention" not in mapping
+        for fam, name in (cfg.impls or {}).items():
+            pins[fam] = registry.get_spec(fam, name).name  # validate eagerly
+        if decode_pin and not self.paged:
+            raise ValueError(
+                "a paged_decode kernel pin was requested, but this engine "
+                "is dense (page_size=0) — the pin would silently measure "
+                "the dense path; set page_size too")
+        pin = pins.get("paged_decode")
+        if pin is not None:
+            # a paged_decode pin must match the page storage flavor: an fp
+            # impl cannot read int8 codes and a q8 impl needs scales
+            pin_spec = registry.get_spec("paged_decode", pin)
+            if not pin_spec.supports(quantized=self.quantized):
+                want = ("cuda_paged_q8/torch_paged_q8" if self.quantized
+                        else "cuda_paged/torch_paged")
+                raise ValueError(
+                    f"paged_decode impl {pin!r} cannot read "
+                    f"kv_dtype={cfg.kv_dtype or 'model-dtype'!r} pages; "
+                    f"pin one of {want} (or drop the pin and let the "
+                    f"registry heuristic pick)")
+        return pins
+
+    def _impl_ctx(self):
+        """The engine's kernel pins and one read of the registry's
+        environment, entered around every prefill, decode and segment
+        (:func:`_pinned`): every call it makes resolves to the same
+        implementations."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(registry.env_snapshot())
+        if self.impl_pins:
+            stack.enter_context(registry.use_impl(**self.impl_pins))
+        return stack
 
     # -------------------------------------------------------------- helpers
     @property
@@ -467,6 +531,7 @@ class Engine:
             return lm.prefill(batch, state)
 
     # ----------------------------------------------------------------- API
+    @_pinned
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int = 32,
@@ -509,6 +574,7 @@ class Engine:
             host = self._fetch(torch.cat([out, n[:, None]], dim=1))
         return [host[i, :host[i, -1]].tolist() for i in range(b)]
 
+    @_pinned
     @torch.inference_mode()
     def generate_reference(self, prompts: Sequence[Sequence[int]],
                            max_new_tokens: int = 32,
@@ -596,6 +662,7 @@ class Engine:
         caches.length[slot] = new_row["caches"].length[0]
         return row_logits, state
 
+    @_pinned
     @torch.inference_mode()
     def prefill_slot(self, state: State, logits_buf: torch.Tensor,
                      prompt: Sequence[int], slot: int,
@@ -650,6 +717,7 @@ class Engine:
                     pool[:, dst] = pool[:, src]
         return state
 
+    @_pinned
     @torch.inference_mode()
     def decode_segment(self, state: State, logits: torch.Tensor,
                        steps: int,
@@ -682,6 +750,7 @@ class Engine:
         return dict(state, caches=caches._replace(
             length=lengths.to(torch.int32)))
 
+    @_pinned
     @torch.inference_mode()
     def draft_prefill_slot(self, dstate: State, prompt: Sequence[int],
                            slot: int, table_row: np.ndarray) -> State:
@@ -695,6 +764,7 @@ class Engine:
                 self.draft_lm, dstate, toks, slot, table_row)
         return dstate
 
+    @_pinned
     @torch.inference_mode()
     def spec_segment(self, state: State, dstate: State, logits: torch.Tensor,
                      generator: torch.Generator, spec_mask: torch.Tensor
@@ -885,6 +955,7 @@ class Engine:
 
     # ----------------------------------------------------- instrumentation
     @torch.inference_mode()
+    @_pinned
     def instrument(self, perfctr: Any, prompt_len: int = 16) -> None:
         """Attach a :class:`repro_torch.core.perfctr.PerfCtr` and probe the
         serving regions.

@@ -3,14 +3,19 @@
 * every bench's ``run(device="cpu")`` at ``--smoke`` holds its claims
   and returns the JAX bench summary's keys where their meaning carries;
 * the declared traffic of one qwen2-0.5b SMOKE decode step equals a hand
-  count, dense and paged, fp32 and int8 pages; the flash and paged
-  kernels' models equal brute-force counts;
+  count, dense and paged, fp32 and int8 pages, for the CPU's plain impl
+  (no launch) and pinned to the kernel's impl (one launch a layer); the
+  flash and paged kernels' models equal brute-force counts;
 * slice parity: bench_serve's smoke model, built by the JAX ``LM.init``
   and bridged, gives the JAX engine's greedy tokens on the bench's
   prompts (fp32), and so do bench_spec's fp32 legs (its own target and
   drafts, bridged from the JAX bench's ``_build``);
 * the runner and each bench exit non-zero on a missed speed bar (the
-  bar check itself; no speed is asserted on the CPU).
+  bar check itself; no speed is asserted on the CPU);
+* the tool layer's benches: the stream pinning bench's placement half
+  gives the JAX bench's hop costs and row, the marker-overhead and
+  perfctr benches run at ``--smoke`` on the CPU, and
+  ``examples/case_study_stream_torch.py`` prints the reference's table.
 """
 
 import dataclasses
@@ -34,10 +39,11 @@ from repro.serve import ServeConfig as JaxServeConfig  # noqa: E402
 from repro.serve.spec import SpecConfig as JaxSpecConfig  # noqa: E402
 from repro_torch.bench import (bench_flash_prefill,  # noqa: E402
                                bench_paged_decode, bench_serve, bench_spec,
-                               common, run)
+                               bench_stream_pinning, common, run)
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.qwen2_0_5b import SMOKE  # noqa: E402
 from repro_torch.core import events  # noqa: E402
+from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_traffic  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_traffic  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
@@ -160,16 +166,24 @@ def test_declared_decode_step_equals_hand_count(kv):
     state["caches"] = state["caches"]._replace(
         length=torch.tensor(LENGTHS, dtype=torch.int32))
     toks = torch.tensor([[3], [7], [9]], dtype=torch.int32)
-    with events.collect() as ev:
-        lm.decode_step(toks, state)
     flops, arg, out, launches = _hand_count(kv != "dense", kv == "int8",
                                             smax, ps)
-    assert ev["FLOPS_TOTAL"] == flops
-    assert ev["FLOPS_F32"] == flops                 # fp32 model
-    assert ev["HBM_ARG_BYTES"] == arg
-    assert ev["HBM_OUT_BYTES"] == out
-    assert ev["BYTES_ACCESSED"] == arg + out
-    assert ev["LAUNCHES"] == launches
+    # the CPU's registry choice is the paged family's plain impl, which
+    # declares the same work with no launch; pinned to the kernel's impl,
+    # the wrapper runs its plain version and declares one launch a layer
+    runs = [({}, 0)]
+    if kv != "dense":
+        runs.append(({"paged_decode": "cuda_paged_q8" if kv == "int8"
+                      else "cuda_paged"}, launches))
+    for pin, want_launches in runs:
+        with registry.use_impl(**pin), events.collect() as ev:
+            lm.decode_step(toks, state)
+        assert ev["FLOPS_TOTAL"] == flops
+        assert ev["FLOPS_F32"] == flops                 # fp32 model
+        assert ev["HBM_ARG_BYTES"] == arg
+        assert ev["HBM_OUT_BYTES"] == out
+        assert ev["BYTES_ACCESSED"] == arg + out
+        assert ev["LAUNCHES"] == want_launches
 
 
 def test_kernel_models_equal_brute_force_counts():
@@ -331,3 +345,67 @@ def test_bench_main_exit_code_follows_its_bar(monkeypatch, tmp_path):
         assert bench_spec.main(["--device", "cpu", "--smoke", "--json",
                                 str(out)]) == want
         assert out.exists()
+
+
+# ---------------------------------------------------------------------------
+# the tool layer's benches: stream pinning's placement half, the marker
+# overhead and the perfctr listing
+# ---------------------------------------------------------------------------
+
+def test_stream_pinning_placement_equals_the_reference_bench(capsys):
+    from benchmarks import bench_stream_pinning as jax_pinning
+    from repro.core import pin as jax_pin
+    from repro.core import topology as jax_topo
+    theirs, ours = [], []
+    jax_pinning.run(theirs, smoke=True)
+    place = bench_stream_pinning.placement(ours, smoke=True)
+    assert ours == [row for row in theirs if row[0] == "stream_pin_hops"]
+    topo = jax_topo.probe(spec=jax_topo.PRODUCTION_SINGLE_POD)
+    for name in ("compact", "scatter", "ring"):
+        order = jax_pin.get_strategy(name)(topo).device_ids
+        assert place["mesh_cost"][name] == \
+            jax_pinning._mesh_hop_cost(topo, order)
+        assert place["flat_cost"][name] == \
+            jax_pinning._flat_ring_cost(topo, order)
+    rng = np.random.default_rng(0)
+    meds = [jax_pinning._mesh_hop_cost(topo, rng.permutation(256))
+            for _ in range(5)]
+    assert place["unpinned_2d"]["median"] == float(np.median(meds))
+    out = capsys.readouterr().out
+    assert "pin[ring]" in out and "unpinned (random x5)" in out
+
+
+@pytest.mark.parametrize("name", ["marker_overhead", "perfctr"])
+def test_tool_benches_smoke_on_the_cpu(name, tmp_path):
+    bench = run.BENCHES[name]
+    assert name in run.TOOLS
+    out = tmp_path / f"{name}.json"
+    res = bench.main(["--smoke", "--device", "cpu", "--json", str(out)])
+    got = json.loads(out.read_text())
+    assert got["card"] == "cpu (host times)"
+    assert {k: v for k, v in got.items() if k != "card"} == \
+        json.loads(json.dumps(res))
+    if name == "marker_overhead":
+        assert abs(res["matmul"]["overhead"]) < res["matmul"]["bound"] == 1.0
+        paged = res["paged_decode"]
+        assert paged["bare_us"] > 0 and paged["measured_us"] > 0
+        # the plain impl on the CPU declares no launch
+        assert paged["region_launches"] == 0
+    else:
+        assert res["benchmark_calls"] == 2 and res["init_calls"] == 1
+        assert res["benchmark_flops"] == 2 * 4 * 128 ** 3
+
+
+def test_case_study_stream_torch_prints_the_reference_table(capsys):
+    import runpy
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    ours = runpy.run_path(str(root / "examples" /
+                              "case_study_stream_torch.py"))["main"]()
+    out = capsys.readouterr().out
+    theirs = runpy.run_path(str(root / "examples" / "case_study_stream.py"))
+    theirs["main"]()
+    jout = capsys.readouterr().out
+    assert out.replace("one link", "one ICI link") == jout
+    assert [r[0] for r in ours] == [4, 8, 16, 32, 64, 128, 256]
+    assert ours[-1][1] == 1.0      # the full snake: one hop a step

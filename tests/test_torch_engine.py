@@ -92,10 +92,18 @@ def test_paged_equals_dense_and_eos_stops_rows(models):
 
 def test_unported_serve_options_raise_and_scheduler_fields_pass(models):
     _, _, lm, prompts = models
+    # kernel pins are ported: the JAX package's names map onto the port's
+    # (the kernels' impls, which run their plain versions on the CPU) and
+    # the tokens do not move; a bad name is refused at construction
+    want = Engine(lm, ServeConfig(page_size=4), device="cpu").generate(
+        prompts[:2], 3)
     for kw in (dict(impls={"attention": "pallas_flash"}),
                dict(attn_impl="pallas_flash")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(lm, ServeConfig(page_size=4, **kw), device="cpu")
+        assert Engine(lm, ServeConfig(page_size=4, **kw),
+                      device="cpu").generate(prompts[:2], 3) == want
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        Engine(lm, ServeConfig(page_size=4, impls={"attention": "bogus"}),
+               device="cpu")
     eng = Engine(lm, ServeConfig(max_seq=64, prefix_cache=False,
                                  batch_slots=2, admission_chunk=3,
                                  pool_pages=5), device="cpu")

@@ -7,10 +7,16 @@ stencil case study, on the CPU.
   refused with ROADMAP item 14's citation, never ignored;
 * ``examples/case_study_stencil_torch.py`` holds the Jacobi kernel's
   plain version to the oracle and reports the declared Table I traffic at
-  a small lattice.
+  a small lattice;
+* ``--impl`` pins kernel impls through the registry (the port's names or
+  the JAX package's) without moving fp32 tokens, ``--attn-impl`` prints
+  the shared deprecation line and expands as the JAX launcher's does, a
+  bad spec exits non-zero, and the topology CLI refuses ``--mesh`` with
+  item 14's citation.
 """
 
 import argparse
+import contextlib
 import json
 import runpy
 from pathlib import Path
@@ -92,3 +98,92 @@ def test_stencil_case_study_runs_on_the_host(capsys):
     assert res["threaded_bytes"] == naive
     assert res["wavefront_bytes"] == kernel_bytes((16, 18, 40), 4, tile)
     assert res["wavefront_bytes"] < res["threaded_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# kernel pins: --impl / --attn-impl, and the tool CLIs' refusals
+# ---------------------------------------------------------------------------
+
+def _serve(tmp_path, *extra):
+    out = tmp_path / "s.json"
+    assert serve_launcher.main([
+        "--arch", "qwen2-0.5b", "--smoke-dims", "--device", "cpu",
+        "--dtype", "fp32", "--requests", "3", "--max-new", "4",
+        "--page-size", "4", "--json", str(out), *extra]) == 0
+    return json.loads(out.read_text())
+
+
+def test_serve_launcher_pins_impls_and_keeps_the_tokens(tmp_path, capsys):
+    base = _serve(tmp_path)
+    assert base["impls"] == {} and base["dtype"] == "fp32"
+    pinned = _serve(tmp_path, "--impl",
+                    "attention=torch_flash,paged_decode=torch_paged")
+    assert pinned["impls"] == {"attention": "torch_flash",
+                               "paged_decode": "torch_paged"}
+    assert "[serve] kernel impls pinned:" in capsys.readouterr().out
+    assert pinned["tokens"] == base["tokens"]
+    assert sorted(pinned["tokens"]) == ["0", "1", "2"]
+    # the JAX package's spelling maps onto the port's names
+    ref = _serve(tmp_path, "--impl", "attention=pallas_flash")
+    assert ref["impls"] == {"attention": "cuda_flash"}
+    assert ref["tokens"] == base["tokens"]
+
+
+def test_serve_launcher_attn_impl_is_deprecated_and_expands(tmp_path,
+                                                            capsys):
+    with pytest.warns(DeprecationWarning, match="--attn-impl full"):
+        got = _serve(tmp_path, "--attn-impl", "full")
+    assert "[cli] --attn-impl full is deprecated" in capsys.readouterr().out
+    assert got["impls"] == {"attention": "full",
+                            "paged_decode": "torch_paged"}
+
+
+@pytest.mark.parametrize("bad", [["--impl", "attention=bogus"],
+                                 ["--impl", "attention"],
+                                 ["--impl", "nofamily=full"],
+                                 ["--attn-impl", "bogus"]])
+def test_serve_launcher_refuses_a_bad_impl_spec(bad, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve_launcher.main(["--arch", "qwen2-0.5b", "--smoke-dims",
+                             "--device", "cpu", *bad])
+    assert exc.value.code not in (0, None)
+    assert "error" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--attn-impl", "pallas_flash", "--impl", "ssd_scan=jnp_scan"],
+    ["--attn-impl", "paged_decode"],
+    ["--attn-impl", "full", "--impl", "paged_decode=jnp_paged"],
+    ["--impl", "attention=jnp_flash,paged_decode=pallas_paged"]])
+def test_impl_helpers_match_the_jax_launcher(argv):
+    """The flags the serving launcher hands to ServeConfig resolve, on the
+    port's engine, to the pins the JAX launcher's ``resolve_impls`` gives
+    (in the port's names)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import registry
+    from repro_torch.models.lm import LM
+    _, args = _parse(lambda a: cli.add_impl_args(a, legacy_attn=True),
+                     argv)
+    _, jargs = _parse(lambda a: jax_cli.add_impl_args(
+        a, tune=False, legacy_attn=True), argv)
+    assert (args.impl, args.attn_impl) == (jargs.impl, jargs.attn_impl)
+    with pytest.warns(DeprecationWarning) if jargs.attn_impl else \
+            contextlib.nullcontext():
+        theirs = jax_cli.resolve_impls(jargs)
+    lm = LM(get_arch("qwen2-0.5b").smoke, torch.float32, "cpu")
+    eng = engine.Engine(lm, engine.ServeConfig(
+        page_size=4, max_seq=32, attn_impl=args.attn_impl,
+        impls=registry.parse_impl_spec(args.impl) if args.impl else None),
+        device="cpu")
+    assert eng.impl_pins == {f: registry.REFERENCE_NAMES[f][n]
+                             for f, n in theirs.items()}
+    _, none = _parse(cli.add_impl_args, [])
+    assert none.impl is None and not hasattr(none, "attn_impl")
+
+
+def test_topology_cli_refuses_the_mesh_with_item_14(capsys):
+    from repro_torch.launch import topology as topo_cli
+    with pytest.raises(SystemExit) as exc:
+        topo_cli.main(["--device", "cpu", "--mesh", "2x4"])
+    assert exc.value.code == 2
+    assert "item 14" in capsys.readouterr().err
