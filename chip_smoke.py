@@ -176,10 +176,32 @@ failure):
                decode call costs through ``registry.run`` beside the direct
                wrapper; ``python -m repro_torch.bench --only
                marker_overhead,perfctr,stream_pinning`` (both overhead
-               cases printed beside the card's name and power limit).
+               cases printed beside the card's name and power limit);
+18. tune half - the kernel registry's autotuner: (a) ``run_tune_suite``
+               over ``perf_report.CARD_SUITE`` (every tunable family at the
+               serving paths' shapes: qwen2 prefill and int8 / bf16 paged
+               decode, argmax over 151936 logits, zamba2's SSD call, the
+               triad at 2^27, Jacobi 512^3 at T = 4), cold in a fresh
+               cache root and a fresh process (``bench_autotune --suite
+               card``); each family's per-candidate device us, winner and
+               default printed, and every measured candidate held to its
+               plain version at phase 3's tolerances; (b) the same suite
+               in another fresh process on that root: 0 sweeps, 0 timed
+               probes, equal choices; (c) ``python -m
+               repro_torch.launch.serve --arch qwen2-0.5b --page-size 16
+               --kv-dtype int8 --tune`` at full width, bf16, cold then warm
+               (0 timed probes), printing where each served call's tile
+               came from; (d) fp32 qwen2-0.5b greedy (4 prompts, 16
+               tokens) on the default tiles, then every call site it
+               resolved autotuned at its own facts, then on the tuned
+               tiles: equal tokens and launch counts, logits within phase
+               6's bound.  Phases 1-17 run with ``REPRO_CACHE_DIR`` set to
+               a fresh temporary root, so no earlier tune record moves
+               their tiles.
 
-Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16 and 17's serving runs
-are the main paths:
+Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs and
+18's suite (its launches counted in its process) and tuned generate are
+the main paths:
 each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
@@ -205,6 +227,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+#: this run's temporary directory (artifact-cache roots), removed at exit
+TMP_ROOT = None
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense tensor-core bf16 peak
@@ -293,12 +317,16 @@ def close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 
 def check_flash(dev, timer):
-    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+    from repro_torch.kernels.flash_attention import (FLASH_PAIRS,
+                                                     flash_attention_bhsd,
                                                      flash_attention_plain)
     rng = np.random.default_rng(0)
 
     def case(b, h, kvh, sq, sk, dh, dtype, causal, q_offset, kv_valid,
              bshd=False):
+        """Every (bq, bk) pair the kernel builds for ``dtype`` against the
+        plain version (the tuner may serve any of them); returns the
+        default pair's max|err|."""
         def rnd(n, s):              # BSHD transposed to BHSD, as the model
             if bshd:
                 return torch.from_numpy(rng.standard_normal(
@@ -309,21 +337,25 @@ def check_flash(dev, timer):
         q, k, v = rnd(h, sq), rnd(kvh, sk), rnd(kvh, sk)
         kvv = torch.tensor(kv_valid, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, q_offset=q_offset, kv_valid=kvv)
-        got = flash_attention_bhsd(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        name = (f"flash b{b} h{h}/{kvh} sq{sq} sk{sk} dh{dh} "
-                f"{str(dtype)[6:]} causal={causal} q_offset={q_offset} "
-                f"kv_valid={kv_valid}{' bshd views' if bshd else ''}")
-        for i, n in enumerate(kv_valid):
-            if n == 0 and got[i].any():
-                fail(f"{name}: row {i} has no live key but is not 0")
-        return close(name, got, want), (q, k, v, kw)
+        errs = []
+        for bq, bk in FLASH_PAIRS[dtype]:
+            got = flash_attention_bhsd(q, k, v, bq=bq, bk=bk, **kw)
+            torch.cuda.synchronize()
+            name = (f"flash ({bq}, {bk}) b{b} h{h}/{kvh} sq{sq} sk{sk} "
+                    f"dh{dh} {str(dtype)[6:]} causal={causal} "
+                    f"q_offset={q_offset} kv_valid={kv_valid}"
+                    f"{' bshd views' if bshd else ''}")
+            for i, n in enumerate(kv_valid):
+                if n == 0 and got[i].any():
+                    fail(f"{name}: row {i} has no live key but is not 0")
+            errs.append(close(name, got, want))
+        return errs[0], (q, k, v, kw)
 
-    # edge cases, in fp32 (CUDA cores) and bf16 (tensor cores): ragged
-    # kv_valid including 0, S not a multiple of 64, causal and not,
-    # q_offset > 0 with Sq < Sk, every head dim, many kv tiles through the
-    # two-stage ring
+    # edge cases, in fp32 (CUDA cores) and bf16 (tensor cores), each at
+    # every (bq, bk) pair: ragged kv_valid including 0, S not a multiple
+    # of any tile, causal and not, q_offset > 0 with Sq < Sk, every head
+    # dim, many kv tiles through the two-stage ring
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
             case(3, 4, 2, 100, 100, 64, dtype, causal, 0, [100, 0, 37])
@@ -2381,7 +2413,8 @@ def selection_cost(lm, prompts, paged, smi, rounds=8):
 
     ctx_us = statistics.median(host_us(enter_ctx) for _ in range(3))
     # the runners the CUDA heuristics pick (phase 17's counts hold them)
-    default = {"attention": "cuda_flash", "paged_decode": "cuda_paged"}
+    default = {"attention": "cuda_flash", "paged_decode": "cuda_paged",
+               "sampling": "cuda_greedy"}
     runners = {f: registry.get_spec(f, n).fn for f, n in default.items()}
     selecting = registry.run
 
@@ -2402,7 +2435,8 @@ def selection_cost(lm, prompts, paged, smi, rounds=8):
                 registry.run = selecting
     med = {k: statistics.median(v) for k, v in walls.items()}
     low = {k: min(v) for k, v in walls.items()}
-    calls = lm.cfg.n_layers * REGISTRY_NEW      # flash + paged a generate
+    # flash + paged a layer, one sampling call a token
+    calls = (lm.cfg.n_layers + 1) * REGISTRY_NEW
     log(f"  the engine's per-call context (env snapshot, no pin): "
         f"{ctx_us:.2f} host us, once a generate [{smi}]")
     for k, v in walls.items():
@@ -2554,17 +2588,318 @@ def tool_benches(smi):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the registry's tune half (ProfileSession, the artifact cache,
+# autotune / best over every kernel family, --tune, bench_autotune)
+# ---------------------------------------------------------------------------
+
+TUNE_NEW = 16
+
+
+def fresh_root(tag: str) -> str:
+    """A new, empty artifact-cache root under this run's temporary
+    directory (removed at exit)."""
+    import tempfile
+    return tempfile.mkdtemp(prefix=f"{tag}-", dir=TMP_ROOT)
+
+
+def cell_facts(cell, suite):
+    """(family, impl, the lookup facts) of a suite cell: the sweep's facts
+    on the card, with the page size a paged runner's lookup adds."""
+    from repro_torch.core.perf_report import suite_family
+    family, impl, facts = suite_family(cell, suite)
+    full = dict(facts, backend="cuda")
+    full["dtype"] = getattr(torch, facts.get("dtype", "float32"))
+    if family == "paged_decode":
+        full["page_size"] = PAGE_SIZE
+    return family, impl, full
+
+
+def hold_to_plain(name, family, out, want):
+    """One tune candidate's output against the plain version's, at phase
+    3's tolerances (argmax exact; the SSD scan's y, C and n at
+    ``ssd_tol``); returns max|err|."""
+    if family == "sampling":
+        if not torch.equal(out, want):
+            fail(f"{name}: tokens {out.tolist()} != plain {want.tolist()}")
+        return 0.0
+    if family == "ssd_scan":
+        (y, (c, n)), (yp, (cp, np_)) = out, want
+        for what, g, w in (("y", y, yp), ("C", c, cp), ("n", n, np_)):
+            torch.testing.assert_close(g.float(), w.float(), **ssd_tol(w),
+                                       msg=lambda m: f"{name} {what}: {m}")
+        return (y.float() - yp.float()).abs().max().item()
+    tol = TOL[want.dtype]
+    torch.testing.assert_close(out.float(), want.float(), **tol,
+                               msg=lambda m: f"{name}: {m}")
+    return (out.float() - want.float()).abs().max().item()
+
+
+def hold_candidates(label, family, impl, facts, cands):
+    """Each tune candidate ``cands`` of ``family``/``impl`` at ``facts``
+    (as ``registry.autotune`` sweeps them: on the card, inputs from the
+    tune space's seed) against its plain version, via
+    :func:`hold_to_plain`; returns the max|err| of each."""
+    from repro_torch.kernels import registry
+    ts = registry._tuned_spec(family, impl).tune
+    full = dict(facts, backend="cuda")
+    full.setdefault("dtype", torch.float32)
+    errs = []
+    for cand in cands:
+        cand = tuple(cand)
+        fn, args = ts.probe(cand, **full)
+        out = fn(*args)
+        want = ts.plain(cand, **full)(*args)
+        errs.append(hold_to_plain(f"{label} {list(cand)}", family, out,
+                                  want))
+        del fn, args, out, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def bench_autotune_card(root, *extra):
+    """``python -m repro_torch.bench.bench_autotune --suite card`` in a
+    fresh process over the cache root ``root``: its summary and seconds."""
+    import os
+    out = Path(root) / f"bench_autotune_{len(os.listdir(root))}.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_CACHE_DIR=root)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench.bench_autotune",
+         "--suite", "card", "--json", str(out), *extra],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"bench_autotune --suite card {' '.join(extra)} exited "
+             f"{res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    return json.loads(out.read_text()), secs
+
+
+def tune_suite_cold(smi):
+    """Phase 18(a): ``run_tune_suite`` over ``CARD_SUITE``, cold, in a
+    fresh root (``bench_autotune --suite card`` in a fresh process: late
+    in a long process ``torch.profiler`` stops reporting kernels, PERF.md
+    §7), every candidate timed on the card; then every measured
+    candidate held against its plain version here (launches for that do
+    not count)."""
+    from repro_torch.core.perf_report import CARD_SUITE
+    from repro_torch.kernels import registry
+    root = fresh_root("tune-suite")
+    cold, secs = bench_autotune_card(root)
+    res = cold["families"]
+    if cold["sweeps"] != len(CARD_SUITE) or cold["lowerings"] < len(res):
+        fail(f"cold tune suite: {cold['sweeps']} sweeps, "
+             f"{cold['lowerings']} timed probes")
+    log(f"  cold, fresh process: {cold['sweeps']} families swept, "
+        f"{cold['lowerings']} timed probes ({cold['event_timed']} timed by "
+        f"CUDA events) in {cold['seconds']:.1f} s of sweeping, "
+        f"{secs:.1f} s of command [{smi}]")
+    t0 = time.perf_counter()
+    for cell, r in res.items():
+        family, impl, full = cell_facts(cell, CARD_SUITE)
+        ts = registry._tuned_spec(family, impl).tune
+        default = list(ts.resolve_default(**full))
+        scores = {k: v for k, v in r["scores_us"].items()
+                  if v != float("inf")}
+        errs = hold_candidates(f"tune {cell}", family, impl, full,
+                               [json.loads(k) for k in scores])
+        per = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            scores.items(), key=lambda kv: kv[1]))
+        d_us = scores.get(str(default))
+        if d_us is None or not r["score_us"] > 0:
+            fail(f"tune {cell}: default {default} not swept, or a zero "
+                 f"score: {r}")
+        log(f"  {cell}: {r['key']}: winner {r['choice']} "
+            f"{r['score_us']:.2f} device us (timer {r['timer']}); default "
+            f"{default} "
+            f"{d_us:.2f} us (default / winner "
+            f"{d_us / r['score_us']:.3f}); per candidate: {per}; "
+            f"{len(scores)} held to the plain version, max|err| "
+            f"{max(errs):.3g} [{smi}]")
+    log(f"  {sum(len(r['scores_us']) for r in res.values())} candidates "
+        f"held to their plain versions in {time.perf_counter() - t0:.1f} s")
+    launches = cold["launches"]
+    for k in launches:
+        if launches[k] < 1:
+            fail(f"tune suite: {k} never launched")
+    log(f"  launches {launches}")
+    return root, res, launches
+
+
+def tune_suite_warm(root, cold, smi):
+    """Phase 18(b): the same suite in a fresh process on the same root:
+    0 sweeps and 0 timed probes, the same choices."""
+    warm, secs = bench_autotune_card(root, "--assert-warm")
+    if warm["sweeps"] or warm["lowerings"]:
+        fail(f"warm tune suite: {warm['sweeps']} sweeps, "
+             f"{warm['lowerings']} timed probes")
+    for cell, r in cold.items():
+        got = warm["families"][cell]["choice"]
+        if got != r["choice"]:
+            fail(f"warm tune suite: {cell} chose {got}, cold {r['choice']}")
+    log(f"  fresh process, same root: 0 sweeps, 0 timed probes, "
+        f"{len(cold)} equal choices in {secs:.1f} s (command, process start "
+        f"included) [{smi}]")
+
+
+def tune_launcher(smi):
+    """Phase 18(c): the serving launcher at qwen2-0.5b's full width,
+    bf16, int8 pages of 16, ``--tune``, cold and then warm in a fresh
+    root; where each served call's tile came from."""
+    root = fresh_root("tune-serve")
+    argv = ["repro_torch.launch.serve", "--arch", "qwen2-0.5b",
+            "--page-size", str(PAGE_SIZE), "--kv-dtype", "int8", "--tune",
+            "--cache-dir", root, "--requests", "8", "--slots", "8",
+            "--max-seq", "1024", "--prompt-len", "128", "--max-new", "16"]
+    runs = []
+    for leg in ("cold", "warm"):
+        out = Path(root) / f"{leg}.json"
+        t0 = time.perf_counter()
+        run_cli(argv + ["--json", str(out)], timeout=600)
+        secs = time.perf_counter() - t0
+        summary = json.loads(out.read_text())
+        tune = summary["tune"]
+        runs.append(tune)
+        log(f"  launcher {leg}: {tune['stats']}; "
+            f"{summary['requests']} requests at {summary['tok_s']:.1f} "
+            f"tokens/s, {secs:.1f} s of command [{smi}]")
+        for fam, c in tune["choices"].items():
+            log(f"    {fam}: {c['key']} -> {c['choice']} "
+                f"({'swept' if c['swept'] else 'warm'}, "
+                f"{c['timed_probes']} timed probes)")
+        for row in tune["served"]:
+            log(f"    served {row['family']}/{row['impl']} {row['key']}: "
+                f"{row['choice']} from {row['source']}")
+        if summary["requests"] != 8 or not tune["served"]:
+            fail(f"launcher {leg}: {summary['requests']} requests, served "
+                 f"sites {tune['served']}")
+    cold, warm = runs
+    for fam, c in cold["choices"].items():
+        facts = dict(c["facts"], dtype=getattr(torch, c["facts"]["dtype"]))
+        cands = [json.loads(k) for k, v in c["scores_us"].items()
+                 if v != float("inf")]
+        errs = hold_candidates(f"launcher tune {fam}", fam, c["impl"],
+                               facts, cands)
+        log(f"    {fam}: {len(cands)} swept candidates held to the plain "
+            f"version, max|err| {max(errs):.3g} (timer {c['timer']})")
+    if cold["timed_probes"] < 1 or warm["timed_probes"] != 0:
+        fail(f"launcher --tune: cold timed {cold['timed_probes']} probes, "
+             f"warm {warm['timed_probes']} (want > 0, then 0)")
+    if {k: v["choice"] for k, v in cold["choices"].items()} != \
+            {k: v["choice"] for k, v in warm["choices"].items()}:
+        fail(f"launcher --tune: warm choices {warm['choices']} differ from "
+             f"cold {cold['choices']}")
+
+
+def tuned_generate(dev, smi):
+    """Phase 18(d): fp32 qwen2-0.5b (the embedding scaled by 0.1, as in
+    phase 6), 4 prompts, 16 greedy tokens: the default tiles (an empty
+    table over an empty root), then every call site that run resolved
+    autotuned at its own facts, then the same generate on the tuned
+    tiles: equal tokens, logits within phase 6's bound."""
+    import os
+    from repro_torch.core.session import ProfileSession
+    from repro_torch.kernels import registry
+    from repro_torch.serve.engine import Engine, ServeConfig
+    lm = qwen2(dev, torch.float32, embed_scale=0.1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, lm.cfg.vocab, n).tolist()
+               for n in PROMPT_LENS[:4]]
+    eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024))
+    prev_root = os.environ["REPRO_CACHE_DIR"]
+    os.environ["REPRO_CACHE_DIR"] = fresh_root("tune-generate")
+    try:
+        registry.clear_tune_table()
+        runs = {}
+        for leg in ("default", "tuned"):
+            if leg == "tuned":
+                sess = ProfileSession(cache_dir=os.environ[
+                    "REPRO_CACHE_DIR"])
+                t0 = time.perf_counter()
+                for family, impl, facts in sites:
+                    f = dict(facts)
+                    cands = None
+                    if family == "paged_decode":
+                        ps = f.pop("page_size")
+                        cands = [(ps, sp) for sp in (1, 2, 4, 8)]
+                    rec = registry.autotune(family, sess, impl=impl,
+                                            candidates=cands, **f)
+                    errs = hold_candidates(
+                        f"tuned {family}/{impl}", family, impl, f,
+                        [c for c, v in rec.scores.items()
+                         if v != float("inf")])
+                    log(f"    tuned {family}/{impl} {rec.key}: "
+                        f"{rec.choice} over {len(rec.scores)} candidates "
+                        f"(timer {rec.timer}), each held to the plain "
+                        f"version, max|err| {max(errs):.3g}")
+                log(f"  {len(sites)} call sites tuned, their candidates "
+                    f"held, in {time.perf_counter() - t0:.1f} s "
+                    f"({sess.stats()})")
+            reset_counters()
+            with LogitsRecorder() as rec:
+                out = eng.generate(prompts, TUNE_NEW)
+                torch.cuda.synchronize()
+            launches = read_counters()
+            served = [(f, i, fa, *registry.resolve(f, impl=i, **fa))
+                      for f, i, fa in registry.served_sites()]
+            runs[leg] = (out, launches, rec.steps, served)
+            if leg == "default":
+                sites = [(f, i, fa) for f, i, fa, _c, _s in served]
+            for f, i, fa, choice, source in served:
+                log(f"    {leg}: {f}/{i} b={fa.get('b')} -> {choice} from "
+                    f"{source}")
+            want_src = {"default"} if leg == "default" else {"swept"}
+            if {s for *_x, s in served} != want_src or len(served) < 3:
+                fail(f"tuned generate ({leg}): served sources "
+                     f"{[(f, s) for f, _i, _fa, _c, s in served]}")
+        (o0, l0, g0, s0), (o1, l1, g1, s1) = runs.values()
+        if o0 != o1:
+            fail(f"tuned generate: tokens {o1} != default tiles' {o0}")
+        if l0 != l1:
+            fail(f"tuned generate: launches {l1} != default tiles' {l0}")
+        err, rel = logits_parity("tuned generate", g1, g0)
+        differ = [f"{f}/{i}: {c0} -> {c1}" for (f, i, _a, c0, _s),
+                  (_f, _i, _b, c1, _t) in zip(s0, s1) if c0 != c1]
+        log(f"  fp32 greedy tokens equal on the default and the tuned tiles "
+            f"({distinct_tokens(o0)[0]} distinct tokens); logits of "
+            f"{len(g0)} steps: max|d| {err:.3g}, max|d|/max|logit| "
+            f"{rel:.3g} (bound {LOGITS_REL_TOL}); tiles that moved: "
+            f"{differ or 'none (every winner was the default)'} [{smi}]")
+    finally:
+        os.environ["REPRO_CACHE_DIR"] = prev_root
+        registry.clear_tune_table()
+    del lm, eng
+    torch.cuda.empty_cache()
+    return runs["tuned"][1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    import os
+    import shutil
+    import tempfile
+    global TMP_ROOT
+    TMP_ROOT = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        # phases 1-17 read and write tune records in a fresh, empty root,
+        # so no earlier tune record can change their tiles
+        os.environ["REPRO_CACHE_DIR"] = fresh_root("phases-1-17")
+        return run_phases()
+    finally:
+        shutil.rmtree(TMP_ROOT, ignore_errors=True)
+
+
+def run_phases() -> int:
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/17] probe")
+    log("[1/18] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -2581,12 +2916,12 @@ def main() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    log("[2/17] build")
+    log("[2/18] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/17] kernels vs plain versions")
+    log("[3/18] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -2598,26 +2933,26 @@ def main() -> int:
             f"{r['bound_by']})")
     del timer
 
-    log("[4/17] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    log("[4/18] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/17] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    log("[5/18] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
         "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    log("[6/17] fp32 token check: card paged / card dense / cpu paged")
+    log("[6/18] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/17] fp32 scheduler token check: card scheduler / card generate "
+    log("[7/18] fp32 scheduler token check: card scheduler / card generate "
         "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    log("[8/17] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    log("[8/18] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    log("[9/17] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    log("[9/18] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -2627,10 +2962,10 @@ def main() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    log("[10/17] fp32 zamba2 token check: card / cpu, 7 layers")
+    log("[10/18] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    log("[11/17] case-study kernels vs plain versions: STREAM triad, "
+    log("[11/18] case-study kernels vs plain versions: STREAM triad, "
         "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -2640,14 +2975,14 @@ def main() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    log("[12/17] main path 5: the case studies through PerfCtr marker "
+    log("[12/18] main path 5: the case studies through PerfCtr marker "
         "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    log("[13/17] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    log("[13/18] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
         "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -2655,11 +2990,11 @@ def main() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    log("[14/17] main path 7: speculative decoding, K = 4, 2-layer matched "
+    log("[14/18] main path 7: speculative decoding, K = 4, 2-layer matched "
         "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    log("[15/17] main path 8: serving snapshots and chaos: (a) fp32 "
+    log("[15/18] main path 8: serving snapshots and chaos: (a) fp32 "
         "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
         "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -2667,13 +3002,13 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    log("[16/17] main path 9: the serving benches (serve, paged decode, "
+    log("[16/18] main path 9: the serving benches (serve, paged decode, "
         "flash prefill, spec) at their default sizes, serve and spec at "
         "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    log("[17/17] main path 10: the tool layer (topology, pin, features) "
+    log("[17/18] main path 10: the tool layer (topology, pin, features) "
         "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
         "default kernels against the torch pins three ways")
     topology_check(dev, smi)
@@ -2681,6 +3016,18 @@ def main() -> int:
     registry_families_check(dev, smi)
     tool_benches(smi)
     torch.cuda.empty_cache()
+
+    log("[18/18] main path 11: the registry's tune half: (a) every tunable "
+        "family's card cell swept cold, each candidate held to its plain "
+        "version; (b) warm in a fresh process; (c) the launcher's --tune "
+        "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
+        "tuned tiles against the default tiles")
+    t18 = time.perf_counter()
+    root, cold, tune_launches = tune_suite_cold(smi)
+    tune_suite_warm(root, cold, smi)
+    tune_launcher(smi)
+    tuned_gen_launches = tuned_generate(dev, smi)
+    log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
@@ -2689,11 +3036,16 @@ def main() -> int:
                "snapshot_restore_fp32": snap_launches,
                "chaos_restore_int8": chaos_launches, **bench_launches,
                "registry_generate_fp32": reg_launches,
-               "registry_scheduler_int8": reg_q8_launches}
+               "registry_scheduler_int8": reg_q8_launches,
+               "tune_suite_card": tune_launches,
+               "tuned_generate_fp32": tuned_gen_launches}
     for r in rows:
         r["launches_by_path"] = (
-            {"perfctr": r["launches"]} if r in case_rows else
-            {p: c[r["name"]] for p, c in by_path.items() if c[r["name"]]})
+            {"perfctr": r["launches"],
+             "tune_suite_card": tune_launches[r["name"]]}
+            if r in case_rows else
+            {p: c[r["name"]] for p, c in by_path.items()
+             if c.get(r["name"])})
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

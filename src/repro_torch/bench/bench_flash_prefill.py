@@ -19,12 +19,17 @@ timed; ``torch.nn.functional.scaled_dot_product_attention`` with the same
 mask is timed beside them as ``library_us`` (the port never calls it on
 its path).  qwen2-0.5b's prefill shape (14 heads over 2, Dh 64, 8 ragged
 prompts of up to 512 tokens) runs too, in bf16, held at the repo's bf16
-tolerance (rtol = atol = 3e-2).  The autotune half
-(``autotune_flash_blocks``) waits for the kernel registry (``ROADMAP.md``,
-queue 1 item 11).
+tolerance (rtol = atol = 3e-2).
+
+The autotune half (``--tune``, or ``run(..., tune=True)``): the kernel's
+``(bq, bk)`` at the JAX bench's shape through ``registry.autotune`` and a
+``ProfileSession`` (timed on the card; the roofline over declared events
+on the CPU), where the JAX bench goes through the deprecated
+``kernels/autotune.py``; then the same sweep on a fresh session over the
+same cache, which must time nothing (raises otherwise).
 
     PYTHONPATH=src python -m repro_torch.bench.bench_flash_prefill
-        [--smoke] [--device cpu] [--json PATH]
+        [--smoke] [--device cpu] [--tune] [--json PATH]
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.bench.common import (card_line, claim, finish,
-                                      setup_device, timed)
+                                      setup_device, timed, tune_session)
 from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
                                                  flash_attention_plain)
 from repro_torch.models.attention import NEG_INF, _gqa_out, _gqa_scores
@@ -133,7 +138,53 @@ def _case(name: str, b, h, kvh, sq, sk, dh, kv_len, q_offset, dtype,
             "parity_max_err": errs, "library_us": lib * 1e6}
 
 
-def run(csv: list, smoke: bool = False, device="cuda") -> Dict:
+def autotune_half(csv: list, sh: Dict[str, int], smoke: bool, device,
+                  session=None) -> Dict:
+    """The (bq, bk) sweep at ``sh`` in fp32, cold and then on a fresh
+    session over the same cache (which must time nothing); without a
+    ``session``, one from :func:`tune_session`."""
+    import time
+
+    from repro_torch.core.artifact_cache import ArtifactCache
+    from repro_torch.core.session import ProfileSession
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import FLASH_PAIRS
+    if session is None:
+        with tune_session() as session:
+            return autotune_half(csv, sh, smoke, device, session)
+    cands = ((64, 32), (32, 32)) if smoke else FLASH_PAIRS[torch.float32]
+    kw = dict(sh, dtype=torch.float32, causal=True, backend=device.type,
+              candidates=cands)
+    t0 = time.perf_counter()
+    rec = registry.autotune("attention", session, **kw)
+    t_cold = time.perf_counter() - t0
+    warm = ProfileSession(cache=ArtifactCache(
+        session.cache.root, enabled=session.cache.enabled))
+    t0 = time.perf_counter()
+    registry.autotune("attention", warm, **kw)
+    t_warm = time.perf_counter() - t0
+    print("== (bq, bk) autotune over ProfileSession ==")
+    for (bq, bk), score in sorted(rec.scores.items(), key=lambda kv: kv[1]):
+        mark = " <- chosen" if (bq, bk) == tuple(rec.choice) else ""
+        print(f"  bq={bq:<4d} bk={bk:<4d} {score * 1e6:9.3f} us{mark}")
+    print(f"cold sweep: {rec.lowerings} timed probes, {t_cold:.2f}s; "
+          f"warm rerun: {warm.lowerings} timed probes, {t_warm:.2f}s")
+    if session.cache.enabled:
+        claim(warm.lowerings == 0,
+              f"warm autotune re-timed {warm.lowerings} candidates")
+    csv.append(("flash_autotune_warm_s", t_warm * 1e6,
+                f"lowerings_warm={warm.lowerings},"
+                f"lowerings_cold={rec.lowerings}"))
+    return {"bq": rec.choice[0], "bk": rec.choice[1], "key": rec.key,
+            "score_us": rec.score_s * 1e6,
+            "lowerings_cold": rec.lowerings,
+            "lowerings_warm": warm.lowerings,
+            "candidates": {f"{bq}x{bk}": sc
+                           for (bq, bk), sc in rec.scores.items()}}
+
+
+def run(csv: list, smoke: bool = False, device="cuda",
+        tune: bool = False) -> Dict:
     device = torch.device(device)
     sh = shapes(smoke)
     b, sq, sk = sh["b"], sh["sq"], sh["sk"]
@@ -154,7 +205,10 @@ def run(csv: list, smoke: bool = False, device="cuda") -> Dict:
                     f"library_us={r['library_us']:.1f}"))
         csv.append((f"flash_prefill_{tag}plain", r["impl_us"]["plain"],
                     f"max_err={r['parity_max_err']['plain']:.1e}"))
-    return dict(res, qwen2=qwen2)
+    out = dict(res, qwen2=qwen2)
+    if tune:
+        out["autotune"] = autotune_half(csv, sh, smoke, device)
+    return out
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -165,11 +219,13 @@ def main(argv: Optional[list] = None) -> int:
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="write the summary here")
+    ap.add_argument("--tune", action="store_true",
+                    help="also run the (bq, bk) autotune half")
     args = ap.parse_args(argv)
     device = setup_device(args.device)
     print(f"[bench_flash_prefill] device {device}: {card_line(device)}")
     csv: list = []
-    summary = run(csv, smoke=args.smoke, device=device)
+    summary = run(csv, smoke=args.smoke, device=device, tune=args.tune)
     return finish("bench_flash_prefill", csv, summary, args, device)
 
 

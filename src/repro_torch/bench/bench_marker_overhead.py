@@ -8,8 +8,10 @@ construction.  The port's events are declared by the code that runs
 region, an open event collection timed by CUDA events, and what each
 declaring call does inside it.  Two cases, each timed bare and inside an
 open ``PerfCtr.marker`` with the region's event collection open
-(``region_timer``), in the order bare, measured, measured, bare, the
-card synchronized around each loop:
+(``region_timer``), in the order bare, measured, measured, bare, three
+rounds of it, the card synchronized around each loop; the overhead is the
+medians' (a call of the reference's case is tens of microseconds of host
+time, so one slow loop on a shared host is not the marker's cost):
 
 1. **The reference's case**: ``tanh(x @ x)`` at n = 384 fp32, 50 calls a
    loop (n = 128 and 5 with ``--smoke``).  Plain PyTorch declares
@@ -59,17 +61,20 @@ def _time(fn: Callable, reps: int, device: torch.device) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def overhead(fn: Callable, reps: int, ctr: PerfCtr, region: str) -> Dict:
+def overhead(fn: Callable, reps: int, ctr: PerfCtr, region: str,
+             rounds: int = 3) -> Dict:
     """Bare against measured seconds a call (bare, measured, measured,
-    bare) and the relative overhead of the means."""
+    bare, ``rounds`` times) and the relative overhead of the medians."""
     def measured() -> float:
         with ctr.marker(region), ctr.region_timer(region):
             return _time(fn, reps, ctr.device)
 
-    bare = [_time(fn, reps, ctr.device)]
-    meas = [measured(), measured()]
-    bare.append(_time(fn, reps, ctr.device))
-    t_bare, t_meas = float(np.mean(bare)), float(np.mean(meas))
+    bare, meas = [], []
+    for _ in range(rounds):
+        bare.append(_time(fn, reps, ctr.device))
+        meas += [measured(), measured()]
+        bare.append(_time(fn, reps, ctr.device))
+    t_bare, t_meas = float(np.median(bare)), float(np.median(meas))
     return {"bare_us": t_bare * 1e6, "measured_us": t_meas * 1e6,
             "bare_runs_us": [t * 1e6 for t in bare],
             "measured_runs_us": [t * 1e6 for t in meas],

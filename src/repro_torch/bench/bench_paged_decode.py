@@ -30,12 +30,17 @@ untimed run of the same requests: decode bytes a token are the
 the ``serve.prefill`` region's.  The paged kernels read live pages only,
 where the JAX artifact prices the whole table, so the int8 comparison
 runs on the long-context mix (rows near ``max_seq / 2``), the rows the
-JAX bench's full table stands for.  The JAX bench's
-``(page_size, pages_per_block)`` autotune section waits for the kernel
-registry (``ROADMAP.md``, queue 1 item 11).
+JAX bench's full table stands for.
+
+The autotune half (``--tune``, or ``run(..., tune=True)``): the paged
+kernel's ``(page_size, split)`` — where the JAX bench sweeps
+``(page_size, pages_per_block)`` through the deprecated
+``kernels/autotune.py`` — at the bench's decode shape through
+``registry.autotune`` and a ``ProfileSession``, then the same sweep on a
+fresh session over the same cache, which must time nothing.
 
     PYTHONPATH=src python -m repro_torch.bench.bench_paged_decode
-        [--smoke] [--device cpu] [--json PATH]
+        [--smoke] [--device cpu] [--tune] [--json PATH]
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.bench.common import (card_line, claim, finish,
-                                      setup_device, sync)
+                                      setup_device, sync, tune_session)
 from repro_torch.core.perfctr import PerfCtr
 from repro_torch.models.lm import LM, LMConfig
 from repro_torch.serve.engine import (DECODE_REGION, PREFILL_REGION,
@@ -113,7 +118,49 @@ def _tokens(done: Dict) -> Dict[int, List[int]]:
     return {rid: list(r.generated) for rid, r in done.items()}
 
 
-def run(csv: list, smoke: bool = False, device="cuda") -> Dict:
+def autotune_half(csv: list, smoke: bool, device, max_seq: int,
+                  session=None) -> Dict:
+    """The (page_size, split) sweep at the bench's decode shape in fp32,
+    cold and then on a fresh session over the same cache; without a
+    ``session``, one from :func:`tune_session`."""
+    from repro_torch.core.artifact_cache import ArtifactCache
+    from repro_torch.core.session import ProfileSession
+    from repro_torch.kernels import registry
+    if session is None:
+        with tune_session() as session:
+            return autotune_half(csv, smoke, device, max_seq, session)
+    cands = (((16, 1), (16, 2), (32, 1), (32, 2)) if smoke
+             else registry.DEFAULT_PAGED_CANDIDATES)
+    kw = dict(b=SLOTS, kvh=2, g=2, dh=32, ctx=max_seq // 4,
+              dtype=torch.float32, backend=device.type, candidates=cands)
+    t0 = time.perf_counter()
+    rec = registry.autotune("paged_decode", session, **kw)
+    t_cold = time.perf_counter() - t0
+    warm = ProfileSession(cache=ArtifactCache(
+        session.cache.root, enabled=session.cache.enabled))
+    t0 = time.perf_counter()
+    registry.autotune("paged_decode", warm, **kw)
+    t_warm = time.perf_counter() - t0
+    print("== (page_size, split) autotune over ProfileSession ==")
+    for (ps, sp), score in sorted(rec.scores.items(), key=lambda kv: kv[1]):
+        mark = " <- chosen" if (ps, sp) == tuple(rec.choice) else ""
+        print(f"  ps={ps:<4d} split={sp}: {score * 1e6:9.3f} us{mark}")
+    print(f"cold sweep: {rec.lowerings} timed probes, {t_cold:.2f}s; "
+          f"warm rerun: {warm.lowerings} timed probes, {t_warm:.2f}s")
+    if session.cache.enabled:
+        claim(warm.lowerings == 0,
+              f"warm paged autotune re-timed {warm.lowerings}")
+    csv.append(("paged_autotune_warm_s", t_warm * 1e6,
+                f"lowerings_warm={warm.lowerings},"
+                f"lowerings_cold={rec.lowerings}"))
+    return {"page_size": rec.choice[0], "split": rec.choice[1],
+            "score_us": rec.score_s * 1e6,
+            "lowerings_cold": rec.lowerings,
+            "lowerings_warm": warm.lowerings}
+
+
+def run(csv: list, smoke: bool = False, device="cuda",
+        tune: bool = False) -> Dict:
     device = torch.device(device)
     lm = LM(bench_config(), torch.float32, device).init(
         torch.Generator(device=device).manual_seed(0))
@@ -312,6 +359,8 @@ def run(csv: list, smoke: bool = False, device="cuda") -> Dict:
     print(f"paged engine on {device.type}: token-identical to dense (fp32 "
           f"greedy)")
     summary["paged_engine_parity"] = True
+    if tune:
+        summary["autotune"] = autotune_half(csv, smoke, device, max_seq)
     return summary
 
 
@@ -323,11 +372,13 @@ def main(argv=None) -> int:
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="write the summary here")
+    ap.add_argument("--tune", action="store_true",
+                    help="also run the (page_size, split) autotune half")
     args = ap.parse_args(argv)
     device = setup_device(args.device)
     print(f"[bench_paged_decode] device {device}: {card_line(device)}")
     csv: list = []
-    summary = run(csv, smoke=args.smoke, device=device)
+    summary = run(csv, smoke=args.smoke, device=device, tune=args.tune)
     return finish("bench_paged_decode", csv, summary, args, device)
 
 

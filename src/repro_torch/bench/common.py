@@ -8,21 +8,28 @@ fused loop at least 3x the per-token loop): :func:`bar` records its value
 and whether it was met under the summary's ``bars``, and the bench's
 ``main`` and the runner exit non-zero when one was missed
 (:func:`missed_bars`).  Bars are never loosened or dropped.
+
+A bench that autotunes takes its session from :func:`tune_session`: the
+winners persist only in a cache root the caller named, since a record
+in the default root changes the tiles of every later run in that home.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
+import tempfile
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
 
 __all__ = ["ClaimFailed", "claim", "bar", "missed_bars", "card_line",
-           "setup_device", "sync", "timed", "finish"]
+           "setup_device", "sync", "timed", "finish", "tune_session"]
 
 
 class ClaimFailed(AssertionError):
@@ -102,3 +109,23 @@ def finish(tag: str, csv: list, summary: Dict, args, device) -> int:
         b = summary["bars"][name]
         print(f"[{tag}] bar missed: {name} {b['value']:.3f} < {b['bar']}")
     return 1 if missed else 0
+
+
+@contextlib.contextmanager
+def tune_session(cache_dir: Optional[str] = None) -> Iterator:
+    """A ``ProfileSession`` for a bench's autotune.  On the root the caller
+    named (``cache_dir``, else ``$REPRO_CACHE_DIR`` when set) the winners
+    persist for later processes; with neither, the session works in a
+    temporary root removed on exit, and the in-process tune table is
+    cleared then too, so the bench changes no tile of what runs after it."""
+    from repro_torch.core.session import ProfileSession
+    from repro_torch.kernels import registry
+    root = cache_dir or os.environ.get("REPRO_CACHE_DIR")
+    if root:
+        yield ProfileSession(cache_dir=root)
+        return
+    with tempfile.TemporaryDirectory(prefix="repro-tune-") as tmp:
+        try:
+            yield ProfileSession(cache_dir=tmp)
+        finally:
+            registry.clear_tune_table()

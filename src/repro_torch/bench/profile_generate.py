@@ -34,13 +34,7 @@ import time
 import numpy as np
 import torch
 
-
-def _device_time_us(avg) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(avg, attr):
-            return float(getattr(avg, attr))
-    raise AttributeError("profiler averages carry no device time")
-
+from repro_torch.core.devtime import device_time_us as _device_time_us
 
 #: prompt lengths per arch: ragged for an attention-cache family, equal
 #: for a recurrent one (its prefill cannot mask pads)

@@ -1,10 +1,15 @@
-"""Device-only and host time of the decode, SSD and case-study kernels, on
-one card.
+"""Device-only and host time of every kernel of the port, on one card.
 
     python -m repro_torch.bench.profile_kernels [--json out.json]
-    PYTHONPATH=<other tree>/src python src/repro_torch/bench/profile_kernels.py
+    PYTHONPATH=<other tree>/src \
+        python src/repro_torch/bench/profile_kernels.py --only paged_host
 
-Runs the int8 paged decode kernel (#3) and the fp paged decode kernel
+Runs the flash kernel (#1) at qwen2-0.5b's prefill (q [8,14,512,64], the
+8 ragged prompts of ``chip_smoke.py`` phase 3 as ``kv_valid``, causal) in
+bf16 and fp32 beside SDPA with the same boolean mask (``sdpa_*`` rows),
+argmax (#4) at b = 8 over qwen2's 151936 logits in bf16 and fp32 beside
+``torch.argmax`` (``torch_argmax_*`` rows), and
+the int8 paged decode kernel (#3) and the fp paged decode kernel
 (#2) at ``chip_smoke.py`` phase 3's main shape (q4 [8,2,7,64] bf16,
 pages of 16 tokens, lengths prompt+16 for prompts 512..1, the page table
 as ``plan_table`` lays it out) and the same q8 call at the scheduler's
@@ -19,7 +24,10 @@ bf16.  For each call it reports:
 
 * ``device_us``: device time a launch under ``torch.profiler``, 100
   launches with the 50 MB L2 flushed before each (the flush kernel is
-  left out of the sum);
+  left out of the sum; :func:`repro_torch.core.devtime.
+  device_us_per_call`, the reader ``ProfileSession.measure`` uses; where
+  a profiler session drops kernel records it times the calls between CUDA
+  events, and ``device_timers`` says which timer each reading took);
 * ``device_us_warm``: the same, launches back to back (L2 warm);
 * ``timer_ms``: ``chip_smoke.py``'s ``Timer`` reading (median of 25
   launches between CUDA events, the L2 flushed before each), which counts
@@ -32,12 +40,16 @@ bf16.  For each call it reports:
 and for the triad in each dtype, ``turns`` pairs of ``Timer`` readings,
 the kernel's and then ``torch.add``'s, so the two are compared in
 alternation on one card: the median ratio and how many pairs the kernel
-won (``--turns``, default 8).
+won (``--turns``, default 8).  ``paged_host`` holds the host us of the
+bf16 fp paged call three ways, each the median of 5 x 200 calls: the
+direct wrapper, ``registry.run`` and ``registry.run`` inside
+``registry.env_snapshot`` (the engine's path).
 
 The second form runs this file against another tree's ``repro_torch``
 (the parent commit unpacked with ``git archive``), so two versions are
-compared in one call on one card.  Prints one JSON object; needs a CUDA
-card and exits non-zero without one.
+compared in one call on one card; ``--only paged_host`` runs just that
+row (no device-time reader, which older trees lack).  Prints one JSON
+object; needs a CUDA card and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -53,6 +65,10 @@ import numpy as np
 import torch
 
 from repro_torch.bench.profile_generate import _device_time_us
+
+#: qwen2-0.5b's prefill: phase 3's 8 ragged prompts, 14 heads over 2 of 64
+FLASH_SHAPE = (8, 14, 2, 512, 64)
+ARGMAX_SHAPE = (8, 151936)
 
 PROMPT_LENS = (512, 384, 301, 256, 129, 64, 17, 1)
 DECODED = 16                 # phase 3's lengths: prompt + 16 tokens
@@ -95,23 +111,12 @@ class Probe:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
-    def device_us(self, fn, flush: bool, n: int = 100) -> float:
-        """Device time a call: every CUDA kernel the calls launched, the
-        flush's fill kernel left out, over ``n`` calls."""
-        fn()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
-                if flush:
-                    self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        total = sum(_device_time_us(a) for a in prof.key_averages()
-                    if a.device_type == torch.autograd.DeviceType.CUDA
-                    and "Fill" not in a.key)
-        return total / n
+    def device_us(self, fn, flush: bool, n: int = 100):
+        """``(us, timer)``: device time a call, every CUDA kernel the
+        calls launched, the flush's fill kernel left out, over ``n``
+        calls (``timer`` "events" where the profiler dropped kernels)."""
+        from repro_torch.core.devtime import device_us_per_call
+        return device_us_per_call(fn, n, self.flush if flush else None)
 
     @staticmethod
     def host_us(fn, n: int = 200) -> float:
@@ -125,8 +130,10 @@ class Probe:
         return us
 
     def all(self, fn) -> dict:
-        return dict(device_us=self.device_us(fn, True),
-                    device_us_warm=self.device_us(fn, False),
+        cold, cold_timer = self.device_us(fn, True)
+        warm, warm_timer = self.device_us(fn, False)
+        return dict(device_us=cold, device_us_warm=warm,
+                    device_timers=[cold_timer, warm_timer],
                     timer_ms=self.timer_ms(fn), host_us=self.host_us(fn))
 
 
@@ -227,7 +234,69 @@ def in_turns(probe: Probe, fn, ref, turns: int) -> dict:
                 wins=sum(p[0] <= p[1] for p in pairs), turns=turns)
 
 
-def profile(dev, turns: int) -> dict:
+def flash_inputs(dev, dtype, seed: int = 0):
+    """Phase 3's qwen2 prefill call: q, k, v [B,H,S,Dh], the ragged
+    ``kv_valid`` and SDPA's equivalent boolean mask and expanded K/V."""
+    b, h, kvh, s, dh = FLASH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(n):
+        return torch.randn((b, n, s, dh), generator=gen, device=dev).to(dtype)
+
+    q, k, v = rnd(h), rnd(kvh), rnd(kvh)
+    kvv = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=dev)
+    kpos = torch.arange(s, device=dev)
+    mask = ((kpos[None, :] <= kpos[:, None])[None, None]
+            & (kpos[None, None, None, :] < kvv[:, None, None, None]))
+    g = h // kvh
+    return (q, k, v, kvv), (k.repeat_interleave(g, 1),
+                            v.repeat_interleave(g, 1), mask)
+
+
+def paged_host(dev, n_runs: int = 5) -> dict:
+    """Host us of the bf16 fp paged call: the wrapper, ``registry.run``,
+    and ``registry.run`` inside ``env_snapshot`` (medians of ``n_runs``
+    x 200 calls, interleaved)."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.paged_decode import \
+        paged_decode_attention_grouped
+    fp = paged_inputs(dev, q8=False)
+    runs = {"direct": [], "registry_run": [], "registry_run_snapshot": []}
+    for _ in range(n_runs):
+        runs["direct"].append(Probe.host_us(
+            lambda: paged_decode_attention_grouped(*fp)))
+        runs["registry_run"].append(Probe.host_us(
+            lambda: registry.run("paged_decode", *fp)))
+        with registry.env_snapshot():
+            runs["registry_run_snapshot"].append(Probe.host_us(
+                lambda: registry.run("paged_decode", *fp)))
+    out = {k: statistics.median(v) for k, v in runs.items()}
+    out["runs"] = runs
+    return out
+
+
+def flash_argmax(dev, probe: Probe, out: dict) -> None:
+    """The flash (#1) and argmax (#4) rows and their library calls'."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.sampling import block_argmax
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        (q, k, v, kvv), (ke, ve, mask) = flash_inputs(dev, dtype)
+        out[f"flash_prefill_{tag}"] = probe.all(
+            lambda: flash_attention_bhsd(q, k, v, causal=True, kv_valid=kvv))
+        out[f"sdpa_prefill_{tag}"] = probe.all(
+            lambda: sdpa(q, ke, ve, attn_mask=mask))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(ARGMAX_SHAPE, generator=gen, device=dev).to(dtype)
+        out[f"argmax_{tag}"] = probe.all(lambda: block_argmax(x))
+        out[f"torch_argmax_{tag}"] = probe.all(
+            lambda: torch.argmax(x, dim=-1))
+        del q, k, v, kvv, ke, ve, mask, x
+
+
+def profile(dev, turns: int, only=None) -> dict:
+    if only == "paged_host":
+        return {"paged_host": paged_host(dev)}
     from repro_torch.kernels import _build
     from repro_torch.kernels.jacobi7 import jacobi7_naive, jacobi7_wavefront
     from repro_torch.kernels.paged_decode import (
@@ -237,6 +306,10 @@ def profile(dev, turns: int) -> dict:
     _build.build_all()
     probe = Probe(dev)
     out = {}
+    flash_argmax(dev, probe, out)
+    if only == "flash_argmax":
+        return out
+    out["paged_host"] = paged_host(dev)
     for name, (b, s, h, dk, dv, dtype, norm) in SSD_SHAPES.items():
         args, st = ssd_inputs(dev, b, s, h, dk, dv, dtype, norm)
 
@@ -282,6 +355,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None)
     ap.add_argument("--turns", type=int, default=8)
+    ap.add_argument("--only", default=None,
+                    choices=["paged_host", "flash_argmax"],
+                    help="run only these rows (paged_host: the host us of "
+                         "a paged call three ways; flash_argmax: #1 and "
+                         "#4 beside their library calls)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -290,7 +368,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     import repro_torch
-    res = dict(kernels=profile(torch.device("cuda", 0), args.turns),
+    res = dict(kernels=profile(torch.device("cuda", 0), args.turns,
+                               args.only),
                package=str(repro_torch.__file__),
                device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                torch=torch.__version__, cuda=torch.version.cuda)

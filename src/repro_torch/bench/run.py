@@ -7,9 +7,10 @@ Counterpart of ``benchmarks/run.py`` for the port:
 
 runs the serving benches (``serve``, ``paged_decode``, ``flash_prefill``,
 ``spec``, ``chaos``), the perfctr tool's own benches (``marker_overhead``,
-``perfctr``) and the tool layer's case studies (``stream_pinning``,
-``stencil_pinning``, ``jacobi_traffic``, ``bandwidth_map``), each with
-``--smoke`` and ``--device`` passed on.
+``perfctr``), the kernel registry's autotune suite (``autotune``) and the
+tool layer's case studies (``stream_pinning``, ``stencil_pinning``,
+``jacobi_traffic``, ``bandwidth_map``), each with ``--smoke`` and
+``--device`` passed on.
 ``--device`` defaults to ``cuda`` (raises without a GPU); every kernel is
 built before the first bench.  A bench whose correctness claim fails
 raises; the runner prints the traceback, marks it FAILED and goes on.
@@ -27,10 +28,11 @@ import time
 import traceback
 from typing import Dict, List
 
-from repro_torch.bench import (bench_bandwidth_map, bench_chaos,
-                               bench_flash_prefill, bench_jacobi_traffic,
-                               bench_marker_overhead, bench_paged_decode,
-                               bench_perfctr, bench_serve, bench_spec,
+from repro_torch.bench import (bench_autotune, bench_bandwidth_map,
+                               bench_chaos, bench_flash_prefill,
+                               bench_jacobi_traffic, bench_marker_overhead,
+                               bench_paged_decode, bench_perfctr,
+                               bench_serve, bench_spec,
                                bench_stencil_pinning, bench_stream_pinning)
 from repro_torch.bench.common import card_line, missed_bars, setup_device
 
@@ -46,6 +48,7 @@ SERVING = {
 TOOLS = {
     "marker_overhead": bench_marker_overhead,  # zero-overhead claim
     "perfctr": bench_perfctr,                  # the §II-A listing
+    "autotune": bench_autotune,                # every tunable family
 }
 #: the case studies, driven through their ``main(argv)``
 CASE_STUDIES = {

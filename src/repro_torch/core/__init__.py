@@ -18,13 +18,19 @@ likwid-features     :mod:`repro_torch.core.features` (the switchable
 plus the §VI future-plan deliverables: :mod:`repro_torch.core.roofline`
 and :mod:`repro_torch.core.bandwidth` (the "bandwidth map").  Their CLIs
 are ``python -m repro_torch.launch.{topology,pin,features}``; the kernel
-registry that pins an implementation per family is
-:mod:`repro_torch.kernels.registry`.  Not ported yet (``ROADMAP.md``): the
-compile-artifact session and cache, the perf report and the perfctr CLI.
+registry that pins and tunes an implementation per family is
+:mod:`repro_torch.kernels.registry`, whose sweeps go through
+:mod:`repro_torch.core.session` (``ProfileSession``: measured runs, cached
+in :mod:`repro_torch.core.artifact_cache`; device time from
+:mod:`repro_torch.core.devtime`), and :mod:`repro_torch.core.perf_report`
+renders their tune tables.  Not ported yet (``ROADMAP.md``): the perf
+report's and the perfctr tool's CLIs.
 """
 
 from repro_torch.core import hwinfo, events, groups, perfctr, marker, \
-    roofline, bandwidth, topology, pin, features  # noqa: F401
+    roofline, bandwidth, topology, pin, features, artifact_cache, \
+    devtime, session, perf_report  # noqa: F401
 
 __all__ = ["hwinfo", "events", "groups", "perfctr", "marker", "roofline",
-           "bandwidth", "topology", "pin", "features"]
+           "bandwidth", "topology", "pin", "features", "artifact_cache",
+           "devtime", "session", "perf_report"]

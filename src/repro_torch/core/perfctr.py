@@ -55,6 +55,12 @@ class Measurement:
     num_devices: int
     calls: int = 1
     wall_times: List[float] = dataclasses.field(default_factory=list)
+    #: device-only seconds a call, on the card (``ProfileSession.measure``
+    #: reads them from ``torch.profiler``); None where not measured
+    device_s: Optional[float] = None
+    #: the timer behind ``device_s``: ``"profiler"`` (the kernels' own
+    #: device intervals) or ``"events"`` (CUDA events around each call)
+    timer: Optional[str] = None
 
     @property
     def mean_time(self) -> Optional[float]:

@@ -15,15 +15,21 @@
 // near the bound.  The entry point dispatches by dtype to one of two
 // kernels of this file; a dtype always reaches the same one.
 //
-// bf16 (the serving dtype), flash_mma_kernel: one CTA of four warps per
-// (64 queries, head, batch row), each warp owning 16 query rows.  Both
+// Tiles are template parameters: BQ queries a CTA and BK keys a shared-
+// memory tile, over the few pairs each dtype builds (pick_bf16 / pick_f32
+// below, the wrapper's FLASH_PAIRS; the registry's autotune sweeps them,
+// and an untuned call takes the defaults, bf16 (64, 64), fp32 (64, 32)).
+// A pair that was not built is refused, never replaced by another.
+//
+// bf16 (the serving dtype), flash_mma_kernel: one CTA of BQ / 16 warps
+// (4 or 8) per (BQ queries, head, batch row), each warp owning 16 rows.  Both
 // products run on the tensor cores as mma.sync.m16n8k16 with bf16 operands
 // and fp32 accumulators, operands read from shared memory by ldmatrix
 // (V through its transposing form).  Q's fragments stay in registers for
 // the whole kv loop; the online-softmax state (row max, denominator, the
 // [16 x Dh] O accumulator) lives in the accumulator fragments, and the
 // causal / kv_valid masks are applied there, per element, only on tiles
-// that straddle a mask edge.  K/V tiles of 64 keys arrive by 16-byte
+// that straddle a mask edge.  K/V tiles of BK keys arrive by 16-byte
 // cp.async into a two-stage ring, so tile t+1 loads while tile t is
 // multiplied; rows past Sk are zero-filled, rows past Sq are never
 // stored.  Shared tiles are XOR-swizzled in 16-byte chunks so that every
@@ -45,8 +51,9 @@
 // fp32, flash_fwd_kernel: the CUDA-core kernel of the first port, kept for
 // fp32's contract (rtol = atol = 1e-5 against the plain version, greedy
 // tokens equal across card and CPU), which TF32 tensor cores would break:
-// 64-query tiles against 32-key tiles widened in shared memory, scalar
-// FMAs, TPQ threads per query row.
+// BQ-query tiles against BK-key tiles widened in static shared memory
+// (every built pair fits 48 KB at Dh 128), scalar FMAs, TPQ threads per
+// query row.
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -56,18 +63,18 @@ namespace {
 
 namespace simt {
 
-constexpr int BQ = 64;   // queries per block
-constexpr int BK = 32;   // keys per shared-memory tile
-
-template <int DH>
+// BQ queries per block, BK keys per shared-memory tile (the wrapper's
+// FLASH_PAIRS[fp32]; static shared memory, so every pair stays under 48 KB
+// at Dh 128)
+template <int DH, int BQ>
 struct FlashShape {
   static constexpr int TPQ = DH >= 32 ? DH / 32 : 1;   // threads per query
   static constexpr int DPT = DH / TPQ;                 // dims per thread
   static constexpr int NT = BQ * TPQ;                  // threads per block
 };
 
-template <int DH>
-__global__ void __launch_bounds__(FlashShape<DH>::NT)
+template <int DH, int BQ, int BK>
+__global__ void __launch_bounds__(FlashShape<DH, BQ>::NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  const int* __restrict__ kv_valid, int G, int Sq, int Sk,
@@ -76,7 +83,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int64_t ksb, int64_t ksh, int64_t kss,
                  int64_t vsb, int64_t vsh, int64_t vss,
                  int64_t osb, int64_t osh, int64_t oss) {
-  using S = FlashShape<DH>;
+  using S = FlashShape<DH, BQ>;
   constexpr int TPQ = S::TPQ, DPT = S::DPT, NT = S::NT;
   __shared__ float ks[BK][DH];
   __shared__ float vs[BK][DH];
@@ -179,12 +186,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 namespace tc {
 
-constexpr int BQ = 64;        // queries per CTA: 16 per warp
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int NT = 128;       // four warps
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DH>
+// BQ queries per CTA (16 per warp: 4 or 8 warps), BK keys per shared-memory
+// tile (the wrapper's FLASH_PAIRS[bf16])
+template <int DH, int BQ, int BK>
 struct Tile {
   static constexpr int NCH = DH / 8;                 // 16-byte chunks a row
   // XOR swizzle of the chunk index: rows that share a 128-byte line
@@ -192,30 +198,34 @@ struct Tile {
   // phase always cover the 8 bank groups
   static constexpr int ROWS_PER_STEP = NCH >= 8 ? 1 : 8 / NCH;
   static constexpr int MASK = (NCH >= 8 ? 8 : NCH) - 1;
-  static constexpr int BYTES = BK * DH * 2;          // one 64-row tile
-  static constexpr int SMEM = 5 * BYTES;             // Q + 2 x (K, V)
+  static constexpr int NT = 2 * BQ;                  // BQ / 16 warps
+  static constexpr int Q_BYTES = BQ * DH * 2;        // the Q tile
+  static constexpr int KV_BYTES = BK * DH * 2;       // one K or V tile
+  static constexpr int SMEM = Q_BYTES + 4 * KV_BYTES;   // Q + 2 x (K, V)
 };
 
 // shared byte offset of 16-byte chunk c of row r in a swizzled tile
 template <int DH>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  using S = Tile<DH>;
+  using S = Tile<DH, 64, 64>;            // the swizzle depends on DH only
   return static_cast<uint32_t>(
       (r * S::NCH + (c ^ ((r / S::ROWS_PER_STEP) & S::MASK))) * 16);
 }
 
-// rows [row0, row0 + 64) of a [rows, DH] strided bf16 matrix into a
-// swizzled tile; rows at or past n_rows are zero-filled
-template <int DH>
+// rows [row0, row0 + ROWS) of a [rows, DH] strided bf16 matrix into a
+// swizzled tile by NT threads; rows at or past n_rows are zero-filled
+template <int DH, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           int64_t row_stride, int row0,
                                           int n_rows) {
-  using S = Tile<DH>;
+  constexpr int NCH = DH / 8;
+  constexpr int TOTAL = ROWS * NCH;
 #pragma unroll
-  for (int i = 0; i < BK * S::NCH / NT; ++i) {
+  for (int i = 0; i < (TOTAL + NT - 1) / NT; ++i) {
     const int idx = i * NT + threadIdx.x;
-    const int r = idx / S::NCH, c = idx % S::NCH;
+    if (TOTAL % NT != 0 && idx >= TOTAL) break;
+    const int r = idx / NCH, c = idx % NCH;
     const bool in = row0 + r < n_rows;
     const __nv_bfloat16* p =
         src + (in ? (int64_t)(row0 + r) * row_stride + c * 8 : 0);
@@ -223,8 +233,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(NT)
+template <int DH, int BQ, int BK>
+__global__ void __launch_bounds__(2 * BQ)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -235,13 +245,16 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  int64_t ksb, int64_t ksh, int64_t kss,
                  int64_t vsb, int64_t vsh, int64_t vss,
                  int64_t osb, int64_t osh, int64_t oss) {
-  using S = Tile<DH>;
+  using S = Tile<DH, BQ, BK>;
+  constexpr int NT = S::NT;
   constexpr int KS = DH / 16;            // k-steps of QK^T
   constexpr int ND = DH / 8;             // n-tiles of O
+  constexpr int NJ = BK / 8;             // n-tiles of S (8 keys each)
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_q = smem_u32(smem);
-  const uint32_t s_k[2] = {s_q + S::BYTES, s_q + 2 * S::BYTES};
-  const uint32_t s_v[2] = {s_q + 3 * S::BYTES, s_q + 4 * S::BYTES};
+  const uint32_t s_k[2] = {s_q + S::Q_BYTES, s_q + S::Q_BYTES + S::KV_BYTES};
+  const uint32_t s_v[2] = {s_q + S::Q_BYTES + 2 * S::KV_BYTES,
+                           s_q + S::Q_BYTES + 3 * S::KV_BYTES};
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;      // longest work first
@@ -269,10 +282,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const __nv_bfloat16* kb = k + b * ksb + hk * ksh;
   const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
-  load_tile<DH>(s_q, q + b * qsb + h * qsh + (int64_t)q0 * qss, qss, 0,
-                Sq - q0);
-  load_tile<DH>(s_k[0], kb, kss, 0, Sk);
-  load_tile<DH>(s_v[0], vb, vss, 0, Sk);
+  load_tile<DH, BQ, NT>(s_q, q + b * qsb + h * qsh + (int64_t)q0 * qss,
+                        qss, 0, Sq - q0);
+  load_tile<DH, BK, NT>(s_k[0], kb, kss, 0, Sk);
+  load_tile<DH, BK, NT>(s_v[0], vb, vss, 0, Sk);
   cp_async_commit();
 
   uint32_t qf[KS][4];
@@ -291,8 +304,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
     if (t + 1 < n_tiles) {               // next tile into the other stage
-      load_tile<DH>(s_k[st ^ 1], kb, kss, (t + 1) * BK, Sk);
-      load_tile<DH>(s_v[st ^ 1], vb, vss, (t + 1) * BK, Sk);
+      load_tile<DH, BK, NT>(s_k[st ^ 1], kb, kss, (t + 1) * BK, Sk);
+      load_tile<DH, BK, NT>(s_v[st ^ 1], vb, vss, (t + 1) * BK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -306,16 +319,16 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                           2 * ks + (lane >> 4)));
     }
 
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[8][4];
+    // S = Q K^T for this warp's 16 rows x BK keys (NJ n-tiles of 8 keys)
+    float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
+      for (int jp = 0; jp < NJ / 2; ++jp) {
         uint32_t kf[4];
         ldmatrix_x4(kf, s_k[st] + swz<DH>(jp * 16 + (lane >> 4) * 8 +
                                               (lane & 7),
@@ -332,7 +345,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       (causal && j0 + BK - 1 > q_offset + q0);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = j0 + 8 * j + 2 * t4 + (e & 1);
@@ -361,7 +374,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // exp2(0) == 1, so masked keys are zeroed by rule and such rows stay
     // exactly 0
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = j0 + 8 * j + 2 * t4 + (e & 1);
@@ -374,7 +387,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // O += P V: P's accumulator fragments are the A fragments of PV
     // (keys 16kk..16kk+15 are n-tiles 2kk and 2kk+1), rounded to bf16
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t pf[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
                               pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
                               pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -415,13 +428,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace tc
 
-template <int DH>
+template <int DH, int BQ, int BK>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        const int* kv_valid, int B, int H, int KVH, int Sq,
                        int Sk, int q_offset, int causal, float scale,
                        const int64_t* st, cudaStream_t stream) {
-  dim3 grid((Sq + simt::BQ - 1) / simt::BQ, H, B);
-  simt::flash_fwd_kernel<DH><<<grid, simt::FlashShape<DH>::NT, 0, stream>>>(
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  simt::flash_fwd_kernel<DH, BQ, BK>
+      <<<grid, simt::FlashShape<DH, BQ>::NT, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), kv_valid,
       H / KVH, Sq, Sk, q_offset, causal, scale, st[0], st[1], st[2], st[3],
@@ -429,20 +443,21 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, int BQ, int BK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* o, const int* kv_valid, int B, int H, int KVH,
                         int Sq, int Sk, int q_offset, int causal, float scale,
                         const int64_t* st, cudaStream_t stream) {
-  constexpr int smem = tc::Tile<DH>::SMEM;
+  using S = tc::Tile<DH, BQ, BK>;
+  constexpr int smem = S::SMEM;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tc::flash_mma_kernel<DH>,
+        tc::flash_mma_kernel<DH, BQ, BK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(H, B, (Sq + tc::BQ - 1) / tc::BQ);
-  tc::flash_mma_kernel<DH><<<grid, tc::NT, smem, stream>>>(
+  dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  tc::flash_mma_kernel<DH, BQ, BK><<<grid, S::NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -452,24 +467,46 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <bool BF16>
-cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
-                        void* o, const int* kv_valid, int B, int H, int KVH,
-                        int Sq, int Sk, int q_offset, int causal, float scale,
-                        const int64_t* st, cudaStream_t stream) {
-#define REPRO_FLASH_DH(D)                                                    \
-  case D:                                                                    \
-    return (BF16 ? launch_bf16<D> : launch_f32<D>)(                          \
-        q, k, v, o, kv_valid, B, H, KVH, Sq, Sk, q_offset, causal, scale,    \
-        st, stream);
+using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
+                               const int*, int, int, int, int, int, int, int,
+                               float, const int64_t*, cudaStream_t);
+
+// the (BQ, BK) pairs built for each dtype: the wrapper's FLASH_PAIRS, which
+// must list the same pairs; any other pair is refused, never replaced
+template <int DH>
+Launch pick_bf16(int bq, int bk) {
+#define REPRO_FLASH_PAIR(Q, K) \
+  if (bq == Q && bk == K) return launch_bf16<DH, Q, K>;
+  REPRO_FLASH_PAIR(64, 32)
+  REPRO_FLASH_PAIR(64, 64)
+  REPRO_FLASH_PAIR(64, 128)
+  REPRO_FLASH_PAIR(128, 32)
+  REPRO_FLASH_PAIR(128, 64)
+  REPRO_FLASH_PAIR(128, 128)
+#undef REPRO_FLASH_PAIR
+  return nullptr;
+}
+
+template <int DH>
+Launch pick_f32(int bq, int bk) {
+#define REPRO_FLASH_PAIR(Q, K) \
+  if (bq == Q && bk == K) return launch_f32<DH, Q, K>;
+  REPRO_FLASH_PAIR(32, 32)
+  REPRO_FLASH_PAIR(64, 16)
+  REPRO_FLASH_PAIR(64, 32)
+  REPRO_FLASH_PAIR(128, 16)
+#undef REPRO_FLASH_PAIR
+  return nullptr;
+}
+
+Launch pick(bool bf16, int Dh, int bq, int bk) {
   switch (Dh) {
-    REPRO_FLASH_DH(16)
-    REPRO_FLASH_DH(32)
-    REPRO_FLASH_DH(64)
-    REPRO_FLASH_DH(128)
-    default: return cudaErrorInvalidValue;
+    case 16: return bf16 ? pick_bf16<16>(bq, bk) : pick_f32<16>(bq, bk);
+    case 32: return bf16 ? pick_bf16<32>(bq, bk) : pick_f32<32>(bq, bk);
+    case 64: return bf16 ? pick_bf16<64>(bq, bk) : pick_f32<64>(bq, bk);
+    case 128: return bf16 ? pick_bf16<128>(bq, bk) : pick_f32<128>(bq, bk);
+    default: return nullptr;
   }
-#undef REPRO_FLASH_DH
 }
 
 }  // namespace
@@ -477,27 +514,24 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
 // strides: 12 int64 element strides, (batch, head, seq) for q, k, v, out;
 // the head-dim stride must be 1.  kv_valid: [B] int32 on the device.  bf16
 // takes rows that start on 16 bytes (the wrapper checks pointers and
-// strides).
+// strides).  (bq, bk): one of the pairs built for the dtype (pick_bf16 /
+// pick_f32); any other pair, head dim or dtype returns
+// cudaErrorInvalidValue.
 REPRO_EXPORT int flash_attention_fwd(const void* q, const void* k,
                                      const void* v, void* o,
                                      const void* kv_valid, int B, int H,
                                      int KVH, int Sq, int Sk, int Dh,
                                      int q_offset, int causal, float scale,
-                                     int dtype, const void* strides,
-                                     void* stream) {
+                                     int dtype, int bq, int bk,
+                                     const void* strides, void* stream) {
   const int* kvv = static_cast<const int*>(kv_valid);
   const int64_t* st = static_cast<const int64_t*>(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  const Launch launch = pick(dtype == kBF16, Dh, bq, bk);
+  if (launch == nullptr) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   if (KVH <= 0 || H % KVH != 0) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (dtype == kF32)
-    err = dispatch_dh<false>(Dh, q, k, v, o, kvv, B, H, KVH, Sq, Sk,
-                             q_offset, causal, scale, st, s);
-  else if (dtype == kBF16)
-    err = dispatch_dh<true>(Dh, q, k, v, o, kvv, B, H, KVH, Sq, Sk,
-                            q_offset, causal, scale, st, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(launch(q, k, v, o, kvv, B, H, KVH, Sq, Sk,
+                                 q_offset, causal, scale, st, s));
 }

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,7 +33,8 @@ from typing import ContextManager, Dict, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["SOURCES", "CSRC", "SMEM_OPT_IN", "build_dir", "build_all",
-           "library", "check", "launch_on", "P", "I", "L", "F"]
+           "library", "check", "launch_on", "nvcc_version", "P", "I", "L",
+           "F"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention", "paged_decode", "paged_decode_q8", "argmax",
@@ -67,6 +69,19 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found (looked on PATH and in "
                        "/usr/local/cuda/bin); the CUDA kernels cannot build")
+
+
+@functools.lru_cache(maxsize=1)
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` of the compiler the builds use
+    (its release and build), or ``"none"`` where there is no ``nvcc``."""
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60, check=True).stdout
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return "none"
+    lines = out.strip().splitlines()
+    return lines[-1].strip() if lines else "none"
 
 
 def _so_path(name: str) -> Path:

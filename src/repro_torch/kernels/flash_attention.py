@@ -14,6 +14,13 @@ Contract, shared by both versions:
   row's valid length, causal or not; values are clamped to ``[0, Sk]``;
 * rows with no valid key output exactly 0.
 
+The kernel's tiles, ``(bq, bk)`` — queries a CTA and keys a shared-memory
+tile — are template parameters over the pairs :data:`FLASH_PAIRS` lists
+for each dtype (the kernel builds those and refuses any other);
+:func:`default_blocks` is the pair an untuned call takes and
+:func:`flash_smem_bytes` the shared memory a pair needs, the registry's
+tune gate.
+
 :func:`flash_attention_bhsd` dispatches on the tensors' device: CPU tensors
 run :func:`flash_attention_plain`, CUDA tensors launch the kernel (or raise
 — there is no fallback).  Inputs may be strided views (the model passes
@@ -34,7 +41,8 @@ from repro_torch.core import events
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_bhsd", "flash_attention_plain",
-           "flash_traffic", "declare_flash", "SUPPORTED_HEAD_DIMS"]
+           "flash_traffic", "declare_flash", "SUPPORTED_HEAD_DIMS",
+           "FLASH_PAIRS", "default_blocks", "flash_smem_bytes"]
 
 NEG_INF = -2.0e38
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -43,7 +51,43 @@ _SIG = {"flash_attention_fwd": (
     _build.P, _build.P, _build.P, _build.P, _build.P,       # q k v o kv_valid
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,  # B H KVH Sq Sk Dh
     _build.I, _build.I, _build.F, _build.I,   # q_offset causal scale dtype
+    _build.I, _build.I,                       # bq bk
     _build.P, _build.P)}                      # strides stream
+
+#: the (bq, bk) pairs ``csrc/flash_attention.cu`` builds, per dtype
+#: (``pick_bf16`` / ``pick_f32`` there list the same): bf16 on the tensor
+#: cores, bq as 4 or 8 warps of 16 rows; fp32 on the CUDA cores in static
+#: shared memory, every pair under 48 KB at Dh 128.  The first of each is
+#: today's default.
+FLASH_PAIRS = {
+    torch.bfloat16: ((64, 64), (64, 32), (64, 128), (128, 32), (128, 64),
+                     (128, 128)),
+    torch.float32: ((64, 32), (32, 32), (64, 16), (128, 16)),
+}
+
+
+def default_blocks(dtype: torch.dtype) -> Tuple[int, int]:
+    """The ``(bq, bk)`` an untuned call of ``dtype`` takes."""
+    return FLASH_PAIRS[dtype][0]
+
+
+def flash_smem_bytes(bq: int, bk: int, dh: int, dtype: torch.dtype) -> int:
+    """Shared memory one CTA of the pair needs: bf16, the swizzled Q tile
+    and two stages of K and V tiles; fp32, the K and V tiles and the
+    padded ``[bq][bk + 1]`` score tile."""
+    if dtype == torch.bfloat16:
+        return (bq + 4 * bk) * dh * 2
+    return (2 * bk * dh + bq * (bk + 1)) * 4
+
+
+def _blocks(dtype: torch.dtype, blocks) -> Tuple[int, int]:
+    if blocks is None:
+        return default_blocks(dtype)
+    pair = (int(blocks[0]), int(blocks[1]))
+    if pair not in FLASH_PAIRS[dtype]:
+        raise ValueError(f"the flash kernel builds (bq, bk) in "
+                         f"{FLASH_PAIRS[dtype]} for {dtype}, not {pair}")
+    return pair
 
 
 def _check(q, k, v, kv_valid):
@@ -97,20 +141,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0,
-                         kv_valid: Optional[torch.Tensor] = None
+                         kv_valid: Optional[torch.Tensor] = None,
+                         bq: Optional[int] = None, bk: Optional[int] = None
                          ) -> torch.Tensor:
     """q: [B,H,Sq,Dh]; k,v: [B,KVH,Sk,Dh] -> out [B,H,Sq,Dh] (q's dtype).
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (and count one launch
     in ``flash_attention_bhsd.launches``); CPU tensors run the plain
-    version.  ``q_offset`` is a host int; ``kv_valid`` lives with q.  Each
+    version.  ``q_offset`` is a host int; ``kv_valid`` lives with q.
+    ``bq``/``bk`` choose the tiles among :data:`FLASH_PAIRS` (None: the
+    dtype's default; a pair not built raises on either device).  Each
     call declares :func:`flash_traffic` to the open event collections."""
     _check(q, k, v, kv_valid)
+    blocks = _blocks(q.dtype, None if bq is None and bk is None
+                     else (bq or default_blocks(q.dtype)[0],
+                           bk or default_blocks(q.dtype)[1]))
     if q.device.type == "cpu":
         out = flash_attention_plain(q, k, v, causal=causal,
                                     q_offset=q_offset, kv_valid=kv_valid)
     elif q.device.type == "cuda":
-        out = _launch(q, k, v, causal, q_offset, kv_valid)
+        out = _launch(q, k, v, causal, q_offset, kv_valid, blocks)
     else:
         raise ValueError(f"flash attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -165,7 +215,8 @@ def flash_traffic(kv_valid: np.ndarray, *, h: int, kvh: int, sq: int,
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            q_offset: int, kv_valid: Optional[torch.Tensor]) -> torch.Tensor:
+            q_offset: int, kv_valid: Optional[torch.Tensor],
+            blocks: Tuple[int, int]) -> torch.Tensor:
     b, h, sq, dh = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if dh not in SUPPORTED_HEAD_DIMS:
@@ -193,7 +244,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         err = lib.flash_attention_fwd(
             *ptrs, out.data_ptr(), kv_valid.data_ptr(), b, h, kvh, sq, sk,
             dh, int(q_offset), int(bool(causal)), 1.0 / math.sqrt(dh),
-            _DTYPE_CODE[q.dtype], strides, stream)
+            _DTYPE_CODE[q.dtype], blocks[0], blocks[1], strides, stream)
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention_bhsd.launches += 1
     return out

@@ -25,13 +25,16 @@ CTAs and merge their partial softmaxes in one launch
 :func:`paged_decode_attention_q8_grouped` dispatch on the tensors' device:
 CPU tensors run :func:`paged_decode_plain` / :func:`paged_decode_q8_plain`,
 CUDA tensors launch the kernel (or raise — there is no fallback).
+``split=`` overrides :func:`split_plan`'s CTAs a row (1 to
+:data:`MAX_SPLIT`: the registry's tune knob); it changes the order of the
+partial softmaxes' merge, never the set of keys.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -129,6 +132,16 @@ def _check(q4, k_pages, v_pages, page_table, lengths, k_new, v_new,
                                k_new, v_new)}
     if len(devs) != 1:
         raise ValueError(f"paged decode inputs on several devices: {devs}")
+
+
+def _split(split, b: int, kvh: int, np_w: int) -> int:
+    """The CTAs a row: ``split`` (validated), else :func:`split_plan`."""
+    if split is None:
+        return split_plan(b, kvh, np_w)
+    if not 1 <= int(split) <= MAX_SPLIT:
+        raise ValueError(f"split must be in [1, {MAX_SPLIT}] (the portable "
+                         f"cluster size), got {split}")
+    return int(split)
 
 
 def _check_scales(k_pages, k_scale, v_scale):
@@ -262,15 +275,17 @@ def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
                                    v_pages: torch.Tensor,
                                    page_table: torch.Tensor,
                                    lengths: torch.Tensor,
-                                   k_new: torch.Tensor, v_new: torch.Tensor
+                                   k_new: torch.Tensor, v_new: torch.Tensor,
+                                   split: Optional[int] = None
                                    ) -> torch.Tensor:
     """q4: [B,KVH,G,Dh] -> [B,KVH,G,Dh] (q4's dtype); fp32 or bf16 pages.
 
     CUDA tensors launch ``csrc/paged_decode.cu`` (and count one launch in
     ``paged_decode_attention_grouped.launches``); CPU tensors run the plain
-    version."""
+    version.  ``split``: CTAs a row (None: :func:`split_plan`)."""
     _check(q4, k_pages, v_pages, page_table, lengths, k_new, v_new,
            tuple(_DTYPE_CODE))
+    n_split = _split(split, q4.shape[0], q4.shape[1], page_table.shape[1])
     if q4.device.type == "cpu":
         out = paged_decode_plain(q4, k_pages, v_pages, page_table, lengths,
                                  k_new, v_new)
@@ -288,7 +303,7 @@ def paged_decode_attention_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
     with guard:
         err = lib.paged_decode_fwd(
             *(t.data_ptr() for t in tensors), out.data_ptr(), b, kvh, g, dh,
-            ps, np_w, split_plan(b, kvh, np_w), 1.0 / math.sqrt(dh),
+            ps, np_w, n_split, 1.0 / math.sqrt(dh),
             _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype], stream)
     _build.check(lib, err, "paged_decode_fwd")
     paged_decode_attention_grouped.launches += 1
@@ -308,16 +323,19 @@ def paged_decode_attention_q8_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
                                       page_table: torch.Tensor,
                                       lengths: torch.Tensor,
                                       k_new: torch.Tensor,
-                                      v_new: torch.Tensor) -> torch.Tensor:
+                                      v_new: torch.Tensor,
+                                      split: Optional[int] = None
+                                      ) -> torch.Tensor:
     """:func:`paged_decode_attention_grouped` over int8 pages with their
     ``[P,ps]`` f32 scales (the JAX wrapper's argument order).
 
     CUDA tensors launch ``csrc/paged_decode_q8.cu`` (and count one launch
     in ``paged_decode_attention_q8_grouped.launches``); CPU tensors run
-    the plain version."""
+    the plain version.  ``split``: CTAs a row (None: :func:`split_plan`)."""
     _check(q4, k_pages, v_pages, page_table, lengths, k_new, v_new,
            (torch.int8,))
     _check_scales(k_pages, k_scale, v_scale)
+    n_split = _split(split, q4.shape[0], q4.shape[1], page_table.shape[1])
     if q4.device.type == "cpu":
         out = paged_decode_q8_plain(q4, k_pages, v_pages, k_scale, v_scale,
                                     page_table, lengths, k_new, v_new)
@@ -335,7 +353,7 @@ def paged_decode_attention_q8_grouped(q4: torch.Tensor, k_pages: torch.Tensor,
     with guard:
         err = lib.paged_decode_q8_fwd(
             *(t.data_ptr() for t in tensors), out.data_ptr(), b, kvh, g, dh,
-            ps, np_w, split_plan(b, kvh, np_w), 1.0 / math.sqrt(dh),
+            ps, np_w, n_split, 1.0 / math.sqrt(dh),
             _DTYPE_CODE[q4.dtype], stream)
     _build.check(lib, err, "paged_decode_q8_fwd")
     paged_decode_attention_q8_grouped.launches += 1

@@ -5,7 +5,10 @@ Port of ``repro/kernels/sampling.py``: the Pallas ``_argmax_kernel``
 behind ``block_argmax`` becomes ``csrc/argmax.cu`` (its source note says
 what bounds it on an H100 and how it is laid out).  The kernel splits each
 row over a few CTAs, one thread block cluster per row; :func:`argmax_plan`
-chooses the split.
+chooses the split, and ``block_argmax(x, split=)`` overrides it (the knob
+the kernel registry's ``sampling`` family tunes; its ``cuda_*`` impls are
+this module's methods over the kernel, and the engine samples through
+them).
 
 Every token is an argmax through :func:`block_argmax`:
 
@@ -38,8 +41,8 @@ from repro_torch.core import events
 from repro_torch.kernels import _build
 
 __all__ = ["sample", "sample_ref", "filtered_logits", "gumbel_shift",
-           "block_argmax", "argmax_plain", "argmax_plan",
-           "argmax_boundary_logits", "METHODS"]
+           "block_argmax", "argmax_plain", "argmax_plan", "argmax_chunk",
+           "argmax_boundary_logits", "METHODS", "ARGMAX_SMEM_BYTES"]
 
 #: sampling methods, as the reference's registry names them
 METHODS = ("greedy", "top_k", "top_p")
@@ -54,6 +57,9 @@ ARGMAX_MAX_SPLIT = 8
 ARGMAX_MIN_CHUNK = 4096
 #: CTAs a launch aims at: two per SM of an H100 SXM (132 SMs)
 ARGMAX_TARGET_CTAS = 264
+#: static shared memory of one CTA (``csrc/argmax.cu``: a value and an
+#: index for each of its 16 warps, and the CTA's candidate)
+ARGMAX_SMEM_BYTES = 16 * 8 + 8
 
 
 @functools.lru_cache(maxsize=64)
@@ -64,7 +70,14 @@ def argmax_plan(b: int, v: int) -> tuple:
     16-byte boundaries, and every CTA gets at least one element."""
     want = min(ARGMAX_MAX_SPLIT, -(-v // ARGMAX_MIN_CHUNK),
                -(-ARGMAX_TARGET_CTAS // max(b, 1)))
-    chunk = -(-v // want)
+    return argmax_chunk(v, want)
+
+
+def argmax_chunk(v: int, split: int) -> tuple:
+    """``(split, chunk)`` for a row of ``v`` logits over at most ``split``
+    CTAs: ``chunk`` is ``ceil(v / split)`` rounded up to 8 elements, and
+    the split is the CTAs those chunks need (at most ``split``)."""
+    chunk = -(-v // max(int(split), 1))
     chunk = -(-chunk // 8) * 8
     return -(-v // chunk), chunk
 
@@ -106,16 +119,31 @@ def argmax_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.argmax(x, dim=-1).to(torch.int32)
 
 
-def block_argmax(x: torch.Tensor) -> torch.Tensor:
+def block_argmax(x: torch.Tensor, split: Optional[int] = None
+                 ) -> torch.Tensor:
     """Row-wise argmax of ``x`` [B, V] (fp32 or bf16) -> int32 [B].
 
     CUDA tensors launch ``csrc/argmax.cu`` (and count one launch in
-    ``block_argmax.launches``); CPU tensors run the plain version."""
+    ``block_argmax.launches``); CPU tensors run the plain version.
+    ``split``: CTAs a row, 1 to :data:`ARGMAX_MAX_SPLIT` (None:
+    :func:`argmax_plan`); a split the row's 8-element chunks cannot fill
+    exactly raises."""
     if x.dim() != 2 or x.shape[1] < 1:
         raise ValueError(f"block_argmax takes [B, V>=1] logits, got "
                          f"{tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"block_argmax takes fp32 or bf16, got {x.dtype}")
+    b, v = x.shape
+    if split is None:
+        split, chunk = argmax_plan(b, v)
+    else:
+        if not 1 <= int(split) <= ARGMAX_MAX_SPLIT:
+            raise ValueError(f"split must be in [1, {ARGMAX_MAX_SPLIT}], "
+                             f"got {split}")
+        got, chunk = argmax_chunk(v, split)
+        if got != split:
+            raise ValueError(f"a row of {v} logits splits over {got} CTAs "
+                             f"of 8-element chunks, not {split}")
     dev = x.device
     if dev.type == "cpu":
         out = argmax_plain(x)
@@ -125,10 +153,8 @@ def block_argmax(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"block_argmax runs on cpu or cuda, not {dev}")
     if x.stride(1) != 1:
         raise ValueError("block_argmax needs a contiguous vocab dim")
-    b, v = x.shape
     if b > 65535:
         raise ValueError(f"block_argmax takes at most 65535 rows, got {b}")
-    split, chunk = argmax_plan(b, v)
     out = x.new_empty((b,), dtype=torch.int32)
     lib = _build.library("argmax", _SIG)
     guard, stream = _build.launch_on(dev)
@@ -142,11 +168,13 @@ def block_argmax(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _declare(x: torch.Tensor) -> None:
+def _declare(x: torch.Tensor, launch: bool = True) -> None:
     """One call's traffic: the B x V logits read once, B int32 indices
-    written; comparisons, no FLOPs."""
-    events.record_launch(flops=0.0, arg_bytes=x.numel() * x.element_size(),
-                         out_bytes=4 * x.shape[0])
+    written; comparisons, no FLOPs.  As a launch from the wrapper, as
+    plain work (``launch=False``) from the registry's plain impls."""
+    record = events.record_launch if launch else events.record_ops
+    record(flops=0.0, arg_bytes=x.numel() * x.element_size(),
+           out_bytes=4 * x.shape[0])
 
 
 #: kernel launches made through the wrapper (a plain counter; reset it by

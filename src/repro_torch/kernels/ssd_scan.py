@@ -42,7 +42,7 @@ from repro_torch.models.linear_scan import (_chunked_linear_attention,
                                             sequential_linear_attention)
 
 __all__ = ["ssd_scan", "ssd_scan_ref", "ssd_flops", "declare_ssd",
-           "copy_width", "MAX_STATE_DIM", "MAX_CHUNK"]
+           "copy_width", "ssd_smem_bytes", "MAX_STATE_DIM", "MAX_CHUNK"]
 
 State = Tuple[torch.Tensor, torch.Tensor]
 
@@ -69,6 +69,28 @@ def ssd_flops(b: int, h: int, s: int, dk: int, dv: int, chunk: int) -> int:
         n = min(c, s - start)
         per += 4 * n * dk * dv + n * (n + 1) * (dk + dv) + 2 * n * dk
     return b * h * per
+
+
+def _pad64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def ssd_smem_bytes(chunk: int, dk: int, dtype: torch.dtype) -> int:
+    """Shared memory the largest CTA of a call needs (``csrc/ssd_scan.cu``):
+    bf16, the larger of pass (a)'s (``states_smem``: a 1 KiB pad, three
+    (K, V) stages of 64 x 64 bf16 tiles, two padded gate rows) and pass
+    (c)'s (``outputs_smem``: the pad, the Q tiles over dk and a 4-tile
+    ring, three padded gate rows and 64 floats); fp32, the CUDA-core
+    kernel's ``smem_floats`` (its state slice, four 64 x 65 tiles, two
+    chunk rows and a row of 64) in floats."""
+    tile = 64 * 64 * 2
+    if dtype == torch.bfloat16:
+        states = 1024 + 3 * 2 * tile + 2 * _pad64(chunk) * 4
+        outputs = (1024 + (_pad64(dk) // 64 + 4) * tile
+                   + (3 * _pad64(chunk) + 64) * 4)
+        return max(states, outputs)
+    dkp = _pad64(dk)
+    return (dkp * 64 + dkp + 4 * 64 * 65 + 2 * chunk + 64) * 4
 
 
 def copy_width(*tensors: torch.Tensor) -> int:

@@ -17,11 +17,17 @@ Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` uses:
   the pairing eagerly);
 * :func:`add_json_args` — ``--json PATH`` machine-readable summary;
 * :func:`add_impl_args` — ``--impl FAM=NAME[,...]`` kernel pins per
-  registry family (and the deprecated ``--attn-impl``, whose shared
-  warning is :func:`warn_legacy_attn_impl`); the serving launcher hands
-  both to ``ServeConfig``.  ``--tune``, ``resolve_impls`` and
-  ``impl_context`` come with their first callers, the registry's tune
-  half and the dry-run tools (``ROADMAP.md``, queue 1 items 11 and 14).
+  registry family, ``--tune`` (autotune first; a warm cache makes it
+  free) and the deprecated ``--attn-impl``, whose shared warning is
+  :func:`warn_legacy_attn_impl`; the serving launcher hands the pins to
+  ``ServeConfig``;
+* :func:`add_cache_args` — ``--cache-dir`` / ``--no-cache`` over the
+  artifact cache (consume with :func:`session_from_args`, a
+  ``ProfileSession`` honouring them); :func:`run_tune_suite` is the
+  ``--tune`` body over a suite of ``repro_torch.core.perf_report``.
+
+``resolve_impls`` and ``impl_context`` come with their first callers,
+the dry-run tools (``ROADMAP.md``, queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from typing import Dict, Optional
 __all__ = ["add_kv_args", "kv_config_kwargs", "add_robustness_args",
            "robustness_kwargs", "add_ft_args", "ft_kwargs", "add_spec_args",
            "spec_kwargs", "add_json_args", "add_impl_args",
-           "warn_legacy_attn_impl"]
+           "warn_legacy_attn_impl", "add_cache_args", "session_from_args",
+           "run_tune_suite"]
 
 #: ``--attn-impl`` names: the port's legacy single names and the JAX
 #: package's spellings of the same two
@@ -41,15 +48,22 @@ LEGACY_ATTN_CHOICES = ("cuda_flash", "torch_flash", "full", "paged_decode",
                        "pallas_flash", "jnp_flash")
 
 
-def add_impl_args(ap: argparse.ArgumentParser, *,
+def add_impl_args(ap: argparse.ArgumentParser, *, tune: bool = True,
                   legacy_attn: bool = False) -> None:
-    """``--impl`` (+ deprecated ``--attn-impl``)."""
+    """``--impl`` (+ ``--tune``, + deprecated ``--attn-impl``)."""
     ap.add_argument("--impl", default=None, metavar="FAM=NAME[,...]",
                     help="pin kernel impls per registry family, e.g. "
                          "attention=torch_flash,paged_decode=torch_paged "
                          "(the JAX package's names map one to one; "
                          "default: kernels/registry.py picks by device "
                          "and shape)")
+    if tune:
+        ap.add_argument("--tune", action="store_true",
+                        help="autotune the kernels this run serves through "
+                             "a ProfileSession first (measured device time "
+                             "on the card); winners persist in the "
+                             "artifact cache, so a warm cache makes this "
+                             "free (zero sweeps, zero timed probes)")
     if legacy_attn:
         ap.add_argument("--attn-impl", default=None,
                         choices=list(LEGACY_ATTN_CHOICES),
@@ -267,3 +281,55 @@ def add_json_args(ap: argparse.ArgumentParser,
     """``--json PATH`` (machine-readable artifact)."""
     ap.add_argument("--json", default=None, metavar="PATH",
                     help=f"write a machine-readable {what} here")
+
+
+def add_cache_args(ap: argparse.ArgumentParser) -> None:
+    """``--cache-dir`` / ``--no-cache`` (the artifact cache)."""
+    ap.add_argument("--cache-dir", default=None,
+                    help="artifact cache root (default $REPRO_CACHE_DIR or "
+                         "~/.cache/repro-perfctr)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="always run and time every probe, never read or "
+                         "write the cache")
+
+
+def session_from_args(args: argparse.Namespace):
+    """A ProfileSession honouring ``--cache-dir`` / ``--no-cache``."""
+    from repro_torch.core.session import ProfileSession
+    return ProfileSession(cache_dir=getattr(args, "cache_dir", None),
+                          enabled=not getattr(args, "no_cache", False))
+
+
+def run_tune_suite(session=None, *, smoke: bool = True, suite=None,
+                   backend: Optional[str] = None,
+                   verbose: bool = True) -> Dict[str, Dict]:
+    """The ``--tune`` body: autotune every cell of a suite
+    (``repro_torch.core.perf_report.FAMILY_SUITE`` unless ``suite`` is
+    given, e.g. ``CARD_SUITE``) through one session on ``backend``
+    (default ``cuda``).  Warm caches resolve everything from the
+    persisted tune table — zero sweeps, zero timed probes."""
+    from repro_torch.core.perf_report import (FAMILY_SUITE,
+                                              suite_candidates, suite_family)
+    from repro_torch.kernels import registry
+    if session is None:
+        from repro_torch.core.session import ProfileSession
+        session = ProfileSession()
+    suite = suite if suite is not None else FAMILY_SUITE
+    out: Dict[str, Dict] = {}
+    cands = suite_candidates(smoke, suite)
+    for cell in suite:
+        family, impl, facts = suite_family(cell, suite)
+        rec = registry.autotune(family, session, impl=impl,
+                                candidates=cands[cell], backend=backend,
+                                **facts)
+        out[cell] = {"family": family, "impl": impl, "facts": facts,
+                     "key": rec.key, "choice": list(rec.choice),
+                     "score_us": rec.score_s * 1e6, "swept": rec.swept,
+                     "lowerings": rec.lowerings, "timer": rec.timer,
+                     "scores_us": {str(list(c)): s * 1e6
+                                   for c, s in rec.scores.items()}}
+        if verbose:
+            src = "swept" if rec.swept else "tune table (warm)"
+            print(f"[tune] {cell:>15}: choice={tuple(rec.choice)} "
+                  f"[{src}, {rec.lowerings} timed probes]")
+    return out

@@ -43,8 +43,19 @@ engine validates both and the summary lists the pins.  ``--dtype fp32``
 serves the model in fp32 (default bf16), and the summary's ``tokens``
 holds every request's generated tokens.
 
-Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh``,
-``--tune`` and ``--ckpt-dir`` flags (absent: argparse refuses them);
+``--tune`` autotunes, before serving, the kernels this run serves
+through, at its shapes and dtype: the flash kernel's ``(bq, bk)`` at
+``--prompt-len`` and, with ``--page-size``, the split of the paged impl
+that will run (int8 pages: ``cuda_paged_q8``) at the pool's page size.
+Each candidate is timed on the card (device time, L2 flushed) through a
+``ProfileSession`` whose cache (``--cache-dir``, ``--no-cache``) persists
+the winners, so a second launch sweeps nothing.  It prints the choices
+and the session's stats, serves, then prints where each served call's
+tile came from (``swept``, ``disk``, ``neighbour`` or ``default``); the
+summary's ``tune`` block holds the same.
+
+Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh`` and
+``--ckpt-dir`` flags (absent: argparse refuses them);
 ``--ft-timeout-steps`` and ``--ft-confirm`` parse and are refused with
 item 14's citation.
 """
@@ -80,6 +91,7 @@ def main(argv=None) -> int:
     ap.add_argument("--admission-chunk", type=int, default=8,
                     help="decode steps between admission points")
     cli.add_impl_args(ap, legacy_attn=True)
+    cli.add_cache_args(ap)
     cli.add_json_args(ap, what="serve summary")
     cli.add_robustness_args(ap)
     cli.add_ft_args(ap)
@@ -147,6 +159,7 @@ def main(argv=None) -> int:
         print(f"[serve] kernel impls pinned: {impls}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, {args.dtype}, "
           f"random weights (seed 0) on {lm.device}")
+    tune = tune_engine(args, cfg, lm, eng) if args.tune else None
     if eng.paged:
         print(f"[serve] paged KV cache: page_size={args.page_size} "
               f"pool_pages={eng.pool_pages} table_width={eng.table_width} "
@@ -226,6 +239,12 @@ def main(argv=None) -> int:
               f"occupancy={sched.pool.occupancy():.2f}")
     for rid in sorted(done)[:4]:
         print(f"  req {rid}: {done[rid].generated[:12]}")
+    if tune is not None:
+        tune["served"] = served_tiles()
+        for row in tune["served"]:
+            print(f"[serve] served {row['family']}/{row['impl']} "
+                  f"{row['key']}: {tuple(row['choice'])} from "
+                  f"{row['source']}")
     if ctr is not None:
         print()
         print(ctr.report())
@@ -263,9 +282,79 @@ def main(argv=None) -> int:
                 "regions": ({name: {"calls": r.calls, "time_s": r.time_s}
                              for name, r in ctr.regions.items()}
                             if ctr is not None else None),
+                "tune": tune,
             }, fh, indent=2, sort_keys=True)
         print(f"[serve] wrote {args.json}")
     return 0
+
+
+def tune_engine(args, cfg, lm, eng) -> dict:
+    """``--tune``: sweep the attention family at the engine's dtype and,
+    on a paged engine, the paged impl that will run, at the pool's page
+    size.  Returns the choices and the session's stats."""
+    from repro_torch.kernels import registry
+    sess = cli.session_from_args(args)
+    backend = lm.device.type
+    dh = cfg.resolved_head_dim
+    out = {"choices": {}}
+    # tune under the ENGINE's dtype: best() keys on q.dtype at the call,
+    # so an fp32 sweep would never serve a bf16 model
+    facts = dict(b=1, h=cfg.num_heads, kvh=cfg.num_kv_heads,
+                 sq=args.prompt_len, sk=args.prompt_len, dh=dh,
+                 dtype=lm.dtype, backend=backend)
+    rec = registry.autotune("attention", sess, **facts)
+    out["choices"]["attention"] = _tuned(rec, None, facts)
+    print(f"[serve] attention tuned: (bq, bk)={rec.choice} "
+          f"({'swept' if rec.swept else 'warm from tune table'}, "
+          f"{rec.lowerings} timed probes)")
+    if eng.paged:
+        # int8 engines decode through the q8 impl, which has its own tune
+        # space: sweep the impl that will actually run, at the pool's page
+        # size only (the reference sweeps every page size; a pool has one)
+        impl = "cuda_paged_q8" if eng.quantized else "cuda_paged"
+        facts = dict(b=args.slots, kvh=cfg.num_kv_heads,
+                     g=cfg.num_heads // cfg.num_kv_heads, dh=dh,
+                     ctx=args.max_seq, dtype=lm.dtype,
+                     quantized=eng.quantized, backend=backend)
+        rec = registry.autotune(
+            "paged_decode", sess, impl=impl,
+            candidates=[(args.page_size, sp) for sp in (1, 2, 4, 8)],
+            **facts)
+        out["choices"]["paged_decode"] = _tuned(rec, impl, facts)
+        print(f"[serve] paged decode ({impl}) tuned: (page_size, split)="
+              f"{rec.choice} ({'swept' if rec.swept else 'warm from tune '
+              'table'}, {rec.lowerings} timed probes)")
+    out["stats"] = sess.stats()
+    out["timed_probes"] = sess.lowerings
+    print(f"[serve] {sess.stats()}")
+    return out
+
+
+def _tuned(rec, impl, facts) -> dict:
+    """One sweep's summary, with the facts it was swept at (the dtype by
+    name) so that a caller can rebuild each candidate's probe."""
+    return {"key": rec.key, "choice": list(rec.choice), "swept": rec.swept,
+            "timed_probes": rec.lowerings, "timer": rec.timer,
+            "impl": impl,
+            "facts": dict(facts, dtype=str(facts["dtype"]).replace(
+                "torch.", "")),
+            "scores_us": {str(list(c)): sc * 1e6
+                          for c, sc in rec.scores.items()}}
+
+
+def served_tiles() -> list:
+    """Where the tile of every call site this process served came from,
+    as ``registry.resolve`` gives it (swept, disk, neighbour, default)."""
+    from repro_torch.kernels import registry
+    rows = []
+    for family, impl, facts in registry.served_sites():
+        ts = registry._tuned_spec(family, impl).tune
+        choice, source = registry.resolve(family, impl=impl, **facts)
+        full = dict(facts, backend=facts.get("backend") or "cuda")
+        rows.append({"family": family, "impl": impl,
+                     "key": (ts.lookup_key or ts.key)(**full),
+                     "choice": list(choice), "source": source})
+    return rows
 
 
 if __name__ == "__main__":

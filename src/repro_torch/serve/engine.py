@@ -31,8 +31,9 @@ Port of ``repro/serve/engine.py``.  Two layers:
 
 **Sampling.**  ``ServeConfig.temperature > 0`` samples ``top_k`` (when
 ``top_k > 0``) or ``top_p`` tokens: the filter and the Gumbel shift are
-plain tensor ops and the argmax is kernel #4 (``kernels/sampling.py``).
-``generate``, ``generate_reference``, streaming and each
+plain tensor ops and the argmax is kernel #4 (``kernels/sampling.py``),
+all through the kernel registry's ``sampling`` family, as the JAX engine
+samples.  ``generate``, ``generate_reference``, streaming and each
 ``BatchScheduler.run`` own a ``torch.Generator`` on the engine's device
 seeded from ``ServeConfig.seed``, as the JAX engine seeds
 ``jax.random.key(cfg.seed)``; every decode step draws one ``[B, V]``, in
@@ -113,7 +114,7 @@ import torch
 from repro_torch.checkpoint import store
 from repro_torch.device import resolve_device
 from repro_torch.ft.straggler import StragglerDetector
-from repro_torch.kernels import registry, sampling
+from repro_torch.kernels import registry
 from repro_torch.models.lm import LM
 from repro_torch.serve import kv_pool
 from repro_torch.serve.admission import AdmissionQueue, AdmissionRejected
@@ -392,13 +393,15 @@ class Engine:
 
     def _sample(self, logits: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
-        """One sampling step: greedy takes no random numbers; sampled
-        methods draw one ``[B, V]`` Gumbel shift from ``generator``, and
-        kernel #4 picks every token."""
+        """One sampling step through the registry's ``sampling`` family:
+        greedy takes no random numbers; sampled methods draw one
+        ``[B, V]`` Gumbel shift from ``generator``, and on the card kernel
+        #4 picks every token (its split from ``registry.best``)."""
         cfg = self.cfg
-        return sampling.sample(logits, generator, method=self.sampling_method,
-                               temperature=max(cfg.temperature, 1e-6),
-                               k=cfg.top_k, p=cfg.top_p)
+        return registry.run("sampling", logits, generator,
+                            method=self.sampling_method,
+                            temperature=max(cfg.temperature, 1e-6),
+                            k=cfg.top_k, p=cfg.top_p)
 
     def _generator(self) -> torch.Generator:
         """A fresh stream on the engine's device seeded from

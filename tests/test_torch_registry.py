@@ -48,7 +48,7 @@ from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 torch.set_num_threads(1)
 
 FAMILIES = ("attention", "paged_decode", "stream_triad", "jacobi7",
-            "ssd_scan")
+            "ssd_scan", "sampling")
 
 #: static facts that drive each family's heuristic for CPU tensors
 HEUR_FACTS = {
@@ -57,14 +57,15 @@ HEUR_FACTS = {
     "stream_triad": dict(backend="cpu"),
     "jacobi7": {},
     "ssd_scan": dict(backend="cpu"),
+    "sampling": dict(method="greedy", backend="cpu"),
 }
 #: ... what they pick there / what an override flips them to
 HEUR_WANT = {"attention": "full", "paged_decode": "torch_paged",
              "stream_triad": "torch_triad", "jacobi7": "wavefront",
-             "ssd_scan": "torch_scan"}
+             "ssd_scan": "torch_scan", "sampling": "torch_greedy"}
 OTHER = {"attention": "cuda_flash", "paged_decode": "cuda_paged",
          "stream_triad": "cuda_triad", "jacobi7": "naive",
-         "ssd_scan": "cuda_ssd"}
+         "ssd_scan": "cuda_ssd", "sampling": "cuda_greedy"}
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -98,7 +99,16 @@ def test_families_and_names_map_one_to_one(family):
         assert callable(getattr(__import__(module, fromlist=[fn]), fn))
     text = registry.describe()
     assert all(n in text for n in registry.impls(family))
-    assert "tunable" not in text
+    # the tunable impls are the reference's tunable ones, in the port's
+    # names, and describe() marks exactly those
+    tunable = {mapping[n] for n in theirs
+               if jax_registry.get_spec(family, n).tune is not None}
+    for line in text.splitlines():
+        fam, name = line.split()[:2]
+        if fam == family:
+            assert ("tunable" in line) == (name in tunable)
+            assert (registry.get_spec(family, name).tune is not None) == \
+                (name in tunable)
 
 
 def test_unknown_family_and_impl_raise():
@@ -612,16 +622,22 @@ def test_engine_pins_reach_every_call_and_leave_nothing_behind(models,
         "attention": "torch_flash", "paged_decode": "torch_paged"}),
         device="cpu")
     eng.generate(prompts, 3)
+    # sampling goes through the registry too (unpinned: the CPU's plain
+    # impl), as the JAX engine samples
     assert set(seen) == {("attention", "torch_flash"),
-                         ("paged_decode", "torch_paged")}
+                         ("paged_decode", "torch_paged"),
+                         ("sampling", "torch_greedy")}
     seen.clear()
     from repro_torch.serve.engine import BatchScheduler, Request
     sched = BatchScheduler(eng)
     for i, p in enumerate(prompts):
         sched.submit(Request(rid=i, prompt=p, max_new_tokens=3))
     sched.run()
+    # sampling goes through the registry too (unpinned: the CPU's plain
+    # impl), as the JAX engine samples
     assert set(seen) == {("attention", "torch_flash"),
-                         ("paged_decode", "torch_paged")}
+                         ("paged_decode", "torch_paged"),
+                         ("sampling", "torch_greedy")}
     assert registry.override_for("attention") is None
     # REPRO_IMPL loses to the engine's pin, as in the JAX engine
     monkeypatch.setenv("REPRO_IMPL", "attention=full")
