@@ -16,20 +16,26 @@ failure):
                at the main paths' shapes and at edge cases (fp32
                rtol=atol=1e-5, bf16 3e-2, argmax exact; flash in fp32 and
                bf16 at ragged kv_valid with a 0 row (exactly 0), causal
-               and not, q_offset with Sq < Sk, every head dim, many kv
-               tiles, BSHD views at qwen2's and zamba2's shapes, and beside
-               SDPA's flash backend on full-length rows; argmax with ties
+               and not, q_offset with Sq < Sk, every head dim (80 on
+               every tile pair), many kv tiles, BSHD views at qwen2's,
+               zamba2's, stablelm-3b's (32 heads of 80, timed beside
+               SDPA) and mistral-large-123b's (G 12, Dh 128) shapes, and
+               beside SDPA's flash backend on full-length rows; argmax with
+               ties
                and NaN either side of its split boundaries, views from
                column 1, V = 32000, B = 1 and 64; both paged kernels
                across their cluster split (a row of 38 pages, rows
-               shorter than the cluster, G = 32 at Dh 128, pages of 8 and
-               32, the scheduler's 64-page table; a row of no past token
-               exactly v_new), the fp kernel in fp32, bf16 and with fp32
-               pages under a bf16 query; the SSD
+               shorter than the cluster, G = 32 at Dh 128, G = 1 at Dh 80,
+               G = 12 at Dh 128, pages of 8 and 32, the scheduler's
+               64-page table, stablelm-3b's decode (timed); a row of no
+               past token exactly v_new), the fp kernel in fp32, bf16 and
+               with fp32 pages under a bf16 query; the SSD
                scan, a reordered sum, at fp32 rtol=2e-4, atol=2e-5 (C and
                n at that tolerance for bf16 inputs too): ragged S, S <
                chunk, dv over two tiles, normalize, a carried state, log_f
-               = -30, mLSTM's dk = dv = 512, the bf16 route's edges (4-byte
+               = -30, mLSTM's dk = dv = 512, xlstm-350m's prefill call
+               ([8,512,4,512,512], normalize, a carried state, fp32 and
+               bf16), the bf16 route's edges (4-byte
                rows, chunk 1024), the flat [512,512,64] layout, the
                scheduler's one-row admissions (B = 1, S = 64, 300, 512,
                timed) and zamba2's generate call, with the device time of
@@ -197,11 +203,35 @@ failure):
                tiles: equal tokens and launch counts, logits within phase
                6's bound.  Phases 1-17 run with ``REPRO_CACHE_DIR`` set to
                a fresh temporary root, so no earlier tune record moves
-               their tiles.
+               their tiles;
+19. xlstm    - xlstm-350m at full width and depth (12 mLSTM/sLSTM pairs,
+               d_model 1024, 4 heads of 512, vocab 50304, bf16, random
+               weights from seed 0, dense state): (a) ``Engine.generate``
+               on 8 prompts of 512 tokens, 32 greedy tokens, #5 launched 12
+               times (once a pair) for the prefill and #4 32 times; (b)
+               ``BatchScheduler``, 16 requests of 64-512 tokens, budgets
+               16-48, 8 slots, #5 launched 12 times an admission; prefill
+               ms, decode tokens/s and segments printed; (c) fp32 at 4 of
+               24 layers: greedy tokens card (#5 in fp32) against CPU
+               equal, prefill logits within 1e-4 of max|logit|;
+20. dense configs - bf16, pages of 16: qwen1.5-0.5b and stablelm-3b
+               (LayerNorm, Dh 80) at full width and depth, phase 4's
+               prompts and 32 new tokens through ``Engine.generate``, then
+               the int8 scheduler on phase 5's traffic cut to 16 requests;
+               mistral-large-123b at full width and 2 of its 88 layers (G
+               12), 4 prompts, 16 new tokens; each run launching #1 once a
+               layer of each prefill, #2 (#3 under int8) once a layer a
+               step and #4 once a step; (d) fp32 stablelm-3b at 2 layers,
+               greedy tokens card against CPU equal, logits within 1e-4 of
+               max|logit|; (e) ``python -m repro_torch.launch.perf_report``
+               cold and warm in a fresh cache root, its report re-gated
+               against the baseline it wrote and against the committed
+               ``PERF_BASELINE.json`` (not comparable, unchanged), and
+               ``examples/serve_batched_torch.py``.
 
-Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs and
-18's suite (its launches counted in its process) and tuned generate are
-the main paths:
+Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs,
+18's suite (its launches counted in its process) and tuned generate, and
+the serving runs of 19 and 20 are the main paths:
 each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
@@ -363,6 +393,12 @@ def check_flash(dev, timer):
         case(2, 4, 2, 70, 70, 16, dtype, True, 0, [70, 0])
         case(2, 6, 2, 70, 70, 32, dtype, True, 0, [70, 5])
         case(2, 4, 1, 33, 33, 128, dtype, False, 0, [33, 20])
+        # stablelm-3b's head dim 80 (10 16-byte chunks a row, the last 2
+        # outside the bf16 swizzle): ragged with a 0 row, causal and not,
+        # q_offset with Sq < Sk, S off every tile
+        for causal in (True, False):
+            case(3, 4, 2, 100, 100, 80, dtype, causal, 0, [100, 0, 37])
+        case(3, 4, 4, 45, 130, 80, dtype, True, 85, [130, 90, 120])
     case(1, 4, 2, 1000, 1000, 64, torch.bfloat16, True, 0, [1000])
     case(2, 2, 1, 200, 1500, 128, torch.bfloat16, False, 0, [1500, 1399])
     # the main paths' prefill shapes: qwen2-0.5b (14 q heads over 2 kv
@@ -374,6 +410,37 @@ def check_flash(dev, timer):
          torch.bfloat16, True, 0, [ZAMBA_PROMPT_LEN] * ZAMBA_PROMPTS,
          bshd=True)
     case(8, 14, 2, s, s, 64, torch.float32, True, 0, PROMPT_LENS)
+    # the dense configs' prefill shapes: stablelm-3b (32 heads of 80, G =
+    # 1) and mistral-large-123b (96 heads over 8 of 128, G = 12)
+    _, (q80, k80, v80, kw80) = case(8, 32, 32, s, s, 80, torch.bfloat16,
+                                    True, 0, PROMPT_LENS, bshd=True)
+    case(8, 32, 32, s, s, 80, torch.float32, True, 0, PROMPT_LENS)
+    case(4, 96, 8, 256, 256, 128, torch.bfloat16, True, 0, [256, 200, 77, 9],
+         bshd=True)
+    # phase 20's prefills at their own shapes: qwen1.5-0.5b (16 heads of
+    # 64, G 1) on phase 4's prompts, mistral-large-123b on its 4 prompts
+    h, kvh, dh = attn_shape("qwen1.5-0.5b")
+    case(8, h, kvh, s, s, dh, torch.bfloat16, True, 0, PROMPT_LENS, bshd=True)
+    h, kvh, dh = attn_shape("mistral-large-123b")
+    sm = max(MISTRAL_PROMPT_LENS)
+    case(MISTRAL_PROMPTS, h, kvh, sm, sm, dh, torch.bfloat16, True, 0,
+         MISTRAL_PROMPT_LENS, bshd=True)
+    ke80, ve80 = k80.contiguous(), v80.contiguous()
+    kpos = torch.arange(s, device=dev)
+    mask80 = ((kpos[None, :] <= kpos[:, None])[None, None]
+              & (kpos[None, None, None, :]
+                 < kw80["kv_valid"][:, None, None, None]))
+    q80c = q80.contiguous()
+    ms80 = timer.ms(lambda: flash_attention_bhsd(q80, k80, v80, **kw80))
+    sdpa80 = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q80c, ke80, ve80, attn_mask=mask80))
+    pairs80 = sum(min(i + 1, L) for L in PROMPT_LENS for i in range(s))
+    b80 = bound_ms(2 * (2 * q80.numel() + 2 * k80.numel()) + 32,
+                   4.0 * 80 * 32 * pairs80)
+    log(f"  flash bf16 at stablelm-3b's prefill [8,32,512,80] ragged: "
+        f"kernel {ms80:.4f} ms, SDPA with the mask {sdpa80:.4f} ms, bound "
+        f"{b80[0]:.5f} ms by {b80[1]}")
+    del q80, k80, v80, ke80, ve80, q80c, mask80
     err, (q, k, v, kw) = case(8, 14, 2, s, s, 64, torch.bfloat16, True, 0,
                               PROMPT_LENS)
 
@@ -488,8 +555,30 @@ def check_paged(dev, timer):
         case([250, 7, 0, 40], 2, 7, 64, 8, dtype, 1, True, None, pdt)
         case([900, 33, 0, 64], 2, 4, 32, 32, dtype, 5, True, None, pdt)
         case([500, 16, 0, 3], 2, 7, 64, 16, dtype, 0, False, 64, pdt)
+        # stablelm-3b's Dh 80 (5 slices in a group of 8 lanes, 3 idle)
+        # at G 1, and mistral-large-123b's G 12 at Dh 128
+        case([600, 0, 5, 20, 47], 4, 1, 80, 16, dtype, 3, True, None, pdt)
+        case([300, 1, 0, 65], 2, 12, 128, 16, dtype, 2, True, None, pdt)
     # the main path's decode shape, mid-generation (16 tokens decoded)
     main_lens = [n + 16 for n in PROMPT_LENS]
+    # ... at stablelm-3b's heads (32 kv heads, G 1, Dh 80)
+    _, a80 = case(main_lens, 32, 1, 80, PAGE_SIZE, torch.bfloat16,
+                  MAX_NEW - 16, False)
+    ms80 = timer.ms(lambda: paged_decode_attention_grouped(*a80))
+    nb80 = (2 * (4 * a80[0].numel()) + 2 * 2 * sum(main_lens) * 32 * 80
+            + 4 * len(main_lens))
+    b80 = bound_ms(nb80, 4.0 * 32 * 80 * sum(n + 1 for n in main_lens))
+    log(f"  paged_decode bf16 at stablelm-3b's decode (8 rows, KVH 32, G 1, "
+        f"Dh 80): {ms80:.4f} ms, bound {b80[0]:.5f} ms by {b80[1]}")
+    del a80
+    # ... at qwen1.5-0.5b's (16 kv heads, G 1, Dh 64), and mistral-large-
+    # 123b's 4 rows mid-generation (8 of 16 tokens decoded; G 12, Dh 128)
+    h, kvh, dh = attn_shape("qwen1.5-0.5b")
+    case(main_lens, kvh, h // kvh, dh, PAGE_SIZE, torch.bfloat16,
+         MAX_NEW - 16, False)
+    h, kvh, dh = attn_shape("mistral-large-123b")
+    case([n + 8 for n in MISTRAL_PROMPT_LENS], kvh, h // kvh, dh, PAGE_SIZE,
+         torch.bfloat16, MISTRAL_NEW - 8, False)
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
     err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
                      MAX_NEW - 16, False)
@@ -582,11 +671,29 @@ def check_paged_q8(dev, timer):
         case([250, 7, 0, 40], 2, 7, 64, 8, dtype, 1, True)
         case([900, 33, 0, 64], 2, 4, 32, 32, dtype, 5, True)
         case([500, 16, 0, 3], 2, 7, 64, 16, dtype, 0, False, width=64)
+        # Dh 80 at G 1 (stablelm-3b) and G 12 at Dh 128 (mistral-large)
+        case([600, 0, 5, 20, 47], 4, 1, 80, 16, dtype, 3, True)
+        case([300, 1, 0, 65], 2, 12, 128, 16, dtype, 2, True)
     # the scheduler's decode shape: 8 slots, lengths prompt+16
     main_lens = [n + 16 for n in PROMPT_LENS]
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16, MAX_NEW - 16,
          False, width=64)
+    # phase 20's int8 scheduler runs at their own shapes: 8 slots of the
+    # shared-prefix traffic, 16 tokens into their budgets, the table cut
+    # to the scheduler's bucket of 4 pages; qwen1.5-0.5b (KVH 16, G 1, Dh
+    # 64) and stablelm-3b (KVH 32, G 1, Dh 80)
+    from repro_torch.bench import profile_serve as sp
+    from repro_torch.configs import get_arch
+    for arch in ("qwen1.5-0.5b", "stablelm-3b"):
+        work = sp.shared_prefix_workload(
+            get_arch(arch).config.vocab, DENSE_SCHED_REQUESTS, sp.PREFIX,
+            sp.SUFFIX_LENS, sp.BUDGETS, seed=0)
+        lens = [len(w[0]) + 16 for w in work[:sp.SLOTS]]
+        pages = max(-(-(n + 1) // sp.PAGE_SIZE) for n in lens)
+        h, kvh, dh = attn_shape(arch)
+        case(lens, kvh, h // kvh, dh, sp.PAGE_SIZE, torch.bfloat16, 1,
+             False, width=-(-pages // 4) * 4)
     err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
                      MAX_NEW - 16, False)
 
@@ -676,6 +783,8 @@ def check_argmax(dev, timer, vocab):
 
 ZAMBA_PROMPTS = 8                  # zamba2 generate: 8 prompts x 512 tokens
 ZAMBA_PROMPT_LEN = 512
+#: xlstm-350m's prefill call of kernel #5: 8 rows of 512, 4 heads, dk = dv = 512
+XLSTM_SSD_SHAPE = (8, 512, 4, 512, 512)
 # a reordered scan; in fp32 the atol is relative to the output's largest
 # magnitude: every fp32 evaluation rounds the decays exp(Bc_t - Bc_j) with
 # a relative error of ~|Bc| eps (|Bc| reaches ~180 over a 256-step chunk),
@@ -779,6 +888,15 @@ def check_ssd(dev, timer):
          positive=True)
     case("mLSTM dk=dv=512", (1, 512, 4, 512, 512), torch.bfloat16, 256,
          True, positive=True)
+    # xlstm-350m's prefill call: 8 rows of 512, 4 heads of 512, chunk 256,
+    # normalize, a non-zero carried state (the serving prefill carries
+    # the slot's state through the kernel)
+    for dtype in (torch.float32, torch.bfloat16):
+        case("xlstm prefill", XLSTM_SSD_SHAPE, dtype, 256, True,
+             positive=True, state=True)
+    # ... and its scheduler's one-row admission at a ragged length
+    case("xlstm admission", (1, 300) + XLSTM_SSD_SHAPE[2:], torch.bfloat16,
+         256, True, positive=True, state=True)
     # the bf16 route's edges: ragged S over key and row tiles, dk and dv
     # padded to 64 (dv over two tiles), 4-byte copies (rows of 40 bytes),
     # normalize, a carried state
@@ -1078,9 +1196,150 @@ def sched_token_check(dev):
     if m["cow_copies"] < 1 or m["prefix_hits"] < 1:
         fail("the fp32 scheduler phase did not exercise the prefix cache")
 
-    logits = {}
-    prompts = [w[0] for w in work[:3]]
+    int8_decode_logits(lm_cpu, lm_gpu, [w[0] for w in work[:3]], "qwen2")
+
+
+# ---------------------------------------------------------------------------
+# the model paths' harness (phases 7-10, 19-20): a timed generate, a
+# checked scheduler run, fp32 tokens and logits card against CPU
+# ---------------------------------------------------------------------------
+
+def build_lm(cfg, dev, dtype=torch.bfloat16, seed=0):
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    lm = LM(cfg, dtype, dev).init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {n_params} params, "
+        f"{str(dtype)[6:]}, random init (seed {seed}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return lm
+
+
+def timed_generate(eng, prompts, max_new, want, where):
+    """Warm up, then one ``generate`` with the counters set to 0 just
+    before it and read just after (one host sync, ``want`` launches),
+    then prefill plus one token alone; prints prefill ms and decode
+    tokens/s.  Returns the launches."""
+    vocab = eng.lm.cfg.vocab
+    eng.generate(prompts, max_new_tokens=max_new)          # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    syncs0 = eng.host_syncs
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = read_counters()
+    syncs = eng.host_syncs - syncs0
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=1)                # prefill + 1 token
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    if syncs != 1:
+        fail(f"{where}: generate made {syncs} host syncs, expected 1")
+    if [len(o) for o in out] != [max_new] * len(prompts):
+        fail(f"{where}: output lengths {[len(o) for o in out]}")
+    if not all(0 <= t < vocab for o in out for t in o):
+        fail(f"{where}: a generated token is outside the vocabulary")
+    if launches != want:
+        fail(f"{where}: generate launched {launches}, expected {want}")
+    dec_tok_s = len(prompts) * (max_new - 1) / max(t_gen - t_prefill, 1e-9)
+    log(f"  {where} generate: {t_gen * 1e3:.2f} ms for {len(prompts)} x "
+        f"{max_new} tokens; prefill (+1 token) {t_prefill * 1e3:.2f} ms; "
+        f"decode {dec_tok_s:.1f} tokens/s; host_syncs {syncs}; launches "
+        f"{launches}")
+    log(f"  first tokens: {[o[:4] for o in out]}")
+    return launches
+
+
+def checked_scheduler(eng, work, want_fn, where):
+    """``BatchScheduler`` over ``work`` with the counters set to 0 just
+    before and read just after: every request completes at its budget,
+    one host sync a segment, ``scheduler.check()`` (and the pool's) pass,
+    and the launches equal ``want_fn(metrics)``."""
+    from repro_torch.bench.profile_serve import run_scheduler
+    vocab = eng.lm.cfg.vocab
+    reset_counters()
+    syncs0 = eng.host_syncs
+    t0 = time.perf_counter()
+    sched, out = run_scheduler(eng, work)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    syncs = eng.host_syncs - syncs0
+    m = sched.metrics
+    if sorted(out) != list(range(len(work))):
+        fail(f"{where}: completed {sorted(out)} of {len(work)} requests")
+    for rid, (_, budget, _) in enumerate(work):
+        if len(out[rid]) != budget:
+            fail(f"{where}: request {rid}: {len(out[rid])} tokens, budget "
+                 f"{budget}")
+        if not all(0 <= t < vocab for t in out[rid]):
+            fail(f"{where}: request {rid}: a token outside the vocabulary")
+    if syncs != m["segments"]:
+        fail(f"{where}: {syncs} host syncs for {m['segments']} segments")
+    sched.check()
+    if sched.pool is not None:
+        sched.pool.check()
+    want = want_fn(m)
+    if launches != want:
+        fail(f"{where}: launched {launches}, expected {want}")
+    new_tokens = sum(len(t) for t in out.values())
+    ttfts = [r.ttft for r in sched.completed.values()]
+    log(f"  {where}: {len(out)} requests "
+        f"({sum(len(w[0]) for w in work)} prompt tokens), {new_tokens} "
+        f"tokens in {wall * 1e3:.2f} ms = {new_tokens / wall:.1f} tokens/s; "
+        f"mean TTFT {np.mean(ttfts) * 1e3:.2f} ms; segments "
+        f"{m['segments']:.0f}; decode steps {m['decode_steps']:.0f}; "
+        f"host_syncs {syncs}; admissions {m['admissions']:.0f}; launches "
+        f"{launches}")
+    return launches
+
+
+def card_cpu_tokens(dev, cfg, seed, prompts, sc, want, where):
+    """fp32 at ``cfg``'s width and depth, weights from ``seed`` with the
+    embedding scaled by 0.1 (a random model with a sigma-1 embedding
+    mostly echoes its input): 8 greedy tokens of ``Engine.generate`` on
+    the card (the kernels, ``want`` launches) equal the CPU's (the plain
+    versions), and the logits of every sampled step agree within
+    max|d| / max|logit| <= :data:`LOGITS_REL_TOL`.  Returns the CPU and
+    the card model."""
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine
+    lm_cpu = LM(cfg, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(seed))
+    lm_cpu.embed.table.data.mul_(0.1)
+    lm_gpu = LM(cfg, torch.float32, dev)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    tok, steps = {}, {}
+    for name, lm in (("card", lm_gpu), ("cpu", lm_cpu)):
+        reset_counters()
+        with LogitsRecorder() as rec:
+            tok[name] = Engine(lm, sc, device=lm.device).generate(prompts, 8)
+        steps[name] = [s.cpu() for s in rec.steps]
+        if name == "card":
+            expect_launches(f"{where} fp32 card run", read_counters(), want)
+        log(f"  {name}: {tok[name]}")
+    if tok["card"] != tok["cpu"]:
+        fail(f"{where} greedy tokens differ between the card and the CPU")
+    err, rel = logits_parity(f"{where} card vs cpu", steps["card"],
+                             steps["cpu"])
+    log(f"  {where} logits card vs cpu, {len(steps['card'])} sampled steps: "
+        f"max|d| {err:.3g}, max|d|/max|logit| = {rel:.3g}")
+    return lm_cpu, lm_gpu
+
+
+def int8_decode_logits(lm_cpu, lm_gpu, prompts, where):
+    """Prefill ``prompts`` into int8 pages of 16, then three decode steps
+    on fixed tokens, on the card (kernel #3, launched once a layer a
+    step) and on the CPU: the logits agree within max|d| / max|logit| <=
+    :data:`LOGITS_REL_TOL_INT8` (a code that rounds the other way moves a
+    logit by a step of the int8 grid)."""
+    from repro_torch.serve.engine import Engine, ServeConfig
     sc8 = ServeConfig(page_size=PAGE_SIZE, max_seq=128, kv_dtype="int8")
+    nxt = [[7], [11], [13], [17]][:len(prompts)]
+    logits = {}
     for name, lm in (("cpu", lm_cpu), ("card", lm_gpu)):
         eng = Engine(lm, sc8, device=lm.device)
         toks, lens = eng._pad_prompts(prompts)
@@ -1090,23 +1349,27 @@ def sched_token_check(dev):
                                      table_width=table.shape[1],
                                      kv_dtype=torch.int8)
         state = eng.set_page_table(state, table)
-        nxt = torch.tensor([[7], [11], [13]], dtype=torch.int32,
-                           device=lm.device)
+        tok = torch.tensor(nxt, dtype=torch.int32, device=lm.device)
+        reset_counters()
         with torch.inference_mode():
             lm.prefill({"tokens": torch.from_numpy(toks).to(lm.device),
                         "lengths": torch.from_numpy(lens).to(lm.device)},
                        state)
             out = []
             for _ in range(3):
-                lg, state = lm.decode_step(nxt, state)
+                lg, state = lm.decode_step(tok, state)
                 out.append(lg.float().cpu())
+        if name == "card":
+            expect_launches(f"{where} int8 card run", read_counters(),
+                            {"paged_decode_q8": 3 * lm.cfg.n_layers})
         logits[name] = torch.stack(out)
     rel = ((logits["card"] - logits["cpu"]).abs().max()
            / logits["cpu"].abs().max()).item()
-    log(f"  int8 decode-step logits card vs cpu: max|d|/max|logit| = "
-        f"{rel:.3g}")
+    log(f"  {where} int8 decode-step logits card vs cpu: max|d|/max|logit| "
+        f"= {rel:.3g}")
     if not rel <= LOGITS_REL_TOL_INT8:
-        fail(f"int8 decode logits differ: {rel} > {LOGITS_REL_TOL_INT8}")
+        fail(f"{where} int8 decode logits differ: {rel} > "
+             f"{LOGITS_REL_TOL_INT8}")
 
 
 # ---------------------------------------------------------------------------
@@ -1122,53 +1385,19 @@ def zamba_generate_path(dev):
     KV; each prefill runs the SSD kernel once per Mamba2 layer and the
     flash kernel once per shared-block application."""
     from repro_torch.configs.zamba2_1_2b import CONFIG
-    from repro_torch.models.lm import LM, _hybrid_groups
+    from repro_torch.models.lm import _hybrid_groups
     from repro_torch.serve.engine import Engine, ServeConfig
-    t0 = time.perf_counter()
-    lm = LM(CONFIG, torch.bfloat16, dev).init(
-        torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in lm.parameters())
-    log(f"  zamba2-1.2b: {n_params} params, bf16 (A_log, dt_bias, D fp32), "
-        f"random init (seed 0) in {time.perf_counter() - t0:.2f} s")
+    lm = build_lm(CONFIG, dev)
     rng = np.random.default_rng(10)
     prompts = [rng.integers(0, CONFIG.vocab, ZAMBA_PROMPT_LEN).tolist()
                for _ in range(ZAMBA_PROMPTS)]
     eng = Engine(lm, ServeConfig(max_seq=1024), device=dev)
-    eng.generate(prompts, max_new_tokens=MAX_NEW)          # warm-up
-    torch.cuda.synchronize()
-
-    reset_counters()
-    syncs0 = eng.host_syncs
-    t0 = time.perf_counter()
-    out = eng.generate(prompts, max_new_tokens=MAX_NEW)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    launches = read_counters()
-    syncs = eng.host_syncs - syncs0
-
-    t0 = time.perf_counter()
-    eng.generate(prompts, max_new_tokens=1)                # prefill + 1 token
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-
-    if syncs != 1:
-        fail(f"zamba2 generate made {syncs} host syncs, expected 1")
-    if [len(o) for o in out] != [MAX_NEW] * len(prompts):
-        fail(f"unexpected output lengths {[len(o) for o in out]}")
-    if not all(0 <= t < CONFIG.vocab for o in out for t in o):
-        fail("a generated token is outside the vocabulary")
     groups = len(_hybrid_groups(CONFIG.n_layers, CONFIG.attn_every))
-    want = {"ssd_scan": CONFIG.n_layers, "flash_attention": groups,
-            "argmax": MAX_NEW, "paged_decode": 0, "paged_decode_q8": 0}
-    if launches != want:
-        fail(f"zamba2 generate launched {launches}, expected {want}")
-    dec_tok_s = len(prompts) * (MAX_NEW - 1) / max(t_gen - t_prefill, 1e-9)
-    log(f"  generate: {t_gen * 1e3:.2f} ms for {len(prompts)} x {MAX_NEW} "
-        f"tokens after {ZAMBA_PROMPT_LEN}-token prompts; prefill (+1 token) "
-        f"{t_prefill * 1e3:.2f} ms; decode {dec_tok_s:.1f} tokens/s; "
-        f"host_syncs {syncs}; launches {launches}")
-    log(f"  first tokens: {[o[:4] for o in out]}")
+    launches = timed_generate(
+        eng, prompts, MAX_NEW,
+        {"ssd_scan": CONFIG.n_layers, "flash_attention": groups,
+         "argmax": MAX_NEW, "paged_decode": 0, "paged_decode_q8": 0},
+        "zamba2-1.2b")
     return lm, launches
 
 
@@ -1177,7 +1406,6 @@ def zamba_scheduler_path(lm):
     16 requests of 64-512-token prompts, budgets 16-48, 8 slots; each
     admission prefills one row at its exact length and merges its SSD
     state, conv tail and KV caches into the slot."""
-    from repro_torch.bench.profile_serve import run_scheduler
     from repro_torch.models.lm import _hybrid_groups
     from repro_torch.serve.engine import Engine, ServeConfig
     cfg = lm.cfg
@@ -1187,84 +1415,28 @@ def zamba_scheduler_path(lm):
                             rng.integers(16, 49, ZAMBA_REQUESTS))]
     eng = Engine(lm, ServeConfig(max_seq=1024, batch_slots=8,
                                  admission_chunk=8), device=lm.device)
-    reset_counters()
-    syncs0 = eng.host_syncs
-    t0 = time.perf_counter()
-    sched, out = run_scheduler(eng, work)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counters()
-    syncs = eng.host_syncs - syncs0
-    m = sched.metrics
-    if sorted(out) != list(range(len(work))):
-        fail(f"zamba2 scheduler completed {sorted(out)} of {len(work)}")
-    for rid, (_, budget, _) in enumerate(work):
-        if len(out[rid]) != budget:
-            fail(f"request {rid}: {len(out[rid])} tokens, budget {budget}")
-        if not all(0 <= t < cfg.vocab for t in out[rid]):
-            fail(f"request {rid}: a token is outside the vocabulary")
-    if syncs != m["segments"]:
-        fail(f"zamba2 scheduler made {syncs} host syncs for "
-             f"{m['segments']} segments")
-    sched.check()
     groups = len(_hybrid_groups(cfg.n_layers, cfg.attn_every))
-    want = {"ssd_scan": cfg.n_layers * m["admissions"],
+    return checked_scheduler(
+        eng, work, lambda m: {
+            "ssd_scan": cfg.n_layers * m["admissions"],
             "flash_attention": groups * m["admissions"],
             "argmax": m["decode_steps"], "paged_decode": 0,
-            "paged_decode_q8": 0}
-    if launches != want:
-        fail(f"zamba2 scheduler launched {launches}, expected {want}")
-    new_tokens = sum(len(t) for t in out.values())
-    ttfts = [r.ttft for r in sched.completed.values()]
-    log(f"  scheduler: {len(out)} requests ({sum(len(w[0]) for w in work)} "
-        f"prompt tokens), {new_tokens} tokens in {wall * 1e3:.2f} ms = "
-        f"{new_tokens / wall:.1f} tokens/s; mean TTFT "
-        f"{np.mean(ttfts) * 1e3:.2f} ms; segments {m['segments']:.0f}; "
-        f"decode steps {m['decode_steps']:.0f}; host_syncs {syncs}; "
-        f"admissions {m['admissions']:.0f}; launches {launches}")
-    return launches
+            "paged_decode_q8": 0}, "zamba2-1.2b scheduler")
 
 
 def zamba_token_check(dev):
-    """fp32, full width, 7 layers (groups of 6 and 1): the card (kernels)
-    and the CPU (plain versions) must emit the same greedy tokens, and the
-    prefill logits must agree within max|d| / max|logit| <= 1e-4."""
+    """fp32, full width, 7 layers (groups of 6 and 1), dense KV, two
+    prompts of 300 tokens (a full chunk of 256 and a ragged one)."""
     from repro_torch.configs.zamba2_1_2b import CONFIG
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    from repro_torch.models.lm import LM
-    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.models.lm import _hybrid_groups
+    from repro_torch.serve.engine import ServeConfig
     cfg = dataclasses.replace(CONFIG, n_layers=7)
-    lm_cpu = LM(cfg, torch.float32, "cpu").init(
-        torch.Generator().manual_seed(4))
-    lm_cpu.embed.table.data.mul_(0.1)
-    lm_gpu = LM(cfg, torch.float32, dev)
-    lm_gpu.load_state_dict(lm_cpu.state_dict())
     rng = np.random.default_rng(12)
-    # 300 tokens: a full chunk of 256 and a ragged one, equal lengths
     prompts = [rng.integers(0, cfg.vocab, 300).tolist() for _ in range(2)]
-    sc = ServeConfig(max_seq=512)
-    launches0 = ssd_scan.launches
-    tok = {"card": Engine(lm_gpu, sc, device=dev).generate(prompts, 8),
-           "cpu": Engine(lm_cpu, sc, device="cpu").generate(prompts, 8)}
-    if ssd_scan.launches - launches0 != cfg.n_layers:
-        fail("the fp32 zamba2 card run did not go through the ssd kernel")
-    for k, v in tok.items():
-        log(f"  {k}: {v}")
-    if tok["card"] != tok["cpu"]:
-        fail("zamba2 greedy tokens differ between the card and the CPU")
-    logits = {}
-    for name, lm in (("cpu", lm_cpu), ("card", lm_gpu)):
-        toks = torch.tensor(prompts, dtype=torch.int32, device=lm.device)
-        with torch.inference_mode():
-            lg, _ = lm.prefill({"tokens": toks},
-                               lm.init_decode_state(len(prompts), 512))
-        logits[name] = lg.float().cpu()
-    rel = ((logits["card"] - logits["cpu"]).abs().max()
-           / logits["cpu"].abs().max()).item()
-    log(f"  zamba2 prefill logits card vs cpu: max|d|/max|logit| = "
-        f"{rel:.3g}")
-    if not rel <= 1e-4:
-        fail(f"zamba2 prefill logits differ: {rel} > 1e-4")
+    groups = len(_hybrid_groups(cfg.n_layers, cfg.attn_every))
+    card_cpu_tokens(dev, cfg, 4, prompts, ServeConfig(max_seq=512),
+                    {"ssd_scan": cfg.n_layers, "flash_attention": groups,
+                     "argmax": 8}, "zamba2")
 
 
 # ---------------------------------------------------------------------------
@@ -2874,6 +3046,209 @@ def tuned_generate(dev, smi):
     return runs["tuned"][1]
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: xlstm-350m, and the other dense configs
+# ---------------------------------------------------------------------------
+
+XLSTM_REQUESTS = 16
+#: the dense configs' int8 scheduler run: phase 5's traffic, shortened
+DENSE_SCHED_REQUESTS = 16
+#: mistral-large-123b on one card: full width, 2 of its 88 layers
+MISTRAL_LAYERS = 2
+MISTRAL_PROMPTS = 4
+MISTRAL_PROMPT_LENS = PROMPT_LENS[1:1 + 2 * MISTRAL_PROMPTS:2]
+MISTRAL_NEW = 16
+
+
+def attn_shape(arch):
+    """(query heads, kv heads, head dim) of a registered config."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).config
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+
+def xlstm_paths(dev):
+    """Phase 19 (a), (b): xlstm-350m at full width and depth (12
+    mLSTM/sLSTM pairs, d_model 1024, 4 heads of 512), bf16, dense state:
+    (a) ``Engine.generate`` on 8 prompts of 512 tokens, 32 greedy tokens,
+    #5 launched once a pair (12 times) for the prefill; (b) the
+    ``BatchScheduler`` on 16 requests of 64-512 tokens, budgets 16-48, 8
+    slots, #5 launched 12 times an admission."""
+    from repro_torch.configs.xlstm_350m import CONFIG
+    from repro_torch.serve.engine import Engine, ServeConfig
+    lm = build_lm(CONFIG, dev)
+    pairs = CONFIG.n_layers // 2
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, CONFIG.vocab, XLSTM_SSD_SHAPE[1]).tolist()
+               for _ in range(XLSTM_SSD_SHAPE[0])]
+    eng = Engine(lm, ServeConfig(max_seq=1024), device=dev)
+    none = {"flash_attention": 0, "paged_decode": 0, "paged_decode_q8": 0}
+    gen = timed_generate(eng, prompts, MAX_NEW,
+                         dict(none, ssd_scan=pairs, argmax=MAX_NEW),
+                         "xlstm-350m")
+    work = [(rng.integers(1, CONFIG.vocab, int(n)).tolist(), int(b), 1)
+            for n, b in zip(rng.integers(64, 513, XLSTM_REQUESTS),
+                            rng.integers(16, 49, XLSTM_REQUESTS))]
+    seng = Engine(lm, ServeConfig(max_seq=1024, batch_slots=8,
+                                  admission_chunk=8), device=dev)
+    sched = checked_scheduler(
+        seng, work, lambda m: dict(none, ssd_scan=pairs * m["admissions"],
+                                   argmax=m["decode_steps"]),
+        "xlstm-350m scheduler")
+    return gen, sched
+
+
+def xlstm_token_check(dev):
+    """Phase 19 (c): fp32, full width, 4 of 24 layers (2 pairs), dense
+    state, two prompts of 300 tokens (a full chunk of 256 and a ragged
+    one): kernel #5 in fp32 on the card against the chunked plain
+    version on the CPU."""
+    from repro_torch.configs.xlstm_350m import CONFIG
+    from repro_torch.serve.engine import ServeConfig
+    cfg = dataclasses.replace(CONFIG, n_layers=4)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab, 300).tolist() for _ in range(2)]
+    card_cpu_tokens(dev, cfg, 5, prompts, ServeConfig(max_seq=512),
+                    {"ssd_scan": cfg.n_layers // 2, "argmax": 8}, "xlstm")
+
+
+def dense_config_paths(dev):
+    """Phase 20 (a)-(c): the other dense configs at full width, bf16,
+    pages of 16.  qwen1.5-0.5b (16 heads, G 1, QKV bias, tied embedding)
+    and stablelm-3b (LayerNorm, 32 heads of 80) at full depth: phase 4's
+    8 ragged prompts, 32 new tokens, then the int8 scheduler on phase 5's
+    traffic cut to 16 requests; mistral-large-123b (96 heads over 8 of
+    128, G 12) at 2 of its 88 layers: 4 prompts, 16 new tokens."""
+    from repro_torch.bench import profile_serve as ps
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import Engine, ServeConfig
+    by_path = {}
+    rng = np.random.default_rng(22)
+    for arch in ("qwen1.5-0.5b", "stablelm-3b"):
+        cfg = get_arch(arch).config
+        lm = build_lm(cfg, dev)
+        prompts = [rng.integers(0, cfg.vocab, n).tolist()
+                   for n in PROMPT_LENS]
+        eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024),
+                     device=dev)
+        L = cfg.n_layers
+        by_path[f"{arch}_generate"] = timed_generate(
+            eng, prompts, MAX_NEW,
+            {"flash_attention": L, "paged_decode": L * (MAX_NEW - 1),
+             "argmax": MAX_NEW, "paged_decode_q8": 0, "ssd_scan": 0}, arch)
+        seng = Engine(lm, ServeConfig(page_size=ps.PAGE_SIZE, max_seq=1024,
+                                      batch_slots=ps.SLOTS,
+                                      admission_chunk=8, kv_dtype="int8"),
+                      device=dev)
+        work = ps.shared_prefix_workload(cfg.vocab, DENSE_SCHED_REQUESTS,
+                                         ps.PREFIX, ps.SUFFIX_LENS,
+                                         ps.BUDGETS, seed=0)
+        by_path[f"{arch}_scheduler_int8"] = checked_scheduler(
+            seng, work, lambda m, L=L: {
+                "paged_decode_q8": L * m["decode_steps"],
+                "flash_attention": L * (m["admissions"] - m["prefix_hits"]),
+                "argmax": m["decode_steps"], "paged_decode": 0,
+                "ssd_scan": 0}, f"{arch} int8 scheduler")
+        del lm, eng, seng
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch("mistral-large-123b").config,
+                              n_layers=MISTRAL_LAYERS)
+    lm = build_lm(cfg, dev)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in MISTRAL_PROMPT_LENS]
+    eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024),
+                 device=dev)
+    L = cfg.n_layers
+    by_path["mistral-large-123b_generate"] = timed_generate(
+        eng, prompts, MISTRAL_NEW,
+        {"flash_attention": L, "paged_decode": L * (MISTRAL_NEW - 1),
+         "argmax": MISTRAL_NEW, "paged_decode_q8": 0, "ssd_scan": 0},
+        f"mistral-large-123b ({L} of 88 layers)")
+    del lm, eng
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def stablelm_token_check(dev):
+    """Phase 20 (d): stablelm-3b in fp32 at full width and 2 layers
+    (LayerNorm, Dh 80): the paged engine's tokens and logits on the card
+    (#1 a layer, #2 a layer a step) against the CPU's, then int8 pages'
+    decode-step logits (#3 at KVH 32, G 1, Dh 80)."""
+    from repro_torch.configs.stablelm_3b import CONFIG
+    from repro_torch.serve.engine import ServeConfig
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (37, 20, 5)]
+    L = cfg.n_layers
+    lm_cpu, lm_gpu = card_cpu_tokens(
+        dev, cfg, 6, prompts, ServeConfig(page_size=PAGE_SIZE, max_seq=128),
+        {"flash_attention": L, "paged_decode": 7 * L, "argmax": 8},
+        "stablelm")
+    int8_decode_logits(lm_cpu, lm_gpu, prompts, "stablelm")
+
+
+def perf_report_and_example(smi):
+    """Phase 20 (e): the tool layer's last CLI, ``python -m
+    repro_torch.launch.perf_report``, on the card in a fresh cache root:
+    cold (the family suite swept, the production path timed, a baseline
+    of the port's own written), warm (0 timed probes), its written report
+    re-gated against that baseline (exit 0) and against the committed
+    ``PERF_BASELINE.json`` (another chip: not comparable, not gated),
+    which must stay byte for byte as it was; then
+    ``examples/serve_batched_torch.py`` on the card."""
+    import hashlib
+    import runpy
+    committed = ROOT / "PERF_BASELINE.json"
+    digest = hashlib.sha256(committed.read_bytes()).hexdigest()
+    root = Path(fresh_root("perf-report"))
+    base, report = root / "base.json", root / "report.json"
+    # an empty artifacts directory: a BENCH_*.json or TUNE_TABLE.json left
+    # in the checkout would be pinned instead of swept
+    arts = fresh_root("perf-report-artifacts")
+    cli = ["repro_torch.launch.perf_report", "--cache-dir", str(root),
+           "--artifacts", arts]
+    t0 = time.perf_counter()
+    cold = run_cli(cli + ["--baseline", str(base), "--update-baseline",
+                          "--json", str(report), "--md",
+                          str(root / "report.md")], timeout=600)
+    secs = time.perf_counter() - t0
+    rows = json.loads(report.read_text())["rows"]
+    if "swept" not in cold or not base.exists() or not rows:
+        fail(f"perf_report cold: {cold[-2000:]}")
+    if not all(r["key"].endswith("-cuda") for r in rows) or \
+            not any(r.get("wall_s") for r in rows):
+        fail(f"perf_report rows are not the card's: {rows}")
+    log(f"  perf_report cold: {len(rows)} rows in {secs:.1f} s [{smi}]")
+    for line in cold.splitlines():
+        if line.startswith(("attention", "paged", "sampling", "ssd",
+                            "stream", "jacobi")):
+            log(f"    {line}")
+    warm = run_cli(cli + ["--baseline", str(base), "--no-measure"],
+                   timeout=600)
+    if "swept" in warm or "tune table (warm)" not in warm:
+        fail(f"perf_report warm swept again: {warm[-2000:]}")
+    gated = run_cli(cli + ["--check", str(report), "--baseline", str(base),
+                           "--gate"])
+    other = run_cli(cli + ["--check", str(report), "--baseline",
+                           str(committed), "--gate"])
+    if "[gate] ok" not in gated or "not comparable" not in other:
+        fail(f"perf_report gate: {gated[-1000:]} / {other[-1000:]}")
+    if hashlib.sha256(committed.read_bytes()).hexdigest() != digest:
+        fail("perf_report changed the committed PERF_BASELINE.json")
+    log("  perf_report warm: 0 timed probes; re-gated against its own "
+        "baseline: ok; against the committed PERF_BASELINE.json: not "
+        "comparable, not gated, unchanged")
+    reset_counters()
+    mod = runpy.run_path(str(ROOT / "examples" / "serve_batched_torch.py"))
+    outs, done = mod["main"]([])
+    launches = read_counters()
+    if [len(o) for o in outs] != [16] * 3 or len(done) != 10 or \
+            launches["flash_attention"] < 1 or launches["argmax"] < 1:
+        fail(f"serve_batched_torch on the card: {outs}, {len(done)} "
+             f"requests, launches {launches}")
+    log(f"  examples/serve_batched_torch.py on the card: launches {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -2899,7 +3274,7 @@ def run_phases() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    log("[1/18] probe")
+    log("[1/20] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -2916,12 +3291,12 @@ def run_phases() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    log("[2/18] build")
+    log("[2/20] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/18] kernels vs plain versions")
+    log("[3/20] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -2933,26 +3308,26 @@ def run_phases() -> int:
             f"{r['bound_by']})")
     del timer
 
-    log("[4/18] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    log("[4/20] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/18] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    log("[5/20] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
         "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    log("[6/18] fp32 token check: card paged / card dense / cpu paged")
+    log("[6/20] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/18] fp32 scheduler token check: card scheduler / card generate "
+    log("[7/20] fp32 scheduler token check: card scheduler / card generate "
         "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    log("[8/18] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    log("[8/20] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    log("[9/18] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    log("[9/20] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -2962,10 +3337,10 @@ def run_phases() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    log("[10/18] fp32 zamba2 token check: card / cpu, 7 layers")
+    log("[10/20] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    log("[11/18] case-study kernels vs plain versions: STREAM triad, "
+    log("[11/20] case-study kernels vs plain versions: STREAM triad, "
         "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -2975,14 +3350,14 @@ def run_phases() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    log("[12/18] main path 5: the case studies through PerfCtr marker "
+    log("[12/20] main path 5: the case studies through PerfCtr marker "
         "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    log("[13/18] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    log("[13/20] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
         "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -2990,11 +3365,11 @@ def run_phases() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    log("[14/18] main path 7: speculative decoding, K = 4, 2-layer matched "
+    log("[14/20] main path 7: speculative decoding, K = 4, 2-layer matched "
         "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    log("[15/18] main path 8: serving snapshots and chaos: (a) fp32 "
+    log("[15/20] main path 8: serving snapshots and chaos: (a) fp32 "
         "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
         "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -3002,13 +3377,13 @@ def run_phases() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    log("[16/18] main path 9: the serving benches (serve, paged decode, "
+    log("[16/20] main path 9: the serving benches (serve, paged decode, "
         "flash prefill, spec) at their default sizes, serve and spec at "
         "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    log("[17/18] main path 10: the tool layer (topology, pin, features) "
+    log("[17/20] main path 10: the tool layer (topology, pin, features) "
         "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
         "default kernels against the torch pins three ways")
     topology_check(dev, smi)
@@ -3017,7 +3392,7 @@ def run_phases() -> int:
     tool_benches(smi)
     torch.cuda.empty_cache()
 
-    log("[18/18] main path 11: the registry's tune half: (a) every tunable "
+    log("[18/20] main path 11: the registry's tune half: (a) every tunable "
         "family's card cell swept cold, each candidate held to its plain "
         "version; (b) warm in a fresh process; (c) the launcher's --tune "
         "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
@@ -3028,6 +3403,26 @@ def run_phases() -> int:
     tune_launcher(smi)
     tuned_gen_launches = tuned_generate(dev, smi)
     log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("[19/20] main path 12: xlstm-350m at full width and depth, dense "
+        "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
+        "card vs cpu at 4 layers")
+    t19 = time.perf_counter()
+    xlstm_gen_launches, xlstm_sched_launches = xlstm_paths(dev)
+    torch.cuda.empty_cache()
+    xlstm_token_check(dev)
+    log(f"  phase 19 in {time.perf_counter() - t19:.1f} s")
+
+    log("[20/20] main path 13: the other dense configs, pages of 16: "
+        "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
+        "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
+        "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
+    t20 = time.perf_counter()
+    dense_launches = dense_config_paths(dev)
+    stablelm_token_check(dev)
+    perf_report_and_example(smi)
+    log(f"  phase 20 in {time.perf_counter() - t20:.1f} s")
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
@@ -3038,7 +3433,9 @@ def run_phases() -> int:
                "registry_generate_fp32": reg_launches,
                "registry_scheduler_int8": reg_q8_launches,
                "tune_suite_card": tune_launches,
-               "tuned_generate_fp32": tuned_gen_launches}
+               "tuned_generate_fp32": tuned_gen_launches,
+               "xlstm_generate": xlstm_gen_launches,
+               "xlstm_scheduler": xlstm_sched_launches, **dense_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"],

@@ -5,11 +5,12 @@
 
 Builds ``--arch`` at full width and depth (bf16, random weights from seed
 0) and serves its ``generate`` path of ``chip_smoke.py``, 32 greedy tokens
-per prompt: for qwen2-0.5b 8 ragged prompts of 512, 384, 301, 256, 129,
-64, 17 and 1 tokens with a paged (``--page-size 16``, the default) or
-dense (``--page-size 0``) KV cache; for zamba2-1.2b 8 prompts of 512
-tokens with dense KV (the hybrid family has no pages).  It warms the
-engine up, then:
+per prompt: for the dense configs (qwen2-0.5b, qwen1.5-0.5b, stablelm-3b)
+8 ragged prompts of 512, 384, 301, 256, 129, 64, 17 and 1 tokens with a
+paged (``--page-size 16``, the default) or dense (``--page-size 0``) KV
+cache; for zamba2-1.2b and xlstm-350m 8 prompts of 512 tokens with dense
+state (the recurrent families have no pages).  It warms the engine up,
+then:
 
 * times ``generate`` on the host clock, ending in ``torch.cuda.synchronize``
   (the whole call, and prefill plus one token alone);
@@ -17,7 +18,9 @@ engine up, then:
   every CUDA kernel: the device's busy share of the call's wall time, and
   the kernels that take most of it;
 * profiles prefill plus one token alone the same way, and lists the device
-  time and launches of the port's own kernels in both calls.
+  time and launches of the port's own kernels in both calls, and the
+  CUDA kernels each call launched in all (``*launches``: the sLSTM loop's
+  small kernels show there).
 
 Prints one JSON object (also written to ``--json`` when given).  Needs a
 CUDA card; exits non-zero without one.
@@ -38,8 +41,12 @@ from repro_torch.core.devtime import device_time_us as _device_time_us
 
 #: prompt lengths per arch: ragged for an attention-cache family, equal
 #: for a recurrent one (its prefill cannot mask pads)
-PROMPT_LENS = {"qwen2-0.5b": (512, 384, 301, 256, 129, 64, 17, 1),
-               "zamba2-1.2b": (512,) * 8}
+RAGGED = (512, 384, 301, 256, 129, 64, 17, 1)
+PROMPT_LENS = {"qwen2-0.5b": RAGGED, "qwen1.5-0.5b": RAGGED,
+               "stablelm-3b": RAGGED, "zamba2-1.2b": (512,) * 8,
+               "xlstm-350m": (512,) * 8}
+#: the archs whose state is recurrent: dense state, no pages
+RECURRENT = ("zamba2-1.2b", "xlstm-350m")
 MAX_NEW = 32
 #: the port's kernels by the names of their ``__global__`` functions
 #: (the SSD scan: the bf16 route's three passes, the fp32 route's kernel)
@@ -124,6 +131,8 @@ def profile(arch: str, page_size: int) -> dict:
                          "device_ms": _device_time_us(a) / 1e3}
                         for a in top],
         "port_kernels": _port_kernels(avgs),
+        "launches": sum(a.count for a in avgs),
+        "prefill_plus_1_launches": sum(a.count for a in pre_avgs),
         "prefill_plus_1_profiled_wall_ms": pre_wall_ms,
         "prefill_plus_1_device_busy_ms":
             sum(_device_time_us(a) for a in pre_avgs) / 1e3,
@@ -136,13 +145,14 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen2-0.5b",
                     choices=sorted(PROMPT_LENS))
     ap.add_argument("--page-size", type=int, default=None,
-                    help="KV page size (default: 16 for qwen2-0.5b, 0 = "
-                         "dense for zamba2-1.2b)")
+                    help="KV page size (default: 16 for the dense "
+                         "configs, 0 = dense state for zamba2-1.2b and "
+                         "xlstm-350m)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     page_size = args.page_size
     if page_size is None:
-        page_size = 16 if args.arch == "qwen2-0.5b" else 0
+        page_size = 0 if args.arch in RECURRENT else 16
     if not torch.cuda.is_available():
         print("profile_generate: no CUDA device", file=sys.stderr)
         return 2

@@ -48,7 +48,13 @@ direct wrapper, ``registry.run`` and ``registry.run`` inside
 The second form runs this file against another tree's ``repro_torch``
 (the parent commit unpacked with ``git archive``), so two versions are
 compared in one call on one card; ``--only paged_host`` runs just that
-row (no device-time reader, which older trees lack).  Prints one JSON
+row (no device-time reader, which older trees lack).  ``--only
+head_dims`` runs the rows of stablelm-3b's head dim instead: #1 in bf16
+and fp32 at q [8,32,512,80] (the same ragged prompts) beside SDPA and
+beside the same call at Dh 64, and #2 / #3 at 8 rows of 32 kv heads, G
+= 1, Dh 80 and 64, and at mistral-large-123b's 8 kv heads, G = 12, Dh
+128 (``flash_prefill_h32_dh*``, ``sdpa_prefill_h32_dh80_*``,
+``paged_decode[_q8]_kvh*`` rows).  Prints one JSON
 object; needs a CUDA card and exits non-zero without one.
 """
 
@@ -187,12 +193,14 @@ def ssd_inputs(dev, b, s, h, dk, dv, dtype, normalize, seed: int = 5):
     return (q, k, v, gate(), gate()), st
 
 
-def paged_inputs(dev, q8: bool, width=None, seed: int = 4):
+def paged_inputs(dev, q8: bool, width=None, seed: int = 4,
+                 heads=(2, 7, 64)):
     """Phase 3's main decode call: row-major page table (ids 1..), room
-    for EXTRA more tokens a row, optionally widened to ``width``."""
+    for EXTRA more tokens a row, optionally widened to ``width``;
+    ``heads`` is (KVH, G, Dh), qwen2-0.5b's by default."""
     rng = np.random.default_rng(seed)
     lens = [n + DECODED for n in PROMPT_LENS]
-    kvh, g, dh, ps = 2, 7, 64, PAGE_SIZE
+    (kvh, g, dh), ps = heads, PAGE_SIZE
     per_row = [-(-(n + EXTRA) // ps) for n in lens]
     np_w = max(width or 0, max(per_row))
     num_pages = -(-(1 + sum(per_row)) // 16) * 16
@@ -234,10 +242,11 @@ def in_turns(probe: Probe, fn, ref, turns: int) -> dict:
                 wins=sum(p[0] <= p[1] for p in pairs), turns=turns)
 
 
-def flash_inputs(dev, dtype, seed: int = 0):
-    """Phase 3's qwen2 prefill call: q, k, v [B,H,S,Dh], the ragged
-    ``kv_valid`` and SDPA's equivalent boolean mask and expanded K/V."""
-    b, h, kvh, s, dh = FLASH_SHAPE
+def flash_inputs(dev, dtype, seed: int = 0, shape=FLASH_SHAPE):
+    """Phase 3's qwen2 prefill call (or ``shape``'s (B, H, KVH, S, Dh)):
+    q, k, v [B,H,S,Dh], the ragged ``kv_valid`` and SDPA's equivalent
+    boolean mask and expanded K/V."""
+    b, h, kvh, s, dh = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(n):
@@ -294,6 +303,38 @@ def flash_argmax(dev, probe: Probe, out: dict) -> None:
         del q, k, v, kvv, ke, ve, mask, x
 
 
+def head_dims(dev, probe: Probe, out: dict) -> None:
+    """#1, #2 and #3 at stablelm-3b's head dim 80 (32 heads, G = 1) beside
+    the same shapes at Dh 64, SDPA at stablelm's prefill, and the paged
+    kernels at mistral-large-123b's G = 12, Dh 128."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.paged_decode import (
+        paged_decode_attention_grouped, paged_decode_attention_q8_grouped)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dh in (80, 64):
+        shape = (8, 32, 32, 512, dh)
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            (q, k, v, kvv), (ke, ve, mask) = flash_inputs(dev, dtype,
+                                                          shape=shape)
+            out[f"flash_prefill_h32_dh{dh}_{tag}"] = probe.all(
+                lambda: flash_attention_bhsd(q, k, v, causal=True,
+                                             kv_valid=kvv))
+            if dh == 80:
+                out[f"sdpa_prefill_h32_dh{dh}_{tag}"] = probe.all(
+                    lambda: sdpa(q, ke, ve, attn_mask=mask))
+            del q, k, v, kvv, ke, ve, mask
+    for tag, heads in (("kvh32_g1_dh80", (32, 1, 80)),
+                       ("kvh32_g1_dh64", (32, 1, 64)),
+                       ("kvh8_g12_dh128", (8, 12, 128))):
+        fp = paged_inputs(dev, q8=False, heads=heads)
+        out[f"paged_decode_{tag}"] = probe.all(
+            lambda: paged_decode_attention_grouped(*fp))
+        q8 = paged_inputs(dev, q8=True, heads=heads)
+        out[f"paged_decode_q8_{tag}"] = probe.all(
+            lambda: paged_decode_attention_q8_grouped(*q8))
+        del fp, q8
+
+
 def profile(dev, turns: int, only=None) -> dict:
     if only == "paged_host":
         return {"paged_host": paged_host(dev)}
@@ -306,6 +347,9 @@ def profile(dev, turns: int, only=None) -> dict:
     _build.build_all()
     probe = Probe(dev)
     out = {}
+    if only == "head_dims":
+        head_dims(dev, probe, out)
+        return out
     flash_argmax(dev, probe, out)
     if only == "flash_argmax":
         return out
@@ -356,10 +400,12 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None)
     ap.add_argument("--turns", type=int, default=8)
     ap.add_argument("--only", default=None,
-                    choices=["paged_host", "flash_argmax"],
+                    choices=["paged_host", "flash_argmax", "head_dims"],
                     help="run only these rows (paged_host: the host us of "
                          "a paged call three ways; flash_argmax: #1 and "
-                         "#4 beside their library calls)")
+                         "#4 beside their library calls; head_dims: #1, "
+                         "#2 and #3 at Dh 80 beside Dh 64, and the paged "
+                         "kernels at G 12, Dh 128)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)

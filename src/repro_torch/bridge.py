@@ -2,7 +2,10 @@
 
 The JAX ``LM.init`` returns a nested dict whose per-layer leaves are
 stacked on a leading layers axis (``blocks/attn/wq`` is ``[L, d, H, Dh]``,
-``mamba/in_proj`` is ``[L, d, E]``).  The port keeps one module per layer
+``mamba/in_proj`` is ``[L, d, E]``, ``mlstm/wq`` is ``[L/2, di, H, dh]``:
+the xlstm family stacks its mLSTM and sLSTM blocks over its
+``n_layers // 2`` pairs).  LayerNorm's ``bias`` leaves map across like
+any other.  The port keeps one module per layer
 with the same leaf names, so the bridge only flattens the tree to dotted
 names and splits the layers axis — no transposes, because both sides keep
 the same weight layouts.  Leaves arrive as numpy arrays (the
@@ -16,8 +19,8 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.lm import PORTED_FAMILIES, LMConfig
-from repro_torch.models.ssm import FP32_LEAVES
 
 __all__ = ["params_from_jax"]
 
@@ -41,31 +44,40 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: LMConfig,
     params tree (numpy leaves); load it with ``lm.load_state_dict``.
 
     Stacked subtrees (``blocks.*`` of the dense family, ``mamba.*`` of the
-    hybrid) are split over their leading ``n_layers`` axis into
-    ``blocks.{i}.*`` / ``mamba.{i}.*``; everything else (the hybrid's one
-    ``shared_attn`` block included) is copied as is.  Mamba2's
-    :data:`~repro_torch.models.ssm.FP32_LEAVES` stay fp32 whatever
-    ``dtype`` is."""
+    hybrid, ``mlstm.*`` and ``slstm.*`` of the xlstm) are split over their
+    leading axis (``n_layers``; ``n_layers // 2`` pairs for the xlstm
+    family) into ``blocks.{i}.*`` / ``mamba.{i}.*`` / ``mlstm.{i}.*``;
+    everything else (the hybrid's one ``shared_attn`` block included) is
+    copied as is.  Mamba2's :data:`~repro_torch.models.ssm.FP32_LEAVES`
+    and the xLSTM blocks' :data:`~repro_torch.models.xlstm.FP32_LEAVES`
+    stay fp32 whatever ``dtype`` is."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    stacked = "blocks." if cfg.family == "dense" else "mamba."
+    depth, prefixes, fp32_leaves = {
+        "dense": (cfg.n_layers, ("blocks.",), ()),
+        "hybrid": (cfg.n_layers, ("mamba.",), ssm.FP32_LEAVES),
+        "xlstm": (cfg.n_layers // 2, ("mlstm.", "slstm."),
+                  xlstm.FP32_LEAVES),
+    }[cfg.family]
     state: Dict[str, torch.Tensor] = {}
 
     def put(name: str, arr: np.ndarray) -> None:
-        fp32 = (name.startswith("mamba.")
-                and name.rsplit(".", 1)[-1] in FP32_LEAVES)
+        fp32 = (name.startswith(prefixes)
+                and name.rsplit(".", 1)[-1] in fp32_leaves)
         state[name] = torch.from_numpy(arr).to(
             device=device, dtype=torch.float32 if fp32 else dtype)
 
     for name, leaf in _flatten(np_params).items():
         arr = np.array(leaf, dtype=np.float32)          # a writable copy
-        if name.startswith(stacked):
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: leading axis {arr.shape[0]} is "
-                                 f"not n_layers={cfg.n_layers}")
-            rest = name[len(stacked):]
-            for i in range(cfg.n_layers):
-                put(f"{stacked}{i}.{rest}", arr[i].copy())
-        else:
+        stacked = next((p for p in prefixes if name.startswith(p)), None)
+        if stacked is None:
             put(name, arr)
+            continue
+        if arr.shape[0] != depth:
+            raise ValueError(f"{name}: leading axis {arr.shape[0]} is not "
+                             f"the {depth} stacked layers of "
+                             f"{cfg.family!r} (n_layers={cfg.n_layers})")
+        rest = name[len(stacked):]
+        for i in range(depth):
+            put(f"{stacked}{i}.{rest}", arr[i].copy())
     return state

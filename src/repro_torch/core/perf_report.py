@@ -30,8 +30,7 @@ reference with the port's toolchain fields, so the report and the gate
 run from fixture JSON.  The suites: :data:`FAMILY_SUITE` keeps the
 reference's cells byte for byte (tune keys derive from them);
 :data:`CARD_SUITE` holds the serving paths' shapes on the card, where the
-sweeps run for real.  The CLI ``launch/perf_report.py`` is not ported yet
-(``ROADMAP.md``, queue 1 item 11).
+sweeps run for real.  The CLI is ``repro_torch.launch.perf_report``.
 """
 
 from __future__ import annotations

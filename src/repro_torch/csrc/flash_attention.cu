@@ -47,6 +47,12 @@
 // valid on sm_90a, and at the serving shapes (ragged prompts of <= 512
 // tokens, Dh 64) the kernel is bound by its tail and the softmax, not the
 // products.  wgmma is the next step (ROADMAP, rule 2).
+// Head dims: 16, 32, 64, 80 and 128 (stablelm-3b's 2560 / 32 = 80), the
+// TPU kernel's blocks spanning the whole of any Dh.  At Dh 80 a row is
+// 10 chunks: KS = 5 k-steps of QK^T and ND = 10 n-tiles of O, both fine
+// for m16n8k16 and the x4 ldmatrix; the swizzle keeps the last 2 chunks
+// of each row in place (Tile::SWZ_CHUNKS), so every address stays inside
+// its row.
 //
 // fp32, flash_fwd_kernel: the CUDA-core kernel of the first port, kept for
 // fp32's contract (rtol = atol = 1e-5 against the plain version, greedy
@@ -65,7 +71,9 @@ namespace simt {
 
 // BQ queries per block, BK keys per shared-memory tile (the wrapper's
 // FLASH_PAIRS[fp32]; static shared memory, so every pair stays under 48 KB
-// at Dh 128)
+// at Dh 128).  TPQ is a power of two at every built head dim (1, 1, 2, 2,
+// 4 at Dh 16, 32, 64, 80, 128), which the shuffle reduction of a score
+// needs; Dh 80 gives each of a query's 2 threads 40 dims.
 template <int DH, int BQ>
 struct FlashShape {
   static constexpr int TPQ = DH >= 32 ? DH / 32 : 1;   // threads per query
@@ -195,9 +203,13 @@ struct Tile {
   static constexpr int NCH = DH / 8;                 // 16-byte chunks a row
   // XOR swizzle of the chunk index: rows that share a 128-byte line
   // (NCH < 8) step the pattern together, so the 8 rows of an ldmatrix
-  // phase always cover the 8 bank groups
+  // phase always cover the 8 bank groups.  Only the whole groups of 8
+  // chunks are swizzled (SWZ_CHUNKS): at Dh 80 a row has 10 chunks, and
+  // c ^ mask would send chunks 8 and 9 past the row, so those two stay
+  // where they are (a 2-way bank conflict on their ldmatrix phases)
   static constexpr int ROWS_PER_STEP = NCH >= 8 ? 1 : 8 / NCH;
   static constexpr int MASK = (NCH >= 8 ? 8 : NCH) - 1;
+  static constexpr int SWZ_CHUNKS = NCH >= 8 ? NCH / 8 * 8 : NCH;
   static constexpr int NT = 2 * BQ;                  // BQ / 16 warps
   static constexpr int Q_BYTES = BQ * DH * 2;        // the Q tile
   static constexpr int KV_BYTES = BK * DH * 2;       // one K or V tile
@@ -208,8 +220,10 @@ struct Tile {
 template <int DH>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   using S = Tile<DH, 64, 64>;            // the swizzle depends on DH only
-  return static_cast<uint32_t>(
-      (r * S::NCH + (c ^ ((r / S::ROWS_PER_STEP) & S::MASK))) * 16);
+  const int sc = c < S::SWZ_CHUNKS
+                     ? c ^ ((r / S::ROWS_PER_STEP) & S::MASK)
+                     : c;
+  return static_cast<uint32_t>((r * S::NCH + sc) * 16);
 }
 
 // rows [row0, row0 + ROWS) of a [rows, DH] strided bf16 matrix into a
@@ -504,6 +518,7 @@ Launch pick(bool bf16, int Dh, int bq, int bk) {
     case 16: return bf16 ? pick_bf16<16>(bq, bk) : pick_f32<16>(bq, bk);
     case 32: return bf16 ? pick_bf16<32>(bq, bk) : pick_f32<32>(bq, bk);
     case 64: return bf16 ? pick_bf16<64>(bq, bk) : pick_f32<64>(bq, bk);
+    case 80: return bf16 ? pick_bf16<80>(bq, bk) : pick_f32<80>(bq, bk);
     case 128: return bf16 ? pick_bf16<128>(bq, bk) : pick_f32<128>(bq, bk);
     default: return nullptr;
   }

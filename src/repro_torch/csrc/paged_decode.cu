@@ -33,7 +33,9 @@
 // read.  The cluster's partials merge in rank 0 through distributed shared
 // memory, the new token folded in last.  Accumulation is fp32; q and the
 // output stay in the model dtype.  Shared memory above 48 KB (fp32 pages
-// at Dh 128) takes the opt-in.
+// at Dh 128) takes the opt-in.  Head dims 16, 32, 64, 80 and 128: at Dh 80
+// (stablelm-3b) a key's 5 slices sit in a group of 8 lanes, 3 of them
+// idle (paged_split.cuh::Lanes), 4 keys a pass.
 #include "paged_split.cuh"
 
 namespace cg = cooperative_groups;
@@ -110,10 +112,12 @@ paged_decode_kernel(const T* __restrict__ q4, const P* __restrict__ kp,
   const int64_t head = (int64_t)b * KVH + h;
 
   float q[S16];                          // this lane's slice, pre-scaled
-  {
-    const T* qrow = q4 + (head * G + g) * DH + ds * S16;
+  {                                      // (0 on an idle slice, Dh 80)
+    const bool live = L::live(ds);
+    const T* qrow = q4 + (head * G + g) * DH + (live ? ds * S16 : 0);
 #pragma unroll
-    for (int k = 0; k < S16; ++k) q[k] = load_f32(qrow, k) * scale;
+    for (int k = 0; k < S16; ++k)
+      q[k] = live ? load_f32(qrow, k) * scale : 0.f;
   }
 
   const int len = max(lengths[b], 0);

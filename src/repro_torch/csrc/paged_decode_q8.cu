@@ -27,7 +27,8 @@
 // stride of KVH*Dh) while earlier pages are consumed, so up to kStages - 1
 // pages are in flight behind the one being read.  One warp per query head
 // of the group; its lanes split a key's head dims in 16-dim slices, so a
-// page of 16 keys at Dh 64 keeps all 32 lanes busy.  The cluster's
+// page of 16 keys at Dh 64 keeps all 32 lanes busy (at Dh 80 a key's 5
+// slices take a group of 8 lanes, 3 idle: paged_split.cuh::Lanes).  The cluster's
 // partials merge in rank 0 through distributed shared memory: one launch,
 // no global scratch, no second pass.  Accumulation is fp32; q and the
 // output stay in the model dtype.
@@ -82,10 +83,12 @@ paged_decode_q8_kernel(const T* __restrict__ q4,
   const int64_t head = (int64_t)b * KVH + h;
 
   float q[S16];                          // this lane's slice, pre-scaled
-  {
-    const T* qrow = q4 + (head * G + g) * DH + ds * S16;
+  {                                      // (0 on an idle slice, Dh 80)
+    const bool live = L::live(ds);
+    const T* qrow = q4 + (head * G + g) * DH + (live ? ds * S16 : 0);
 #pragma unroll
-    for (int k = 0; k < S16; ++k) q[k] = load_f32(qrow, k) * scale;
+    for (int k = 0; k < S16; ++k)
+      q[k] = live ? load_f32(qrow, k) * scale : 0.f;
   }
 
   const int len = max(lengths[b], 0);

@@ -10,12 +10,15 @@
 // (computed on the device from lengths[b], so the host never reads it)
 // and keeps, per query head, a running (m, l, acc[Dh]); a CTA with no
 // page keeps the neutral (-2e38, 0, 0).  Inside a warp (one query head)
-// lane = kg * LPK + ds: the LPK = Dh / 16 lanes of key group kg each hold
-// 16 head dims (slice ds) of q, of one key's K row and of the
-// accumulator, so a pass covers KPP = 32 / LPK keys with every lane busy
-// at ps >= KPP: the QK^T dot reduces over the LPK lanes of a key (shuffle),
-// the max over the key groups; each lane keeps its own l and acc for its
-// keys, and the key groups are summed once at the end.  After
+// lane = kg * LPK + ds: the lanes of key group kg each hold 16 head dims
+// (slice ds) of q, of one key's K row and of the accumulator, so a pass
+// covers KPP = 32 / LPK keys: the QK^T dot reduces over the LPK lanes of
+// a key (shuffle), the max over the key groups; each lane keeps its own l
+// and acc for its keys, and the key groups are summed once at the end.
+// The XOR shuffles need LPK to be a power of two: LPK is Dh / 16 rounded
+// up to one (1, 2, 4, 8 at Dh 16, 32, 64, 128; 8 at Dh 80, whose 5 slices
+// leave lanes ds = 5..7 of each group idle: they hold zeros, read no
+// shared memory and store nothing), so KPP = 4 keys a pass at Dh 80.  After
 // cluster.sync() rank 0 reads every CTA's (m, l, acc) through distributed
 // shared memory and merges them (m = max m_i, l = sum l_i e^(m_i - m),
 // acc = sum acc_i e^(m_i - m)), folds in the new token last and divides
@@ -38,8 +41,15 @@ constexpr int kStages = 4;        // pages in each CTA's shared-memory ring
 template <int DH>
 struct Lanes {
   static_assert(DH % kSlice == 0 && DH / kSlice <= 32, "16-dim slices");
-  static constexpr int LPK = DH / kSlice;   // lanes a key
-  static constexpr int KPP = 32 / LPK;      // keys a pass
+  static constexpr int SLICES = DH / kSlice;   // lanes of a key with dims
+  static constexpr int LPK = SLICES <= 1 ? 1 : SLICES <= 2 ? 2
+                           : SLICES <= 4 ? 4 : SLICES <= 8 ? 8
+                           : SLICES <= 16 ? 16 : 32;   // lanes a key
+  static constexpr int KPP = 32 / LPK;         // keys a pass
+  // whether lane slice ds holds head dims (a lane past them is idle)
+  __host__ __device__ static constexpr bool live(int ds) {
+    return ds < SLICES;
+  }
 };
 
 // the pages [j0, j1) of n that CTA `rank` of `S` takes
@@ -109,7 +119,7 @@ struct Softmax {
     l = xor_sum<L::LPK, 32>(l);
 #pragma unroll
     for (int i = 0; i < kSlice; ++i) acc[i] = xor_sum<L::LPK, 32>(acc[i]);
-    if (lane < L::LPK) {
+    if (lane < L::SLICES) {
       float4* dst =
           reinterpret_cast<float4*>(part.acc + g * DH + lane * kSlice);
 #pragma unroll
@@ -141,9 +151,11 @@ __device__ __forceinline__ void combine_and_finish(
   float l = 0.f, acc[kSlice];
 #pragma unroll
   for (int k = 0; k < kSlice; ++k) acc[k] = 0.f;
+  const bool live = L::live(ds);
   for (int i = kg; i < S; i += L::KPP) {
     const float w = expf(*cluster.map_shared_rank(part.m + g, i) - m);
     l += *cluster.map_shared_rank(part.l + g, i) * w;
+    if (!live) continue;                 // an idle slice has no partial
     const float4* src = reinterpret_cast<const float4*>(
         cluster.map_shared_rank(part.acc + g * DH + ds * kSlice, i));
 #pragma unroll
@@ -160,15 +172,17 @@ __device__ __forceinline__ void combine_and_finish(
   for (int k = 0; k < kSlice; ++k) acc[k] = xor_sum<L::LPK, 32>(acc[k]);
   // the new token attends itself, last
   float part_s = 0.f;
+  if (live) {
 #pragma unroll
-  for (int k = 0; k < kSlice; ++k)
-    part_s += q[k] * load_f32(kn, off + ds * kSlice + k);
+    for (int k = 0; k < kSlice; ++k)
+      part_s += q[k] * load_f32(kn, off + ds * kSlice + k);
+  }
   const float s_t = xor_sum<1, L::LPK>(part_s);
   const float m_new = fmaxf(m, s_t);
   const float alpha = expf(m - m_new);
   const float p_t = expf(s_t - m_new);
   const float den = fmaxf(l * alpha + p_t, 1e-20f);
-  if (kg == 0) {
+  if (kg == 0 && live) {
 #pragma unroll
     for (int k = 0; k < kSlice; ++k) {
       const int d = ds * kSlice + k;
@@ -183,7 +197,9 @@ __device__ __forceinline__ void combine_and_finish(
 // the one being read.  fetch(j, dst) issues the cp.async copies of page j
 // into dst (every thread its share); row(src, t, d, v, ks, vs) gives this
 // lane's 16-dim slice of key t of the page at src: d = q . k over the
-// slice, v the value slice, ks and vs the key's and value's scales.
+// slice, v the value slice, ks and vs the key's and value's scales.  An
+// idle slice (Lanes::live false) never calls row: d and v stay 0, and
+// the key's scales come from a live lane of its group by a shuffle.
 // Positions j * ps + t >= len (the partial last page) are masked.
 template <int DH, int STAGES, typename Fetch, typename Row>
 __device__ __forceinline__ void walk_pages(Softmax<DH>& sm,
@@ -192,6 +208,7 @@ __device__ __forceinline__ void walk_pages(Softmax<DH>& sm,
                                            int lane, Fetch fetch, Row row) {
   using L = Lanes<DH>;
   const int kg = lane / L::LPK;
+  const bool live = L::live(lane % L::LPK);
   for (int i = 0; i < STAGES - 1; ++i) {
     if (j0 + i < j1) fetch(j0 + i, ring + ((j0 + i) % STAGES) * slot);
     cp_async_commit();
@@ -209,11 +226,15 @@ __device__ __forceinline__ void walk_pages(Softmax<DH>& sm,
       const bool in_page = t < ps;
       const bool ok = in_page && j * ps + t < len;
       float d = 0.f, v[kSlice], ks = 0.f, vs = 0.f;
-      if (in_page) {
+      if (in_page && live) {
         row(src, t, d, v, ks, vs);
       } else {
 #pragma unroll
         for (int k = 0; k < kSlice; ++k) v[k] = 0.f;
+      }
+      if (L::SLICES != L::LPK) {         // slice 0 of the group is live
+        ks = __shfl_sync(0xffffffffu, ks, kg * L::LPK);
+        vs = __shfl_sync(0xffffffffu, vs, kg * L::LPK);
       }
       d = xor_sum<1, L::LPK>(d);         // the key's dot over its lanes
       const float s = ok ? d * ks : REPRO_NEG_INF;
@@ -229,6 +250,7 @@ cudaError_t dispatch_dh(int Dh, const Launcher& launcher) {
     case 16: return launcher.template run<16>();
     case 32: return launcher.template run<32>();
     case 64: return launcher.template run<64>();
+    case 80: return launcher.template run<80>();
     case 128: return launcher.template run<128>();
     default: return cudaErrorInvalidValue;
   }

@@ -45,7 +45,7 @@ __all__ = ["flash_attention_bhsd", "flash_attention_plain",
            "FLASH_PAIRS", "default_blocks", "flash_smem_bytes"]
 
 NEG_INF = -2.0e38
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"flash_attention_fwd": (
     _build.P, _build.P, _build.P, _build.P, _build.P,       # q k v o kv_valid

@@ -48,7 +48,7 @@ __all__ = ["paged_decode_attention_grouped", "paged_decode_plain",
            "declare_paged", "SUPPORTED_HEAD_DIMS"]
 
 NEG_INF = -2.0e38
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = {"paged_decode_fwd": (
     _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,

@@ -1,6 +1,7 @@
 """Shared CLI flags for the port's launchers.
 
-Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` uses:
+Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` and
+``launch/perf_report.py`` use:
 
 * :func:`add_kv_args` — ``--kv-dtype {fp32,bf16,int8}`` and
   ``--no-prefix-cache`` over the paged KV cache (consume with
@@ -24,23 +25,25 @@ Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` uses:
 * :func:`add_cache_args` — ``--cache-dir`` / ``--no-cache`` over the
   artifact cache (consume with :func:`session_from_args`, a
   ``ProfileSession`` honouring them); :func:`run_tune_suite` is the
-  ``--tune`` body over a suite of ``repro_torch.core.perf_report``.
-
-``resolve_impls`` and ``impl_context`` come with their first callers,
-the dry-run tools (``ROADMAP.md``, queue 1 item 14).
+  ``--tune`` body over a suite of ``repro_torch.core.perf_report``;
+* :func:`resolve_impls` / :func:`impl_context` — the pins of ``--impl``
+  over the legacy ``--attn-impl`` expansion, as a ``registry.use_impl``
+  context, for the tools that run kernels outside an engine (the perf
+  report; the serving launcher hands its pins to ``ServeConfig``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import warnings
 from typing import Dict, Optional
 
 __all__ = ["add_kv_args", "kv_config_kwargs", "add_robustness_args",
            "robustness_kwargs", "add_ft_args", "ft_kwargs", "add_spec_args",
            "spec_kwargs", "add_json_args", "add_impl_args",
-           "warn_legacy_attn_impl", "add_cache_args", "session_from_args",
-           "run_tune_suite"]
+           "warn_legacy_attn_impl", "resolve_impls", "impl_context",
+           "add_cache_args", "session_from_args", "run_tune_suite"]
 
 #: ``--attn-impl`` names: the port's legacy single names and the JAX
 #: package's spellings of the same two
@@ -84,6 +87,28 @@ def warn_legacy_attn_impl(name: Optional[str]) -> None:
         f"families", DeprecationWarning, stacklevel=2)
     print(f"[cli] --attn-impl {name} is deprecated; prefer --impl "
           f"(registry grammar)")
+
+
+def resolve_impls(args: argparse.Namespace) -> Dict[str, str]:
+    """The per-family pin mapping from ``--impl`` merged over the legacy
+    ``--attn-impl`` expansion (``--impl`` wins per family)."""
+    from repro_torch.kernels import registry
+    out: Dict[str, str] = {}
+    legacy = getattr(args, "attn_impl", None)
+    if legacy is not None:
+        warn_legacy_attn_impl(legacy)
+        out.update(registry.legacy_mapping(legacy))
+    if getattr(args, "impl", None):
+        out.update(registry.parse_impl_spec(args.impl))
+    return out
+
+
+def impl_context(args: argparse.Namespace):
+    """A context manager pinning the requested impls for everything run
+    inside (no-op when neither flag was passed)."""
+    from repro_torch.kernels import registry
+    impls = resolve_impls(args)
+    return registry.use_impl(**impls) if impls else contextlib.nullcontext()
 
 
 def add_kv_args(ap: argparse.ArgumentParser) -> None:

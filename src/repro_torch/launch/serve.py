@@ -7,6 +7,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --requests 16 --slots 8 --prompt-len 256 --max-seq 1024
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+        --requests 16 --slots 8 --prompt-len 256 --max-seq 1024
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
+        --requests 16 --slots 8 --page-size 16 --max-seq 1024
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --page-size 16 --temperature 0.7 --draft qwen2-0.5b \\
         --spec-tokens 4 --instrument --json spec.json
@@ -14,8 +20,11 @@
 Runs the continuous-batching ``BatchScheduler`` over synthetic prompts
 (deterministic, numpy seed 0) and prints tokens/s, time-to-first-token,
 segments, admissions and the engine's audited host-sync count.  The
-hybrid zamba2-1.2b serves with dense KV only: ``--page-size`` (with or
-without ``--kv-dtype``) gives the engine's error for it.  There is
+archs: qwen2-0.5b, qwen1.5-0.5b, stablelm-3b and mistral-large-123b
+(dense; the last does not fit one 80 GB card at full depth), zamba2-1.2b
+(hybrid) and xlstm-350m (xlstm).  The recurrent zamba2-1.2b and
+xlstm-350m serve with dense state only: ``--page-size`` (with or
+without ``--kv-dtype``) gives the engine's error for them.  There is
 no checkpoint in the repository: the weights are random, from a
 ``torch.Generator`` seeded with 0 (the ``--draft`` model's with 1).
 ``--device cpu`` runs the kernels' plain PyTorch versions on the host

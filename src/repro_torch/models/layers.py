@@ -1,6 +1,7 @@
 """Numerics shared by the model zoo: norms, the SwiGLU MLP, RoPE, init.
 
-Ported from ``repro/models/layers.py:186-275``.  The sharding rules of the
+Ported from ``repro/models/layers.py:186-275`` (RMSNorm and LayerNorm,
+both computed in fp32).  The sharding rules of the
 JAX module wait for the mesh slice.
 """
 
@@ -12,8 +13,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["truncated_normal_", "rms_norm", "swiglu", "rope_freqs",
-           "apply_rope"]
+__all__ = ["truncated_normal_", "rms_norm", "layer_norm", "swiglu",
+           "rope_freqs", "apply_rope"]
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +52,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in fp32 (mean, then the variance about it),
+    cast back to ``x``'s dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -1,15 +1,18 @@
-"""The causal LM: config, weights, prefill and decode, dense and hybrid.
+"""The causal LM: config, weights, prefill and decode: dense, hybrid, xlstm.
 
 Port of ``repro/models/lm.py``.  :class:`LMConfig` carries every field of
 the JAX config so later slices port their configs verbatim; :class:`LM`
 implements serving for ``family="dense"`` (embed -> transformer blocks ->
-norm -> LM head) and ``family="hybrid"`` (zamba2: Mamba2 blocks with ONE
-weight-shared transformer block after every ``attn_every``-th, each
-application with its own dense KV cache).  Weights are stored once in the
-compute dtype; the JAX package keeps fp32 masters and casts at every use,
-which gives the same numbers.  The Mamba2 decay leaves ``A_log``,
-``dt_bias`` and ``D`` stay fp32 (:data:`repro_torch.models.ssm.
-FP32_LEAVES`), as the JAX package computes with them in fp32.
+norm -> LM head, RMSNorm or LayerNorm), ``family="hybrid"`` (zamba2:
+Mamba2 blocks with ONE weight-shared transformer block after every
+``attn_every``-th, each application with its own dense KV cache) and
+``family="xlstm"`` (``n_layers // 2`` mLSTM/sLSTM block pairs, recurrent
+state only).  Weights are stored once in the compute dtype; the JAX
+package keeps fp32 masters and casts at every use, which gives the same
+numbers.  The Mamba2 decay leaves ``A_log``, ``dt_bias`` and ``D``
+(:data:`repro_torch.models.ssm.FP32_LEAVES`) and the xLSTM gate leaves
+(:data:`repro_torch.models.xlstm.FP32_LEAVES`) stay fp32, as the JAX
+package computes with them in fp32.
 
 ``LM`` runs on ``cuda`` unless it is built with ``device="cpu"``; with no
 GPU and no explicit request it raises (:func:`repro_torch.device.
@@ -24,7 +27,7 @@ embedding only as the gathered rows, the head's ``[d, V]`` once), the
 GEMM FLOPs, the K/V written into the cache, the dense engine's masked
 decode over its WHOLE ``[B, Smax, KVH, Dh]`` K and V buffers whatever the
 rows hold, the prefix-cache suffix prefill's gather of the table's pages,
-and the hybrid family's recurrent state.  So an event collection around
+and the recurrent families' state (read and written).  So an event collection around
 a step counts the whole step, as the artifact does.
 """
 
@@ -43,20 +46,24 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import AttnConfig, KVCache
-from repro_torch.models.layers import rms_norm, truncated_normal_
+from repro_torch.models.layers import truncated_normal_
 from repro_torch.models.ssm import Mamba2Config
 from repro_torch.models.transformer import BlockConfig
+from repro_torch.models.xlstm import XLSTMConfig
 
 __all__ = ["LMConfig", "LM", "PORTED_FAMILIES"]
 
 #: families ``LM`` serves so far (the rest: ROADMAP.md, queue 1 item 12)
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "hybrid", "xlstm")
 
 #: weights a token multiplies once a step (2 FLOPs an element): the
-#: attention projections, the MLP and the Mamba2 projections and conv
+#: attention projections, the MLP, the Mamba2 projections and conv, and
+#: the xLSTM projections, gates, sLSTM recurrence and FFN
 MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                  "in_proj", "conv_w", "out_proj")
+                  "in_proj", "conv_w", "out_proj", "w_gates", "r_gates",
+                  "w_ff_gate", "w_ff_up", "w_ff_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +126,10 @@ class LMConfig:
             mlp="moe" if self.family == "moe" else "swiglu",
             norm_eps=self.norm_eps)
 
+    def xlstm_config(self) -> XLSTMConfig:
+        return XLSTMConfig(d_model=self.d_model, num_heads=self.num_heads,
+                           chunk_size=self.chunk_size, norm_eps=self.norm_eps)
+
     def mamba_config(self) -> Mamba2Config:
         return Mamba2Config(d_model=self.d_model, d_state=self.ssm_state,
                             head_dim=self.ssm_head_dim,
@@ -160,8 +171,9 @@ State = Dict[str, Any]
 class LM(nn.Module):
     """The causal LM.  Parameter names mirror the JAX params tree
     (``embed.table``, ``final_norm.scale``, ``blocks.{i}.attn.wq``,
-    ``mamba.{i}.in_proj``, ``shared_attn.attn.wq``, ...), which is what
-    :mod:`repro_torch.bridge` maps onto."""
+    ``mamba.{i}.in_proj``, ``shared_attn.attn.wq``, ``mlstm.{i}.wq``,
+    ``slstm.{i}.r_gates``, ...), which is what :mod:`repro_torch.bridge`
+    maps onto."""
 
     def __init__(self, cfg: LMConfig, dtype: torch.dtype = torch.bfloat16,
                  device: Optional[Union[str, torch.device]] = None):
@@ -176,10 +188,17 @@ class LM(nn.Module):
         dev = self.device
         bc = cfg.block_config()
         self.embed = Embed(cfg.vocab, cfg.d_model, dtype, dev)
-        self.final_norm = tf_mod.RMSNorm(cfg.d_model, dtype, dev)
+        self.final_norm = tf_mod.make_norm(cfg.norm, cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
             self.lm_head = LMHead(cfg.d_model, cfg.vocab, dtype, dev)
-        if cfg.family == "hybrid":
+        if cfg.family == "xlstm":
+            xc = cfg.xlstm_config()
+            n_pairs = cfg.n_layers // 2
+            self.mlstm = nn.ModuleList(xlstm_mod.MLSTMBlock(xc, dtype, dev)
+                                       for _ in range(n_pairs))
+            self.slstm = nn.ModuleList(xlstm_mod.SLSTMBlock(xc, dtype, dev)
+                                       for _ in range(n_pairs))
+        elif cfg.family == "hybrid":
             mc = cfg.mamba_config()
             self.mamba = nn.ModuleList(ssm_mod.Mamba2Block(mc, dtype, dev)
                                        for _ in range(cfg.n_layers))
@@ -198,7 +217,10 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             truncated_normal_(self.lm_head.w, 1.0 / math.sqrt(cfg.d_model),
                               generator)
-        if cfg.family == "hybrid":
+        if cfg.family == "xlstm":
+            for blk in (*self.mlstm, *self.slstm):
+                blk.init(generator)
+        elif cfg.family == "hybrid":
             for blk in self.mamba:
                 blk.init(generator)
             self.shared_attn.init(generator)
@@ -212,7 +234,7 @@ class LM(nn.Module):
         return self.embed.table[tokens.long()]
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)
+        x = tf_mod.apply_norm(x, self.final_norm, self.cfg.norm_eps)
         w = (self.embed.table.T if self.cfg.tie_embeddings
              else self.lm_head.w)
         return x @ w
@@ -233,7 +255,10 @@ class LM(nn.Module):
         The hybrid family's state is ``{"mamba": {"ssd": (C [L,B,H,N,P],
         n [L,B,H,N]), "conv": [L,B,K-1,C']}, "attn_caches": KVCache with
         k/v [G,B,S,KVH,Dh]}``: fp32 recurrent state, KV in the model
-        dtype, one cache per shared-block application, and no pages."""
+        dtype, one cache per shared-block application, and no pages.  The
+        xlstm family's is ``{"mlstm": (C [P,B,H,dk,dv], n [P,B,H,dk]),
+        "slstm": (c, n, h) each [P,B,D]}`` over its P = n_layers // 2
+        pairs, fp32, with no KV and no pages."""
         cfg = self.cfg
         ac = cfg.attn_config()
         if page_size > 0 and cfg.family != "dense":
@@ -243,6 +268,12 @@ class LM(nn.Module):
         if kv_dtype is not None and page_size <= 0:
             raise ValueError("kv_dtype needs a paged KV cache "
                              "(page_size > 0)")
+        if cfg.family == "xlstm":
+            xc, pairs = cfg.xlstm_config(), cfg.n_layers // 2
+            return {"mlstm": xlstm_mod.init_mlstm_state(
+                        batch_size, xc, self.device, layers=pairs),
+                    "slstm": xlstm_mod.init_slstm_state(
+                        batch_size, xc, self.device, layers=pairs)}
         if cfg.family == "hybrid":
             groups = _hybrid_groups(cfg.n_layers, cfg.attn_every)
             return {"mamba": ssm_mod.init_mamba2_state(
@@ -275,9 +306,10 @@ class LM(nn.Module):
         shared prefix: ``tokens`` are the divergent suffix, prefilled at
         positions ``prefix_len + i`` against the prefix pages.
 
-        The hybrid family cannot mask a pad out of a running recurrent
-        state, so it takes neither: every row is prefilled at the full
-        width of ``tokens`` (serve equal lengths, or one row at a time).
+        The recurrent families (hybrid, xlstm) cannot mask a pad out of a
+        running recurrent state, so they take neither: every row is
+        prefilled at the full width of ``tokens`` (serve equal lengths, or
+        one row at a time).
 
         ``all_logits=True`` returns the head over every position, [B,S,V],
         instead of the last token's: the verify of speculative decoding
@@ -286,13 +318,16 @@ class LM(nn.Module):
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
         x = self._embed(tokens)
-        if self.cfg.family == "hybrid":
+        fam = self.cfg.family
+        if fam in ("hybrid", "xlstm"):
             if lengths is not None or batch.get("prefix_len") is not None:
                 raise ValueError(
-                    "the hybrid family prefills equal-length rows: it takes "
+                    f"the {fam} family prefills equal-length rows: it takes "
                     "no lengths or prefix_len (a recurrent state cannot "
                     "mask a pad)")
-            x, new_state = self._hybrid_stack(x, state, prefill=True)
+            stack = (self._hybrid_stack if fam == "hybrid"
+                     else self._xlstm_stack)
+            x, new_state = stack(x, state, prefill=True)
             if events.active():
                 self._declare_ops(tokens, state, prefill=True,
                                   all_logits=all_logits)
@@ -321,8 +356,10 @@ class LM(nn.Module):
         if events.active():
             self._declare_ops(tokens, state, prefill=False)
         x = self._embed(tokens)
-        if self.cfg.family == "hybrid":
-            x, new_state = self._hybrid_stack(x, state, prefill=False)
+        if self.cfg.family in ("hybrid", "xlstm"):
+            stack = (self._hybrid_stack if self.cfg.family == "hybrid"
+                     else self._xlstm_stack)
+            x, new_state = stack(x, state, prefill=False)
             return self._head(x)[:, 0], new_state
         x, caches = tf_mod.apply_stack_decode(
             self.blocks, x, self.cfg.block_config(), state["caches"])
@@ -366,15 +403,19 @@ class LM(nn.Module):
         flops = 2.0 * (b * s * elems + heads * cfg.d_model * cfg.vocab)
         arg = wbytes + hbytes + b * s * (cfg.d_model * isz + 4)
         out = heads * cfg.vocab * isz
-        if cfg.family == "hybrid":
-            caches = state["attn_caches"]
-            ms = state["mamba"]
-            rec = sum(t.numel() * t.element_size()
-                      for t in (*ms["ssd"], ms["conv"]))
+        if cfg.family in ("hybrid", "xlstm"):
+            rec_state = ((*state["mamba"]["ssd"], state["mamba"]["conv"])
+                         if cfg.family == "hybrid"
+                         else (*state["mlstm"], *state["slstm"]))
+            rec = sum(t.numel() * t.element_size() for t in rec_state)
             arg += rec                  # the recurrent state, read
             out += rec                  # and written back
-        else:
-            caches = state["caches"]
+        if cfg.family == "xlstm":       # no KV cache
+            events.record_ops(flops=flops, arg_bytes=arg, out_bytes=out,
+                              f32=self.dtype == torch.float32)
+            return
+        caches = (state["attn_caches"] if cfg.family == "hybrid"
+                  else state["caches"])
         row_kv = kvh * dh * caches[0].element_size()   # one token, K or V
         layers = caches[0].shape[0]
         paged = isinstance(caches, attn_mod.PagedKVCache)
@@ -392,6 +433,29 @@ class LM(nn.Module):
             flops += 4.0 * layers * b * h * smax * dh
         events.record_ops(flops=flops, arg_bytes=arg, out_bytes=out,
                           f32=self.dtype == torch.float32)
+
+    def _xlstm_stack(self, x: torch.Tensor, state: State, prefill: bool
+                     ) -> Tuple[torch.Tensor, State]:
+        """The xlstm backbone over a segment (prefill) or one token: each
+        mLSTM/sLSTM pair in turn, from and into that pair's slice of the
+        state.  The state is updated IN PLACE, pair by pair."""
+        xc = self.cfg.xlstm_config()
+        C, n = state["mlstm"]
+        sc = state["slstm"]
+        for i, (mp, sp) in enumerate(zip(self.mlstm, self.slstm)):
+            m_st = (C[i], n[i])
+            s_st = tuple(t[i] for t in sc)
+            if prefill:
+                x, m_new = xlstm_mod.apply_mlstm_block(
+                    mp, x, xc, initial_state=m_st, return_state=True)
+                x, s_new = xlstm_mod.apply_slstm_block(
+                    sp, x, xc, initial_state=s_st, return_state=True)
+            else:
+                x, m_new = xlstm_mod.mlstm_decode(mp, x, xc, m_st)
+                x, s_new = xlstm_mod.slstm_decode(sp, x, xc, s_st)
+            for dst, src in zip((*m_st, *s_st), (*m_new, *s_new)):
+                dst.copy_(src)
+        return x, state
 
     def _hybrid_stack(self, x: torch.Tensor, state: State, prefill: bool
                       ) -> Tuple[torch.Tensor, State]:

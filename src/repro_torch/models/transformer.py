@@ -2,7 +2,8 @@
 
 Port of ``repro/models/transformer.py`` for serving: one :class:`Block`
 module per layer (the JAX package stacks them on a leading layers axis and
-scans; here a Python loop walks an ``nn.ModuleList``), the prefill block,
+scans; here a Python loop walks an ``nn.ModuleList``), RMSNorm or
+LayerNorm (stablelm-3b) as ``BlockConfig.norm`` says, the prefill block,
 the dense decode block, and the paged decode stack.  The MoE MLP and the
 training-time ``apply_stack`` wait for later slices.
 
@@ -21,10 +22,12 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import (AttnConfig, KVCache, PagedKVCache)
-from repro_torch.models.layers import rms_norm, swiglu, truncated_normal_
+from repro_torch.models.layers import (layer_norm, rms_norm, swiglu,
+                                      truncated_normal_)
 
-__all__ = ["BlockConfig", "Block", "apply_block_prefill",
-           "apply_block_decode", "apply_stack_decode"]
+__all__ = ["BlockConfig", "Block", "RMSNorm", "LayerNorm", "make_norm",
+           "apply_norm", "apply_block_prefill", "apply_block_decode",
+           "apply_stack_decode"]
 
 
 class BlockConfig(NamedTuple):
@@ -43,6 +46,34 @@ class RMSNorm(nn.Module):
                                   requires_grad=False)
 
 
+class LayerNorm(nn.Module):
+    """``layernorm_init``'s leaves: ``scale`` (ones) and ``bias`` (zeros)."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                  requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(d, dtype=dtype, device=device),
+                                 requires_grad=False)
+
+
+def make_norm(kind: str, d: int, dtype: torch.dtype,
+              device: torch.device) -> nn.Module:
+    """The norm module of ``kind`` (``rmsnorm`` | ``layernorm``)."""
+    if kind == "rmsnorm":
+        return RMSNorm(d, dtype, device)
+    if kind == "layernorm":
+        return LayerNorm(d, dtype, device)
+    raise ValueError(f"unknown norm {kind!r} (rmsnorm | layernorm)")
+
+
+def apply_norm(x: torch.Tensor, ln: nn.Module, eps: float) -> torch.Tensor:
+    """``ln`` over ``x``: LayerNorm when it carries a bias, else RMSNorm."""
+    if isinstance(ln, LayerNorm):
+        return layer_norm(x, ln.scale, ln.bias, eps)
+    return rms_norm(x, ln.scale, eps)
+
+
 class SwiGLU(nn.Module):
     def __init__(self, d: int, d_ff: int, dtype: torch.dtype,
                  device: torch.device):
@@ -59,19 +90,20 @@ class SwiGLU(nn.Module):
 
 
 class Block(nn.Module):
-    """One pre-norm block's weights (``init_block``'s tree, swiglu MLP)."""
+    """One pre-norm block's weights (``init_block``'s tree, swiglu MLP;
+    RMSNorm or LayerNorm)."""
 
     def __init__(self, cfg: BlockConfig, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
-        if cfg.norm != "rmsnorm" or cfg.mlp != "swiglu":
+        if cfg.mlp != "swiglu":
             raise NotImplementedError(
-                f"norm={cfg.norm!r} mlp={cfg.mlp!r} blocks are not ported "
-                f"yet (ROADMAP.md, queue 1 item 12: other families)")
+                f"mlp={cfg.mlp!r} blocks are not ported yet (ROADMAP.md, "
+                f"queue 1 item 12: other families)")
         d = cfg.attn.d_model
-        self.ln1 = RMSNorm(d, dtype, device)
+        self.ln1 = make_norm(cfg.norm, d, dtype, device)
         self.attn = attn_mod.Attention(cfg.attn, dtype, device)
-        self.ln2 = RMSNorm(d, dtype, device)
+        self.ln2 = make_norm(cfg.norm, d, dtype, device)
         self.mlp = SwiGLU(d, cfg.d_ff, dtype, device)
 
     def init(self, generator: Optional[torch.Generator]) -> None:
@@ -83,8 +115,8 @@ class Block(nn.Module):
         truncated_normal_(self.mlp.w_down, 1.0 / math.sqrt(d_ff), generator)
 
 
-def _norm(x: torch.Tensor, ln: RMSNorm, cfg: BlockConfig) -> torch.Tensor:
-    return rms_norm(x, ln.scale, cfg.norm_eps)
+def _norm(x: torch.Tensor, ln: nn.Module, cfg: BlockConfig) -> torch.Tensor:
+    return apply_norm(x, ln, cfg.norm_eps)
 
 
 def _block_mlp(p: Block, h: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:

@@ -68,9 +68,9 @@ With ``page_size > 0`` the KV cache is a page pool (page 0 is the null
 page) read by the paged decode kernels; ``kv_dtype`` stores the pages as
 fp32, bf16 or int8 codes with per-token scales (the q8 kernel).  Only the
 attention-cache families (:data:`MASKED_FAMILIES`) take pages and ragged
-``lengths``; the hybrid family serves with dense KV, equal-length rows in
-``generate`` and exact-length single-row admissions in the scheduler, as
-in the JAX engine.
+``lengths``; the recurrent families (hybrid, xlstm) serve with dense
+state, equal-length rows in ``generate`` and exact-length single-row
+admissions in the scheduler, as in the JAX engine.
 
 **Snapshots and chaos.**  With ``snapshot_dir`` set the scheduler writes
 crash-safe serving snapshots (``repro_torch/checkpoint/store.py``, the
@@ -681,7 +681,8 @@ class Engine:
         resident prefix pages are attended, not recomputed.  Dense engines
         prefill a one-row twin state at the prompt's exact length and merge
         EVERY leaf of it into the slot's row (KV, lengths and, for the
-        hybrid family, the SSD state and conv tail).  No host sync: the
+        recurrent families, the SSD state and conv tail or the mLSTM and
+        sLSTM states).  No host sync: the
         tokens and table row go up asynchronously."""
         toks = self._upload(np.asarray([list(prompt)], np.int32))
         with self._region_timer(PREFILL_REGION):

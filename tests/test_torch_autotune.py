@@ -72,11 +72,14 @@ ATTN_FACTS = [dict(b=b, h=h, kvh=kvh, sq=sq, sk=sk, dh=dh, causal=c)
                   (1, 4, 2, 128, 192, 32, True), (3, 14, 2, 512, 512, 64,
                                                   True),
                   (8, 32, 32, 512, 512, 64, False), (5, 8, 1, 7, 300, 128,
-                                                     True))]
+                                                     True),
+                  (8, 32, 32, 512, 512, 80, True),      # stablelm-3b
+                  (4, 96, 8, 256, 256, 128, True))]     # mistral-large
 PAGED_FACTS = [dict(b=b, kvh=kvh, g=g, dh=dh, page_size=ps, ctx=ctx)
                for b, kvh, g, dh, ps, ctx in (
                    (4, 2, 2, 32, 16, 128), (8, 2, 7, 64, 16, 1024),
-                   (3, 1, 32, 128, 8, 700), (1, 4, 1, 16, 32, 1))]
+                   (3, 1, 32, 128, 8, 700), (1, 4, 1, 16, 32, 1),
+                   (8, 32, 1, 80, 16, 1024), (4, 8, 12, 128, 16, 512))]
 
 
 @pytest.mark.parametrize("backend", ["cpu", "cuda"])
@@ -310,6 +313,39 @@ def test_smem_gate_and_no_fit(tmp_path):
                           candidates=((32, 1),), **q8)
     assert flash_mod.flash_smem_bytes(128, 128, 128, torch.bfloat16) <= \
         registry.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_80_passes_every_gate_and_sweeps(tmp_path, dtype):
+    """stablelm-3b's head dim: every flash pair the kernel builds fits the
+    shared-memory gate (fp32's static tiles under 48 KB, as the build
+    needs), so is the paged kernels' at G 1 and mistral-large's G 12 at
+    Dh 128, and a sweep at Dh 80 scores every pair."""
+    for bq, bk in flash_mod.FLASH_PAIRS[dtype]:
+        need = flash_mod.flash_smem_bytes(bq, bk, 80, dtype)
+        limit = (48 * 1024 if dtype == torch.float32
+                 else registry.SMEM_PER_BLOCK)
+        assert need <= limit, (bq, bk)
+    for ps in (8, 16, 32):
+        for g, dh in ((1, 80), (12, 128)):
+            assert paged_mod.q8_smem_bytes(ps, dh, g) <= \
+                paged_mod.Q8_SMEM_LIMIT
+            assert paged_mod.fp_smem_bytes(ps, dh, g, 4) <= \
+                registry.SMEM_PER_BLOCK
+    sess = ProfileSession(cache_dir=str(tmp_path / "dh80"))
+    cands = flash_mod.FLASH_PAIRS[dtype]
+    rec = registry.autotune("attention", sess, candidates=cands, b=2, h=4,
+                            kvh=4, sq=40, sk=40, dh=80, dtype=dtype,
+                            backend="cpu")
+    assert set(rec.scores) == set(cands)
+    assert all(np.isfinite(v) for v in rec.scores.values())
+    assert "dh80" in rec.key
+    q8 = registry.autotune("paged_decode", sess, impl="cuda_paged_q8",
+                           candidates=((8, 1), (16, 2)), b=2, kvh=4, g=1,
+                           dh=80, ctx=64, quantized=True, dtype=dtype,
+                           backend="cpu")
+    assert all(np.isfinite(v) for v in q8.scores.values())
+    assert "dh80" in q8.key
 
 
 def test_corrupt_entries_are_quarantined_and_reswept(tmp_path):

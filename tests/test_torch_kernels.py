@@ -73,6 +73,8 @@ FLASH_CASES = [
     (3, 4, 2, 40, 40, 16, False, 0, [40, 0, 13]),     # non-causal ragged
     (2, 4, 2, 19, 50, 16, True, 31, [50, 44]),        # q_offset, Sq < Sk
     (1, 7, 1, 37, 37, 8, True, 0, None),              # SMOKE's G=7, Dh=8
+    (3, 4, 2, 40, 40, 80, True, 0, [40, 0, 13]),      # stablelm's Dh 80
+    (2, 4, 4, 19, 50, 80, False, 31, [50, 44]),       # Dh 80, q_offset
 ]
 
 
@@ -220,6 +222,8 @@ PAGED_CASES = [
     ([0, 1, 10, 28], 2, 7, 16, 8, 4),    # empty, one token, partial, multi
     ([16, 3, 9], 1, 7, 8, 8, 3),         # exactly full pages; SMOKE heads
     ([5, 31, 0, 12], 2, 4, 16, 16, 2),
+    ([0, 1, 10, 28], 2, 1, 80, 8, 4),    # stablelm's Dh 80, G 1
+    ([17, 40, 0], 1, 12, 128, 16, 3),    # mistral-large's G 12, Dh 128
 ]
 
 
@@ -307,6 +311,8 @@ Q8_CASES = [
     ([16, 3, 9], 1, 7, 8, 8, 3),         # full pages; SMOKE's heads
     ([5, 31, 0, 12], 2, 4, 16, 16, 2),
     ([33, 64, 1], 2, 7, 64, 16, 5),      # qwen2-0.5b's head dim
+    ([0, 1, 10, 28], 2, 1, 80, 8, 4),    # stablelm's Dh 80, G 1
+    ([17, 40, 0], 1, 12, 128, 16, 3),    # mistral-large's G 12, Dh 128
 ]
 
 
@@ -544,6 +550,130 @@ def test_fp_split_then_combine_matches_plain_and_pallas(lens, kvh, g, dh, ps,
             if n == 0:                     # exactly v_new, every split
                 np.testing.assert_array_equal(
                     got[i], np.broadcast_to(vn[i][:, None], (kvh, g, dh)))
+
+
+def _xor_sum(x, lo, hi):
+    """``paged_split.cuh::xor_sum<lo, hi>`` over 32 lanes (axis 0)."""
+    off = lo
+    while off < hi:
+        x = x + x[np.arange(32) ^ off]
+        off <<= 1
+    return x
+
+
+def _xor_max(x, lo, hi):
+    off = lo
+    while off < hi:
+        x = np.maximum(x, x[np.arange(32) ^ off])
+        off <<= 1
+    return x
+
+
+def _lanes(dh):
+    """``paged_split.cuh::Lanes``: (slices, lanes a key, keys a pass)."""
+    slices = dh // 16
+    lpk = 1
+    while lpk < slices:
+        lpk *= 2
+    return slices, lpk, 32 // lpk
+
+
+def _warp_emulation(q, k_rows, v_rows, pages, n_live, ps, kn, vn, split):
+    """One warp (one query head of one row) of the fp paged kernel, lane
+    by lane in fp32 numpy: the lane layout of ``Lanes`` (a key's 16-dim
+    slices over a power-of-two group of lanes, idle lanes past Dh / 16
+    holding zeros), each CTA's passes of KPP keys with the XOR-shuffle
+    dot, max and folds, the per-CTA store, and rank 0's combine over the
+    cluster's partials with the new token folded in last."""
+    f32 = np.float32
+    dh = q.shape[0]
+    slices, lpk, kpp = _lanes(dh)
+    lane = np.arange(32)
+    kg, ds = lane // lpk, lane % lpk
+    live = ds < slices
+    neg = f32(NEG_INF)
+    qs = np.zeros((32, 16), f32)
+    for i in np.flatnonzero(live):
+        qs[i] = q[16 * ds[i]:16 * ds[i] + 16] * f32(1.0 / math.sqrt(dh))
+    n_pages = min(-(-n_live // ps), len(pages))
+    parts = []
+    for rank in range(split):
+        j0, j1 = q8_page_range(rank, split, n_pages)
+        m = np.full(32, neg, f32)
+        l = np.zeros(32, f32)
+        acc = np.zeros((32, 16), f32)
+        for j in range(j0, j1):
+            for t0 in range(0, ps, kpp):
+                t = t0 + kg
+                ok = (t < ps) & (j * ps + t < n_live)
+                d = np.zeros(32, f32)
+                v = np.zeros((32, 16), f32)
+                for i in np.flatnonzero(live & (t < ps)):
+                    sl = slice(16 * ds[i], 16 * ds[i] + 16)
+                    d[i] = np.dot(qs[i], k_rows[pages[j], t[i], sl])
+                    v[i] = v_rows[pages[j], t[i], sl]
+                d = _xor_sum(d, 1, lpk)
+                sc = np.where(ok, d, neg).astype(f32)
+                m_new = np.maximum(m, _xor_max(sc, lpk, 32))
+                alpha = np.exp(m - m_new)
+                p = np.where(ok, np.exp(sc - m_new), f32(0))
+                l = l * alpha + p
+                acc = acc * alpha[:, None] + p[:, None] * v
+                m = m_new
+        l, acc = _xor_sum(l, lpk, 32), _xor_sum(acc, lpk, 32)
+        part = np.zeros(dh, f32)
+        for i in range(slices):                 # lanes < SLICES store
+            part[16 * i:16 * i + 16] = acc[i]
+        parts.append((m[0], l[0], part))
+    m = np.full(32, max(pm for pm, _, _ in parts), f32)
+    l = np.zeros(32, f32)
+    acc = np.zeros((32, 16), f32)
+    for i in range(32):
+        for r in range(kg[i], split, kpp):
+            w = np.exp(parts[r][0] - m[i])
+            l[i] += parts[r][1] * w
+            if live[i]:
+                acc[i] += parts[r][2][16 * ds[i]:16 * ds[i] + 16] * w
+    l, acc = _xor_sum(l, lpk, 32), _xor_sum(acc, lpk, 32)
+    part_s = np.array([np.dot(qs[i], kn[16 * ds[i]:16 * ds[i] + 16])
+                       if live[i] else 0.0 for i in range(32)], f32)
+    s_t = _xor_sum(part_s, 1, lpk)
+    m_new = np.maximum(m, s_t)
+    alpha, p_t = np.exp(m - m_new), np.exp(s_t - m_new)
+    den = np.maximum(l * alpha + p_t, f32(1e-20))
+    out = np.zeros(dh, f32)
+    for i in np.flatnonzero((kg == 0) & live):
+        sl = slice(16 * ds[i], 16 * ds[i] + 16)
+        out[sl] = (acc[i] * alpha[i] + p_t[i] * vn[sl]) / den[i]
+    return out
+
+
+@pytest.mark.parametrize("dh", [80, 16, 64, 128])
+def test_fp_lane_layout_matches_plain_and_pallas(dh):
+    """The fp paged kernel's lanes at every head dim it builds, Dh 80's
+    idle lanes included: the warp emulation against the plain version
+    and the Pallas kernel, at every split the plan can choose."""
+    lens, kvh, g, ps, np_w = [0, 3, 20, 45], 2, 2, 8, 7
+    rng = np.random.default_rng(dh)
+    q4, kp, vp, pt, ln, kn, vn = _paged_case(rng, lens, kvh, g, dh, ps,
+                                             np_w)
+    plain = paged_decode_plain(*(torch.from_numpy(a) for a in
+                                 (q4, kp, vp, pt, ln, kn, vn))).numpy()
+    pallas = np.asarray(jax_paged(*(jnp.asarray(a) for a in
+                                    (q4, kp, vp, pt, ln, kn, vn)),
+                                  interpret=True))
+    for split in (1, 3, MAX_SPLIT):
+        got = np.zeros_like(plain)
+        for b, n in enumerate(lens):
+            for h in range(kvh):
+                for gi in range(g):
+                    got[b, h, gi] = _warp_emulation(
+                        q4[b, h, gi], kp[:, :, h], vp[:, :, h], pt[b], n,
+                        ps, kn[b, h], vn[b, h], split)
+        np.testing.assert_allclose(got, plain, **TOL)
+        np.testing.assert_allclose(got, pallas, **TOL)
+        np.testing.assert_array_equal(got[0], np.broadcast_to(
+            vn[0][:, None], (kvh, g, dh)))      # no past token: v_new
 
 
 def test_fp_smem_bytes_fit_every_shape_the_card_checks():

@@ -100,6 +100,18 @@ def test_stencil_case_study_runs_on_the_host(capsys):
     assert res["wavefront_bytes"] < res["threaded_bytes"]
 
 
+def test_serve_batched_example_runs_on_the_host(capsys):
+    path = ROOT / "examples" / "serve_batched_torch.py"
+    mod = runpy.run_path(str(path))            # defines main, runs nothing
+    outs, done = mod["main"](["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "pins {'attention': 'torch_flash'}" in out
+    assert "would pick 'full' on cpu" in out
+    assert [len(o) for o in outs] == [16, 16, 16]
+    assert sorted(done) == list(range(10))
+    assert all(len(t) == 8 for t in done.values())
+
+
 # ---------------------------------------------------------------------------
 # kernel pins: --impl / --attn-impl, and the tool CLIs' refusals
 # ---------------------------------------------------------------------------

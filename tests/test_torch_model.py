@@ -53,7 +53,7 @@ def test_configs_port_verbatim():
     assert spec.config is CONFIG and spec.smoke is SMOKE
     assert spec.skipped("long_500k")
     with pytest.raises(KeyError, match="not yet ported"):
-        get_arch("mistral-large-123b")
+        get_arch("qwen2-moe-a2.7b")
 
 
 # ---------------------------------------------------------------------------

@@ -306,6 +306,13 @@ def test_cuda_heuristics_launch_the_kernels():
     for dh in (48, 100):
         assert registry.select("attention", sq=64, sk=64, dh=dh,
                                **cuda) == "cuda_flash"
+    # ... and the head dims it holds, stablelm-3b's 80 among them
+    from repro_torch.kernels import flash_attention, paged_decode
+    assert 80 in flash_attention.SUPPORTED_HEAD_DIMS
+    assert 80 in paged_decode.SUPPORTED_HEAD_DIMS
+    assert 48 not in flash_attention.SUPPORTED_HEAD_DIMS
+    assert registry.select("attention", sq=512, sk=512, dh=80,
+                           **cuda) == "cuda_flash"
     assert registry.select("paged_decode", **cuda) == "cuda_paged"
     assert registry.select("paged_decode", quantized=True,
                            **cuda) == "cuda_paged_q8"
