@@ -227,11 +227,26 @@ failure):
                cold and warm in a fresh cache root, its report re-gated
                against the baseline it wrote and against the committed
                ``PERF_BASELINE.json`` (not comparable, unchanged), and
-               ``examples/serve_batched_torch.py``.
+               ``examples/serve_batched_torch.py``;
+21. moe       - bf16, pages of 16: (a) qwen2-moe-a2.7b at full width and
+               depth (60 experts, top-4, a shared expert; random weights
+               from seed 0), phase 4's prompts, 32 new tokens through
+               ``Engine.generate``: one host sync, #1 24 times, #2 24 x
+               31, #4 32, then one decode step under
+               ``torch.cuda.set_sync_debug_mode("error")``; (b) its int8
+               scheduler with the prefix cache on phase 5's traffic cut
+               to 16 requests; (c) qwen3-moe-235b-a22b at full width and
+               2 of its 94 layers (128 experts, top-8; G 16), 4 prompts,
+               16 new tokens; (d) fp32 qwen2-moe-a2.7b at 2 layers, 4
+               ragged prompts of at most 64 tokens, 16 greedy tokens card
+               against CPU equal, every step's logits within 1e-4 of
+               max|logit|, the router's smallest top-k margin printed.
+               Phase 3 holds #1-#3 at these paths' shapes (Dh 128 at G 1
+               and G 16).
 
 Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs,
 18's suite (its launches counted in its process) and tuned generate, and
-the serving runs of 19 and 20 are the main paths:
+the serving runs of 19, 20 and 21 are the main paths:
 each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
@@ -425,6 +440,33 @@ def check_flash(dev, timer):
     sm = max(MISTRAL_PROMPT_LENS)
     case(MISTRAL_PROMPTS, h, kvh, sm, sm, dh, torch.bfloat16, True, 0,
          MISTRAL_PROMPT_LENS, bshd=True)
+    # phase 21's prefills at their own shapes: qwen2-moe-a2.7b (16 heads
+    # of 128, G 1) on phase 4's prompts in bf16 and on (d)'s prompts in
+    # fp32, qwen3-moe-235b-a22b (64 heads over 4 of 128, G 16) on its 4
+    # prompts; the bf16 ones timed
+    h, kvh, dh = attn_shape("qwen2-moe-a2.7b")
+    _, moe_args = case(8, h, kvh, s, s, dh, torch.bfloat16, True, 0,
+                       PROMPT_LENS, bshd=True)
+    sf = max(MOE_FP32_PROMPT_LENS)
+    case(len(MOE_FP32_PROMPT_LENS), h, kvh, sf, sf, dh, torch.float32, True,
+         0, list(MOE_FP32_PROMPT_LENS), bshd=True)
+    h, kvh, dh = attn_shape("qwen3-moe-235b-a22b")
+    s3 = max(QWEN3_PROMPT_LENS)
+    _, q3_args = case(QWEN3_PROMPTS, h, kvh, s3, s3, dh, torch.bfloat16,
+                      True, 0, QWEN3_PROMPT_LENS, bshd=True)
+    for what, (qm, km, vm, kwm), lens in (
+            ("qwen2-moe-a2.7b's prefill [8,16,512,128] G 1", moe_args,
+             PROMPT_LENS),
+            ("qwen3-moe-235b-a22b's prefill [4,64,384,128] G 16", q3_args,
+             QWEN3_PROMPT_LENS)):
+        msm = timer.ms(lambda: flash_attention_bhsd(qm, km, vm, **kwm))
+        bm, hm, sqm, dhm = qm.shape
+        pairs_m = sum(min(i + 1, n) for n in lens for i in range(sqm))
+        bd = bound_ms(2 * (2 * qm.numel() + km.numel() + vm.numel())
+                      + 4 * bm, 4.0 * dhm * hm * pairs_m)
+        log(f"  flash bf16 at {what} ragged: kernel {msm:.4f} ms, bound "
+            f"{bd[0]:.5f} ms by {bd[1]}")
+    del moe_args, q3_args
     ke80, ve80 = k80.contiguous(), v80.contiguous()
     kpos = torch.arange(s, device=dev)
     mask80 = ((kpos[None, :] <= kpos[:, None])[None, None]
@@ -559,6 +601,10 @@ def check_paged(dev, timer):
         # at G 1, and mistral-large-123b's G 12 at Dh 128
         case([600, 0, 5, 20, 47], 4, 1, 80, 16, dtype, 3, True, None, pdt)
         case([300, 1, 0, 65], 2, 12, 128, 16, dtype, 2, True, None, pdt)
+        # the moe configs: qwen3-moe-235b-a22b's G 16 at Dh 128 (16 warps
+        # a CTA) and qwen2-moe-a2.7b's 16 kv heads at G 1, Dh 128
+        case([300, 1, 0, 65], 4, 16, 128, 16, dtype, 2, True, None, pdt)
+        case([600, 0, 5, 20, 47], 16, 1, 128, 16, dtype, 3, True, None, pdt)
     # the main path's decode shape, mid-generation (16 tokens decoded)
     main_lens = [n + 16 for n in PROMPT_LENS]
     # ... at stablelm-3b's heads (32 kv heads, G 1, Dh 80)
@@ -579,6 +625,30 @@ def check_paged(dev, timer):
     h, kvh, dh = attn_shape("mistral-large-123b")
     case([n + 8 for n in MISTRAL_PROMPT_LENS], kvh, h // kvh, dh, PAGE_SIZE,
          torch.bfloat16, MISTRAL_NEW - 8, False)
+    # phase 21's decodes mid-generation: qwen2-moe-a2.7b's 8 rows (KVH 16,
+    # G 1, Dh 128) in bf16 and (d)'s 4 rows in fp32, qwen3-moe-235b-a22b's
+    # 4 rows (KVH 4, G 16, Dh 128) in bf16; the bf16 ones timed
+    h, kvh, dh = attn_shape("qwen2-moe-a2.7b")
+    _, moe_args = case(main_lens, kvh, h // kvh, dh, PAGE_SIZE,
+                       torch.bfloat16, MAX_NEW - 16, False)
+    case([n + 8 for n in MOE_FP32_PROMPT_LENS], kvh, h // kvh, dh,
+         PAGE_SIZE, torch.float32, MOE_FP32_NEW - 8, False)
+    h, kvh, dh = attn_shape("qwen3-moe-235b-a22b")
+    q3_lens = [n + 8 for n in QWEN3_PROMPT_LENS]
+    _, q3_args = case(q3_lens, kvh, h // kvh, dh, PAGE_SIZE, torch.bfloat16,
+                      QWEN3_NEW - 8, False)
+    for what, a, lens in (("qwen2-moe-a2.7b's (8 rows, KVH 16, G 1)",
+                           moe_args, main_lens),
+                          ("qwen3-moe-235b-a22b's (4 rows, KVH 4, G 16)",
+                           q3_args, q3_lens)):
+        msm = timer.ms(lambda: paged_decode_attention_grouped(*a))
+        b_, kvh_, g_, dh_ = a[0].shape
+        bd = bound_ms(2 * (2 * a[0].numel() + 2 * a[5].numel())
+                      + 2 * 2 * sum(lens) * kvh_ * dh_ + 4 * b_,
+                      4.0 * kvh_ * g_ * dh_ * sum(n + 1 for n in lens))
+        log(f"  paged_decode bf16 at {what} decode, Dh 128: {msm:.4f} ms, "
+            f"bound {bd[0]:.5f} ms by {bd[1]}")
+    del moe_args, q3_args
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
     err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
                      MAX_NEW - 16, False)
@@ -674,6 +744,11 @@ def check_paged_q8(dev, timer):
         # Dh 80 at G 1 (stablelm-3b) and G 12 at Dh 128 (mistral-large)
         case([600, 0, 5, 20, 47], 4, 1, 80, 16, dtype, 3, True)
         case([300, 1, 0, 65], 2, 12, 128, 16, dtype, 2, True)
+        # the moe configs: G 16 at Dh 128 (qwen3-moe-235b-a22b; the
+        # shared-memory gate of q8_smem_bytes) and KVH 16, G 1, Dh 128
+        # (qwen2-moe-a2.7b)
+        case([300, 1, 0, 65], 4, 16, 128, 16, dtype, 2, True)
+        case([600, 0, 5, 20, 47], 16, 1, 128, 16, dtype, 3, True)
     # the scheduler's decode shape: 8 slots, lengths prompt+16
     main_lens = [n + 16 for n in PROMPT_LENS]
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
@@ -685,7 +760,7 @@ def check_paged_q8(dev, timer):
     # 64) and stablelm-3b (KVH 32, G 1, Dh 80)
     from repro_torch.bench import profile_serve as sp
     from repro_torch.configs import get_arch
-    for arch in ("qwen1.5-0.5b", "stablelm-3b"):
+    for arch in ("qwen1.5-0.5b", "stablelm-3b", "qwen2-moe-a2.7b"):
         work = sp.shared_prefix_workload(
             get_arch(arch).config.vocab, DENSE_SCHED_REQUESTS, sp.PREFIX,
             sp.SUFFIX_LENS, sp.BUDGETS, seed=0)
@@ -694,6 +769,19 @@ def check_paged_q8(dev, timer):
         h, kvh, dh = attn_shape(arch)
         case(lens, kvh, h // kvh, dh, sp.PAGE_SIZE, torch.bfloat16, 1,
              False, width=-(-pages // 4) * 4)
+    # qwen3-moe-235b-a22b's 4 rows at G 16, Dh 128, int8 pages, timed
+    h, kvh, dh = attn_shape("qwen3-moe-235b-a22b")
+    q3_lens = [n + 8 for n in QWEN3_PROMPT_LENS]
+    _, q3_args = case(q3_lens, kvh, h // kvh, dh, PAGE_SIZE, torch.bfloat16,
+                      QWEN3_NEW - 8, False)
+    ms3 = timer.ms(lambda: paged_decode_attention_q8_grouped(*q3_args))
+    bd = bound_ms(2 * (2 * q3_args[0].numel() + 2 * q3_args[7].numel())
+                  + sum(q3_lens) * (2 * kvh * dh + 8) + 4 * len(q3_lens),
+                  4.0 * h * dh * sum(n + 1 for n in q3_lens))
+    log(f"  paged_decode_q8 bf16 at qwen3-moe-235b-a22b's decode (4 rows, "
+        f"KVH 4, G 16, Dh 128): {ms3:.4f} ms, bound {bd[0]:.5f} ms by "
+        f"{bd[1]}")
+    del q3_args
     err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
                      MAX_NEW - 16, False)
 
@@ -1297,12 +1385,13 @@ def checked_scheduler(eng, work, want_fn, where):
     return launches
 
 
-def card_cpu_tokens(dev, cfg, seed, prompts, sc, want, where):
+def card_cpu_tokens(dev, cfg, seed, prompts, sc, want, where, max_new=8):
     """fp32 at ``cfg``'s width and depth, weights from ``seed`` with the
     embedding scaled by 0.1 (a random model with a sigma-1 embedding
-    mostly echoes its input): 8 greedy tokens of ``Engine.generate`` on
-    the card (the kernels, ``want`` launches) equal the CPU's (the plain
-    versions), and the logits of every sampled step agree within
+    mostly echoes its input): ``max_new`` greedy tokens of
+    ``Engine.generate`` on the card (the kernels, ``want`` launches) equal
+    the CPU's (the plain versions), and the logits of every sampled step
+    agree within
     max|d| / max|logit| <= :data:`LOGITS_REL_TOL`.  Returns the CPU and
     the card model."""
     from repro_torch.models.lm import LM
@@ -1316,7 +1405,8 @@ def card_cpu_tokens(dev, cfg, seed, prompts, sc, want, where):
     for name, lm in (("card", lm_gpu), ("cpu", lm_cpu)):
         reset_counters()
         with LogitsRecorder() as rec:
-            tok[name] = Engine(lm, sc, device=lm.device).generate(prompts, 8)
+            tok[name] = Engine(lm, sc, device=lm.device).generate(
+                prompts, max_new)
         steps[name] = [s.cpu() for s in rec.steps]
         if name == "card":
             expect_launches(f"{where} fp32 card run", read_counters(), want)
@@ -3058,6 +3148,17 @@ MISTRAL_LAYERS = 2
 MISTRAL_PROMPTS = 4
 MISTRAL_PROMPT_LENS = PROMPT_LENS[1:1 + 2 * MISTRAL_PROMPTS:2]
 MISTRAL_NEW = 16
+#: phase 21: the moe family.  qwen3-moe-235b-a22b on one card: full
+#: width, 2 of its 94 layers, mistral's 4 prompts; the fp32 card-vs-CPU
+#: check at 2 of qwen2-moe-a2.7b's 24 layers
+MOE_SCHED_REQUESTS = 16
+QWEN3_LAYERS = 2
+QWEN3_PROMPTS = MISTRAL_PROMPTS
+QWEN3_PROMPT_LENS = MISTRAL_PROMPT_LENS
+QWEN3_NEW = 16
+MOE_FP32_LAYERS = 2
+MOE_FP32_PROMPT_LENS = (64, 37, 20, 5)
+MOE_FP32_NEW = 16
 
 
 def attn_shape(arch):
@@ -3187,6 +3288,162 @@ def stablelm_token_check(dev):
     int8_decode_logits(lm_cpu, lm_gpu, prompts, "stablelm")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the moe family
+# ---------------------------------------------------------------------------
+
+def decode_step_without_sync(eng, prompts, where):
+    """Prefill ``prompts`` into ``eng``'s bf16 pages, then one decode step
+    of the model under ``torch.cuda.set_sync_debug_mode("error")``: an
+    implicit host sync anywhere in the step (the MoE dispatch included)
+    raises.  ``engine.host_syncs`` counts only the engine's own syncs."""
+    lm = eng.lm
+    toks, lens = eng._pad_prompts(prompts)
+    table, num_pages = eng._page_plan(prompts, 4)
+    state = lm.init_decode_state(len(prompts), eng.cfg.max_seq,
+                                 page_size=PAGE_SIZE, num_pages=num_pages,
+                                 table_width=table.shape[1])
+    state = eng.set_page_table(state, table)
+    tok = torch.full((len(prompts), 1), 7, dtype=torch.int32,
+                     device=lm.device)
+    with torch.inference_mode():
+        lm.prefill({"tokens": torch.from_numpy(toks).to(lm.device),
+                    "lengths": torch.from_numpy(lens).to(lm.device)}, state)
+        lm.decode_step(tok, state)      # this shape's first call
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, state = lm.decode_step(tok, state)
+        except RuntimeError as e:
+            fail(f"{where}: a decode step synchronized with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not torch.isfinite(logits.float()).all():
+        fail(f"{where}: the decode step's logits are not finite")
+    log(f"  {where}: one decode step under sync debug mode 'error': no "
+        f"implicit host sync")
+
+
+def moe_paths(dev):
+    """Phase 21 (a)-(c), bf16, pages of 16.  (a) qwen2-moe-a2.7b at full
+    width and depth (24 layers, 60 experts of 1408, top-4, a shared
+    expert of 5632): phase 4's 8 ragged prompts, 32 new tokens, one host
+    sync, then one decode step with no implicit sync; (b) the int8
+    scheduler with the prefix cache on phase 5's traffic cut to 16
+    requests; (c) qwen3-moe-235b-a22b at full width and 2 of its 94
+    layers (128 experts of 1536, top-8; 64 heads over 4 of 128, G 16): 4
+    prompts, 16 new tokens."""
+    from repro_torch.bench import profile_serve as ps
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import Engine, ServeConfig
+    by_path = {}
+    rng = np.random.default_rng(24)
+    cfg = get_arch("qwen2-moe-a2.7b").config
+    lm = build_lm(cfg, dev)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in PROMPT_LENS]
+    eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024),
+                 device=dev)
+    L = cfg.n_layers
+    by_path["qwen2-moe-a2.7b_generate"] = timed_generate(
+        eng, prompts, MAX_NEW,
+        {"flash_attention": L, "paged_decode": L * (MAX_NEW - 1),
+         "argmax": MAX_NEW, "paged_decode_q8": 0, "ssd_scan": 0},
+        "qwen2-moe-a2.7b")
+    decode_step_without_sync(eng, prompts, "qwen2-moe-a2.7b")
+    seng = Engine(lm, ServeConfig(page_size=ps.PAGE_SIZE, max_seq=1024,
+                                  batch_slots=ps.SLOTS, admission_chunk=8,
+                                  kv_dtype="int8"), device=dev)
+    work = ps.shared_prefix_workload(cfg.vocab, MOE_SCHED_REQUESTS,
+                                     ps.PREFIX, ps.SUFFIX_LENS, ps.BUDGETS,
+                                     seed=0)
+    by_path["qwen2-moe-a2.7b_scheduler_int8"] = checked_scheduler(
+        seng, work, lambda m: {
+            "paged_decode_q8": L * m["decode_steps"],
+            "flash_attention": L * (m["admissions"] - m["prefix_hits"]),
+            "argmax": m["decode_steps"], "paged_decode": 0, "ssd_scan": 0},
+        "qwen2-moe-a2.7b int8 scheduler")
+    del lm, eng, seng
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b").config,
+                              n_layers=QWEN3_LAYERS)
+    lm = build_lm(cfg, dev)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in QWEN3_PROMPT_LENS]
+    eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024),
+                 device=dev)
+    L = cfg.n_layers
+    by_path["qwen3-moe-235b-a22b_generate"] = timed_generate(
+        eng, prompts, QWEN3_NEW,
+        {"flash_attention": L, "paged_decode": L * (QWEN3_NEW - 1),
+         "argmax": QWEN3_NEW, "paged_decode_q8": 0, "ssd_scan": 0},
+        f"qwen3-moe-235b-a22b ({L} of 94 layers)")
+    del lm, eng
+    torch.cuda.empty_cache()
+    return by_path
+
+
+class RouterMargins:
+    """Records, while open, the smallest top-k margin of every MoE router
+    call: the probability of each row's k-th expert less its (k+1)-th's.
+    A margin near 0 is a near-tie that a different summation order can
+    flip (on the device, no sync)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._mod, self._orig = moe, moe.route
+        self.mins = []
+        orig, mins = self._orig, self.mins
+
+        def route(m, xt, cfg):
+            probs = torch.softmax(xt.float() @ m.router, dim=-1)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            mins.append((top[:, -2] - top[:, -1]).min())
+            return orig(m, xt, cfg)
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._orig
+        return False
+
+    def smallest(self) -> float:
+        return (min(t.item() for t in self.mins) if self.mins
+                else float("nan"))
+
+
+def moe_token_check(dev):
+    """Phase 21 (d): qwen2-moe-a2.7b in fp32 at full width and 2 of its 24
+    layers (~7.1 GB of weights), the same batch on both sides: 4 ragged
+    prompts of at most 64 tokens, 16 greedy tokens through the paged
+    engine on the card (#1 a layer, #2 a layer a step, #4 a step) equal
+    the CPU's, and every sampled step's logits agree within 1e-4 of
+    max|logit|.  The router's smallest top-k margin on each side is
+    printed whatever the outcome (a near-tie that flips an expert would
+    show there)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import ServeConfig
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").config,
+                              n_layers=MOE_FP32_LAYERS)
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in MOE_FP32_PROMPT_LENS]
+    L = cfg.n_layers
+    with RouterMargins() as rm:
+        try:
+            card_cpu_tokens(
+                dev, cfg, 7, prompts,
+                ServeConfig(page_size=PAGE_SIZE, max_seq=128),
+                {"flash_attention": L,
+                 "paged_decode": (MOE_FP32_NEW - 1) * L,
+                 "argmax": MOE_FP32_NEW}, "qwen2-moe", max_new=MOE_FP32_NEW)
+        finally:
+            log(f"  qwen2-moe router: smallest top-{cfg.moe_top_k} margin "
+                f"over {len(rm.mins)} router calls (card and cpu) "
+                f"{rm.smallest():.3g}")
+
+
 def perf_report_and_example(smi):
     """Phase 20 (e): the tool layer's last CLI, ``python -m
     repro_torch.launch.perf_report``, on the card in a fresh cache root:
@@ -3249,6 +3506,24 @@ def perf_report_and_example(smi):
     log(f"  examples/serve_batched_torch.py on the card: launches {launches}")
 
 
+class PhaseClock:
+    """Logs each phase's title when it starts and its seconds when the
+    next one starts (or at :meth:`stop`)."""
+
+    def __init__(self):
+        self.title, self.t0 = None, 0.0
+
+    def __call__(self, title: str) -> None:
+        self.stop()
+        log(title)
+        self.title, self.t0 = title.split("]")[0] + "]", time.perf_counter()
+
+    def stop(self) -> None:
+        if self.title is not None:
+            log(f"  {self.title} in {time.perf_counter() - self.t0:.1f} s")
+        self.title = None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
@@ -3273,8 +3548,9 @@ def run_phases() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    phase = PhaseClock()
 
-    log("[1/20] probe")
+    phase("[1/21] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -3291,12 +3567,12 @@ def run_phases() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    log("[2/20] build")
+    phase("[2/21] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    log("[3/20] kernels vs plain versions")
+    phase("[3/21] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -3308,26 +3584,26 @@ def run_phases() -> int:
             f"{r['bound_by']})")
     del timer
 
-    log("[4/20] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    phase("[4/21] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    log("[5/20] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
-        "prefix cache")
+    phase("[5/21] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+          "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    log("[6/20] fp32 token check: card paged / card dense / cpu paged")
+    phase("[6/21] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    log("[7/20] fp32 scheduler token check: card scheduler / card generate "
-        "/ cpu scheduler; int8 logits card vs cpu")
+    phase("[7/21] fp32 scheduler token check: card scheduler / card generate "
+          "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    log("[8/20] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    phase("[8/21] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    log("[9/20] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    phase("[9/21] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -3337,11 +3613,11 @@ def run_phases() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    log("[10/20] fp32 zamba2 token check: card / cpu, 7 layers")
+    phase("[10/21] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    log("[11/20] case-study kernels vs plain versions: STREAM triad, "
-        "Jacobi-7")
+    phase("[11/21] case-study kernels vs plain versions: STREAM triad, "
+          "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
     del timer
@@ -3350,79 +3626,83 @@ def run_phases() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    log("[12/20] main path 5: the case studies through PerfCtr marker "
-        "regions (HBM, ROOFLINE), the bandwidth map")
+    phase("[12/21] main path 5: the case studies through PerfCtr marker "
+          "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    log("[13/20] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
-        "top_p), paged")
+    phase("[13/21] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+          "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
     # neither the draws nor the draft's rejections would matter
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    log("[14/20] main path 7: speculative decoding, K = 4, 2-layer matched "
-        "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
+    phase("[14/21] main path 7: speculative decoding, K = 4, 2-layer matched "
+          "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    log("[15/20] main path 8: serving snapshots and chaos: (a) fp32 "
-        "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
-        "smoke schedule, killed and restored")
+    phase("[15/21] main path 8: serving snapshots and chaos: (a) fp32 "
+          "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
+          "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
     chaos_launches = chaos_path(dev, lm, smi)
     del lm
     torch.cuda.empty_cache()
 
-    log("[16/20] main path 9: the serving benches (serve, paged decode, "
-        "flash prefill, spec) at their default sizes, serve and spec at "
-        "qwen2-0.5b full width")
+    phase("[16/21] main path 9: the serving benches (serve, paged decode, "
+          "flash prefill, spec) at their default sizes, serve and spec at "
+          "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    log("[17/20] main path 10: the tool layer (topology, pin, features) "
-        "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
-        "default kernels against the torch pins three ways")
+    phase("[17/21] main path 10: the tool layer (topology, pin, features) "
+          "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
+          "default kernels against the torch pins three ways")
     topology_check(dev, smi)
     reg_launches, reg_q8_launches = registry_serving_path(dev, smi)
     registry_families_check(dev, smi)
     tool_benches(smi)
     torch.cuda.empty_cache()
 
-    log("[18/20] main path 11: the registry's tune half: (a) every tunable "
-        "family's card cell swept cold, each candidate held to its plain "
-        "version; (b) warm in a fresh process; (c) the launcher's --tune "
-        "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
-        "tuned tiles against the default tiles")
-    t18 = time.perf_counter()
+    phase("[18/21] main path 11: the registry's tune half: (a) every tunable "
+          "family's card cell swept cold, each candidate held to its plain "
+          "version; (b) warm in a fresh process; (c) the launcher's --tune "
+          "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
+          "tuned tiles against the default tiles")
     root, cold, tune_launches = tune_suite_cold(smi)
     tune_suite_warm(root, cold, smi)
     tune_launcher(smi)
     tuned_gen_launches = tuned_generate(dev, smi)
-    log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
     torch.cuda.empty_cache()
 
-    log("[19/20] main path 12: xlstm-350m at full width and depth, dense "
-        "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
-        "card vs cpu at 4 layers")
-    t19 = time.perf_counter()
+    phase("[19/21] main path 12: xlstm-350m at full width and depth, dense "
+          "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
+          "card vs cpu at 4 layers")
     xlstm_gen_launches, xlstm_sched_launches = xlstm_paths(dev)
     torch.cuda.empty_cache()
     xlstm_token_check(dev)
-    log(f"  phase 19 in {time.perf_counter() - t19:.1f} s")
 
-    log("[20/20] main path 13: the other dense configs, pages of 16: "
-        "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
-        "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
-        "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
-    t20 = time.perf_counter()
+    phase("[20/21] main path 13: the other dense configs, pages of 16: "
+          "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
+          "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
+          "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
     dense_launches = dense_config_paths(dev)
     stablelm_token_check(dev)
     perf_report_and_example(smi)
-    log(f"  phase 20 in {time.perf_counter() - t20:.1f} s")
+    torch.cuda.empty_cache()
+
+    phase("[21/21] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
+          "a2.7b at full width and depth, generate, one host sync, a decode "
+          "step with no implicit sync; (b) its int8 scheduler with the prefix "
+          "cache; (c) qwen3-moe-235b-a22b at 2 of 94 layers (G 16); (d) fp32 "
+          "qwen2-moe tokens card vs cpu at 2 layers")
+    moe_launches = moe_paths(dev)
+    torch.cuda.empty_cache()
+    moe_token_check(dev)
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
@@ -3435,7 +3715,8 @@ def run_phases() -> int:
                "tune_suite_card": tune_launches,
                "tuned_generate_fp32": tuned_gen_launches,
                "xlstm_generate": xlstm_gen_launches,
-               "xlstm_scheduler": xlstm_sched_launches, **dense_launches}
+               "xlstm_scheduler": xlstm_sched_launches, **dense_launches,
+               **moe_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"],
@@ -3444,6 +3725,7 @@ def run_phases() -> int:
             {p: c[r["name"]] for p, c in by_path.items()
              if c.get(r["name"])})
 
+    phase.stop()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

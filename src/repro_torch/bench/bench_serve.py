@@ -22,12 +22,12 @@ the step's kernels and plain ops (``repro_torch.core.events``,
 
 The speed bar, the fused loop at least 3x the per-token loop (2x with
 ``--smoke``), is recorded under ``bars``; ``main`` exits 1 when it is
-missed.  ``--arch qwen2-0.5b`` serves the ported config at full width and
-depth instead (bf16, random weights from seed 0, pages of 16, 8 prompts,
-8 slots) with the same claims and bar.
+missed.  ``--arch qwen2-0.5b`` (or ``qwen2-moe-a2.7b``) serves that
+ported config at full width and depth instead (bf16, random weights from
+seed 0, pages of 16, 8 prompts, 8 slots) with the same claims and bar.
 
     PYTHONPATH=src python -m repro_torch.bench.bench_serve [--smoke]
-        [--arch qwen2-0.5b] [--device cpu] [--json PATH]
+        [--arch qwen2-0.5b|qwen2-moe-a2.7b] [--device cpu] [--json PATH]
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ from repro_torch.serve.engine import (DECODE_REGION, BatchScheduler, Engine,
 
 #: the JAX bench's ServeConfig; ``--arch`` adds pages and 8 slots
 SERVE = dict(max_seq=256, batch_slots=4, temperature=0.0, admission_chunk=8)
+#: the ported configs ``--arch`` serves at full width and depth on one card
+ARCHS = ("qwen2-0.5b", "qwen2-moe-a2.7b")
 
 
 def bench_config(smoke: bool) -> LMConfig:
@@ -215,7 +217,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--smoke", action="store_true",
                     help="CI scale: tiny model, few reps, the 2x bar")
-    ap.add_argument("--arch", default=None, choices=["qwen2-0.5b"],
+    ap.add_argument("--arch", default=None, choices=ARCHS,
                     help="serve this ported config at full width instead")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")

@@ -4,11 +4,13 @@
         [--page-size 16] [--json out.json]
 
 Builds ``--arch`` at full width and depth (bf16, random weights from seed
-0) and serves its ``generate`` path of ``chip_smoke.py``, 32 greedy tokens
-per prompt: for the dense configs (qwen2-0.5b, qwen1.5-0.5b, stablelm-3b)
-8 ragged prompts of 512, 384, 301, 256, 129, 64, 17 and 1 tokens with a
-paged (``--page-size 16``, the default) or dense (``--page-size 0``) KV
-cache; for zamba2-1.2b and xlstm-350m 8 prompts of 512 tokens with dense
+0; qwen3-moe-235b-a22b at 2 of its 94 layers, which is what one 80 GB
+card holds) and serves its ``generate`` path of ``chip_smoke.py``, 32
+greedy tokens per prompt: for the dense configs (qwen2-0.5b,
+qwen1.5-0.5b, stablelm-3b) and the moe configs (qwen2-moe-a2.7b,
+qwen3-moe-235b-a22b) 8 ragged prompts of 512, 384, 301, 256, 129, 64, 17
+and 1 tokens with a paged (``--page-size 16``, the default) or dense
+(``--page-size 0``) KV cache; for zamba2-1.2b and xlstm-350m 8 prompts of 512 tokens with dense
 state (the recurrent families have no pages).  It warms the engine up,
 then:
 
@@ -29,6 +31,7 @@ CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,7 +47,10 @@ from repro_torch.core.devtime import device_time_us as _device_time_us
 RAGGED = (512, 384, 301, 256, 129, 64, 17, 1)
 PROMPT_LENS = {"qwen2-0.5b": RAGGED, "qwen1.5-0.5b": RAGGED,
                "stablelm-3b": RAGGED, "zamba2-1.2b": (512,) * 8,
-               "xlstm-350m": (512,) * 8}
+               "xlstm-350m": (512,) * 8, "qwen2-moe-a2.7b": RAGGED,
+               "qwen3-moe-235b-a22b": RAGGED}
+#: the depth one 80 GB card holds, where the full depth does not fit
+ONE_CARD_LAYERS = {"qwen3-moe-235b-a22b": 2}
 #: the archs whose state is recurrent: dense state, no pages
 RECURRENT = ("zamba2-1.2b", "xlstm-350m")
 MAX_NEW = 32
@@ -85,13 +91,21 @@ def _port_kernels(avgs) -> dict:
     return out
 
 
+def depth(arch: str) -> int:
+    """The layers ``profile`` builds by default: the config's, or what one
+    card holds (:data:`ONE_CARD_LAYERS`)."""
+    from repro_torch.configs import get_arch
+    return ONE_CARD_LAYERS.get(arch, get_arch(arch).config.n_layers)
+
+
 def profile(arch: str, page_size: int) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import Engine, ServeConfig
     _build.build_all()
-    cfg = get_arch(arch).config
+    cfg = dataclasses.replace(get_arch(arch).config,
+                              n_layers=depth(arch))
     max_new = MAX_NEW
     lm = LM(cfg, torch.bfloat16).init(
         torch.Generator(device="cuda").manual_seed(0))
@@ -120,7 +134,8 @@ def profile(arch: str, page_size: int) -> dict:
     med_gen, med_pre = float(np.median(gen_ms)), float(np.median(prefill_ms))
     tokens = len(prompts) * (max_new - 1)
     return {
-        "arch": arch, "page_size": page_size, "max_new": max_new,
+        "arch": arch, "n_layers": cfg.n_layers, "page_size": page_size,
+        "max_new": max_new,
         "prompt_lens": list(PROMPT_LENS[arch]),
         "generate_ms": gen_ms, "prefill_plus_1_ms": prefill_ms,
         "decode_tokens_per_s": tokens / max(med_gen - med_pre, 1e-9) * 1e3,

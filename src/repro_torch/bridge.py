@@ -2,7 +2,8 @@
 
 The JAX ``LM.init`` returns a nested dict whose per-layer leaves are
 stacked on a leading layers axis (``blocks/attn/wq`` is ``[L, d, H, Dh]``,
-``mamba/in_proj`` is ``[L, d, E]``, ``mlstm/wq`` is ``[L/2, di, H, dh]``:
+``blocks/moe/w_gate`` is ``[L, E, d, f]``, ``mamba/in_proj`` is
+``[L, d, E]``, ``mlstm/wq`` is ``[L/2, di, H, dh]``:
 the xlstm family stacks its mLSTM and sLSTM blocks over its
 ``n_layers // 2`` pairs).  LayerNorm's ``bias`` leaves map across like
 any other.  The port keeps one module per layer
@@ -19,7 +20,7 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
-from repro_torch.models import ssm, xlstm
+from repro_torch.models import moe, ssm, xlstm
 from repro_torch.models.lm import PORTED_FAMILIES, LMConfig
 
 __all__ = ["params_from_jax"]
@@ -43,18 +44,20 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: LMConfig,
     """A ``state_dict`` for ``LM(cfg, dtype, device)`` built from the JAX
     params tree (numpy leaves); load it with ``lm.load_state_dict``.
 
-    Stacked subtrees (``blocks.*`` of the dense family, ``mamba.*`` of the
-    hybrid, ``mlstm.*`` and ``slstm.*`` of the xlstm) are split over their
-    leading axis (``n_layers``; ``n_layers // 2`` pairs for the xlstm
-    family) into ``blocks.{i}.*`` / ``mamba.{i}.*`` / ``mlstm.{i}.*``;
+    Stacked subtrees (``blocks.*`` of the dense and moe families,
+    ``mamba.*`` of the hybrid, ``mlstm.*`` and ``slstm.*`` of the xlstm)
+    are split over their leading axis (``n_layers``; ``n_layers // 2``
+    pairs for the xlstm family) into ``blocks.{i}.*`` / ``mamba.{i}.*`` / ``mlstm.{i}.*``;
     everything else (the hybrid's one ``shared_attn`` block included) is
-    copied as is.  Mamba2's :data:`~repro_torch.models.ssm.FP32_LEAVES`
-    and the xLSTM blocks' :data:`~repro_torch.models.xlstm.FP32_LEAVES`
-    stay fp32 whatever ``dtype`` is."""
+    copied as is.  Mamba2's :data:`~repro_torch.models.ssm.FP32_LEAVES`,
+    the xLSTM blocks' :data:`~repro_torch.models.xlstm.FP32_LEAVES` and
+    the MoE layers' :data:`~repro_torch.models.moe.FP32_LEAVES` (router
+    and shared gate) stay fp32 whatever ``dtype`` is."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     depth, prefixes, fp32_leaves = {
         "dense": (cfg.n_layers, ("blocks.",), ()),
+        "moe": (cfg.n_layers, ("blocks.",), moe.FP32_LEAVES),
         "hybrid": (cfg.n_layers, ("mamba.",), ssm.FP32_LEAVES),
         "xlstm": (cfg.n_layers // 2, ("mlstm.", "slstm."),
                   xlstm.FP32_LEAVES),

@@ -36,7 +36,8 @@ _REGISTRY: Dict[str, ArchSpec] = {}
 
 #: architectures whose config module has been ported so far
 ALL_ARCH_IDS = ["qwen2-0.5b", "zamba2-1.2b", "xlstm-350m", "qwen1.5-0.5b",
-                "stablelm-3b", "mistral-large-123b"]
+                "stablelm-3b", "mistral-large-123b", "qwen2-moe-a2.7b",
+                "qwen3-moe-235b-a22b"]
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ALL_ARCH_IDS}
 

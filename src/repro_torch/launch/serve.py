@@ -13,6 +13,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         --requests 16 --slots 8 --page-size 16 --max-seq 1024
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-moe-a2.7b --requests 16 --slots 8 --page-size 16 \\
+        --kv-dtype int8 --shared-prefix 256 --max-seq 1024
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-235b-a22b --layers 2 --page-size 16 --max-seq 1024
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --page-size 16 --temperature 0.7 --draft qwen2-0.5b \\
         --spec-tokens 4 --instrument --json spec.json
@@ -21,8 +28,11 @@ Runs the continuous-batching ``BatchScheduler`` over synthetic prompts
 (deterministic, numpy seed 0) and prints tokens/s, time-to-first-token,
 segments, admissions and the engine's audited host-sync count.  The
 archs: qwen2-0.5b, qwen1.5-0.5b, stablelm-3b and mistral-large-123b
-(dense; the last does not fit one 80 GB card at full depth), zamba2-1.2b
-(hybrid) and xlstm-350m (xlstm).  The recurrent zamba2-1.2b and
+(dense), qwen2-moe-a2.7b and qwen3-moe-235b-a22b (moe), zamba2-1.2b
+(hybrid) and xlstm-350m (xlstm).  mistral-large-123b and
+qwen3-moe-235b-a22b do not fit one 80 GB card at full depth:
+``--layers N`` serves the first N layers' worth of a model at full
+width.  The recurrent zamba2-1.2b and
 xlstm-350m serve with dense state only: ``--page-size`` (with or
 without ``--kv-dtype``) gives the engine's error for them.  There is
 no checkpoint in the repository: the weights are random, from a
@@ -72,6 +82,7 @@ item 14's citation.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -86,6 +97,8 @@ def main(argv=None) -> int:
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke-dims", action="store_true")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="serve N layers (default: the config's depth)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
@@ -141,6 +154,10 @@ def main(argv=None) -> int:
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke_dims else spec.config
+    if args.layers is not None:
+        if args.layers < 1:
+            ap.error(f"--layers must be at least 1, not {args.layers}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     serve_cfg = ServeConfig(
         max_seq=args.max_seq, batch_slots=args.slots,
         temperature=args.temperature,

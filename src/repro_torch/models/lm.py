@@ -1,18 +1,21 @@
-"""The causal LM: config, weights, prefill and decode: dense, hybrid, xlstm.
+"""The causal LM: config, weights, prefill and decode: dense, moe, hybrid,
+xlstm.
 
 Port of ``repro/models/lm.py``.  :class:`LMConfig` carries every field of
 the JAX config so later slices port their configs verbatim; :class:`LM`
 implements serving for ``family="dense"`` (embed -> transformer blocks ->
-norm -> LM head, RMSNorm or LayerNorm), ``family="hybrid"`` (zamba2:
+norm -> LM head, RMSNorm or LayerNorm), ``family="moe"`` (the same with
+MoE MLP blocks, :mod:`repro_torch.models.moe`), ``family="hybrid"`` (zamba2:
 Mamba2 blocks with ONE weight-shared transformer block after every
 ``attn_every``-th, each application with its own dense KV cache) and
 ``family="xlstm"`` (``n_layers // 2`` mLSTM/sLSTM block pairs, recurrent
 state only).  Weights are stored once in the compute dtype; the JAX
 package keeps fp32 masters and casts at every use, which gives the same
 numbers.  The Mamba2 decay leaves ``A_log``, ``dt_bias`` and ``D``
-(:data:`repro_torch.models.ssm.FP32_LEAVES`) and the xLSTM gate leaves
-(:data:`repro_torch.models.xlstm.FP32_LEAVES`) stay fp32, as the JAX
-package computes with them in fp32.
+(:data:`repro_torch.models.ssm.FP32_LEAVES`), the xLSTM gate leaves
+(:data:`repro_torch.models.xlstm.FP32_LEAVES`) and the MoE router and
+shared gate (:data:`repro_torch.models.moe.FP32_LEAVES`) stay fp32, as
+the JAX package computes with them in fp32.
 
 ``LM`` runs on ``cuda`` unless it is built with ``device="cpu"``; with no
 GPU and no explicit request it raises (:func:`repro_torch.device.
@@ -24,7 +27,9 @@ from its compiled artifact.  Here the kernels declare their own launches
 :meth:`LM.decode_step` declare, once a call, the plain PyTorch work no
 kernel declares (:meth:`LM._declare_ops`): every weight read once (the
 embedding only as the gathered rows, the head's ``[d, V]`` once), the
-GEMM FLOPs, the K/V written into the cache, the dense engine's masked
+GEMM FLOPs (an MoE layer's experts over their ``[E, cap, D]`` buffers,
+which it writes and reads, its router in fp32 and its shared expert over
+every row), the K/V written into the cache, the dense engine's masked
 decode over its WHOLE ``[B, Smax, KVH, Dh]`` K and V buffers whatever the
 rows hold, the prefix-cache suffix prefill's gather of the table's pages,
 and the recurrent families' state (read and written).  So an event collection around
@@ -44,11 +49,13 @@ from torch import nn
 from repro_torch.core import events
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import AttnConfig, KVCache
 from repro_torch.models.layers import truncated_normal_
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import Mamba2Config
 from repro_torch.models.transformer import BlockConfig
 from repro_torch.models.xlstm import XLSTMConfig
@@ -56,7 +63,11 @@ from repro_torch.models.xlstm import XLSTMConfig
 __all__ = ["LMConfig", "LM", "PORTED_FAMILIES"]
 
 #: families ``LM`` serves so far (the rest: ROADMAP.md, queue 1 item 12)
-PORTED_FAMILIES = ("dense", "hybrid", "xlstm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "xlstm")
+
+#: families whose state is a KV cache (dense or paged); the rest of
+#: ``repro.models.lm``'s ``("dense", "moe", "vlm")`` waits for vlm
+KV_FAMILIES = ("dense", "moe")
 
 #: weights a token multiplies once a step (2 FLOPs an element): the
 #: attention projections, the MLP, the Mamba2 projections and conv, and
@@ -119,11 +130,18 @@ class LMConfig:
             chunk_threshold=self.attn_chunk_threshold,
             softmax_mode=self.attn_softmax)
 
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(
+            d_model=self.d_model, d_ff_expert=self.d_ff,
+            num_experts=self.moe_experts, top_k=self.moe_top_k,
+            num_shared_experts=self.moe_shared_experts,
+            d_ff_shared=self.moe_d_ff_shared)
+
     def block_config(self) -> BlockConfig:
-        """The block config (the MoE config itself is not ported yet)."""
         return BlockConfig(
             attn=self.attn_config(), d_ff=self.d_ff, norm=self.norm,
             mlp="moe" if self.family == "moe" else "swiglu",
+            moe=self.moe_config() if self.family == "moe" else None,
             norm_eps=self.norm_eps)
 
     def xlstm_config(self) -> XLSTMConfig:
@@ -261,7 +279,7 @@ class LM(nn.Module):
         pairs, fp32, with no KV and no pages."""
         cfg = self.cfg
         ac = cfg.attn_config()
-        if page_size > 0 and cfg.family != "dense":
+        if page_size > 0 and cfg.family not in KV_FAMILIES:
             raise ValueError(
                 f"paged KV caches need an attention-cache family, not "
                 f"{cfg.family!r} (recurrent states have no pages to swap)")
@@ -365,13 +383,30 @@ class LM(nn.Module):
             self.blocks, x, self.cfg.block_config(), state["caches"])
         return self._head(x)[:, 0], {"caches": caches}
 
+    # ============================================================== sizes
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def num_active_params(self) -> int:
+        """Per-token active params (MoE: routed top-k only)."""
+        n = self.num_params()
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return n
+        per_layer_all = (3 * cfg.d_model * cfg.d_ff * cfg.moe_experts
+                         + cfg.d_model * cfg.moe_experts)
+        n_dense = n - cfg.n_layers * per_layer_all
+        return n_dense + cfg.n_layers * moe_mod.count_active_params(
+            cfg.moe_config())
+
     # ===================================================== declared traffic
     @functools.cached_property
     def _weight_model(self) -> Tuple[int, int, int]:
         """(matmul elements a token multiplies, bytes of every weight but
         the embedding, bytes of the head's [d, V]).  The hybrid family's
         shared block counts once a step in bytes and once an application
-        in FLOPs."""
+        in FLOPs; an MoE layer's leaves count in bytes only (their FLOPs
+        follow the capacity, :meth:`_moe_ops`)."""
         apps = (len(_hybrid_groups(self.cfg.n_layers, self.cfg.attn_every))
                 if self.cfg.family == "hybrid" else 1)
         elems = nbytes = 0
@@ -379,7 +414,8 @@ class LM(nn.Module):
             if name == "embed.table":
                 continue
             nbytes += p.numel() * p.element_size()
-            if name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS:
+            if (name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS
+                    and ".moe." not in name):
                 elems += p.numel() * (apps if name.startswith("shared_attn.")
                                       else 1)
         head = (self.cfg.d_model * self.cfg.vocab
@@ -403,6 +439,13 @@ class LM(nn.Module):
         flops = 2.0 * (b * s * elems + heads * cfg.d_model * cfg.vocab)
         arg = wbytes + hbytes + b * s * (cfg.d_model * isz + 4)
         out = heads * cfg.vocab * isz
+        if cfg.family == "moe":
+            moe_flops, moe_f32, buf = self._moe_ops(b * s)
+            flops += moe_flops
+            arg += buf                  # the [E, cap, D] buffers, read
+            out += buf                  # and written
+            events.record_ops(flops=moe_f32, arg_bytes=0, out_bytes=0,
+                              f32=True)
         if cfg.family in ("hybrid", "xlstm"):
             rec_state = ((*state["mamba"]["ssd"], state["mamba"]["conv"])
                          if cfg.family == "hybrid"
@@ -433,6 +476,25 @@ class LM(nn.Module):
             flops += 4.0 * layers * b * h * smax * dh
         events.record_ops(flops=flops, arg_bytes=arg, out_bytes=out,
                           f32=self.dtype == torch.float32)
+
+    def _moe_ops(self, t: int) -> Tuple[float, float, int]:
+        """(FLOPs in the compute dtype, FLOPs in fp32, bytes of the
+        ``[E, cap, D]`` buffers) of every MoE layer over ``t`` routed
+        rows: the experts' three products over E * cap rows (the capacity,
+        not the token count), the shared expert over every row, and the
+        router and shared gate in fp32."""
+        cfg = self.cfg
+        mc = cfg.moe_config()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
+        cap = moe_mod._capacity(t, mc)
+        flops = 2.0 * 3 * e * cap * d * f
+        f32 = 2.0 * t * d * e
+        if mc.num_shared_experts:
+            flops += 2.0 * 3 * t * d * moe_mod._shared_width(mc)
+            f32 += 2.0 * t * d
+        buf = e * cap * d * self.embed.table.element_size()
+        n = cfg.n_layers
+        return n * flops, n * f32, n * buf
 
     def _xlstm_stack(self, x: torch.Tensor, state: State, prefill: bool
                      ) -> Tuple[torch.Tensor, State]:

@@ -3,9 +3,10 @@
 Port of ``repro/models/transformer.py`` for serving: one :class:`Block`
 module per layer (the JAX package stacks them on a leading layers axis and
 scans; here a Python loop walks an ``nn.ModuleList``), RMSNorm or
-LayerNorm (stablelm-3b) as ``BlockConfig.norm`` says, the prefill block,
-the dense decode block, and the paged decode stack.  The MoE MLP and the
-training-time ``apply_stack`` wait for later slices.
+LayerNorm (stablelm-3b) as ``BlockConfig.norm`` says, a SwiGLU or an MoE
+MLP (:mod:`repro_torch.models.moe`) as ``BlockConfig.mlp`` says, the
+prefill block, the dense decode block, and the paged decode stack.  The
+training-time ``apply_stack`` waits for a later slice.
 
 KV caches carry a leading layers axis; each layer reads and writes its own
 slice IN PLACE (the JAX package threads the stacked cache through a scan
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (AttnConfig, KVCache, PagedKVCache)
 from repro_torch.models.layers import (layer_norm, rms_norm, swiglu,
                                       truncated_normal_)
@@ -90,25 +92,27 @@ class SwiGLU(nn.Module):
 
 
 class Block(nn.Module):
-    """One pre-norm block's weights (``init_block``'s tree, swiglu MLP;
-    RMSNorm or LayerNorm)."""
+    """One pre-norm block's weights (``init_block``'s tree: RMSNorm or
+    LayerNorm; a swiglu ``mlp`` or, for ``mlp="moe"``, a ``moe``)."""
 
     def __init__(self, cfg: BlockConfig, dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
-        if cfg.mlp != "swiglu":
-            raise NotImplementedError(
-                f"mlp={cfg.mlp!r} blocks are not ported yet (ROADMAP.md, "
-                f"queue 1 item 12: other families)")
         d = cfg.attn.d_model
         self.ln1 = make_norm(cfg.norm, d, dtype, device)
         self.attn = attn_mod.Attention(cfg.attn, dtype, device)
         self.ln2 = make_norm(cfg.norm, d, dtype, device)
-        self.mlp = SwiGLU(d, cfg.d_ff, dtype, device)
+        if cfg.mlp == "moe":
+            self.moe = moe_mod.MoE(cfg.moe, dtype, device)
+        else:
+            self.mlp = SwiGLU(d, cfg.d_ff, dtype, device)
 
     def init(self, generator: Optional[torch.Generator]) -> None:
         """``init_block``'s distributions (norm scales stay 1)."""
         self.attn.init(generator)
+        if hasattr(self, "moe"):
+            self.moe.init(generator)
+            return
         d, d_ff = self.mlp.w_gate.shape
         truncated_normal_(self.mlp.w_gate, 1.0 / math.sqrt(d), generator)
         truncated_normal_(self.mlp.w_up, 1.0 / math.sqrt(d), generator)
@@ -120,7 +124,10 @@ def _norm(x: torch.Tensor, ln: nn.Module, cfg: BlockConfig) -> torch.Tensor:
 
 
 def _block_mlp(p: Block, h: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
-    """The post-attention MLP half of a block."""
+    """The post-attention MLP half of a block (an MoE's aux loss dropped:
+    prefill and decode never train)."""
+    if cfg.mlp == "moe":
+        return moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe)[0]
     mp = p.mlp
     return swiglu(_norm(h, p.ln2, cfg), mp.w_gate, mp.w_up, mp.w_down)
 

@@ -4,7 +4,8 @@
   and returns the JAX bench summary's keys where their meaning carries;
 * the declared traffic of one qwen2-0.5b SMOKE decode step equals a hand
   count, dense and paged, fp32 and int8 pages, for the CPU's plain impl
-  (no launch) and pinned to the kernel's impl (one launch a layer); the
+  (no launch) and pinned to the kernel's impl (one launch a layer), and
+  so does qwen2-moe-a2.7b SMOKE's, its experts counted from the capacity; the
   flash and paged kernels' models equal brute-force counts;
 * slice parity: bench_serve's smoke model, built by the JAX ``LM.init``
   and bridged, gives the JAX engine's greedy tokens on the bench's
@@ -42,6 +43,8 @@ from repro_torch.bench import (bench_flash_prefill,  # noqa: E402
                                bench_stream_pinning, common, run)
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.qwen2_0_5b import SMOKE  # noqa: E402
+from repro_torch.configs.qwen2_moe_a2_7b import (  # noqa: E402
+    SMOKE as MOE_SMOKE)
 from repro_torch.core import events  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_traffic  # noqa: E402
@@ -184,6 +187,84 @@ def test_declared_decode_step_equals_hand_count(kv):
         assert ev["HBM_OUT_BYTES"] == out
         assert ev["BYTES_ACCESSED"] == arg + out
         assert ev["LAUNCHES"] == want_launches
+
+
+def _moe_hand_count(paged: bool, int8: bool, smax: int, ps: int):
+    """(flops, arg bytes, out bytes) of one fp32 decode step of
+    qwen2-moe-a2.7b SMOKE over ``LENGTHS``, from the config alone.  The
+    experts' FLOPs follow the capacity: 3 rows route top-2 over 8
+    experts, cap = max(ceil(3 * 2 * 1.25 / 8), 2) = 2, so each expert's
+    three products run over 2 rows whatever the rows route to."""
+    c = MOE_SMOKE
+    d, L, H, KVH, V, F = (c.d_model, c.n_layers, c.num_heads,
+                          c.num_kv_heads, c.vocab, c.d_ff)
+    E, fs = c.moe_experts, c.moe_d_ff_shared
+    dh, B, f, cap = d // H, len(LENGTHS), 4, 2
+    attn = d * H * dh + 2 * d * KVH * dh + H * dh * d
+    moe_w = d * E + 3 * E * d * F + 3 * d * fs + d   # router ... coef
+    layer = attn + moe_w + 2 * d + H * dh + 2 * KVH * dh  # norms, biases
+    weights = f * (L * layer + d)                      # + final norm
+    head = f * d * V                                   # the untied head
+    flops = (2 * B * L * attn + 2 * B * d * V
+             + L * (2 * 3 * E * cap * d * F            # experts
+                    + 2 * 3 * B * d * fs               # shared expert
+                    + 2 * B * d * E + 2 * B * d))      # router, coef
+    buf = L * E * cap * d * f                          # [E, cap, d]
+    arg = weights + head + B * (f * d + 4) + buf
+    page_isz, scale = (1, 4) if int8 else (f, 0)
+    out = f * B * V + buf + 2 * L * B * (KVH * dh * (page_isz if paged
+                                                      else f) + scale)
+    if not paged:
+        arg += 2 * L * B * smax * KVH * dh * f
+        flops += 4 * L * B * H * smax * dh
+    else:
+        live = sum(-(-n // ps) for n in LENGTHS)
+        per_tok = 2 * KVH * dh * page_isz + (8 if int8 else 0)
+        qo = B * H * dh * f
+        arg += L * (qo + 2 * B * KVH * dh * f + 4 * B
+                    + live * (ps * per_tok + 4))
+        out += L * qo
+        flops += L * 4 * dh * H * sum(n + 1 for n in LENGTHS)
+    return flops, arg, out
+
+
+@pytest.mark.parametrize("kv", ["dense", "fp32", "int8"])
+def test_declared_moe_decode_step_equals_hand_count(kv):
+    """The moe case of :func:`test_declared_decode_step_equals_hand_count`:
+    every weight read once, the experts over E * cap rows, the router and
+    shared gate in fp32, the ``[E, cap, d]`` buffers written and read."""
+    lm = LM(MOE_SMOKE, torch.float32, "cpu").init(
+        torch.Generator().manual_seed(0))
+    smax, ps = 32, 8
+    if kv == "dense":
+        state = lm.init_decode_state(len(LENGTHS), smax)
+    else:
+        state = lm.init_decode_state(
+            len(LENGTHS), smax, page_size=ps, num_pages=13, table_width=4,
+            kv_dtype=torch.int8 if kv == "int8" else None)
+        table = torch.arange(1, 13, dtype=torch.int32).reshape(3, 4)
+        state["caches"] = state["caches"]._replace(page_table=table)
+    state["caches"] = state["caches"]._replace(
+        length=torch.tensor(LENGTHS, dtype=torch.int32))
+    flops, arg, out = _moe_hand_count(kv != "dense", kv == "int8", smax, ps)
+    with events.collect() as ev:
+        lm.decode_step(torch.tensor([[3], [7], [9]], dtype=torch.int32),
+                       state)
+    assert ev["FLOPS_TOTAL"] == ev["FLOPS_F32"] == flops
+    assert ev["HBM_ARG_BYTES"] == arg
+    assert ev["HBM_OUT_BYTES"] == out
+    assert ev["LAUNCHES"] == 0
+    # a bf16 model: the router and shared gate stay fp32 FLOPs
+    lm16 = LM(MOE_SMOKE, torch.bfloat16, "cpu").init(
+        torch.Generator().manual_seed(0))
+    state = lm16.init_decode_state(len(LENGTHS), smax)
+    with events.collect() as ev:
+        lm16.decode_step(torch.tensor([[3], [7], [9]], dtype=torch.int32),
+                         state)
+    c, B = MOE_SMOKE, len(LENGTHS)
+    assert ev["FLOPS_F32"] == c.n_layers * (2 * B * c.d_model
+                                            * c.moe_experts
+                                            + 2 * B * c.d_model)
 
 
 def test_kernel_models_equal_brute_force_counts():

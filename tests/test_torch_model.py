@@ -53,7 +53,7 @@ def test_configs_port_verbatim():
     assert spec.config is CONFIG and spec.smoke is SMOKE
     assert spec.skipped("long_500k")
     with pytest.raises(KeyError, match="not yet ported"):
-        get_arch("qwen2-moe-a2.7b")
+        get_arch("qwen2-vl-7b")
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +285,7 @@ def test_lm_without_device_raises_on_a_host_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LM(SMOKE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(dataclasses.replace(SMOKE, family="moe"), device="cpu")
+        LM(dataclasses.replace(SMOKE, family="vlm"), device="cpu")
 
 
 # ---------------------------------------------------------------------------
