@@ -242,11 +242,32 @@ failure):
                against CPU equal, every step's logits within 1e-4 of
                max|logit|, the router's smallest top-k margin printed.
                Phase 3 holds #1-#3 at these paths' shapes (Dh 128 at G 1
-               and G 16).
+               and G 16);
+22. vlm, encdec - bf16: (a) qwen2-vl-7b at full width and depth (28
+               layers, 28 heads over 4 of 128, M-RoPE; random weights
+               from seed 0), pages of 16: 8 prompts of 512-288 tokens
+               with patch embeddings [8, 256, 3584] from a seeded
+               generator, 32 new tokens through ``Engine.generate``: one
+               host sync, #1 28 times, #2 28 x 31, #4 32; then its int8
+               scheduler with the prefix cache on phase 5's traffic cut
+               to 16 requests (text-only admissions, as the JAX
+               scheduler's); (b) seamless-m4t-medium at full width and
+               depth (12 encoder + 12 decoder layers, vocab 256206),
+               dense KV: 8 prompts of 256 tokens with source embeddings
+               [8, 64, 1024], 32 new tokens: #1 24 times (12 encoder
+               launches, not causal; 12 decoder prefills), #4 32; (c)
+               fp32, greedy tokens card against CPU equal and every
+               sampled step's logits within 1e-5 of max|logit|:
+               qwen2-vl-7b at 2 of its 28 layers on 3 prompts of 260-300
+               tokens with patch embeddings, seamless-m4t-medium at full
+               depth on 3 prompts of 256 tokens.  Phase 3 holds #1-#3
+               at qwen2-vl's shapes, #1 at seamless's encoder (not
+               causal, 64 positions) and decoder, and #4 at 8 x 256206,
+               each bf16 one timed with its bound.
 
 Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs,
 18's suite (its launches counted in its process) and tuned generate, and
-the serving runs of 19, 20 and 21 are the main paths:
+the serving runs of 19, 20, 21 and 22 are the main paths:
 each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
@@ -260,6 +281,7 @@ imports JAX or the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -467,6 +489,47 @@ def check_flash(dev, timer):
         log(f"  flash bf16 at {what} ragged: kernel {msm:.4f} ms, bound "
             f"{bd[0]:.5f} ms by {bd[1]}")
     del moe_args, q3_args
+    # phase 22's prefills at their own shapes: qwen2-vl-7b (28 heads over
+    # 4 of 128, G 7; M-RoPE'd q and k are inputs like any other) on its 8
+    # prompts in bf16 and on (c)'s prompts in fp32; seamless-m4t-medium
+    # (16 heads of 64, G 1): the encoder, not causal, over the 64 source
+    # positions and the decoder, causal, over the 256 target tokens, in
+    # bf16 (8 rows) and fp32 (3 rows); the bf16 ones timed
+    from repro_torch.bench.profile_generate import VLM_LENS
+    from repro_torch.configs import get_arch
+    h, kvh, dh = attn_shape("qwen2-vl-7b")
+    sv = max(VLM_LENS)
+    _, vlm_args = case(len(VLM_LENS), h, kvh, sv, sv, dh, torch.bfloat16,
+                       True, 0, list(VLM_LENS), bshd=True)
+    sf = max(VLM_FP32_PROMPT_LENS)
+    case(len(VLM_FP32_PROMPT_LENS), h, kvh, sf, sf, dh, torch.float32, True,
+         0, list(VLM_FP32_PROMPT_LENS), bshd=True)
+    h, kvh, dh = attn_shape("seamless-m4t-medium")
+    ss = ENCDEC_PROMPT_LEN // get_arch("seamless-m4t-medium").config.src_ratio
+    st = ENCDEC_PROMPT_LEN
+    timed = [("qwen2-vl-7b's prefill [8,28,512,128] G 7 ragged", vlm_args,
+              VLM_LENS, True)]
+    for b, dtype in ((ENCDEC_PROMPTS, torch.bfloat16),
+                     (ENCDEC_FP32_PROMPTS, torch.float32)):
+        _, enc_args = case(b, h, kvh, ss, ss, dh, dtype, False, 0, [ss] * b,
+                           bshd=True)
+        _, dec_args = case(b, h, kvh, st, st, dh, dtype, True, 0, [st] * b,
+                           bshd=True)
+        if dtype == torch.bfloat16:
+            timed += [(f"seamless-m4t-medium's encoder [8,16,{ss},64] not "
+                       f"causal", enc_args, [ss] * b, False),
+                      (f"seamless-m4t-medium's decoder prefill "
+                       f"[8,16,{st},64] causal", dec_args, [st] * b, True)]
+    for what, (qm, km, vm, kwm), lens, causal in timed:
+        msm = timer.ms(lambda: flash_attention_bhsd(qm, km, vm, **kwm))
+        bm, hm, sqm, dhm = qm.shape
+        pairs_m = sum(min(i + 1, n) if causal else n
+                      for n in lens for i in range(sqm))
+        bd = bound_ms(2 * (2 * qm.numel() + km.numel() + vm.numel())
+                      + 4 * bm, 4.0 * dhm * hm * pairs_m)
+        log(f"  flash bf16 at {what}: kernel {msm:.4f} ms, bound "
+            f"{bd[0]:.5f} ms by {bd[1]}")
+    del vlm_args, enc_args, dec_args, timed
     ke80, ve80 = k80.contiguous(), v80.contiguous()
     kpos = torch.arange(s, device=dev)
     mask80 = ((kpos[None, :] <= kpos[:, None])[None, None]
@@ -649,6 +712,22 @@ def check_paged(dev, timer):
         log(f"  paged_decode bf16 at {what} decode, Dh 128: {msm:.4f} ms, "
             f"bound {bd[0]:.5f} ms by {bd[1]}")
     del moe_args, q3_args
+    # phase 22's decodes mid-generation: qwen2-vl-7b's 8 rows (KVH 4, G 7,
+    # Dh 128) in bf16, timed, and (c)'s 3 rows in fp32
+    from repro_torch.bench.profile_generate import VLM_LENS
+    h, kvh, dh = attn_shape("qwen2-vl-7b")
+    vlm_lens = [n + 16 for n in VLM_LENS]
+    _, vlm_args = case(vlm_lens, kvh, h // kvh, dh, PAGE_SIZE,
+                       torch.bfloat16, MAX_NEW - 16, False)
+    case([n + 4 for n in VLM_FP32_PROMPT_LENS], kvh, h // kvh, dh, PAGE_SIZE,
+         torch.float32, FP32_NEW - 4, False)
+    msv = timer.ms(lambda: paged_decode_attention_grouped(*vlm_args))
+    bd = bound_ms(2 * (2 * vlm_args[0].numel() + 2 * vlm_args[5].numel())
+                  + 2 * 2 * sum(vlm_lens) * kvh * dh + 4 * len(vlm_lens),
+                  4.0 * h * dh * sum(n + 1 for n in vlm_lens))
+    log(f"  paged_decode bf16 at qwen2-vl-7b's decode (8 rows, KVH 4, G 7, "
+        f"Dh 128): {msv:.4f} ms, bound {bd[0]:.5f} ms by {bd[1]}")
+    del vlm_args
     case(main_lens, 2, 7, 64, PAGE_SIZE, torch.float32, MAX_NEW - 16, False)
     err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
                      MAX_NEW - 16, False)
@@ -760,15 +839,25 @@ def check_paged_q8(dev, timer):
     # 64) and stablelm-3b (KVH 32, G 1, Dh 80)
     from repro_torch.bench import profile_serve as sp
     from repro_torch.configs import get_arch
-    for arch in ("qwen1.5-0.5b", "stablelm-3b", "qwen2-moe-a2.7b"):
+    # (phase 22: qwen2-vl-7b, KVH 4, G 7, Dh 128, timed)
+    for arch in ("qwen1.5-0.5b", "stablelm-3b", "qwen2-moe-a2.7b",
+                 "qwen2-vl-7b"):
         work = sp.shared_prefix_workload(
             get_arch(arch).config.vocab, DENSE_SCHED_REQUESTS, sp.PREFIX,
             sp.SUFFIX_LENS, sp.BUDGETS, seed=0)
         lens = [len(w[0]) + 16 for w in work[:sp.SLOTS]]
         pages = max(-(-(n + 1) // sp.PAGE_SIZE) for n in lens)
         h, kvh, dh = attn_shape(arch)
-        case(lens, kvh, h // kvh, dh, sp.PAGE_SIZE, torch.bfloat16, 1,
-             False, width=-(-pages // 4) * 4)
+        _, a = case(lens, kvh, h // kvh, dh, sp.PAGE_SIZE, torch.bfloat16, 1,
+                    False, width=-(-pages // 4) * 4)
+    msv = timer.ms(lambda: paged_decode_attention_q8_grouped(*a))
+    bd = bound_ms(2 * (2 * a[0].numel() + 2 * a[7].numel())
+                  + sum(lens) * (2 * kvh * dh + 8) + 4 * len(lens),
+                  4.0 * h * dh * sum(n + 1 for n in lens))
+    log(f"  paged_decode_q8 bf16 at qwen2-vl-7b's int8 scheduler (8 slots, "
+        f"KVH 4, G 7, Dh 128): {msv:.4f} ms, bound {bd[0]:.5f} ms by "
+        f"{bd[1]}")
+    del a
     # qwen3-moe-235b-a22b's 4 rows at G 16, Dh 128, int8 pages, timed
     h, kvh, dh = attn_shape("qwen3-moe-235b-a22b")
     q3_lens = [n + 8 for n in QWEN3_PROMPT_LENS]
@@ -841,8 +930,10 @@ def check_argmax(dev, timer, vocab):
         # ties and NaN at the split boundaries; a view whose rows start one
         # element past a 16-byte boundary (and drift: the row stride is
         # odd); zamba2's vocab; one row and 64 rows
+        # qwen2-vl-7b's 152064 and seamless-m4t-medium's 256206 (no
+        # multiple of the 16-byte vector or of the split)
         for b, v in ((8, vocab), (8, 32000), (1, vocab), (64, vocab),
-                     (64, 32000), (3, 130)):
+                     (64, 32000), (3, 130), (8, 152064), (8, 256206)):
             xb = torch.from_numpy(argmax_boundary_logits(rng, b, v)
                                   ).to(dev, dtype)
             exact(f"{str(dtype)[6:]} split boundaries", xb)
@@ -854,6 +945,18 @@ def check_argmax(dev, timer, vocab):
             exact(f"{str(dtype)[6:]} one row, kind {shift}",
                   torch.from_numpy(xb).to(dev, dtype))
         last = xt
+    # phase 22's widest vocabulary, seamless-m4t-medium's 8 x 256206, timed
+    # beside torch.argmax
+    wide = torch.from_numpy(rng.standard_normal((8, 256206), np.float32)
+                            ).to(dev, torch.bfloat16)
+    exact("bf16 seamless-m4t-medium", wide)
+    msw = timer.ms(lambda: block_argmax(wide))
+    libw = timer.ms(lambda: torch.argmax(wide, dim=-1))
+    bw = bound_ms(2 * wide.numel() + 4 * wide.shape[0], float(wide.numel()))
+    log(f"  argmax bf16 at seamless-m4t-medium's 8 x 256206: kernel "
+        f"{msw:.4f} ms, torch.argmax {libw:.4f} ms, bound {bw[0]:.5f} ms "
+        f"by {bw[1]}")
+    del wide
     ms = timer.ms(lambda: block_argmax(last))
     plain_ms = timer.ms(lambda: argmax_plain(last))
     library_ms = timer.ms(lambda: torch.argmax(last, dim=-1))
@@ -1304,24 +1407,26 @@ def build_lm(cfg, dev, dtype=torch.bfloat16, seed=0):
     return lm
 
 
-def timed_generate(eng, prompts, max_new, want, where):
+def timed_generate(eng, prompts, max_new, want, where, extra=None):
     """Warm up, then one ``generate`` with the counters set to 0 just
     before it and read just after (one host sync, ``want`` launches),
     then prefill plus one token alone; prints prefill ms and decode
-    tokens/s.  Returns the launches."""
+    tokens/s.  ``extra`` is the call's ``extra_batch`` (the vlm and
+    encdec families' stub inputs).  Returns the launches."""
     vocab = eng.lm.cfg.vocab
-    eng.generate(prompts, max_new_tokens=max_new)          # warm-up
+    gen = functools.partial(eng.generate, prompts, extra_batch=extra)
+    gen(max_new_tokens=max_new)                            # warm-up
     torch.cuda.synchronize()
     reset_counters()
     syncs0 = eng.host_syncs
     t0 = time.perf_counter()
-    out = eng.generate(prompts, max_new_tokens=max_new)
+    out = gen(max_new_tokens=max_new)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = read_counters()
     syncs = eng.host_syncs - syncs0
     t0 = time.perf_counter()
-    eng.generate(prompts, max_new_tokens=1)                # prefill + 1 token
+    gen(max_new_tokens=1)                                  # prefill + 1 token
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     if syncs != 1:
@@ -1385,15 +1490,16 @@ def checked_scheduler(eng, work, want_fn, where):
     return launches
 
 
-def card_cpu_tokens(dev, cfg, seed, prompts, sc, want, where, max_new=8):
+def card_cpu_tokens(dev, cfg, seed, prompts, sc, want, where, max_new=8,
+                    extra=None, tol=None):
     """fp32 at ``cfg``'s width and depth, weights from ``seed`` with the
     embedding scaled by 0.1 (a random model with a sigma-1 embedding
     mostly echoes its input): ``max_new`` greedy tokens of
-    ``Engine.generate`` on the card (the kernels, ``want`` launches) equal
-    the CPU's (the plain versions), and the logits of every sampled step
-    agree within
-    max|d| / max|logit| <= :data:`LOGITS_REL_TOL`.  Returns the CPU and
-    the card model."""
+    ``Engine.generate`` (with ``extra`` as its ``extra_batch``, numpy
+    arrays) on the card (the kernels, ``want`` launches) equal the CPU's
+    (the plain versions), and the logits of every sampled step agree
+    within max|d| / max|logit| <= ``tol`` (default
+    :data:`LOGITS_REL_TOL`).  Returns the CPU and the card model."""
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import Engine
     lm_cpu = LM(cfg, torch.float32, "cpu").init(
@@ -1406,7 +1512,7 @@ def card_cpu_tokens(dev, cfg, seed, prompts, sc, want, where, max_new=8):
         reset_counters()
         with LogitsRecorder() as rec:
             tok[name] = Engine(lm, sc, device=lm.device).generate(
-                prompts, max_new)
+                prompts, max_new, extra_batch=extra)
         steps[name] = [s.cpu() for s in rec.steps]
         if name == "card":
             expect_launches(f"{where} fp32 card run", read_counters(), want)
@@ -1414,7 +1520,7 @@ def card_cpu_tokens(dev, cfg, seed, prompts, sc, want, where, max_new=8):
     if tok["card"] != tok["cpu"]:
         fail(f"{where} greedy tokens differ between the card and the CPU")
     err, rel = logits_parity(f"{where} card vs cpu", steps["card"],
-                             steps["cpu"])
+                             steps["cpu"], tol)
     log(f"  {where} logits card vs cpu, {len(steps['card'])} sampled steps: "
         f"max|d| {err:.3g}, max|d|/max|logit| = {rel:.3g}")
     return lm_cpu, lm_gpu
@@ -1848,9 +1954,10 @@ def sampled_path(dev, lm):
         # one step's #4 launch against its plain twin over the SAME
         # shifted logits (a top_k row is -inf outside its 50 tokens; the
         # edge row has one finite entry, at the vocabulary's end)
-        toks, lens = eng._check_call(prompts, MAX_NEW, None)
+        toks, lens, extra = eng._check_call(prompts, MAX_NEW, None)
         with torch.inference_mode():
-            logits, _ = eng._prefill_call(toks, lens, prompts, MAX_NEW)
+            logits, _ = eng._prefill_call(toks, lens, prompts, MAX_NEW,
+                                          extra)
             x = filtered_logits(logits, temperature=TEMPERATURE,
                                 k=filt.get("top_k", 0),
                                 p=filt.get("top_p", 1.0))
@@ -3159,6 +3266,23 @@ QWEN3_NEW = 16
 MOE_FP32_LAYERS = 2
 MOE_FP32_PROMPT_LENS = (64, 37, 20, 5)
 MOE_FP32_NEW = 16
+#: phase 22: the vlm and encdec families.  qwen2-vl-7b at full width and
+#: depth on 8 prompts of 512 down to 288 tokens (each at least its 256
+#: patch positions; ``profile_generate.VLM_LENS``) with the vision stub's
+#: patch embeddings, and its int8 scheduler on phase 5's traffic cut to
+#: 16 requests; seamless-m4t-medium at full width and depth on 8 prompts
+#: of 256 tokens (equal: the family runs pads as context) with [8, 64,
+#: 1024] source embeddings; the fp32 card-vs-CPU checks at 2 of
+#: qwen2-vl's 28 layers and at seamless's full depth, every sampled
+#: step's logits within 1e-5 of max|logit|
+VLM_SCHED_REQUESTS = 16
+VLM_FP32_LAYERS = 2
+VLM_FP32_PROMPT_LENS = (300, 277, 260)
+ENCDEC_PROMPTS = 8
+ENCDEC_PROMPT_LEN = 256
+ENCDEC_FP32_PROMPTS = 3
+FP32_NEW = 8
+P22_LOGITS_REL_TOL = 1e-5
 
 
 def attn_shape(arch):
@@ -3506,6 +3630,109 @@ def perf_report_and_example(smi):
     log(f"  examples/serve_batched_torch.py on the card: launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the vlm and encdec families
+# ---------------------------------------------------------------------------
+
+def vlm_encdec_paths(dev):
+    """Phase 22 (a), (b), bf16.  (a) qwen2-vl-7b at full width and depth
+    (28 layers, 28 heads over 4 of 128, M-RoPE), pages of 16: 8 prompts
+    of 512-288 tokens with patch embeddings [8, 256, 3584] from a seeded
+    generator, 32 greedy tokens through ``Engine.generate`` (#1 28
+    times, #2 28 x 31, #4 32); then the int8 scheduler with the prefix
+    cache on phase 5's traffic cut to 16 requests (text-only, as the
+    JAX scheduler admits).  (b) seamless-m4t-medium at full width and
+    depth (12 encoder + 12 decoder layers, 16 heads of 64, vocab
+    256206), dense KV: 8 prompts of 256 tokens with source embeddings
+    [8, 64, 1024], 32 greedy tokens (#1 24 times: the encoder's 12
+    non-causal, the decoder's 12 causal; #4 32)."""
+    from repro_torch.bench import profile_generate as pg
+    from repro_torch.bench import profile_serve as ps
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import Engine, ServeConfig
+    by_path = {}
+    rng = np.random.default_rng(26)
+    cfg = get_arch("qwen2-vl-7b").config
+    lm = build_lm(cfg, dev)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in pg.VLM_LENS]
+    extra = pg.stub_inputs(cfg, pg.VLM_LENS, lm.dtype, dev, seed=26)
+    eng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024),
+                 device=dev)
+    L = cfg.n_layers
+    by_path["vlm_generate"] = timed_generate(
+        eng, prompts, MAX_NEW,
+        {"flash_attention": L, "paged_decode": L * (MAX_NEW - 1),
+         "argmax": MAX_NEW, "paged_decode_q8": 0, "ssd_scan": 0},
+        "qwen2-vl-7b", extra=extra)
+    seng = Engine(lm, ServeConfig(page_size=ps.PAGE_SIZE, max_seq=1024,
+                                  batch_slots=ps.SLOTS, admission_chunk=8,
+                                  kv_dtype="int8"), device=dev)
+    work = ps.shared_prefix_workload(cfg.vocab, VLM_SCHED_REQUESTS,
+                                     ps.PREFIX, ps.SUFFIX_LENS, ps.BUDGETS,
+                                     seed=0)
+    by_path["vlm_scheduler_int8"] = checked_scheduler(
+        seng, work, lambda m: {
+            "paged_decode_q8": L * m["decode_steps"],
+            "flash_attention": L * (m["admissions"] - m["prefix_hits"]),
+            "argmax": m["decode_steps"], "paged_decode": 0, "ssd_scan": 0},
+        "qwen2-vl-7b int8 scheduler")
+    del lm, eng, seng, extra
+    torch.cuda.empty_cache()
+    cfg = get_arch("seamless-m4t-medium").config
+    lm = build_lm(cfg, dev)
+    lens = (ENCDEC_PROMPT_LEN,) * ENCDEC_PROMPTS
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    extra = pg.stub_inputs(cfg, lens, lm.dtype, dev, seed=27)
+    eng = Engine(lm, ServeConfig(max_seq=1024), device=dev)
+    by_path["encdec_generate"] = timed_generate(
+        eng, prompts, MAX_NEW,
+        {"flash_attention": cfg.enc_layers + cfg.n_layers,
+         "paged_decode": 0, "argmax": MAX_NEW, "paged_decode_q8": 0,
+         "ssd_scan": 0}, "seamless-m4t-medium", extra=extra)
+    del lm, eng, extra
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def vlm_encdec_token_check(dev):
+    """Phase 22 (c), fp32, every sampled step's logits within
+    :data:`P22_LOGITS_REL_TOL` of max|logit|: qwen2-vl-7b at full width
+    and 2 of its 28 layers (~6.2 GB of weights), 3 ragged prompts of at
+    least 256 tokens with patch embeddings, pages of 16 (#1 a layer, #2 a
+    layer a step); seamless-m4t-medium at full width and depth, 3
+    prompts of 256 tokens with [3, 64, 1024] source embeddings, dense KV
+    (#1 once an encoder and once a decoder layer)."""
+    from repro_torch.bench import profile_generate as pg
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import ServeConfig
+    rng = np.random.default_rng(28)
+    cfg = dataclasses.replace(get_arch("qwen2-vl-7b").config,
+                              n_layers=VLM_FP32_LAYERS)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in VLM_FP32_PROMPT_LENS]
+    extra = {k: v.numpy() for k, v in pg.stub_inputs(
+        cfg, VLM_FP32_PROMPT_LENS, torch.float32, torch.device("cpu"),
+        seed=28).items()}
+    L = cfg.n_layers
+    card_cpu_tokens(dev, cfg, 8, prompts,
+                    ServeConfig(page_size=PAGE_SIZE, max_seq=512),
+                    {"flash_attention": L, "paged_decode": (FP32_NEW - 1) * L,
+                     "argmax": FP32_NEW}, "qwen2-vl", max_new=FP32_NEW,
+                    extra=extra, tol=P22_LOGITS_REL_TOL)
+    torch.cuda.empty_cache()
+    cfg = get_arch("seamless-m4t-medium").config
+    lens = (ENCDEC_PROMPT_LEN,) * ENCDEC_FP32_PROMPTS
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    extra = {k: v.numpy() for k, v in pg.stub_inputs(
+        cfg, lens, torch.float32, torch.device("cpu"), seed=29).items()}
+    card_cpu_tokens(dev, cfg, 9, prompts, ServeConfig(max_seq=512),
+                    {"flash_attention": cfg.enc_layers + cfg.n_layers,
+                     "paged_decode": 0, "argmax": FP32_NEW},
+                    "seamless-m4t-medium", max_new=FP32_NEW, extra=extra,
+                    tol=P22_LOGITS_REL_TOL)
+    torch.cuda.empty_cache()
+
+
 class PhaseClock:
     """Logs each phase's title when it starts and its seconds when the
     next one starts (or at :meth:`stop`)."""
@@ -3550,7 +3777,7 @@ def run_phases() -> int:
     dev = torch.device("cuda", 0)
     phase = PhaseClock()
 
-    phase("[1/21] probe")
+    phase("[1/22] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -3567,12 +3794,12 @@ def run_phases() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    phase("[2/21] build")
+    phase("[2/22] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    phase("[3/21] kernels vs plain versions")
+    phase("[3/22] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -3584,26 +3811,26 @@ def run_phases() -> int:
             f"{r['bound_by']})")
     del timer
 
-    phase("[4/21] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    phase("[4/22] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    phase("[5/21] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    phase("[5/22] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
           "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    phase("[6/21] fp32 token check: card paged / card dense / cpu paged")
+    phase("[6/22] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    phase("[7/21] fp32 scheduler token check: card scheduler / card generate "
+    phase("[7/22] fp32 scheduler token check: card scheduler / card generate "
           "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    phase("[8/21] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    phase("[8/22] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    phase("[9/21] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    phase("[9/22] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -3613,10 +3840,10 @@ def run_phases() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    phase("[10/21] fp32 zamba2 token check: card / cpu, 7 layers")
+    phase("[10/22] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    phase("[11/21] case-study kernels vs plain versions: STREAM triad, "
+    phase("[11/22] case-study kernels vs plain versions: STREAM triad, "
           "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -3626,14 +3853,14 @@ def run_phases() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    phase("[12/21] main path 5: the case studies through PerfCtr marker "
+    phase("[12/22] main path 5: the case studies through PerfCtr marker "
           "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    phase("[13/21] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    phase("[13/22] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
           "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -3641,11 +3868,11 @@ def run_phases() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    phase("[14/21] main path 7: speculative decoding, K = 4, 2-layer matched "
+    phase("[14/22] main path 7: speculative decoding, K = 4, 2-layer matched "
           "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    phase("[15/21] main path 8: serving snapshots and chaos: (a) fp32 "
+    phase("[15/22] main path 8: serving snapshots and chaos: (a) fp32 "
           "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
           "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -3653,13 +3880,13 @@ def run_phases() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    phase("[16/21] main path 9: the serving benches (serve, paged decode, "
+    phase("[16/22] main path 9: the serving benches (serve, paged decode, "
           "flash prefill, spec) at their default sizes, serve and spec at "
           "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[17/21] main path 10: the tool layer (topology, pin, features) "
+    phase("[17/22] main path 10: the tool layer (topology, pin, features) "
           "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
           "default kernels against the torch pins three ways")
     topology_check(dev, smi)
@@ -3668,7 +3895,7 @@ def run_phases() -> int:
     tool_benches(smi)
     torch.cuda.empty_cache()
 
-    phase("[18/21] main path 11: the registry's tune half: (a) every tunable "
+    phase("[18/22] main path 11: the registry's tune half: (a) every tunable "
           "family's card cell swept cold, each candidate held to its plain "
           "version; (b) warm in a fresh process; (c) the launcher's --tune "
           "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
@@ -3679,14 +3906,14 @@ def run_phases() -> int:
     tuned_gen_launches = tuned_generate(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[19/21] main path 12: xlstm-350m at full width and depth, dense "
+    phase("[19/22] main path 12: xlstm-350m at full width and depth, dense "
           "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
           "card vs cpu at 4 layers")
     xlstm_gen_launches, xlstm_sched_launches = xlstm_paths(dev)
     torch.cuda.empty_cache()
     xlstm_token_check(dev)
 
-    phase("[20/21] main path 13: the other dense configs, pages of 16: "
+    phase("[20/22] main path 13: the other dense configs, pages of 16: "
           "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
           "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
           "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
@@ -3695,7 +3922,7 @@ def run_phases() -> int:
     perf_report_and_example(smi)
     torch.cuda.empty_cache()
 
-    phase("[21/21] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
+    phase("[21/22] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
           "a2.7b at full width and depth, generate, one host sync, a decode "
           "step with no implicit sync; (b) its int8 scheduler with the prefix "
           "cache; (c) qwen3-moe-235b-a22b at 2 of 94 layers (G 16); (d) fp32 "
@@ -3703,6 +3930,14 @@ def run_phases() -> int:
     moe_launches = moe_paths(dev)
     torch.cuda.empty_cache()
     moe_token_check(dev)
+
+    phase("[22/22] main path 15: the vlm and encdec families: (a) qwen2-vl-"
+          "7b at full width and depth with patch embeddings, generate, then "
+          "its int8 scheduler with the prefix cache; (b) seamless-m4t-medium "
+          "at 12 + 12 layers with source embeddings, generate; (c) fp32 "
+          "tokens card vs cpu: qwen2-vl at 2 layers, seamless at full depth")
+    vlm_launches = vlm_encdec_paths(dev)
+    vlm_encdec_token_check(dev)
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
@@ -3716,7 +3951,7 @@ def run_phases() -> int:
                "tuned_generate_fp32": tuned_gen_launches,
                "xlstm_generate": xlstm_gen_launches,
                "xlstm_scheduler": xlstm_sched_launches, **dense_launches,
-               **moe_launches}
+               **moe_launches, **vlm_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"],

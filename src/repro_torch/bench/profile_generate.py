@@ -10,9 +10,12 @@ greedy tokens per prompt: for the dense configs (qwen2-0.5b,
 qwen1.5-0.5b, stablelm-3b) and the moe configs (qwen2-moe-a2.7b,
 qwen3-moe-235b-a22b) 8 ragged prompts of 512, 384, 301, 256, 129, 64, 17
 and 1 tokens with a paged (``--page-size 16``, the default) or dense
-(``--page-size 0``) KV cache; for zamba2-1.2b and xlstm-350m 8 prompts of 512 tokens with dense
-state (the recurrent families have no pages).  It warms the engine up,
-then:
+(``--page-size 0``) KV cache; for qwen2-vl-7b 8 prompts of 512 down to
+288 tokens, paged, with the vision stub's patch embeddings [8, 256, 3584]
+(:func:`stub_inputs`); for zamba2-1.2b and xlstm-350m 8 prompts of 512
+tokens with dense state (the recurrent families have no pages); for
+seamless-m4t-medium 8 prompts of 256 tokens with dense KV and the speech
+stub's frame embeddings [8, 64, 1024].  It warms the engine up, then:
 
 * times ``generate`` on the host clock, ending in ``torch.cuda.synchronize``
   (the whole call, and prefill plus one token alone);
@@ -45,14 +48,18 @@ from repro_torch.core.devtime import device_time_us as _device_time_us
 #: prompt lengths per arch: ragged for an attention-cache family, equal
 #: for a recurrent one (its prefill cannot mask pads)
 RAGGED = (512, 384, 301, 256, 129, 64, 17, 1)
+#: qwen2-vl-7b's prompts: ragged, each at least its 256 patch positions
+VLM_LENS = (512, 480, 448, 416, 384, 352, 320, 288)
 PROMPT_LENS = {"qwen2-0.5b": RAGGED, "qwen1.5-0.5b": RAGGED,
                "stablelm-3b": RAGGED, "zamba2-1.2b": (512,) * 8,
                "xlstm-350m": (512,) * 8, "qwen2-moe-a2.7b": RAGGED,
-               "qwen3-moe-235b-a22b": RAGGED}
+               "qwen3-moe-235b-a22b": RAGGED, "qwen2-vl-7b": VLM_LENS,
+               "seamless-m4t-medium": (256,) * 8}
 #: the depth one 80 GB card holds, where the full depth does not fit
 ONE_CARD_LAYERS = {"qwen3-moe-235b-a22b": 2}
-#: the archs whose state is recurrent: dense state, no pages
-RECURRENT = ("zamba2-1.2b", "xlstm-350m")
+#: the archs served with dense state only: the recurrent families, and
+#: the encoder-decoder, whose decoder cache does not page
+RECURRENT = ("zamba2-1.2b", "xlstm-350m", "seamless-m4t-medium")
 MAX_NEW = 32
 #: the port's kernels by the names of their ``__global__`` functions
 #: (the SSD scan: the bf16 route's three passes, the fp32 route's kernel)
@@ -91,6 +98,27 @@ def _port_kernels(avgs) -> dict:
     return out
 
 
+def stub_inputs(cfg, prompt_lens, dtype: torch.dtype,
+                device: torch.device, seed: int = 0) -> dict:
+    """The frontend stubs' ``extra_batch`` for a ``generate`` call, drawn
+    with unit variance from a generator seeded with ``seed``: the vlm
+    family's patch embeddings [B, n_patches, d]; the encdec family's source
+    frame embeddings [B, max(prompt_lens) // src_ratio, d] (the JAX
+    package's ``input_specs`` ratio); nothing for the other families."""
+    b = len(prompt_lens)
+    if cfg.family == "vlm":
+        shape = (b, cfg.n_patches, cfg.d_model)
+        key = "patch_embeds"
+    elif cfg.family == "encdec":
+        shape = (b, max(max(prompt_lens) // cfg.src_ratio, 1), cfg.d_model)
+        key = "src_embeds"
+    else:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {key: torch.randn(shape, generator=gen, device=device,
+                             dtype=torch.float32).to(dtype)}
+
+
 def depth(arch: str) -> int:
     """The layers ``profile`` builds by default: the config's, or what one
     card holds (:data:`ONE_CARD_LAYERS`)."""
@@ -112,12 +140,13 @@ def profile(arch: str, page_size: int) -> dict:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).tolist()
                for n in PROMPT_LENS[arch]]
+    extra = stub_inputs(cfg, PROMPT_LENS[arch], lm.dtype, lm.device)
     eng = Engine(lm, ServeConfig(page_size=page_size, max_seq=1024))
 
     def timed(n_new: int) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=n_new)
+        eng.generate(prompts, max_new_tokens=n_new, extra_batch=extra)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -126,10 +155,12 @@ def profile(arch: str, page_size: int) -> dict:
     prefill_ms = [timed(1) for _ in range(3)]
 
     wall_ms, avgs = _profiled(
-        lambda: eng.generate(prompts, max_new_tokens=max_new))
+        lambda: eng.generate(prompts, max_new_tokens=max_new,
+                             extra_batch=extra))
     busy_ms = sum(_device_time_us(a) for a in avgs) / 1e3
     pre_wall_ms, pre_avgs = _profiled(
-        lambda: eng.generate(prompts, max_new_tokens=1))
+        lambda: eng.generate(prompts, max_new_tokens=1,
+                             extra_batch=extra))
     top = sorted(avgs, key=_device_time_us, reverse=True)[:10]
     med_gen, med_pre = float(np.median(gen_ms)), float(np.median(prefill_ms))
     tokens = len(prompts) * (max_new - 1)
@@ -160,9 +191,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen2-0.5b",
                     choices=sorted(PROMPT_LENS))
     ap.add_argument("--page-size", type=int, default=None,
-                    help="KV page size (default: 16 for the dense "
-                         "configs, 0 = dense state for zamba2-1.2b and "
-                         "xlstm-350m)")
+                    help="KV page size (default: 16 for the attention-"
+                         "cache configs, 0 = dense state for zamba2-1.2b, "
+                         "xlstm-350m and seamless-m4t-medium)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     page_size = args.page_size

@@ -54,7 +54,8 @@ and fp32 at q [8,32,512,80] (the same ragged prompts) beside SDPA and
 beside the same call at Dh 64, and #2 / #3 at 8 rows of 32 kv heads, G
 = 1, Dh 80 and 64, and at mistral-large-123b's 8 kv heads, G = 12, Dh
 128 (``flash_prefill_h32_dh*``, ``sdpa_prefill_h32_dh80_*``,
-``paged_decode[_q8]_kvh*`` rows).  Prints one JSON
+``paged_decode[_q8]_kvh*`` rows).  ``--only vlm_encdec`` runs the vlm and
+encdec paths' shapes (:func:`vlm_encdec`).  Prints one JSON
 object; needs a CUDA card and exits non-zero without one.
 """
 
@@ -194,12 +195,13 @@ def ssd_inputs(dev, b, s, h, dk, dv, dtype, normalize, seed: int = 5):
 
 
 def paged_inputs(dev, q8: bool, width=None, seed: int = 4,
-                 heads=(2, 7, 64)):
+                 heads=(2, 7, 64), prompts=PROMPT_LENS):
     """Phase 3's main decode call: row-major page table (ids 1..), room
     for EXTRA more tokens a row, optionally widened to ``width``;
-    ``heads`` is (KVH, G, Dh), qwen2-0.5b's by default."""
+    ``heads`` is (KVH, G, Dh), qwen2-0.5b's by default, and the lengths
+    are ``prompts`` + DECODED."""
     rng = np.random.default_rng(seed)
-    lens = [n + DECODED for n in PROMPT_LENS]
+    lens = [n + DECODED for n in prompts]
     (kvh, g, dh), ps = heads, PAGE_SIZE
     per_row = [-(-(n + EXTRA) // ps) for n in lens]
     np_w = max(width or 0, max(per_row))
@@ -242,10 +244,11 @@ def in_turns(probe: Probe, fn, ref, turns: int) -> dict:
                 wins=sum(p[0] <= p[1] for p in pairs), turns=turns)
 
 
-def flash_inputs(dev, dtype, seed: int = 0, shape=FLASH_SHAPE):
-    """Phase 3's qwen2 prefill call (or ``shape``'s (B, H, KVH, S, Dh)):
-    q, k, v [B,H,S,Dh], the ragged ``kv_valid`` and SDPA's equivalent
-    boolean mask and expanded K/V."""
+def flash_inputs(dev, dtype, seed: int = 0, shape=FLASH_SHAPE,
+                 lens=PROMPT_LENS, causal: bool = True):
+    """Phase 3's qwen2 prefill call (or ``shape``'s (B, H, KVH, S, Dh)
+    over rows of ``lens`` tokens): q, k, v [B,H,S,Dh], the ragged
+    ``kv_valid`` and SDPA's equivalent boolean mask and expanded K/V."""
     b, h, kvh, s, dh = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -253,9 +256,10 @@ def flash_inputs(dev, dtype, seed: int = 0, shape=FLASH_SHAPE):
         return torch.randn((b, n, s, dh), generator=gen, device=dev).to(dtype)
 
     q, k, v = rnd(h), rnd(kvh), rnd(kvh)
-    kvv = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=dev)
+    kvv = torch.tensor(lens, dtype=torch.int32, device=dev)
     kpos = torch.arange(s, device=dev)
-    mask = ((kpos[None, :] <= kpos[:, None])[None, None]
+    mask = ((kpos[None, :] <= kpos[:, None] if causal
+             else torch.ones((s, s), dtype=torch.bool, device=dev))[None, None]
             & (kpos[None, None, None, :] < kvv[:, None, None, None]))
     g = h // kvh
     return (q, k, v, kvv), (k.repeat_interleave(g, 1),
@@ -335,6 +339,47 @@ def head_dims(dev, probe: Probe, out: dict) -> None:
         del fp, q8
 
 
+def vlm_encdec(dev, probe: Probe, out: dict) -> None:
+    """``chip_smoke.py`` phase 22's kernel shapes: #1 at qwen2-vl-7b's
+    prefill (q [8,28,512,128], G 7, its 8 prompts of 512-288 tokens) and
+    at seamless-m4t-medium's encoder (q [8,16,64,64], not causal) and
+    decoder prefill ([8,16,256,64], causal), each beside SDPA with the
+    same mask; #2 and #3 at qwen2-vl's decode heads (KVH 4, G 7, Dh 128)
+    over its prompts + DECODED; #4 over seamless's 8 x 256206 logits
+    beside ``torch.argmax``."""
+    from repro_torch.bench.profile_generate import VLM_LENS
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.paged_decode import (
+        paged_decode_attention_grouped, paged_decode_attention_q8_grouped)
+    from repro_torch.kernels.sampling import block_argmax
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash = (("vlm", (8, 28, 4, 512, 128), VLM_LENS, True),
+             ("seamless_encoder", (8, 16, 16, 64, 64), (64,) * 8, False),
+             ("seamless_decoder", (8, 16, 16, 256, 64), (256,) * 8, True))
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for name, shape, lens, causal in flash:
+            (q, k, v, kvv), (ke, ve, mask) = flash_inputs(
+                dev, dtype, shape=shape, lens=lens, causal=causal)
+            out[f"flash_prefill_{name}_{tag}"] = probe.all(
+                lambda: flash_attention_bhsd(q, k, v, causal=causal,
+                                             kv_valid=kvv))
+            out[f"sdpa_prefill_{name}_{tag}"] = probe.all(
+                lambda: sdpa(q, ke, ve, attn_mask=mask))
+            del q, k, v, kvv, ke, ve, mask
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn((8, 256206), generator=gen, device=dev).to(dtype)
+        out[f"argmax_v256206_{tag}"] = probe.all(lambda: block_argmax(x))
+        out[f"torch_argmax_v256206_{tag}"] = probe.all(
+            lambda: torch.argmax(x, dim=-1))
+        del x
+    fp = paged_inputs(dev, q8=False, heads=(4, 7, 128), prompts=VLM_LENS)
+    out["paged_decode_kvh4_g7_dh128"] = probe.all(
+        lambda: paged_decode_attention_grouped(*fp))
+    q8 = paged_inputs(dev, q8=True, heads=(4, 7, 128), prompts=VLM_LENS)
+    out["paged_decode_q8_kvh4_g7_dh128"] = probe.all(
+        lambda: paged_decode_attention_q8_grouped(*q8))
+
+
 def profile(dev, turns: int, only=None) -> dict:
     if only == "paged_host":
         return {"paged_host": paged_host(dev)}
@@ -349,6 +394,9 @@ def profile(dev, turns: int, only=None) -> dict:
     out = {}
     if only == "head_dims":
         head_dims(dev, probe, out)
+        return out
+    if only == "vlm_encdec":
+        vlm_encdec(dev, probe, out)
         return out
     flash_argmax(dev, probe, out)
     if only == "flash_argmax":
@@ -400,12 +448,14 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None)
     ap.add_argument("--turns", type=int, default=8)
     ap.add_argument("--only", default=None,
-                    choices=["paged_host", "flash_argmax", "head_dims"],
+                    choices=["paged_host", "flash_argmax", "head_dims",
+                             "vlm_encdec"],
                     help="run only these rows (paged_host: the host us of "
                          "a paged call three ways; flash_argmax: #1 and "
                          "#4 beside their library calls; head_dims: #1, "
                          "#2 and #3 at Dh 80 beside Dh 64, and the paged "
-                         "kernels at G 12, Dh 128)")
+                         "kernels at G 12, Dh 128; vlm_encdec: #1-#4 at "
+                         "qwen2-vl-7b's and seamless-m4t-medium's shapes)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)

@@ -5,9 +5,10 @@ stacked on a leading layers axis (``blocks/attn/wq`` is ``[L, d, H, Dh]``,
 ``blocks/moe/w_gate`` is ``[L, E, d, f]``, ``mamba/in_proj`` is
 ``[L, d, E]``, ``mlstm/wq`` is ``[L/2, di, H, dh]``:
 the xlstm family stacks its mLSTM and sLSTM blocks over its
-``n_layers // 2`` pairs).  LayerNorm's ``bias`` leaves map across like
-any other.  The port keeps one module per layer
-with the same leaf names, so the bridge only flattens the tree to dotted
+``n_layers // 2`` pairs; the encdec family its ``encoder`` over
+``enc_layers`` and its ``decoder`` over ``n_layers``).  LayerNorm's
+``bias`` leaves map across like any other.  The port keeps one module per
+layer with the same leaf names, so the bridge only flattens the tree to dotted
 names and splits the layers axis — no transposes, because both sides keep
 the same weight layouts.  Leaves arrive as numpy arrays (the
 tests convert with ``jax.device_get``); this module never imports JAX.
@@ -44,24 +45,29 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: LMConfig,
     """A ``state_dict`` for ``LM(cfg, dtype, device)`` built from the JAX
     params tree (numpy leaves); load it with ``lm.load_state_dict``.
 
-    Stacked subtrees (``blocks.*`` of the dense and moe families,
-    ``mamba.*`` of the hybrid, ``mlstm.*`` and ``slstm.*`` of the xlstm)
-    are split over their leading axis (``n_layers``; ``n_layers // 2``
-    pairs for the xlstm family) into ``blocks.{i}.*`` / ``mamba.{i}.*`` / ``mlstm.{i}.*``;
-    everything else (the hybrid's one ``shared_attn`` block included) is
-    copied as is.  Mamba2's :data:`~repro_torch.models.ssm.FP32_LEAVES`,
-    the xLSTM blocks' :data:`~repro_torch.models.xlstm.FP32_LEAVES` and
+    Stacked subtrees (``blocks.*`` of the dense, moe and vlm families,
+    ``mamba.*`` of the hybrid, ``mlstm.*`` and ``slstm.*`` of the xlstm,
+    ``encoder.*`` and ``decoder.*`` of the encdec) are split over their
+    leading axis (``n_layers``; ``n_layers // 2`` pairs for the xlstm
+    family; ``enc_layers`` for the encoder) into ``blocks.{i}.*`` /
+    ``mamba.{i}.*`` / ``mlstm.{i}.*`` / ``encoder.{i}.*``; everything
+    else (the hybrid's one ``shared_attn`` block, the encdec's
+    ``enc_final_norm`` included) is copied as is.  Mamba2's
+    :data:`~repro_torch.models.ssm.FP32_LEAVES`, the xLSTM blocks' :data:`~repro_torch.models.xlstm.FP32_LEAVES` and
     the MoE layers' :data:`~repro_torch.models.moe.FP32_LEAVES` (router
     and shared gate) stay fp32 whatever ``dtype`` is."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    depth, prefixes, fp32_leaves = {
-        "dense": (cfg.n_layers, ("blocks.",), ()),
-        "moe": (cfg.n_layers, ("blocks.",), moe.FP32_LEAVES),
-        "hybrid": (cfg.n_layers, ("mamba.",), ssm.FP32_LEAVES),
-        "xlstm": (cfg.n_layers // 2, ("mlstm.", "slstm."),
-                  xlstm.FP32_LEAVES),
+        raise ValueError(f"unknown family {cfg.family!r}")
+    n = cfg.n_layers
+    depths, fp32_leaves = {
+        "dense": ({"blocks.": n}, ()),
+        "moe": ({"blocks.": n}, moe.FP32_LEAVES),
+        "vlm": ({"blocks.": n}, ()),
+        "hybrid": ({"mamba.": n}, ssm.FP32_LEAVES),
+        "xlstm": ({"mlstm.": n // 2, "slstm.": n // 2}, xlstm.FP32_LEAVES),
+        "encdec": ({"encoder.": cfg.enc_layers or n, "decoder.": n}, ()),
     }[cfg.family]
+    prefixes = tuple(depths)
     state: Dict[str, torch.Tensor] = {}
 
     def put(name: str, arr: np.ndarray) -> None:
@@ -76,6 +82,7 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: LMConfig,
         if stacked is None:
             put(name, arr)
             continue
+        depth = depths[stacked]
         if arr.shape[0] != depth:
             raise ValueError(f"{name}: leading axis {arr.shape[0]} is not "
                              f"the {depth} stacked layers of "

@@ -34,10 +34,10 @@ class ArchSpec:
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
-#: architectures whose config module has been ported so far
+#: every architecture of the JAX package's registry, one config module each
 ALL_ARCH_IDS = ["qwen2-0.5b", "zamba2-1.2b", "xlstm-350m", "qwen1.5-0.5b",
                 "stablelm-3b", "mistral-large-123b", "qwen2-moe-a2.7b",
-                "qwen3-moe-235b-a22b"]
+                "qwen3-moe-235b-a22b", "qwen2-vl-7b", "seamless-m4t-medium"]
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ALL_ARCH_IDS}
 
@@ -51,8 +51,8 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _REGISTRY:
         mod = _MODULE_FOR.get(arch_id)
         if mod is None:
-            raise KeyError(f"unknown or not yet ported arch {arch_id!r}; "
-                           f"ported: {ALL_ARCH_IDS}")
+            raise KeyError(f"unknown arch {arch_id!r}; registered: "
+                           f"{ALL_ARCH_IDS}")
         importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[arch_id]
 

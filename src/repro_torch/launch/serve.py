@@ -20,6 +20,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-moe-235b-a22b --layers 2 --page-size 16 --max-seq 1024
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \\
+        --requests 16 --slots 8 --page-size 16 --kv-dtype int8 \\
+        --shared-prefix 256 --max-seq 1024
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --page-size 16 --temperature 0.7 --draft qwen2-0.5b \\
         --spec-tokens 4 --instrument --json spec.json
@@ -28,9 +32,15 @@ Runs the continuous-batching ``BatchScheduler`` over synthetic prompts
 (deterministic, numpy seed 0) and prints tokens/s, time-to-first-token,
 segments, admissions and the engine's audited host-sync count.  The
 archs: qwen2-0.5b, qwen1.5-0.5b, stablelm-3b and mistral-large-123b
-(dense), qwen2-moe-a2.7b and qwen3-moe-235b-a22b (moe), zamba2-1.2b
-(hybrid) and xlstm-350m (xlstm).  mistral-large-123b and
-qwen3-moe-235b-a22b do not fit one 80 GB card at full depth:
+(dense), qwen2-moe-a2.7b and qwen3-moe-235b-a22b (moe), qwen2-vl-7b
+(vlm; text-only requests, as the JAX scheduler admits them: the first
+``n_patches`` prompt tokens still take patch-grid positions), zamba2-1.2b
+(hybrid) and xlstm-350m (xlstm).  seamless-m4t-medium (encdec) is
+refused with a ``ValueError`` before any weights are built: an encdec
+prefill needs ``src_embeds``, which no scheduler admission carries (the
+JAX launcher fails at its first admission); serve it through
+``Engine.generate(prompts, extra_batch={"src_embeds": ...})``.
+mistral-large-123b and qwen3-moe-235b-a22b do not fit one 80 GB card at full depth:
 ``--layers N`` serves the first N layers' worth of a model at full
 width.  The recurrent zamba2-1.2b and
 xlstm-350m serve with dense state only: ``--page-size`` (with or
@@ -142,7 +152,7 @@ def main(argv=None) -> int:
     from repro_torch.models.lm import LM
     from repro_torch.serve.admission import AdmissionRejected
     from repro_torch.serve.engine import (BatchScheduler, Engine, Request,
-                                          ServeConfig)
+                                          ServeConfig, check_schedulable)
 
     try:
         impls = registry.parse_impl_spec(args.impl) if args.impl else None
@@ -154,6 +164,7 @@ def main(argv=None) -> int:
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke_dims else spec.config
+    check_schedulable(cfg)
     if args.layers is not None:
         if args.layers < 1:
             ap.error(f"--layers must be at least 1, not {args.layers}")

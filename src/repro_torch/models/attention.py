@@ -1,9 +1,13 @@
-"""GQA attention for the dense family: projections, prefill, decode.
+"""GQA attention: projections (RoPE or M-RoPE), prefill, decode.
 
 Port of ``repro/models/attention.py`` for serving: dense and paged KV
-caches, int8 pages with per-token scales, and the suffix prefill behind
-the prefix cache.  Weight layouts are the JAX package's (``wq``
-``[d,H,Dh]``, ``wk``/``wv`` ``[d,KVH,Dh]``, ``wo`` ``[H,Dh,d]``, biases
+caches, int8 pages with per-token scales, the suffix prefill behind the
+prefix cache, and the cache-free :func:`attention` forward the
+encoder-decoder's encoder runs.  A config with ``mrope_sections`` (the
+vlm family) rotates q and k with M-RoPE wherever the caller passes the
+three position streams ``positions3`` (prefill), and with 1-D RoPE
+otherwise (decode), as the JAX package does.  Weight layouts are the JAX
+package's (``wq`` ``[d,H,Dh]``, ``wk``/``wv`` ``[d,KVH,Dh]``, ``wo`` ``[H,Dh,d]``, biases
 ``[H|KVH,Dh]``), so the parameter bridge needs no transposes.  KV caches
 are stored ``[B, S, KVH, Dh]`` (dense) or as a page pool
 ``[P, page_size, KVH, Dh]`` (paged), as in the JAX package.
@@ -35,13 +39,15 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import registry
-from repro_torch.models.layers import apply_rope, truncated_normal_
+from repro_torch.models.layers import (apply_mrope, apply_rope,
+                                      truncated_normal_)
 
 __all__ = ["AttnConfig", "Attention", "KVCache", "init_kv_cache",
            "prefill_into_cache", "decode_attention", "PagedKVCache",
            "init_paged_kv_cache", "prefill_into_paged_cache",
            "paged_decode_attention_token", "KV_QUANT_EPS",
-           "quantize_kv_rows", "dequantize_gathered", "full_attention"]
+           "quantize_kv_rows", "dequantize_gathered", "full_attention",
+           "attention"]
 
 NEG_INF = -2.0e38
 
@@ -103,9 +109,12 @@ class Attention(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: AttnConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor,
+                 positions3: Optional[torch.Tensor] = None):
     """x [B,S,d] -> q [B,S,H,Dh], k/v [B,S,KVH,Dh], RoPE'd at ``positions``
-    [B,S]."""
+    [B,S], or M-RoPE'd at ``positions3`` [3,B,S] when the config has
+    ``mrope_sections`` and the caller passes them
+    (``repro/models/attention.py:108-113``)."""
     b, s, d = x.shape
     q = (x @ p.wq.reshape(d, -1)).view(b, s, cfg.num_heads, cfg.head_dim)
     k = (x @ p.wk.reshape(d, -1)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -114,10 +123,12 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: AttnConfig,
         q = q + p.bq
         k = k + p.bk
         v = v + p.bv
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (the vlm family) is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 12)")
-    if cfg.use_rope:
+    if not cfg.use_rope:
+        return q, k, v
+    if cfg.mrope_sections is not None and positions3 is not None:
+        q = apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
+    else:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -206,17 +217,35 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _prefill_qkv_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
-                        lengths: Optional[torch.Tensor] = None):
+                        lengths: Optional[torch.Tensor] = None,
+                        positions3: Optional[torch.Tensor] = None):
     """The cache-agnostic half of prefill: project q/k/v and run the
     registry's prefill attention (ragged ``lengths`` masked inside it).
     Returns (attn out [B,S,H,Dh], k, v)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, positions3)
     out = registry.run("attention", q, k, v, q_offset=0, causal=cfg.causal,
                        kv_len=lengths, chunk_size=cfg.chunk_size,
                        chunk_threshold=cfg.chunk_threshold)
     return out, k, v
+
+
+def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig
+              ) -> torch.Tensor:
+    """Self-attention over x [B,S,d] -> [B,S,d] with no cache, RoPE'd at
+    ``arange(S)`` (causal as ``cfg.causal`` says): the encoder's forward
+    (``repro/models/attention.py:389-405``).  The JAX package runs it as
+    plain array code; here it goes through the registry's ``attention``
+    family, so kernel #1 on the card (``causal=False`` for the encoder)
+    and the reference's plain choice on the CPU."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = registry.run("attention", q, k, v, q_offset=0, causal=cfg.causal,
+                       kv_len=None, chunk_size=cfg.chunk_size,
+                       chunk_threshold=cfg.chunk_threshold)
+    return _out_proj(p, out)
 
 
 def _new_lengths(lengths: Optional[torch.Tensor], b: int, s: int,
@@ -228,14 +257,16 @@ def _new_lengths(lengths: Optional[torch.Tensor], b: int, s: int,
 
 def prefill_into_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                        cache: KVCache,
-                       lengths: Optional[torch.Tensor] = None
+                       lengths: Optional[torch.Tensor] = None,
+                       positions3: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill attention that also writes this segment's K/V into the
     cache (in place, at positions ``[0, S)``).  ``lengths`` [B] int32 marks
     each row's real prompt length: pad keys are masked out of every
-    softmax and the cache records the true lengths."""
+    softmax and the cache records the true lengths.  ``positions3``
+    [3,B,S] are M-RoPE's position streams (the vlm family)."""
     b, s, _ = x.shape
-    out, k, v = _prefill_qkv_attend(p, x, cfg, lengths)
+    out, k, v = _prefill_qkv_attend(p, x, cfg, lengths, positions3)
     cache.k[:, :s] = k.to(cache.k.dtype)
     cache.v[:, :s] = v.to(cache.v.dtype)
     y = _out_proj(p, out)
@@ -424,19 +455,23 @@ def _gather_ctx(cache: PagedKVCache, dtype: torch.dtype
 
 def _suffix_prefill_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                            cache: PagedKVCache, prefix_len: torch.Tensor,
-                           lengths: torch.Tensor):
+                           lengths: torch.Tensor,
+                           positions3: Optional[torch.Tensor] = None):
     """Prefill of a DIVERGENT SUFFIX against an already-resident prefix.
 
     Query token i of row b sits at absolute position ``prefix_len[b]+i``:
     it attends every resident prefix key (gathered from the row's pages,
     dequantized if int8) plus the causal span of the suffix itself.  The
     JAX package runs this as plain array code, not a Pallas kernel, and so
-    does the port, on both devices.  Returns (attn out, k_suffix,
+    does the port, on both devices.  ``positions3`` (the vlm family) are
+    the suffix's own M-RoPE streams: the caller computes them from the
+    suffix tokens alone, so they restart at 0, as the JAX package's do
+    (``repro/models/lm.py:478``).  Returns (attn out, k_suffix,
     v_suffix)."""
     b, s, _ = x.shape
     t = torch.arange(s, device=x.device)
     positions = prefix_len[:, None] + t[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, positions3)
     k_ctx, v_ctx = _gather_ctx(cache, q.dtype)
     ctx_w = k_ctx.shape[1]
     # joint mask over [ctx | suffix] keys: ctx key j real iff j < prefix;
@@ -457,7 +492,8 @@ def _suffix_prefill_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
 def prefill_into_paged_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                              cache: PagedKVCache,
                              lengths: Optional[torch.Tensor] = None,
-                             prefix_len: Optional[torch.Tensor] = None
+                             prefix_len: Optional[torch.Tensor] = None,
+                             positions3: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, PagedKVCache]:
     """:func:`prefill_into_cache` with the K/V landing in the pages each
     row's table already lists (in place).  int8 caches quantize each token
@@ -471,12 +507,12 @@ def prefill_into_paged_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     b, s, _ = x.shape
     suffix_len = _new_lengths(lengths, b, s, x.device)
     if prefix_len is None:
-        out, k, v = _prefill_qkv_attend(p, x, cfg, lengths)
+        out, k, v = _prefill_qkv_attend(p, x, cfg, lengths, positions3)
         new_len = suffix_len
         start = torch.zeros((b,), dtype=torch.int32, device=x.device)
     else:
         out, k, v = _suffix_prefill_attend(p, x, cfg, cache, prefix_len,
-                                           suffix_len)
+                                           suffix_len, positions3)
         new_len = prefix_len + suffix_len
         start = prefix_len
     if cache.quantized:

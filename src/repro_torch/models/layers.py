@@ -1,6 +1,7 @@
-"""Numerics shared by the model zoo: norms, the SwiGLU MLP, RoPE, init.
+"""Numerics shared by the model zoo: norms, the SwiGLU and GELU MLPs,
+RoPE and M-RoPE, init.
 
-Ported from ``repro/models/layers.py:186-275`` (RMSNorm and LayerNorm,
+Ported from ``repro/models/layers.py:186-303`` (RMSNorm and LayerNorm,
 both computed in fp32).  The sharding rules of the
 JAX module wait for the mesh slice.
 """
@@ -8,13 +9,13 @@ JAX module wait for the mesh slice.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["truncated_normal_", "rms_norm", "layer_norm", "swiglu",
-           "rope_freqs", "apply_rope"]
+           "gelu_mlp", "rope_freqs", "apply_rope", "apply_mrope"]
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +72,21 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             b_up: Optional[torch.Tensor], w_down: torch.Tensor,
+             b_down: Optional[torch.Tensor]) -> torch.Tensor:
+    """GELU MLP with optional biases: down(gelu(x@up + b_up)) + b_down.
+    ``jax.nn.gelu`` defaults to the tanh approximation, so this uses it
+    too (the exact erf form differs by ~1e-3)."""
+    h = x @ w_up
+    if b_up is not None:
+        h = h + b_up
+    y = F.gelu(h, approximate="tanh") @ w_down
+    if b_down is not None:
+        y = y + b_down
+    return y
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -91,6 +107,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv = rope_freqs(dh, theta, x.device)                        # [Dh/2]
     ang = positions[..., None].float() * inv                     # [..., S, Dh/2]
     cos = torch.cos(ang)[..., None, :]                           # broadcast heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Tuple[int, int, int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): the head dim's frequency pairs split across the
+    (temporal, height, width) position streams.
+
+    x: [..., S, H, Dh]; positions3: [3, ..., S] (t/h/w positions per
+    token).  ``sections`` gives the number of frequency pairs per stream,
+    ``sum(sections) == Dh // 2``.  Text tokens carry t == h == w, so
+    M-RoPE reduces to 1-D RoPE for them.  Computed in fp32, cast back to
+    ``x``'s dtype."""
+    dh = x.shape[-1]
+    assert sum(sections) == dh // 2, (sections, dh)
+    inv = rope_freqs(dh, theta, x.device)                        # [Dh/2]
+    # each frequency band reads its own stream: the first sections[0]
+    # pairs t, the next sections[1] h, the last sections[2] w
+    pos = torch.cat([positions3[i][..., None].float().expand(
+        *positions3.shape[1:], n) for i, n in enumerate(sections)],
+        dim=-1)                                          # [..., S, Dh/2]
+    ang = pos * inv
+    cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

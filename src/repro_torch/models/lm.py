@@ -1,15 +1,22 @@
-"""The causal LM: config, weights, prefill and decode: dense, moe, hybrid,
-xlstm.
+"""The causal LM: config, weights, prefill and decode for every family:
+dense, moe, vlm, hybrid, xlstm, encdec.
 
 Port of ``repro/models/lm.py``.  :class:`LMConfig` carries every field of
-the JAX config so later slices port their configs verbatim; :class:`LM`
-implements serving for ``family="dense"`` (embed -> transformer blocks ->
-norm -> LM head, RMSNorm or LayerNorm), ``family="moe"`` (the same with
-MoE MLP blocks, :mod:`repro_torch.models.moe`), ``family="hybrid"`` (zamba2:
-Mamba2 blocks with ONE weight-shared transformer block after every
-``attn_every``-th, each application with its own dense KV cache) and
+the JAX config, so configs port verbatim; :class:`LM` implements serving
+for ``family="dense"`` (embed -> transformer blocks -> norm -> LM head,
+RMSNorm or LayerNorm), ``family="moe"`` (the same with MoE MLP blocks,
+:mod:`repro_torch.models.moe`), ``family="vlm"`` (dense blocks with
+M-RoPE; ``batch["patch_embeds"]`` [B, n, d] from the vision stub replace
+the first n token embeddings, and prefill rotates q/k at the three
+position streams of :meth:`LM._vlm_positions3`), ``family="hybrid"``
+(zamba2: Mamba2 blocks with ONE weight-shared transformer block after
+every ``attn_every``-th, each application with its own dense KV cache),
 ``family="xlstm"`` (``n_layers // 2`` mLSTM/sLSTM block pairs, recurrent
-state only).  Weights are stored once in the compute dtype; the JAX
+state only) and ``family="encdec"`` (the frontend stub's
+``batch["src_embeds"]`` [B, S_src, d] through the encoder blocks and a
+LayerNorm, then decoder blocks with cross-attention over per-layer memory
+K/V computed once at prefill, :mod:`repro_torch.models.encdec`; dense KV
+only).  Weights are stored once in the compute dtype; the JAX
 package keeps fp32 masters and casts at every use, which gives the same
 numbers.  The Mamba2 decay leaves ``A_log``, ``dt_bias`` and ``D``
 (:data:`repro_torch.models.ssm.FP32_LEAVES`), the xLSTM gate leaves
@@ -49,6 +56,7 @@ from torch import nn
 from repro_torch.core import events
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
@@ -62,12 +70,12 @@ from repro_torch.models.xlstm import XLSTMConfig
 
 __all__ = ["LMConfig", "LM", "PORTED_FAMILIES"]
 
-#: families ``LM`` serves so far (the rest: ROADMAP.md, queue 1 item 12)
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "xlstm")
+#: the families ``LM`` serves: all of the JAX package's
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "xlstm", "encdec")
 
-#: families whose state is a KV cache (dense or paged); the rest of
-#: ``repro.models.lm``'s ``("dense", "moe", "vlm")`` waits for vlm
-KV_FAMILIES = ("dense", "moe")
+#: families whose state is a KV cache that pages (``repro.models.lm``'s
+#: ``("dense", "moe", "vlm")``; encdec's decoder cache is dense only)
+KV_FAMILIES = ("dense", "moe", "vlm")
 
 #: weights a token multiplies once a step (2 FLOPs an element): the
 #: attention projections, the MLP, the Mamba2 projections and conv, and
@@ -144,6 +152,10 @@ class LMConfig:
             moe=self.moe_config() if self.family == "moe" else None,
             norm_eps=self.norm_eps)
 
+    def encdec_config(self) -> encdec_mod.CrossAttnBlockConfig:
+        return encdec_mod.CrossAttnBlockConfig(
+            attn=self.attn_config(), d_ff=self.d_ff, norm_eps=self.norm_eps)
+
     def xlstm_config(self) -> XLSTMConfig:
         return XLSTMConfig(d_model=self.d_model, num_heads=self.num_heads,
                            chunk_size=self.chunk_size, norm_eps=self.norm_eps)
@@ -190,16 +202,16 @@ class LM(nn.Module):
     """The causal LM.  Parameter names mirror the JAX params tree
     (``embed.table``, ``final_norm.scale``, ``blocks.{i}.attn.wq``,
     ``mamba.{i}.in_proj``, ``shared_attn.attn.wq``, ``mlstm.{i}.wq``,
-    ``slstm.{i}.r_gates``, ...), which is what :mod:`repro_torch.bridge`
-    maps onto."""
+    ``slstm.{i}.r_gates``, ``encoder.{i}.mlp.w_up``,
+    ``decoder.{i}.cross.wq``, ``enc_final_norm.scale``, ...), which is what
+    :mod:`repro_torch.bridge` maps onto."""
 
     def __init__(self, cfg: LMConfig, dtype: torch.dtype = torch.bfloat16,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
-                f"queue 1 item 12); ported: {PORTED_FAMILIES}")
+            raise ValueError(f"unknown family {cfg.family!r}; families: "
+                             f"{PORTED_FAMILIES}")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -221,6 +233,16 @@ class LM(nn.Module):
             self.mamba = nn.ModuleList(ssm_mod.Mamba2Block(mc, dtype, dev)
                                        for _ in range(cfg.n_layers))
             self.shared_attn = tf_mod.Block(bc, dtype, dev)
+        elif cfg.family == "encdec":
+            ec = cfg.encdec_config()
+            enc_cfg = ec._replace(attn=ec.attn._replace(causal=False))
+            self.encoder = nn.ModuleList(
+                encdec_mod.EncoderBlock(enc_cfg, dtype, dev)
+                for _ in range(cfg.enc_layers or cfg.n_layers))
+            self.decoder = nn.ModuleList(
+                encdec_mod.DecoderBlock(ec, dtype, dev)
+                for _ in range(cfg.n_layers))
+            self.enc_final_norm = tf_mod.LayerNorm(cfg.d_model, dtype, dev)
         else:
             self.blocks = nn.ModuleList(tf_mod.Block(bc, dtype, dev)
                                         for _ in range(cfg.n_layers))
@@ -242,14 +264,45 @@ class LM(nn.Module):
             for blk in self.mamba:
                 blk.init(generator)
             self.shared_attn.init(generator)
+        elif cfg.family == "encdec":
+            for blk in (*self.encoder, *self.decoder):
+                blk.init(generator)
         else:
             for blk in self.blocks:
                 blk.init(generator)
         return self
 
     # ============================================================ backbone
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed.table[tokens.long()]
+    def _embed(self, tokens: torch.Tensor,
+               patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings; for the vlm family ``patch_embeds`` [B, n, d]
+        replace the first n (``repro/models/lm.py:242-250``)."""
+        x = self.embed.table[tokens.long()]
+        if self.cfg.family == "vlm" and patch_embeds is not None:
+            n = patch_embeds.shape[1]
+            if tokens.shape[1] < n:
+                raise ValueError(
+                    f"patch_embeds cover {n} positions but the prompts are "
+                    f"{tokens.shape[1]} tokens: a vlm prompt holds its "
+                    f"patch positions first")
+            x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+        return x
+
+    def _vlm_positions3(self, tokens: torch.Tensor) -> torch.Tensor:
+        """M-RoPE position streams [3,B,S] (``repro/models/lm.py:260-273``):
+        the first ``n_patches`` positions take (0, h, w) on the patch
+        grid, text continues 1-D from the grid's edge.  Computed from the
+        width of ``tokens`` alone, so a suffix prefill restarts at 0."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        gh, gw = cfg.patch_grid
+        gw = max(gw, 1)
+        idx = torch.arange(s, device=tokens.device)
+        is_text = idx >= cfg.n_patches
+        t = torch.where(is_text, idx - cfg.n_patches + max(gh, gw), 0)
+        h = torch.where(is_text, t, idx // gw)
+        w = torch.where(is_text, t, idx % gw)
+        return torch.stack([t, h, w])[:, None, :].expand(3, b, s)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = tf_mod.apply_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -276,7 +329,11 @@ class LM(nn.Module):
         dtype, one cache per shared-block application, and no pages.  The
         xlstm family's is ``{"mlstm": (C [P,B,H,dk,dv], n [P,B,H,dk]),
         "slstm": (c, n, h) each [P,B,D]}`` over its P = n_layers // 2
-        pairs, fp32, with no KV and no pages."""
+        pairs, fp32, with no KV and no pages.  The encdec family's is
+        ``{"caches": KVCache, "mem_k", "mem_v"}``: the decoder's dense
+        caches and the cross-attention memory [L,B,S_src,KVH,Dh] with
+        ``S_src = max(max_seq // src_ratio, 1)``, which prefill replaces
+        by the encoded source's (``repro/models/lm.py:424-431``)."""
         cfg = self.cfg
         ac = cfg.attn_config()
         if page_size > 0 and cfg.family not in KV_FAMILIES:
@@ -300,6 +357,15 @@ class LM(nn.Module):
                     "attn_caches": attn_mod.init_kv_cache(
                         batch_size, max_seq, ac, self.dtype, self.device,
                         layers=len(groups))}
+        if cfg.family == "encdec":
+            s_src = max(max_seq // cfg.src_ratio, 1)
+            mem = torch.zeros((cfg.n_layers, batch_size, s_src,
+                               ac.num_kv_heads, ac.head_dim),
+                              dtype=self.dtype, device=self.device)
+            return {"caches": attn_mod.init_kv_cache(
+                        batch_size, max_seq, ac, self.dtype, self.device,
+                        layers=cfg.n_layers),
+                    "mem_k": mem, "mem_v": mem.clone()}
         if page_size > 0:
             nppr = -(-max_seq // page_size)
             cache = attn_mod.init_paged_kv_cache(
@@ -327,7 +393,13 @@ class LM(nn.Module):
         The recurrent families (hybrid, xlstm) cannot mask a pad out of a
         running recurrent state, so they take neither: every row is
         prefilled at the full width of ``tokens`` (serve equal lengths, or
-        one row at a time).
+        one row at a time).  Neither does encdec, whose decoder runs pads
+        as context in the JAX package (``repro/models/lm.py:509-514``).
+
+        The vlm family takes ``batch["patch_embeds"]`` [B, n, d] (optional:
+        the scheduler's admissions serve text only, as the JAX
+        scheduler's do); the encdec family needs ``batch["src_embeds"]``
+        [B, S_src, d].
 
         ``all_logits=True`` returns the head over every position, [B,S,V],
         instead of the last token's: the verify of speculative decoding
@@ -335,30 +407,47 @@ class LM(nn.Module):
         pass)."""
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
-        x = self._embed(tokens)
+        patch_embeds = batch.get("patch_embeds")
+        x = self._embed(tokens, patch_embeds)
         fam = self.cfg.family
-        if fam in ("hybrid", "xlstm"):
+        if fam in ("hybrid", "xlstm", "encdec"):
             if lengths is not None or batch.get("prefix_len") is not None:
+                why = ("its decoder runs pads as context" if fam == "encdec"
+                       else "a recurrent state cannot mask a pad")
                 raise ValueError(
                     f"the {fam} family prefills equal-length rows: it takes "
-                    "no lengths or prefix_len (a recurrent state cannot "
-                    "mask a pad)")
-            stack = (self._hybrid_stack if fam == "hybrid"
-                     else self._xlstm_stack)
-            x, new_state = stack(x, state, prefill=True)
+                    f"no lengths or prefix_len ({why})")
+            if fam == "encdec":
+                if "src_embeds" not in batch:
+                    raise ValueError(
+                        "the encdec family's prefill needs "
+                        "batch['src_embeds'] [B, S_src, d_model], the "
+                        "frontend stub's frame embeddings")
+                src = batch["src_embeds"]
+                x, new_state = self._encdec_prefill(x, src, state)
+                extra = src.numel()
+            else:
+                stack = (self._hybrid_stack if fam == "hybrid"
+                         else self._xlstm_stack)
+                x, new_state = stack(x, state, prefill=True)
+                extra = 0
             if events.active():
-                self._declare_ops(tokens, state, prefill=True,
-                                  all_logits=all_logits)
+                self._declare_ops(tokens, new_state, prefill=True,
+                                  all_logits=all_logits, extra_elems=extra)
             return self._head(x if all_logits else x[:, -1]), new_state
+        pos3 = self._vlm_positions3(tokens) if fam == "vlm" else None
         x, caches = tf_mod.apply_stack_decode(
             self.blocks, x, self.cfg.block_config(), state["caches"],
             block_fn=functools.partial(tf_mod.apply_block_prefill,
                                        lengths=lengths,
-                                       prefix_len=batch.get("prefix_len")))
+                                       prefix_len=batch.get("prefix_len"),
+                                       positions3=pos3))
         if events.active():
             self._declare_ops(tokens, state, prefill=True,
                               all_logits=all_logits,
-                              suffix="prefix_len" in batch)
+                              suffix="prefix_len" in batch,
+                              extra_elems=(0 if patch_embeds is None
+                                           else patch_embeds.numel()))
         if all_logits:
             return self._head(x), {"caches": caches}
         if lengths is not None:
@@ -378,6 +467,9 @@ class LM(nn.Module):
             stack = (self._hybrid_stack if self.cfg.family == "hybrid"
                      else self._xlstm_stack)
             x, new_state = stack(x, state, prefill=False)
+            return self._head(x)[:, 0], new_state
+        if self.cfg.family == "encdec":
+            x, new_state = self._encdec_decode(x, state)
             return self._head(x)[:, 0], new_state
         x, caches = tf_mod.apply_stack_decode(
             self.blocks, x, self.cfg.block_config(), state["caches"])
@@ -403,15 +495,16 @@ class LM(nn.Module):
     @functools.cached_property
     def _weight_model(self) -> Tuple[int, int, int]:
         """(matmul elements a token multiplies, bytes of every weight but
-        the embedding, bytes of the head's [d, V]).  The hybrid family's
-        shared block counts once a step in bytes and once an application
-        in FLOPs; an MoE layer's leaves count in bytes only (their FLOPs
-        follow the capacity, :meth:`_moe_ops`)."""
+        the embedding, bytes of the head's [d, V]), the encdec family's
+        source weights left out (:meth:`_source_weights`).  The hybrid
+        family's shared block counts once a step in bytes and once an
+        application in FLOPs; an MoE layer's leaves count in bytes only
+        (their FLOPs follow the capacity, :meth:`_moe_ops`)."""
         apps = (len(_hybrid_groups(self.cfg.n_layers, self.cfg.attn_every))
                 if self.cfg.family == "hybrid" else 1)
         elems = nbytes = 0
         for name, p in self.named_parameters():
-            if name == "embed.table":
+            if name == "embed.table" or self._source_weight(name):
                 continue
             nbytes += p.numel() * p.element_size()
             if (name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS
@@ -424,11 +517,36 @@ class LM(nn.Module):
             nbytes -= head
         return elems, nbytes, head
 
+    @staticmethod
+    def _source_weight(name: str) -> bool:
+        """An encdec weight that multiplies source positions, read only at
+        prefill: the encoder's, its final norm and the cross-attention's
+        memory projections."""
+        return (name.startswith(("encoder.", "enc_final_norm."))
+                or name.endswith((".cross.wk", ".cross.wv")))
+
+    @functools.cached_property
+    def _source_weights(self) -> Tuple[int, int]:
+        """(matmul elements a source position multiplies, bytes) of the
+        encdec family's :meth:`_source_weight` leaves."""
+        elems = nbytes = 0
+        for name, p in self.named_parameters():
+            if self._source_weight(name):
+                nbytes += p.numel() * p.element_size()
+                if name.rsplit(".", 1)[-1] in MATMUL_WEIGHTS:
+                    elems += p.numel()
+        return elems, nbytes
+
     def _declare_ops(self, tokens: torch.Tensor, state: State, *,
                      prefill: bool, all_logits: bool = False,
-                     suffix: bool = False) -> None:
+                     suffix: bool = False, extra_elems: int = 0) -> None:
         """Declare this call's plain PyTorch work (see the module note):
-        no launch, its FLOPs and bytes, from shapes only."""
+        no launch, its FLOPs and bytes, from shapes only.  ``extra_elems``
+        counts the ``extra_batch`` input read (patch or source
+        embeddings).  An encdec step also reads its cross-attention memory
+        and multiplies every query against it; its prefill runs the
+        source weights over every source position and writes the
+        memory."""
         cfg = self.cfg
         b, s = tokens.shape
         ac = cfg.attn_config()
@@ -437,8 +555,20 @@ class LM(nn.Module):
         elems, wbytes, hbytes = self._weight_model
         heads = b * s if all_logits else b
         flops = 2.0 * (b * s * elems + heads * cfg.d_model * cfg.vocab)
-        arg = wbytes + hbytes + b * s * (cfg.d_model * isz + 4)
+        arg = (wbytes + hbytes + b * s * (cfg.d_model * isz + 4)
+               + extra_elems * isz)
         out = heads * cfg.vocab * isz
+        if cfg.family == "encdec":
+            mem = state["mem_k"]
+            s_src, L = mem.shape[2], mem.shape[0]
+            mem_bytes = 2 * L * b * s_src * kvh * dh * mem.element_size()
+            flops += 4.0 * L * b * h * s * s_src * dh   # cross-attention
+            arg += mem_bytes                            # the memory, read
+            if prefill:
+                s_elems, s_bytes = self._source_weights
+                flops += 2.0 * b * s_src * s_elems
+                arg += s_bytes
+                out += mem_bytes                        # and written
         if cfg.family == "moe":
             moe_flops, moe_f32, buf = self._moe_ops(b * s)
             flops += moe_flops
@@ -476,6 +606,45 @@ class LM(nn.Module):
             flops += 4.0 * layers * b * h * smax * dh
         events.record_ops(flops=flops, arg_bytes=arg, out_bytes=out,
                           f32=self.dtype == torch.float32)
+
+    def _encdec_prefill(self, x: torch.Tensor, src: torch.Tensor,
+                        state: State) -> Tuple[torch.Tensor, State]:
+        """The encdec prefill (``repro/models/lm.py:548-591``): the source
+        through the encoder and its final LayerNorm, each decoder layer's
+        memory K/V from it, then the decoder over the target tokens with
+        its self-attention K/V written into the dense caches (in place).
+        The returned state carries the new memory."""
+        cfg = self.cfg
+        ec = cfg.encdec_config()
+        enc_cfg = ec._replace(attn=ec.attn._replace(causal=False))
+        mem = src.to(self.dtype)
+        for blk in self.encoder:
+            mem = encdec_mod.apply_encoder_block(blk, mem, enc_cfg)
+        mem = tf_mod.apply_norm(mem, self.enc_final_norm, cfg.norm_eps)
+        caches: KVCache = state["caches"]
+        new = caches
+        mem_k, mem_v = [], []
+        for i, blk in enumerate(self.decoder):
+            mk, mv = encdec_mod.cross_memory(blk.cross, mem, ec.attn)
+            x, new = encdec_mod.apply_decoder_block_prefill(
+                blk, x, mk, mv, tf_mod._dense_layer(caches, i), ec)
+            mem_k.append(mk)
+            mem_v.append(mv)
+        return x, {"caches": caches._replace(length=new.length),
+                   "mem_k": torch.stack(mem_k), "mem_v": torch.stack(mem_v)}
+
+    def _encdec_decode(self, x: torch.Tensor, state: State
+                       ) -> Tuple[torch.Tensor, State]:
+        """One token through every decoder layer: dense self-attention
+        decode, then cross-attention over the layer's memory."""
+        ec = self.cfg.encdec_config()
+        caches: KVCache = state["caches"]
+        new = caches
+        for i, blk in enumerate(self.decoder):
+            x, new = encdec_mod.apply_decoder_block_decode(
+                blk, x, state["mem_k"][i], state["mem_v"][i],
+                tf_mod._dense_layer(caches, i), ec)
+        return x, dict(state, caches=caches._replace(length=new.length))
 
     def _moe_ops(self, t: int) -> Tuple[float, float, int]:
         """(FLOPs in the compute dtype, FLOPs in fp32, bytes of the

@@ -135,11 +135,13 @@ def _block_mlp(p: Block, h: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
 def apply_block_prefill(p: Block, x: torch.Tensor, cfg: BlockConfig,
                         cache: Union[KVCache, PagedKVCache], *,
                         lengths: Optional[torch.Tensor] = None,
-                        prefix_len: Optional[torch.Tensor] = None):
+                        prefix_len: Optional[torch.Tensor] = None,
+                        positions3: Optional[torch.Tensor] = None):
     """Prefill one block into a dense or paged cache (one layer's view);
     the attention compute is identical, only the K/V landing zone
     differs.  ``prefix_len`` [B] (paged only) marks a resident shared
-    prefix: ``x`` is the divergent suffix."""
+    prefix: ``x`` is the divergent suffix.  ``positions3`` [3,B,S] are
+    the vlm family's M-RoPE position streams."""
     paged = isinstance(cache, PagedKVCache)
     if prefix_len is not None and not paged:
         raise ValueError("prefix_len requires a paged KV cache "
@@ -147,10 +149,11 @@ def apply_block_prefill(p: Block, x: torch.Tensor, cfg: BlockConfig,
     if paged:
         a, new_cache = attn_mod.prefill_into_paged_cache(
             p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths,
-            prefix_len=prefix_len)
+            prefix_len=prefix_len, positions3=positions3)
     else:
         a, new_cache = attn_mod.prefill_into_cache(
-            p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths)
+            p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths,
+            positions3=positions3)
     h = x + a
     return h + _block_mlp(p, h, cfg), new_cache
 
@@ -173,9 +176,10 @@ def apply_stack_decode(blocks: nn.ModuleList, x: torch.Tensor,
 
     ``block_fn`` is called as ``block_fn(block, x, cfg, layer_cache)`` on
     each layer's view of the cache (``LM.prefill`` passes
-    :func:`apply_block_prefill`).  The default one-token decode over a
-    PAGED cache takes its own path: the paged kernel plus a one-slot page
-    write per layer."""
+    :func:`apply_block_prefill` with its ragged ``lengths``, ``prefix_len``
+    and, for the vlm family, ``positions3`` bound).  The default one-token
+    decode over a PAGED cache takes its own path: the paged kernel plus a
+    one-slot page write per layer."""
     if isinstance(caches, PagedKVCache) and block_fn is apply_block_decode:
         return _apply_stack_decode_paged(blocks, x, cfg, caches)
     layer_view = (_paged_layer if isinstance(caches, PagedKVCache)

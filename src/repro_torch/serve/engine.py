@@ -93,9 +93,20 @@ prefill, decode step and segment, so a pin wins over ``REPRO_IMPL`` and
 the heuristic, as in the JAX engine.  A ``torch_*`` pin on the card runs
 the plain version and launches no kernel of its family.
 
-Mesh sharding and ``extra_batch`` inputs wait for later slices
-(``ROADMAP.md``); the arguments that select them raise
-:class:`NotImplementedError` rather than being silently ignored.
+**Extra inputs.**  ``generate``, ``generate_reference``, streaming and
+spec take ``extra_batch``: the vlm family's ``patch_embeds`` [B, n, d]
+and the encdec family's ``src_embeds`` [B, S_src, d] (numpy arrays or
+tensors), merged into every target prefill of the call and never into
+the draft's, as the JAX engine merges them; a key the family does not
+read is ignored, as there.  The scheduler's admissions prefill tokens
+only, as the JAX scheduler's do: a vlm request is served text-only, and
+an encdec model is refused by :class:`BatchScheduler` up front
+(:func:`check_schedulable`), where the JAX scheduler fails at its first
+admission.
+
+Mesh sharding waits for a later slice (``ROADMAP.md``, item 14); the
+argument that selects it raises :class:`NotImplementedError` rather than
+being silently ignored.
 """
 
 from __future__ import annotations
@@ -122,7 +133,7 @@ from repro_torch.serve.spec import SpecConfig, accept_speculative
 
 __all__ = ["ServeConfig", "Engine", "BatchScheduler", "Request",
            "KV_DTYPES", "TERMINAL_STATUSES", "MASKED_FAMILIES",
-           "PREFILL_REGION", "DECODE_REGION"]
+           "PREFILL_REGION", "DECODE_REGION", "check_schedulable"]
 
 PREFILL_REGION = "serve.prefill"
 DECODE_REGION = "serve.decode"
@@ -164,6 +175,21 @@ KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 #: through a running state: they serve equal-length waves in ``generate``
 #: and exact-length single-row admissions in the scheduler, with dense KV
 MASKED_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_schedulable(cfg: Any) -> None:
+    """Refuse a model config the :class:`BatchScheduler` cannot serve: an
+    encoder-decoder's prefill needs ``src_embeds``, which no admission
+    carries (the JAX scheduler passes tokens only,
+    ``repro/serve/engine.py:691``, ``:736``, and fails with ``KeyError:
+    'src_embeds'``)."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name!r} is an encoder-decoder: the BatchScheduler's "
+            "admissions prefill tokens only and an encdec prefill needs "
+            "src_embeds (the JAX scheduler fails there with KeyError: "
+            "'src_embeds'); serve it through Engine.generate(prompts, "
+            "extra_batch={'src_embeds': ...})")
 
 
 #: Request.status values that end a request's life (no further tokens)
@@ -493,26 +519,29 @@ class Engine:
 
     def _check_call(self, prompts: Sequence[Sequence[int]], max_new: int,
                     extra_batch: Optional[Mapping[str, Any]]
-                    ) -> Tuple[np.ndarray, np.ndarray]:
-        """Pad the prompts and refuse what this engine cannot serve."""
-        if extra_batch:
-            raise NotImplementedError(
-                "extra_batch (patch embeddings, source features) feeds the "
-                "vlm and encdec families, which are not ported yet "
-                "(ROADMAP.md, queue 1 item 12)")
+                    ) -> Tuple[np.ndarray, np.ndarray,
+                               Dict[str, torch.Tensor]]:
+        """Pad the prompts, refuse what this engine cannot serve and move
+        ``extra_batch`` to the device (numpy arrays through a pinned
+        staging copy, tensors as they are)."""
         toks, lens = self._pad_prompts(prompts)
         if toks.shape[1] + max_new > self.cfg.max_seq:
             raise ValueError(
                 f"prompt ({toks.shape[1]}) + max_new ({max_new}) "
                 f"exceeds max_seq ({self.cfg.max_seq})")
-        return toks, lens
+        extra = {k: v.to(self.device) if isinstance(v, torch.Tensor)
+                 else self._upload(np.asarray(v))
+                 for k, v in (extra_batch or {}).items()}
+        return toks, lens, extra
 
     def _prefill_call(self, toks: np.ndarray, lens: np.ndarray,
-                      prompts: Sequence[Sequence[int]], max_new: int
+                      prompts: Sequence[Sequence[int]], max_new: int,
+                      extra: Mapping[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, State]:
         """The static-batch prefill every plain loop starts from: a state
         sized to THIS call's worst case (a call-sized page plan on paged
-        engines), pad keys masked per row for attention-cache families."""
+        engines), pad keys masked per row for attention-cache families,
+        the call's extra inputs merged in."""
         cfg, lm = self.cfg, self.lm
         b = len(prompts)
         need = toks.shape[1] + max_new
@@ -527,7 +556,7 @@ class Engine:
             state = lm.init_decode_state(b, seq_cap)
         # attention-cache families mask pad keys per row via lengths;
         # recurrent ones run pads as context (equal lengths are exact)
-        batch = {"tokens": self._upload(toks)}
+        batch = dict(extra, tokens=self._upload(toks))
         if lm.cfg.family in MASKED_FAMILIES:
             batch["lengths"] = self._upload(lens)
         with self._region_timer(PREFILL_REGION):
@@ -546,19 +575,21 @@ class Engine:
         per row per step with the newly committed tokens (one token on a
         plain engine, a verified block of up to K+1 on a spec engine) and
         trades the single sync for one per step.  Streamed tokens are the
-        fused path's tokens.  ``extra_batch`` (the vlm/encdec families'
-        inputs) raises until those families are ported."""
-        toks, lens = self._check_call(prompts, max_new_tokens, extra_batch)
+        fused path's tokens.  ``extra_batch`` holds the vlm family's
+        ``patch_embeds`` or the encdec family's ``src_embeds`` (see the
+        module note)."""
+        toks, lens, extra = self._check_call(prompts, max_new_tokens,
+                                             extra_batch)
         if self.spec is not None:
             return self._generate_spec(toks, lens, prompts, max_new_tokens,
-                                       stream_cb)
+                                       stream_cb, extra)
         if stream_cb is not None:
             return self._token_loop(toks, lens, prompts, max_new_tokens,
-                                    stream_cb)
+                                    stream_cb, extra)
         cfg, dev = self.cfg, self.device
         b = len(prompts)
         logits, state = self._prefill_call(toks, lens, prompts,
-                                           max_new_tokens)
+                                           max_new_tokens, extra)
         gen = self._generator()
         with self._region_timer(DECODE_REGION):
             out = torch.zeros((b, max_new_tokens), dtype=torch.int32,
@@ -592,18 +623,22 @@ class Engine:
         starts from ``generate``'s own prefill and draws the same ``[B, V]``
         per step, so it returns ``generate``'s tokens on ragged prompts
         too, greedy and sampled."""
-        toks, lens = self._check_call(prompts, max_new_tokens, extra_batch)
-        return self._token_loop(toks, lens, prompts, max_new_tokens, None)
+        toks, lens, extra = self._check_call(prompts, max_new_tokens,
+                                             extra_batch)
+        return self._token_loop(toks, lens, prompts, max_new_tokens, None,
+                                extra)
 
     def _token_loop(self, toks: np.ndarray, lens: np.ndarray,
                     prompts: Sequence[Sequence[int]], max_new: int,
-                    stream_cb: Optional[Callable]) -> List[List[int]]:
+                    stream_cb: Optional[Callable],
+                    extra: Mapping[str, torch.Tensor]) -> List[List[int]]:
         """The host-stepped loop behind ``generate_reference`` and plain
         streaming (the JAX engine's ``_generate_stream``): a callback per
         row per token when ``stream_cb`` is given."""
         cfg = self.cfg
         b = len(prompts)
-        logits, state = self._prefill_call(toks, lens, prompts, max_new)
+        logits, state = self._prefill_call(toks, lens, prompts, max_new,
+                                           extra)
         gen = self._generator()
         out: List[List[int]] = [[] for _ in range(b)]
         done = np.zeros(b, bool)
@@ -811,10 +846,12 @@ class Engine:
                 self._with_lengths(dstate, new_len.clone()))
 
     def _spec_prefill(self, toks: np.ndarray, lens: np.ndarray,
-                      prompts: Sequence[Sequence[int]], max_new: int
+                      prompts: Sequence[Sequence[int]], max_new: int,
+                      extra: Mapping[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, State, State]:
         """Both models' call-sized paged states and prompt prefills (the
-        draft's logits are thrown away)."""
+        draft's logits are thrown away).  The extra inputs go to the
+        target's prefill only, as in the JAX engine."""
         cfg = self.cfg
         b = len(prompts)
         table, num_pages = self._spec_plan(prompts, max_new)
@@ -828,18 +865,19 @@ class Engine:
             states.append(self.set_page_table(st, table))
         batch = {"tokens": self._upload(toks), "lengths": self._upload(lens)}
         with self._region_timer(PREFILL_REGION):
-            logits, state = self.lm.prefill(batch, states[0])
+            logits, state = self.lm.prefill(dict(extra, **batch), states[0])
             _dl, dstate = self.draft_lm.prefill(batch, states[1])
         return logits, state, dstate
 
     def _generate_spec(self, toks: np.ndarray, lens: np.ndarray,
                        prompts: Sequence[Sequence[int]], max_new: int,
-                       stream_cb: Optional[Callable]) -> List[List[int]]:
+                       stream_cb: Optional[Callable],
+                       extra: Mapping[str, torch.Tensor]) -> List[List[int]]:
         """Speculative generate: device-side rounds with the early-exit
         reads of the module note, or one sync and one ``stream_cb`` wave
         per round with a callback.  Sets ``self.spec_stats``."""
         logits, state, dstate = self._spec_prefill(toks, lens, prompts,
-                                                   max_new)
+                                                   max_new, extra)
         gen = self._generator()
         b = len(prompts)
         spec_mask = torch.ones((b,), dtype=torch.bool, device=self.device)
@@ -1072,6 +1110,7 @@ class BatchScheduler:
                  snapshot_dir: Optional[str] = None,
                  snapshot_every: int = 0, snapshot_keep: int = 3,
                  chaos: Any = None):
+        check_schedulable(engine.lm.cfg)
         self.engine = engine
         self.admission_chunk = (admission_chunk
                                 or engine.cfg.admission_chunk)

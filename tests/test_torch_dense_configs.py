@@ -88,14 +88,14 @@ def test_layer_norm_matches_jax(shape, eps):
                                rtol=1e-2, atol=1e-2)
 
 
-def test_blocks_take_layernorm_and_still_refuse_vlm():
+def test_blocks_take_layernorm_and_refuse_an_unknown_family():
     cfg = get_arch("stablelm-3b").smoke
     lm = LM(cfg, torch.float32, device="cpu")
     assert isinstance(lm.final_norm, transformer.LayerNorm)
     assert isinstance(lm.blocks[0].ln1, transformer.LayerNorm)
     assert set(lm.blocks[0].ln2.state_dict()) == {"scale", "bias"}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        LM(dataclasses.replace(cfg, family="vlm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        LM(dataclasses.replace(cfg, family="rnn"), device="cpu")
     with pytest.raises(ValueError, match="unknown norm"):
         transformer.make_norm("batchnorm", 8, torch.float32,
                               torch.device("cpu"))

@@ -108,8 +108,11 @@ def test_unported_serve_options_raise_and_scheduler_fields_pass(models):
                                  batch_slots=2, admission_chunk=3,
                                  pool_pages=5), device="cpu")
     assert eng.generate(prompts[:1], 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        eng.generate(prompts[:1], 2, extra_batch={"patch_embeds": 0})
+    # extra_batch is ported: a key the family does not read is ignored,
+    # as the JAX engine ignores it (patch embeddings feed the vlm family)
+    assert eng.generate(prompts[:1], 2, extra_batch={
+        "patch_embeds": np.zeros((1, 2, SMOKE.d_model), np.float32)}) == \
+        eng.generate(prompts[:1], 2)
     # temperature > 0 is ported: sampled top-k / top-p decoding runs
     for kw in (dict(temperature=0.7), dict(temperature=0.7, top_k=5),
                dict(temperature=0.7, top_p=0.9)):

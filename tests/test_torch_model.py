@@ -52,8 +52,8 @@ def test_configs_port_verbatim():
     spec = get_arch("qwen2-0.5b")
     assert spec.config is CONFIG and spec.smoke is SMOKE
     assert spec.skipped("long_500k")
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_arch("qwen2-vl-7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
 
 
 # ---------------------------------------------------------------------------
@@ -284,8 +284,8 @@ def test_lm_without_device_raises_on_a_host_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LM(SMOKE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(dataclasses.replace(SMOKE, family="vlm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        LM(dataclasses.replace(SMOKE, family="rnn"), device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -231,8 +231,10 @@ def test_engine_validation_and_unported_arguments(smoke, tmp_path):
     eng = engine.Engine(lm, engine.ServeConfig(max_seq=64), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
         engine.Engine(lm, engine.ServeConfig(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-        eng.generate([[1, 2]], 2, extra_batch={"src_feats": 0})
+    # extra_batch is ported; a dense model ignores the encdec family's
+    # source embeddings, as the JAX engine does
+    assert eng.generate([[1, 2]], 2, extra_batch={"src_embeds": 0}) == \
+        eng.generate([[1, 2]], 2)
     # speculative decoding is ported: the target as its own draft runs and
     # gives the target-only greedy tokens
     paged = engine.ServeConfig(max_seq=64, page_size=8)
