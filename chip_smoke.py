@@ -19,7 +19,9 @@ failure):
                and not, q_offset with Sq < Sk, every head dim (80 on
                every tile pair), many kv tiles, BSHD views at qwen2's,
                zamba2's, stablelm-3b's (32 heads of 80, timed beside
-               SDPA) and mistral-large-123b's (G 12, Dh 128) shapes, and
+               SDPA) and mistral-large-123b's (G 12, Dh 128, timed with
+               its bound, as are #2 and #3 at its heads and #3 at
+               stablelm-3b's) shapes, and
                beside SDPA's flash backend on full-length rows; argmax with
                ties
                and NaN either side of its split boundaries, views from
@@ -264,14 +266,42 @@ failure):
                at qwen2-vl's shapes, #1 at seamless's encoder (not
                causal, 64 positions) and decoder, and #4 at 8 x 256206,
                each bf16 one timed with its bound.
+23. train     - (a) qwen2-0.5b at full width and depth, bf16 compute
+               over fp32 masters, remat ``dots_no_batch``, AdamW with
+               clipping, warmup then cosine, 8 x 512 synthetic tokens a
+               step: 20 steps through ``Trainer`` (a checkpoint at 10),
+               4 with ``accum_steps=2``; step ms (median after 3 warm-up
+               steps), tokens/s, model FLOPs a step, MFU against 989
+               TFLOP/s, peak ``max_memory_allocated``, launches a step
+               and the device's idle share over two profiled steps, each
+               beside the card's name and power limit; a fresh
+               ``Trainer`` resumed from step 10 to 20, its losses within
+               1e-2 of the uninterrupted run's; (b) fp32 card against
+               CPU, qwen2-0.5b at full width and 2 of 24 layers, 3
+               steps: every gradient finite and within 1e-4 (plus 1e-6
+               of the largest), the loss, grad norm and rate within
+               1e-5, every parameter after each step within Adam's
+               bound and 1e-2 of a step on average; (c) one fp32 train
+               step of each family at its SMOKE config, card against CPU,
+               the same checks; kernels #1-#7 launch no time over
+               (a)-(c): training runs the differentiable twins, as the
+               reference's runs no Pallas kernel; (d) ``python -m
+               repro_torch.launch.serve --ckpt-dir`` on (a)'s
+               checkpoints in a subprocess (it serves while (b) and (c)
+               run): its restore gives (a)'s final weights bit for bit,
+               its greedy tokens, admissions and segments equal a
+               scheduler's on (a)'s in-memory weights, and it launches #1
+               once a layer of each admission, #2 once a layer of each
+               decode step and #4 once a decode step.
 
 Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs,
 18's suite (its launches counted in its process) and tuned generate, and
-the serving runs of 19, 20, 21 and 22 are the main paths:
-each is run with its
+the serving runs of 19, 20, 21, 22 and 23's served checkpoint are the
+main paths: each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
-launched another number of times than the path implies).  The last two
+launched another number of times than the path implies); 23's training
+runs the other way round: it fails if any of #1-#7 launched.  The last two
 lines of stdout are the kernel table as JSON (``launches`` from the path
 that carries each kernel, ``launches_by_path`` from every path that runs
 it) and the result line ``{"ok": true, "device": {...}}``.  It never
@@ -460,12 +490,13 @@ def check_flash(dev, timer):
     case(8, h, kvh, s, s, dh, torch.bfloat16, True, 0, PROMPT_LENS, bshd=True)
     h, kvh, dh = attn_shape("mistral-large-123b")
     sm = max(MISTRAL_PROMPT_LENS)
-    case(MISTRAL_PROMPTS, h, kvh, sm, sm, dh, torch.bfloat16, True, 0,
-         MISTRAL_PROMPT_LENS, bshd=True)
+    _, mistral_args = case(MISTRAL_PROMPTS, h, kvh, sm, sm, dh,
+                           torch.bfloat16, True, 0, MISTRAL_PROMPT_LENS,
+                           bshd=True)
     # phase 21's prefills at their own shapes: qwen2-moe-a2.7b (16 heads
     # of 128, G 1) on phase 4's prompts in bf16 and on (d)'s prompts in
     # fp32, qwen3-moe-235b-a22b (64 heads over 4 of 128, G 16) on its 4
-    # prompts; the bf16 ones timed
+    # prompts; the bf16 ones timed, with phase 20's mistral-large-123b
     h, kvh, dh = attn_shape("qwen2-moe-a2.7b")
     _, moe_args = case(8, h, kvh, s, s, dh, torch.bfloat16, True, 0,
                        PROMPT_LENS, bshd=True)
@@ -480,7 +511,9 @@ def check_flash(dev, timer):
             ("qwen2-moe-a2.7b's prefill [8,16,512,128] G 1", moe_args,
              PROMPT_LENS),
             ("qwen3-moe-235b-a22b's prefill [4,64,384,128] G 16", q3_args,
-             QWEN3_PROMPT_LENS)):
+             QWEN3_PROMPT_LENS),
+            ("mistral-large-123b's prefill [4,96,384,128] G 12",
+             mistral_args, MISTRAL_PROMPT_LENS)):
         msm = timer.ms(lambda: flash_attention_bhsd(qm, km, vm, **kwm))
         bm, hm, sqm, dhm = qm.shape
         pairs_m = sum(min(i + 1, n) for n in lens for i in range(sqm))
@@ -488,7 +521,7 @@ def check_flash(dev, timer):
                       + 4 * bm, 4.0 * dhm * hm * pairs_m)
         log(f"  flash bf16 at {what} ragged: kernel {msm:.4f} ms, bound "
             f"{bd[0]:.5f} ms by {bd[1]}")
-    del moe_args, q3_args
+    del moe_args, q3_args, mistral_args
     # phase 22's prefills at their own shapes: qwen2-vl-7b (28 heads over
     # 4 of 128, G 7; M-RoPE'd q and k are inputs like any other) on its 8
     # prompts in bf16 and on (c)'s prompts in fp32; seamless-m4t-medium
@@ -686,11 +719,17 @@ def check_paged(dev, timer):
     case(main_lens, kvh, h // kvh, dh, PAGE_SIZE, torch.bfloat16,
          MAX_NEW - 16, False)
     h, kvh, dh = attn_shape("mistral-large-123b")
-    case([n + 8 for n in MISTRAL_PROMPT_LENS], kvh, h // kvh, dh, PAGE_SIZE,
-         torch.bfloat16, MISTRAL_NEW - 8, False)
+    mistral_lens = [n + 8 for n in MISTRAL_PROMPT_LENS]
+    _, mistral_args = case(mistral_lens, kvh, h // kvh, dh, PAGE_SIZE,
+                           torch.bfloat16, MISTRAL_NEW - 8, False)
+    # ... and at its heads on the main path's 8 rows (profile_kernels.py
+    # --only head_dims' shape), timed below
+    _, mistral8_args = case(main_lens, kvh, h // kvh, dh, PAGE_SIZE,
+                            torch.bfloat16, MAX_NEW - 16, False)
     # phase 21's decodes mid-generation: qwen2-moe-a2.7b's 8 rows (KVH 16,
     # G 1, Dh 128) in bf16 and (d)'s 4 rows in fp32, qwen3-moe-235b-a22b's
-    # 4 rows (KVH 4, G 16, Dh 128) in bf16; the bf16 ones timed
+    # 4 rows (KVH 4, G 16, Dh 128) in bf16; the bf16 ones timed, with
+    # mistral-large-123b's above
     h, kvh, dh = attn_shape("qwen2-moe-a2.7b")
     _, moe_args = case(main_lens, kvh, h // kvh, dh, PAGE_SIZE,
                        torch.bfloat16, MAX_NEW - 16, False)
@@ -703,7 +742,11 @@ def check_paged(dev, timer):
     for what, a, lens in (("qwen2-moe-a2.7b's (8 rows, KVH 16, G 1)",
                            moe_args, main_lens),
                           ("qwen3-moe-235b-a22b's (4 rows, KVH 4, G 16)",
-                           q3_args, q3_lens)):
+                           q3_args, q3_lens),
+                          ("mistral-large-123b's (4 rows, KVH 8, G 12)",
+                           mistral_args, mistral_lens),
+                          ("mistral-large-123b's heads on 8 rows (KVH 8, "
+                           "G 12)", mistral8_args, main_lens)):
         msm = timer.ms(lambda: paged_decode_attention_grouped(*a))
         b_, kvh_, g_, dh_ = a[0].shape
         bd = bound_ms(2 * (2 * a[0].numel() + 2 * a[5].numel())
@@ -711,7 +754,7 @@ def check_paged(dev, timer):
                       4.0 * kvh_ * g_ * dh_ * sum(n + 1 for n in lens))
         log(f"  paged_decode bf16 at {what} decode, Dh 128: {msm:.4f} ms, "
             f"bound {bd[0]:.5f} ms by {bd[1]}")
-    del moe_args, q3_args
+    del moe_args, q3_args, mistral_args, mistral8_args
     # phase 22's decodes mid-generation: qwen2-vl-7b's 8 rows (KVH 4, G 7,
     # Dh 128) in bf16, timed, and (c)'s 3 rows in fp32
     from repro_torch.bench.profile_generate import VLM_LENS
@@ -871,6 +914,22 @@ def check_paged_q8(dev, timer):
         f"KVH 4, G 16, Dh 128): {ms3:.4f} ms, bound {bd[0]:.5f} ms by "
         f"{bd[1]}")
     del q3_args
+    # stablelm-3b's and mistral-large-123b's heads on the main path's 8
+    # rows (profile_kernels.py --only head_dims' shapes), timed
+    for what, (kvh, g, dh) in (("stablelm-3b's (KVH 32, G 1, Dh 80)",
+                                (32, 1, 80)),
+                               ("mistral-large-123b's (KVH 8, G 12, Dh 128)",
+                                (8, 12, 128))):
+        _, a = case(main_lens, kvh, g, dh, PAGE_SIZE, torch.bfloat16,
+                    MAX_NEW - 16, False)
+        msa = timer.ms(lambda: paged_decode_attention_q8_grouped(*a))
+        bd = bound_ms(2 * (2 * a[0].numel() + 2 * a[7].numel())
+                      + sum(main_lens) * (2 * kvh * dh + 8)
+                      + 4 * len(main_lens),
+                      4.0 * kvh * g * dh * sum(n + 1 for n in main_lens))
+        log(f"  paged_decode_q8 bf16 at {what} heads on 8 rows: {msa:.4f} "
+            f"ms, bound {bd[0]:.5f} ms by {bd[1]}")
+        del a
     err, args = case(main_lens, 2, 7, 64, PAGE_SIZE, torch.bfloat16,
                      MAX_NEW - 16, False)
 
@@ -3733,6 +3792,430 @@ def vlm_encdec_token_check(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 23: training
+# ---------------------------------------------------------------------------
+
+#: (a): qwen2-0.5b at full width and depth, 8 x 512 tokens a step, 20
+#: steps (a checkpoint at 10), then 4 more with 2 microbatches a step
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_ACCUM_STEPS = 20, 10, 4
+TRAIN_WARM = 3                    # steps left out of the median step time
+TRAIN_SCHED = dict(peak_lr=3e-4, warmup_steps=5,
+                   total_steps=TRAIN_STEPS + 2 + TRAIN_ACCUM_STEPS)
+#: the resumed run's losses against the uninterrupted run's, relative:
+#: bf16 compute, and the embedding's and the MoE's index_add backward sum
+#: in another order each run on the card
+RESUME_LOSS_RTOL = 1e-2
+#: (b), (c): fp32 card against CPU.  Gradients: each leaf within rtol
+#: plus atol x the largest gradient of the model (xlstm-350m: its mLSTM
+#: normaliser, see tests/test_torch_train_families.py); the loss, grad
+#: norm and rate within METRIC_RTOL; parameters after each step as
+#: :func:`hold_params` says
+P23_GRAD_TOL = {"default": (1e-4, 1e-6), "xlstm-350m": (1e-3, 3e-4)}
+P23_METRIC_RTOL = {"default": 1e-5, "xlstm-350m": 1e-3}
+CARD_CPU_LAYERS, CARD_CPU_STEPS = 2, 3
+CARD_CPU_BATCH, CARD_CPU_SEQ = 2, 32
+#: (c): one arch a family, at its SMOKE config
+TRAIN_FAMILIES = ("qwen2-0.5b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
+                  "zamba2-1.2b", "xlstm-350m", "seamless-m4t-medium")
+
+
+def all_counters():
+    """Kernels #1-#7's launch counters."""
+    out = read_counters()
+    out.update({k: f.launches for k, f in case_counters().items()})
+    return out
+
+
+def train_data_cfg(cfg, batch, seq):
+    from repro_torch.data import DataConfig
+    return DataConfig(
+        seq_len=seq, global_batch=batch, vocab=cfg.vocab,
+        src_embeds_dim=cfg.d_model if cfg.family == "encdec" else 0,
+        src_ratio=cfg.src_ratio,
+        patch_embeds=cfg.n_patches if cfg.family == "vlm" else 0,
+        d_model=cfg.d_model)
+
+
+def train_main_path(dev, smi):
+    """Phase 23 (a): qwen2-0.5b at full width and depth (24 layers, d
+    896, 14 heads over 2, vocab 151936, tied), bf16 compute over fp32
+    masters, ``FeatureSet`` defaults (remat ``dots_no_batch``), AdamW with
+    clipping, warmup then cosine, 8 x 512 synthetic tokens a step: 20
+    steps through ``Trainer`` with a checkpoint at step 10 (and the final
+    one at 20), then 4 steps with ``accum_steps=2``.  Prints the median
+    step time after 3 warm-up steps, tokens/s, model FLOPs a step
+    (``model_flops``: 6 N T + 12 L H Dh S T), MFU against 989 TFLOP/s,
+    peak ``max_memory_allocated``, device launches a step and the
+    device's idle share over two profiled steps.  Then a fresh
+    ``Trainer`` resumes from the step-10 checkpoint to 20: its losses
+    within :data:`RESUME_LOSS_RTOL` of the uninterrupted run's.  Returns
+    (the trained weights as a bf16 serving LM, the checkpoint directory,
+    the figures)."""
+    from repro_torch.bench.profile_generate import _profiled
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.core.devtime import device_time_us
+    from repro_torch.core.features import default_features
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.step import model_flops
+    ckpt = Path(fresh_root("train-ckpt"))
+    feats = default_features()
+    lm = LM(CONFIG, torch.bfloat16, dev, features=feats,
+            param_dtype=torch.float32)
+    data = train_data_cfg(CONFIG, TRAIN_BATCH, TRAIN_SEQ)
+
+    def trainer(total, ckpt_dir=None, accum=1):
+        return Trainer(lm, data, TrainerConfig(
+            total_steps=total, log_every=5, ckpt_every=TRAIN_CKPT_AT,
+            ckpt_dir=ckpt_dir, ckpt_keep=3, accum_steps=accum),
+            AdamWConfig(), ScheduleConfig(**TRAIN_SCHED))
+
+    tr = trainer(TRAIN_STEPS, str(ckpt))
+    state = tr.init_or_restore()
+    n_params = lm.num_params()
+    log(f"  qwen2-0.5b: {n_params} params, fp32 masters, bf16 compute, "
+        f"remat {feats.remat_policy}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"a step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    for f in case_counters().values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    state = tr.run(state)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the final checkpoint's weights as a serving model (bf16), before
+    # any further step
+    served = LM(CONFIG, torch.bfloat16, dev)
+    served.load_state_dict({k: v.detach() for k, v in lm.state_dict().items()})
+    hist = tr.history
+    losses = [r["loss"] for r in hist]
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"train: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall: {losses}")
+    step_s = float(np.median([r["wall_s"] for r in hist[TRAIN_WARM:]]))
+    flops = model_flops(lm, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fig = {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "model_flops": flops, "mfu": flops / step_s / BF16_FLOPS,
+           "peak_mem_gb": peak / 1e9, "first_loss": losses[0],
+           "last_loss": losses[-1]}
+    # two steps under the profiler: launches a step and the idle share
+    batches = [tr.batch_at(TRAIN_STEPS + i) for i in range(2)]
+
+    def two_steps():
+        nonlocal state
+        for b in batches:
+            state, m = tr.step_fn(state, b)
+        m["loss"].item()
+
+    wall_ms, avgs = _profiled(two_steps)
+    busy_ms = sum(device_time_us(a) for a in avgs) / 1e3
+    fig.update(launches_per_step=sum(a.count for a in avgs) / 2,
+               idle_share=1.0 - busy_ms / wall_ms,
+               profiled_step_ms=wall_ms / 2, busy_ms_per_step=busy_ms / 2,
+               idle_share_unprofiled=1.0 - busy_ms / 2 / fig["step_ms"])
+    top = sorted(avgs, key=device_time_us, reverse=True)[:8]
+    log(f"  step {fig['step_ms']:.2f} ms (median of steps {TRAIN_WARM}-"
+        f"{TRAIN_STEPS - 1}); {fig['tokens_per_s']:.0f} tokens/s; model "
+        f"FLOPs {flops:.4g} a step (6 N T + 12 L H Dh S T, N = {n_params}"
+        f"); MFU {fig['mfu']:.4f} of 989 TFLOP/s; peak allocated "
+        f"{fig['peak_mem_gb']:.3f} GB [{smi}]")
+    log(f"  profiled: {fig['profiled_step_ms']:.2f} ms a step, "
+        f"{fig['launches_per_step']:.0f} launches a step, device busy "
+        f"{fig['busy_ms_per_step']:.2f} ms a step, idle "
+        f"{fig['idle_share']:.4f} under the profiler, "
+        f"{fig['idle_share_unprofiled']:.4f} of the unprofiled median step "
+        f"[{smi}]")
+    for a in top:
+        log(f"    {device_time_us(a) / 2e3:9.3f} ms a step  x{a.count // 2:<4}"
+            f" {a.key[:70]}")
+    log(f"  losses {[round(x, 4) for x in losses]}; Trainer.run "
+        f"{run_s:.1f} s, of which steps {sum(r['wall_s'] for r in hist):.1f}"
+        f" s and the rest (2 checkpoints of "
+        f"{sum(p.numel() for p in lm.parameters()) * 12 / 1e9:.2f} GB "
+        f"copied to host and written; data, logging) "
+        f"{run_s - sum(r['wall_s'] for r in hist):.1f} s")
+    # 4 steps of 2 microbatches
+    acc = trainer(TRAIN_STEPS + 2 + TRAIN_ACCUM_STEPS, accum=2)
+    state = acc.run(state)
+    acc_ms = float(np.median([r["wall_s"] for r in acc.history[1:]])) * 1e3
+    if len(acc.history) != TRAIN_ACCUM_STEPS or not all(
+            np.isfinite(r["loss"]) for r in acc.history):
+        fail(f"train accum_steps=2: {acc.history}")
+    fig["accum2_step_ms"] = acc_ms
+    log(f"  accum_steps=2: {TRAIN_ACCUM_STEPS} steps, median "
+        f"{acc_ms:.2f} ms a step of 2 x {TRAIN_BATCH // 2} x {TRAIN_SEQ}; "
+        f"losses {[round(r['loss'], 4) for r in acc.history]} [{smi}]")
+    launched = all_counters()
+    if any(launched.values()):
+        fail(f"training launched a hand-written kernel: {launched}")
+    # resume: a fresh Trainer from the step-10 checkpoint (linked into a
+    # directory of its own) to 20; it writes no checkpoint of its own
+    cut = Path(fresh_root("train-resume"))
+    name = f"step_{TRAIN_CKPT_AT:09d}"
+    (cut / name).symlink_to(ckpt / name, target_is_directory=True)
+    (cut / f"{name}.COMMITTED").touch()
+    res = trainer(TRAIN_STEPS, str(cut))
+    t0 = time.perf_counter()
+    rstate = res.init_or_restore()
+    restore_s = time.perf_counter() - t0
+    if int(rstate.step) != TRAIN_CKPT_AT:
+        fail(f"resume restored step {int(rstate.step)}")
+    res.cfg.ckpt_dir = None
+    res.run(rstate)
+    got = [r["loss"] for r in res.history]
+    want = losses[TRAIN_CKPT_AT:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if len(got) != len(want) or rel > RESUME_LOSS_RTOL:
+        fail(f"resumed losses {got} against {want}")
+    fig["resume_max_rel"] = rel
+    log(f"  resumed from step {TRAIN_CKPT_AT} in a fresh Trainer "
+        f"(init_or_restore {restore_s:.1f} s): losses "
+        f"{[round(x, 4) for x in got]}, max relative difference from the "
+        f"uninterrupted run {rel:.3g} (tolerance {RESUME_LOSS_RTOL})")
+    launched = all_counters()
+    if any(launched.values()):
+        fail(f"training launched a hand-written kernel: {launched}")
+    del lm, state, rstate, tr, acc, res
+    torch.cuda.empty_cache()
+    return served, ckpt, fig
+
+
+def walk_leaf(tree, path):
+    for k in path.split("."):
+        tree = tree[k]
+    return tree
+
+
+def hold_grads(where, card, cpu, tol):
+    """Every parameter's gradient finite and not None on both devices,
+    the card's within ``tol`` = (rtol, atol x largest) of the CPU's."""
+    for name, g in list(card.items()) + list(cpu.items()):
+        if g is None or not torch.isfinite(g).all():
+            fail(f"{where}: gradient of {name} is "
+                 f"{'None' if g is None else 'not finite'}")
+    gmax = max(g.abs().max().item() for g in cpu.values())
+    worst = 0.0
+    for name, g in cpu.items():
+        d = (card[name].cpu() - g).abs()
+        bad = d > tol[0] * g.abs() + tol[1] * gmax
+        if bad.any():
+            fail(f"{where}: gradient of {name} off by {d.max().item():.3g} "
+                 f"(largest gradient {gmax:.3g})")
+        worst = max(worst, d.max().item() / gmax)
+    return worst
+
+
+def hold_params(where, card, cpu, lrs):
+    """Parameters after the steps: every element within Adam's bound (2 x
+    the summed rate) of the CPU's, and each leaf's mean difference within
+    1e-2 of the summed rate.  A dropped gradient or a wrong update moves
+    most of a leaf by ~lr; Adam turns a rounding difference in a
+    gradient near zero into a step of ~lr on a few elements, and on all
+    of the key bias (``bk``: softmax is invariant to it, its true
+    gradient is zero), which is held to the bound alone."""
+    bound = 2.0 * sum(lrs) + 1e-6
+    for name, p in cpu.items():
+        d = (card[name].detach().cpu() - p.detach()).abs()
+        if d.max().item() > bound:
+            fail(f"{where}: {name} off by {d.max().item():.3g} > {bound}")
+        if not name.endswith("attn.bk") and \
+                d.mean().item() > 1e-2 * sum(lrs) + 1e-7:
+            fail(f"{where}: {name} off by {d.mean().item():.3g} on average")
+
+
+def card_cpu_train(dev, cfg, where, steps, batch, seq, seed):
+    """fp32: ``steps`` train steps of ``cfg`` on the card and on the CPU
+    from the same weights and batches; each step's gradients (taken
+    before the step), loss, grad norm and rate, and the parameters after
+    it, held to each other (:data:`P23_GRAD_TOL` etc.).  Each step starts
+    both devices from the CPU's parameters and moments, so no step holds
+    the card to weights the other device never had.  Returns the worst
+    gradient difference over the largest gradient."""
+    from repro_torch.core.features import default_features
+    from repro_torch.data import make_source
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import (AdamWConfig, ScheduleConfig,
+                                   apply_updates, lr_at)
+    from repro_torch.train import init_train_state
+    key = cfg.name.replace("-smoke", "")
+    key = key if key in P23_GRAD_TOL else "default"
+    feats = default_features().with_(remat_policy="none")
+    lms = {"cpu": LM(cfg, torch.float32, "cpu", features=feats).init(
+        torch.Generator().manual_seed(seed))}
+    lms["card"] = LM(cfg, torch.float32, dev, features=feats)
+    lms["card"].load_state_dict(lms["cpu"].state_dict())
+    adamw, sched = AdamWConfig(), ScheduleConfig(peak_lr=1e-3,
+                                                 warmup_steps=0,
+                                                 total_steps=10)
+    states = {k: init_train_state(lm, adamw) for k, lm in lms.items()}
+    src = make_source(train_data_cfg(cfg, batch, seq))
+    worst = 0.0
+    for i in range(steps):
+        b = src.batch_at(i)
+        grads, metrics = {}, {}
+        for k, lm in lms.items():
+            # make_train_step's body (accum_steps=1), its gradients kept
+            tb = {n: torch.from_numpy(v).to(lm.device) for n, v in b.items()}
+            st = states[k]
+            loss, _ = lm.loss(tb)
+            gs = torch.autograd.grad(loss, list(st.params.values()),
+                                     allow_unused=True)
+            grads[k] = dict(zip(st.params, gs))
+            lr = lr_at(st.opt.step, sched)
+            params, opt, m = apply_updates(st.params, grads[k], st.opt, lr,
+                                           adamw)
+            states[k] = st._replace(params=params, opt=opt, step=st.step + 1)
+            metrics[k] = {"loss": loss.item(), "grad_norm":
+                          m["grad_norm"].item(), "lr": lr.item()}
+        worst = max(worst, hold_grads(f"{where} step {i}", grads["card"],
+                                      grads["cpu"], P23_GRAD_TOL[key]))
+        for n in ("loss", "grad_norm", "lr"):
+            a, w = metrics["card"][n], metrics["cpu"][n]
+            if abs(a - w) > P23_METRIC_RTOL[key] * abs(w):
+                fail(f"{where} step {i}: {n} {a} on the card, {w} on the CPU")
+        hold_params(f"{where} step {i}", states["card"].params,
+                    states["cpu"].params, [metrics["cpu"]["lr"]])
+        # the next step starts both devices from the CPU's state, so each
+        # step's gradients are taken at the same weights
+        with torch.no_grad():
+            for tree in ("params", "m", "v"):
+                frm, to = (getattr(st if tree == "params" else st.opt, tree)
+                           for st in (states["cpu"], states["card"]))
+                for k, t in frm.items():
+                    to[k].copy_(t)
+    log(f"  {where}: {steps} fp32 steps card vs cpu: losses "
+        f"{metrics['card']['loss']:.6g} / {metrics['cpu']['loss']:.6g} "
+        f"(last), worst gradient difference {worst:.3g} of the largest")
+    del lms, states
+    return worst
+
+
+def train_card_cpu(dev):
+    """Phase 23 (b) qwen2-0.5b at full width, 2 of 24 layers, and (c)
+    one train step of each family at its SMOKE config, fp32, card
+    against CPU; kernels #1-#7 launch no time."""
+    import dataclasses as dc
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    for f in (*counters().values(), *case_counters().values()):
+        f.launches = 0
+    card_cpu_train(dev, dc.replace(CONFIG, n_layers=CARD_CPU_LAYERS),
+                   f"qwen2-0.5b {CARD_CPU_LAYERS} layers", CARD_CPU_STEPS,
+                   CARD_CPU_BATCH, CARD_CPU_SEQ, seed=30)
+    torch.cuda.empty_cache()
+    for i, arch in enumerate(TRAIN_FAMILIES):
+        card_cpu_train(dev, get_arch(arch).smoke, f"{arch} smoke", 1, 4, 32,
+                       seed=31 + i)
+    launched = all_counters()
+    if any(launched.values()):
+        fail(f"a train step launched a hand-written kernel: {launched}")
+    log(f"  kernels #1-#7 launched over (a)-(c): {launched}")
+
+
+#: (d): 4 requests of 16 tokens, 8 greedy tokens each, 4 slots
+SERVE_CKPT = dict(requests=4, prompt_len=16, max_new=8, slots=4)
+
+
+def serve_checkpoint(ckpt):
+    """Phase 23 (d), started: ``python -m repro_torch.launch.serve --arch
+    qwen2-0.5b --ckpt-dir <(a)'s checkpoints>`` in a subprocess, pages of
+    16.  It serves while (b) and (c) run; :func:`check_served_checkpoint`
+    waits for it.  Returns (the process, its summary's path, its start
+    time)."""
+    import os
+    out = Path(fresh_root("train-serve")) / "serve.json"
+    args = ["repro_torch.launch.serve", "--arch", "qwen2-0.5b",
+            "--ckpt-dir", str(ckpt), "--page-size", str(PAGE_SIZE),
+            "--max-seq", "128", "--json", str(out)]
+    for k, v in SERVE_CKPT.items():
+        args += [f"--{k.replace('_', '-')}", str(v)]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", *args], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def check_served_checkpoint(dev, served, ckpt, serving, smi):
+    """Phase 23 (d): the launcher's restore (``restore_params``, what
+    ``--ckpt-dir`` runs) gives (a)'s final in-memory weights bit for bit;
+    the launcher's greedy tokens, admissions and segments equal those of
+    a scheduler on the in-memory weights over the same requests; and the
+    launcher launched #1 once a layer of each prefilled admission, #2
+    once a layer of each decode step and #4 once a decode step (#3
+    never), as the in-memory run did.  Returns the launches."""
+    from repro_torch.launch.serve import restore_params
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import (BatchScheduler, Engine, Request,
+                                          ServeConfig)
+    restored = LM(served.cfg, torch.bfloat16, dev)
+    restore_params(str(ckpt), restored)
+    want_p = dict(served.named_parameters())
+    for name, p in restored.named_parameters():
+        if not torch.equal(p, want_p[name]):
+            fail(f"serve --ckpt-dir restores {name} off by "
+                 f"{(p.float() - want_p[name].float()).abs().max().item()}")
+    del restored
+    proc, out, t0 = serving
+    _, err = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"serve --ckpt-dir exited {proc.returncode}: {err[-2000:]}")
+    summary = json.loads(out.read_text())
+    n_req, slots = SERVE_CKPT["requests"], SERVE_CKPT["slots"]
+    eng = Engine(served, ServeConfig(max_seq=128, batch_slots=slots,
+                                     page_size=PAGE_SIZE), device=dev)
+    sched = BatchScheduler(eng)
+    rng = np.random.default_rng(0)        # the launcher's prompts
+    for rid in range(n_req):
+        sched.submit(Request(
+            rid=rid, max_new_tokens=SERVE_CKPT["max_new"],
+            prompt=rng.integers(1, served.cfg.vocab,
+                                size=SERVE_CKPT["prompt_len"]).tolist()))
+    before = read_counters()
+    done = sched.run()
+    mem_launched = {k: n - before[k] for k, n in read_counters().items()}
+    want = {str(r): list(done[r].generated) for r in sorted(done)}
+    if summary["tokens"] != want:
+        fail(f"served checkpoint tokens {summary['tokens']} != in-memory "
+             f"{want}")
+    m = sched.metrics
+    for k in ("admissions", "segments"):
+        if summary[k] != m[k]:
+            fail(f"serve --ckpt-dir: {k} {summary[k]}, in memory {m[k]}")
+    L = served.cfg.n_layers
+    expect = {"flash_attention": L * (m["admissions"] - m["prefix_hits"]),
+              "paged_decode": L * m["decode_steps"],
+              "paged_decode_q8": 0, "argmax": m["decode_steps"],
+              "ssd_scan": 0}
+    launched = summary["launches"]
+    got = {"flash_attention": launched["flash_attention_bhsd"],
+           "paged_decode": launched["paged_decode_attention_grouped"],
+           "paged_decode_q8": launched["paged_decode_attention_q8_grouped"],
+           "argmax": launched["block_argmax"], "ssd_scan": 0}
+    for k, n in expect.items():
+        if got[k] != n or mem_launched[k] != n:
+            fail(f"serve --ckpt-dir launched {k} {got[k]} times, the "
+                 f"in-memory run {mem_launched[k]}, expected {n}")
+    if not (got["flash_attention"] and got["paged_decode"]
+            and got["argmax"]):
+        fail(f"serving the checkpoint launched no #1, #2 or #4: {got}")
+    log(f"  serve --ckpt-dir in a subprocess ({secs:.1f} s, beside (b) and "
+        f"(c)): restored weights equal (a)'s bit for bit; tokens equal the "
+        f"in-memory engine's: {want}; {m['admissions']:.0f} admissions, "
+        f"{m['decode_steps']:.0f} decode steps; launched {got}, as "
+        f"expected [{smi}]")
+    return got
+
+
 class PhaseClock:
     """Logs each phase's title when it starts and its seconds when the
     next one starts (or at :meth:`stop`)."""
@@ -3777,7 +4260,7 @@ def run_phases() -> int:
     dev = torch.device("cuda", 0)
     phase = PhaseClock()
 
-    phase("[1/22] probe")
+    phase("[1/23] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -3794,12 +4277,12 @@ def run_phases() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    phase("[2/22] build")
+    phase("[2/23] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    phase("[3/22] kernels vs plain versions")
+    phase("[3/23] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -3811,26 +4294,26 @@ def run_phases() -> int:
             f"{r['bound_by']})")
     del timer
 
-    phase("[4/22] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    phase("[4/23] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    phase("[5/22] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    phase("[5/23] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
           "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    phase("[6/22] fp32 token check: card paged / card dense / cpu paged")
+    phase("[6/23] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    phase("[7/22] fp32 scheduler token check: card scheduler / card generate "
+    phase("[7/23] fp32 scheduler token check: card scheduler / card generate "
           "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    phase("[8/22] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    phase("[8/23] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    phase("[9/22] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    phase("[9/23] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -3840,10 +4323,10 @@ def run_phases() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    phase("[10/22] fp32 zamba2 token check: card / cpu, 7 layers")
+    phase("[10/23] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    phase("[11/22] case-study kernels vs plain versions: STREAM triad, "
+    phase("[11/23] case-study kernels vs plain versions: STREAM triad, "
           "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -3853,14 +4336,14 @@ def run_phases() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    phase("[12/22] main path 5: the case studies through PerfCtr marker "
+    phase("[12/23] main path 5: the case studies through PerfCtr marker "
           "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    phase("[13/22] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    phase("[13/23] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
           "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -3868,11 +4351,11 @@ def run_phases() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    phase("[14/22] main path 7: speculative decoding, K = 4, 2-layer matched "
+    phase("[14/23] main path 7: speculative decoding, K = 4, 2-layer matched "
           "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    phase("[15/22] main path 8: serving snapshots and chaos: (a) fp32 "
+    phase("[15/23] main path 8: serving snapshots and chaos: (a) fp32 "
           "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
           "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -3880,13 +4363,13 @@ def run_phases() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    phase("[16/22] main path 9: the serving benches (serve, paged decode, "
+    phase("[16/23] main path 9: the serving benches (serve, paged decode, "
           "flash prefill, spec) at their default sizes, serve and spec at "
           "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[17/22] main path 10: the tool layer (topology, pin, features) "
+    phase("[17/23] main path 10: the tool layer (topology, pin, features) "
           "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
           "default kernels against the torch pins three ways")
     topology_check(dev, smi)
@@ -3895,7 +4378,7 @@ def run_phases() -> int:
     tool_benches(smi)
     torch.cuda.empty_cache()
 
-    phase("[18/22] main path 11: the registry's tune half: (a) every tunable "
+    phase("[18/23] main path 11: the registry's tune half: (a) every tunable "
           "family's card cell swept cold, each candidate held to its plain "
           "version; (b) warm in a fresh process; (c) the launcher's --tune "
           "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
@@ -3906,14 +4389,14 @@ def run_phases() -> int:
     tuned_gen_launches = tuned_generate(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[19/22] main path 12: xlstm-350m at full width and depth, dense "
+    phase("[19/23] main path 12: xlstm-350m at full width and depth, dense "
           "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
           "card vs cpu at 4 layers")
     xlstm_gen_launches, xlstm_sched_launches = xlstm_paths(dev)
     torch.cuda.empty_cache()
     xlstm_token_check(dev)
 
-    phase("[20/22] main path 13: the other dense configs, pages of 16: "
+    phase("[20/23] main path 13: the other dense configs, pages of 16: "
           "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
           "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
           "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
@@ -3922,7 +4405,7 @@ def run_phases() -> int:
     perf_report_and_example(smi)
     torch.cuda.empty_cache()
 
-    phase("[21/22] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
+    phase("[21/23] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
           "a2.7b at full width and depth, generate, one host sync, a decode "
           "step with no implicit sync; (b) its int8 scheduler with the prefix "
           "cache; (c) qwen3-moe-235b-a22b at 2 of 94 layers (G 16); (d) fp32 "
@@ -3931,13 +4414,32 @@ def run_phases() -> int:
     torch.cuda.empty_cache()
     moe_token_check(dev)
 
-    phase("[22/22] main path 15: the vlm and encdec families: (a) qwen2-vl-"
+    phase("[22/23] main path 15: the vlm and encdec families: (a) qwen2-vl-"
           "7b at full width and depth with patch embeddings, generate, then "
           "its int8 scheduler with the prefix cache; (b) seamless-m4t-medium "
           "at 12 + 12 layers with source embeddings, generate; (c) fp32 "
           "tokens card vs cpu: qwen2-vl at 2 layers, seamless at full depth")
     vlm_launches = vlm_encdec_paths(dev)
     vlm_encdec_token_check(dev)
+    torch.cuda.empty_cache()
+
+    phase("[23/23] main path 16: training: (a) qwen2-0.5b at full width and "
+          "depth, bf16 over fp32 masters, 8 x 512 tokens a step, 20 steps "
+          "through Trainer, 4 with accum_steps=2, resumed from step 10; (b) "
+          "fp32 card vs cpu, 2 layers, 3 steps; (c) one fp32 step of each "
+          "family, card vs cpu; (d) serve --ckpt-dir")
+    served, ckpt, train_fig = train_main_path(dev, smi)
+    serving = serve_checkpoint(ckpt)
+    try:
+        train_card_cpu(dev)
+        train_serve_launches = check_served_checkpoint(dev, served, ckpt,
+                                                       serving, smi)
+    finally:
+        if serving[0].poll() is None:
+            serving[0].kill()
+            serving[0].wait()
+    del served
+    torch.cuda.empty_cache()
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
@@ -3951,7 +4453,8 @@ def run_phases() -> int:
                "tuned_generate_fp32": tuned_gen_launches,
                "xlstm_generate": xlstm_gen_launches,
                "xlstm_scheduler": xlstm_sched_launches, **dense_launches,
-               **moe_launches, **vlm_launches}
+               **moe_launches, **vlm_launches,
+               "train_serve_ckpt": train_serve_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"],

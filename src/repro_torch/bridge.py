@@ -1,4 +1,4 @@
-"""Parameter bridge: the JAX package's params tree -> the port's weights.
+"""Parameter bridge: the JAX package's params tree <-> the port's weights.
 
 The JAX ``LM.init`` returns a nested dict whose per-layer leaves are
 stacked on a leading layers axis (``blocks/attn/wq`` is ``[L, d, H, Dh]``,
@@ -12,11 +12,19 @@ layer with the same leaf names, so the bridge only flattens the tree to dotted
 names and splits the layers axis — no transposes, because both sides keep
 the same weight layouts.  Leaves arrive as numpy arrays (the
 tests convert with ``jax.device_get``); this module never imports JAX.
+
+:func:`params_to_jax` is the inverse: it stacks the per-layer tensors of a
+``state_dict`` (or of any tree named like one: the optimizer's moments
+and error-feedback residuals) back onto the leading layers axis, as
+numpy.  :func:`stack_to_jax` does the same in torch, keeping bf16, for
+the checkpoint writer, and :func:`reference_leaf` names the reference
+leaf a port tensor belongs to (the optimizer's decay rule and int8 scales
+follow the reference's leaves, not the port's tensors).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,7 +32,25 @@ import torch
 from repro_torch.models import moe, ssm, xlstm
 from repro_torch.models.lm import PORTED_FAMILIES, LMConfig
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "stack_to_jax",
+           "reference_leaf", "group_by_leaf", "leaf_tree", "STACKED"]
+
+#: the subtrees the reference stacks on a leading layers axis (the port
+#: keeps one module a layer under the same name: ``blocks.{i}.*``)
+STACKED = ("blocks", "mamba", "mlstm", "slstm", "encoder", "decoder")
+
+
+def reference_leaf(name: str) -> Tuple[str, Optional[int]]:
+    """(the reference leaf's dotted name, the layer index or None) of the
+    port tensor ``name``: ``blocks.3.attn.wq`` -> (``blocks.attn.wq``,
+    3); an unstacked name (``embed.table``, ``shared_attn.ln1.scale``)
+    is its own leaf."""
+    head, _, rest = name.partition(".")
+    if head in STACKED:
+        idx, _, leaf = rest.partition(".")
+        if idx.isdigit():
+            return f"{head}.{leaf}", int(idx)
+    return name, None
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -91,3 +117,77 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: LMConfig,
         for i in range(depth):
             put(f"{stacked}{i}.{rest}", arr[i].copy())
     return state
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        node = out
+        *parents, last = name.split(".")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def group_by_leaf(tensors: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
+    """Port-named tensors grouped by reference leaf (dotted names): a
+    stacked leaf's per-layer tensors as a list in layer order, any other
+    leaf's tensor as is."""
+    groups: Dict[str, Dict[Optional[int], torch.Tensor]] = {}
+    for name, t in tensors.items():
+        leaf, layer = reference_leaf(name)
+        groups.setdefault(leaf, {})[layer] = t
+    out: Dict[str, Union[torch.Tensor, List[torch.Tensor]]] = {}
+    for leaf, by_layer in groups.items():
+        if None in by_layer:
+            out[leaf] = by_layer[None]
+            continue
+        n = len(by_layer)
+        if sorted(by_layer) != list(range(n)):
+            raise ValueError(f"{leaf}: layers {sorted(by_layer)} are not "
+                             f"0..{n - 1}")
+        out[leaf] = [by_layer[i] for i in range(n)]
+    return out
+
+
+def leaf_tree(tensors: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """:func:`group_by_leaf` nested as the reference's tree (dicts by
+    name part), each leaf a tensor or a stacked leaf's list of tensors."""
+    return _nest(group_by_leaf(tensors))
+
+
+def stack_to_jax(tensors: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, Any]:
+    """The reference's nested tree of torch tensors from port-named
+    tensors: each stacked subtree's per-layer tensors stacked on a new
+    leading axis in layer order (on their device, in their dtype),
+    everything else as is."""
+    return _nest({leaf: (torch.stack([t.detach() for t in g])
+                         if isinstance(g, list) else g)
+                  for leaf, g in group_by_leaf(tensors).items()})
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: LMConfig
+                  ) -> Dict[str, Any]:
+    """The JAX params tree (numpy copies, float32 where the tensor is a
+    float; bf16 widens exactly) from a port ``state_dict`` of ``cfg``, or
+    from any tree named like one (``OptState.m``/``v``/``ef``).  The
+    inverse of :func:`params_from_jax`."""
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        return np.array((t.float() if t.is_floating_point() else t).numpy())
+
+    tree = walk(stack_to_jax(state_dict))
+    n = cfg.n_layers
+    depths = {"blocks": n, "mamba": n, "mlstm": n // 2, "slstm": n // 2,
+              "encoder": cfg.enc_layers or n, "decoder": n}
+    for head, depth in depths.items():
+        for name, leaf in _flatten(tree.get(head, {}), head + ".").items():
+            if leaf.shape[0] != depth:
+                raise ValueError(f"{name}: {leaf.shape[0]} layers, the "
+                                 f"config has {depth}")
+    return tree

@@ -1,8 +1,10 @@
-"""Serving snapshots (``store.py``); the pytree checkpoints of the JAX
-package's ``repro.checkpoint`` go with training (``ROADMAP.md``, queue 1
-item 13)."""
+"""Training checkpoints and serving snapshots (``store.py``)."""
 
 from repro_torch.checkpoint.store import (SnapshotCorrupt,  # noqa: F401
-                                          latest_snapshot, list_snapshots,
+                                          latest_snapshot, latest_step,
+                                          list_snapshots, list_steps,
                                           load_serving_snapshot,
-                                          save_serving_snapshot)
+                                          restore_checkpoint,
+                                          save_checkpoint,
+                                          save_serving_snapshot,
+                                          wait_pending)

@@ -10,9 +10,13 @@ errors), :func:`default_features`, :func:`from_env` (the same
 field's meaning on CUDA ("XLA only" where it has none), and
 :func:`torch_settings_for` takes the place of ``xla_flags_for``: the
 PyTorch settings the state implies.  Like the reference's flags they are
-reported, not applied: no feature changes the serving path in either
-package, and the LM does not take a :class:`FeatureSet` until training
-is ported (``ROADMAP.md``, queue 1 item 13).
+reported, not applied.  ``LM(cfg, ..., features=)`` takes a
+:class:`FeatureSet`, as the reference's LM does: ``remat_policy`` maps
+onto ``torch.utils.checkpoint`` in training
+(:func:`repro_torch.models.transformer.remat`).  ``scan_layers`` and
+``scan_unroll`` are XLA's, and ``decode_inplace_cache`` asks for what the
+port's dense decode always does (it writes each token into the cache
+buffers in place): all three stay report-only.
 """
 
 from __future__ import annotations
@@ -84,7 +88,8 @@ FEATURE_DOC: Dict[str, str] = {
     "compute_dtype": "activation compute dtype (the LM's torch dtype)",
     "grad_compression": "int8 error-feedback compression of DP grad reduce",
     "prefetch_to_vmem": "XLA only (Pallas HBM->VMEM double buffering)",
-    "decode_inplace_cache": "carry-threaded in-place KV cache decode path",
+    "decode_inplace_cache": "always on (the dense decode writes the cache "
+                            "in place)",
 }
 
 #: ``jax.default_matmul_precision`` names -> the

@@ -19,7 +19,7 @@ Impl names name the port's routes, one to one with the reference's
 family         reference            port
 =============  ===================  ====================================
 attention      pallas_flash         cuda_flash   (kernel #1)
-               jnp_flash            torch_flash  (its plain version)
+               jnp_flash            torch_flash  (the autograd twin)
                full                 full         (masked softmax over
                                                  materialized scores)
 paged_decode   pallas_paged         cuda_paged   (kernel #2)
@@ -36,6 +36,21 @@ sampling       pallas_greedy/topk/  cuda_greedy/topk/topp  (kernel #4
                topp                 over the Gumbel-shifted logits)
                jnp_greedy/topk/topp torch_greedy/topk/topp
 =============  ===================  ====================================
+
+**Gradients** (``repro/kernels/registry.py:963-991``).  The kernels are
+loaded through ``ctypes``: what they return has no ``grad_fn``, so a
+training step through one would drop its gradient without an error.
+The ``attention`` and ``ssd_scan`` families therefore take a
+``differentiable`` fact, which :func:`run` sets when autograd records
+the call (:func:`needs_grad`: grad mode on and an input that requires a
+gradient).  With it, the heuristics return ``torch_flash`` (the flash
+core as an autograd ``Function``, the reference's ``jnp_flash``) and
+``torch_scan`` (the reference's ``jnp_scan``, "the grad path").
+``cuda_flash`` and ``cuda_ssd`` raise when called with it, or with an
+input that needs a gradient, and :func:`select` refuses a pin to either
+under it, so neither ``use_impl`` nor ``REPRO_IMPL`` can route training
+into a kernel.  (The reference lets a pin beat ``differentiable``; its
+Pallas kernels then fail in autodiff instead.)
 
 Both packages read the same ``REPRO_IMPL``, so :func:`parse_impl_spec`,
 :func:`use_impl` and :func:`get_spec` also take the reference's names and
@@ -143,6 +158,7 @@ from repro_torch.models.linear_scan import _chunked_linear_attention
 
 __all__ = [
     "KernelSpec", "TuneSpace", "TuneRecord", "register_impl",
+    "needs_grad",
     "register_family", "families", "impls", "get_spec", "describe",
     "use_impl", "parse_impl_spec", "override_for", "select", "run",
     "autotune", "best", "record", "clear_tune_table", "tune_table",
@@ -444,14 +460,36 @@ def override_for(family: str) -> Optional[str]:
     return None
 
 
+def needs_grad(*ts) -> bool:
+    """Whether autograd records a call on ``ts``: grad mode on and one
+    of them (tensors or None) requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _refuse_grad(family: str, name: str) -> None:
+    raise RuntimeError(
+        f"{family} impl {name!r} is a hand-written kernel with no gradient "
+        f"(loaded through ctypes): it cannot run under autograd; the "
+        f"differentiable twin is "
+        f"{ {'attention': 'torch_flash', 'ssd_scan': 'torch_scan'}[family]!r}"
+        f" (ROADMAP.md, queue 1 item 13)")
+
+
 def select(family: str, **facts) -> str:
     """Pick an implementation name from static facts.
 
-    An override (context / env) beats the heuristic; unforced, the
+    An override (context / env) beats the heuristic, except that a pin to
+    an impl whose ``supports`` rejects ``differentiable=True`` raises
+    when the facts say the call is differentiable; unforced, the
     family's heuristic decides."""
     fam = _family(family)
     forced = override_for(family)
     if forced is not None:
+        spec = get_spec(family, forced)
+        if (facts.get("differentiable") and spec.supports is not None
+                and not spec.supports(differentiable=True)):
+            _refuse_grad(family, spec.name)
         return forced
     return fam.heuristic(**facts)
 
@@ -1103,15 +1141,21 @@ _ATTENTION_LAYOUT = ("q [B,Sq,H,Dh]; k/v [B,Sk,KVH,Dh] -> [B,Sq,H,Dh]; "
 
 
 def _attention_facts(q, k, v, *, causal: bool = True,
-                     chunk_threshold: int = 2048, **_kw) -> Dict[str, Any]:
+                     chunk_threshold: int = 2048,
+                     differentiable: bool = False,
+                     **_kw) -> Dict[str, Any]:
     return dict(sq=q.shape[1], sk=k.shape[1], dh=q.shape[-1], causal=causal,
-                flash_min_seq=chunk_threshold, backend=q.device.type)
+                flash_min_seq=chunk_threshold, backend=q.device.type,
+                differentiable=differentiable or needs_grad(q, k, v))
 
 
 def _attention_heuristic(*, sq: int, sk: int, dh: int, causal: bool = True,
                          backend: Optional[str] = None,
-                         flash_min_seq: Optional[int] = None) -> str:
+                         flash_min_seq: Optional[int] = None,
+                         differentiable: bool = False) -> str:
     del sk, dh, causal              # part of the contract, unused for now
+    if differentiable:
+        return "torch_flash"        # the kernel has no gradient
     if _backend(backend) == "cuda":
         return "cuda_flash"         # raises for a head dim it lacks
     if flash_min_seq is not None and sq > flash_min_seq:
@@ -1130,12 +1174,16 @@ def _bhsd(*ts):
 @register_impl("attention", "cuda_flash", tune=_ATTENTION_TUNE,
                layout=_ATTENTION_LAYOUT,
                oracle="repro_torch.kernels.flash_attention."
-                      "flash_attention_plain")
+                      "flash_attention_plain",
+               supports=lambda differentiable=False, **f: not differentiable)
 def _run_cuda_flash(q, k, v, *, q_offset: int = 0, causal: bool = True,
                     kv_len=None, chunk_size: int = 512,
                     chunk_threshold: int = 2048,
-                    blocks: Optional[Tuple[int, int]] = None):
+                    blocks: Optional[Tuple[int, int]] = None,
+                    differentiable: bool = False):
     """flash_attention_bhsd — kernel #1, blockwise online-softmax GQA."""
+    if differentiable or needs_grad(q, k, v):
+        _refuse_grad("attention", "cuda_flash")
     b, sq, h, dh = q.shape
     bq, bk = blocks or best_at(
         "attention", None, (q.shape, k.shape, q.dtype, causal,
@@ -1153,14 +1201,17 @@ def _run_cuda_flash(q, k, v, *, q_offset: int = 0, causal: bool = True,
                       "flash_attention_plain")
 def _run_torch_flash(q, k, v, *, q_offset: int = 0, causal: bool = True,
                      kv_len=None, chunk_size: int = 512,
-                     chunk_threshold: int = 2048, blocks=None):
-    """flash_attention_plain — kernel #1's plain version, any device."""
-    qb, kb, vb = _bhsd(q, k, v)
-    out = flash_mod.flash_attention_plain(qb, kb, vb, causal=causal,
-                                          q_offset=q_offset, kv_valid=kv_len)
+                     chunk_threshold: int = 2048, blocks=None,
+                     differentiable: bool = False):
+    """the flash core as an autograd Function (the reference's
+    jnp_flash), any device: online softmax forward, tile-recompute
+    backward."""
+    from repro_torch.models.attention import flash_attention_train
+    out = flash_attention_train(q, k, v, q_offset, causal, kv_len=kv_len)
+    qb, kb = _bhsd(q, k)
     flash_mod.declare_flash(qb, kb, kv_len, causal=causal,
                             q_offset=q_offset, launch=False)
-    return out.transpose(1, 2)
+    return out
 
 
 @register_impl("attention", "full", layout=_ATTENTION_LAYOUT,
@@ -1168,7 +1219,8 @@ def _run_torch_flash(q, k, v, *, q_offset: int = 0, causal: bool = True,
                       "flash_attention_plain")
 def _run_full(q, k, v, *, q_offset: int = 0, causal: bool = True,
               kv_len=None, chunk_size: int = 512,
-              chunk_threshold: int = 2048, blocks=None):
+              chunk_threshold: int = 2048, blocks=None,
+              differentiable: bool = False):
     """scores-materialized masked softmax (paper-faithful baseline)."""
     from repro_torch.models.attention import full_attention
     out = full_attention(q, k, v, q_offset=q_offset, causal=causal,
@@ -1729,12 +1781,21 @@ _SSD_LAYOUT = ("q,k [B,S,H,dk]; v [B,S,H,dv]; log_f/log_i [B,S,H] (<=0); "
                "(C [B,H,dk,dv], n [B,H,dk]))")
 
 
-def _ssd_heuristic(*, backend: Optional[str] = None, **_facts) -> str:
+def _ssd_heuristic(*, backend: Optional[str] = None,
+                   differentiable: bool = False, **_facts) -> str:
+    if differentiable:
+        return "torch_scan"         # the kernel has no gradient
     return "cuda_ssd" if _backend(backend) == "cuda" else "torch_scan"
 
 
-register_family("ssd_scan", heuristic=_ssd_heuristic,
-                facts=lambda q, *a, **k: dict(backend=q.device.type),
+def _ssd_facts(q, k, v, log_f, log_i, *, initial_state=None,
+               differentiable: bool = False, **_kw) -> Dict[str, Any]:
+    return dict(backend=q.device.type,
+                differentiable=differentiable or needs_grad(
+                    q, k, v, log_f, log_i, *(initial_state or ())))
+
+
+register_family("ssd_scan", heuristic=_ssd_heuristic, facts=_ssd_facts,
                 layout=_SSD_LAYOUT)
 
 
@@ -1751,11 +1812,15 @@ def _ssd_chunk(q, v, chunk: Optional[int], normalize: bool) -> int:
 
 
 @register_impl("ssd_scan", "cuda_ssd", tune=_SSD_TUNE, layout=_SSD_LAYOUT,
-               oracle="repro_torch.kernels.ssd_scan.ssd_scan_ref")
+               oracle="repro_torch.kernels.ssd_scan.ssd_scan_ref",
+               supports=lambda differentiable=False, **f: not differentiable)
 def _run_cuda_ssd(q, k, v, log_f, log_i, *, chunk: Optional[int] = None,
                   normalize: bool = False, eps: float = 1e-6,
-                  initial_state=None):
+                  initial_state=None, differentiable: bool = False):
     """ssd_scan — kernel #5, chunk-parallel with a carried state."""
+    if differentiable or needs_grad(q, k, v, log_f, log_i,
+                                    *(initial_state or ())):
+        _refuse_grad("ssd_scan", "cuda_ssd")
     return ssd_mod.ssd_scan(q, k, v, log_f, log_i,
                             chunk=_ssd_chunk(q, v, chunk, normalize),
                             normalize=normalize, eps=eps,
@@ -1766,7 +1831,8 @@ def _run_cuda_ssd(q, k, v, log_f, log_i, *, chunk: Optional[int] = None,
                oracle="repro_torch.kernels.ssd_scan.ssd_scan_ref")
 def _run_torch_scan(q, k, v, log_f, log_i, *,
                     chunk: Optional[int] = None, normalize: bool = False,
-                    eps: float = 1e-6, initial_state=None):
+                    eps: float = 1e-6, initial_state=None,
+                    differentiable: bool = False):
     """chunk-parallel plain twin (the CPU's choice)."""
     chunk = _ssd_chunk(q, v, chunk, normalize)
     y, state = _chunked_linear_attention(

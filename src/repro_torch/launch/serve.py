@@ -83,10 +83,17 @@ and the session's stats, serves, then prints where each served call's
 tile came from (``swept``, ``disk``, ``neighbour`` or ``default``); the
 summary's ``tune`` block holds the same.
 
-Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh`` and
-``--ckpt-dir`` flags (absent: argparse refuses them);
-``--ft-timeout-steps`` and ``--ft-confirm`` parse and are refused with
-item 14's citation.
+``--ckpt-dir DIR`` serves trained weights: the latest training
+checkpoint under DIR (``repro_torch.launch.train --ckpt-dir``, or the
+JAX package's trainer) is restored into the model's parameters, as the
+reference restores ``TrainState.params`` under ``AdamWConfig()``; the
+optimizer state is checked against the checkpoint and not loaded.  The
+summary's ``launches`` counts the kernel wrappers' launches (#1 flash,
+#2 and #3 paged decode, #4 argmax) over the run.
+
+Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh`` flag
+(absent: argparse refuses it); ``--ft-timeout-steps`` and
+``--ft-confirm`` parse and are refused with item 14's citation.
 """
 
 from __future__ import annotations
@@ -144,6 +151,9 @@ def main(argv=None) -> int:
                          "prefix cache: the prefix prefills once)")
     ap.add_argument("--instrument", action="store_true",
                     help="probe serve regions through PerfCtr and report")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the latest training "
+                         "checkpoint under this directory")
     args = ap.parse_args(argv)
     ft_kw = cli.ft_kwargs(args, ap)     # refuses the mesh half eagerly
 
@@ -180,8 +190,11 @@ def main(argv=None) -> int:
     # before any weights are built
     spec_kw = cli.spec_kwargs(args, cfg, serve_cfg, ap)
     lm = LM(cfg, dtype, args.device)
-    gen = torch.Generator(device=lm.device).manual_seed(0)
-    lm.init(gen)
+    if args.ckpt_dir:
+        restore_params(args.ckpt_dir, lm)
+        print("[serve] restored params from checkpoint")
+    else:
+        lm.init(torch.Generator(device=lm.device).manual_seed(0))
     draft_lm = None
     if spec_kw:
         sc = spec_kw["spec"]
@@ -195,7 +208,9 @@ def main(argv=None) -> int:
     if impls:
         print(f"[serve] kernel impls pinned: {impls}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, {args.dtype}, "
-          f"random weights (seed 0) on {lm.device}")
+          f"{'checkpoint' if args.ckpt_dir else 'random (seed 0)'} weights "
+          f"on {lm.device}")
+    launches0 = kernel_launches()
     tune = tune_engine(args, cfg, lm, eng) if args.tune else None
     if eng.paged:
         print(f"[serve] paged KV cache: page_size={args.page_size} "
@@ -320,9 +335,40 @@ def main(argv=None) -> int:
                              for name, r in ctr.regions.items()}
                             if ctr is not None else None),
                 "tune": tune,
+                "launches": {k: n - launches0[k]
+                             for k, n in kernel_launches().items()},
             }, fh, indent=2, sort_keys=True)
         print(f"[serve] wrote {args.json}")
     return 0
+
+
+def restore_params(ckpt_dir: str, lm) -> None:
+    """Load the params of the latest training checkpoint under
+    ``ckpt_dir`` into ``lm`` (cast to its dtype), the reference's
+    ``TrainState.params`` under ``AdamWConfig()``: the optimizer leaves
+    are matched by path and shape on the ``meta`` device, not read."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainState
+    params = dict(lm.named_parameters())
+    meta = {k: torch.empty_like(p, device="meta") for k, p in params.items()}
+    restore_checkpoint(ckpt_dir, target=TrainState(
+        params, init_opt_state(meta, AdamWConfig()),
+        torch.zeros((), dtype=torch.int32, device="meta")))
+
+
+def kernel_launches() -> dict:
+    """The serving kernels' launch counters (kernel #1 flash, #2 and #3
+    paged decode, #4 argmax)."""
+    from repro_torch.kernels import flash_attention, paged_decode, sampling
+    return {
+        "flash_attention_bhsd": flash_attention.flash_attention_bhsd.launches,
+        "paged_decode_attention_grouped":
+            paged_decode.paged_decode_attention_grouped.launches,
+        "paged_decode_attention_q8_grouped":
+            paged_decode.paged_decode_attention_q8_grouped.launches,
+        "block_argmax": sampling.block_argmax.launches,
+    }
 
 
 def tune_engine(args, cfg, lm, eng) -> dict:

@@ -28,6 +28,22 @@ tensors and their plain versions on the CPU.  A pin (``use_impl``,
 prefix-cache hit prefills its suffix with plain ops, as the JAX package
 does.  Dense decode has no kernel in the JAX package either; it is plain
 PyTorch.
+
+**Training** (``repro/models/attention.py:137-406``).  :func:`attention`
+under grad (autograd on and an input that needs a gradient) follows the
+reference's train path: ``_full_attention_offset`` up to
+``chunk_threshold`` queries, ``_chunked_attention`` above, each with
+``softmax_mode`` ``naive`` (mask, fp32 softmax, cast) or ``fused``
+(scale folded into q, additive mask, unnormalised probs in the compute
+dtype) as plain code,
+or ``kernel``: the registry with ``differentiable=True``, which picks
+``torch_flash``, the flash core as a ``torch.autograd.Function``
+(:class:`_FlashCore`: an online-softmax forward that saves the
+logsumexp, a backward that recomputes each tile and never saves the
+``[., Sq, Sk]`` stack).  The hand-written kernels carry no gradient (they
+are loaded through ``ctypes``), so the registry never selects one under
+grad and refuses a pin to one.  Without grad, :func:`attention` keeps
+its registry route (the encoder's serving forward).
 """
 
 from __future__ import annotations
@@ -39,7 +55,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import registry
-from repro_torch.models.layers import (apply_mrope, apply_rope,
+from repro_torch.models.layers import (apply_mrope, apply_rope, cast,
                                       truncated_normal_)
 
 __all__ = ["AttnConfig", "Attention", "KVCache", "init_kv_cache",
@@ -47,7 +63,7 @@ __all__ = ["AttnConfig", "Attention", "KVCache", "init_kv_cache",
            "init_paged_kv_cache", "prefill_into_paged_cache",
            "paged_decode_attention_token", "KV_QUANT_EPS",
            "quantize_kv_rows", "dequantize_gathered", "full_attention",
-           "attention"]
+           "attention", "flash_attention_train"]
 
 NEG_INF = -2.0e38
 
@@ -116,13 +132,15 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     ``mrope_sections`` and the caller passes them
     (``repro/models/attention.py:108-113``)."""
     b, s, d = x.shape
-    q = (x @ p.wq.reshape(d, -1)).view(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p.wk.reshape(d, -1)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p.wv.reshape(d, -1)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    dt = x.dtype
+    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ cast(p.wq, dt).reshape(d, -1)).view(b, s, h, dh)
+    k = (x @ cast(p.wk, dt).reshape(d, -1)).view(b, s, kvh, dh)
+    v = (x @ cast(p.wv, dt).reshape(d, -1)).view(b, s, kvh, dh)
     if cfg.qkv_bias:
-        q = q + p.bq
-        k = k + p.bk
-        v = v + p.bv
+        q = q + cast(p.bq, dt)
+        k = k + cast(p.bk, dt)
+        v = v + cast(p.bv, dt)
     if not cfg.use_rope:
         return q, k, v
     if cfg.mrope_sections is not None and positions3 is not None:
@@ -137,7 +155,8 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: AttnConfig,
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
     """[B,S,H,Dh] @ wo [H,Dh,d] -> [B,S,d]."""
     b, s, h, dh = out.shape
-    return out.reshape(b, s, h * dh) @ p.wo.reshape(h * dh, -1)
+    return out.reshape(b, s, h * dh) @ cast(p.wo, out.dtype).reshape(h * dh,
+                                                                     -1)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -181,11 +200,23 @@ def init_kv_cache(batch: int, max_seq: int, cfg: AttnConfig,
 
 def _full_attention_offset(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, q_offset: int, causal: bool,
-                           kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+                           kv_len: Optional[torch.Tensor],
+                           softmax_mode: str = "naive") -> torch.Tensor:
     """Masked softmax over materialized scores for queries at key
-    positions ``q_offset + i`` (``repro/models/attention.py``'s naive
-    ``_full_attention_offset``): probabilities in fp32, cast to q's dtype
-    before the PV product."""
+    positions ``q_offset + i`` (``repro/models/attention.py``'s
+    ``_full_attention_offset``): ``naive`` takes probabilities in fp32,
+    cast to q's dtype before the PV product; ``fused`` and ``kernel`` go
+    to :func:`_fused_attention_offset` and the registry's
+    differentiable impl."""
+    if softmax_mode == "fused":
+        return _fused_attention_offset(q, k, v, q_offset, causal, kv_len)
+    if softmax_mode == "kernel":
+        impl = registry.select("attention", sq=q.shape[1], sk=k.shape[1],
+                               dh=q.shape[-1], causal=causal,
+                               backend=q.device.type, differentiable=True)
+        return registry.run("attention", q, k, v, impl=impl,
+                            q_offset=q_offset, causal=causal, kv_len=kv_len,
+                            differentiable=True)
     sq, sk = q.shape[1], k.shape[1]
     scores = _gqa_scores(q, k).float()                     # [B,KVH,G,Sq,Sk]
     kpos = torch.arange(sk, device=q.device)
@@ -216,6 +247,158 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       for i in range(0, sq, chunk_size)], dim=1)
 
 
+def _kv_len_ok(kv_len: torch.Tensor, sk: int) -> torch.Tensor:
+    """Per-row key validity [B,1,1,1,Sk]: key j is real iff j < len_b."""
+    kpos = torch.arange(sk, device=kv_len.device)
+    return (kpos[None, :] < kv_len[:, None])[:, None, None, None, :]
+
+
+def _fused_attention_offset(qc: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, q_offset: int,
+                            causal: bool = True,
+                            kv_len: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The reference's traffic-lean ``fused`` softmax: 1/sqrt(dh) folded
+    into q, the masks added to the scores, the max detached, the
+    unnormalised probabilities stored in q's dtype, fp32 sums, and
+    1/denominator applied to the PV output."""
+    b, sq, h, dh = qc.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qs = qc * torch.tensor(1.0 / math.sqrt(dh), dtype=qc.dtype)
+    qg = qs.reshape(b, sq, kvh, g, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    masked = scores
+    if causal:
+        qpos = torch.arange(sq, device=qc.device) + q_offset
+        ok = torch.arange(sk, device=qc.device)[None, :] <= qpos[:, None]
+        masked = masked + torch.where(ok, 0.0, NEG_INF)
+    if kv_len is not None:
+        masked = masked + torch.where(_kv_len_ok(kv_len, sk), 0.0, NEG_INF)
+    m = masked.amax(dim=-1, keepdim=True).detach()
+    pr = torch.exp(masked - m).to(qc.dtype)
+    denom = pr.float().sum(dim=-1)                         # [b,kvh,g,sq]
+    out = torch.einsum("bkgqs,bskd->bqkgd", pr.float(), v.float())
+    out = out / torch.clamp(denom.permute(0, 3, 1, 2), min=1e-37)[..., None]
+    return out.to(qc.dtype).reshape(b, sq, h, v.shape[-1])
+
+
+def _tile_bias(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+               kv_len: torch.Tensor) -> torch.Tensor:
+    """Additive tile bias [B,1,1,sq|1,bk]: per-row key validity folded
+    together with the causal offset mask."""
+    ok = (kpos[None, :] < kv_len[:, None])[:, None, None, None, :]
+    if causal:
+        ok = ok & (kpos[None, :] <= qpos[:, None])[None, None, None]
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+class _FlashCore(torch.autograd.Function):
+    """The reference's ``_flash_core`` custom VJP
+    (``repro/models/attention.py:261-352``).  Layouts: ``qs`` [b,sq,kvh,
+    g,dh] (already scaled by 1/sqrt(dh)); ``k``/``v`` [b,sk,kvh,dh] with
+    sk a multiple of ``k_chunk``; the output [b,kvh,g,sq,dh].  Products
+    accumulate in fp32; the probabilities meet V in q's dtype."""
+
+    @staticmethod
+    def _tiles(qs, k, v, qpos, kv_len, causal, k_chunk):
+        for i in range(k.shape[1] // k_chunk):
+            lo = i * k_chunk
+            kc, vc = k[:, lo:lo + k_chunk], v[:, lo:lo + k_chunk]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qs.float(), kc.float())
+            kpos = torch.arange(lo, lo + k_chunk, device=qs.device)
+            yield kc, vc, s + _tile_bias(qpos, kpos, causal, kv_len)
+
+    @staticmethod
+    def forward(ctx, qs, k, v, qpos, kv_len, causal: bool, k_chunk: int):
+        b, sq, kvh, g, dh = qs.shape
+        f32 = dict(dtype=torch.float32, device=qs.device)
+        acc = torch.zeros((b, kvh, g, sq, v.shape[-1]), **f32)
+        m = torch.full((b, kvh, g, sq), NEG_INF, **f32)
+        ll = torch.zeros((b, kvh, g, sq), **f32)
+        for _, vc, s in _FlashCore._tiles(qs, k, v, qpos, kv_len, causal,
+                                          k_chunk):
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            # fully masked rows: zero, so they output 0 exactly
+            p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
+            ll = ll * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(qs.dtype).float(),
+                              vc.float())
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        l_safe = torch.clamp(ll, min=1e-37)
+        out = (acc / l_safe[..., None]).to(qs.dtype)
+        lse = m + torch.log(l_safe)                  # logsumexp residual
+        ctx.save_for_backward(qs, k, v, qpos, kv_len, out, lse)
+        ctx.causal, ctx.k_chunk = causal, k_chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qs, k, v, qpos, kv_len, out, lse = ctx.saved_tensors
+        dout32 = dout.float()
+        d_row = (dout32 * out.float()).sum(dim=-1)   # [b,kvh,g,sq]
+        q32 = qs.float()
+        dq = torch.zeros_like(q32)
+        dks, dvs = [], []
+        for kc, vc, s in _FlashCore._tiles(qs, k, v, qpos, kv_len,
+                                           ctx.causal, ctx.k_chunk):
+            p = torch.exp(s - lse[..., None])        # normalised
+            p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
+            dp = torch.einsum("bkgqd,bskd->bkgqs", dout32, vc.float())
+            dvs.append(torch.einsum("bkgqs,bkgqd->bskd", p, dout32))
+            ds = p * (dp - d_row[..., None])
+            dq = dq + torch.einsum("bkgqs,bskd->bqkgd", ds, kc.float())
+            dks.append(torch.einsum("bkgqs,bqkgd->bskd", ds, q32))
+        return (dq.to(qs.dtype), torch.cat(dks, dim=1).to(k.dtype),
+                torch.cat(dvs, dim=1).to(v.dtype), None, None, None, None)
+
+
+def flash_attention_train(qc: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, q_offset: int = 0,
+                          causal: bool = True, k_chunk: int = 1024,
+                          kv_len: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The reference's ``_flash_attention_offset``: flash attention for
+    queries at ``q_offset + i`` through :class:`_FlashCore`, keys padded
+    to a ``k_chunk`` multiple (the padding masked by ``kv_len``, which
+    defaults to every key).  q [B,Sq,H,Dh], k/v [B,Sk,KVH,Dh] ->
+    [B,Sq,H,Dh]."""
+    b, sq, h, dh = qc.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    k_chunk = min(k_chunk, max(sk, 128))
+    pad = (-sk) % k_chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qs = (qc * torch.tensor(1.0 / math.sqrt(dh), dtype=qc.dtype)
+          ).reshape(b, sq, kvh, h // kvh, dh)
+    qpos = torch.arange(sq, device=qc.device) + q_offset
+    kv_len = (torch.full((b,), sk, dtype=torch.int32, device=qc.device)
+              if kv_len is None
+              else torch.broadcast_to(kv_len.to(torch.int32), (b,)))
+    out = _FlashCore.apply(qs, k, v, qpos, kv_len, causal, k_chunk)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
+
+
+def _chunked_attention(q, k, v, chunk: int, causal: bool = True,
+                       softmax_mode: str = "naive", kv_len=None
+                       ) -> torch.Tensor:
+    """Q-chunked attention: each chunk of ``chunk`` queries against the
+    full keys, so [B,KVH,G,chunk,Sk] is live at once (the reference's
+    scan, as a loop)."""
+    b, sq, h, dh = q.shape
+    pad = (-sq) % chunk
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    outs = [_full_attention_offset(q[:, i:i + chunk], k, v, i, causal,
+                                   kv_len, softmax_mode)
+            for i in range(0, q.shape[1], chunk)]
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
 def _prefill_qkv_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                         lengths: Optional[torch.Tensor] = None,
                         positions3: Optional[torch.Tensor] = None):
@@ -231,20 +414,34 @@ def _prefill_qkv_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     return out, k, v
 
 
-def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig
-              ) -> torch.Tensor:
+def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
+              positions3: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention over x [B,S,d] -> [B,S,d] with no cache, RoPE'd at
-    ``arange(S)`` (causal as ``cfg.causal`` says): the encoder's forward
-    (``repro/models/attention.py:389-405``).  The JAX package runs it as
-    plain array code; here it goes through the registry's ``attention``
-    family, so kernel #1 on the card (``causal=False`` for the encoder)
-    and the reference's plain choice on the CPU."""
+    ``arange(S)`` (M-RoPE at ``positions3`` [3,B,S] for the vlm family;
+    causal as ``cfg.causal`` says): the training block's and the
+    encoder's forward (``repro/models/attention.py:389-406``).
+
+    Under grad it is the reference's train path (see the module note:
+    ``_full_attention_offset`` or ``_chunked_attention`` with
+    ``cfg.softmax_mode``).  Without grad it goes through the registry's
+    ``attention`` family, as a serving prefill does: kernel #1 on the
+    card (``causal=False`` for the encoder), the reference's plain choice
+    on the CPU."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = registry.run("attention", q, k, v, q_offset=0, causal=cfg.causal,
-                       kv_len=None, chunk_size=cfg.chunk_size,
-                       chunk_threshold=cfg.chunk_threshold)
+    q, k, v = _project_qkv(p, x, cfg, positions, positions3)
+    if registry.needs_grad(q, k, v):
+        if s > cfg.chunk_threshold:
+            out = _chunked_attention(q, k, v, cfg.chunk_size, cfg.causal,
+                                     cfg.softmax_mode)
+        else:
+            out = _full_attention_offset(q, k, v, 0, cfg.causal, None,
+                                         cfg.softmax_mode)
+    else:
+        out = registry.run("attention", q, k, v, q_offset=0,
+                           causal=cfg.causal, kv_len=None,
+                           chunk_size=cfg.chunk_size,
+                           chunk_threshold=cfg.chunk_threshold)
     return _out_proj(p, out)
 
 

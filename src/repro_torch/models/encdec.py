@@ -28,7 +28,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import AttnConfig, KVCache
-from repro_torch.models.layers import gelu_mlp, layer_norm, truncated_normal_
+from repro_torch.models.layers import (cast, gelu_mlp, layer_norm,
+                                      truncated_normal_)
 from repro_torch.models.transformer import LayerNorm
 
 __all__ = ["CrossAttnBlockConfig", "GeluMLP", "EncoderBlock", "DecoderBlock",
@@ -133,8 +134,9 @@ def cross_memory(p_cross: attn_mod.Attention, enc_out: torch.Tensor,
     computed once a sequence (cached for decode)."""
     b, s, d = enc_out.shape
     shape = (b, s, cfg.num_kv_heads, cfg.head_dim)
-    return ((enc_out @ p_cross.wk.reshape(d, -1)).view(shape),
-            (enc_out @ p_cross.wv.reshape(d, -1)).view(shape))
+    dt = enc_out.dtype
+    return ((enc_out @ cast(p_cross.wk, dt).reshape(d, -1)).view(shape),
+            (enc_out @ cast(p_cross.wv, dt).reshape(d, -1)).view(shape))
 
 
 def _cross_attend(p_cross: attn_mod.Attention, x: torch.Tensor,
@@ -143,8 +145,8 @@ def _cross_attend(p_cross: attn_mod.Attention, x: torch.Tensor,
     """Queries of x [B,S,d] over every memory position: no RoPE, no mask,
     no bias."""
     b, s, d = x.shape
-    q = (x @ p_cross.wq.reshape(d, -1)).view(b, s, cfg.num_heads,
-                                             cfg.head_dim)
+    q = (x @ cast(p_cross.wq, x.dtype).reshape(d, -1)).view(
+        b, s, cfg.num_heads, cfg.head_dim)
     out = attn_mod._full_attention_offset(
         q, mem_k.to(x.dtype), mem_v.to(x.dtype), 0, False, None)
     return attn_mod._out_proj(p_cross, out)

@@ -4,6 +4,11 @@ RoPE and M-RoPE, init.
 Ported from ``repro/models/layers.py:186-303`` (RMSNorm and LayerNorm,
 both computed in fp32).  The sharding rules of the
 JAX module wait for the mesh slice.
+
+Weights are cast to the activations' dtype at every use (:func:`cast`),
+as the reference casts its fp32 masters: a serving model stores them in
+the compute dtype already (the cast is then the tensor itself, no
+launch), a training model keeps fp32 masters and computes in bf16.
 """
 
 from __future__ import annotations
@@ -14,8 +19,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["truncated_normal_", "rms_norm", "layer_norm", "swiglu",
+__all__ = ["cast", "truncated_normal_", "rms_norm", "layer_norm", "swiglu",
            "gelu_mlp", "rope_freqs", "apply_rope", "apply_mrope"]
+
+
+def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` in ``dtype``: the tensor itself when it is already (no copy,
+    no launch), else a cast that autograd sees (its gradient returns in
+    ``w``'s dtype, so a master's gradients sum in fp32)."""
+    return w if w.dtype == dtype else w.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -68,8 +80,11 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: down( silu(x@gate) * (x@up) ).  Weights in compute dtype."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """SwiGLU MLP: down( silu(x@gate) * (x@up) ), weights cast to x's
+    dtype."""
+    dt = x.dtype
+    return (F.silu(x @ cast(w_gate, dt)) * (x @ cast(w_up, dt))) \
+        @ cast(w_down, dt)
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
@@ -78,12 +93,13 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
     """GELU MLP with optional biases: down(gelu(x@up + b_up)) + b_down.
     ``jax.nn.gelu`` defaults to the tanh approximation, so this uses it
     too (the exact erf form differs by ~1e-3)."""
-    h = x @ w_up
+    dt = x.dtype
+    h = x @ cast(w_up, dt)
     if b_up is not None:
-        h = h + b_up
-    y = F.gelu(h, approximate="tanh") @ w_down
+        h = h + cast(b_up, dt)
+    y = F.gelu(h, approximate="tanh") @ cast(w_down, dt)
     if b_down is not None:
-        y = y + b_down
+        y = y + cast(b_down, dt)
     return y
 
 

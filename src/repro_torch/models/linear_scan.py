@@ -18,7 +18,9 @@ The JAX package routes ``chunked_linear_attention`` through its kernel
 registry, and so does the port: the ``ssd_scan`` family of
 :mod:`repro_torch.kernels.registry` (``torch_scan`` is the chunked form
 here, ``cuda_ssd`` the CUDA kernel).
-All math is fp32; ``y`` comes back in ``v``'s dtype.
+All math is fp32; ``y`` comes back in ``v``'s dtype.  Every function
+here is plain autograd-clean code (no in-place write, no host read), so
+``torch_scan`` is the ``ssd_scan`` family's gradient path.
 """
 
 from __future__ import annotations
@@ -108,8 +110,10 @@ def _chunked_linear_attention(q, k, v, log_f, log_i, *,
         y_inter = torch.einsum("bchk,bhkv->bchv", qdec, C)
         n_inter = torch.einsum("bchk,bhk->bch", qdec, n)
         # intra-chunk: A[t,j] = exp(B_t - B_j + li_j) for j <= t
+        # (masked before the exp: above the diagonal gap > 0 may overflow,
+        # and an inf there would make the gradient NaN)
         gap = Bc[:, :, None, :] - Bc[:, None, :, :] + lij[:, None, :, :]
-        A = torch.where(tri[None, :, :, None], torch.exp(gap), 0.0)
+        A = torch.exp(torch.where(tri[None, :, :, None], gap, -torch.inf))
         scores = torch.einsum("bchk,bghk->bcgh", qt, kt) * A
         y_intra = torch.einsum("bcgh,bghv->bchv", scores, vt)
         n_intra_dot = scores.sum(dim=2)               # [B,c,H]

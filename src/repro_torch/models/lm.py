@@ -16,9 +16,21 @@ state only) and ``family="encdec"`` (the frontend stub's
 ``batch["src_embeds"]`` [B, S_src, d] through the encoder blocks and a
 LayerNorm, then decoder blocks with cross-attention over per-layer memory
 K/V computed once at prefill, :mod:`repro_torch.models.encdec`; dense KV
-only).  Weights are stored once in the compute dtype; the JAX
-package keeps fp32 masters and casts at every use, which gives the same
-numbers.  The Mamba2 decay leaves ``A_log``, ``dt_bias`` and ``D``
+only).
+
+**Weights and dtypes.**  The JAX package keeps fp32 masters and casts
+them to the compute dtype at every use.  ``LM(cfg, dtype)`` stores each
+weight once, in ``param_dtype`` (the compute dtype ``dtype`` unless
+given), and casts at every use through :func:`repro_torch.models.layers.
+cast`, which is the tensor itself when the dtypes match: a serving model
+(``param_dtype == dtype``) gains no launch, and a training model
+(``param_dtype=torch.float32``, bf16 compute) computes as the reference
+does, its gradients returning to the fp32 masters.  qwen2's TIED
+embedding is cast separately at the gather and at the head, so its two
+gradients sum in fp32 as the reference's do.  Parameters are built
+frozen (``requires_grad=False``); ``lm.requires_grad_(True)`` (which
+:func:`repro_torch.train.step.init_train_state` calls) makes every one
+trainable.  The Mamba2 decay leaves ``A_log``, ``dt_bias`` and ``D``
 (:data:`repro_torch.models.ssm.FP32_LEAVES`), the xLSTM gate leaves
 (:data:`repro_torch.models.xlstm.FP32_LEAVES`) and the MoE router and
 shared gate (:data:`repro_torch.models.moe.FP32_LEAVES`) stay fp32, as
@@ -27,6 +39,20 @@ the JAX package computes with them in fp32.
 ``LM`` runs on ``cuda`` unless it is built with ``device="cpu"``; with no
 GPU and no explicit request it raises (:func:`repro_torch.device.
 resolve_device`).
+
+**Training** (``repro/models/lm.py:275-368``).  :meth:`LM.forward` and
+:meth:`LM.loss` run the backbone of every family without caches:
+``dense``/``moe``/``vlm`` through :func:`~repro_torch.models.transformer.
+apply_stack` (M-RoPE positions for vlm, the MoE aux loss summed), the
+``hybrid`` through each group's Mamba2 blocks and the shared block,
+``xlstm`` through its mLSTM/sLSTM pairs, ``encdec`` through the encoder,
+its final LayerNorm and the decoder with each layer's cross memory.
+The per-layer loops run under ``features.remat_policy``
+(:func:`~repro_torch.models.transformer.remat`); ``scan_layers`` and
+``scan_unroll`` are XLA's and only reported.  The loss is the
+reference's: logsumexp minus the gold logit in fp32, labels ``< 0``
+masked, the mean over ``max(sum(w), 1)`` real labels, plus the aux
+loss.
 
 **Declared traffic.**  The JAX package reads a step's bytes and FLOPs
 from its compiled artifact.  Here the kernels declare their own launches
@@ -54,6 +80,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import events
+from repro_torch.core.features import FeatureSet, default_features
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import encdec as encdec_mod
@@ -62,7 +89,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import AttnConfig, KVCache
-from repro_torch.models.layers import truncated_normal_
+from repro_torch.models.layers import cast, layer_norm, truncated_normal_
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import Mamba2Config
 from repro_torch.models.transformer import BlockConfig
@@ -207,16 +234,21 @@ class LM(nn.Module):
     :mod:`repro_torch.bridge` maps onto."""
 
     def __init__(self, cfg: LMConfig, dtype: torch.dtype = torch.bfloat16,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 features: Optional[FeatureSet] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; families: "
                              f"{PORTED_FAMILIES}")
         self.cfg = cfg
         self.dtype = dtype
+        self.param_dtype = param_dtype or dtype
+        self.features = features or default_features()
         self.device = resolve_device(device)
         dev = self.device
         bc = cfg.block_config()
+        dtype = self.param_dtype
         self.embed = Embed(cfg.vocab, cfg.d_model, dtype, dev)
         self.final_norm = tf_mod.make_norm(cfg.norm, cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
@@ -277,7 +309,7 @@ class LM(nn.Module):
                patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token embeddings; for the vlm family ``patch_embeds`` [B, n, d]
         replace the first n (``repro/models/lm.py:242-250``)."""
-        x = self.embed.table[tokens.long()]
+        x = cast(self.embed.table[tokens.long()], self.dtype)
         if self.cfg.family == "vlm" and patch_embeds is not None:
             n = patch_embeds.shape[1]
             if tokens.shape[1] < n:
@@ -308,7 +340,80 @@ class LM(nn.Module):
         x = tf_mod.apply_norm(x, self.final_norm, self.cfg.norm_eps)
         w = (self.embed.table.T if self.cfg.tie_embeddings
              else self.lm_head.w)
-        return x @ w
+        return x @ cast(w, x.dtype)
+
+    # ============================================================== train
+    def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Token embeddings -> final hidden states, no caches.  Returns
+        (h, aux loss)."""
+        cfg, feats = self.cfg, self.features
+        fam = cfg.family
+        if fam in KV_FAMILIES:
+            pos3 = (self._vlm_positions3(batch["tokens"]) if fam == "vlm"
+                    else None)
+            return tf_mod.apply_stack(self.blocks, x, cfg.block_config(),
+                                      feats, positions3=pos3)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if fam == "xlstm":
+            xc = cfg.xlstm_config()
+
+            def pair(ms, h):
+                h = xlstm_mod.apply_mlstm_block(ms[0], h, xc)
+                return xlstm_mod.apply_slstm_block(ms[1], h, xc), zero
+
+            return tf_mod.apply_layers(list(zip(self.mlstm, self.slstm)), x,
+                                       pair, feats)
+        if fam == "hybrid":
+            mc, bc = cfg.mamba_config(), cfg.block_config()
+            aux = zero
+            for lo, hi in _hybrid_groups(cfg.n_layers, cfg.attn_every):
+                x, a = tf_mod.apply_layers(
+                    self.mamba[lo:hi], x,
+                    lambda p, h: (ssm_mod.apply_mamba2_block(p, h, mc), zero),
+                    feats)
+                x, a2 = tf_mod.apply_block(self.shared_attn, x, bc)
+                aux = aux + a + a2
+            return x, aux
+        ec = cfg.encdec_config()                    # encdec
+        enc_cfg = ec._replace(attn=ec.attn._replace(causal=False))
+        mem, _ = tf_mod.apply_layers(
+            self.encoder, batch["src_embeds"].to(self.dtype),
+            lambda p, h: (encdec_mod.apply_encoder_block(p, h, enc_cfg),
+                          zero), feats)
+        ln = self.enc_final_norm
+        mem = layer_norm(mem, ln.scale, ln.bias, cfg.norm_eps)
+
+        def dec_one(p, h):
+            mk, mv = encdec_mod.cross_memory(p.cross, mem, ec.attn)
+            return encdec_mod.apply_decoder_block(p, h, mk, mv, ec), zero
+
+        x, _ = tf_mod.apply_layers(self.decoder, x, dec_one, feats)
+        return x, zero
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Logits [B,S,V] over every position of ``batch["tokens"]`` (the
+        vlm family's ``patch_embeds`` and the encdec family's
+        ``src_embeds`` as in :meth:`prefill`)."""
+        x = self._embed(batch["tokens"], batch.get("patch_embeds"))
+        h, _ = self._backbone(x, batch)
+        return self._head(h)
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total, {"ce", "aux", "ntok"}): the mean next-token cross
+        entropy over labels ``>= 0`` (fp32) plus the aux loss."""
+        x = self._embed(batch["tokens"], batch.get("patch_embeds"))
+        h, aux = self._backbone(x, batch)
+        logits = self._head(h).float()
+        labels = batch["labels"]
+        weights = (labels >= 0).float()
+        gold = logits.gather(
+            -1, labels.clamp(min=0).long()[..., None])[..., 0]
+        nll = (torch.logsumexp(logits, dim=-1) - gold) * weights
+        ntok = torch.clamp(weights.sum(), min=1.0)
+        ce = nll.sum() / ntok
+        return ce + aux, {"ce": ce, "aux": aux, "ntok": ntok}
 
     # ============================================================== serve
     def init_decode_state(self, batch_size: int, max_seq: int,

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import truncated_normal_
+from repro_torch.models.layers import cast, truncated_normal_
 
 __all__ = ["MoEConfig", "MoE", "Routing", "route", "moe_mlp",
            "count_active_params", "FP32_LEAVES"]
@@ -168,13 +168,15 @@ def moe_mlp(m: MoE, x: torch.Tensor, cfg: MoEConfig
     buf = torch.zeros(e * cap, d, dtype=x.dtype, device=x.device)
     buf.index_add_(0, slot, src)
     buf = buf.view(e, cap, d)
-    g = torch.bmm(buf, m.w_gate)
-    u = torch.bmm(buf, m.w_up)
-    out_buf = torch.bmm(F.silu(g) * u, m.w_down).view(e * cap, d)
+    dt = x.dtype
+    g = torch.bmm(buf, cast(m.w_gate, dt))
+    u = torch.bmm(buf, cast(m.w_up, dt))
+    out_buf = torch.bmm(F.silu(g) * u, cast(m.w_down, dt)).view(e * cap, d)
     # gather back and combine with the gate weights
     out = (out_buf.index_select(0, slot) * w[:, None]).view(t, k, d).sum(1)
     if cfg.num_shared_experts:
-        sh = (F.silu(xt @ m.shared_gate) * (xt @ m.shared_up)) @ m.shared_down
+        sh = (F.silu(xt @ cast(m.shared_gate, dt))
+              * (xt @ cast(m.shared_up, dt))) @ cast(m.shared_down, dt)
         coef = torch.sigmoid(xt.float() @ m.shared_coef)
         out = out + sh * coef.to(x.dtype)
     return out.view(b, s, d), r.aux

@@ -1,12 +1,24 @@
-"""Pre-norm transformer blocks and the decode-time stack, dense family.
+"""Pre-norm transformer blocks: the training stack, prefill and decode.
 
-Port of ``repro/models/transformer.py`` for serving: one :class:`Block`
-module per layer (the JAX package stacks them on a leading layers axis and
-scans; here a Python loop walks an ``nn.ModuleList``), RMSNorm or
-LayerNorm (stablelm-3b) as ``BlockConfig.norm`` says, a SwiGLU or an MoE
-MLP (:mod:`repro_torch.models.moe`) as ``BlockConfig.mlp`` says, the
-prefill block, the dense decode block, and the paged decode stack.  The
-training-time ``apply_stack`` waits for a later slice.
+Port of ``repro/models/transformer.py``: one :class:`Block` module per
+layer (the JAX package stacks them on a leading layers axis and scans;
+here a Python loop walks an ``nn.ModuleList``), RMSNorm or LayerNorm
+(stablelm-3b) as ``BlockConfig.norm`` says, a SwiGLU or an MoE MLP
+(:mod:`repro_torch.models.moe`) as ``BlockConfig.mlp`` says, the training
+block and stack (:func:`apply_block` returns the MoE's aux loss,
+:func:`apply_stack` sums it over the layers under the
+``FeatureSet.remat_policy``), the prefill block, the dense decode block,
+and the paged decode stack.
+
+**Remat** (:func:`remat`, the reference's ``remat_policy_fn``,
+``:183-190``): ``none`` runs a layer as is; ``full`` checkpoints it and
+saves nothing (``jax.checkpoint_policies.nothing_saveable``); ``dots``
+saves the outputs of ``aten.mm``/``addmm``/``bmm``/``baddbmm``
+(``checkpoint_dots``) and ``dots_no_batch`` only those of
+``mm``/``addmm`` (``checkpoint_dots_with_no_batch_dims``: the weight
+products, not the attention's batched ones), everything else
+recomputed; both through ``torch.utils.checkpoint`` with
+``use_reentrant=False`` and ``create_selective_checkpoint_contexts``.
 
 KV caches carry a leading layers axis; each layer reads and writes its own
 slice IN PLACE (the JAX package threads the stacked cache through a scan
@@ -15,12 +27,15 @@ carry and relies on while-loop aliasing for the same effect).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
+from repro_torch.core.features import FeatureSet
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (AttnConfig, KVCache, PagedKVCache)
@@ -28,7 +43,8 @@ from repro_torch.models.layers import (layer_norm, rms_norm, swiglu,
                                       truncated_normal_)
 
 __all__ = ["BlockConfig", "Block", "RMSNorm", "LayerNorm", "make_norm",
-           "apply_norm", "apply_block_prefill", "apply_block_decode",
+           "apply_norm", "apply_block", "apply_stack", "apply_layers",
+           "remat", "apply_block_prefill", "apply_block_decode",
            "apply_stack_decode"]
 
 
@@ -130,6 +146,75 @@ def _block_mlp(p: Block, h: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
         return moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe)[0]
     mp = p.mlp
     return swiglu(_norm(h, p.ln2, cfg), mp.w_gate, mp.w_up, mp.w_down)
+
+
+def apply_block(p: Block, x: torch.Tensor, cfg: BlockConfig, *,
+                positions3: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm block, the training path (no cache): returns (y, aux
+    loss), the aux an fp32 scalar (zero unless the MLP is an MoE)."""
+    h = x + attn_mod.attention(p.attn, _norm(x, p.ln1, cfg), cfg.attn,
+                               positions3=positions3)
+    if cfg.mlp == "moe":
+        m, aux = moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe)
+    else:
+        mp = p.mlp
+        m = swiglu(_norm(h, p.ln2, cfg), mp.w_gate, mp.w_up, mp.w_down)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return h + m, aux
+
+
+#: the ops whose outputs a selective remat policy saves
+_DOTS = {"dots": ("mm", "addmm", "bmm", "baddbmm"),
+         "dots_no_batch": ("mm", "addmm")}
+
+
+def _save_policy(names: Tuple[str, ...]):
+    ops = tuple(getattr(torch.ops.aten, n).default for n in names)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def remat(fn: Callable, features: FeatureSet) -> Callable:
+    """``fn`` under ``features.remat_policy`` (see the module note)."""
+    policy = features.remat_policy
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy in _DOTS:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            _save_policy(_DOTS[policy]))
+    elif policy != "full":
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def apply_layers(layers, x: torch.Tensor, fn: Callable,
+                 features: FeatureSet) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``fn(layer, h) -> (h', aux)`` over ``layers`` in order, each
+    under :func:`remat`; returns (h, summed aux) (the reference's
+    ``_scan_stack_generic``)."""
+    one = remat(fn, features)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in layers:
+        x, a = one(layer, x)
+        aux = aux + a
+    return x, aux
+
+
+def apply_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: BlockConfig,
+                features: FeatureSet, *,
+                positions3: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every block's training path in turn; returns (y, summed aux)."""
+    return apply_layers(
+        blocks, x, lambda p, h: apply_block(p, h, cfg,
+                                            positions3=positions3),
+        features)
 
 
 def apply_block_prefill(p: Block, x: torch.Tensor, cfg: BlockConfig,

@@ -206,13 +206,14 @@ def mlstm_decode(p: MLSTMBlock, x: torch.Tensor, cfg: XLSTMConfig,
 # ---------------------------------------------------------------------------
 
 def _slstm_step(gx_h: torch.Tensor, carry: SState, p: SLSTMBlock,
-                cfg: XLSTMConfig, g: torch.Tensor,
+                cfg: XLSTMConfig, g: Optional[torch.Tensor],
                 out: Optional[torch.Tensor] = None,
                 eps: float = 1e-6) -> SState:
     """One recurrence step (the reference's ``_slstm_cell``).  ``gx_h``:
     the input-side gate preacts [H,B,4*dh] (head-major, so the per-head
     recurrence adds into them in one batched product); ``g`` a [B,H,4*dh]
-    fp32 buffer the step's preacts land in; ``out`` receives h.  The gate
+    fp32 buffer the step's preacts land in; ``out`` receives h (both
+    None under autograd, which records no ``out=`` write).  The gate
     order of the flat [B,4D] preacts is (i, z, f, o)."""
     c, n, hprev = carry                          # each [B, D] f32
     b, d = c.shape
@@ -221,8 +222,12 @@ def _slstm_step(gx_h: torch.Tensor, carry: SState, p: SLSTMBlock,
     # (gx + h R) + b, with the [B,H,4dh] -> [B,4D] reshape of the reference
     acc = torch.baddbmm(gx_h, hprev.reshape(b, nh, dh).transpose(0, 1),
                         p.r_gates)
-    g = torch.add(acc.transpose(0, 1), p.b_gates.view(nh, 4 * dh),
-                  out=g).view(b, 4 * d)
+    if g is None:                                # autograd: no out= buffers
+        g = (acc.transpose(0, 1) + p.b_gates.view(nh, 4 * dh)).reshape(
+            b, 4 * d)
+    else:
+        g = torch.add(acc.transpose(0, 1), p.b_gates.view(nh, 4 * dh),
+                      out=g).view(b, 4 * d)
     sg = torch.sigmoid(g)
     i, f, o = sg[:, :d], sg[:, 2 * d:3 * d], sg[:, 3 * d:]
     z = torch.tanh(g[:, d:2 * d])
@@ -262,11 +267,18 @@ def apply_slstm_block(p: SLSTMBlock, x: torch.Tensor, cfg: XLSTMConfig,
              if initial_state is not None else
              tuple(torch.zeros((b, d), dtype=torch.float32, device=x.device)
                    for _ in range(3)))
-    hs = torch.empty((s, b, d), dtype=torch.float32, device=x.device)
-    g = torch.empty((b, nh, 4 * d // nh), dtype=torch.float32,
-                    device=x.device)
-    for t in range(s):
-        carry = _slstm_step(gx_h[t], carry, p, cfg, g, out=hs[t])
+    if registry.needs_grad(gx_h, p.r_gates, p.b_gates, *carry):
+        steps = []
+        for t in range(s):
+            carry = _slstm_step(gx_h[t], carry, p, cfg, None)
+            steps.append(carry[2])
+        hs = torch.stack(steps)
+    else:
+        hs = torch.empty((s, b, d), dtype=torch.float32, device=x.device)
+        g = torch.empty((b, nh, 4 * d // nh), dtype=torch.float32,
+                        device=x.device)
+        for t in range(s):
+            carry = _slstm_step(gx_h[t], carry, p, cfg, g, out=hs[t])
     y = x + hs.transpose(0, 1).to(x.dtype)
     out = _slstm_ffn(p, y, cfg)
     return (out, carry) if return_state else out
