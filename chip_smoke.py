@@ -293,11 +293,45 @@ failure):
                scheduler's on (a)'s in-memory weights, and it launches #1
                once a layer of each admission, #2 once a layer of each
                decode step and #4 once a decode step.
+24. mesh      - sharded serving (``Engine(mesh=ServeMesh)``) and its
+               fault tolerance: (a) qwen2-0.5b at full width and depth,
+               bf16, behind ``BatchScheduler`` (8 slots, model-dtype pages
+               of 16, the prefix cache off, 16 requests with ragged
+               prompts and budgets) through a (1, 1) ``ServeMesh`` over
+               NCCL (a world of one), ``ft_confirm=2``, a chaos schedule
+               with one ``heartbeat_flap`` and one ``device_death``; the
+               sharded engine takes the full model as a host copy on the
+               CPU and allocates the card's blocks only (its card bytes
+               are its shard's, checked): tokens equal the unsharded
+               scheduler's; #1 launches L x
+               admissions, #2 L x decode steps and #4 once a decode step
+               in both runs, #3 never; the flap is applied and absorbed
+               (0 re-meshes), the death skipped as "would kill the last
+               device"; ``mesh_facts`` (1, 1) / model / 2; tokens/s
+               beside the unsharded run's.  (b) three spawned ranks on
+               ``cuda:0`` (gloo; its collectives on CUDA tensors are
+               staged through host copies), qwen2-0.5b at full width and
+               4 of 24 layers, fp32, a (1, 2) mesh plus one spare (1 kv
+               head, 7 query heads a rank), each rank's full model a host
+               copy on the CPU once the unsharded runs are done, so the
+               card holds its blocks only (its allocated bytes checked
+               against the model's half): ``Engine.generate`` and
+               ``BatchScheduler`` tokens equal the unsharded engine's on
+               fp32 and int8 pages, each mesh rank's #1 and #2 (#3 on
+               int8) launching as the run implies at 1 kv head, the spare
+               none; ``inject_failure(device_ids[1], at_segment=1)``: one
+               re-mesh onto the spare ([0, 2]), the tokens after equal,
+               the spare's decode launches taking over the dead rank's,
+               ``remesh_latency_s`` printed.  (c) #2 and #3 at the
+               per-device shape (KVH 1, G 7, Dh 64, 8 rows, bf16) against
+               their plain versions, timed beside their bounds.  No NCCL
+               or NVLink collective across cards is measured: (a) is a
+               world of one and (b)'s collectives go through the host.
 
 Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs,
-18's suite (its launches counted in its process) and tuned generate, and
-the serving runs of 19, 20, 21, 22 and 23's served checkpoint are the
-main paths: each is run with its
+18's suite (its launches counted in its process) and tuned generate, the
+serving runs of 19, 20, 21, 22 and 23's served checkpoint, and 24's
+mesh runs are the main paths: each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
 launched another number of times than the path implies); 23's training
@@ -4216,6 +4250,380 @@ def check_served_checkpoint(dev, served, ckpt, serving, smi):
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 24: sharded serving and its fault tolerance
+# ---------------------------------------------------------------------------
+
+MESH_REQUESTS = 16
+MESH_LAYERS = 4                   # (b): qwen2-0.5b at 4 of its 24 layers
+MESH_RANKS = 3                    # (b): a (1, 2) mesh plus one hot spare
+
+
+def mesh_work(vocab, n, seed, lo, hi, blo, bhi):
+    """``n`` requests with ragged prompts of ``lo``..``hi`` tokens and
+    budgets of ``blo``..``bhi``, from a seed."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist(),
+             int(rng.integers(blo, bhi + 1))) for _ in range(n)]
+
+
+def mesh_sched(eng, work, kill=None, **kw):
+    """A ``BatchScheduler`` over ``work`` with the counters set to 0 just
+    before it runs and read just after: (scheduler, tokens, wall s,
+    launches)."""
+    from repro_torch.serve.engine import BatchScheduler, Request
+    sched = BatchScheduler(eng, **kw)
+    for rid, (prompt, budget) in enumerate(work):
+        sched.submit(Request(rid=rid, prompt=prompt, max_new_tokens=budget))
+    if kill is not None:
+        sched.inject_failure(kill, at_segment=1)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    return sched, {rid: list(r.generated) for rid, r in done.items()}, \
+        wall, launches
+
+
+def sched_launches(layers, m, q8=False):
+    """What a scheduler run over a paged engine launches: #1 once a layer
+    an admission, #2 (#3 on int8 pages) once a layer a decode step, #4
+    once a decode step."""
+    steps = int(m["decode_steps"])
+    return {"flash_attention": layers * int(m["admissions"]),
+            "paged_decode": 0 if q8 else layers * steps,
+            "paged_decode_q8": layers * steps if q8 else 0,
+            "argmax": steps, "ssd_scan": 0}
+
+
+def host_copy(lm):
+    """``lm``'s weights in a full LM on the CPU: the host copy a sharded
+    engine takes, so the card holds one rank's blocks only."""
+    from repro_torch.models.lm import LM
+    host = LM(lm.cfg, lm.dtype, "cpu")
+    host.load_state_dict(lm.state_dict())
+    return host
+
+
+def tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sharded_engine(where, host, scfg, mesh, dev):
+    """``Engine(host, mesh=)`` on ``dev``, checking that the card took
+    this rank's blocks of the weights and nothing more: the shard's
+    weights are at most 1/m of the full model's plus the replicated
+    norms (1 MiB), and the bytes the engine allocated are the shard's
+    tensors (weights and buffers) plus at most 2% and 8 MiB of the
+    allocator's rounding, far below a second copy of the model."""
+    from repro_torch.serve.engine import Engine
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    eng = Engine(host, scfg, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    took = torch.cuda.memory_allocated(dev) - before
+    full, m = tensor_bytes(host.parameters()), eng._shard.tp.size
+    shard = tensor_bytes(eng._shard.parameters())
+    held = shard + tensor_bytes(eng._shard.buffers())
+    if (shard > full / m + (1 << 20) or took < held
+            or took > held * 1.02 + (8 << 20)):
+        fail(f"{where}: the sharded engine allocated {took} bytes on the "
+             f"card for a shard of {shard} bytes of weights ({held} with "
+             f"its buffers; full model {full}, model axis {m})")
+    return eng, took, full
+
+
+def mesh_one_rank(dev, smi):
+    """Phase 24 (a): qwen2-0.5b at full width and depth, bf16, behind
+    ``BatchScheduler`` through a (1, 1) ``ServeMesh`` over NCCL (a world
+    of one) and unsharded, on the same 16 requests; a chaos schedule with
+    one heartbeat flap (absorbed) and one device death (skipped: the last
+    device)."""
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.ft.chaos import ChaosEvent, ChaosSchedule
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.serve.engine import Engine, ServeConfig
+    import gc
+    mesh_mod.init_process("cuda")
+    if torch.distributed.get_backend() != "nccl":
+        fail(f"phase 24 (a): backend {torch.distributed.get_backend()}, "
+             f"expected nccl")
+    lm = qwen2(dev, torch.bfloat16)
+    scfg = ServeConfig(page_size=PAGE_SIZE, max_seq=1024, batch_slots=8,
+                       prefix_cache=False)
+    work = mesh_work(CONFIG.vocab, MESH_REQUESTS, 24, 17, 256, 8, 32)
+    plain = Engine(lm, scfg)
+    mesh_sched(plain, work[:4])                             # warm-up
+    sched0, want, wall0, l0 = mesh_sched(plain, work)
+    m0 = (dict(sched0.metrics), sorted(sched0.completed))
+    # the sharded engine's full model is a host copy: the card copy goes
+    host = host_copy(lm)
+    del plain, sched0, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    sm = mesh_mod.make_serve_mesh((1, 1))
+    eng, took, full = sharded_engine("phase 24 (a)", host, scfg, sm, dev)
+    facts = eng.mesh_facts
+    if facts != {"mesh_shape": (1, 1), "mesh_axis": "model",
+                 "per_device_heads": 2}:
+        fail(f"phase 24 (a): mesh_facts {facts}")
+    chaos = ChaosSchedule(events=[
+        ChaosEvent(segment=2, kind="heartbeat_flap", device=0),
+        ChaosEvent(segment=3, kind="device_death", device=0)])
+    sched, got, wall, launches = mesh_sched(eng, work, chaos=chaos,
+                                            ft_confirm=2)
+    if got != want:
+        fail("phase 24 (a): the (1, 1) mesh's tokens differ from the "
+             "unsharded scheduler's")
+    for where, (metrics, completed), ln in (
+            ("unsharded", m0, l0),
+            ("(1, 1) mesh", (sched.metrics, sorted(sched.completed)),
+             launches)):
+        want_l = sched_launches(CONFIG.n_layers, metrics)
+        if ln != want_l:
+            fail(f"phase 24 (a) {where}: launched {ln}, expected {want_l}")
+        if completed != list(range(len(work))):
+            fail(f"phase 24 (a) {where}: completed {completed}")
+    notes = {e["kind"]: e["note"] for e in sched.ft_events
+             if e["type"] == "chaos"}
+    if (sched.heartbeats is None or sched.metrics["remeshes"] != 0
+            or "misses one heartbeat" not in notes.get("heartbeat_flap", "")
+            or notes.get("device_death")
+            != "skipped: would kill the last device"):
+        fail(f"phase 24 (a): ft {sched.metrics.get('remeshes')} re-meshes, "
+             f"chaos notes {notes}")
+    ntok = sum(len(t) for t in want.values())
+    log(f"  (a) qwen2-0.5b bf16, 24 layers, (1, 1) mesh over nccl (world "
+        f"of 1), {len(work)} requests, {ntok} tokens: {ntok / wall:.1f} "
+        f"tokens/s beside {ntok / wall0:.1f} unsharded; tokens equal; "
+        f"launches {launches}; facts {facts}; heartbeats armed, chaos "
+        f"{notes}, re-meshes 0; the full model on the host, the sharded "
+        f"engine allocated {took} bytes on the card (the model's weights: "
+        f"{full}) [{smi}]")
+    del eng, sched, host
+    mesh_mod.leave_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_rank(rank, world, init_method):
+    """Phase 24 (b), one rank: qwen2-0.5b at full width and 4 of its 24
+    layers, fp32, on ``cuda:0`` with every rank (gloo); the unsharded
+    engine, then a (1, 2) mesh plus one spare, on fp32 and int8 pages;
+    then a kill of ``device_ids[1]`` at segment 1.  The unsharded runs
+    come first; the sharded engines then take the full model as a host
+    copy on the CPU, with the card's copy gone, so the rank's card holds
+    its blocks alone."""
+    import gc
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    dev = mesh_mod.init_process("cuda:0", backend="gloo",
+                                init_method=init_method, rank=rank,
+                                world_size=world)
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(CONFIG, n_layers=MESH_LAYERS)
+    lm = LM(cfg, torch.float32, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (61, 40, 23, 9)]
+    work = mesh_work(cfg.vocab, 8, 26, 8, 64, 8, 24)
+    out = {"rank": rank, "runs": {}}
+    kvs = (None, "int8")
+    scfgs = {kv: ServeConfig(page_size=PAGE_SIZE, max_seq=256,
+                             batch_slots=4, kv_dtype=kv) for kv in kvs}
+    wants = {}
+    for kv in kvs:
+        plain = Engine(lm, scfgs[kv])
+        g_want = plain.generate(prompts, 12)
+        _, s_want, wall0, _ = mesh_sched(plain, work)
+        wants[kv] = (g_want, s_want, wall0)
+    host = host_copy(lm)
+    del plain, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    for kv in kvs:
+        tag = kv or "fp32"
+        scfg = scfgs[kv]
+        g_want, s_want, wall0 = wants[kv]
+        sm = mesh_mod.make_serve_mesh((1, 2))
+        eng, took, full = sharded_engine(f"phase 24 (b) rank {rank} {tag}",
+                                         host, scfg, sm, dev)
+        held = torch.cuda.memory_allocated(dev) - base
+        reset_counters()
+        g = eng.generate(prompts, 12)
+        torch.cuda.synchronize()
+        g_launches = read_counters()
+        sched, s_got, wall, s_launches = mesh_sched(eng, work)
+        local_kvh = eng.lm.block_config().attn.num_kv_heads
+        member, facts = eng.member, eng.mesh_facts
+        s_metrics = dict(sched.metrics)
+        del eng, sched
+        gc.collect()
+        km = mesh_mod.make_serve_mesh((1, 2))
+        keng, _, _ = sharded_engine(f"phase 24 (b) rank {rank} {tag} kill",
+                                    host, scfg, km, dev)
+        ksched, k_got, kwall, k_launches = mesh_sched(
+            keng, work, kill=km.device_ids[1], ft_timeout_steps=1,
+            ft_confirm=1)
+        out["runs"][tag] = dict(
+            card_bytes=held, shard_bytes=took, full_bytes=full,
+            member=member, local_kvh=local_kvh if member else None,
+            facts=facts, device_ids=list(sm.device_ids),
+            spares=list(sm.spares), generate_equal=g == g_want,
+            generate_launches=g_launches, sched_equal=s_got == s_want,
+            sched_launches=s_launches, sched_metrics=s_metrics,
+            tok_s=sum(map(len, s_got.values())) / wall,
+            tok_s_unsharded=sum(map(len, s_want.values())) / wall0,
+            kill_equal=k_got == s_want, kill_launches=k_launches,
+            killed=km.device_ids[1],
+            remesh=[e for e in ksched.ft_events if e["type"] == "remesh"],
+            kill_remeshes=ksched.metrics["remeshes"],
+            kill_member=keng.member)
+        del keng, ksched
+        gc.collect()
+    return out
+
+
+def mesh_three_ranks(smi):
+    """Phase 24 (b): three spawned ranks on the one card (gloo over CUDA
+    tensors, staged through the host); every rank's results checked
+    here."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    ranks = mesh_mod.spawn(_mesh_rank, MESH_RANKS, timeout_s=300)
+    secs = time.perf_counter() - t0
+    layers = MESH_LAYERS
+    by_rank = {}
+    for r in ranks:
+        rank = r["rank"]
+        for tag, run in r["runs"].items():
+            where = f"phase 24 (b) rank {rank} {tag}"
+            q8 = tag == "int8"
+            if run["device_ids"] != [0, 1] or run["spares"] != [2]:
+                fail(f"{where}: mesh {run['device_ids']}, spares "
+                     f"{run['spares']}")
+            for what in ("generate_equal", "sched_equal", "kill_equal"):
+                if not run[what]:
+                    fail(f"{where}: {what} is false: the sharded tokens "
+                         f"differ from the unsharded engine's")
+            member = rank in (0, 1)
+            if run["member"] != member:
+                fail(f"{where}: member {run['member']}")
+            # everything this rank holds on the card once its sharded
+            # engine is built: half the model's weights, not the whole
+            if run["card_bytes"] > run["full_bytes"] / 2 + (32 << 20):
+                fail(f"{where}: the card holds {run['card_bytes']} bytes "
+                     f"beside a sharded engine, more than half of the "
+                     f"model's {run['full_bytes']}")
+            if member:
+                if run["local_kvh"] != 1 or run["facts"][
+                        "per_device_heads"] != 1:
+                    fail(f"{where}: {run['local_kvh']} kv heads a rank")
+                gen_want = {"flash_attention": layers,
+                            "paged_decode": 0 if q8 else layers * 11,
+                            "paged_decode_q8": layers * 11 if q8 else 0,
+                            "argmax": 12, "ssd_scan": 0}
+                if run["generate_launches"] != gen_want:
+                    fail(f"{where}: generate launched "
+                         f"{run['generate_launches']}, expected {gen_want}")
+                want = sched_launches(layers, run["sched_metrics"], q8)
+                if run["sched_launches"] != want:
+                    fail(f"{where}: the scheduler launched "
+                         f"{run['sched_launches']}, expected {want}")
+            elif any(run["generate_launches"].values()) or any(
+                    run["sched_launches"].values()):
+                fail(f"{where}: the spare launched kernels")
+            ev = run["remesh"]
+            if (run["kill_remeshes"] != 1 or len(ev) != 1
+                    or run["killed"] in ev[0]["device_ids"]
+                    or ev[0]["device_ids"] != [0, 2]):
+                fail(f"{where}: re-mesh events {ev}")
+            if run["kill_member"] != (rank in (0, 2)):
+                fail(f"{where}: after the re-mesh member "
+                     f"{run['kill_member']}")
+            by_rank.setdefault(tag, {})[rank] = run
+    for tag, runs in by_rank.items():
+        key = "paged_decode_q8" if tag == "int8" else "paged_decode"
+        kl = {r: runs[r]["kill_launches"][key] for r in runs}
+        if not (kl[2] > 0 and kl[1] < kl[0] and kl[1] + kl[2] == kl[0]):
+            fail(f"phase 24 (b) {tag}: the kill run's {key} launches by "
+                 f"rank {kl}: the spare must take over the dead rank's")
+        r0 = runs[0]
+        lat = [runs[r]["remesh"][0]["remesh_latency_s"] * 1e3 for r in runs]
+        log(f"  (b) {tag} pages, (1, 2) mesh + 1 spare, 3 ranks on cuda:0 "
+            f"(gloo, host-staged): generate and scheduler tokens equal "
+            f"the unsharded engine's; {r0['tok_s']:.1f} tokens/s beside "
+            f"{r0['tok_s_unsharded']:.1f} unsharded; #1/#2/#3 at 1 kv head "
+            f"a rank, rank 0 launches {r0['sched_launches']}; kill of rank "
+            f"1 at segment 1: re-mesh onto {r0['remesh'][0]['device_ids']}, "
+            f"remesh_latency_s by rank {[round(x / 1e3, 6) for x in lat]}, "
+            f"tokens after equal; {key} launches by rank {kl}; card bytes "
+            f"by rank with the sharded engine built "
+            f"{[runs[r]['card_bytes'] for r in sorted(runs)]} of a "
+            f"{r0['full_bytes']}-byte model kept on the host [{smi}]")
+    log(f"  (b) three ranks in {secs:.1f} s (spawn, build check, weights "
+        f"and every run)")
+
+
+def per_device_paged(dev, smi):
+    """Phase 24 (c): kernels #2 and #3 at the per-device shape of qwen2 on
+    a (1, 2) mesh (KVH 1, G 7, Dh 64, 8 rows), bf16, against their plain
+    versions, timed beside their bounds."""
+    from repro_torch.kernels.paged_decode import (
+        paged_decode_attention_grouped, paged_decode_attention_q8_grouped,
+        paged_decode_plain, paged_decode_q8_plain)
+    timer = Timer(dev)
+    rng = np.random.default_rng(24)
+    lens = [n + 16 for n in PROMPT_LENS]
+    kvh, g, dh, b = 1, 7, 64, len(lens)
+    table, num_pages = plan_table(lens, MAX_NEW - 16, PAGE_SIZE)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, torch.bfloat16)
+
+    common = (torch.from_numpy(table).to(dev),
+              torch.tensor(lens, dtype=torch.int32, device=dev),
+              rnd(b, kvh, dh), rnd(b, kvh, dh))
+    q4 = rnd(b, kvh, g, dh)
+    fp = (q4, rnd(num_pages, PAGE_SIZE, kvh, dh),
+          rnd(num_pages, PAGE_SIZE, kvh, dh)) + common
+    codes = [torch.from_numpy(rng.integers(-127, 128, (
+        num_pages, PAGE_SIZE, kvh, dh)).astype(np.int8)).to(dev)
+        for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(0.005, 0.05, (
+        num_pages, PAGE_SIZE)).astype(np.float32)).to(dev) for _ in range(2)]
+    q8 = (q4, *codes, *scales) + common
+    flops = 4.0 * kvh * g * dh * sum(n + 1 for n in lens)
+    io = 2 * (2 * q4.numel() + 2 * common[2].numel()) + 4 * b
+    pages = 4 * sum(-(-n // PAGE_SIZE) for n in lens)
+    rows = []
+    for name, fn, plain, args, kv_bytes in (
+            ("paged_decode", paged_decode_attention_grouped,
+             paged_decode_plain, fp, 2 * 2 * sum(lens) * kvh * dh),
+            ("paged_decode_q8", paged_decode_attention_q8_grouped,
+             paged_decode_q8_plain, q8, sum(lens) * (2 * kvh * dh + 8))):
+        err = close(f"{name} at the (1, 2) mesh's per-device shape (KVH 1, "
+                    f"G 7, Dh 64, 8 rows)", fn(*args), plain(*args))
+        ms = timer.ms(lambda: fn(*args))
+        plain_ms = timer.ms(lambda: plain(*args))
+        bms, by = bound_ms(io + kv_bytes + pages, flops)
+        log(f"  (c) {name} bf16 per device (KVH 1, G 7, Dh 64, 8 rows): "
+            f"{ms:.4f} ms (plain {plain_ms:.4f}), bound {bms:.5f} ms by {by}"
+            f", max|err| {err:.3g} [{smi}]")
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bms))
+    return rows
+
+
 class PhaseClock:
     """Logs each phase's title when it starts and its seconds when the
     next one starts (or at :meth:`stop`)."""
@@ -4260,7 +4668,7 @@ def run_phases() -> int:
     dev = torch.device("cuda", 0)
     phase = PhaseClock()
 
-    phase("[1/23] probe")
+    phase("[1/24] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -4277,12 +4685,12 @@ def run_phases() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    phase("[2/23] build")
+    phase("[2/24] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    phase("[3/23] kernels vs plain versions")
+    phase("[3/24] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -4294,26 +4702,26 @@ def run_phases() -> int:
             f"{r['bound_by']})")
     del timer
 
-    phase("[4/23] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    phase("[4/24] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    phase("[5/23] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    phase("[5/24] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
           "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    phase("[6/23] fp32 token check: card paged / card dense / cpu paged")
+    phase("[6/24] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    phase("[7/23] fp32 scheduler token check: card scheduler / card generate "
+    phase("[7/24] fp32 scheduler token check: card scheduler / card generate "
           "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    phase("[8/23] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    phase("[8/24] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    phase("[9/23] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    phase("[9/24] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -4323,10 +4731,10 @@ def run_phases() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    phase("[10/23] fp32 zamba2 token check: card / cpu, 7 layers")
+    phase("[10/24] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    phase("[11/23] case-study kernels vs plain versions: STREAM triad, "
+    phase("[11/24] case-study kernels vs plain versions: STREAM triad, "
           "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -4336,14 +4744,14 @@ def run_phases() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    phase("[12/23] main path 5: the case studies through PerfCtr marker "
+    phase("[12/24] main path 5: the case studies through PerfCtr marker "
           "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    phase("[13/23] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    phase("[13/24] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
           "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -4351,11 +4759,11 @@ def run_phases() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    phase("[14/23] main path 7: speculative decoding, K = 4, 2-layer matched "
+    phase("[14/24] main path 7: speculative decoding, K = 4, 2-layer matched "
           "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    phase("[15/23] main path 8: serving snapshots and chaos: (a) fp32 "
+    phase("[15/24] main path 8: serving snapshots and chaos: (a) fp32 "
           "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
           "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -4363,13 +4771,13 @@ def run_phases() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    phase("[16/23] main path 9: the serving benches (serve, paged decode, "
+    phase("[16/24] main path 9: the serving benches (serve, paged decode, "
           "flash prefill, spec) at their default sizes, serve and spec at "
           "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[17/23] main path 10: the tool layer (topology, pin, features) "
+    phase("[17/24] main path 10: the tool layer (topology, pin, features) "
           "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
           "default kernels against the torch pins three ways")
     topology_check(dev, smi)
@@ -4378,7 +4786,7 @@ def run_phases() -> int:
     tool_benches(smi)
     torch.cuda.empty_cache()
 
-    phase("[18/23] main path 11: the registry's tune half: (a) every tunable "
+    phase("[18/24] main path 11: the registry's tune half: (a) every tunable "
           "family's card cell swept cold, each candidate held to its plain "
           "version; (b) warm in a fresh process; (c) the launcher's --tune "
           "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
@@ -4389,14 +4797,14 @@ def run_phases() -> int:
     tuned_gen_launches = tuned_generate(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[19/23] main path 12: xlstm-350m at full width and depth, dense "
+    phase("[19/24] main path 12: xlstm-350m at full width and depth, dense "
           "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
           "card vs cpu at 4 layers")
     xlstm_gen_launches, xlstm_sched_launches = xlstm_paths(dev)
     torch.cuda.empty_cache()
     xlstm_token_check(dev)
 
-    phase("[20/23] main path 13: the other dense configs, pages of 16: "
+    phase("[20/24] main path 13: the other dense configs, pages of 16: "
           "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
           "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
           "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
@@ -4405,7 +4813,7 @@ def run_phases() -> int:
     perf_report_and_example(smi)
     torch.cuda.empty_cache()
 
-    phase("[21/23] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
+    phase("[21/24] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
           "a2.7b at full width and depth, generate, one host sync, a decode "
           "step with no implicit sync; (b) its int8 scheduler with the prefix "
           "cache; (c) qwen3-moe-235b-a22b at 2 of 94 layers (G 16); (d) fp32 "
@@ -4414,7 +4822,7 @@ def run_phases() -> int:
     torch.cuda.empty_cache()
     moe_token_check(dev)
 
-    phase("[22/23] main path 15: the vlm and encdec families: (a) qwen2-vl-"
+    phase("[22/24] main path 15: the vlm and encdec families: (a) qwen2-vl-"
           "7b at full width and depth with patch embeddings, generate, then "
           "its int8 scheduler with the prefix cache; (b) seamless-m4t-medium "
           "at 12 + 12 layers with source embeddings, generate; (c) fp32 "
@@ -4423,7 +4831,7 @@ def run_phases() -> int:
     vlm_encdec_token_check(dev)
     torch.cuda.empty_cache()
 
-    phase("[23/23] main path 16: training: (a) qwen2-0.5b at full width and "
+    phase("[23/24] main path 16: training: (a) qwen2-0.5b at full width and "
           "depth, bf16 over fp32 masters, 8 x 512 tokens a step, 20 steps "
           "through Trainer, 4 with accum_steps=2, resumed from step 10; (b) "
           "fp32 card vs cpu, 2 layers, 3 steps; (c) one fp32 step of each "
@@ -4440,6 +4848,16 @@ def run_phases() -> int:
             serving[0].wait()
     del served
     torch.cuda.empty_cache()
+
+    phase("[24/24] main path 17: sharded serving and its fault tolerance: "
+          "(a) qwen2-0.5b at full width and depth behind BatchScheduler "
+          "through a (1, 1) ServeMesh over NCCL, a heartbeat flap absorbed; "
+          "(b) 3 ranks on the card, a (1, 2) mesh plus a spare, fp32 and "
+          "int8 pages, a killed rank re-meshed onto the spare; (c) #2 and "
+          "#3 at the per-device shape")
+    mesh_launches = mesh_one_rank(dev, smi)
+    mesh_three_ranks(smi)
+    per_device_paged(dev, smi)
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
@@ -4454,7 +4872,8 @@ def run_phases() -> int:
                "xlstm_generate": xlstm_gen_launches,
                "xlstm_scheduler": xlstm_sched_launches, **dense_launches,
                **moe_launches, **vlm_launches,
-               "train_serve_ckpt": train_serve_launches}
+               "train_serve_ckpt": train_serve_launches,
+               "mesh_scheduler_1x1": mesh_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"],

@@ -6,7 +6,7 @@ Counterpart of ``benchmarks/run.py`` for the port:
         [--json PATH] [--only serve,spec,...]
 
 runs the serving benches (``serve``, ``paged_decode``, ``flash_prefill``,
-``spec``, ``chaos``), the perfctr tool's own benches (``marker_overhead``,
+``spec``, ``chaos``; ``mesh`` over 3 spawned ranks), the perfctr tool's own benches (``marker_overhead``,
 ``perfctr``), the kernel registry's autotune suite (``autotune``) and the
 tool layer's case studies (``stream_pinning``, ``stencil_pinning``,
 ``jacobi_traffic``, ``bandwidth_map``), each with ``--smoke`` and
@@ -31,6 +31,7 @@ from typing import Dict, List
 from repro_torch.bench import (bench_autotune, bench_bandwidth_map,
                                bench_chaos, bench_flash_prefill,
                                bench_jacobi_traffic, bench_marker_overhead,
+                               bench_mesh,
                                bench_paged_decode, bench_perfctr,
                                bench_serve, bench_spec,
                                bench_stencil_pinning, bench_stream_pinning)
@@ -57,13 +58,19 @@ CASE_STUDIES = {
     "jacobi_traffic": bench_jacobi_traffic,    # Table I
     "bandwidth_map": bench_bandwidth_map,      # paper VI future plans
 }
-BENCHES = {**SERVING, **TOOLS, **CASE_STUDIES}
+#: benches that spawn their own ranks (``run_spawned``)
+MULTI_RANK = {
+    "mesh": bench_mesh,                    # sharded parity, re-mesh
+}
+BENCHES = {**SERVING, **MULTI_RANK, **TOOLS, **CASE_STUDIES}
 
 
 def run_bench(name: str, csv: list, smoke: bool, device) -> Dict:
     """One bench's summary."""
     if name in SERVING or name in TOOLS:
         return BENCHES[name].run(csv, smoke=smoke, device=device)
+    if name in MULTI_RANK:
+        return MULTI_RANK[name].run_spawned(csv, smoke=smoke, device=device)
     argv = ["--device", str(device)] + (["--smoke"] if smoke else [])
     return CASE_STUDIES[name].main(argv)
 

@@ -46,7 +46,7 @@ plus a bounded repr of closure cells, as the reference's does.
 
 :meth:`sweep` keeps the reference's signature, but its default cell (a
 dry run of an (arch, shape) cell, ``launch/dryrun.run_cell``) is not
-ported (``ROADMAP.md``, queue 1 item 14): pass a ``cell_fn``.
+ported (``ROADMAP.md``, item 14b): pass a ``cell_fn``.
 """
 
 from __future__ import annotations
@@ -338,7 +338,7 @@ class ProfileSession:
 
         ``cell_fn(arch, shape) -> record`` is required: the reference's
         default, ``launch/dryrun.run_cell``, is not ported (``ROADMAP.md``,
-        queue 1 item 14).  Per-group derived metrics are attached to each
+        item 14b).  Per-group derived metrics are attached to each
         ``ok`` record that carries an event bag (and ``time_s``, when it
         has one).  Results come back in (arch-major, shape-minor) input
         order; a worker exception becomes a ``FAILED`` record, never an
@@ -348,7 +348,7 @@ class ProfileSession:
             raise NotImplementedError(
                 "ProfileSession.sweep needs a cell_fn: its default, "
                 "launch/dryrun.run_cell, is not ported yet (ROADMAP.md, "
-                "queue 1 item 14: mesh, dry run and fault tolerance)")
+                "item 14b: the dry run)")
         cells = [(a, s) for a in archs for s in shapes]
         results: List[Optional[Dict]] = [None] * len(cells)
         with ThreadPoolExecutor(max_workers=max(1, parallel)) as ex:

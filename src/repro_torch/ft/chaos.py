@@ -3,9 +3,11 @@
 Copied from ``repro/ft/chaos.py`` (pure Python); only the snapshot
 store's import changes, to the port's ``repro_torch.checkpoint``.
 ``KINDS``, the draw order and :meth:`ChaosSchedule.smoke` are the JAX
-package's, so a seed deals the same faults in both packages.  The port
-serves on one card: its scheduler has no heartbeats, so
-``heartbeat_flap`` and ``device_death`` take their single-device skip.
+package's, so a seed deals the same faults in both packages.  On a
+``ServeMesh`` engine (``repro_torch.launch.mesh``) the scheduler arms
+heartbeats, so ``heartbeat_flap`` drops one and ``device_death`` stops a
+rank's for good (re-mesh onto a spare); on any other engine both take
+their single-device skip, as in the JAX package.
 
 A :class:`ChaosSchedule` is a SEEDED list of :class:`ChaosEvent`s the
 scheduler ticks through at every segment boundary

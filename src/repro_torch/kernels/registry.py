@@ -127,9 +127,15 @@ for the plain version.
 * each space's candidates are the port's tiles (the flash kernel's
   default is ``(64, 64)`` in bf16, the reference's ``(128, 256)``).
 
-Not ported yet: the mesh facts (``use_mesh_facts``, ``mesh_key_tag``,
-``_unsharded_fallback``, ``ROADMAP.md`` queue 1 item 14); until then a
-tune key carries no mesh tag.
+**Mesh facts** (``repro/kernels/registry.py:301-355``): a sharded
+engine enters :func:`use_mesh_facts` (``mesh_shape``, ``mesh_axis``,
+``per_device_heads``) around its work, so every :func:`best`,
+:func:`resolve` and :func:`autotune` keys its record per sharding
+(:func:`mesh_key_tag` on the attention and paged keys), with the
+unsharded key as the last neighbour (:func:`_unsharded_fallback`).  An
+unsharded key is byte-identical to the pre-mesh one, so every tune record
+already written stays warm.  The kernels' ``supports`` refuse
+``per_device_heads == 0`` (a head sharding that does not divide).
 """
 
 from __future__ import annotations
@@ -164,7 +170,8 @@ __all__ = [
     "autotune", "best", "record", "clear_tune_table", "tune_table",
     "dump_tune_table", "LEGACY_ATTN_MAP", "REFERENCE_NAMES",
     "legacy_mapping", "env_snapshot", "SMEM_PER_BLOCK", "resolve",
-    "served_sites", "best_at",
+    "served_sites", "best_at", "MESH_FACTS", "use_mesh_facts",
+    "mesh_facts", "mesh_key_tag",
 ]
 
 #: shared memory one block may opt in to on sm_90 (227 KiB): the gate
@@ -435,6 +442,70 @@ def env_snapshot():
         yield
     finally:
         _TLS.env = prev
+
+
+#: the sharding facts every mesh-aware tune key understands.  Unsharded
+#: call sites never set them (``None``), so single-device keys are
+#: byte-identical to the pre-mesh scheme and stay warm.
+MESH_FACTS = ("mesh_shape", "mesh_axis", "per_device_heads")
+
+
+@contextlib.contextmanager
+def use_mesh_facts(**facts):
+    """Ambient sharding facts for everything run inside the block.
+
+    A sharded engine enters this around its work so that :func:`best`
+    lookups, which see the rank's local shapes, key their tune records per
+    sharding: ``use_mesh_facts(mesh_shape=(1, 2), mesh_axis="model",
+    per_device_heads=2)``.  Thread-local; nested contexts merge with
+    inner-wins; ``None`` values are dropped so callers can thread optional
+    config straight through."""
+    wanted = {k: v for k, v in facts.items() if v is not None}
+    unknown = set(wanted) - set(MESH_FACTS)
+    if unknown:
+        raise ValueError(f"unknown mesh facts {sorted(unknown)}; "
+                         f"expected a subset of {MESH_FACTS}")
+    prev = getattr(_TLS, "mesh_facts", None)
+    merged = {**(prev or {}), **wanted}
+    _TLS.mesh_facts = merged
+    try:
+        yield
+    finally:
+        _TLS.mesh_facts = prev
+
+
+def mesh_facts() -> Dict[str, Any]:
+    """The ambient sharding facts (empty dict when unsharded)."""
+    return dict(getattr(_TLS, "mesh_facts", None) or {})
+
+
+def mesh_key_tag(*, mesh_shape=None, mesh_axis=None,
+                 per_device_heads=None) -> str:
+    """Tune-key component for a sharding: '' unsharded (keys unchanged),
+    ``-mesh1x2.model.pdh2`` under a (1, 2) mesh with the kv heads split
+    over ``model`` leaving 2 per device."""
+    if mesh_shape is None:
+        return ""
+    shape = "x".join(str(int(s)) for s in mesh_shape)
+    pdh = ("" if per_device_heads is None
+           else f".pdh{int(per_device_heads)}")
+    return f"-mesh{shape}.{mesh_axis or 'model'}{pdh}"
+
+
+def _unsharded_fallback(facts: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Neighbour delta clearing the mesh facts: under a sharding the
+    UNSHARDED key is the fallback neighbour (a single-device sweep is a
+    better prior than the declared default), tried after the same-
+    sharding shape neighbours."""
+    if facts.get("mesh_shape") is None:
+        return []
+    return [{k: None for k in MESH_FACTS}]
+
+
+def _heads_ok(per_device_heads=None) -> bool:
+    """A kernel needs at least one whole kv head per device
+    (``per_device_heads=0`` marks an indivisible head sharding)."""
+    return per_device_heads is None or per_device_heads >= 1
 
 
 def override_for(family: str) -> Optional[str]:
@@ -796,7 +867,7 @@ def autotune(family: str, session, *, impl: Optional[str] = None,
     spec = _tuned_spec(family, impl)
     ts = spec.tune
     backend = _backend(backend)
-    facts = dict(facts, backend=backend)
+    facts = dict({**mesh_facts(), **facts}, backend=backend)
     facts.setdefault("dtype", torch.float32)
     key = ts.key(**facts)
     cands = tuple(tuple(c) for c in
@@ -970,6 +1041,7 @@ def resolve(family: str, *, impl: Optional[str] = None,
     in this process or loaded from a persisted sweep), ``"neighbour"``
     (adopted from a nearby tuned bucket) or ``"default"``."""
     ts = _tuned_spec(family, impl).tune
+    facts = {**mesh_facts(), **facts}
     facts = dict(facts, backend=_backend(facts.get("backend")))
     facts.setdefault("dtype", torch.float32)
     keyf = ts.lookup_key or ts.key
@@ -1019,13 +1091,15 @@ def best_at(family: str, impl: Optional[str], site: Tuple,
     """:func:`best` memoized on ``site``, a key the caller forms cheaply
     from its call (the tensors' shapes, dtype and device type), which
     must fix the facts; ``facts()`` builds them only when the memo
-    misses."""
-    mkey = (family, impl, site)
+    misses.  The ambient mesh facts join the memo key and the facts."""
+    ambient = getattr(_TLS, "mesh_facts", None)
+    mkey = (family, impl, site,
+            tuple(ambient.items()) if ambient else None)
     hit = _TABLE.memo.get(mkey)
     if hit is not None:
         return hit
     gen = _TABLE.generation
-    fa = facts()
+    fa = {**(ambient or {}), **facts()}
     choice = resolve(family, impl=impl, **fa)[0]
     _TABLE.memo_put(mkey, choice, gen)
     _SITES.setdefault((family, impl, tuple(fa.items())),
@@ -1064,14 +1138,20 @@ def _probe_device(backend: str) -> torch.device:
 
 def attention_tune_key(*, b: int, h: int, kvh: int, sq: int, sk: int,
                        dh: int, dtype, causal: bool = True,
-                       backend: Optional[str] = None, **_ignored) -> str:
+                       backend: Optional[str] = None,
+                       mesh_shape=None, mesh_axis=None,
+                       per_device_heads=None, **_ignored) -> str:
     """Per-shape tune key, the reference's byte for byte.  ``b`` is
     bucketed to powers of two: the continuous-batching scheduler's live
     mix varies batch from segment to segment, and a winning (bq, bk)
-    tiling is a per-row property."""
+    tiling is a per-row property.  Under a mesh the sharding facts join
+    the key (:func:`mesh_key_tag`): each rank runs the kernel over its
+    head slice."""
     return (f"b{_pow2_up(b)}h{h}kvh{kvh}sq{sq}sk{sk}dh{dh}"
             f"-{_dtype_name(dtype)}-{'causal' if causal else 'full'}"
-            f"-{_backend(backend)}")
+            f"-{_backend(backend)}"
+            + mesh_key_tag(mesh_shape=mesh_shape, mesh_axis=mesh_axis,
+                           per_device_heads=per_device_heads))
 
 
 def _attention_smem(cand, itemsize, *, dh, dtype, **facts) -> int:
@@ -1120,6 +1200,7 @@ def _attention_neighbors(*, b: int, sq: int, sk: int, **_facts
         if sq // f >= 1 and sk // f >= 1:
             out.append({"sq": sq // f, "sk": sk // f})
         out.append({"sq": sq * f, "sk": sk * f})
+    out.extend(_unsharded_fallback(_facts))
     return out
 
 
@@ -1175,7 +1256,9 @@ def _bhsd(*ts):
                layout=_ATTENTION_LAYOUT,
                oracle="repro_torch.kernels.flash_attention."
                       "flash_attention_plain",
-               supports=lambda differentiable=False, **f: not differentiable)
+               # mesh fact: the kernel needs a whole kv head per device
+               supports=lambda differentiable=False, per_device_heads=None,
+                   **f: not differentiable and _heads_ok(per_device_heads))
 def _run_cuda_flash(q, k, v, *, q_offset: int = 0, causal: bool = True,
                     kv_len=None, chunk_size: int = 512,
                     chunk_threshold: int = 2048,
@@ -1259,21 +1342,30 @@ def _paged_ctx_bucket(ctx) -> int:
 
 def paged_lookup_key(*, b: int, kvh: int, g: int, dh: int, page_size: int,
                      dtype, ctx: int = 0, backend: Optional[str] = None,
-                     quantized: bool = False, **_ignored) -> str:
+                     quantized: bool = False, mesh_shape=None,
+                     mesh_axis=None, per_device_heads=None,
+                     **_ignored) -> str:
     """The reference's lookup key, byte for byte: keyed on the pow2 ctx
-    BUCKET, not the raw page-table width."""
+    BUCKET, not the raw page-table width; mesh facts join it (each rank
+    walks its kv-head slice of the page pool)."""
     tag = "q8" if quantized else ""
     return (f"paged{tag}-b{b}kvh{kvh}g{g}dh{dh}ps{page_size}"
             f"ctx{_paged_ctx_bucket(ctx)}"
-            f"-{_dtype_name(dtype)}-{_backend(backend)}")
+            f"-{_dtype_name(dtype)}-{_backend(backend)}"
+            + mesh_key_tag(mesh_shape=mesh_shape, mesh_axis=mesh_axis,
+                           per_device_heads=per_device_heads))
 
 
 def paged_sweep_key(*, b: int, kvh: int, g: int, dh: int, ctx: int, dtype,
                     backend: Optional[str] = None,
-                    quantized: bool = False, **_ignored) -> str:
+                    quantized: bool = False, mesh_shape=None,
+                    mesh_axis=None, per_device_heads=None,
+                    **_ignored) -> str:
     tag = "q8" if quantized else ""
     return (f"paged{tag}-sweep-b{b}kvh{kvh}g{g}dh{dh}ctx{ctx}"
-            f"-{_dtype_name(dtype)}-{_backend(backend)}")
+            f"-{_dtype_name(dtype)}-{_backend(backend)}"
+            + mesh_key_tag(mesh_shape=mesh_shape, mesh_axis=mesh_axis,
+                           per_device_heads=per_device_heads))
 
 
 def _paged_smem(cand, itemsize, *, g, dh, **facts) -> int:
@@ -1329,10 +1421,12 @@ def _paged_probe(cand, *, b, kvh, g, dh, ctx, dtype, backend=None,
 
 
 def _paged_record_keys(scores, *, b, kvh, g, dh, dtype, ctx=0, backend=None,
-                       quantized: bool = False,
+                       quantized: bool = False, mesh_shape=None,
+                       mesh_axis=None, per_device_heads=None,
                        **facts) -> Dict[str, Tuple[Tuple, float]]:
     """One lookup record per swept page_size: whatever page_size the pool
-    was built with, a runner finds its winning split."""
+    was built with, a runner finds its winning split.  Mesh facts fan
+    out with the sweep's."""
     per_ps: Dict[int, Tuple[Tuple, float]] = {}
     for (ps, split), s in scores.items():
         if s == float("inf"):
@@ -1342,7 +1436,9 @@ def _paged_record_keys(scores, *, b, kvh, g, dh, dtype, ctx=0, backend=None,
             per_ps[ps] = ((ps, split), s)
     return {paged_lookup_key(b=b, kvh=kvh, g=g, dh=dh, page_size=ps,
                              ctx=ctx, dtype=dtype, backend=backend,
-                             quantized=quantized): rec
+                             quantized=quantized, mesh_shape=mesh_shape,
+                             mesh_axis=mesh_axis,
+                             per_device_heads=per_device_heads): rec
             for ps, rec in per_ps.items()}
 
 
@@ -1361,6 +1457,7 @@ def _paged_neighbors(*, b: int, ctx: int = 0, **_facts
         if b // f >= 1:
             out.append({"b": b // f})
         out.append({"b": b * f})
+    out.extend(_unsharded_fallback(_facts))
     return out
 
 
@@ -1467,7 +1564,9 @@ def _paged_split(impl: str, q4, k_pages, page_table) -> int:
 @register_impl("paged_decode", "cuda_paged", tune=_PAGED_TUNE,
                layout=_PAGED_LAYOUT,
                oracle="repro_torch.kernels.paged_decode.paged_decode_plain",
-               supports=lambda quantized=False, **f: not quantized)
+               # the table-walking kernel needs a whole kv-head slice
+               supports=lambda quantized=False, per_device_heads=None, **f:
+                   not quantized and _heads_ok(per_device_heads))
 def _run_cuda_paged(q4, k_pages, v_pages, page_table, lengths, k_new, v_new,
                     *, split: Optional[int] = None):
     """paged_decode_attention_grouped — kernel #2, a cluster per row."""
@@ -1493,7 +1592,8 @@ def _run_torch_paged(q4, k_pages, v_pages, page_table, lengths, k_new,
                layout=_PAGED_Q8_LAYOUT,
                oracle="repro_torch.kernels.paged_decode."
                       "paged_decode_q8_plain",
-               supports=lambda quantized=False, **f: quantized)
+               supports=lambda quantized=False, per_device_heads=None, **f:
+                   quantized and _heads_ok(per_device_heads))
 def _run_cuda_paged_q8(q4, k_pages, v_pages, page_table, lengths, k_new,
                        v_new, *, k_scale, v_scale,
                        split: Optional[int] = None):

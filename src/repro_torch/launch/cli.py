@@ -9,10 +9,10 @@ Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` and
 * :func:`add_robustness_args` — per-request deadlines, bounded
   admission, serving snapshots and seeded chaos injection (consume with
   :func:`robustness_kwargs`, which validates eagerly);
-* :func:`add_ft_args` — the straggler detector's ``--straggler-threshold``
-  and ``--straggler-min-ratio`` (consume with :func:`ft_kwargs`); the
-  mesh half, ``--ft-timeout-steps`` and ``--ft-confirm``, is parsed and
-  refused until the mesh is ported (``ROADMAP.md``, queue 1 item 14);
+* :func:`add_ft_args` — the heartbeat governor's ``--ft-timeout-steps``
+  and ``--ft-confirm`` (mesh serving) and the straggler detector's
+  ``--straggler-threshold`` and ``--straggler-min-ratio`` (consume with
+  :func:`ft_kwargs`: the scheduler's kwargs, as in the reference);
 * :func:`add_spec_args` — ``--draft``, ``--spec-tokens`` and
   ``--accept-policy`` (consume with :func:`spec_kwargs`, which validates
   the pairing eagerly);
@@ -205,14 +205,13 @@ def robustness_kwargs(args: argparse.Namespace,
 def add_ft_args(ap: argparse.ArgumentParser) -> None:
     """Fault-tolerance tunables (consume with :func:`ft_kwargs`)."""
     g = ap.add_argument_group("fault tolerance")
-    g.add_argument("--ft-timeout-steps", type=int, default=None,
+    g.add_argument("--ft-timeout-steps", type=int, default=3,
                    help="segments a device may miss heartbeats before it "
-                        "counts as missing (mesh serving: not ported yet, "
-                        "ROADMAP.md queue 1 item 14)")
-    g.add_argument("--ft-confirm", type=int, default=None,
-                   help="consecutive missing observations before a death "
-                        "is confirmed (mesh serving: not ported yet, "
-                        "ROADMAP.md queue 1 item 14)")
+                        "counts as missing (default 3)")
+    g.add_argument("--ft-confirm", type=int, default=2,
+                   help="consecutive missing observations before the "
+                        "re-mesh governor confirms a death — absorbs "
+                        "single-heartbeat flaps (default 2)")
     g.add_argument("--straggler-threshold", type=float, default=4.0,
                    help="EMA deviations a segment wall must exceed to be "
                         "flagged a straggler (default 4.0)")
@@ -224,20 +223,18 @@ def add_ft_args(ap: argparse.ArgumentParser) -> None:
 def ft_kwargs(args: argparse.Namespace,
               ap: Optional[argparse.ArgumentParser] = None
               ) -> Dict[str, object]:
-    """BatchScheduler kwargs from the :func:`add_ft_args` flags.  The
-    mesh half (``--ft-timeout-steps``, ``--ft-confirm``) tunes the
-    heartbeat governor of sharded serving, which the port does not have
-    yet: passing either is refused, not ignored."""
+    """BatchScheduler kwargs from the :func:`add_ft_args` flags (the
+    heartbeat governor's arm only on a ``ServeMesh`` engine).  ``ap``
+    reports a threshold below 1 as a usage error."""
     for flag in ("ft_timeout_steps", "ft_confirm"):
-        if getattr(args, flag, None) is not None:
-            msg = (f"--{flag.replace('_', '-')} tunes the mesh's heartbeat "
-                   f"governor, which is not ported yet (ROADMAP.md, queue 1 "
-                   f"item 14: mesh and fault tolerance); the port serves "
-                   f"on one card")
+        if getattr(args, flag, 1) < 1:
+            msg = f"--{flag.replace('_', '-')} must be at least 1"
             if ap is not None:
                 ap.error(msg)
-            raise NotImplementedError(msg)
+            raise ValueError(msg)
     return {
+        "ft_timeout_steps": getattr(args, "ft_timeout_steps", 3),
+        "ft_confirm": getattr(args, "ft_confirm", 2),
         "straggler_threshold": getattr(args, "straggler_threshold", 4.0),
         "straggler_min_ratio": getattr(args, "straggler_min_ratio", 1.5),
     }

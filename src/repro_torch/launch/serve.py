@@ -28,6 +28,10 @@
         --page-size 16 --temperature 0.7 --draft qwen2-0.5b \\
         --spec-tokens 4 --instrument --json spec.json
 
+    PYTHONPATH=src torchrun --nproc-per-node 3 -m \\
+        repro_torch.launch.serve --arch qwen2-0.5b --page-size 16 \\
+        --mesh 1x2 --json mesh.json      # 2-way tensor parallel + 1 spare
+
 Runs the continuous-batching ``BatchScheduler`` over synthetic prompts
 (deterministic, numpy seed 0) and prints tokens/s, time-to-first-token,
 segments, admissions and the engine's audited host-sync count.  The
@@ -91,15 +95,30 @@ optimizer state is checked against the checkpoint and not loaded.  The
 summary's ``launches`` counts the kernel wrappers' launches (#1 flash,
 #2 and #3 paged decode, #4 argmax) over the run.
 
-Not ported yet (``ROADMAP.md``): the JAX launcher's ``--mesh`` flag
-(absent: argparse refuses it); ``--ft-timeout-steps`` and
-``--ft-confirm`` parse and are refused with item 14's citation.
+``--mesh AxB`` serves sharded over a ``(data, model)`` mesh of ranks
+(``Engine(mesh=ServeMesh)``; the dense family, others raise citing item
+14b): run it under ``torchrun --nproc-per-node N``, one rank a card over
+NCCL (``--device cpu``: gloo); with no torchrun environment and ``--mesh
+1x1`` the process is a world of one.  Each rank builds (or restores
+with ``--ckpt-dir``) the full model on the CPU as its host copy and puts
+only its blocks on its card; random weights then come from a CPU
+generator, so on the card they differ from an unsharded launch's.
+``--pin`` orders the ranks over
+the modelled topology and ``--skip`` holds ranks out as hot spares; the
+ranks the mesh leaves out are spares too.  Every rank serves the same
+requests; rank 0 prints and writes ``--json``.  ``--ft-timeout-steps``
+and ``--ft-confirm`` tune the heartbeat governor that re-meshes onto a
+spare when a rank dies (the summary's ``mesh`` and ``ft_events``);
+``--tune`` then tunes per sharding (the mesh facts join the tune keys,
+at the rank's head counts).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import time
 
@@ -129,6 +148,18 @@ def main(argv=None) -> int:
                     help="0 (default) decodes greedily; > 0 samples")
     ap.add_argument("--admission-chunk", type=int, default=8,
                     help="decode steps between admission points")
+    ap.add_argument("--mesh", default=None, metavar="AxB",
+                    help="serve sharded: a (data, model) mesh of ranks — "
+                         "weights and the KV cache split their heads over "
+                         "'model' (e.g. 1x2 under torchrun "
+                         "--nproc-per-node 3: 2-way tensor parallel plus "
+                         "a hot spare)")
+    ap.add_argument("--pin", default="compact",
+                    help="pin strategy ordering the mesh's ranks over the "
+                         "topology (compact | scatter | ring | pinlist)")
+    ap.add_argument("--skip", default="",
+                    help="ranks held out of the mesh as hot spares for "
+                         "the ft/ degradation path, e.g. 2")
     cli.add_impl_args(ap, legacy_attn=True)
     cli.add_cache_args(ap)
     cli.add_json_args(ap, what="serve summary")
@@ -155,7 +186,54 @@ def main(argv=None) -> int:
                     help="serve the params of the latest training "
                          "checkpoint under this directory")
     args = ap.parse_args(argv)
-    ft_kw = cli.ft_kwargs(args, ap)     # refuses the mesh half eagerly
+    ft_kw = cli.ft_kwargs(args, ap)
+    serve_mesh, device = None, args.device
+    if args.mesh:
+        serve_mesh, device = _serve_mesh(args, ap)
+        if torch.distributed.get_rank() != 0:
+            # every rank serves; rank 0 speaks for the run
+            with contextlib.redirect_stdout(io.StringIO()):
+                return _serve(args, ap, ft_kw, serve_mesh, device, False)
+    return _serve(args, ap, ft_kw, serve_mesh, device, True)
+
+
+def _serve_mesh(args, ap):
+    """Join the process group and build the ServeMesh of ``--mesh``,
+    ``--pin`` and ``--skip``; returns (mesh, this rank's device)."""
+    from repro_torch.core.pin import parse_pinlist
+    from repro_torch.launch import mesh as mesh_mod
+    try:
+        shape = tuple(int(p) for p in args.mesh.lower().split("x"))
+        if len(shape) != 2 or min(shape) < 1:
+            raise ValueError
+    except ValueError:
+        ap.error(f"--mesh wants AxB (data x model), got {args.mesh!r}")
+    device = mesh_mod.init_process(args.device)
+    skip = tuple(parse_pinlist(args.skip)) if args.skip else ()
+    try:
+        sm = mesh_mod.make_serve_mesh(shape, pin_strategy=args.pin,
+                                      skip=skip)
+    except ValueError as e:
+        ap.error(f"{e} (world of {torch.distributed.get_world_size()} "
+                 f"ranks)")
+    return sm, device
+
+
+def _serve(args, ap, ft_kw, serve_mesh, device, speak: bool) -> int:
+    """Build the model and engine and serve the synthetic requests (the
+    body of :func:`main`; ``speak`` False on the ranks other than 0)."""
+    if serve_mesh is not None:
+        from repro_torch.launch.mesh import axis_ici_map
+        sm = serve_mesh
+        print(f"[serve] mesh {args.mesh} (data, model) over ranks "
+              f"{list(sm.device_ids)}, pin={sm.pin.strategy}, "
+              f"spares={list(sm.spares)}")
+        for row in axis_ici_map(sm.topo, sm.device_ids, sm.axis_sizes,
+                                sm.axis_names):
+            lay = ("ring" if row["ring"]
+                   else f"mean {row['mean_hops']:.1f} hops")
+            print(f"[serve]   axis {row['axis']:<6} size {row['size']:>3}  "
+                  f"{lay}")
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import registry
@@ -189,7 +267,9 @@ def main(argv=None) -> int:
     # --draft validates the pairing eagerly (vocab, family, page size)
     # before any weights are built
     spec_kw = cli.spec_kwargs(args, cfg, serve_cfg, ap)
-    lm = LM(cfg, dtype, args.device)
+    # a sharded engine takes the full model as its host copy: build and
+    # restore it on the CPU, so the card holds this rank's blocks only
+    lm = LM(cfg, dtype, "cpu" if serve_mesh is not None else device)
     if args.ckpt_dir:
         restore_params(args.ckpt_dir, lm)
         print("[serve] restored params from checkpoint")
@@ -203,13 +283,16 @@ def main(argv=None) -> int:
         print(f"[serve] speculative decoding: draft={args.draft} "
               f"K={sc.num_draft_tokens} "
               f"policy={sc.resolve_policy(args.temperature)}")
-    eng = Engine(lm, serve_cfg, device=lm.device, draft_lm=draft_lm,
-                 **spec_kw)
+    eng = Engine(lm, serve_cfg,
+                 device=device if serve_mesh is not None else lm.device,
+                 mesh=serve_mesh,
+                 draft_lm=draft_lm, **spec_kw)
     if impls:
         print(f"[serve] kernel impls pinned: {impls}")
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, {args.dtype}, "
           f"{'checkpoint' if args.ckpt_dir else 'random (seed 0)'} weights "
-          f"on {lm.device}")
+          f"on {eng.device}"
+          + (f", sharded {eng.mesh_facts}" if serve_mesh else ""))
     launches0 = kernel_launches()
     tune = tune_engine(args, cfg, lm, eng) if args.tune else None
     if eng.paged:
@@ -221,7 +304,7 @@ def main(argv=None) -> int:
     ctr = None
     if args.instrument:
         from repro_torch.core.perfctr import PerfCtr
-        ctr = PerfCtr(device=lm.device)
+        ctr = PerfCtr(device=eng.device)
         eng.instrument(ctr, prompt_len=args.prompt_len)
         print("[serve] instrumented serve.prefill/serve.decode regions")
 
@@ -250,8 +333,8 @@ def main(argv=None) -> int:
                   f"retry_after={r.retry_after_s:.2f}s)")
     t0 = time.perf_counter()
     done = sched.run()
-    if lm.device.type == "cuda":
-        torch.cuda.synchronize(lm.device)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0
     total_new = sum(len(r.generated) for r in done.values())
     ttfts = [r.ttft for r in done.values() if r.ttft is not None]
@@ -271,6 +354,10 @@ def main(argv=None) -> int:
               f"restores={m['restores']:.0f}")
     if sched.chaos is not None:
         print(f"[serve] chaos: {sched.chaos.summary()}")
+    if sched.heartbeats is not None:
+        print(f"[serve] ft: remeshes={m['remeshes']:.0f} "
+              f"mesh={list(eng.serve_mesh.device_ids)} "
+              f"events={[e['type'] for e in sched.ft_events]}")
     spec_summary = None
     if spec_kw:
         rate = m["draft_accepted"] / max(m["draft_proposed"], 1)
@@ -300,10 +387,10 @@ def main(argv=None) -> int:
     if ctr is not None:
         print()
         print(ctr.report())
-    if args.json:
+    if args.json and speak:
         with open(args.json, "w") as fh:
             json.dump({
-                "device": str(lm.device),
+                "device": str(eng.device),
                 "dtype": args.dtype,
                 "impls": eng.impl_pins,
                 "tokens": {str(rid): list(r.generated)
@@ -322,6 +409,13 @@ def main(argv=None) -> int:
                 "pool_occupancy": (sched.pool.occupancy()
                                    if sched.pool is not None else None),
                 "ft_events": sched.ft_events,
+                "mesh": ({"facts": {k: list(v) if isinstance(v, tuple)
+                                    else v
+                                    for k, v in eng.mesh_facts.items()},
+                          "device_ids": list(eng.serve_mesh.device_ids),
+                          "world": torch.distributed.get_world_size(),
+                          "remeshes": m["remeshes"]}
+                         if serve_mesh is not None else None),
                 "rejections": m["rejections"],
                 "sheds": m["sheds"],
                 "expired": m["expired"],
@@ -377,14 +471,19 @@ def tune_engine(args, cfg, lm, eng) -> dict:
     size.  Returns the choices and the session's stats."""
     from repro_torch.kernels import registry
     sess = cli.session_from_args(args)
-    backend = lm.device.type
+    backend = eng.device.type
     dh = cfg.resolved_head_dim
     out = {"choices": {}}
+    # a sharded engine tunes PER SHARDING, at the head counts each rank's
+    # kernels see: the mesh facts join the tune keys, so each (mesh shape,
+    # per-device heads) sweeps once and warm-starts after
+    mesh_facts = eng.mesh_facts
+    m = mesh_facts["mesh_shape"][-1] if mesh_facts else 1
+    h, kvh = cfg.num_heads // m, cfg.num_kv_heads // m
     # tune under the ENGINE's dtype: best() keys on q.dtype at the call,
     # so an fp32 sweep would never serve a bf16 model
-    facts = dict(b=1, h=cfg.num_heads, kvh=cfg.num_kv_heads,
-                 sq=args.prompt_len, sk=args.prompt_len, dh=dh,
-                 dtype=lm.dtype, backend=backend)
+    facts = dict(b=1, h=h, kvh=kvh, sq=args.prompt_len, sk=args.prompt_len,
+                 dh=dh, dtype=lm.dtype, backend=backend, **mesh_facts)
     rec = registry.autotune("attention", sess, **facts)
     out["choices"]["attention"] = _tuned(rec, None, facts)
     print(f"[serve] attention tuned: (bq, bk)={rec.choice} "
@@ -395,10 +494,11 @@ def tune_engine(args, cfg, lm, eng) -> dict:
         # space: sweep the impl that will actually run, at the pool's page
         # size only (the reference sweeps every page size; a pool has one)
         impl = "cuda_paged_q8" if eng.quantized else "cuda_paged"
-        facts = dict(b=args.slots, kvh=cfg.num_kv_heads,
+        facts = dict(b=args.slots, kvh=kvh,
                      g=cfg.num_heads // cfg.num_kv_heads, dh=dh,
                      ctx=args.max_seq, dtype=lm.dtype,
-                     quantized=eng.quantized, backend=backend)
+                     quantized=eng.quantized, backend=backend,
+                     **mesh_facts)
         rec = registry.autotune(
             "paged_decode", sess, impl=impl,
             candidates=[(args.page_size, sp) for sp in (1, 2, 4, 8)],

@@ -20,7 +20,7 @@ The reference's flags (``--arch``, ``--steps``, ``--batch``, ``--seq``,
 and the port's serve launcher's ``--device``, ``--layers N`` and
 ``--dtype`` (the compute dtype; parameters are fp32 masters either way).
 ``--mesh`` and ``--pin`` shard the run over a device mesh: not ported
-yet (ROADMAP.md, queue 1 item 14), and refused.
+yet (ROADMAP.md, item 14b), and refused.
 """
 
 from __future__ import annotations
@@ -54,9 +54,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--mesh", choices=["single", "multi"], default=None,
-                    help="not ported yet (ROADMAP.md, queue 1 item 14)")
+                    help="not ported yet (ROADMAP.md, item 14b)")
     ap.add_argument("--pin", default=None,
-                    help="not ported yet (ROADMAP.md, queue 1 item 14)")
+                    help="not ported yet (ROADMAP.md, item 14b)")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--remat", default="none",
                     help="none | dots | dots_no_batch | full")
@@ -64,8 +64,8 @@ def main(argv=None) -> int:
     for flag in ("mesh", "pin"):
         if getattr(args, flag) is not None:
             ap.error(f"--{flag} shards the run over a device mesh, which is "
-                     f"not ported yet (ROADMAP.md, queue 1 item 14: mesh "
-                     f"and fault tolerance); the port trains on one card")
+                     f"not ported yet (ROADMAP.md, item 14b: the training "
+                     f"half of the mesh); the port trains on one card")
     if args.layers is not None and args.layers < 1:
         ap.error(f"--layers must be at least 1, not {args.layers}")
 

@@ -17,6 +17,10 @@ writes its K/V into the cache buffers it is given, and decode writes one
 token per row.  The functions still return the cache (with its new
 ``length``) so call sites read like the JAX package's.
 
+Under tensor parallelism the serving functions take ``tp``, the rank's
+model axis (the config then holds the rank's head counts): ``wo``'s
+partial sums and an int8 row's amax reduce over it.
+
 Prefill attention and paged decode go through the kernel registry
 (:mod:`repro_torch.kernels.registry`), as in the JAX package: the
 ``attention`` family picks kernel #1 (``cuda_flash``) for CUDA tensors
@@ -49,7 +53,7 @@ its registry route (the encoder's serving forward).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -63,7 +67,7 @@ __all__ = ["AttnConfig", "Attention", "KVCache", "init_kv_cache",
            "init_paged_kv_cache", "prefill_into_paged_cache",
            "paged_decode_attention_token", "KV_QUANT_EPS",
            "quantize_kv_rows", "dequantize_gathered", "full_attention",
-           "attention", "flash_attention_train"]
+           "attention", "flash_attention_train", "attn_specs"]
 
 NEG_INF = -2.0e38
 
@@ -120,6 +124,22 @@ class Attention(nn.Module):
         truncated_normal_(self.wo, 1.0 / math.sqrt(h * dh), generator)
 
 
+def attn_specs(cfg: AttnConfig) -> dict:
+    """Logical axes of each attention weight (the reference's
+    ``attn_specs``): heads split over ``model``, d_model over ``data``."""
+    s = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ("heads", "head_dim")
+        s["bk"] = ("kv_heads", "head_dim")
+        s["bv"] = ("kv_heads", "head_dim")
+    return s
+
+
 # ---------------------------------------------------------------------------
 # projections + rope
 # ---------------------------------------------------------------------------
@@ -152,11 +172,16 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     return q, k, v
 
 
-def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
-    """[B,S,H,Dh] @ wo [H,Dh,d] -> [B,S,d]."""
+def _out_proj(p: Attention, out: torch.Tensor, tp: Any = None
+              ) -> torch.Tensor:
+    """[B,S,H,Dh] @ wo [H,Dh,d] -> [B,S,d].  Under tensor parallelism
+    (``tp``, the model axis; the config then holds the rank's head
+    counts) ``wo`` is row-parallel: this rank's heads give a partial sum,
+    reduced over the axis here (``wo`` has no bias to add after it)."""
     b, s, h, dh = out.shape
-    return out.reshape(b, s, h * dh) @ cast(p.wo, out.dtype).reshape(h * dh,
-                                                                     -1)
+    y = out.reshape(b, s, h * dh) @ cast(p.wo, out.dtype).reshape(h * dh,
+                                                                  -1)
+    return y if tp is None else tp.all_reduce(y)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -455,8 +480,8 @@ def _new_lengths(lengths: Optional[torch.Tensor], b: int, s: int,
 def prefill_into_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                        cache: KVCache,
                        lengths: Optional[torch.Tensor] = None,
-                       positions3: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, KVCache]:
+                       positions3: Optional[torch.Tensor] = None,
+                       tp: Any = None) -> Tuple[torch.Tensor, KVCache]:
     """Prefill attention that also writes this segment's K/V into the
     cache (in place, at positions ``[0, S)``).  ``lengths`` [B] int32 marks
     each row's real prompt length: pad keys are masked out of every
@@ -466,12 +491,13 @@ def prefill_into_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     out, k, v = _prefill_qkv_attend(p, x, cfg, lengths, positions3)
     cache.k[:, :s] = k.to(cache.k.dtype)
     cache.v[:, :s] = v.to(cache.v.dtype)
-    y = _out_proj(p, out)
+    y = _out_proj(p, out, tp)
     return y, cache._replace(length=_new_lengths(lengths, b, s, x.device))
 
 
 def decode_attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
-                     cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+                     cache: KVCache, tp: Any = None
+                     ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode: x [B,1,d]; row b holds ``length[b]`` past tokens.
 
     The new token's K/V are written in place at each row's own index
@@ -497,7 +523,7 @@ def decode_attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = _gqa_out(probs, cache.v.to(q.dtype))
-    return _out_proj(p, out), cache._replace(length=length + 1)
+    return _out_proj(p, out, tp), cache._replace(length=length + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -533,13 +559,19 @@ class PagedKVCache(NamedTuple):
 KV_QUANT_EPS = 1e-8
 
 
-def quantize_kv_rows(seq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv_rows(seq: torch.Tensor, tp: Any = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-token-row int8: seq [..., KVH, Dh] -> (codes int8,
     scale f32 [...]) with scale = amax over the trailing [KVH, Dh] / 127.
     ``torch.round`` rounds half to even, as ``jnp.round`` does, so the
-    codes equal the JAX package's bit for bit."""
+    codes equal the JAX package's bit for bit.  Under tensor parallelism
+    (``tp``, the model axis) a rank holds only its kv heads of the row:
+    the amax is maxed over the axis, so the scale is the whole row's and
+    every rank's codes are the unsharded codes of its heads."""
     f = seq.float()
     amax = f.abs().amax(dim=(-2, -1))
+    if tp is not None:
+        amax = tp.all_reduce(amax, op="max")
     scale = torch.clamp(amax, min=KV_QUANT_EPS) / 127.0
     codes = torch.clamp(torch.round(f / scale[..., None, None]), -127, 127)
     return codes.to(torch.int8), scale
@@ -690,7 +722,8 @@ def prefill_into_paged_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                              cache: PagedKVCache,
                              lengths: Optional[torch.Tensor] = None,
                              prefix_len: Optional[torch.Tensor] = None,
-                             positions3: Optional[torch.Tensor] = None
+                             positions3: Optional[torch.Tensor] = None,
+                             tp: Any = None
                              ) -> Tuple[torch.Tensor, PagedKVCache]:
     """:func:`prefill_into_cache` with the K/V landing in the pages each
     row's table already lists (in place).  int8 caches quantize each token
@@ -713,8 +746,8 @@ def prefill_into_paged_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
         new_len = prefix_len + suffix_len
         start = prefix_len
     if cache.quantized:
-        k_codes, k_sc = quantize_kv_rows(k)
-        v_codes, v_sc = quantize_kv_rows(v)
+        k_codes, k_sc = quantize_kv_rows(k, tp)
+        v_codes, v_sc = quantize_kv_rows(v, tp)
         pt = cache.page_table
         _scatter_pages_at(cache.k_pages, pt, k_codes, start, suffix_len)
         _scatter_pages_at(cache.v_pages, pt, v_codes, start, suffix_len)
@@ -728,7 +761,7 @@ def prefill_into_paged_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                           suffix_len)
         _scatter_pages_at(cache.v_pages, cache.page_table, v, start,
                           suffix_len)
-    y = _out_proj(p, out)
+    y = _out_proj(p, out, tp)
     return y, cache._replace(length=new_len.to(torch.int32))
 
 
@@ -738,7 +771,8 @@ def paged_decode_attention_token(p: Attention, x: torch.Tensor,
                                  page_table: torch.Tensor,
                                  length: torch.Tensor,
                                  k_scale: Optional[torch.Tensor] = None,
-                                 v_scale: Optional[torch.Tensor] = None
+                                 v_scale: Optional[torch.Tensor] = None,
+                                 tp: Any = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
     """One-token decode against READ-ONLY pages (one layer's pool).
@@ -756,4 +790,4 @@ def paged_decode_attention_token(p: Attention, x: torch.Tensor,
     kw = {} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)
     out = registry.run("paged_decode", q4, k_pages, v_pages, page_table,
                        length, k_new, v_new, **kw)
-    return _out_proj(p, out.reshape(b, 1, cfg.num_heads, dh)), k, v
+    return _out_proj(p, out.reshape(b, 1, cfg.num_heads, dh), tp), k, v

@@ -1,9 +1,25 @@
-"""Numerics shared by the model zoo: norms, the SwiGLU and GELU MLPs,
-RoPE and M-RoPE, init.
+"""Numerics shared by the model zoo: the logical-axis sharding rules,
+the tensor-parallel embedding, norms, the SwiGLU and GELU MLPs, RoPE and
+M-RoPE, init.
 
-Ported from ``repro/models/layers.py:186-303`` (RMSNorm and LayerNorm,
-both computed in fp32).  The sharding rules of the
-JAX module wait for the mesh slice.
+Ported from ``repro/models/layers.py`` (RMSNorm and LayerNorm, both
+computed in fp32).
+
+**Sharding** (``repro/models/layers.py:44-184``).  Each model names the
+dims of its weights with *logical* axes (``LM.param_specs()``);
+:func:`logical_to_mesh` maps one weight's names onto mesh axes through a
+:class:`ShardingRules` table, with the reference's divisibility guard
+(a dim shards only if its size divides the product of its mesh axes, else
+the longest prefix of them that does, else it replicates).  A spec is a
+tuple with one entry per dim: a mesh-axis name, a tuple of names, or
+None (the entries of the reference's ``PartitionSpec``).  GSPMD turns
+those specs into partitioned programs; in the port every rank holds its
+block of each weight (:func:`shard_params_tree`) and the model code does
+the communication the layout implies: one reduce over ``model`` after
+each row-parallel product (``wo``, the MLP's down projection), the
+vocab-parallel lookup of :func:`embed_lookup`, and the gathered logits.
+So :func:`constrain`, the reference's ``with_sharding_constraint``, only
+resolves its spec here: the layout is the code's.
 
 Weights are cast to the activations' dtype at every use (:func:`cast`),
 as the reference casts its fp32 masters: a serving model stores them in
@@ -13,14 +29,176 @@ launch), a training model keeps fp32 masters and computes in bf16.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cast", "truncated_normal_", "rms_norm", "layer_norm", "swiglu",
-           "gelu_mlp", "rope_freqs", "apply_rope", "apply_mrope"]
+__all__ = ["ShardingRules", "DEFAULT_RULES", "logical_to_mesh",
+           "spec_tree_to_pspecs", "shard_params_tree", "constrain",
+           "embed_lookup", "cast", "truncated_normal_", "rms_norm",
+           "layer_norm", "swiglu", "gelu_mlp", "rope_freqs", "apply_rope",
+           "apply_mrope"]
+
+#: one weight's mesh layout: per dim a mesh axis, a tuple of them or None
+Spec = Tuple[Any, ...]
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis sharding
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical axis -> physical mesh axis (or None = replicated).
+
+    The **policy knobs** of the distribution layer:
+
+    * ``batch -> (pod, data)``: DP across pods and the data axis.
+    * ``embed -> data``: FSDP — weight matrices sharded on their d_model dim
+      over the data axis.
+    * ``ff / heads / vocab / experts -> model``: TP / EP.
+    * ``act_seq -> model`` when ``sequence_parallel`` (SP).
+    """
+
+    rules: Tuple[Tuple[str, Optional[Tuple[str, ...]]], ...]
+
+    def lookup(self, logical: str) -> Optional[Tuple[str, ...]]:
+        for name, phys in self.rules:
+            if name == logical:
+                return phys
+        return None
+
+    def replace(self, **kw: Optional[Tuple[str, ...]]) -> "ShardingRules":
+        rules = tuple((k, kw.get(k, v)) for k, v in self.rules)
+        extra = tuple((k, v) for k, v in kw.items()
+                      if k not in dict(self.rules))
+        return ShardingRules(rules + extra)
+
+
+DEFAULT_RULES = ShardingRules(rules=(
+    ("batch", ("pod", "data")),
+    ("act_seq", None),            # set to ("model",) for sequence parallelism
+    ("act_embed", None),
+    ("embed", ("data",)),         # FSDP shard of params' d_model dims
+    ("ff", ("model",)),
+    ("heads", ("model",)),
+    ("kv_heads", ("model",)),
+    ("head_dim", None),
+    ("qkv", None),
+    ("vocab", ("model",)),
+    ("experts", ("model",)),
+    ("expert_ff", None),
+    ("layers", None),
+    ("seq", None),                # data-side sequence dim (inputs)
+    # KV-cache sequence: takes whatever mesh axes the batch dim left free
+    ("cache_seq", ("data", "model")),
+    ("state", None),
+    ("conv", None),
+    # MoE dispatch tensors: None = let the partitioner propagate
+    ("moe_tokens", None),
+    ("moe_capacity", None),
+))
+
+
+def _axis_sizes(mesh: Any) -> Dict[str, int]:
+    from repro_torch.launch.mesh import mesh_layout
+    names, sizes = mesh_layout(mesh)
+    return dict(zip(names, sizes))
+
+
+def logical_to_mesh(logical_axes: Sequence[Optional[str]],
+                    rules: ShardingRules, mesh: Any,
+                    dim_sizes: Optional[Sequence[int]] = None) -> Spec:
+    """Map one array's logical axes to a spec.
+
+    Divisibility guard: a dim is only sharded if its size divides the mesh
+    axes product (else replicated, or the longest prefix that divides) —
+    this is what lets 14-head and 60-expert configs run on a 16-wide model
+    axis without silent padding."""
+    sizes = _axis_sizes(mesh)
+    used: set = set()
+    spec = []
+    for i, ax in enumerate(logical_axes):
+        phys = rules.lookup(ax) if ax else None
+        if not phys:
+            spec.append(None)
+            continue
+        phys = tuple(p for p in phys if p in sizes and p not in used)
+        if not phys:
+            spec.append(None)
+            continue
+        total = int(np.prod([sizes[p] for p in phys]))
+        if dim_sizes is not None and dim_sizes[i] % total != 0:
+            while phys and dim_sizes[i] % int(
+                    np.prod([sizes[p] for p in phys])) != 0:
+                phys = phys[:-1]
+            if not phys:
+                spec.append(None)
+                continue
+        used.update(phys)
+        spec.append(phys if len(phys) > 1 else phys[0])
+    return tuple(spec)
+
+
+def spec_tree_to_pspecs(specs: Mapping[str, Any], rules: ShardingRules,
+                        mesh: Any, shapes: Optional[Mapping[str, Any]] = None
+                        ) -> Dict[str, Any]:
+    """Map a whole logical-spec tree (nested mappings, tuple leaves) to
+    specs; ``shapes`` (the same keys, leaves with a ``.shape``) turns on
+    the divisibility guard."""
+    def walk(s, shp):
+        if isinstance(s, Mapping):
+            return {k: walk(v, None if shp is None else shp[k])
+                    for k, v in s.items()}
+        return logical_to_mesh(s, rules, mesh, dim_sizes=(
+            None if shp is None else tuple(shp.shape)))
+    return walk(specs, shapes)
+
+
+def shard_params_tree(params: Mapping[str, Any], specs: Mapping[str, Any],
+                      rules: ShardingRules, mesh: Any,
+                      device: Optional[torch.device] = None
+                      ) -> Optional[Dict[str, Any]]:
+    """This rank's block of every weight under its derived spec (the
+    reference device_puts the tree with its shardings): full tensors in,
+    contiguous local slices on ``device`` out; None off the mesh."""
+    from repro_torch.ft.elastic import reshard_tree
+    pspecs = spec_tree_to_pspecs(specs, rules, mesh, shapes=params)
+    return reshard_tree(params, pspecs, mesh, device)
+
+
+def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]],
+              rules: ShardingRules, mesh: Any,
+              soft: bool = False) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical names.  A
+    layout hint changes no value, and each rank of the port computes on
+    its own block, so ``x`` comes back as it is once its spec resolves
+    (no-op without a mesh)."""
+    del soft
+    if mesh is not None:
+        logical_to_mesh(logical_axes, rules, mesh, dim_sizes=tuple(x.shape))
+    return x
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 axis: Any = None) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``; with a model ``axis`` the table
+    is this rank's vocab block ``[V / m, d]``: tokens outside it take zero
+    rows, then one sum over the axis gives every rank every row (exact:
+    each row is one rank's value plus zeros)."""
+    ids = tokens.long()
+    if axis is None:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - axis.index * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+    return axis.all_reduce(rows)
 
 
 def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

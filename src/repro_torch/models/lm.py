@@ -67,6 +67,24 @@ decode over its WHOLE ``[B, Smax, KVH, Dh]`` K and V buffers whatever the
 rows hold, the prefix-cache suffix prefill's gather of the table's pages,
 and the recurrent families' state (read and written).  So an event collection around
 a step counts the whole step, as the artifact does.
+
+**Tensor parallelism** (``LM(..., tp=axis)``; the dense family).  The
+JAX package shards one LM's arrays over a mesh and lets GSPMD partition
+its programs.  The port builds, on each rank of the mesh, an LM of the
+rank's blocks: ``tp`` is the rank's model axis
+(:class:`repro_torch.launch.mesh.ModelAxis`), the heads of ``wq``/``wk``/
+``wv`` (and ``bq``/``bk``/``bv``) and of ``wo`` split over it, and so do
+``d_ff`` and ``vocab`` where they divide (the divisibility guard of
+:func:`~repro_torch.models.layers.logical_to_mesh`; the heads always do,
+as the engine refuses a ``num_kv_heads`` the axis does not divide).  The
+rank's configs carry its head counts, so the kernels get local tensors
+(#1 and #2/#3 at ``num_kv_heads / m`` kv heads, G unchanged); the reduces
+after ``wo`` and after the MLP, the vocab-parallel lookup and the
+gathered logits (so sampling and kernel #4 see whole rows) are the
+communication.  ``cfg`` stays the whole model's config;
+:meth:`LM.block_config` is the rank's.  :meth:`LM.param_specs` names
+every weight's logical axes (``repro/models/lm.py:207-237``).
+Training under a mesh, and the other families, are item 14b.
 """
 
 from __future__ import annotations
@@ -89,7 +107,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import AttnConfig, KVCache
-from repro_torch.models.layers import cast, layer_norm, truncated_normal_
+from repro_torch.models.layers import (DEFAULT_RULES, ShardingRules, cast,
+                                      embed_lookup, layer_norm,
+                                      spec_tree_to_pspecs, truncated_normal_)
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import Mamba2Config
 from repro_torch.models.transformer import BlockConfig
@@ -236,23 +256,35 @@ class LM(nn.Module):
     def __init__(self, cfg: LMConfig, dtype: torch.dtype = torch.bfloat16,
                  device: Optional[Union[str, torch.device]] = None,
                  features: Optional[FeatureSet] = None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 rules: ShardingRules = DEFAULT_RULES, tp: Any = None):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; families: "
                              f"{PORTED_FAMILIES}")
+        if tp is not None and cfg.family != "dense":
+            raise NotImplementedError(
+                f"tensor-parallel serving of the {cfg.family} family is not "
+                f"ported yet (ROADMAP.md, item 14b); the dense family is")
+        if tp is not None and cfg.num_kv_heads % tp.size:
+            raise ValueError(
+                f"num_kv_heads={cfg.num_kv_heads} does not divide over the "
+                f"model axis ({tp.size} ranks)")
         self.cfg = cfg
         self.dtype = dtype
         self.param_dtype = param_dtype or dtype
         self.features = features or default_features()
         self.device = resolve_device(device)
+        self.rules = rules
+        self.tp = tp
         dev = self.device
-        bc = cfg.block_config()
+        bc = self.block_config()
         dtype = self.param_dtype
-        self.embed = Embed(cfg.vocab, cfg.d_model, dtype, dev)
+        vocab = self.local_vocab
+        self.embed = Embed(vocab, cfg.d_model, dtype, dev)
         self.final_norm = tf_mod.make_norm(cfg.norm, cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
-            self.lm_head = LMHead(cfg.d_model, cfg.vocab, dtype, dev)
+            self.lm_head = LMHead(cfg.d_model, vocab, dtype, dev)
         if cfg.family == "xlstm":
             xc = cfg.xlstm_config()
             n_pairs = cfg.n_layers // 2
@@ -278,6 +310,63 @@ class LM(nn.Module):
         else:
             self.blocks = nn.ModuleList(tf_mod.Block(bc, dtype, dev)
                                         for _ in range(cfg.n_layers))
+
+    # ============================================================ sharding
+    def _split(self, n: int) -> bool:
+        """Whether a dim of size ``n`` splits over the model axis."""
+        return self.tp is not None and n % self.tp.size == 0
+
+    @property
+    def local_vocab(self) -> int:
+        """Vocab rows this rank holds (all of them unless vocab splits)."""
+        v = self.cfg.vocab
+        return v // self.tp.size if self._split(v) else v
+
+    def block_config(self) -> BlockConfig:
+        """The block config this rank computes: the model's, or under
+        tensor parallelism its head counts (and ``d_ff`` where it splits)
+        with the model axis attached."""
+        bc = self.cfg.block_config()
+        tp = self.tp
+        if tp is None:
+            return bc
+        m = tp.size
+        attn = bc.attn._replace(num_heads=bc.attn.num_heads // m,
+                                num_kv_heads=bc.attn.num_kv_heads // m)
+        if self._split(bc.d_ff):
+            return bc._replace(attn=attn, d_ff=bc.d_ff // m, tp=tp,
+                               tp_mlp=tp)
+        return bc._replace(attn=attn, tp=tp)
+
+    def param_specs(self) -> Dict[str, Tuple[str, ...]]:
+        """Every weight's logical axes, keyed by parameter name (the
+        reference's ``param_specs`` tree, one :func:`~repro_torch.models.
+        transformer.block_specs` a layer where the JAX package stacks
+        them).  The dense, moe and vlm block layout; the other families'
+        specs are item 14b."""
+        cfg = self.cfg
+        if cfg.family not in KV_FAMILIES:
+            raise NotImplementedError(
+                f"the {cfg.family} family's sharding specs are not ported "
+                f"yet (ROADMAP.md, item 14b)")
+        norm = (("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias"))
+        out: Dict[str, Tuple[str, ...]] = {"embed.table": ("vocab", "embed")}
+        out.update({f"final_norm.{k}": ("act_embed",) for k in norm})
+        if not cfg.tie_embeddings:
+            out["lm_head.w"] = ("embed", "vocab")
+        one = tf_mod.block_specs(cfg.block_config())
+        for i in range(cfg.n_layers):
+            for mod, leaves in one.items():
+                out.update({f"blocks.{i}.{mod}.{k}": v
+                            for k, v in leaves.items()})
+        return out
+
+    def param_pspecs(self, mesh: Any, rules: Optional[ShardingRules] = None
+                     ) -> Dict[str, Tuple[Any, ...]]:
+        """Every weight's mesh spec on ``mesh`` (this LM's shapes feed the
+        divisibility guard)."""
+        return spec_tree_to_pspecs(self.param_specs(), rules or self.rules,
+                                   mesh, shapes=dict(self.named_parameters()))
 
     # ================================================================ init
     def init(self, generator: Optional[torch.Generator] = None) -> "LM":
@@ -309,7 +398,8 @@ class LM(nn.Module):
                patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token embeddings; for the vlm family ``patch_embeds`` [B, n, d]
         replace the first n (``repro/models/lm.py:242-250``)."""
-        x = cast(self.embed.table[tokens.long()], self.dtype)
+        axis = self.tp if self._split(self.cfg.vocab) else None
+        x = cast(embed_lookup(self.embed.table, tokens, axis), self.dtype)
         if self.cfg.family == "vlm" and patch_embeds is not None:
             n = patch_embeds.shape[1]
             if tokens.shape[1] < n:
@@ -340,7 +430,12 @@ class LM(nn.Module):
         x = tf_mod.apply_norm(x, self.final_norm, self.cfg.norm_eps)
         w = (self.embed.table.T if self.cfg.tie_embeddings
              else self.lm_head.w)
-        return x @ cast(w, x.dtype)
+        logits = x @ cast(w, x.dtype)
+        if self._split(self.cfg.vocab):
+            # the vocab-parallel head: gather whole rows, as GSPMD's
+            # replicated logits are, so sampling sees every column
+            logits = self.tp.all_gather(logits, dim=-1)
+        return logits
 
     # ============================================================== train
     def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]
@@ -348,6 +443,10 @@ class LM(nn.Module):
         """Token embeddings -> final hidden states, no caches.  Returns
         (h, aux loss)."""
         cfg, feats = self.cfg, self.features
+        if self.tp is not None:
+            raise NotImplementedError(
+                "training a tensor-parallel LM is not ported yet "
+                "(ROADMAP.md, item 14b)")
         fam = cfg.family
         if fam in KV_FAMILIES:
             pos3 = (self._vlm_positions3(batch["tokens"]) if fam == "vlm"
@@ -440,7 +539,7 @@ class LM(nn.Module):
         ``S_src = max(max_seq // src_ratio, 1)``, which prefill replaces
         by the encoded source's (``repro/models/lm.py:424-431``)."""
         cfg = self.cfg
-        ac = cfg.attn_config()
+        ac = self.block_config().attn
         if page_size > 0 and cfg.family not in KV_FAMILIES:
             raise ValueError(
                 f"paged KV caches need an attention-cache family, not "
@@ -542,7 +641,7 @@ class LM(nn.Module):
             return self._head(x if all_logits else x[:, -1]), new_state
         pos3 = self._vlm_positions3(tokens) if fam == "vlm" else None
         x, caches = tf_mod.apply_stack_decode(
-            self.blocks, x, self.cfg.block_config(), state["caches"],
+            self.blocks, x, self.block_config(), state["caches"],
             block_fn=functools.partial(tf_mod.apply_block_prefill,
                                        lengths=lengths,
                                        prefix_len=batch.get("prefix_len"),
@@ -577,7 +676,7 @@ class LM(nn.Module):
             x, new_state = self._encdec_decode(x, state)
             return self._head(x)[:, 0], new_state
         x, caches = tf_mod.apply_stack_decode(
-            self.blocks, x, self.cfg.block_config(), state["caches"])
+            self.blocks, x, self.block_config(), state["caches"])
         return self._head(x)[:, 0], {"caches": caches}
 
     # ============================================================== sizes
@@ -616,7 +715,7 @@ class LM(nn.Module):
                     and ".moe." not in name):
                 elems += p.numel() * (apps if name.startswith("shared_attn.")
                                       else 1)
-        head = (self.cfg.d_model * self.cfg.vocab
+        head = (self.cfg.d_model * self.local_vocab
                 * self.embed.table.element_size())
         if not self.cfg.tie_embeddings:
             nbytes -= head
@@ -654,15 +753,16 @@ class LM(nn.Module):
         memory."""
         cfg = self.cfg
         b, s = tokens.shape
-        ac = cfg.attn_config()
+        ac = self.block_config().attn
         h, kvh, dh = ac.num_heads, ac.num_kv_heads, ac.head_dim
         isz = self.embed.table.element_size()
         elems, wbytes, hbytes = self._weight_model
         heads = b * s if all_logits else b
-        flops = 2.0 * (b * s * elems + heads * cfg.d_model * cfg.vocab)
+        vocab = self.local_vocab
+        flops = 2.0 * (b * s * elems + heads * cfg.d_model * vocab)
         arg = (wbytes + hbytes + b * s * (cfg.d_model * isz + 4)
                + extra_elems * isz)
-        out = heads * cfg.vocab * isz
+        out = heads * vocab * isz
         if cfg.family == "encdec":
             mem = state["mem_k"]
             s_src, L = mem.shape[2], mem.shape[0]

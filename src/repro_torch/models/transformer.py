@@ -8,7 +8,9 @@ here a Python loop walks an ``nn.ModuleList``), RMSNorm or LayerNorm
 block and stack (:func:`apply_block` returns the MoE's aux loss,
 :func:`apply_stack` sums it over the layers under the
 ``FeatureSet.remat_policy``), the prefill block, the dense decode block,
-and the paged decode stack.
+and the paged decode stack.  A sharded LM's :class:`BlockConfig` carries
+its model axis (``tp``, ``tp_mlp``): the serving blocks reduce the
+attention's and the MLP's partial sums over it.
 
 **Remat** (:func:`remat`, the reference's ``remat_policy_fn``,
 ``:183-190``): ``none`` runs a layer as is; ``full`` checkpoints it and
@@ -45,7 +47,7 @@ from repro_torch.models.layers import (layer_norm, rms_norm, swiglu,
 __all__ = ["BlockConfig", "Block", "RMSNorm", "LayerNorm", "make_norm",
            "apply_norm", "apply_block", "apply_stack", "apply_layers",
            "remat", "apply_block_prefill", "apply_block_decode",
-           "apply_stack_decode"]
+           "apply_stack_decode", "block_specs", "stacked_specs"]
 
 
 class BlockConfig(NamedTuple):
@@ -55,6 +57,12 @@ class BlockConfig(NamedTuple):
     mlp: str = "swiglu"          # swiglu | moe
     moe: Optional[object] = None
     norm_eps: float = 1e-6
+    # tensor parallel (a sharded LM's view): the model axis the heads
+    # split over (``attn`` then holds the rank's head counts), and the one
+    # ``d_ff`` splits over (then ``d_ff`` is the rank's; None when the MLP
+    # is replicated because the axis does not divide it)
+    tp: Optional[object] = None
+    tp_mlp: Optional[object] = None
 
 
 class RMSNorm(nn.Module):
@@ -135,17 +143,45 @@ class Block(nn.Module):
         truncated_normal_(self.mlp.w_down, 1.0 / math.sqrt(d_ff), generator)
 
 
+def block_specs(cfg: BlockConfig) -> dict:
+    """Logical axes of one block's weights (the reference's
+    ``block_specs``, ``repro/models/transformer.py:74``)."""
+    norm_spec = ({"scale": ("act_embed",)} if cfg.norm == "rmsnorm"
+                 else {"scale": ("act_embed",), "bias": ("act_embed",)})
+    s = {"ln1": dict(norm_spec), "attn": attn_mod.attn_specs(cfg.attn),
+         "ln2": dict(norm_spec)}
+    if cfg.mlp == "moe":
+        raise NotImplementedError(
+            "the MoE's sharding half (moe_specs) is not ported yet "
+            "(ROADMAP.md, item 14b)")
+    s["mlp"] = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                "w_down": ("ff", "embed")}
+    return s
+
+
+def stacked_specs(one: dict) -> dict:
+    """Prepend the 'layers' logical axis to every leaf spec (the JAX
+    package's stacked weights; the port's blocks are one module a layer,
+    so ``LM.param_specs`` uses :func:`block_specs` per layer)."""
+    return {k: stacked_specs(v) if isinstance(v, dict)
+            else ("layers",) + tuple(v) for k, v in one.items()}
+
+
 def _norm(x: torch.Tensor, ln: nn.Module, cfg: BlockConfig) -> torch.Tensor:
     return apply_norm(x, ln, cfg.norm_eps)
 
 
 def _block_mlp(p: Block, h: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
     """The post-attention MLP half of a block (an MoE's aux loss dropped:
-    prefill and decode never train)."""
+    prefill and decode never train).  Under tensor parallelism
+    (``cfg.tp_mlp``) gate/up are column-parallel and down row-parallel: the
+    rank's ``d_ff`` block gives a partial sum, reduced over the model axis
+    (the SwiGLU has no bias to add after it)."""
     if cfg.mlp == "moe":
         return moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe)[0]
     mp = p.mlp
-    return swiglu(_norm(h, p.ln2, cfg), mp.w_gate, mp.w_up, mp.w_down)
+    y = swiglu(_norm(h, p.ln2, cfg), mp.w_gate, mp.w_up, mp.w_down)
+    return y if cfg.tp_mlp is None else cfg.tp_mlp.all_reduce(y)
 
 
 def apply_block(p: Block, x: torch.Tensor, cfg: BlockConfig, *,
@@ -234,11 +270,11 @@ def apply_block_prefill(p: Block, x: torch.Tensor, cfg: BlockConfig,
     if paged:
         a, new_cache = attn_mod.prefill_into_paged_cache(
             p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths,
-            prefix_len=prefix_len, positions3=positions3)
+            prefix_len=prefix_len, positions3=positions3, tp=cfg.tp)
     else:
         a, new_cache = attn_mod.prefill_into_cache(
             p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths,
-            positions3=positions3)
+            positions3=positions3, tp=cfg.tp)
     h = x + a
     return h + _block_mlp(p, h, cfg), new_cache
 
@@ -247,7 +283,7 @@ def apply_block_decode(p: Block, x: torch.Tensor, cfg: BlockConfig,
                        cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
     """Dense one-token decode of one block (``decode_attention``)."""
     a, new_cache = attn_mod.decode_attention(p.attn, _norm(x, p.ln1, cfg),
-                                             cfg.attn, cache)
+                                             cfg.attn, cache, tp=cfg.tp)
     h = x + a
     return h + _block_mlp(p, h, cfg), new_cache
 
@@ -312,13 +348,13 @@ def _apply_stack_decode_paged(blocks: nn.ModuleList, x: torch.Tensor,
         a, k_t, v_t = attn_mod.paged_decode_attention_token(
             p.attn, _norm(x, p.ln1, cfg), cfg.attn, layer.k_pages,
             layer.v_pages, pt, length, k_scale=layer.k_scale,
-            v_scale=layer.v_scale)
+            v_scale=layer.v_scale, tp=cfg.tp)
         h = x + a
         x = h + _block_mlp(p, h, cfg)
         k_t, v_t = k_t[:, 0], v_t[:, 0]
         if layer.quantized:
-            k_t, k_s = attn_mod.quantize_kv_rows(k_t)
-            v_t, v_s = attn_mod.quantize_kv_rows(v_t)
+            k_t, k_s = attn_mod.quantize_kv_rows(k_t, cfg.tp)
+            v_t, v_s = attn_mod.quantize_kv_rows(v_t, cfg.tp)
             layer.k_scale[page, off] = k_s
             layer.v_scale[page, off] = v_s
         layer.k_pages[page, off] = k_t.to(layer.k_pages.dtype)

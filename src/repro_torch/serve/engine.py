@@ -104,9 +104,49 @@ an encdec model is refused by :class:`BatchScheduler` up front
 (:func:`check_schedulable`), where the JAX scheduler fails at its first
 admission.
 
-Mesh sharding waits for a later slice (``ROADMAP.md``, item 14); the
-argument that selects it raises :class:`NotImplementedError` rather than
-being silently ignored.
+**Sharded serving** (``Engine(..., mesh=)``; the dense family;
+``repro/serve/engine.py:176-216``, ``:358-443``).  ``mesh`` is a bare
+``DeviceMesh`` with a ``model`` axis (sharding only) or a
+:class:`repro_torch.launch.mesh.ServeMesh` (sharding plus the topology,
+pin and spare provenance the fault-tolerance path needs).  The JAX engine
+is single-controller: GSPMD partitions its programs over the mesh.  The
+port is SPMD over ``torch.distributed``: every rank of the world builds
+the same engine and runs the same host program (scheduler, pool, page
+tables) on the same inputs; only tensor work is split.  The caller's
+full ``LM`` lives on the CPU (the engine refuses it anywhere else, so a
+card holds one rank's blocks and never the whole model); it is left as
+it is and stays the host copy a re-mesh reshards from.  A rank of the
+mesh holds its blocks of the weights on its card, cut from that copy by
+:func:`repro_torch.models.layers.shard_params_tree`, and computes its
+heads through the kernels
+(:class:`repro_torch.models.lm.LM` with ``tp``); its KV cache holds its
+kv-head slice, while page tables, lengths and int8 scales are global.
+Each host sync (:meth:`Engine._fetch`) is a broadcast from the mesh's
+first rank over the world, so every rank takes the same tokens, and the
+scheduler's clock is the leader's too (:meth:`BatchScheduler._clock`):
+a request's submit time and every deadline check read one
+``perf_counter`` broadcast from the mesh's first rank, so a deadline
+expires the same request at the same boundary on every rank.  Three
+departures of mechanism (``ROADMAP.md``, queue 3):
+
+* **the ``data`` axis holds replicas**: GSPMD shards batch rows over
+  ``data`` and the weights' d_model dims over it (FSDP, ``embed ->
+  data``), both layouts with equal results; here each data group is a
+  replica of the model-axis group and computes every row, so a re-mesh
+  that shrinks ``data`` drops replicas;
+* **spares follow the loop**: creating process groups is collective over
+  the whole world, so a rank outside the mesh (a hot spare, or a rank
+  whose death is simulated) runs the same host program without tensor
+  work (:class:`_Follower`), taking every sync's tokens from the
+  broadcast, until a re-mesh takes it in;
+* **the live KV moves** at a re-mesh (:meth:`Engine.apply_remesh`): a
+  rank that takes a model index it did not hold receives that index's
+  state (KV slice, lengths, table, scales), the logits and the sampler's
+  state from a rank that held it, point to point; its weights come from
+  its own full host copy (:func:`repro_torch.ft.elastic.reshard_tree`).
+
+The other families under a mesh, spec on a sharded engine (refused by
+the reference too) and training under a mesh are item 14b.
 """
 
 from __future__ import annotations
@@ -126,6 +166,8 @@ from repro_torch.checkpoint import store
 from repro_torch.device import resolve_device
 from repro_torch.ft.straggler import StragglerDetector
 from repro_torch.kernels import registry
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models.layers import DEFAULT_RULES
 from repro_torch.models.lm import LM
 from repro_torch.serve import kv_pool
 from repro_torch.serve.admission import AdmissionQueue, AdmissionRejected
@@ -190,6 +232,11 @@ def check_schedulable(cfg: Any) -> None:
             "src_embeds (the JAX scheduler fails there with KeyError: "
             "'src_embeds'); serve it through Engine.generate(prompts, "
             "extra_batch={'src_embeds': ...})")
+
+
+#: the serving engine's sharding rules: the model axis splits heads, ff
+#: and vocab; the data axis holds replicas (no FSDP of d_model dims)
+SERVE_RULES = DEFAULT_RULES.replace(embed=None)
 
 
 #: Request.status values that end a request's life (no further tokens)
@@ -257,7 +304,9 @@ class Engine:
                  mesh: Any = None, spec: Optional[SpecConfig] = None,
                  draft_lm: Optional[LM] = None, perfctr: Any = None):
         """``device`` defaults to ``cuda`` (raising when there is none);
-        ``lm`` must already live there.
+        ``lm`` must already live there, or, under a ``mesh``, on the CPU:
+        it is then the full host copy, and only this rank's blocks of it
+        go to ``device``.
 
         ``spec``: a :class:`repro_torch.serve.spec.SpecConfig` pairing a
         draft model with this target for speculative decoding (paged
@@ -268,14 +317,49 @@ class Engine:
         / ``serve.decode`` regions time this engine's work (see
         :meth:`instrument`)."""
         self.device = resolve_device(device)
-        if lm.device != self.device:
-            raise ValueError(f"the LM lives on {lm.device}, the engine was "
-                             f"asked for {self.device}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving over a mesh is not ported yet (ROADMAP.md, "
-                "queue 1 item 14: mesh and fault tolerance)")
-        self.lm = lm
+        self.serve_mesh = (mesh if isinstance(mesh, mesh_mod.ServeMesh)
+                           else None)
+        self.mesh = self.serve_mesh.mesh if self.serve_mesh else mesh
+        self.full_lm = lm
+        self.member = True          # this rank computes (off-mesh: False)
+        if self.mesh is None:
+            if lm.device != self.device:
+                raise ValueError(f"the LM lives on {lm.device}, the engine "
+                                 f"was asked for {self.device}")
+            self.lm = lm
+        else:
+            names, sizes = mesh_mod.mesh_layout(self.mesh)
+            if "model" not in names:
+                raise ValueError(
+                    f"serving mesh needs a 'model' axis, got {names}")
+            msize = sizes[names.index("model")]
+            if lm.cfg.num_kv_heads % msize != 0:
+                raise ValueError(
+                    f"num_kv_heads={lm.cfg.num_kv_heads} does not divide "
+                    f"over the model axis ({msize} devices) — KV-head "
+                    f"sharding needs whole head slices per device")
+            if lm.cfg.family != "dense":
+                raise NotImplementedError(
+                    f"sharded serving of the {lm.cfg.family} family is not "
+                    f"ported yet (ROADMAP.md, item 14b); the dense family "
+                    f"is")
+            if spec is not None:
+                raise ValueError(
+                    "speculative decoding on a sharded engine is not "
+                    "supported yet — build the spec engine single-device")
+            if lm.device.type != "cpu":
+                raise ValueError(
+                    f"a sharded engine takes the full LM as its host copy "
+                    f"on the CPU, not on {lm.device}: the engine puts only "
+                    f"this rank's blocks on {self.device}")
+            # a private LM of this rank's blocks: the caller's LM is never
+            # mutated, and stays the host copy a re-mesh reshards from
+            axis = mesh_mod.model_axis(self.mesh)
+            self._shard = LM(lm.cfg, lm.dtype, self.device,
+                             features=lm.features,
+                             param_dtype=lm.param_dtype, rules=SERVE_RULES,
+                             tp=axis or mesh_mod.ModelAxis(None, msize, 0))
+            self._enter_mesh(axis, load=True)
         self.cfg = cfg
         self.perfctr = perfctr
         self.host_syncs = 0             # device->host transfers (audited)
@@ -383,7 +467,180 @@ class Engine:
         stack.enter_context(registry.env_snapshot())
         if self.impl_pins:
             stack.enter_context(registry.use_impl(**self.impl_pins))
+        if self.mesh is not None:
+            stack.enter_context(registry.use_mesh_facts(**self.mesh_facts))
         return stack
+
+    # ------------------------------------------------------- mesh sharding
+    @property
+    def mesh_facts(self) -> Dict[str, Any]:
+        """Sharding facts for the kernel registry's per-sharding tune keys
+        (``registry.use_mesh_facts``); empty when single-device."""
+        if self.mesh is None:
+            return {}
+        names, sizes = mesh_mod.mesh_layout(self.mesh)
+        msize = sizes[names.index("model")]
+        # __init__ refused a kv-head count the axis does not divide
+        return dict(mesh_shape=tuple(sizes), mesh_axis="model",
+                    per_device_heads=self.lm.cfg.num_kv_heads // msize)
+
+    @property
+    def leader(self) -> int:
+        """The mesh's first rank: every host sync broadcasts from it."""
+        return int(mesh_mod.mesh_ranks(self.mesh).flat[0])
+
+    def _world(self) -> int:
+        return (torch.distributed.get_world_size()
+                if self.mesh is not None else 1)
+
+    def _shard_params(self, params: Mapping[str, torch.Tensor]
+                      ) -> Optional[Dict[str, torch.Tensor]]:
+        """This rank's blocks of full weights ``params`` (keyed by
+        parameter name) on the engine's device; None off the mesh."""
+        from repro_torch.models.layers import shard_params_tree
+        return shard_params_tree(params, self.full_lm.param_specs(),
+                                 SERVE_RULES, self.mesh, self.device)
+
+    def _enter_mesh(self, axis: Any, load: bool) -> None:
+        """Take this rank's place in ``self.mesh``: its model axis, and
+        with ``load`` its weight blocks from the full host copy; off the
+        mesh (``axis`` None) the rank follows the loop."""
+        self.member = axis is not None
+        if not self.member:
+            self.lm = _Follower(self._shard)
+            return
+        self._shard.tp = axis
+        self.lm = self._shard
+        if load:
+            local = self._shard_params(dict(self.full_lm.named_parameters()))
+            with torch.no_grad():
+                for name, p in self._shard.named_parameters():
+                    p.copy_(local[name])
+
+    def _state_spec(self, leaf: torch.Tensor) -> Tuple[Any, ...]:
+        """Spec of one FULL decode-state leaf: KV storage — dense caches
+        [L,B,S,KVH,Dh] and paged pools [L,P,ps,KVH,Dh] alike — shards its
+        kv-head dim (-2) over ``model``; page tables, lengths and int8
+        scales replicate."""
+        names, sizes = mesh_mod.mesh_layout(self.mesh)
+        msize = sizes[names.index("model")]
+        if leaf.dim() == 5 and leaf.shape[-2] % msize == 0:
+            return (None, None, None, "model", None)
+        return ()
+
+    def shard_state(self, state: State) -> State:
+        """This rank's slice of a FULL decode state, or of one full leaf
+        (a snapshot's pages): each tensor cut by :meth:`_state_spec`
+        (no-op single-device)."""
+        if self.mesh is None:
+            return state
+        from repro_torch.ft.elastic import local_slice
+        names, sizes = mesh_mod.mesh_layout(self.mesh)
+        k = names.index("model")
+        coord = [0] * len(names)
+        coord[k] = self._shard.tp.index
+
+        def cut(x):
+            if isinstance(x, torch.Tensor):
+                return local_slice(x, self._state_spec(x), names, sizes,
+                                   coord).contiguous()
+            if isinstance(x, Mapping):
+                return {key: cut(v) for key, v in x.items()}
+            if x is None:
+                return None
+            return type(x)(*[cut(v) for v in x])
+        return cut(state)
+
+    def gather_heads(self, kv: torch.Tensor) -> torch.Tensor:
+        """Whole kv heads of this rank's KV slice ``[..., KVH/m, Dh]``
+        (a snapshot's pages); off the mesh, zeros of that shape, which the
+        leader's broadcast then fills.  The tensor itself single-device."""
+        if self.mesh is None:
+            return kv
+        m = self._shard.tp.size
+        if not self.member:
+            shape = kv.shape[:-2] + (kv.shape[-2] * m, kv.shape[-1])
+            return kv.new_zeros(shape)
+        return self.lm.tp.all_gather(kv, dim=-2)
+
+    def replicate(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank takes the mesh leader's ``x``, in place (no-op
+        single-device or in a world of one)."""
+        if self._world() == 1:
+            return x
+        return mesh_mod.broadcast(x, self.leader)
+
+    def _agree(self, *values: float) -> Tuple[float, ...]:
+        """The mesh leader's ``values`` on every rank, in one broadcast
+        (host times: a segment wall that feeds the heartbeats and the
+        straggler detector, the clock deadlines are checked against)."""
+        if self._world() == 1:
+            return tuple(float(v) for v in values)
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64)
+        return tuple(float(v) for v in mesh_mod.broadcast(t, self.leader))
+
+    def apply_remesh(self, plan: Any, state: Optional[State] = None,
+                     logits: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     failed: Sequence[int] = ()
+                     ) -> Tuple[Optional[State], Optional[torch.Tensor]]:
+        """Rebuild the engine on an ft/ re-mesh plan (device failure) and
+        move the LIVE decode state over, so in-flight requests keep their
+        KV.
+
+        Collective over the world: every rank builds the new mesh.  A rank
+        that takes a model index it did not hold receives that index's
+        state leaves, ``logits`` and the ``generator``'s state from an old
+        holder of the index (a rank not in ``failed`` first; else one
+        whose death is simulated: the reference's ``device_put`` reads
+        the old mesh's buffers too), then loads its weight blocks from its
+        full host copy.  A holder sends copies taken before any receive,
+        so ranks that trade indices get each other's old state.  Returns
+        (state, logits), updated in place."""
+        from repro_torch.ft import elastic
+        old_names, _ = mesh_mod.mesh_layout(self.mesh)
+        old = mesh_mod.mesh_ranks(self.mesh)
+        k_old = old_names.index("model")
+        held = {int(r): int(idx[k_old])
+                for idx, r in np.ndenumerate(old)}
+        mesh = elastic.build_mesh_from_plan(plan)
+        names, _ = mesh_mod.mesh_layout(mesh)
+        k_new = names.index("model")
+        dead = set(int(r) for r in failed)
+        moves = []
+        for idx, r in np.ndenumerate(mesh_mod.mesh_ranks(mesh)):
+            m, r = int(idx[k_new]), int(r)
+            if held.get(r) == m:
+                continue
+            holders = [h for h, hm in held.items() if hm == m]
+            src = min(holders, key=lambda h: (h in dead, h))
+            moves.append((src, r))
+        me = torch.distributed.get_rank()
+        leaves = _leaves(state) + ([logits] if logits is not None else [])
+        gen_state = (generator.get_state() if generator is not None
+                     else None)
+        if gen_state is not None:
+            leaves.append(gen_state)
+        outgoing = ([t.clone() for t in leaves]
+                    if any(src == me for src, _ in moves) else [])
+        for src, dst in moves:
+            if me == src:
+                for t in outgoing:
+                    mesh_mod.send(t, dst)
+            elif me == dst:
+                for t in leaves:
+                    mesh_mod.recv(t, src)
+        if gen_state is not None and any(d == me for _, d in moves):
+            generator.set_state(gen_state)
+        self.mesh = mesh
+        if self.serve_mesh is not None:
+            self.serve_mesh = dataclasses.replace(
+                self.serve_mesh, mesh=mesh,
+                axis_sizes=tuple(plan.axis_sizes))
+        axis = mesh_mod.model_axis(mesh)
+        self._enter_mesh(axis, load=axis is not None
+                         and held.get(me) != axis.index)
+        return state, logits
 
     # -------------------------------------------------------------- helpers
     @property
@@ -424,6 +681,9 @@ class Engine:
         ``[B, V]`` Gumbel shift from ``generator``, and on the card kernel
         #4 picks every token (its split from ``registry.best``)."""
         cfg = self.cfg
+        if not self.member:                 # off the mesh: no tensor work
+            return torch.zeros(logits.shape[0], dtype=torch.int32,
+                               device=self.device)
         return registry.run("sampling", logits, generator,
                             method=self.sampling_method,
                             temperature=max(cfg.temperature, 1e-6),
@@ -469,13 +729,15 @@ class Engine:
         A tensor comes back as a numpy array.  A mapping of tensors (a
         snapshot's page contents) comes back as host tensors of the same
         dtypes and shapes, moved in ONE transfer of their bytes, so bf16,
-        which numpy lacks, survives bit for bit."""
+        which numpy lacks, survives bit for bit.  On a sharded engine the
+        mesh leader's bytes go to every rank of the world (one broadcast),
+        so every rank's host program takes the same values."""
         self.host_syncs += 1
         if isinstance(t, torch.Tensor):
-            return t.cpu().numpy()
+            return self.replicate(t.contiguous()).cpu().numpy()
         flat = [v.contiguous().reshape(-1).view(torch.uint8)
                 for v in t.values()]
-        host = torch.cat(flat).cpu()
+        host = self.replicate(torch.cat(flat)).cpu()
         out, off = {}, 0
         for (key, v), b in zip(t.items(), flat):
             chunk = host[off:off + b.numel()].clone()
@@ -744,7 +1006,7 @@ class Engine:
         every (src, dst) pair, in every layer's K and V pools and, when
         quantized, their scale pools.  Issued on the stream before the
         suffix prefill that reads the destination page."""
-        if not pairs:
+        if not pairs or not self.member:
             return state
         with self._region_timer(PREFILL_REGION):
             arr = self._upload(np.asarray(list(pairs), np.int64))
@@ -1034,6 +1296,44 @@ class Engine:
         return BatchScheduler.restore(self, path, **scheduler_kwargs)
 
 
+class _Follower:
+    """The LM of a rank outside the mesh (a hot spare, or a rank whose
+    death is simulated): the host program runs as on every rank, the
+    tensor work does not.  ``prefill``/``decode_step`` return zero logits
+    over the whole vocab and the state as it is; every token the rank
+    keeps comes from the mesh leader's broadcast (``Engine._fetch``)."""
+
+    def __init__(self, lm: LM):
+        self._lm = lm
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._lm, name)
+
+    def _zeros(self, *shape: int) -> torch.Tensor:
+        return torch.zeros(shape + (self._lm.cfg.vocab,),
+                           dtype=self._lm.dtype, device=self._lm.device)
+
+    def prefill(self, batch: Dict[str, torch.Tensor], state: State,
+                all_logits: bool = False) -> Tuple[torch.Tensor, State]:
+        b, s = batch["tokens"].shape
+        return (self._zeros(b, s) if all_logits else self._zeros(b)), state
+
+    def decode_step(self, tokens: torch.Tensor, state: State
+                    ) -> Tuple[torch.Tensor, State]:
+        return self._zeros(tokens.shape[0]), state
+
+
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a decode state, in a fixed walk order (None
+    skipped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    vals = tree.values() if isinstance(tree, Mapping) else tree
+    return [t for v in vals for t in _leaves(v)]
+
+
 def _merge_row(big: Any, row: Any, slot: int) -> None:
     """Scatter a one-row decode state into row ``slot`` of ``big``, in
     place, leaf by leaf (the JAX engine's ``_merge_impl``).  Every leaf is
@@ -1095,9 +1395,27 @@ class BatchScheduler:
     this package or the JAX one.  A
     :class:`repro_torch.ft.chaos.ChaosSchedule` passed as ``chaos`` is
     ticked at every segment boundary (fault injection with invariant
-    checks).  The port serves on one card: ``heartbeats`` is None, so
-    chaos's flap and death events take their single-device skip (the
-    mesh and ``inject_failure`` are ``ROADMAP.md`` queue 1 item 14).
+    checks).
+
+    **Fault tolerance** (``repro/serve/engine.py:1349-1373``,
+    ``:1756-1825``).  On a ``ServeMesh`` engine every segment ticks one
+    heartbeat per mesh rank into a :class:`repro_torch.ft.heartbeat.
+    HeartbeatMonitor` (``ft_timeout_steps``), whose missing ranks feed a
+    :class:`repro_torch.ft.elastic.RemeshGovernor` (``ft_confirm``); a
+    confirmed death re-plans the mesh over the spares
+    (:func:`~repro_torch.ft.elastic.plan_remesh`) and
+    :meth:`Engine.apply_remesh` moves the live state onto it, so in-flight
+    requests finish (``metrics["remeshes"]``, a ``remesh`` event in
+    ``ft_events``).  :meth:`inject_failure` (and chaos's
+    ``device_death``) simulates a death: its heartbeats stop; a
+    ``heartbeat_flap`` drops one.  Every rank decides the same re-mesh at
+    the same segment because every rank's monitor is fed from values all
+    ranks hold alike: the simulated deaths and flaps, and the mesh
+    leader's segment wall (one broadcast a segment, which the straggler
+    detector reads too).  Heartbeats are armed only on a ``ServeMesh``
+    engine (a bare mesh carries no topology to re-plan over); on any
+    other engine ``heartbeats`` is None and chaos's flap and death events
+    take their single-device skip.
     """
 
     def __init__(self, engine: Engine,
@@ -1109,7 +1427,8 @@ class BatchScheduler:
                  max_bypass: int = 4,
                  snapshot_dir: Optional[str] = None,
                  snapshot_every: int = 0, snapshot_keep: int = 3,
-                 chaos: Any = None):
+                 chaos: Any = None, ft_timeout_steps: int = 3,
+                 ft_confirm: int = 2):
         check_schedulable(engine.lm.cfg)
         self.engine = engine
         self.admission_chunk = (admission_chunk
@@ -1157,9 +1476,26 @@ class BatchScheduler:
         # segment walls feed the straggler detector on every engine
         self.straggler = StragglerDetector(threshold=straggler_threshold,
                                            min_ratio=straggler_min_ratio)
-        # one card, no heartbeats: chaos's heartbeat_flap and device_death
-        # events see None and record their single-device skip
+        # ---- ft/: per-segment heartbeats -> confirmed failure -> re-mesh,
+        # armed only on a ServeMesh engine (the plan needs its topology
+        # and pin provenance); elsewhere chaos's heartbeat_flap and
+        # device_death see None and record their single-device skip
+        self.ft_timeout_steps = ft_timeout_steps
+        self.ft_confirm = ft_confirm
+        self.failed: set = set()              # confirmed-dead ranks
+        self._injected: List[Tuple[int, int]] = []  # (rank, at_segment)
+        self._dead: set = set()               # injected deaths now active
+        self._flap: set = set()               # ranks skipping ONE heartbeat
         self.heartbeats = None
+        self.governor = None
+        if engine.serve_mesh is not None:
+            from repro_torch.ft.elastic import RemeshGovernor
+            from repro_torch.ft.heartbeat import HeartbeatMonitor
+            self._hb_ids: List[int] = list(engine.serve_mesh.device_ids)
+            self.heartbeats = HeartbeatMonitor(
+                len(self._hb_ids), timeout_steps=ft_timeout_steps)
+            self.governor = RemeshGovernor(confirm_missing=ft_confirm)
+            self.metrics["remeshes"] = 0
 
     def submit(self, req: Request) -> None:
         """Queue one request, or refuse it in O(1).
@@ -1181,7 +1517,7 @@ class BatchScheduler:
                 f"request {req.rid}: prompt ({len(req.prompt)}) + max_new "
                 f"({req.max_new_tokens}) exceeds max_seq "
                 f"({self.engine.cfg.max_seq})")
-        req.submit_time = time.perf_counter()
+        req.submit_time = self._clock()
         self.requests[req.rid] = req
         try:
             victim = self.queue.push(req)
@@ -1230,6 +1566,14 @@ class BatchScheduler:
         return self.completed
 
     # --------------------------------------------- lifecycle bookkeeping
+    def _clock(self) -> float:
+        """The host time that submit times and deadline checks read: on a
+        mesh of several ranks the leader's ``perf_counter``, broadcast, so
+        every rank expires the same requests at the same boundary (an
+        expiry frees a slot and changes the next admission's shapes, and
+        ranks that differed there would issue different collectives)."""
+        return self.engine._agree(time.perf_counter())[0]
+
     def _expiry_reason(self, req: Request, now: float) -> Optional[str]:
         """Why ``req`` should be expired at this boundary, or None."""
         age_ms = (now - req.submit_time) * 1e3
@@ -1392,7 +1736,9 @@ class BatchScheduler:
         ids = [n["page"] for n in nodes]
         caches = state["caches"]
         idx = self.engine._upload(np.asarray(ids, np.int64))
-        fetch = {"k": caches.k_pages[:, idx], "v": caches.v_pages[:, idx]}
+        eng = self.engine
+        fetch = {"k": eng.gather_heads(caches.k_pages[:, idx]),
+                 "v": eng.gather_heads(caches.v_pages[:, idx])}
         if caches.k_scale is not None:
             fetch["k_scale"] = caches.k_scale[:, idx]
             fetch["v_scale"] = caches.v_scale[:, idx]
@@ -1484,7 +1830,7 @@ class BatchScheduler:
                 f"restoring under a different draft pairing could not "
                 f"reproduce the token stream")
         sched = cls(engine, **kwargs)
-        now = time.perf_counter()
+        now = sched._clock()
         for d in snap.get("completed", []):
             req = cls._req_from_dict(d)
             sched.completed[req.rid] = req
@@ -1534,8 +1880,81 @@ class BatchScheduler:
                 continue
             if isinstance(vals, np.ndarray):     # read-only frombuffer view
                 vals = torch.from_numpy(vals.copy())
-            pool[:, idx] = vals.to(device=eng.device, dtype=pool.dtype)
+            # whole kv heads saved: this rank's slice of them
+            pool[:, idx] = eng.shard_state(vals).to(device=eng.device,
+                                                    dtype=pool.dtype)
         return state
+
+    # ------------------------------------------------ ft/: degradation path
+    def inject_failure(self, device_id: int, at_segment: int = 0) -> None:
+        """Simulate the death of rank ``device_id``: its heartbeats stop
+        once ``at_segment`` segments have completed.  Detection,
+        flap-suppressed confirmation and the re-mesh then run exactly as
+        they would for a real failure.  Every rank calls it alike."""
+        if self.heartbeats is None:
+            raise RuntimeError(
+                "inject_failure needs a ServeMesh-backed engine "
+                "(Engine(..., mesh=make_serve_mesh(...)))")
+        self._injected.append((int(device_id), int(at_segment)))
+
+    def _ft_tick(self, state: State, logits: torch.Tensor,
+                 gen: torch.Generator, seg_wall: float
+                 ) -> Tuple[State, torch.Tensor]:
+        """One fault-tolerance observation per decode segment, from values
+        every rank holds alike (``seg_wall`` is the leader's)."""
+        seg = int(self.metrics["segments"])
+        for dev, at in list(self._injected):
+            if seg >= at:
+                self._dead.add(dev)
+                self._injected.remove((dev, at))
+        for idx, dev in enumerate(self._hb_ids):
+            # a flapping rank misses exactly ONE heartbeat (chaos
+            # injection); the governor's confirm window must absorb it
+            if dev not in self._dead and dev not in self._flap:
+                self.heartbeats.report(idx, seg, seg_wall)
+        self._flap.clear()
+        missing = {self._hb_ids[i]
+                   for i in self.heartbeats.missing_hosts()}
+        confirmed = self.governor.observe(missing=missing)
+        if confirmed:
+            state, logits = self._do_remesh(confirmed, state, logits, gen)
+        return state, logits
+
+    def _do_remesh(self, fresh_failures, state: State, logits: torch.Tensor,
+                   gen: torch.Generator) -> Tuple[State, torch.Tensor]:
+        """Degrade onto the survivors: plan against the skip/hot-spare
+        mask, rebuild the engine on the new mesh and move the LIVE decode
+        state over — in-flight requests keep their KV and finish there."""
+        from repro_torch.ft import elastic
+        from repro_torch.ft.heartbeat import HeartbeatMonitor
+        eng = self.engine
+        self.failed |= set(fresh_failures)
+        t0 = time.perf_counter()
+        axis_names, axis_sizes = mesh_mod.mesh_layout(eng.mesh)
+        # model degree is pinned (param shardings stay valid); shrink the
+        # first non-model axis when the spares run out
+        shrink = next((a for a in axis_names if a != "model"),
+                      axis_names[0])
+        plan = elastic.plan_remesh(
+            eng.serve_mesh.topo, sorted(self.failed), axis_names,
+            axis_sizes, shrink_axis=shrink,
+            strategy=eng.serve_mesh.pin.strategy)
+        state, logits = eng.apply_remesh(plan, state, logits, gen,
+                                         failed=self.failed)
+        latency = time.perf_counter() - t0
+        self._hb_ids = list(plan.device_ids)
+        self.heartbeats = HeartbeatMonitor(
+            len(self._hb_ids), timeout_steps=self.ft_timeout_steps)
+        self.metrics["remeshes"] += 1
+        self.ft_events.append(dict(
+            type="remesh", segment=int(self.metrics["segments"]),
+            failed=sorted(self.failed),
+            remesh_latency_s=latency,
+            axis_sizes=list(plan.axis_sizes),
+            device_ids=list(plan.device_ids),
+            spares=[int(d) for d in plan.dropped
+                    if d not in self.failed]))
+        return state, logits
 
     def _requeue_active(self) -> int:
         """Push every in-flight request back onto the queue with its
@@ -1681,7 +2100,7 @@ class BatchScheduler:
         try:
             while self.queue or any(s is not None for s in slots):
                 # cancelled/expired requests never reach a slot
-                self._sweep_queue(time.perf_counter())
+                self._sweep_queue(self._clock())
                 # ---- admission: freed slots take queued requests
                 # mid-flight, in (priority, arrival) order with bounded
                 # head-of-line bypass
@@ -1787,12 +2206,19 @@ class BatchScheduler:
                 # wall (the detector path under test) without sleeping
                 seg_wall = (now - seg_t0) * self._wall_inflate
                 self._wall_inflate = 1.0
+                # on a mesh every rank reads the leader's clock and wall,
+                # so the detectors and the expiries below decide alike on
+                # every rank
+                now, seg_wall = eng._agree(now, seg_wall)
                 verdict = self.straggler.record(seg_wall)
                 if verdict.is_straggler:
                     self.ft_events.append(dict(
                         type="straggler",
                         segment=int(self.metrics["segments"]),
                         wall_s=seg_wall, ema_s=verdict.ema))
+                if self.heartbeats is not None:
+                    state, logits = self._ft_tick(state, logits, gen,
+                                                  seg_wall)
                 # ---- retire: finished/expired/cancelled rows release
                 # their slots immediately (spec rows take at most their
                 # accepted count)

@@ -75,7 +75,7 @@ def train_state_pspecs(lm: LM, mesh, params_shape=None, ef: bool = False):
     """The sharded TrainState's specs belong to the mesh slice."""
     raise NotImplementedError(
         "train_state_pspecs shards the train state over a device mesh: not "
-        "ported yet (ROADMAP.md, queue 1 item 14)")
+        "ported yet (ROADMAP.md, item 14b)")
 
 
 def _grads(lm: LM, params: Dict[str, torch.Tensor], batch: Batch

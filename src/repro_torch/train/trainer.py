@@ -17,7 +17,7 @@ and ``repro_torch.launch.train`` run):
 * straggler detection on the step time (:mod:`repro_torch.ft.straggler`).
 
 ``mesh=`` and ``state_shardings=`` shard the state over a device mesh:
-item 14's, refused here.
+item 14b's, refused here.
 """
 
 from __future__ import annotations
@@ -60,8 +60,8 @@ class Trainer:
         if mesh is not None or state_shardings is not None:
             raise NotImplementedError(
                 "Trainer(mesh=, state_shardings=) shards the train state "
-                "over a device mesh: not ported yet (ROADMAP.md, queue 1 "
-                "item 14)")
+                "over a device mesh: not ported yet (ROADMAP.md, item 14b: "
+                "the training half of the mesh)")
         self.lm = lm
         self.cfg = trainer_cfg
         self.adamw = adamw or AdamWConfig()

@@ -7,7 +7,9 @@ on the CPU.
   port's scheduler and the JAX scheduler, on the same fp32 traffic (the
   reference's tiny paged engine, JAX ``LM.init`` parameters bridged over),
   give the same tokens and the same chaos events (kind, segment, note),
-  and the single-device engine skips the flap and the death;
+  and the single-device engine skips the flap and the death; on a
+  (1, 1) ``ServeMesh`` the flap is applied and absorbed and only the
+  death is skipped (the last device);
 * explicit events: ``cancel_request`` / ``expire_request`` land on spec
   rows of a mixed batch, as in the JAX scheduler; a seizure that starves
   admission is relieved (``pool_relief``) in both schedulers alike;
@@ -183,6 +185,51 @@ def test_chaos_smoke_schedule_on_engine(models, tmp_path):
     indexed = sum(1 for e in sched.ft_events
                   if e["type"] == "snapshot" and e["index_pages"])
     assert eng.host_syncs == sched.metrics["segments"] + indexed
+
+
+@pytest.fixture
+def world_of_one():
+    """A default process group of one rank for one test, left after it:
+    later tests see no group and no rank device."""
+    from repro_torch.launch import mesh as mesh_mod
+    yield mesh_mod.init_process("cpu")
+    mesh_mod.leave_process_group()
+
+
+def test_smoke_schedule_on_a_serve_mesh(models, tmp_path, world_of_one):
+    """The smoke schedule on a (1, 1) ``ServeMesh`` (a world of one):
+    heartbeats are armed, so the flap is applied and absorbed and the
+    death is skipped only because it would kill the last device; the
+    tokens, snapshots and the other events equal the unsharded run's."""
+    from repro_torch.launch import mesh as mesh_mod
+    runs = {}
+    for tag, mesh in (("plain", None), ("mesh", mesh_mod.make_serve_mesh(
+            (1, 1)))):
+        _, _, lm = models[0]
+        eng = engine.Engine(lm, engine.ServeConfig(**SC), device="cpu",
+                            mesh=mesh)
+        sched = engine.BatchScheduler(
+            eng, chaos=chaos.ChaosSchedule.smoke(),
+            snapshot_dir=str(tmp_path / tag), snapshot_every=2)
+        for r in _reqs(engine, 10, base=600, max_new=24):
+            sched.submit(r)
+        sched.run()
+        runs[tag] = sched
+    plain, mesh = runs["plain"], runs["mesh"]
+    assert _tokens(mesh) == _tokens(plain)
+    assert plain.heartbeats is None and mesh.heartbeats is not None
+    assert sorted(plain.chaos.summary()["skipped"]) == ["device_death",
+                                                        "heartbeat_flap"]
+    assert mesh.chaos.summary()["skipped"] == ["device_death"]
+    notes = {k: n for k, _, n, _ in _chaos_events(mesh)}
+    assert notes["heartbeat_flap"] == "device 0 misses one heartbeat"
+    assert notes["device_death"] == "skipped: would kill the last device"
+    assert mesh.metrics["remeshes"] == 0
+    assert mesh.metrics["snapshots"] == plain.metrics["snapshots"] > 0
+    keep = ("pool_exhaust", "pool_release", "slow_segment", "hung_segment",
+            "snapshot_corrupt")
+    assert [e for e in _chaos_events(mesh) if e[0] in keep] == \
+        [e for e in _chaos_events(plain) if e[0] in keep]
 
 
 def test_cancel_and_expire_events_land_on_spec_rows(models):

@@ -1,18 +1,21 @@
-"""The launcher's single-device fault-tolerance flags and the torch
-stencil case study, on the CPU.
+"""The launcher's fault-tolerance flags and the torch stencil case
+study, on the CPU.
 
-* ``--straggler-threshold`` / ``--straggler-min-ratio`` parse as in the
-  JAX launcher (same defaults) and reach ``BatchScheduler``'s straggler
-  detector; the mesh half (``--ft-timeout-steps``, ``--ft-confirm``) is
-  refused with ROADMAP item 14's citation, never ignored;
+* ``--straggler-threshold`` / ``--straggler-min-ratio`` and the mesh
+  half, ``--ft-timeout-steps`` / ``--ft-confirm``, parse as in the JAX
+  launcher (same defaults) and reach ``BatchScheduler``: its straggler
+  detector, and the heartbeat governor of a ``ServeMesh`` engine (item
+  14a ported them; a threshold below 1 is refused);
 * ``examples/case_study_stencil_torch.py`` holds the Jacobi kernel's
   plain version to the oracle and reports the declared Table I traffic at
   a small lattice;
 * ``--impl`` pins kernel impls through the registry (the port's names or
   the JAX package's) without moving fp32 tokens, ``--attn-impl`` prints
   the shared deprecation line and expands as the JAX launcher's does, a
-  bad spec exits non-zero, and the topology CLI refuses ``--mesh`` with
-  item 14's citation.
+  bad spec exits non-zero, and the topology CLI refuses a ``--mesh``
+  larger than the devices its pin leaves;
+* the serving launcher's ``--mesh 1x1`` serves a world of one through a
+  ``ServeMesh`` (heartbeats armed) with the unsharded launch's tokens.
 """
 
 import argparse
@@ -28,6 +31,7 @@ torch = pytest.importorskip("torch")
 from repro.launch import cli as jax_cli  # noqa: E402
 from repro_torch.kernels.jacobi7 import kernel_bytes  # noqa: E402
 from repro_torch.launch import cli  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
@@ -49,18 +53,25 @@ def test_straggler_flags_match_the_jax_launcher(argv):
     _, jargs = _parse(jax_cli.add_ft_args, argv)
     kw = cli.ft_kwargs(args, ap)
     jkw = jax_cli.ft_kwargs(jargs)
-    assert kw == {k: jkw[k] for k in ("straggler_threshold",
-                                      "straggler_min_ratio")}
+    assert kw == jkw
 
 
 @pytest.mark.parametrize("flag", ["--ft-timeout-steps", "--ft-confirm"])
 def test_mesh_ft_flags_are_refused_with_item_14(flag, capsys):
-    ap, args = _parse(cli.add_ft_args, [flag, "3"])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Item 14a ported the mesh's ft flags: once refused citing item 14,
+    they now reach the scheduler's kwargs as the JAX launcher's do; only a
+    threshold below 1 is refused."""
+    ap, args = _parse(cli.add_ft_args, [flag, "5"])
+    _, jargs = _parse(jax_cli.add_ft_args, [flag, "5"])
+    kw = cli.ft_kwargs(args, ap)
+    assert kw == jax_cli.ft_kwargs(jargs)
+    assert kw[flag[2:].replace("-", "_")] == 5
+    ap, args = _parse(cli.add_ft_args, [flag, "0"])
+    with pytest.raises(ValueError, match="at least 1"):
         cli.ft_kwargs(args)
     with pytest.raises(SystemExit):
         cli.ft_kwargs(args, ap)
-    assert "item 14" in capsys.readouterr().err
+    assert "at least 1" in capsys.readouterr().err
 
 
 def test_serve_launcher_wires_the_straggler_flags(tmp_path, monkeypatch):
@@ -79,10 +90,13 @@ def test_serve_launcher_wires_the_straggler_flags(tmp_path, monkeypatch):
         "--straggler-min-ratio", "1.25", "--json", str(out)]) == 0
     assert seen["straggler_threshold"] == 2.5
     assert seen["straggler_min_ratio"] == 1.25
+    # the mesh half reaches the scheduler too (item 14a), at the JAX
+    # launcher's defaults; a confirm window below 1 is refused
+    assert (seen["ft_timeout_steps"], seen["ft_confirm"]) == (3, 2)
     assert json.loads(out.read_text())["requests"] == 2
     with pytest.raises(SystemExit):
         serve_launcher.main(["--arch", "qwen2-0.5b", "--smoke-dims",
-                             "--device", "cpu", "--ft-confirm", "2"])
+                             "--device", "cpu", "--ft-confirm", "0"])
 
 
 def test_stencil_case_study_runs_on_the_host(capsys):
@@ -194,8 +208,41 @@ def test_impl_helpers_match_the_jax_launcher(argv):
 
 
 def test_topology_cli_refuses_the_mesh_with_item_14(capsys):
+    """``--mesh`` is ported (item 14a); what it still refuses is a mesh
+    larger than the devices the pin leaves: one synthetic card holds no
+    2x4 mesh."""
     from repro_torch.launch import topology as topo_cli
     with pytest.raises(SystemExit) as exc:
         topo_cli.main(["--device", "cpu", "--mesh", "2x4"])
     assert exc.value.code == 2
-    assert "item 14" in capsys.readouterr().err
+    assert "mesh 2x4 needs 8" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        topo_cli.main(["--device", "cpu", "--mesh", "2xx"])
+    assert exc.value.code == 2
+
+
+@pytest.fixture
+def left_group():
+    """Leave the process group a launcher formed, after the test: later
+    tests see no group and no rank device."""
+    yield
+    mesh_mod.leave_process_group()
+
+
+def test_serve_launcher_mesh_1x1_serves_a_world_of_one(tmp_path,
+                                                       left_group):
+    common = ["--arch", "qwen2-0.5b", "--smoke-dims", "--device", "cpu",
+              "--dtype", "fp32", "--requests", "3", "--slots", "2",
+              "--max-new", "4", "--page-size", "8"]
+    plain, mesh = tmp_path / "plain.json", tmp_path / "mesh.json"
+    assert serve_launcher.main(common + ["--json", str(plain)]) == 0
+    assert serve_launcher.main(common + ["--mesh", "1x1", "--ft-confirm",
+                                         "3", "--json", str(mesh)]) == 0
+    p, m = json.loads(plain.read_text()), json.loads(mesh.read_text())
+    assert m["tokens"] == p["tokens"] and p["mesh"] is None
+    assert m["mesh"] == {"device_ids": [0], "world": 1, "remeshes": 0,
+                         "facts": {"mesh_shape": [1, 1],
+                                   "mesh_axis": "model",
+                                   "per_device_heads": 1}}
+    with pytest.raises(SystemExit):             # a world of one holds 1
+        serve_launcher.main(common + ["--mesh", "1x2"])

@@ -219,6 +219,19 @@ def test_engine_primitives_stay_on_the_device_between_segments(smoke):
     assert toks[1].tolist() == want
 
 
+def test_sharded_engine_takes_the_full_model_on_the_host(smoke):
+    """Under a mesh the caller's LM is the full host copy, and only the
+    rank's blocks go to the card: an LM that lives on a card (a stand-in
+    with the real config) is refused before anything is built there."""
+    _, _, lm = smoke
+    on_card = types.SimpleNamespace(cfg=lm.cfg,
+                                    device=torch.device("cuda", 0))
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 1, "model": 1})
+    with pytest.raises(ValueError, match="host copy on the CPU"):
+        engine.Engine(on_card, engine.ServeConfig(), device="cpu", mesh=mesh)
+
+
 def test_engine_validation_and_unported_arguments(smoke, tmp_path):
     _, _, lm = smoke
     with pytest.raises(ValueError, match="paged"):
@@ -229,8 +242,12 @@ def test_engine_validation_and_unported_arguments(smoke, tmp_path):
     with pytest.raises(ValueError, match="kv_dtype needs"):
         lm.init_decode_state(2, 16, kv_dtype=torch.int8)
     eng = engine.Engine(lm, engine.ServeConfig(max_seq=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        engine.Engine(lm, engine.ServeConfig(), device="cpu", mesh=object())
+    # mesh= is ported (item 14a): a mesh without a 'model' axis gets the
+    # JAX engine's error
+    no_model = types.SimpleNamespace(axis_names=("data",),
+                                     shape={"data": 1})
+    with pytest.raises(ValueError, match="'model' axis"):
+        engine.Engine(lm, engine.ServeConfig(), device="cpu", mesh=no_model)
     # extra_batch is ported; a dense model ignores the encdec family's
     # source embeddings, as the JAX engine does
     assert eng.generate([[1, 2]], 2, extra_batch={"src_embeds": 0}) == \
@@ -494,9 +511,9 @@ def test_serve_launcher_writes_the_summary(tmp_path):
     with pytest.raises(SystemExit):         # --snapshot-every needs a dir
         serve_launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
                              "--chaos", "3", "--snapshot-every", "2"])
-    with pytest.raises(SystemExit):         # --mesh is not ported
+    with pytest.raises(SystemExit):         # a world of one holds 1 rank
         serve_launcher.main(["--arch", "qwen2-0.5b", "--device", "cpu",
-                             "--mesh", "1x1"])
+                             "--mesh", "1x3"])
     # --temperature > 0 is ported: the launcher samples
     sampled = tmp_path / "sampled.json"
     assert serve_launcher.main(["--arch", "qwen2-0.5b", "--smoke-dims",

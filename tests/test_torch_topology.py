@@ -6,7 +6,8 @@ chips; ``ici_hops`` and ``same_host`` agree on a seeded sample of pairs;
 ``probe`` synthesizes on the CPU as the reference's does on host devices;
 the renderers hold the same device rows and grid.  The port's own parts:
 the GPU memory table, the probe of a CUDA device (on the card), and the
-CLI (``--json``, ``--production``, the ``--mesh`` refusal).
+CLI (``--json``, ``--production``, ``--mesh``'s axis -> link map
+against the JAX package's, and a mesh too large refused).
 """
 
 import json
@@ -145,6 +146,19 @@ def test_topology_cli_json_and_the_mesh_refusal(tmp_path, capsys):
     assert got["pin"]["skipped"] == [0, 1]
     assert len(got["pin"]["device_ids"]) == 510
     assert "pin[ring] 510 devices" in capsys.readouterr().out
+    # --mesh (item 14a): the axis -> link map of the JAX CLI, and a mesh
+    # larger than the pin's devices refused
+    from repro.core import pin as jax_pin
+    from repro.launch import mesh as jax_mesh
+    assert topo_cli.main(["--production", "--mesh", "16x16", "--pin",
+                          "ring", "--skip", "", "--json", str(out)]) == 0
+    got = json.loads(out.read_text())["mesh"]
+    jtopo = jax_topo.probe(spec=jax_topo.PRODUCTION_SINGLE_POD)
+    ids = jax_pin.get_strategy("ring")(jtopo).device_ids
+    assert got["device_ids"] == list(ids)
+    assert got["axis_ici_map"] == jax_mesh.axis_ici_map(
+        jtopo, ids, (16, 16), ("data", "model"))
+    assert "axis model  size  16  ring" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         topo_cli.main(["--device", "cpu", "--mesh", "2x2"])
-    assert "item 14" in capsys.readouterr().err
+    assert "mesh 2x2 needs 4" in capsys.readouterr().err
