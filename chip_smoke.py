@@ -141,7 +141,7 @@ failure):
                (b) phase 5's model and traffic at full width and depth
                (bf16, the embedding scaled by 0.1 as in phases 13-14, int8
                pages): tokens/s with snapshots every 0 and every 1
-               segment in turns (0, 1, 1, 0; the tokens must not move),
+               segment, one turn each (the tokens must not move),
                then ``ChaosSchedule.smoke()`` with a snapshot every 2
                segments, killed after 8 and restored on a fresh engine:
                every event applied (flap and death skipped on one card),
@@ -211,7 +211,7 @@ failure):
                weights from seed 0, dense state): (a) ``Engine.generate``
                on 8 prompts of 512 tokens, 32 greedy tokens, #5 launched 12
                times (once a pair) for the prefill and #4 32 times; (b)
-               ``BatchScheduler``, 16 requests of 64-512 tokens, budgets
+               ``BatchScheduler``, 8 requests of 64-512 tokens, budgets
                16-48, 8 slots, #5 launched 12 times an admission; prefill
                ms, decode tokens/s and segments printed; (c) fp32 at 4 of
                24 layers: greedy tokens card (#5 in fp32) against CPU
@@ -219,7 +219,7 @@ failure):
 20. dense configs - bf16, pages of 16: qwen1.5-0.5b and stablelm-3b
                (LayerNorm, Dh 80) at full width and depth, phase 4's
                prompts and 32 new tokens through ``Engine.generate``, then
-               the int8 scheduler on phase 5's traffic cut to 16 requests;
+               the int8 scheduler on phase 5's traffic cut to 8 requests;
                mistral-large-123b at full width and 2 of its 88 layers (G
                12), 4 prompts, 16 new tokens; each run launching #1 once a
                layer of each prefill, #2 (#3 under int8) once a layer a
@@ -237,7 +237,7 @@ failure):
                31, #4 32, then one decode step under
                ``torch.cuda.set_sync_debug_mode("error")``; (b) its int8
                scheduler with the prefix cache on phase 5's traffic cut
-               to 16 requests; (c) qwen3-moe-235b-a22b at full width and
+               to 8 requests; (c) qwen3-moe-235b-a22b at full width and
                2 of its 94 layers (128 experts, top-8; G 16), 4 prompts,
                16 new tokens; (d) fp32 qwen2-moe-a2.7b at 2 layers, 4
                ragged prompts of at most 64 tokens, 16 greedy tokens card
@@ -252,7 +252,7 @@ failure):
                generator, 32 new tokens through ``Engine.generate``: one
                host sync, #1 28 times, #2 28 x 31, #4 32; then its int8
                scheduler with the prefix cache on phase 5's traffic cut
-               to 16 requests (text-only admissions, as the JAX
+               to 8 requests (text-only admissions, as the JAX
                scheduler's); (b) seamless-m4t-medium at full width and
                depth (12 encoder + 12 decoder layers, vocab 256206),
                dense KV: 8 prompts of 256 tokens with source embeddings
@@ -266,16 +266,17 @@ failure):
                at qwen2-vl's shapes, #1 at seamless's encoder (not
                causal, 64 positions) and decoder, and #4 at 8 x 256206,
                each bf16 one timed with its bound.
-23. train     - (a) qwen2-0.5b at full width and depth, bf16 compute
+23. train     - (a) qwen2-0.5b at full width and depth (weights drawn on
+               the host), bf16 compute
                over fp32 masters, remat ``dots_no_batch``, AdamW with
                clipping, warmup then cosine, 8 x 512 synthetic tokens a
-               step: 20 steps through ``Trainer`` (a checkpoint at 10),
+               step: 12 steps through ``Trainer`` (one checkpoint, at 6),
                4 with ``accum_steps=2``; step ms (median after 3 warm-up
                steps), tokens/s, model FLOPs a step, MFU against 989
                TFLOP/s, peak ``max_memory_allocated``, launches a step
                and the device's idle share over two profiled steps, each
                beside the card's name and power limit; a fresh
-               ``Trainer`` resumed from step 10 to 20, its losses within
+               ``Trainer`` resumed from step 6 to 12, its losses within
                1e-2 of the uninterrupted run's; (b) fp32 card against
                CPU, qwen2-0.5b at full width and 2 of 24 layers, 3
                steps: every gradient finite and within 1e-4 (plus 1e-6
@@ -327,19 +328,63 @@ failure):
                their plain versions, timed beside their bounds.  No NCCL
                or NVLink collective across cards is measured: (a) is a
                world of one and (b)'s collectives go through the host.
+25. mesh train, moe mesh - (a) qwen2-0.5b at full width and depth,
+               bf16 over fp32 masters, 8 x 512 synthetic tokens a step:
+               6 steps through ``Trainer(mesh=, state_shardings=
+               train_state_pspecs(...))`` on a (1, 1) mesh over NCCL (a
+               world of one; the full model a host copy on the CPU) from
+               phase 23 (a)'s host draw, held to phase 23 (a)'s first 6
+               steps: losses and grad norms equal within 1e-3 relative,
+               step ms side by side, the state's card bytes its tensors'
+               beside the unsharded state's.  (b)
+               four spawned ranks on ``cuda:0`` (gloo), qwen2-0.5b at full
+               width and 2 of 24 layers, fp32, 4 x 128 tokens a step,
+               the unsharded runs made once on the card beside them:
+               ``Trainer(mesh=)`` for 3 steps on (2, 2), on (2, 1) with 2
+               microbatches and on (1, 2) with int8 error feedback; each
+               rank holds its losses and grad norms to the unsharded
+               run's (1e-5 relative; 1e-4 with int8) and its slices of
+               the parameters to the unsharded run's as phase 23 (b)
+               holds the card's to the CPU's, and its card bytes to its
+               slices' (FSDP's d_model halves on a data axis of 2); the
+               (2, 2) run's checkpoint (whole leaves, written by its
+               first rank) resumed on (1, 2) for 2 steps, equal to the
+               unsharded run's.  (c) two spawned ranks on ``cuda:0``
+               (gloo), qwen2-moe-a2.7b at full width and 2 of 24 layers,
+               fp32, a (1, 2) mesh (30 experts and 8 kv heads a rank; the
+               router whole): ``Engine.generate`` and ``BatchScheduler``
+               tokens equal the unsharded engine's on fp32 and int8
+               pages, each rank's #1, #2 (#3 on int8) and #4 launching as
+               the run implies, the card's bytes the shard's.  (d) #1 at
+               qwen2-moe's per-device prefill [8, 8, 512, 128] (SDPA with
+               the mask beside it) and #2 and #3 at its per-device decode
+               (KVH 8, G 1, Dh 128, 8 rows), bf16, against their plain
+               versions, timed beside their bounds.
 
 Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs,
 18's suite (its launches counted in its process) and tuned generate, the
-serving runs of 19, 20, 21, 22 and 23's served checkpoint, and 24's
-mesh runs are the main paths: each is run with its
+serving runs of 19, 20, 21, 22 and 23's served checkpoint, 24's mesh
+runs and 25's moe mesh runs are the main paths: each is run with its
 kernels' launch counters set to 0 just before it and read just after, and
 fails if one of its kernels never launched (or, on the serving paths,
-launched another number of times than the path implies); 23's training
-runs the other way round: it fails if any of #1-#7 launched.  The last two
+launched another number of times than the path implies); the training
+runs of 23 and 25 go the other way round: they fail if any of #1-#7
+launched.  The last two
 lines of stdout are the kernel table as JSON (``launches`` from the path
 that carries each kernel, ``launches_by_path`` from every path that runs
 it) and the result line ``{"ok": true, "device": {...}}``.  It never
 imports JAX or the JAX package.
+
+On a host with four cards,
+
+    python3 chip_smoke.py --train-mesh-four-cards
+
+runs only phase 25 (b)'s rank body, one rank a card over NCCL:
+qwen2-0.5b at full depth, phase 23's 8 x 512 tokens, 6 steps on (2, 2),
+in bf16 over fp32 masters and in fp32, beside the unsharded runs on one
+card (their step ms); fp32 losses and grad norms within 1e-4 relative,
+bf16 losses within 1e-2 (each rank rounds its partial sums to bf16
+before the reduce), bf16 grad norms' gaps printed.
 """
 
 from __future__ import annotations
@@ -432,6 +477,20 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bound(q, k, lens, causal=True):
+    """A ragged prefill's bound: q read whole and the output written
+    whole (a row past its prompt still attends to the prompt's keys, so
+    its output depends on its q), only each row's ``lens`` valid keys and
+    values read, ``kv_valid``'s int32s; 4 Dh FLOPs a (query, key) pair a
+    head that the mask keeps."""
+    b, h, sq, dh = q.shape
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * sum(lens) * k.shape[1]
+                                  * dh) + 4 * b)
+    pairs = sum(min(i + 1, n) if causal else n for n in lens
+                for i in range(sq))
+    return bound_ms(nbytes, 4.0 * dh * h * pairs)
 
 
 def close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -549,10 +608,7 @@ def check_flash(dev, timer):
             ("mistral-large-123b's prefill [4,96,384,128] G 12",
              mistral_args, MISTRAL_PROMPT_LENS)):
         msm = timer.ms(lambda: flash_attention_bhsd(qm, km, vm, **kwm))
-        bm, hm, sqm, dhm = qm.shape
-        pairs_m = sum(min(i + 1, n) for n in lens for i in range(sqm))
-        bd = bound_ms(2 * (2 * qm.numel() + km.numel() + vm.numel())
-                      + 4 * bm, 4.0 * dhm * hm * pairs_m)
+        bd = flash_bound(qm, km, lens)
         log(f"  flash bf16 at {what} ragged: kernel {msm:.4f} ms, bound "
             f"{bd[0]:.5f} ms by {bd[1]}")
     del moe_args, q3_args, mistral_args
@@ -589,11 +645,7 @@ def check_flash(dev, timer):
                        f"[8,16,{st},64] causal", dec_args, [st] * b, True)]
     for what, (qm, km, vm, kwm), lens, causal in timed:
         msm = timer.ms(lambda: flash_attention_bhsd(qm, km, vm, **kwm))
-        bm, hm, sqm, dhm = qm.shape
-        pairs_m = sum(min(i + 1, n) if causal else n
-                      for n in lens for i in range(sqm))
-        bd = bound_ms(2 * (2 * qm.numel() + km.numel() + vm.numel())
-                      + 4 * bm, 4.0 * dhm * hm * pairs_m)
+        bd = flash_bound(qm, km, lens, causal)
         log(f"  flash bf16 at {what}: kernel {msm:.4f} ms, bound "
             f"{bd[0]:.5f} ms by {bd[1]}")
     del vlm_args, enc_args, dec_args, timed
@@ -606,9 +658,7 @@ def check_flash(dev, timer):
     ms80 = timer.ms(lambda: flash_attention_bhsd(q80, k80, v80, **kw80))
     sdpa80 = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q80c, ke80, ve80, attn_mask=mask80))
-    pairs80 = sum(min(i + 1, L) for L in PROMPT_LENS for i in range(s))
-    b80 = bound_ms(2 * (2 * q80.numel() + 2 * k80.numel()) + 32,
-                   4.0 * 80 * 32 * pairs80)
+    b80 = flash_bound(q80, k80, PROMPT_LENS)
     log(f"  flash bf16 at stablelm-3b's prefill [8,32,512,80] ragged: "
         f"kernel {ms80:.4f} ms, SDPA with the mask {sdpa80:.4f} ms, bound "
         f"{b80[0]:.5f} ms by {b80[1]}")
@@ -642,10 +692,7 @@ def check_flash(dev, timer):
     log(f"  flash host us a call: wrapper "
         f"{host_us(lambda: flash_attention_bhsd(q, k, v, **kw)):.2f}, SDPA "
         f"with the mask {host_us(lambda: sdpa(q, ke, ve, attn_mask=mask)):.2f}")
-    b, h, sq, dh = q.shape
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b
-    pairs = sum(min(i + 1, L) for L in PROMPT_LENS for i in range(sq))
-    bms, by = bound_ms(nbytes, 4.0 * dh * h * pairs)
+    bms, by = flash_bound(q, k, PROMPT_LENS)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:46",
@@ -2421,7 +2468,9 @@ def chaos_path(dev, lm, smi):
         return sched
 
     rates, outs, writes = {}, {}, []
-    for every in (0, 1, 1, 0):
+    # one turn each (four turns, 0, 1, 1, 0, until phase 25 needed the
+    # time)
+    for every in (0, 1):
         with snapshot_dir() as d:
             kw = dict(snapshot_dir=d, snapshot_every=1) if every else {}
             sched = submit(BatchScheduler(eng, **kw))
@@ -2446,7 +2495,7 @@ def chaos_path(dev, lm, smi):
     base = outs[0]
     log(f"  15(b) tokens/s, snapshot_every 0: "
         f"{', '.join(f'{r:.1f}' for r in rates[0])}; snapshot_every 1: "
-        f"{', '.join(f'{r:.1f}' for r in rates[1])} (turns 0, 1, 1, 0); "
+        f"{', '.join(f'{r:.1f}' for r in rates[1])} (turns 0, 1); "
         f"{snap_stats(writes)} [{smi}]")
 
     chaos = ChaosSchedule.smoke()
@@ -2857,14 +2906,15 @@ def registry_serving_path(dev, smi):
     return runs["default"][1], q8["default"][1]
 
 
-def selection_cost(lm, prompts, paged, smi, rounds=8):
+def selection_cost(lm, prompts, paged, smi, rounds=3):
     """What the registry costs a generate call, two ways: the host us of
     the engine's per-call context (one env snapshot, entered once a
     ``generate``) and of one ``registry.run`` against the runner the
     heuristic picks, and the wall of a fp32 ``generate`` with every
     ``registry.run`` against the same generate with selection bypassed
     (each family's default runner called straight), alternated in this
-    process (A B B A, ``rounds`` times)."""
+    process (A B B A, ``rounds`` times: 3, 8 until phase 25 needed the
+    time)."""
     from repro_torch.kernels import registry
     from repro_torch.serve.engine import Engine, ServeConfig
     eng = Engine(lm, ServeConfig(**paged))
@@ -3340,9 +3390,11 @@ def tuned_generate(dev, smi):
 # phases 19-20: xlstm-350m, and the other dense configs
 # ---------------------------------------------------------------------------
 
-XLSTM_REQUESTS = 16
+#: phases 19-22's scheduler runs take 8 requests (16 until phase 25
+#: needed the time)
+XLSTM_REQUESTS = 8
 #: the dense configs' int8 scheduler run: phase 5's traffic, shortened
-DENSE_SCHED_REQUESTS = 16
+DENSE_SCHED_REQUESTS = 8
 #: mistral-large-123b on one card: full width, 2 of its 88 layers
 MISTRAL_LAYERS = 2
 MISTRAL_PROMPTS = 4
@@ -3351,7 +3403,7 @@ MISTRAL_NEW = 16
 #: phase 21: the moe family.  qwen3-moe-235b-a22b on one card: full
 #: width, 2 of its 94 layers, mistral's 4 prompts; the fp32 card-vs-CPU
 #: check at 2 of qwen2-moe-a2.7b's 24 layers
-MOE_SCHED_REQUESTS = 16
+MOE_SCHED_REQUESTS = 8
 QWEN3_LAYERS = 2
 QWEN3_PROMPTS = MISTRAL_PROMPTS
 QWEN3_PROMPT_LENS = MISTRAL_PROMPT_LENS
@@ -3363,12 +3415,12 @@ MOE_FP32_NEW = 16
 #: depth on 8 prompts of 512 down to 288 tokens (each at least its 256
 #: patch positions; ``profile_generate.VLM_LENS``) with the vision stub's
 #: patch embeddings, and its int8 scheduler on phase 5's traffic cut to
-#: 16 requests; seamless-m4t-medium at full width and depth on 8 prompts
+#: 8 requests; seamless-m4t-medium at full width and depth on 8 prompts
 #: of 256 tokens (equal: the family runs pads as context) with [8, 64,
 #: 1024] source embeddings; the fp32 card-vs-CPU checks at 2 of
 #: qwen2-vl's 28 layers and at seamless's full depth, every sampled
 #: step's logits within 1e-5 of max|logit|
-VLM_SCHED_REQUESTS = 16
+VLM_SCHED_REQUESTS = 8
 VLM_FP32_LAYERS = 2
 VLM_FP32_PROMPT_LENS = (300, 277, 260)
 ENCDEC_PROMPTS = 8
@@ -3390,7 +3442,7 @@ def xlstm_paths(dev):
     mLSTM/sLSTM pairs, d_model 1024, 4 heads of 512), bf16, dense state:
     (a) ``Engine.generate`` on 8 prompts of 512 tokens, 32 greedy tokens,
     #5 launched once a pair (12 times) for the prefill; (b) the
-    ``BatchScheduler`` on 16 requests of 64-512 tokens, budgets 16-48, 8
+    ``BatchScheduler`` on 8 requests of 64-512 tokens, budgets 16-48, 8
     slots, #5 launched 12 times an admission."""
     from repro_torch.configs.xlstm_350m import CONFIG
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -3435,7 +3487,7 @@ def dense_config_paths(dev):
     pages of 16.  qwen1.5-0.5b (16 heads, G 1, QKV bias, tied embedding)
     and stablelm-3b (LayerNorm, 32 heads of 80) at full depth: phase 4's
     8 ragged prompts, 32 new tokens, then the int8 scheduler on phase 5's
-    traffic cut to 16 requests; mistral-large-123b (96 heads over 8 of
+    traffic cut to 8 requests; mistral-large-123b (96 heads over 8 of
     128, G 12) at 2 of its 88 layers: 4 prompts, 16 new tokens."""
     from repro_torch.bench import profile_serve as ps
     from repro_torch.configs import get_arch
@@ -3547,7 +3599,7 @@ def moe_paths(dev):
     width and depth (24 layers, 60 experts of 1408, top-4, a shared
     expert of 5632): phase 4's 8 ragged prompts, 32 new tokens, one host
     sync, then one decode step with no implicit sync; (b) the int8
-    scheduler with the prefix cache on phase 5's traffic cut to 16
+    scheduler with the prefix cache on phase 5's traffic cut to 8
     requests; (c) qwen3-moe-235b-a22b at full width and 2 of its 94
     layers (128 experts of 1536, top-8; 64 heads over 4 of 128, G 16): 4
     prompts, 16 new tokens."""
@@ -3612,11 +3664,11 @@ class RouterMargins:
         self.mins = []
         orig, mins = self._orig, self.mins
 
-        def route(m, xt, cfg):
+        def route(m, xt, cfg, *rest):
             probs = torch.softmax(xt.float() @ m.router, dim=-1)
             top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
             mins.append((top[:, -2] - top[:, -1]).min())
-            return orig(m, xt, cfg)
+            return orig(m, xt, cfg, *rest)
 
         moe.route = route
         return self
@@ -3701,12 +3753,17 @@ def perf_report_and_example(smi):
                    timeout=600)
     if "swept" in warm or "tune table (warm)" not in warm:
         fail(f"perf_report warm swept again: {warm[-2000:]}")
-    gated = run_cli(cli + ["--check", str(report), "--baseline", str(base),
-                           "--gate"])
-    other = run_cli(cli + ["--check", str(report), "--baseline",
-                           str(committed), "--gate"])
-    if "[gate] ok" not in gated or "not comparable" not in other:
-        fail(f"perf_report gate: {gated[-1000:]} / {other[-1000:]}")
+    # the two gates compare written reports and measure nothing: in this
+    # process (two fresh processes until phase 25 needed the time)
+    from repro_torch.launch import perf_report as perf_report_cli
+    argv = cli[1:] + ["--check", str(report), "--gate", "--baseline"]
+    (rc_g, gated), (rc_o, other) = (
+        in_process(perf_report_cli.main, argv + [str(b)])
+        for b in (base, committed))
+    if (rc_g, rc_o) != (0, 0) or "[gate] ok" not in gated or \
+            "not comparable" not in other:
+        fail(f"perf_report gate: {rc_g} {gated[-1000:]} / {rc_o} "
+             f"{other[-1000:]}")
     if hashlib.sha256(committed.read_bytes()).hexdigest() != digest:
         fail("perf_report changed the committed PERF_BASELINE.json")
     log("  perf_report warm: 0 timed probes; re-gated against its own "
@@ -3733,7 +3790,7 @@ def vlm_encdec_paths(dev):
     of 512-288 tokens with patch embeddings [8, 256, 3584] from a seeded
     generator, 32 greedy tokens through ``Engine.generate`` (#1 28
     times, #2 28 x 31, #4 32); then the int8 scheduler with the prefix
-    cache on phase 5's traffic cut to 16 requests (text-only, as the
+    cache on phase 5's traffic cut to 8 requests (text-only, as the
     JAX scheduler admits).  (b) seamless-m4t-medium at full width and
     depth (12 encoder + 12 decoder layers, 16 heads of 64, vocab
     256206), dense KV: 8 prompts of 256 tokens with source embeddings
@@ -3830,10 +3887,11 @@ def vlm_encdec_token_check(dev):
 # phase 23: training
 # ---------------------------------------------------------------------------
 
-#: (a): qwen2-0.5b at full width and depth, 8 x 512 tokens a step, 20
-#: steps (a checkpoint at 10), then 4 more with 2 microbatches a step
+#: (a): qwen2-0.5b at full width and depth, 8 x 512 tokens a step, 12
+#: steps (a checkpoint at 6), then 4 more with 2 microbatches a step
+#: (20 and 10 until phase 25 needed the time)
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
-TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_ACCUM_STEPS = 20, 10, 4
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_ACCUM_STEPS = 12, 6, 4
 TRAIN_WARM = 3                    # steps left out of the median step time
 TRAIN_SCHED = dict(peak_lr=3e-4, warmup_steps=5,
                    total_steps=TRAIN_STEPS + 2 + TRAIN_ACCUM_STEPS)
@@ -3876,17 +3934,20 @@ def train_main_path(dev, smi):
     """Phase 23 (a): qwen2-0.5b at full width and depth (24 layers, d
     896, 14 heads over 2, vocab 151936, tied), bf16 compute over fp32
     masters, ``FeatureSet`` defaults (remat ``dots_no_batch``), AdamW with
-    clipping, warmup then cosine, 8 x 512 synthetic tokens a step: 20
-    steps through ``Trainer`` with a checkpoint at step 10 (and the final
-    one at 20), then 4 steps with ``accum_steps=2``.  Prints the median
+    clipping, warmup then cosine, 8 x 512 synthetic tokens a step, the
+    weights drawn on the host (phase 25 (a) trains a mesh from the same
+    draw): 12 steps through ``Trainer`` with one checkpoint, at step 6
+    (the one ``serve --ckpt-dir`` serves), then 4 steps with
+    ``accum_steps=2``.  Prints the median
     step time after 3 warm-up steps, tokens/s, model FLOPs a step
     (``model_flops``: 6 N T + 12 L H Dh S T), MFU against 989 TFLOP/s,
     peak ``max_memory_allocated``, device launches a step and the
     device's idle share over two profiled steps.  Then a fresh
-    ``Trainer`` resumes from the step-10 checkpoint to 20: its losses
+    ``Trainer`` resumes from the step-6 checkpoint to 12: its losses
     within :data:`RESUME_LOSS_RTOL` of the uninterrupted run's.  Returns
     (the trained weights as a bf16 serving LM, the checkpoint directory,
-    the figures)."""
+    the figures, the host draw and the first steps' history and state
+    bytes for phase 25 (a))."""
     from repro_torch.bench.profile_generate import _profiled
     from repro_torch.configs.qwen2_0_5b import CONFIG
     from repro_torch.core.devtime import device_time_us
@@ -3897,8 +3958,14 @@ def train_main_path(dev, smi):
     from repro_torch.train.step import model_flops
     ckpt = Path(fresh_root("train-ckpt"))
     feats = default_features()
+    host = LM(CONFIG, torch.bfloat16, "cpu", features=feats,
+              param_dtype=torch.float32)
+    t0 = time.perf_counter()
+    host.init(torch.Generator().manual_seed(0))
+    draw_s = time.perf_counter() - t0
     lm = LM(CONFIG, torch.bfloat16, dev, features=feats,
             param_dtype=torch.float32)
+    lm.load_state_dict(host.state_dict())
     data = train_data_cfg(CONFIG, TRAIN_BATCH, TRAIN_SEQ)
 
     def trainer(total, ckpt_dir=None, accum=1):
@@ -3907,8 +3974,10 @@ def train_main_path(dev, smi):
             ckpt_dir=ckpt_dir, ckpt_keep=3, accum_steps=accum),
             AdamWConfig(), ScheduleConfig(**TRAIN_SCHED))
 
-    tr = trainer(TRAIN_STEPS, str(ckpt))
-    state = tr.init_or_restore()
+    # to step 6, writing its one checkpoint there; then on to 12
+    tr = trainer(TRAIN_CKPT_AT, str(ckpt))
+    state = tr.init_state()                 # the host draw's weights
+    plain_bytes = state_bytes(state)
     n_params = lm.num_params()
     log(f"  qwen2-0.5b: {n_params} params, fp32 masters, bf16 compute, "
         f"remat {feats.remat_policy}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
@@ -3920,14 +3989,16 @@ def train_main_path(dev, smi):
         f.launches = 0
     t0 = time.perf_counter()
     state = tr.run(state)
+    # the checkpoint's weights as a serving model (bf16), before any
+    # further step
+    served = LM(CONFIG, torch.bfloat16, dev)
+    served.load_state_dict({k: v.detach() for k, v in lm.state_dict().items()})
+    rest = trainer(TRAIN_STEPS)
+    state = rest.run(state)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
-    # the final checkpoint's weights as a serving model (bf16), before
-    # any further step
-    served = LM(CONFIG, torch.bfloat16, dev)
-    served.load_state_dict({k: v.detach() for k, v in lm.state_dict().items()})
-    hist = tr.history
+    hist = tr.history + rest.history
     losses = [r["loss"] for r in hist]
     if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail(f"train: losses {losses}")
@@ -3941,12 +4012,12 @@ def train_main_path(dev, smi):
            "peak_mem_gb": peak / 1e9, "first_loss": losses[0],
            "last_loss": losses[-1]}
     # two steps under the profiler: launches a step and the idle share
-    batches = [tr.batch_at(TRAIN_STEPS + i) for i in range(2)]
+    batches = [rest.batch_at(TRAIN_STEPS + i) for i in range(2)]
 
     def two_steps():
         nonlocal state
         for b in batches:
-            state, m = tr.step_fn(state, b)
+            state, m = rest.step_fn(state, b)
         m["loss"].item()
 
     wall_ms, avgs = _profiled(two_steps)
@@ -3972,7 +4043,7 @@ def train_main_path(dev, smi):
             f" {a.key[:70]}")
     log(f"  losses {[round(x, 4) for x in losses]}; Trainer.run "
         f"{run_s:.1f} s, of which steps {sum(r['wall_s'] for r in hist):.1f}"
-        f" s and the rest (2 checkpoints of "
+        f" s and the rest (a checkpoint of "
         f"{sum(p.numel() for p in lm.parameters()) * 12 / 1e9:.2f} GB "
         f"copied to host and written; data, logging) "
         f"{run_s - sum(r['wall_s'] for r in hist):.1f} s")
@@ -3990,8 +4061,8 @@ def train_main_path(dev, smi):
     launched = all_counters()
     if any(launched.values()):
         fail(f"training launched a hand-written kernel: {launched}")
-    # resume: a fresh Trainer from the step-10 checkpoint (linked into a
-    # directory of its own) to 20; it writes no checkpoint of its own
+    # resume: a fresh Trainer from the step-6 checkpoint (linked into a
+    # directory of its own) to 12; it writes no checkpoint of its own
     cut = Path(fresh_root("train-resume"))
     name = f"step_{TRAIN_CKPT_AT:09d}"
     (cut / name).symlink_to(ckpt / name, target_is_directory=True)
@@ -4017,9 +4088,10 @@ def train_main_path(dev, smi):
     launched = all_counters()
     if any(launched.values()):
         fail(f"training launched a hand-written kernel: {launched}")
-    del lm, state, rstate, tr, acc, res
+    del lm, state, rstate, tr, rest, acc, res
     torch.cuda.empty_cache()
-    return served, ckpt, fig
+    return served, ckpt, fig, dict(host=host, history=hist,
+                                   state_bytes=plain_bytes, draw_s=draw_s)
 
 
 def walk_leaf(tree, path):
@@ -4574,17 +4646,19 @@ def mesh_three_ranks(smi):
         f"and every run)")
 
 
-def per_device_paged(dev, smi):
-    """Phase 24 (c): kernels #2 and #3 at the per-device shape of qwen2 on
-    a (1, 2) mesh (KVH 1, G 7, Dh 64, 8 rows), bf16, against their plain
-    versions, timed beside their bounds."""
+def per_device_paged(dev, smi, kvh=1, g=7, dh=64, where="(c)",
+                     what="the (1, 2) mesh's per-device shape"):
+    """Kernels #2 and #3 at a mesh's per-device shape (phase 24 (c):
+    qwen2 on a (1, 2) mesh, KVH 1, G 7, Dh 64; phase 25 (d): qwen2-moe,
+    KVH 8, G 1, Dh 128), 8 rows, bf16, against their plain versions,
+    timed beside their bounds."""
     from repro_torch.kernels.paged_decode import (
         paged_decode_attention_grouped, paged_decode_attention_q8_grouped,
         paged_decode_plain, paged_decode_q8_plain)
     timer = Timer(dev)
     rng = np.random.default_rng(24)
     lens = [n + 16 for n in PROMPT_LENS]
-    kvh, g, dh, b = 1, 7, 64, len(lens)
+    b = len(lens)
     table, num_pages = plan_table(lens, MAX_NEW - 16, PAGE_SIZE)
 
     def rnd(*shape):
@@ -4606,22 +4680,650 @@ def per_device_paged(dev, smi):
     flops = 4.0 * kvh * g * dh * sum(n + 1 for n in lens)
     io = 2 * (2 * q4.numel() + 2 * common[2].numel()) + 4 * b
     pages = 4 * sum(-(-n // PAGE_SIZE) for n in lens)
+    shape = f"KVH {kvh}, G {g}, Dh {dh}, {b} rows"
     rows = []
     for name, fn, plain, args, kv_bytes in (
             ("paged_decode", paged_decode_attention_grouped,
              paged_decode_plain, fp, 2 * 2 * sum(lens) * kvh * dh),
             ("paged_decode_q8", paged_decode_attention_q8_grouped,
              paged_decode_q8_plain, q8, sum(lens) * (2 * kvh * dh + 8))):
-        err = close(f"{name} at the (1, 2) mesh's per-device shape (KVH 1, "
-                    f"G 7, Dh 64, 8 rows)", fn(*args), plain(*args))
+        err = close(f"{name} at {what} ({shape})", fn(*args), plain(*args))
         ms = timer.ms(lambda: fn(*args))
         plain_ms = timer.ms(lambda: plain(*args))
         bms, by = bound_ms(io + kv_bytes + pages, flops)
-        log(f"  (c) {name} bf16 per device (KVH 1, G 7, Dh 64, 8 rows): "
-            f"{ms:.4f} ms (plain {plain_ms:.4f}), bound {bms:.5f} ms by {by}"
-            f", max|err| {err:.3g} [{smi}]")
+        log(f"  {where} {name} bf16 per device ({shape}): {ms:.4f} ms "
+            f"(plain {plain_ms:.4f}), bound {bms:.5f} ms by {by}, max|err| "
+            f"{err:.3g} [{smi}]")
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bms))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 25: training on a mesh, and the moe family on a mesh
+# ---------------------------------------------------------------------------
+
+#: (a): qwen2-0.5b at full width and depth, phase 23's 8 x 512 tokens a
+#: step, bf16 over fp32 masters: 6 steps through a (1, 1) mesh over NCCL
+#: from phase 23 (a)'s draw, held to its first 6 steps
+MESH_TRAIN_STEPS = 6
+#: (a): the sharded run's losses and grad norms against the unsharded
+#: run's, relative.  bf16 compute, and the embedding's index_add backward
+#: sums in another order each run on the card: over 6 steps the losses
+#: came out equal and the grad norms 1.3e-5 apart, so 1e-3 holds ~70x
+#: that and still catches a step that skips a leaf's update or decay
+MESH_TRAIN_RTOL = 1e-3
+#: (b): qwen2-0.5b at full width and 2 of its 24 layers, fp32, 4 x 128
+#: tokens a step, 3 steps a run on four ranks sharing the card (gloo)
+MESH_TRAIN_LAYERS, MESH_TRAIN_RANKS = 2, 4
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_RUN = 4, 128, 3
+MESH_TRAIN_SCHED = dict(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+#: (b): the runs: a mesh shape, microbatches, int8 error feedback and the
+#: compute dtype; the (2, 2) run writes the checkpoint a (1, 2) trainer
+#: resumes
+MESH_TRAIN_RUNS = {"plain": ((2, 2), 1, False, torch.float32),
+                   "accum": ((2, 1), 2, False, torch.float32),
+                   "ef": ((1, 2), 1, True, torch.float32)}
+MESH_TRAIN_SAVED = "plain"
+#: (b): losses and grad norms against the unsharded run's, relative (int8
+#: codes that flip across a rounding boundary move the norm by ~a scale)
+MESH_TRAIN_METRIC_RTOL = {False: P23_METRIC_RTOL["default"], True: 1e-4}
+#: ``--train-mesh-four-cards``: (b)'s rank body one rank a card over NCCL,
+#: qwen2-0.5b at full depth, phase 23's 8 x 512 tokens and schedule, 6
+#: steps on (2, 2) in bf16 over fp32 masters and in fp32
+FOUR_CARD_RUNS = {"bf16": ((2, 2), 1, False, torch.bfloat16),
+                  "fp32": ((2, 2), 1, False, torch.float32)}
+#: the fp32 run's losses and grad norms against the unsharded fp32 run's,
+#: relative: only the order of fp32 sums differs, and a step that skips a
+#: leaf's update moves a loss by more than 1e-3.  The bf16 run rounds each
+#: rank's partial sums to bf16 before they are reduced, a rounding the
+#: unsharded run never makes: its losses are held as phase 23 holds bf16
+#: runs that sum in another order (:data:`RESUME_LOSS_RTOL`), its grad
+#: norms' gaps are printed beside the fp32 run's
+FOUR_CARD_FP32_RTOL = 1e-4
+#: (c): qwen2-moe-a2.7b at full width and 2 of its 24 layers, fp32, on a
+#: (1, 2) mesh of two ranks sharing the card (30 experts a rank)
+MOE_MESH_LAYERS, MOE_MESH_NEW = 2, 12
+MOE_MESH_PROMPT_LENS = (61, 40, 23, 9)
+
+
+def state_bytes(state):
+    """Bytes of a train state's distinct tensors (a state's params may be
+    its LM's own)."""
+    seen, total = set(), 0
+    trees = (state.params, state.opt.m, state.opt.v, state.opt.ef or {})
+    for tree in trees:
+        for t in tree.values():
+            key = t.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                total += t.numel() * t.element_size()
+    return total
+
+
+def with_state(make, dev):
+    """(a trainer ``make()`` builds, its fresh state, the bytes both left
+    allocated on the card)."""
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    tr = make()
+    state = tr.init_state()
+    torch.cuda.synchronize(dev)
+    return tr, state, torch.cuda.memory_allocated(dev) - before
+
+
+def check_state_bytes(where, held, state):
+    """The card holds the state's tensors and nothing more, up to the
+    allocator's rounding (2% and 8 MiB)."""
+    want = state_bytes(state)
+    if held < want or held > want * 1.02 + (8 << 20):
+        fail(f"{where}: the card took {held} bytes for a train state of "
+             f"{want} bytes")
+    return want
+
+
+def mesh_train_one_rank(dev, smi, plain):
+    """Phase 25 (a): qwen2-0.5b at full width and depth, bf16 over fp32
+    masters, 8 x 512 tokens a step: ``Trainer(mesh=, state_shardings=
+    train_state_pspecs(...))`` on a (1, 1) mesh over NCCL (a world of
+    one), 6 steps from phase 23 (a)'s host draw (``plain["host"]``: the
+    sharded trainer takes the whole model as its host copy), held to
+    phase 23 (a)'s unsharded run over the same steps, batches and
+    schedule (``plain["history"]``): losses and grad norms within
+    :data:`MESH_TRAIN_RTOL`; the card's bytes for the state its
+    tensors'."""
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import Trainer, TrainerConfig, train_state_pspecs
+    mesh_mod.init_process("cuda")
+    if torch.distributed.get_backend() != "nccl":
+        fail(f"phase 25 (a): backend {torch.distributed.get_backend()}")
+    host = plain["host"]
+    data = train_data_cfg(CONFIG, TRAIN_BATCH, TRAIN_SEQ)
+    mesh = mesh_mod.build_mesh([0], (1, 1), ("data", "model"))
+    tr, state, held = with_state(lambda: Trainer(
+        host, data, TrainerConfig(total_steps=MESH_TRAIN_STEPS,
+                                  log_every=MESH_TRAIN_STEPS),
+        AdamWConfig(), ScheduleConfig(**TRAIN_SCHED), mesh=mesh,
+        state_shardings=train_state_pspecs(host, mesh)), dev)
+    sharded_bytes = check_state_bytes("phase 25 (a)", held, state)
+    state = tr.run(state)
+    torch.cuda.synchronize()
+    got, want = tr.history, plain["history"][:MESH_TRAIN_STEPS]
+    del tr, state
+    torch.cuda.empty_cache()
+    for key in ("loss", "grad_norm"):
+        a, w = [r[key] for r in got], [r[key] for r in want]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, w))
+        if len(a) != MESH_TRAIN_STEPS or rel > MESH_TRAIN_RTOL:
+            fail(f"phase 25 (a): sharded {key} {a} against unsharded {w}")
+    launched = all_counters()
+    if any(launched.values()):
+        fail(f"phase 25 (a): training launched a kernel: {launched}")
+    ms = [float(np.median([r["wall_s"] for r in h[2:]])) * 1e3
+          for h in (got, want)]
+    log(f"  (a) qwen2-0.5b bf16 over fp32 masters, 24 layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, (1, 1) mesh over nccl (a "
+        f"world of 1): step {ms[0]:.2f} ms beside {ms[1]:.2f} ms unsharded "
+        f"(phase 23 (a); median of steps 2-{MESH_TRAIN_STEPS - 1}); losses "
+        f"{[round(r['loss'], 5) for r in got]} beside "
+        f"{[round(r['loss'], 5) for r in want]}, grad norms "
+        f"{[round(r['grad_norm'], 4) for r in got]} beside "
+        f"{[round(r['grad_norm'], 4) for r in want]}; train state on the "
+        f"card {sharded_bytes} bytes beside {plain['state_bytes']} "
+        f"unsharded; the host draw {plain['draw_s']:.1f} s [{smi}]")
+    mesh_mod.leave_process_group()
+
+
+def _hold_slices(where, layout, params, full, lrs):
+    """This rank's slices of ``params`` against the unsharded run's whole
+    ``full`` parameters (on the host), as :func:`hold_params` holds
+    them."""
+    hold_params(where, params, {k: layout.cut(k, v).cpu()
+                                for k, v in full.items()}, lrs)
+
+
+def mesh_train_plan(four_cards=False):
+    """Phase 25 (b)'s plan: four ranks on ``cuda:0`` over gloo, qwen2-0.5b
+    at 2 of 24 layers, :data:`MESH_TRAIN_RUNS`, every parameter held, a
+    checkpoint resumed across shapes.  With ``four_cards``, the same rank
+    body one rank a card over NCCL: full depth, phase 23's tokens, remat
+    and schedule, :data:`FOUR_CARD_RUNS`, losses and grad norms held (bf16
+    parameters are not held to fp32 bounds), no checkpoint."""
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.core.features import default_features
+    if four_cards:
+        return dict(device="cuda", backend="nccl", cfg=CONFIG,
+                    remat=default_features().remat_policy,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_TRAIN_STEPS,
+                    sched=TRAIN_SCHED, runs=FOUR_CARD_RUNS, saved=None,
+                    hold_params=False)
+    return dict(device="cuda:0", backend="gloo",
+                cfg=dataclasses.replace(CONFIG, n_layers=MESH_TRAIN_LAYERS),
+                remat="none", batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ,
+                steps=MESH_TRAIN_RUN, sched=MESH_TRAIN_SCHED,
+                runs=MESH_TRAIN_RUNS, saved=MESH_TRAIN_SAVED,
+                hold_params=True)
+
+
+def mesh_train_lm(plan, dtype, device):
+    """The plan's LM: ``dtype`` compute over fp32 parameters."""
+    from repro_torch.core.features import default_features
+    from repro_torch.models.lm import LM
+    feats = default_features().with_(remat_policy=plan["remat"])
+    return LM(plan["cfg"], dtype, device, features=feats,
+              param_dtype=torch.float32)
+
+
+def mesh_train_draw(plan):
+    """The plan's weights, drawn on the host from seed 0."""
+    host = mesh_train_lm(plan, torch.float32, "cpu")
+    host.init(torch.Generator().manual_seed(0))
+    return dict(host.state_dict())
+
+
+def mesh_trainer(lm, plan, total, accum, ef, **kw):
+    """A ``Trainer`` of the plan's data and schedule (``kw``: ``mesh=``,
+    ``ckpt_dir=``)."""
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    return Trainer(lm, train_data_cfg(plan["cfg"], plan["batch"],
+                                      plan["seq"]), TrainerConfig(
+        total_steps=total, log_every=100, accum_steps=accum, ckpt_every=0,
+        ckpt_dir=kw.pop("ckpt_dir", None)),
+        AdamWConfig(grad_compression="int8_ef" if ef else "none"),
+        ScheduleConfig(**plan["sched"]), **kw)
+
+
+def mesh_train_refs(dev, plan, path, limits):
+    """The plan's unsharded runs on ``dev``, once for every rank: each
+    run's losses and grad norms (the saved run 2 steps further), its
+    median step ms and ``limits(refs)``'s limits for it; with
+    ``hold_params``, its parameters after its steps (and the saved run's
+    after 2 more).  Written to ``path`` whole or not at all (the ranks
+    wait for it); returns (the refs, the bytes of the whole weights)."""
+    import os
+    weights = mesh_train_draw(plan)
+    refs, params = {}, {}
+
+    def host_params(st):
+        return {k: v.detach().to("cpu", copy=True)
+                for k, v in st.params.items()}
+
+    for name, (_, accum, ef, dtype) in plan["runs"].items():
+        lm = mesh_train_lm(plan, dtype, dev)
+        lm.load_state_dict(weights)
+        tr = mesh_trainer(lm, plan, plan["steps"], accum, ef)
+        st = tr.run(tr.init_state())
+        hist = list(tr.history)
+        if plan["hold_params"]:
+            params[name] = {"at": host_params(st)}
+        if name == plan["saved"]:
+            more = mesh_trainer(lm, plan, plan["steps"] + 2, accum, ef)
+            st = more.run(st)
+            hist += more.history
+            params[name]["final"] = host_params(st)
+        refs[name] = dict(
+            hist=[{k: float(r[k]) for k in ("loss", "grad_norm")}
+                  for r in hist],
+            step_ms=float(np.median([r["wall_s"]
+                                     for r in hist[1:plan["steps"]]])) * 1e3)
+        del lm, tr, st
+        torch.cuda.empty_cache()
+    limits(refs)
+    torch.save(dict(refs=refs, params=params), path + ".part")
+    os.replace(path + ".part", path)
+    return refs, sum(v.numel() * v.element_size() for v in weights.values())
+
+
+def wait_for_refs(path, timeout_s=300.0):
+    """:func:`mesh_train_refs`'s file, once the parent has written it."""
+    import os
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout_s:
+            fail(f"no unsharded runs at {path} after {timeout_s:.0f} s")
+        time.sleep(0.2)
+    return torch.load(path, mmap=True, weights_only=True)
+
+
+def _train_mesh_rank(rank, world, init_method, plan, refs_path, ckpt_root):
+    """One rank of phase 25 (b) (or of ``--train-mesh-four-cards``), as
+    :func:`mesh_train_plan` lays it out: from one host draw, each run of
+    ``plan["runs"]`` through ``Trainer(mesh=)``, its losses and grad norms
+    held to the unsharded run's within its limits, its card bytes its
+    slices', with ``hold_params`` this rank's slices of the parameters
+    against the unsharded run's (the parent makes the unsharded runs
+    once, while the ranks start, and writes them to ``refs_path``: a rank
+    waits for them after its first run); the saved run writes its
+    checkpoint, and a fresh ``Trainer`` on (1, 2) resumes it for 2 more
+    steps, held to the unsharded run's."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    secs = {}                       # where the rank's time went
+    dev = mesh_mod.init_process(plan["device"], backend=plan["backend"],
+                                init_method=init_method, rank=rank,
+                                world_size=world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)        # the ranks share the host's cores
+    weights = mesh_train_draw(plan)
+    made = {}                       # the unsharded runs, once written
+    steps = plan["steps"]
+    lrs = [plan["sched"]["peak_lr"]] * steps
+
+    def lap(what):
+        nonlocal t0
+        t = time.perf_counter()
+        secs[what] = t - t0
+        t0 = t
+
+    lap("start and draw")
+    out = {"rank": rank, "runs": {}, "secs": secs}
+
+    def check(where, hist, name, lo):
+        if not made:
+            t = time.perf_counter()
+            made.update(wait_for_refs(refs_path))
+            secs["of which waiting"] = time.perf_counter() - t
+        ref = made["refs"][name]
+        gaps = {}
+        for key in ("loss", "grad_norm"):
+            a = [r[key] for r in hist]
+            w = [r[key] for r in ref["hist"][lo:lo + len(hist)]]
+            lim = ref["limits"][key][lo:lo + len(hist)]
+            gaps[key] = [abs(x - y) / abs(y) for x, y in zip(a, w)]
+            if len(a) != len(w) or any(
+                    g > m for g, m in zip(gaps[key], lim)):
+                fail(f"{where}: {key} {a} against the unsharded {w}: "
+                     f"relative gaps {gaps[key]}, limits {lim}")
+        return gaps
+
+    for name, (shape, accum, ef, dtype) in plan["runs"].items():
+        n = int(np.prod(shape))
+        mesh = mesh_mod.build_mesh(range(n), shape, ("data", "model"))
+        if rank >= n:
+            continue
+        where = f"phase 25 (b) rank {rank} {shape} {name}"
+        host = mesh_train_lm(plan, dtype, "cpu")
+        host.load_state_dict(weights)
+        tr, st, held = with_state(lambda: mesh_trainer(
+            host, plan, steps, accum, ef, mesh=mesh,
+            ckpt_dir=ckpt_root if name == plan["saved"] else None), dev)
+        mine = check_state_bytes(where, held, st)
+        st = tr.run(st)
+        gaps = check(where, tr.history, name, 0)
+        if plan["hold_params"]:
+            _hold_slices(where, tr.layout, st.params,
+                         made["params"][name]["at"], lrs)
+        out["runs"][name] = dict(
+            shape=shape, state_bytes=mine, held=held, gaps=gaps,
+            losses=[r["loss"] for r in tr.history],
+            grad_norms=[r["grad_norm"] for r in tr.history],
+            step_ms=float(np.median([r["wall_s"] for r in tr.history[1:]]))
+            * 1e3, gathered=len(tr.layout.gathered))
+        del tr, st, host
+        torch.cuda.empty_cache()
+        lap(name)
+    if plan["saved"] is not None:
+        mesh = mesh_mod.build_mesh(range(2), (1, 2), ("data", "model"))
+    if plan["saved"] is not None and rank < 2:
+        where = f"phase 25 (b) rank {rank} (1, 2) resumed"
+        _, accum, ef, dtype = plan["runs"][plan["saved"]]
+        host = mesh_train_lm(plan, dtype, "cpu")
+        host.load_state_dict(weights)
+        tr = mesh_trainer(host, plan, steps + 2, accum, ef, mesh=mesh,
+                          ckpt_dir=ckpt_root)
+        st = tr.init_or_restore()
+        if int(st.step) != steps:
+            fail(f"{where}: restored step {int(st.step)}")
+        tr.cfg.ckpt_dir = None
+        st = tr.run(st)
+        check(where, tr.history, plan["saved"], steps)
+        _hold_slices(where, tr.layout, st.params,
+                     made["params"][plan["saved"]]["final"], lrs + lrs[:2])
+        out["resumed"] = [r["loss"] for r in tr.history]
+        lap("resumed")
+    launched = all_counters()
+    if any(launched.values()):
+        fail(f"phase 25 (b) rank {rank}: training launched a kernel: "
+             f"{launched}")
+    return out
+
+
+def _state_of(full_bytes, ef):
+    """An unsharded fp32 state's bytes: params, two moments (and the
+    error-feedback residuals)."""
+    return full_bytes * (4 if ef else 3)
+
+
+def log_mesh_train(ranks, plan, refs, full_bytes, where, smi):
+    """A line for each run: losses, step ms sharded beside unsharded, the
+    state a rank keeps on its card."""
+    r0 = ranks[0]
+    for name, run in r0["runs"].items():
+        by_rank = [r["runs"][name]["state_bytes"] for r in ranks
+                   if name in r["runs"]]
+        worst = {k: max(g) for k, g in run["gaps"].items()}
+        log(f"  {where} {name} on {run['shape']}: losses "
+            f"{[round(x, 5) for x in run['losses']]}, grad norms "
+            f"{[round(x, 4) for x in run['grad_norms']]}, within "
+            f"{worst} of the unsharded run's; step {run['step_ms']:.2f} ms "
+            f"beside {refs[name]['step_ms']:.2f} unsharded; train state on "
+            f"the card by rank {by_rank} bytes (each its slices; "
+            f"{run['gathered']} leaves gathered over data for a step) "
+            f"beside {_state_of(full_bytes, plan['runs'][name][2])} "
+            f"unsharded "
+            f"[{smi}]")
+
+
+def mesh_train_four_ranks(dev, smi):
+    """Phase 25 (b): four spawned ranks sharing the card while the
+    unsharded runs are made once on it, beside them; every rank checks
+    its own runs."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    plan = mesh_train_plan()
+    refs_path = str(Path(fresh_root("mesh-train-refs")) / "refs.pt")
+
+    def limits(refs):
+        for name, (_, _, ef, _) in plan["runs"].items():
+            n = len(refs[name]["hist"])
+            refs[name]["limits"] = {k: [MESH_TRAIN_METRIC_RTOL[ef]] * n
+                                    for k in ("loss", "grad_norm")}
+
+    def unsharded():
+        out = mesh_train_refs(dev, plan, refs_path, limits)
+        return out + (time.perf_counter() - t0,)
+
+    ranks, (refs, full_bytes, t_refs) = concurrently(
+        lambda: mesh_mod.spawn(_train_mesh_rank, MESH_TRAIN_RANKS, (
+            plan, refs_path, fresh_root("mesh-train-ckpt")), timeout_s=400),
+        unsharded)
+    secs = time.perf_counter() - t0
+    log_mesh_train(ranks, plan, refs, full_bytes, "(b)", smi)
+    r0 = ranks[0]
+    log(f"  (b) the (2, 2) run's checkpoint resumed on (1, 2): losses "
+        f"{[round(x, 5) for x in r0['resumed']]} equal the unsharded "
+        f"run's; the unsharded runs done at {t_refs:.1f} s, the four "
+        f"ranks at {secs:.1f} s; rank 0's seconds "
+        f"{ {k: round(v, 1) for k, v in r0['secs'].items()} }")
+    return ranks
+
+
+def train_mesh_four_cards() -> int:
+    """``chip_smoke.py --train-mesh-four-cards``: phase 25 (b)'s rank body
+    on four cards, one rank a card over NCCL (:func:`mesh_train_plan`):
+    the unsharded bf16 and fp32 runs on card 0 first (one card's step
+    ms; the gap between them printed, bf16 rounding's own size), then
+    the four ranks, held as :data:`FOUR_CARD_FP32_RTOL` says."""
+    from repro_torch.launch import mesh as mesh_mod
+    if torch.cuda.device_count() < 4:
+        fail(f"--train-mesh-four-cards needs 4 cards, this host has "
+             f"{torch.cuda.device_count()}")
+    smi = gpu_name_and_limit()
+    log(f"  nvidia-smi: {smi}")
+    plan = mesh_train_plan(four_cards=True)
+    wit = {}
+
+    def limits(refs):
+        wit.update({k: [abs(x[k] - y[k]) / abs(y[k]) for x, y in
+                        zip(refs["bf16"]["hist"], refs["fp32"]["hist"])]
+                    for k in ("loss", "grad_norm")})
+        n = len(wit["loss"])
+        refs["bf16"]["limits"] = {"loss": [RESUME_LOSS_RTOL] * n,
+                                  "grad_norm": [float("inf")] * n}
+        refs["fp32"]["limits"] = {k: [FOUR_CARD_FP32_RTOL] * n
+                                  for k in wit}
+
+    # one card's runs alone on card 0 first: their step ms is one card's
+    refs_path = str(Path(fresh_root("mesh-train-refs")) / "refs.pt")
+    refs, full_bytes = mesh_train_refs(torch.device("cuda", 0), plan,
+                                       refs_path, limits)
+    log(f"  unsharded on one card: bf16 losses "
+        f"{[round(r['loss'], 5) for r in refs['bf16']['hist']]}, fp32 "
+        f"{[round(r['loss'], 5) for r in refs['fp32']['hist']]}; bf16 "
+        f"against fp32, relative: {wit}")
+    t0 = time.perf_counter()
+    ranks = mesh_mod.spawn(_train_mesh_rank, 4, (plan, refs_path, None),
+                           timeout_s=600)
+    log_mesh_train(ranks, plan, refs, full_bytes, "four cards, nccl,", smi)
+    log(f"  four ranks in {time.perf_counter() - t0:.1f} s; rank 0's "
+        f"seconds {ranks[0]['secs']}")
+    print(smi, flush=True)
+    print(json.dumps({name: dict(
+        step_ms=ranks[0]["runs"][name]["step_ms"],
+        unsharded_step_ms=refs[name]["step_ms"],
+        state_bytes=[r["runs"][name]["state_bytes"] for r in ranks],
+        gaps=ranks[0]["runs"][name]["gaps"],
+        limits=refs[name]["limits"]) for name in plan["runs"]}), flush=True)
+    return 0
+
+
+def _moe_mesh_rank(rank, world, init_method):
+    """Phase 25 (c), one rank of two on ``cuda:0`` (gloo): qwen2-moe-a2.7b
+    at full width and 2 of 24 layers, fp32.  The unsharded engine's
+    ``generate`` and ``BatchScheduler`` on fp32 and int8 pages first;
+    then the same through a (1, 2) mesh, the full model a host copy on
+    the CPU: tokens, launches and the card's bytes."""
+    import dataclasses as dc
+    import gc
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    dev = mesh_mod.init_process("cuda:0", backend="gloo",
+                                init_method=init_method, rank=rank,
+                                world_size=world)
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dc.replace(CONFIG, n_layers=MOE_MESH_LAYERS)
+    lm = LM(cfg, torch.float32, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        lm.embed.table.mul_(0.1)
+    rng = np.random.default_rng(251)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in MOE_MESH_PROMPT_LENS]
+    work = mesh_work(cfg.vocab, 8, 252, 8, 64, 8, 24)
+    kvs = (None, "int8")
+    # the prefix cache off: a hit prefills its suffix with plain ops, and
+    # #1's count is then not the admissions'
+    scfgs = {kv: ServeConfig(page_size=PAGE_SIZE, max_seq=256,
+                             batch_slots=4, kv_dtype=kv, prefix_cache=False)
+             for kv in kvs}
+    wants = {}
+    for kv in kvs:
+        plain = Engine(lm, scfgs[kv])
+        g_want = plain.generate(prompts, MOE_MESH_NEW)
+        _, s_want, wall0, _ = mesh_sched(plain, work)
+        wants[kv] = (g_want, s_want, wall0)
+    host = host_copy(lm)
+    del plain, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"rank": rank, "runs": {}}
+    for kv in kvs:
+        tag = kv or "fp32"
+        where = f"phase 25 (c) rank {rank} {tag}"
+        g_want, s_want, wall0 = wants[kv]
+        sm = mesh_mod.make_serve_mesh((1, 2))
+        eng, took, full = sharded_engine(where, host, scfgs[kv], sm, dev)
+        reset_counters()
+        g = eng.generate(prompts, MOE_MESH_NEW)
+        torch.cuda.synchronize()
+        g_launches = read_counters()
+        sched, s_got, wall, s_launches = mesh_sched(eng, work)
+        q8 = kv == "int8"
+        want_g = {"flash_attention": MOE_MESH_LAYERS,
+                  "paged_decode": 0 if q8 else MOE_MESH_LAYERS
+                  * (MOE_MESH_NEW - 1),
+                  "paged_decode_q8": MOE_MESH_LAYERS * (MOE_MESH_NEW - 1)
+                  if q8 else 0, "argmax": MOE_MESH_NEW, "ssd_scan": 0}
+        want_s = sched_launches(MOE_MESH_LAYERS, sched.metrics, q8)
+        if g != g_want or s_got != s_want:
+            fail(f"{where}: the sharded tokens differ from the unsharded "
+                 f"engine's")
+        if g_launches != want_g or s_launches != want_s:
+            fail(f"{where}: launched {g_launches} / {s_launches}, expected "
+                 f"{want_g} / {want_s}")
+        blk = eng.lm.blocks[0]
+        if (blk.moe.w_gate.shape[0] != cfg.moe_experts // 2
+                or eng.lm.block_config().attn.num_kv_heads
+                != cfg.num_kv_heads // 2):
+            fail(f"{where}: a rank holds {blk.moe.w_gate.shape[0]} experts "
+                 f"and {eng.lm.block_config().attn.num_kv_heads} kv heads")
+        out["runs"][tag] = dict(
+            shard_bytes=took, full_bytes=full, g_launches=g_launches,
+            s_launches=s_launches,
+            tok_s=sum(map(len, s_got.values())) / wall,
+            tok_s_unsharded=sum(map(len, s_want.values())) / wall0)
+        del eng, sched
+        gc.collect()
+    return out
+
+
+def moe_mesh_two_ranks(smi):
+    """Phase 25 (c): two spawned ranks on the card; every rank checks its
+    runs.  Returns rank 0's scheduler launches on int8 pages."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    ranks = mesh_mod.spawn(_moe_mesh_rank, 2, timeout_s=400)
+    secs = time.perf_counter() - t0
+    for tag in ("fp32", "int8"):
+        runs = [r["runs"][tag] for r in ranks]
+        r0 = runs[0]
+        log(f"  (c) qwen2-moe-a2.7b {MOE_MESH_LAYERS} layers fp32, {tag} "
+            f"pages, (1, 2) mesh (30 experts and 8 kv heads a rank): "
+            f"generate and scheduler tokens equal the unsharded engine's; "
+            f"{r0['tok_s']:.1f} tokens/s beside {r0['tok_s_unsharded']:.1f} "
+            f"unsharded; rank 0 launches generate {r0['g_launches']}, "
+            f"scheduler {r0['s_launches']}; the sharded engine allocated "
+            f"{[r['shard_bytes'] for r in runs]} bytes by rank of a "
+            f"{r0['full_bytes']}-byte model kept on the host [{smi}]")
+    log(f"  (c) two ranks in {secs:.1f} s")
+    return ranks[0]["runs"]["int8"]["s_launches"]
+
+
+def concurrently(*fns):
+    """Every ``fn()`` on a thread of its own, side by side; their results
+    in order, or the first one's failure raised here."""
+    import threading
+    out = [None] * len(fns)
+
+    def run(i, fn):
+        try:
+            out[i] = (True, fn())
+        except BaseException as e:          # raised again below
+            out[i] = (False, e)
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for ok, res in out:
+        if not ok:
+            raise res
+    return [res for _, res in out]
+
+
+def per_device_flash(dev, smi):
+    """Phase 25 (d): kernel #1 at qwen2-moe-a2.7b's per-device prefill on
+    a (1, 2) mesh, [8, 8, 512, 128] (16 heads over 2, G 1), phase 3's
+    ragged prompts, bf16, causal: against its plain version, timed
+    beside its bound and SDPA with the mask."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_plain)
+    timer = Timer(dev)
+    rng = np.random.default_rng(253)
+    b, h, kvh, dh, s = len(PROMPT_LENS), 8, 8, 128, max(PROMPT_LENS)
+
+    def rnd(n):
+        return torch.from_numpy(rng.standard_normal(
+            (b, n, s, dh), np.float32)).to(dev, torch.bfloat16)
+
+    q, k, v = rnd(h), rnd(kvh), rnd(kvh)
+    kvv = torch.tensor(PROMPT_LENS, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, kv_valid=kvv)
+    err = close("flash at qwen2-moe-a2.7b's per-device prefill "
+                "[8,8,512,128]", flash_attention_bhsd(q, k, v, **kw),
+                flash_attention_plain(q, k, v, **kw))
+    ms = timer.ms(lambda: flash_attention_bhsd(q, k, v, **kw))
+    plain_ms = timer.ms(lambda: flash_attention_plain(q, k, v, **kw))
+    kpos = torch.arange(s, device=dev)
+    mask = ((kpos[None, :] <= kpos[:, None])[None, None]
+            & (kpos[None, None, None, :] < kvv[:, None, None, None]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = timer.ms(lambda: sdpa(q, k, v, attn_mask=mask))
+    bms, by = flash_bound(q, k, PROMPT_LENS)
+    log(f"  (d) flash_attention bf16 per device [8,8,512,128] ragged causal: "
+        f"{ms:.4f} ms (plain {plain_ms:.4f}, SDPA with the mask "
+        f"{library_ms:.4f}), bound {bms:.5f} ms by {by}, max|err| {err:.3g} "
+        f"[{smi}]")
+    return dict(name="flash_attention", ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, library_ms=library_ms)
 
 
 class PhaseClock:
@@ -4643,6 +5345,11 @@ class PhaseClock:
 
 
 def main() -> int:
+    four_cards = sys.argv[1:] == ["--train-mesh-four-cards"]
+    if sys.argv[1:] and not four_cards:
+        print("usage: chip_smoke.py [--train-mesh-four-cards]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -4650,25 +5357,25 @@ def main() -> int:
     import os
     import shutil
     import tempfile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     global TMP_ROOT
     TMP_ROOT = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
         # phases 1-17 read and write tune records in a fresh, empty root,
         # so no earlier tune record can change their tiles
         os.environ["REPRO_CACHE_DIR"] = fresh_root("phases-1-17")
-        return run_phases()
+        return train_mesh_four_cards() if four_cards else run_phases()
     finally:
         shutil.rmtree(TMP_ROOT, ignore_errors=True)
 
 
 def run_phases() -> int:
     from repro_torch.kernels import _build
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     phase = PhaseClock()
 
-    phase("[1/24] probe")
+    phase("[1/25] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -4685,12 +5392,12 @@ def run_phases() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    phase("[2/24] build")
+    phase("[2/25] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    phase("[3/24] kernels vs plain versions")
+    phase("[3/25] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -4702,26 +5409,26 @@ def run_phases() -> int:
             f"{r['bound_by']})")
     del timer
 
-    phase("[4/24] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    phase("[4/25] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    phase("[5/24] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    phase("[5/25] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
           "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    phase("[6/24] fp32 token check: card paged / card dense / cpu paged")
+    phase("[6/25] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    phase("[7/24] fp32 scheduler token check: card scheduler / card generate "
+    phase("[7/25] fp32 scheduler token check: card scheduler / card generate "
           "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    phase("[8/24] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    phase("[8/25] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    phase("[9/24] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    phase("[9/25] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -4731,10 +5438,10 @@ def run_phases() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    phase("[10/24] fp32 zamba2 token check: card / cpu, 7 layers")
+    phase("[10/25] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    phase("[11/24] case-study kernels vs plain versions: STREAM triad, "
+    phase("[11/25] case-study kernels vs plain versions: STREAM triad, "
           "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -4744,14 +5451,14 @@ def run_phases() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    phase("[12/24] main path 5: the case studies through PerfCtr marker "
+    phase("[12/25] main path 5: the case studies through PerfCtr marker "
           "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    phase("[13/24] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    phase("[13/25] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
           "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -4759,11 +5466,11 @@ def run_phases() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    phase("[14/24] main path 7: speculative decoding, K = 4, 2-layer matched "
+    phase("[14/25] main path 7: speculative decoding, K = 4, 2-layer matched "
           "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    phase("[15/24] main path 8: serving snapshots and chaos: (a) fp32 "
+    phase("[15/25] main path 8: serving snapshots and chaos: (a) fp32 "
           "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
           "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -4771,13 +5478,13 @@ def run_phases() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    phase("[16/24] main path 9: the serving benches (serve, paged decode, "
+    phase("[16/25] main path 9: the serving benches (serve, paged decode, "
           "flash prefill, spec) at their default sizes, serve and spec at "
           "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[17/24] main path 10: the tool layer (topology, pin, features) "
+    phase("[17/25] main path 10: the tool layer (topology, pin, features) "
           "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
           "default kernels against the torch pins three ways")
     topology_check(dev, smi)
@@ -4786,7 +5493,7 @@ def run_phases() -> int:
     tool_benches(smi)
     torch.cuda.empty_cache()
 
-    phase("[18/24] main path 11: the registry's tune half: (a) every tunable "
+    phase("[18/25] main path 11: the registry's tune half: (a) every tunable "
           "family's card cell swept cold, each candidate held to its plain "
           "version; (b) warm in a fresh process; (c) the launcher's --tune "
           "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
@@ -4797,14 +5504,14 @@ def run_phases() -> int:
     tuned_gen_launches = tuned_generate(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[19/24] main path 12: xlstm-350m at full width and depth, dense "
+    phase("[19/25] main path 12: xlstm-350m at full width and depth, dense "
           "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
           "card vs cpu at 4 layers")
     xlstm_gen_launches, xlstm_sched_launches = xlstm_paths(dev)
     torch.cuda.empty_cache()
     xlstm_token_check(dev)
 
-    phase("[20/24] main path 13: the other dense configs, pages of 16: "
+    phase("[20/25] main path 13: the other dense configs, pages of 16: "
           "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
           "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
           "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
@@ -4813,7 +5520,7 @@ def run_phases() -> int:
     perf_report_and_example(smi)
     torch.cuda.empty_cache()
 
-    phase("[21/24] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
+    phase("[21/25] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
           "a2.7b at full width and depth, generate, one host sync, a decode "
           "step with no implicit sync; (b) its int8 scheduler with the prefix "
           "cache; (c) qwen3-moe-235b-a22b at 2 of 94 layers (G 16); (d) fp32 "
@@ -4822,7 +5529,7 @@ def run_phases() -> int:
     torch.cuda.empty_cache()
     moe_token_check(dev)
 
-    phase("[22/24] main path 15: the vlm and encdec families: (a) qwen2-vl-"
+    phase("[22/25] main path 15: the vlm and encdec families: (a) qwen2-vl-"
           "7b at full width and depth with patch embeddings, generate, then "
           "its int8 scheduler with the prefix cache; (b) seamless-m4t-medium "
           "at 12 + 12 layers with source embeddings, generate; (c) fp32 "
@@ -4831,12 +5538,12 @@ def run_phases() -> int:
     vlm_encdec_token_check(dev)
     torch.cuda.empty_cache()
 
-    phase("[23/24] main path 16: training: (a) qwen2-0.5b at full width and "
-          "depth, bf16 over fp32 masters, 8 x 512 tokens a step, 20 steps "
-          "through Trainer, 4 with accum_steps=2, resumed from step 10; (b) "
+    phase("[23/25] main path 16: training: (a) qwen2-0.5b at full width and "
+          "depth, bf16 over fp32 masters, 8 x 512 tokens a step, 12 steps "
+          "through Trainer, 4 with accum_steps=2, resumed from step 6; (b) "
           "fp32 card vs cpu, 2 layers, 3 steps; (c) one fp32 step of each "
           "family, card vs cpu; (d) serve --ckpt-dir")
-    served, ckpt, train_fig = train_main_path(dev, smi)
+    served, ckpt, train_fig, plain_train = train_main_path(dev, smi)
     serving = serve_checkpoint(ckpt)
     try:
         train_card_cpu(dev)
@@ -4849,7 +5556,7 @@ def run_phases() -> int:
     del served
     torch.cuda.empty_cache()
 
-    phase("[24/24] main path 17: sharded serving and its fault tolerance: "
+    phase("[24/25] main path 17: sharded serving and its fault tolerance: "
           "(a) qwen2-0.5b at full width and depth behind BatchScheduler "
           "through a (1, 1) ServeMesh over NCCL, a heartbeat flap absorbed; "
           "(b) 3 ranks on the card, a (1, 2) mesh plus a spare, fp32 and "
@@ -4858,6 +5565,29 @@ def run_phases() -> int:
     mesh_launches = mesh_one_rank(dev, smi)
     mesh_three_ranks(smi)
     per_device_paged(dev, smi)
+    torch.cuda.empty_cache()
+
+    phase("[25/25] main path 18: training on a mesh and the moe family on "
+          "a mesh: (a) qwen2-0.5b at full width and depth through "
+          "Trainer(mesh=, state_shardings=) on a (1, 1) mesh over NCCL "
+          "beside the unsharded Trainer; (b) 4 ranks on the card, "
+          "qwen2-0.5b at 2 layers fp32 on (2, 2), (2, 1) with 2 "
+          "microbatches and (1, 2) with int8 error feedback, the (2, 2) "
+          "checkpoint resumed on (1, 2); (c) qwen2-moe-a2.7b at 2 layers "
+          "fp32 on a (1, 2) mesh of 2 ranks, fp32 and int8 pages; (d) #1, "
+          "#2 and #3 at qwen2-moe's per-device shapes")
+    # (a) holds every counter at 0 over the training runs
+    for f in (*counters().values(), *case_counters().values()):
+        f.launches = 0
+    mesh_train_one_rank(dev, smi, plain_train)
+    del plain_train
+    # (b) and (c) share the card: their ranks start and run side by side
+    _, moe_mesh_launches = concurrently(
+        lambda: mesh_train_four_ranks(dev, smi),
+        lambda: moe_mesh_two_ranks(smi))
+    per_device_flash(dev, smi)
+    per_device_paged(dev, smi, kvh=8, g=1, dh=128, where="(d)",
+                     what="qwen2-moe-a2.7b's per-device decode")
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
@@ -4873,7 +5603,8 @@ def run_phases() -> int:
                "xlstm_scheduler": xlstm_sched_launches, **dense_launches,
                **moe_launches, **vlm_launches,
                "train_serve_ckpt": train_serve_launches,
-               "mesh_scheduler_1x1": mesh_launches}
+               "mesh_scheduler_1x1": mesh_launches,
+               "moe_mesh_scheduler_int8_rank0": moe_mesh_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"],

@@ -34,7 +34,8 @@ from repro_torch.core.pin import get_strategy
 from repro_torch.core.topology import NodeTopology
 
 __all__ = ["RemeshPlan", "RemeshGovernor", "plan_remesh",
-           "build_mesh_from_plan", "reshard_tree", "local_slice"]
+           "build_mesh_from_plan", "reshard_tree", "local_slice",
+           "gather_slice"]
 
 
 class RemeshGovernor:
@@ -169,6 +170,31 @@ def local_slice(x: torch.Tensor, spec: Spec, axis_names: Sequence[str],
                              f"over {axes} ({n} ranks)")
         chunk = x.shape[d] // n
         x = x.narrow(d, idx * chunk, chunk)
+    return x
+
+
+def gather_slice(x: torch.Tensor, spec: Spec, axes: Mapping[str, Any],
+                 skip: Sequence[str] = (), first: bool = False
+                 ) -> Optional[torch.Tensor]:
+    """The inverse of :func:`local_slice` over the axes of ``spec`` not in
+    ``skip``: each dim split over them is gathered along those axes
+    (``axes`` maps a name to this rank's
+    :class:`repro_torch.launch.mesh.MeshAxis`), minor first, so the blocks
+    land in the order :func:`local_slice` cut them.  Collective over each
+    gathered axis.  With ``first`` the blocks gather onto the rank at
+    index 0 of every axis only (a gather, not an all-gather): the others
+    send their block and get None."""
+    for d, entry in enumerate(spec):
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        keep = [a for a in names if a not in skip]
+        if len(keep) != len(names) and keep:
+            raise ValueError(f"dim {d} splits over {names}: gathering only "
+                             f"{keep} of them would interleave blocks")
+        for a in reversed(keep):
+            x = (axes[a].gather_to_first(x, d) if first
+                 else axes[a].all_gather(x, d))
+            if x is None:
+                return None
     return x
 
 

@@ -28,6 +28,13 @@ its collectives on host tensors here: every op on a CUDA tensor is staged
 through an explicit host copy (:func:`_wire`), as gloo's CUDA paths differ
 between builds.
 
+**Axes.**  A rank's line along one axis is a :class:`MeshAxis` (its
+group, size and index; :func:`axis_of`): :class:`ModelAxis` for
+``model``, whose collectives the tensor-parallel model code calls and
+which carry gradients in Megatron's pattern under autograd, and
+:class:`DataAxis` for the batch axes (``pod``, ``data``), over which a
+training step sums its loss's token counts and its gradients.
+
 **Orders.**  :func:`make_serve_mesh` synthesizes the reference's torus for
 the world's size (``repro/launch/mesh.py:113-116``), orders the ranks with
 the pin strategy, uses the first ``prod(shape)`` and returns the rest as
@@ -58,8 +65,10 @@ __all__ = ["make_production_mesh", "production_order", "mesh_axes",
            "production_topology", "ServeMesh", "make_serve_mesh",
            "serve_order", "axis_ici_map", "init_process",
            "leave_process_group", "rank_device",
-           "build_mesh", "mesh_layout", "mesh_ranks", "ModelAxis",
-           "model_axis", "broadcast", "send", "recv", "spawn"]
+           "build_mesh", "mesh_layout", "mesh_ranks", "mesh_coordinate",
+           "MeshAxis", "ModelAxis", "DataAxis", "BATCH_AXES", "axis_of",
+           "model_axis", "data_axis", "broadcast", "send", "recv",
+           "spawn"]
 
 #: this rank's device, set by :func:`init_process`
 _RANK_DEVICE: Dict[str, torch.device] = {}
@@ -225,33 +234,169 @@ def recv(t: torch.Tensor, src: int) -> torch.Tensor:
     return _back(t, w)
 
 
-class ModelAxis:
-    """This rank's line of the mesh along ``model``: its process group,
-    its size and this rank's index on it.  The tensor-parallel forward
-    (:mod:`repro_torch.models.layers`) reduces and gathers through it;
-    over one rank both are the tensor itself."""
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Out of a split region: the forward sums the ranks' partial values,
+    the backward passes the gradient through (every rank's downstream is
+    the same, so each partial value's gradient is the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis._reduce(x, "sum", fresh=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Into a split region: the forward is the tensor itself, the backward
+    sums the ranks' partial gradients (each rank's region sees only its
+    share of the tensor's uses)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._reduce(g, "sum", fresh=True), None
+
+
+class _GatherOut(torch.autograd.Function):
+    """Out of a split region by concatenation: the backward keeps this
+    rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis._gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim = ctx.axis, ctx.dim
+        n = g.shape[dim] // axis.size
+        return g.narrow(dim, axis.index * n, n).contiguous(), None, None
+
+
+class MeshAxis:
+    """This rank's line of the mesh along one axis: its process group,
+    its size and this rank's index on it.  Over one rank every op is the
+    tensor itself.
+
+    With no gradient to carry each op is the plain collective (the
+    serving forward's cost).  Under autograd (grad mode on and an input
+    that needs a gradient) they follow Megatron's pattern:
+    :meth:`all_reduce` leaves a split region (forward sum, backward
+    identity), :meth:`copy_in` enters one (forward identity, backward
+    sum) and :meth:`all_gather` leaves one by concatenation (backward:
+    this rank's slice).  A replicated tensor that feeds a split region
+    must enter it through :meth:`copy_in`, else its gradient, and every
+    gradient upstream of it, is this rank's share only."""
 
     def __init__(self, group: Any, size: int, index: int):
         self.group, self.size, self.index = group, int(size), int(index)
 
-    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        if self.size == 1:
-            return x
+    def _reduce(self, x: torch.Tensor, op: str,
+                fresh: bool = False) -> torch.Tensor:
+        """The collective, in place on ``x`` where ``x`` is already on the
+        wire (the serving forward's fresh partial sums), on a copy with
+        ``fresh`` (an autograd input or gradient)."""
         w = _wire(x.contiguous())
+        if fresh and w is x:
+            w = w.clone()
         dist.all_reduce(w, op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM, group=self.group)
         return w.to(x.device) if w.device != x.device else w
 
-    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        if self.size == 1:
-            return x
+    def _gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         w = _wire(x.contiguous())
         parts = [torch.empty_like(w) for _ in range(self.size)]
         dist.all_gather(parts, w, group=self.group)
         return torch.cat(parts, dim=dim).to(x.device)
 
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or ``op="max"``, never differentiated) over the
+        axis."""
+        if self.size == 1:
+            return x
+        if op == "sum" and _needs_grad(x):
+            return _ReduceOut.apply(x, self)
+        return self._reduce(x.detach() if op == "max" else x, op)
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` entering a split region (see the class note)."""
+        if self.size == 1 or not _needs_grad(x):
+            return x
+        return _CopyIn.apply(x, self)
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' blocks concatenated along ``dim`` in index order."""
+        if self.size == 1:
+            return x
+        if _needs_grad(x):
+            return _GatherOut.apply(x, self, dim)
+        return self._gather(x, dim)
+
+    def gather_to_first(self, x: torch.Tensor, dim: int
+                        ) -> Optional[torch.Tensor]:
+        """The ranks' blocks concatenated along ``dim`` on the rank of
+        index 0 (None on the others, which only send): a gather, never
+        differentiated."""
+        if self.size == 1:
+            return x
+        w = _wire(x.detach().contiguous())
+        first = self.index == 0
+        parts = [torch.empty_like(w) for _ in range(self.size)] if first \
+            else None
+        dist.gather(w, parts, dst=dist.get_global_rank(self.group, 0),
+                    group=self.group)
+        return torch.cat(parts, dim=dim).to(x.device) if first else None
+
     def __repr__(self) -> str:
-        return f"ModelAxis(size={self.size}, index={self.index})"
+        return f"{type(self).__name__}(size={self.size}, index={self.index})"
+
+
+class ModelAxis(MeshAxis):
+    """The ``model`` axis: the tensor-parallel forward
+    (:mod:`repro_torch.models.layers`) reduces and gathers through it."""
+
+
+class DataAxis:
+    """The batch axes of a mesh (``data``, and ``pod`` before it on the
+    multi-pod mesh), major to minor, as one axis: the train loss sums its
+    token counts and the step its gradients over it.  ``index`` is this
+    rank's position in batch order (the reference's ``batch -> (pod,
+    data)`` rule lays rows out major to minor)."""
+
+    def __init__(self, parts: Sequence[MeshAxis] = ()):
+        self.parts = tuple(p for p in parts if p.size > 1)
+        self.size = int(np.prod([p.size for p in self.parts] or [1]))
+        idx = 0
+        for p in self.parts:
+            idx = idx * p.size + p.index
+        self.index = idx
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        for p in self.parts:
+            x = p.all_reduce(x, op)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        for p in reversed(self.parts):        # minor first
+            x = p.all_gather(x, dim)
+        return x
+
+    def __repr__(self) -> str:
+        return f"DataAxis(size={self.size}, index={self.index})"
+
+
+#: the axes a batch splits over, major to minor (``batch -> (pod, data)``)
+BATCH_AXES = ("pod", "data")
 
 
 # ---------------------------------------------------------------------------
@@ -293,16 +438,41 @@ def build_mesh(ranks: Sequence[int], shape: Sequence[int],
                       mesh_dim_names=tuple(axes))
 
 
+def mesh_coordinate(mesh: Any) -> Optional[Tuple[int, ...]]:
+    """This rank's coordinate in ``mesh`` (None when it is not in it)."""
+    hit = np.argwhere(mesh_ranks(mesh) == (
+        dist.get_rank() if dist.is_initialized() else 0))
+    return tuple(int(c) for c in hit[0]) if len(hit) else None
+
+
+def axis_of(mesh: Any, name: str) -> Optional[MeshAxis]:
+    """This rank's :class:`MeshAxis` along ``name`` (a
+    :class:`ModelAxis` for ``model``; size 1 when the mesh has no such
+    axis), or None when the rank is not in the mesh."""
+    mesh = mesh.mesh if isinstance(mesh, ServeMesh) else mesh
+    names, sizes = mesh_layout(mesh)
+    coord = mesh_coordinate(mesh)
+    if coord is None:
+        return None
+    cls = ModelAxis if name == "model" else MeshAxis
+    if name not in names:
+        return cls(None, 1, 0)
+    k = names.index(name)
+    group = mesh.get_group(name) if sizes[k] > 1 else None
+    return cls(group, sizes[k], coord[k])
+
+
 def model_axis(mesh: Any) -> Optional[ModelAxis]:
     """This rank's :class:`ModelAxis` in ``mesh``, or None when the rank
     is not in it."""
-    mesh = mesh.mesh if isinstance(mesh, ServeMesh) else mesh
-    names, sizes = mesh_layout(mesh)
-    coord = mesh.get_coordinate()
-    if coord is None:
-        return None
-    k = names.index("model")
-    return ModelAxis(mesh.get_group("model"), sizes[k], coord[k])
+    return axis_of(mesh, "model")
+
+
+def data_axis(mesh: Any) -> Optional[DataAxis]:
+    """This rank's :class:`DataAxis` (the mesh's :data:`BATCH_AXES`), or
+    None when the rank is not in the mesh."""
+    parts = [axis_of(mesh, a) for a in BATCH_AXES]
+    return None if parts[0] is None else DataAxis(parts)
 
 
 def mesh_axes(multi_pod: bool = False) -> Tuple[Tuple[int, ...],

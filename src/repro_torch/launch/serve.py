@@ -96,10 +96,11 @@ summary's ``launches`` counts the kernel wrappers' launches (#1 flash,
 #2 and #3 paged decode, #4 argmax) over the run.
 
 ``--mesh AxB`` serves sharded over a ``(data, model)`` mesh of ranks
-(``Engine(mesh=ServeMesh)``; the dense family, others raise citing item
-14b): run it under ``torchrun --nproc-per-node N``, one rank a card over
-NCCL (``--device cpu``: gloo); with no torchrun environment and ``--mesh
-1x1`` the process is a world of one.  Each rank builds (or restores
+(``Engine(mesh=ServeMesh)``; the dense, moe and vlm families, the
+others raise citing item 14b): run it under ``torchrun
+--nproc-per-node N``, one rank a card over NCCL (``--device cpu``:
+gloo); with no torchrun environment and ``--mesh 1x1`` the process is a
+world of one.  Each rank builds (or restores
 with ``--ckpt-dir``) the full model on the CPU as its host copy and puts
 only its blocks on its card; random weights then come from a CPU
 generator, so on the card they differ from an unsharded launch's.

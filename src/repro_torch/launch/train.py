@@ -14,13 +14,25 @@ Port of ``repro/launch/train.py``::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --ckpt-dir build/ckpt
 
+    # the production mesh, one rank a card (256 ranks; 512 for multi):
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \\
+        --arch qwen2-moe-a2.7b --mesh single --pin ring --steps 1000
+
 The reference's flags (``--arch``, ``--steps``, ``--batch``, ``--seq``,
 ``--accum``, ``--lr``, ``--warmup``, ``--smoke-dims``, ``--scale``,
 ``--ckpt-dir``, ``--ckpt-every``, ``--compress-grads``, ``--remat``),
 and the port's serve launcher's ``--device``, ``--layers N`` and
 ``--dtype`` (the compute dtype; parameters are fp32 masters either way).
-``--mesh`` and ``--pin`` shard the run over a device mesh: not ported
-yet (ROADMAP.md, item 14b), and refused.
+``--mesh single|multi`` builds the production mesh ((16, 16) data x
+model, or (2, 16, 16) with pods) over the ``torchrun`` world, ordered by
+``--pin`` (``repro_torch.launch.mesh.make_production_mesh``), and trains
+sharded: ``Trainer(mesh=, state_shardings=train_state_pspecs(...))``,
+``--compress-grads`` sharding the error-feedback residuals too.  A world
+of another size exits 2 with the production mesh's message.  Each rank
+builds the full model on the CPU as its host copy and keeps its slices
+of the state on its card (``cuda:<LOCAL_RANK>``, NCCL; gloo with
+``--device cpu``); only the mesh's first rank prints.  Without
+``--mesh``, ``--pin`` is unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -54,18 +66,14 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--mesh", choices=["single", "multi"], default=None,
-                    help="not ported yet (ROADMAP.md, item 14b)")
+                    help="train on the production mesh over the torchrun "
+                         "world (256 ranks; 512 for multi)")
     ap.add_argument("--pin", default=None,
-                    help="not ported yet (ROADMAP.md, item 14b)")
+                    help="pin strategy ordering the mesh's ranks")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--remat", default="none",
                     help="none | dots | dots_no_batch | full")
     args = ap.parse_args(argv)
-    for flag in ("mesh", "pin"):
-        if getattr(args, flag) is not None:
-            ap.error(f"--{flag} shards the run over a device mesh, which is "
-                     f"not ported yet (ROADMAP.md, item 14b: the training "
-                     f"half of the mesh); the port trains on one card")
     if args.layers is not None and args.layers < 1:
         ap.error(f"--layers must be at least 1, not {args.layers}")
 
@@ -75,7 +83,7 @@ def main(argv=None) -> int:
     from repro_torch.data import DataConfig
     from repro_torch.models.lm import LM
     from repro_torch.optim import AdamWConfig, ScheduleConfig
-    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import Trainer, TrainerConfig, train_state_pspecs
 
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke_dims else spec.config
@@ -87,13 +95,30 @@ def main(argv=None) -> int:
             n_layers=max(int(cfg.n_layers * args.scale ** 0.5), 2))
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    from repro_torch.models.lm import KV_FAMILIES
+    if args.mesh and cfg.family not in KV_FAMILIES:
+        ap.error(f"--mesh: training the {cfg.family} family on a mesh is "
+                 f"not ported yet (ROADMAP.md, item 14b); the "
+                 f"{', '.join(KV_FAMILIES)} families are")
     try:
         feats = default_features().with_(remat_policy=args.remat)
     except ValueError as e:
         ap.error(str(e))
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
-    lm = LM(cfg, dtype, args.device, features=feats,
-            param_dtype=torch.float32)
+    mesh = state_shardings = None
+    if args.mesh:
+        from repro_torch.launch import mesh as mesh_mod
+        mesh_mod.init_process(args.device)
+        try:
+            mesh = mesh_mod.make_production_mesh(
+                multi_pod=args.mesh == "multi", pin_strategy=args.pin)
+        except ValueError as e:
+            ap.error(str(e))
+    lm = LM(cfg, dtype, "cpu" if mesh is not None else args.device,
+            features=feats, param_dtype=torch.float32)
+    if mesh is not None:
+        state_shardings = train_state_pspecs(lm, mesh,
+                                             ef=args.compress_grads)
     data_cfg = DataConfig(
         seq_len=args.seq, global_batch=args.batch, vocab=cfg.vocab,
         src_embeds_dim=cfg.d_model if cfg.family == "encdec" else 0,
@@ -108,14 +133,22 @@ def main(argv=None) -> int:
         AdamWConfig(grad_compression="int8_ef" if args.compress_grads
                     else "none"),
         ScheduleConfig(peak_lr=args.lr, warmup_steps=args.warmup,
-                       total_steps=args.steps))
-    print(f"[train] {cfg.name}: {cfg.n_layers} layers, {args.dtype} "
-          f"compute, fp32 params, remat={args.remat} on {lm.device}")
+                       total_steps=args.steps),
+        mesh=mesh, state_shardings=state_shardings)
+    if mesh is not None:
+        from repro_torch.launch.mesh import mesh_layout
+        where = f"the {args.mesh} mesh {dict(zip(*mesh_layout(mesh)))}"
+    else:
+        where = lm.device
+    if trainer.leader:
+        print(f"[train] {cfg.name}: {cfg.n_layers} layers, {args.dtype} "
+              f"compute, fp32 params, remat={args.remat} on {where}")
     state = trainer.run()
     n = lm.num_params()
-    print(f"[train] finished at step {int(state.step)}; params={n:,}; "
-          f"final loss {trainer.history[-1]['loss']:.4f} "
-          f"(first {trainer.history[0]['loss']:.4f})")
+    if trainer.leader:
+        print(f"[train] finished at step {int(state.step)}; params={n:,}; "
+              f"final loss {trainer.history[-1]['loss']:.4f} "
+              f"(first {trainer.history[0]['loss']:.4f})")
     return 0
 
 

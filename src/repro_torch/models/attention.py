@@ -440,7 +440,8 @@ def _prefill_qkv_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
 
 
 def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
-              positions3: Optional[torch.Tensor] = None) -> torch.Tensor:
+              positions3: Optional[torch.Tensor] = None,
+              tp: Any = None) -> torch.Tensor:
     """Self-attention over x [B,S,d] -> [B,S,d] with no cache, RoPE'd at
     ``arange(S)`` (M-RoPE at ``positions3`` [3,B,S] for the vlm family;
     causal as ``cfg.causal`` says): the training block's and the
@@ -451,8 +452,12 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
     ``cfg.softmax_mode``).  Without grad it goes through the registry's
     ``attention`` family, as a serving prefill does: kernel #1 on the
     card (``causal=False`` for the encoder), the reference's plain choice
-    on the CPU."""
+    on the CPU.  Under tensor parallelism (``tp``; the config holds the
+    rank's heads) ``x`` enters through ``tp.copy_in`` and ``wo``'s partial
+    sums reduce over the axis."""
     b, s, _ = x.shape
+    if tp is not None:
+        x = tp.copy_in(x)
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions, positions3)
     if registry.needs_grad(q, k, v):
@@ -467,7 +472,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
                            causal=cfg.causal, kv_len=None,
                            chunk_size=cfg.chunk_size,
                            chunk_threshold=cfg.chunk_threshold)
-    return _out_proj(p, out)
+    return _out_proj(p, out, tp)
 
 
 def _new_lengths(lengths: Optional[torch.Tensor], b: int, s: int,

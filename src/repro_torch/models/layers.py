@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ShardingRules", "DEFAULT_RULES", "logical_to_mesh",
-           "spec_tree_to_pspecs", "shard_params_tree", "constrain",
+           "spec_tree_to_pspecs", "shard_params_tree", "fit_spec",
+           "constrain",
            "embed_lookup", "cast", "truncated_normal_", "rms_norm",
            "layer_norm", "swiglu", "gelu_mlp", "rope_freqs", "apply_rope",
            "apply_mrope"]
@@ -169,6 +170,23 @@ def shard_params_tree(params: Mapping[str, Any], specs: Mapping[str, Any],
     from repro_torch.ft.elastic import reshard_tree
     pspecs = spec_tree_to_pspecs(specs, rules, mesh, shapes=params)
     return reshard_tree(params, pspecs, mesh, device)
+
+
+def fit_spec(spec: Spec, full_shape: Sequence[int],
+             local_shape: Sequence[int], axis: str = "model") -> Spec:
+    """``spec`` with ``axis`` taken off every dim that a rank's module
+    holds whole (its ``local_shape`` equals the full one there): the
+    layout a rank's tensor-parallel LM really keeps, where it departs
+    from the derived spec (the MoE router, kept whole on every rank of
+    the model axis)."""
+    out = []
+    for entry, full, local in zip(spec, full_shape, local_shape):
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if axis in names and local == full:
+            names = tuple(a for a in names if a != axis)
+        out.append(None if not names else
+                   names[0] if len(names) == 1 else names)
+    return tuple(out)
 
 
 def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]],

@@ -68,23 +68,42 @@ rows hold, the prefix-cache suffix prefill's gather of the table's pages,
 and the recurrent families' state (read and written).  So an event collection around
 a step counts the whole step, as the artifact does.
 
-**Tensor parallelism** (``LM(..., tp=axis)``; the dense family).  The
-JAX package shards one LM's arrays over a mesh and lets GSPMD partition
-its programs.  The port builds, on each rank of the mesh, an LM of the
-rank's blocks: ``tp`` is the rank's model axis
+**Tensor parallelism** (``LM(..., tp=axis)``; the dense, moe and vlm
+families, every family whose blocks are :class:`~repro_torch.models.
+transformer.Block`).  The JAX package shards one LM's arrays over a mesh
+and lets GSPMD partition its programs.  The port builds, on each rank of
+the mesh, an LM of the rank's blocks: ``tp`` is the rank's model axis
 (:class:`repro_torch.launch.mesh.ModelAxis`), the heads of ``wq``/``wk``/
 ``wv`` (and ``bq``/``bk``/``bv``) and of ``wo`` split over it, and so do
-``d_ff`` and ``vocab`` where they divide (the divisibility guard of
+``d_ff``, ``vocab``, the MoE's experts and its shared expert's width
+where they divide (the divisibility guard of
 :func:`~repro_torch.models.layers.logical_to_mesh`; the heads always do,
 as the engine refuses a ``num_kv_heads`` the axis does not divide).  The
 rank's configs carry its head counts, so the kernels get local tensors
 (#1 and #2/#3 at ``num_kv_heads / m`` kv heads, G unchanged); the reduces
-after ``wo`` and after the MLP, the vocab-parallel lookup and the
-gathered logits (so sampling and kernel #4 see whole rows) are the
-communication.  ``cfg`` stays the whole model's config;
+after ``wo`` and after the MLP (the MoE's one reduce sums its experts and
+its shared expert), the vocab-parallel lookup and the gathered logits (so
+sampling and kernel #4 see whole rows) are the communication.  M-RoPE's
+sections split ``head_dim``, which no rule shards, so they survive the
+head split.  ``cfg`` stays the whole model's config;
 :meth:`LM.block_config` is the rank's.  :meth:`LM.param_specs` names
 every weight's logical axes (``repro/models/lm.py:207-237``).
-Training under a mesh, and the other families, are item 14b.
+
+**Training on a mesh.**  The collectives carry gradients in Megatron's
+pattern (:class:`repro_torch.launch.mesh.MeshAxis`): every replicated
+tensor that feeds a split region enters it through ``copy_in``, so a
+replicated leaf (a norm scale, a bias the axis does not split, the
+router) gets its whole gradient on every rank.  ``dp`` is the data axis
+(:class:`repro_torch.launch.mesh.DataAxis`) the batch rows split over:
+:meth:`LM.loss` is the reference's ``sum(nll) / ntok`` over the GLOBAL
+batch (both sums reduced over ``dp``; a mean of the ranks' means differs
+whenever labels hold -1), and the MoE's capacity and aux loss are the
+global batch's.  Under a split vocab the loss never gathers the logits:
+the cross entropy is vocab-parallel (the row max, the sum of
+exponentials and the gold logit, each reduced over ``model``), where a
+gather would make 2.5 GB of fp32 logits a rank at 8 x 512 tokens and
+vocab 151936.  ``generate`` keeps its gathered logits.  The hybrid,
+xlstm and encdec families under a mesh are item 14b.
 """
 
 from __future__ import annotations
@@ -257,15 +276,18 @@ class LM(nn.Module):
                  device: Optional[Union[str, torch.device]] = None,
                  features: Optional[FeatureSet] = None,
                  param_dtype: Optional[torch.dtype] = None,
-                 rules: ShardingRules = DEFAULT_RULES, tp: Any = None):
+                 rules: ShardingRules = DEFAULT_RULES, tp: Any = None,
+                 dp: Any = None):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; families: "
                              f"{PORTED_FAMILIES}")
-        if tp is not None and cfg.family != "dense":
+        if (tp is not None or dp is not None) and (
+                cfg.family not in KV_FAMILIES):
             raise NotImplementedError(
-                f"tensor-parallel serving of the {cfg.family} family is not "
-                f"ported yet (ROADMAP.md, item 14b); the dense family is")
+                f"the {cfg.family} family on a mesh is not ported yet "
+                f"(ROADMAP.md, item 14b); the {', '.join(KV_FAMILIES)} "
+                f"families are")
         if tp is not None and cfg.num_kv_heads % tp.size:
             raise ValueError(
                 f"num_kv_heads={cfg.num_kv_heads} does not divide over the "
@@ -277,6 +299,7 @@ class LM(nn.Module):
         self.device = resolve_device(device)
         self.rules = rules
         self.tp = tp
+        self.dp = dp
         dev = self.device
         bc = self.block_config()
         dtype = self.param_dtype
@@ -324,16 +347,16 @@ class LM(nn.Module):
 
     def block_config(self) -> BlockConfig:
         """The block config this rank computes: the model's, or under
-        tensor parallelism its head counts (and ``d_ff`` where it splits)
-        with the model axis attached."""
-        bc = self.cfg.block_config()
+        tensor parallelism its head counts (and a SwiGLU's ``d_ff`` where
+        it splits) with the model and data axes attached."""
+        bc = self.cfg.block_config()._replace(dp=self.dp)
         tp = self.tp
         if tp is None:
             return bc
         m = tp.size
         attn = bc.attn._replace(num_heads=bc.attn.num_heads // m,
                                 num_kv_heads=bc.attn.num_kv_heads // m)
-        if self._split(bc.d_ff):
+        if bc.mlp == "swiglu" and self._split(bc.d_ff):
             return bc._replace(attn=attn, d_ff=bc.d_ff // m, tp=tp,
                                tp_mlp=tp)
         return bc._replace(attn=attn, tp=tp)
@@ -342,8 +365,8 @@ class LM(nn.Module):
         """Every weight's logical axes, keyed by parameter name (the
         reference's ``param_specs`` tree, one :func:`~repro_torch.models.
         transformer.block_specs` a layer where the JAX package stacks
-        them).  The dense, moe and vlm block layout; the other families'
-        specs are item 14b."""
+        them).  The dense, moe and vlm block layout; the hybrid, xlstm
+        and encdec families' specs are item 14b."""
         cfg = self.cfg
         if cfg.family not in KV_FAMILIES:
             raise NotImplementedError(
@@ -361,12 +384,16 @@ class LM(nn.Module):
                             for k, v in leaves.items()})
         return out
 
-    def param_pspecs(self, mesh: Any, rules: Optional[ShardingRules] = None
+    def param_pspecs(self, mesh: Any, params_shape: Optional[Dict[str, Any]]
+                     = None, rules: Optional[ShardingRules] = None
                      ) -> Dict[str, Tuple[Any, ...]]:
-        """Every weight's mesh spec on ``mesh`` (this LM's shapes feed the
-        divisibility guard)."""
+        """Every weight's mesh spec on ``mesh``; ``params_shape`` (leaves
+        with a ``.shape``, keyed by parameter name; this LM's own
+        parameters by default) feeds the divisibility guard."""
+        shapes = (dict(self.named_parameters()) if params_shape is None
+                  else params_shape)
         return spec_tree_to_pspecs(self.param_specs(), rules or self.rules,
-                                   mesh, shapes=dict(self.named_parameters()))
+                                   mesh, shapes=shapes)
 
     # ================================================================ init
     def init(self, generator: Optional[torch.Generator] = None) -> "LM":
@@ -426,16 +453,40 @@ class LM(nn.Module):
         w = torch.where(is_text, t, idx % gw)
         return torch.stack([t, h, w])[:, None, :].expand(3, b, s)
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, x: torch.Tensor, gather: bool = True) -> torch.Tensor:
+        """Logits of the final hidden states; under a split vocab this
+        rank's columns, gathered into whole rows unless ``gather`` is
+        False (the vocab-parallel loss)."""
         x = tf_mod.apply_norm(x, self.final_norm, self.cfg.norm_eps)
         w = (self.embed.table.T if self.cfg.tie_embeddings
              else self.lm_head.w)
+        split = self._split(self.cfg.vocab)
+        if split:
+            x = self.tp.copy_in(x)
         logits = x @ cast(w, x.dtype)
-        if self._split(self.cfg.vocab):
+        if split and gather:
             # the vocab-parallel head: gather whole rows, as GSPMD's
             # replicated logits are, so sampling sees every column
             logits = self.tp.all_gather(logits, dim=-1)
         return logits
+
+    def _nll(self, logits: torch.Tensor, labels: torch.Tensor
+             ) -> torch.Tensor:
+        """logsumexp minus the gold logit per position, fp32; ``logits``
+        this rank's vocab columns under a split vocab, where the row max,
+        the sum of exponentials and the gold logit each reduce over the
+        model axis (the max carries no gradient: it only shifts)."""
+        labels = labels.clamp(min=0).long()
+        if not self._split(self.cfg.vocab):
+            gold = logits.gather(-1, labels[..., None])[..., 0]
+            return torch.logsumexp(logits, dim=-1) - gold
+        tp, n = self.tp, logits.shape[-1]
+        mx = tp.all_reduce(logits.detach().amax(-1), op="max")
+        lse = tp.all_reduce((logits - mx[..., None]).exp().sum(-1)).log() + mx
+        local = labels - tp.index * n
+        hit = (local >= 0) & (local < n)
+        gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+        return lse - tp.all_reduce(gold * hit)
 
     # ============================================================== train
     def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]
@@ -443,15 +494,11 @@ class LM(nn.Module):
         """Token embeddings -> final hidden states, no caches.  Returns
         (h, aux loss)."""
         cfg, feats = self.cfg, self.features
-        if self.tp is not None:
-            raise NotImplementedError(
-                "training a tensor-parallel LM is not ported yet "
-                "(ROADMAP.md, item 14b)")
         fam = cfg.family
         if fam in KV_FAMILIES:
             pos3 = (self._vlm_positions3(batch["tokens"]) if fam == "vlm"
                     else None)
-            return tf_mod.apply_stack(self.blocks, x, cfg.block_config(),
+            return tf_mod.apply_stack(self.blocks, x, self.block_config(),
                                       feats, positions3=pos3)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if fam == "xlstm":
@@ -501,17 +548,20 @@ class LM(nn.Module):
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total, {"ce", "aux", "ntok"}): the mean next-token cross
-        entropy over labels ``>= 0`` (fp32) plus the aux loss."""
+        entropy over labels ``>= 0`` (fp32) plus the aux loss; under a
+        data axis the mean over the global batch (see the module
+        note)."""
         x = self._embed(batch["tokens"], batch.get("patch_embeds"))
         h, aux = self._backbone(x, batch)
-        logits = self._head(h).float()
+        logits = self._head(h, gather=False).float()
         labels = batch["labels"]
         weights = (labels >= 0).float()
-        gold = logits.gather(
-            -1, labels.clamp(min=0).long()[..., None])[..., 0]
-        nll = (torch.logsumexp(logits, dim=-1) - gold) * weights
-        ntok = torch.clamp(weights.sum(), min=1.0)
-        ce = nll.sum() / ntok
+        nll = self._nll(logits, labels) * weights
+        total, n = nll.sum(), weights.sum()
+        if self.dp is not None:
+            total, n = self.dp.all_reduce(total), self.dp.all_reduce(n)
+        ntok = torch.clamp(n, min=1.0)
+        ce = total / ntok
         return ce + aux, {"ce": ce, "aux": aux, "ntok": ntok}
 
     # ============================================================== serve
@@ -859,12 +909,13 @@ class LM(nn.Module):
         router and shared gate in fp32."""
         cfg = self.cfg
         mc = cfg.moe_config()
-        d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
+        moe = self.blocks[0].moe                 # this rank's experts
+        d, f, e = cfg.d_model, cfg.d_ff, moe.w_gate.shape[0]
         cap = moe_mod._capacity(t, mc)
         flops = 2.0 * 3 * e * cap * d * f
-        f32 = 2.0 * t * d * e
+        f32 = 2.0 * t * d * cfg.moe_experts
         if mc.num_shared_experts:
-            flops += 2.0 * 3 * t * d * moe_mod._shared_width(mc)
+            flops += 2.0 * 3 * t * d * moe.shared_gate.shape[1]
             f32 += 2.0 * t * d
         buf = e * cap * d * self.embed.table.element_size()
         n = cfg.n_layers

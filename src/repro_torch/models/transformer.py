@@ -9,8 +9,11 @@ block and stack (:func:`apply_block` returns the MoE's aux loss,
 :func:`apply_stack` sums it over the layers under the
 ``FeatureSet.remat_policy``), the prefill block, the dense decode block,
 and the paged decode stack.  A sharded LM's :class:`BlockConfig` carries
-its model axis (``tp``, ``tp_mlp``): the serving blocks reduce the
-attention's and the MLP's partial sums over it.
+its model axis (``tp``, ``tp_mlp``) and, for training, its data axis
+(``dp``): every block reduces the attention's and the MLP's partial sums
+over the model axis, the training block entering each split region
+through ``copy_in`` (:class:`repro_torch.launch.mesh.MeshAxis`), and an
+MoE block splits its experts over it (:mod:`repro_torch.models.moe`).
 
 **Remat** (:func:`remat`, the reference's ``remat_policy_fn``,
 ``:183-190``): ``none`` runs a layer as is; ``full`` checkpoints it and
@@ -63,6 +66,9 @@ class BlockConfig(NamedTuple):
     # is replicated because the axis does not divide it)
     tp: Optional[object] = None
     tp_mlp: Optional[object] = None
+    # the data axis a training batch splits over (the MoE's capacity and
+    # aux loss are the global batch's); None when serving
+    dp: Optional[object] = None
 
 
 class RMSNorm(nn.Module):
@@ -127,7 +133,7 @@ class Block(nn.Module):
         self.attn = attn_mod.Attention(cfg.attn, dtype, device)
         self.ln2 = make_norm(cfg.norm, d, dtype, device)
         if cfg.mlp == "moe":
-            self.moe = moe_mod.MoE(cfg.moe, dtype, device)
+            self.moe = moe_mod.MoE(cfg.moe, dtype, device, tp=cfg.tp)
         else:
             self.mlp = SwiGLU(d, cfg.d_ff, dtype, device)
 
@@ -151,11 +157,10 @@ def block_specs(cfg: BlockConfig) -> dict:
     s = {"ln1": dict(norm_spec), "attn": attn_mod.attn_specs(cfg.attn),
          "ln2": dict(norm_spec)}
     if cfg.mlp == "moe":
-        raise NotImplementedError(
-            "the MoE's sharding half (moe_specs) is not ported yet "
-            "(ROADMAP.md, item 14b)")
-    s["mlp"] = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
-                "w_down": ("ff", "embed")}
+        s["moe"] = moe_mod.moe_specs(cfg.moe)
+    else:
+        s["mlp"] = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                    "w_down": ("ff", "embed")}
     return s
 
 
@@ -178,7 +183,8 @@ def _block_mlp(p: Block, h: torch.Tensor, cfg: BlockConfig) -> torch.Tensor:
     rank's ``d_ff`` block gives a partial sum, reduced over the model axis
     (the SwiGLU has no bias to add after it)."""
     if cfg.mlp == "moe":
-        return moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe)[0]
+        return moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe,
+                               tp=cfg.tp)[0]
     mp = p.mlp
     y = swiglu(_norm(h, p.ln2, cfg), mp.w_gate, mp.w_up, mp.w_down)
     return y if cfg.tp_mlp is None else cfg.tp_mlp.all_reduce(y)
@@ -188,14 +194,20 @@ def apply_block(p: Block, x: torch.Tensor, cfg: BlockConfig, *,
                 positions3: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm block, the training path (no cache): returns (y, aux
-    loss), the aux an fp32 scalar (zero unless the MLP is an MoE)."""
+    loss), the aux an fp32 scalar (zero unless the MLP is an MoE).  Under
+    tensor parallelism the attention and a split MLP take their input
+    through ``copy_in`` and reduce their partial sums."""
     h = x + attn_mod.attention(p.attn, _norm(x, p.ln1, cfg), cfg.attn,
-                               positions3=positions3)
+                               positions3=positions3, tp=cfg.tp)
     if cfg.mlp == "moe":
-        m, aux = moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe)
+        m, aux = moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe,
+                                 tp=cfg.tp, dp=cfg.dp)
     else:
-        mp = p.mlp
-        m = swiglu(_norm(h, p.ln2, cfg), mp.w_gate, mp.w_up, mp.w_down)
+        mp, tp = p.mlp, cfg.tp_mlp
+        hn = _norm(h, p.ln2, cfg)
+        m = swiglu(hn if tp is None else tp.copy_in(hn), mp.w_gate,
+                   mp.w_up, mp.w_down)
+        m = m if tp is None else tp.all_reduce(m)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return h + m, aux
 

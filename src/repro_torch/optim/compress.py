@@ -18,7 +18,7 @@ result.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import torch
 
@@ -55,18 +55,24 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compress_decompress(grads: Mapping[str, torch.Tensor],
-                        ef: CompressState
+                        ef: CompressState, layout: Any = None
                         ) -> Tuple[Dict[str, torch.Tensor], CompressState]:
     """Apply EF-int8 to every gradient, one scale per reference leaf.
-    Returns (grads', ef'), both fp32 and named as ``grads``."""
+    Returns (grads', ef'), both fp32 and named as ``grads``.  With a mesh
+    ``layout`` the trees hold slices (see the module note)."""
     corrected = {k: g.float() + ef[k] for k, g in grads.items()}
     groups: Dict[str, List[str]] = {}
     for k in corrected:
         groups.setdefault(reference_leaf(k)[0], []).append(k)
+    amaxes = torch.stack([
+        torch.stack([corrected[k].abs().amax() for k in names]).amax()
+        for names in groups.values()])
+    if layout is not None:
+        amaxes = layout.over_splits([names[0] for names in groups.values()],
+                                    amaxes, "max")
     new_g: Dict[str, torch.Tensor] = {}
     new_ef: CompressState = {}
-    for names in groups.values():
-        amax = torch.stack([corrected[k].abs().amax() for k in names]).amax()
+    for names, amax in zip(groups.values(), amaxes):
         scale = _scale(amax)
         for k in names:
             deq = dequantize_int8(_quantize(corrected[k], scale), scale)

@@ -104,7 +104,8 @@ an encdec model is refused by :class:`BatchScheduler` up front
 (:func:`check_schedulable`), where the JAX scheduler fails at its first
 admission.
 
-**Sharded serving** (``Engine(..., mesh=)``; the dense family;
+**Sharded serving** (``Engine(..., mesh=)``; the dense, moe and vlm
+families;
 ``repro/serve/engine.py:176-216``, ``:358-443``).  ``mesh`` is a bare
 ``DeviceMesh`` with a ``model`` axis (sharding only) or a
 :class:`repro_torch.launch.mesh.ServeMesh` (sharding plus the topology,
@@ -117,7 +118,7 @@ full ``LM`` lives on the CPU (the engine refuses it anywhere else, so a
 card holds one rank's blocks and never the whole model); it is left as
 it is and stays the host copy a re-mesh reshards from.  A rank of the
 mesh holds its blocks of the weights on its card, cut from that copy by
-:func:`repro_torch.models.layers.shard_params_tree`, and computes its
+:meth:`Engine._shard_params`, and computes its
 heads through the kernels
 (:class:`repro_torch.models.lm.LM` with ``tp``); its KV cache holds its
 kv-head slice, while page tables, lengths and int8 scales are global.
@@ -145,8 +146,11 @@ departures of mechanism (``ROADMAP.md``, queue 3):
   state from a rank that held it, point to point; its weights come from
   its own full host copy (:func:`repro_torch.ft.elastic.reshard_tree`).
 
-The other families under a mesh, spec on a sharded engine (refused by
-the reference too) and training under a mesh are item 14b.
+An moe model's experts split over the model axis with its heads (a
+re-mesh reloads a rank's experts from its host copy like any other
+block); the router stays whole on every rank.  The hybrid, xlstm and
+encdec families under a mesh are item 14b; spec on a sharded engine is
+refused by the reference too.
 """
 
 from __future__ import annotations
@@ -338,11 +342,11 @@ class Engine:
                     f"num_kv_heads={lm.cfg.num_kv_heads} does not divide "
                     f"over the model axis ({msize} devices) — KV-head "
                     f"sharding needs whole head slices per device")
-            if lm.cfg.family != "dense":
+            if lm.cfg.family not in MASKED_FAMILIES:
                 raise NotImplementedError(
                     f"sharded serving of the {lm.cfg.family} family is not "
-                    f"ported yet (ROADMAP.md, item 14b); the dense family "
-                    f"is")
+                    f"ported yet (ROADMAP.md, item 14b); the "
+                    f"{', '.join(MASKED_FAMILIES)} families are")
             if spec is not None:
                 raise ValueError(
                     "speculative decoding on a sharded engine is not "
@@ -496,10 +500,17 @@ class Engine:
     def _shard_params(self, params: Mapping[str, torch.Tensor]
                       ) -> Optional[Dict[str, torch.Tensor]]:
         """This rank's blocks of full weights ``params`` (keyed by
-        parameter name) on the engine's device; None off the mesh."""
-        from repro_torch.models.layers import shard_params_tree
-        return shard_params_tree(params, self.full_lm.param_specs(),
-                                 SERVE_RULES, self.mesh, self.device)
+        parameter name) on the engine's device, each cut as the rank's
+        shard holds it (:func:`~repro_torch.models.layers.fit_spec`: the
+        MoE router whole); None off the mesh."""
+        from repro_torch.ft.elastic import reshard_tree
+        from repro_torch.models.layers import fit_spec, spec_tree_to_pspecs
+        pspecs = spec_tree_to_pspecs(self.full_lm.param_specs(), SERVE_RULES,
+                                     self.mesh, shapes=params)
+        local = dict(self._shard.named_parameters())
+        pspecs = {k: fit_spec(v, params[k].shape, local[k].shape)
+                  for k, v in pspecs.items()}
+        return reshard_tree(params, pspecs, self.mesh, self.device)
 
     def _enter_mesh(self, axis: Any, load: bool) -> None:
         """Take this rank's place in ``self.mesh``: its model axis, and

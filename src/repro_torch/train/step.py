@@ -15,11 +15,26 @@ one's fp32 gradients add into one buffer, which is then divided by
 parameter no path reaches gets a zero gradient, as ``jax.grad`` gives.
 Nothing in the step reads a number back to the host: the step counter,
 the rate and the metrics stay 0-d device tensors.
+
+**On a mesh** (``make_train_step(..., layout=)``; ``repro/train/step.py:
+45-55`` and the GSPMD step the reference jits with ``state_shardings``).
+The LM is a rank's tensor-parallel one (``LM(tp=, dp=)``) and the state
+holds this rank's slices under the state's specs
+(:func:`train_state_pspecs`, fit to what the LM holds:
+:class:`StateLayout`).  A leaf split over ``data`` too (the reference's
+FSDP rule, ``embed -> data``) is gathered over ``data`` into the LM's
+parameter for the step and released after it; every other leaf of the
+state IS the LM's parameter.  The step then runs as above on the rank's
+rows (the loss is the global batch's), sums every gradient over the data
+axis in one flat reduce, keeps the slice of a split leaf, and updates
+the slices (AdamW's global norm and int8 scales over the mesh:
+:mod:`repro_torch.optim.adamw`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -29,7 +44,7 @@ from repro_torch.optim import (AdamWConfig, OptState, ScheduleConfig,
                                apply_updates, init_opt_state, lr_at)
 
 __all__ = ["TrainState", "make_train_step", "init_train_state",
-           "train_state_pspecs", "model_flops"]
+           "train_state_pspecs", "model_flops", "StateLayout"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -71,11 +86,164 @@ def model_flops(lm: LM, batch: int, seq: int) -> float:
             + 12.0 * attn * ac.num_heads * ac.head_dim * seq * t)
 
 
-def train_state_pspecs(lm: LM, mesh, params_shape=None, ef: bool = False):
-    """The sharded TrainState's specs belong to the mesh slice."""
-    raise NotImplementedError(
-        "train_state_pspecs shards the train state over a device mesh: not "
-        "ported yet (ROADMAP.md, item 14b)")
+def train_state_pspecs(lm: LM, mesh: Any, params_shape=None,
+                       ef: bool = False) -> TrainState:
+    """Specs for the whole TrainState (``repro/train/step.py:45-55``):
+    the moments (and the error-feedback residuals with ``ef``) shard like
+    the params, the step counters are replicated (``()``).  ``lm`` is the
+    whole model (its shapes feed the divisibility guard unless
+    ``params_shape`` is given)."""
+    pspec = lm.param_pspecs(mesh, params_shape)
+    return TrainState(params=pspec,
+                      opt=OptState(m=pspec, v=pspec, step=(),
+                                   ef=pspec if ef else None),
+                      step=())
+
+
+def _names(entry: Any) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def _drop(spec: Sequence[Any], axis: str) -> Tuple[Any, ...]:
+    """``spec`` without ``axis``."""
+    out = []
+    for entry in spec:
+        names = tuple(a for a in _names(entry) if a != axis)
+        out.append(None if not names else
+                   names[0] if len(names) == 1 else names)
+    return tuple(out)
+
+
+class StateLayout:
+    """Where each leaf of a sharded train state lives on this rank, and
+    the moves a step makes (see the module note).
+
+    ``lm`` is the rank's tensor-parallel LM on its device; ``specs`` the
+    params' specs over the whole model (``train_state_pspecs(...).
+    params``), fit here to what ``lm`` holds (a leaf the LM keeps whole
+    on the model axis, the MoE router, is kept whole in the state too);
+    ``full_shapes`` the whole model's parameters (anything with a
+    ``.shape``), keyed by name."""
+
+    def __init__(self, lm: LM, specs: Mapping[str, Any], mesh: Any,
+                 full_shapes: Mapping[str, Any]):
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.models.layers import fit_spec
+        self.lm = lm
+        self.names, self.sizes = mesh_mod.mesh_layout(mesh)
+        self.coord = mesh_mod.mesh_coordinate(mesh)
+        if self.coord is None:
+            raise ValueError("this rank is not in the training mesh: every "
+                             "rank of a training world holds a slice")
+        self.axes = {a: mesh_mod.axis_of(mesh, a) for a in self.names}
+        self.compute = dict(lm.named_parameters())
+        self.specs = {k: fit_spec(specs[k], full_shapes[k].shape,
+                                  p.shape)
+                      for k, p in self.compute.items()}
+        for k, p in self.compute.items():
+            whole = torch.empty(full_shapes[k].shape, device="meta")
+            want = tuple(self.cut(k, whole, skip=("data",)).shape)
+            if want != tuple(p.shape):
+                raise ValueError(
+                    f"{k}: the state's spec {self.specs[k]} cuts "
+                    f"{tuple(full_shapes[k].shape)} into {want} on the "
+                    f"model axis, the rank's LM holds {tuple(p.shape)}")
+        #: leaves split over an axis besides ``model``: gathered for a step
+        self.gathered = [k for k in self.compute
+                         if set(self.split_axes(k)) - {"model"}]
+
+    def split_axes(self, name: str) -> Tuple[str, ...]:
+        """The mesh axes leaf ``name`` is split on."""
+        return tuple(a for e in self.specs[name] for a in _names(e)
+                     if self.sizes[self.names.index(a)] > 1)
+
+    def cut(self, name: str, full: torch.Tensor,
+            skip: Sequence[str] = ()) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``full`` (a model-axis
+        block with ``skip=("model",)``)."""
+        from repro_torch.ft.elastic import local_slice
+        spec = self.specs[name]
+        for a in skip:
+            spec = _drop(spec, a)
+        return local_slice(full, spec, self.names, self.sizes, self.coord)
+
+    def init_params(self, full: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """The state's params from the whole model's weights ``full``: a
+        leaf the step gathers is a slice of its own; every other leaf is
+        the LM's parameter, filled in place."""
+        out = {}
+        with torch.no_grad():
+            for k, p in self.compute.items():
+                piece = self.cut(k, full[k])
+                if k in self.gathered:
+                    out[k] = piece.to(p.device, p.dtype).contiguous()
+                    p.data = p.data.new_empty(0)          # transient
+                else:
+                    p.copy_(piece)
+                    out[k] = p
+        return out
+
+    def gather(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Fill the LM's gathered parameters from the state's slices (a
+        collective over the axes each is split on besides ``model``)."""
+        from repro_torch.ft.elastic import gather_slice
+        with torch.no_grad():
+            for k in self.gathered:
+                self.compute[k].data = gather_slice(
+                    params[k], self.specs[k], self.axes, skip=("model",))
+
+    def release(self) -> None:
+        """Free the LM's gathered parameters until the next step."""
+        for k in self.gathered:
+            p = self.compute[k]
+            p.data = p.data.new_empty(0)
+
+    def reduce_grads(self, grads: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Every gradient summed over the data axis (one flat reduce a
+        dtype), and a gathered leaf's cut to this rank's slice."""
+        dp = self.lm.dp
+        out = dict(grads)
+        if dp is not None and dp.size > 1:
+            by_dtype: Dict[torch.dtype, list] = {}
+            for k, g in grads.items():
+                by_dtype.setdefault(g.dtype, []).append(k)
+            for keys in by_dtype.values():
+                flat = dp.all_reduce(torch.cat(
+                    [grads[k].reshape(-1) for k in keys]))
+                for k, piece in zip(keys, flat.split(
+                        [grads[k].numel() for k in keys])):
+                    out[k] = piece.view_as(grads[k])
+        for k in self.gathered:
+            out[k] = self.cut(k, out[k], skip=("model",)).contiguous()
+        return out
+
+    def over_splits(self, names: Sequence[str], values: torch.Tensor,
+                    op: str) -> torch.Tensor:
+        """``values`` (one a leaf, in ``names`` order) summed (or maxed)
+        over the axes each leaf is split on: a collective an axis over
+        the leaves split on it."""
+        out = values.clone()
+        for a in self.names:
+            rows = [i for i, k in enumerate(names) if a in self.split_axes(k)]
+            if rows:
+                idx = torch.tensor(rows, device=values.device)
+                out[idx] = self.axes[a].all_reduce(out[idx], op)
+        return out
+
+    def full(self, tree: Mapping[str, torch.Tensor], first: bool = False
+             ) -> Optional[Dict[str, torch.Tensor]]:
+        """Whole leaves on the host from this rank's slices (a collective
+        over every axis a leaf is split on).  With ``first`` only the
+        mesh's first rank gets them (a gather); the others get None."""
+        from repro_torch.ft.elastic import gather_slice
+        out = {k: gather_slice(t.detach(), self.specs[k], self.axes,
+                               first=first)
+               for k, t in tree.items()}
+        if first and any(self.coord):
+            return None
+        return {k: v.cpu() for k, v in out.items()}
 
 
 def _grads(lm: LM, params: Dict[str, torch.Tensor], batch: Batch
@@ -90,16 +258,21 @@ def _grads(lm: LM, params: Dict[str, torch.Tensor], batch: Batch
 
 
 def make_train_step(lm: LM, adamw: AdamWConfig, sched: ScheduleConfig,
-                    accum_steps: int = 1
+                    accum_steps: int = 1,
+                    layout: Optional[StateLayout] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """(state, batch) -> (state', metrics): ``loss``, ``step``,
     ``grad_norm``, ``lr`` and, with ``accum_steps == 1``, ``ce`` and
-    ``aux``.  ``batch`` holds tensors on the LM's device."""
+    ``aux``.  ``batch`` holds tensors on the LM's device (on a mesh,
+    ``layout``, this rank's rows; see the module note)."""
 
     def train_step(state: TrainState, batch: Batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = state.params
+        if layout is not None:
+            layout.gather(params)
+            params = layout.compute
         if accum_steps == 1:
             loss, aux, grads = _grads(lm, params, batch)
         else:
@@ -122,9 +295,12 @@ def make_train_step(lm: LM, adamw: AdamWConfig, sched: ScheduleConfig,
             torch._foreach_div_(list(grads.values()), float(accum_steps))
             loss = loss / accum_steps
             aux = {}
+        if layout is not None:
+            layout.release()
+            grads = layout.reduce_grads(grads)
         lr = lr_at(state.opt.step, sched)
-        new_params, new_opt, om = apply_updates(params, grads, state.opt,
-                                                lr, adamw)
+        new_params, new_opt, om = apply_updates(state.params, grads,
+                                                state.opt, lr, adamw, layout)
         metrics = {"loss": loss, "step": state.step, **om}
         metrics.update({k: v for k, v in aux.items() if k != "ntok"})
         return TrainState(new_params, new_opt, state.step + 1), metrics

@@ -418,14 +418,18 @@ def test_sharded_lm_holds_the_rank_sizes():
         cfg.d_ff % 2 == 0)
     st = lm.init_decode_state(2, 32, page_size=8)
     assert st["caches"].k_pages.shape[-2] == cfg.num_kv_heads // 2
+    # the moe and vlm families shard too (their pieces:
+    # tests/test_torch_moe_mesh.py); the hybrid family is item 14b's
     with pytest.raises(NotImplementedError, match="item 14b"):
-        LM(get_arch("qwen2-moe-a2.7b").smoke, torch.float32, "cpu",
+        LM(get_arch("zamba2-1.2b").smoke, torch.float32, "cpu",
            tp=_Axis(2, 0))
     with pytest.raises(ValueError, match="num_kv_heads"):
         LM(cfg, torch.float32, "cpu", tp=_Axis(3, 0))
+    # a tensor-parallel LM trains (tests/test_torch_train_mesh.py); the
+    # xlstm family under a data axis is item 14b's
     with pytest.raises(NotImplementedError, match="item 14b"):
-        lm.loss({"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                 "labels": torch.zeros(1, 4, dtype=torch.int32)})
+        LM(get_arch("xlstm-350m").smoke, torch.float32, "cpu",
+           dp=_Axis(2, 0))
 
 
 def test_quantize_rows_take_the_whole_row_amax():
@@ -556,9 +560,9 @@ class FakeMesh:
 @pytest.mark.parametrize("arch,mesh,err,match", [
     ("qwen2-0.5b", FakeMesh(1, ("data",)), ValueError, "'model' axis"),
     ("qwen2-0.5b", FakeMesh(3), ValueError, "num_kv_heads"),
-    ("qwen2-moe-a2.7b", FakeMesh(1), NotImplementedError, "item 14b"),
+    ("seamless-m4t-medium", FakeMesh(1), NotImplementedError, "item 14b"),
     ("zamba2-1.2b", FakeMesh(1), NotImplementedError, "item 14b"),
-    ("qwen2-vl-7b", FakeMesh(1), NotImplementedError, "item 14b"),
+    ("xlstm-350m", FakeMesh(1), NotImplementedError, "item 14b"),
 ])
 def test_engine_mesh_validation(arch, mesh, err, match):
     lm = LM(get_arch(arch).smoke, torch.float32, "cpu")

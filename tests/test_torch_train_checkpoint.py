@@ -17,7 +17,10 @@ was trained, on the CPU.
   resumed by a fresh Trainer gives the uninterrupted run's losses and
   parameters bit for bit;
 * ``python -m repro_torch.launch.train --device cpu --smoke-dims`` trains
-  and checkpoints, and refuses ``--mesh``/``--pin`` citing item 14;
+  and checkpoints, and refuses ``--mesh`` for the families still owed
+  to item 14b (hybrid, xlstm, encdec) citing item 14; so does
+  ``Trainer(mesh=)`` (the dense, moe and vlm families train on a mesh:
+  ``tests/test_torch_train_mesh.py``);
 * the serve launcher's ``--ckpt-dir`` serves the trained params: its
   greedy tokens equal those of an engine built on the trainer's
   in-memory weights.
@@ -231,9 +234,12 @@ def test_trainer_runs_and_resumes_exactly(tmp_path):
     for k, v in state.params.items():
         assert torch.equal(resumed.params[k], v), k
     assert all(np.isfinite(r["grad_norm"]) for r in full.history)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Trainer(_lm(), DataConfig(seq_len=8, global_batch=2, vocab=8),
-                TrainerConfig(), mesh=object())
+    # the families item 14b still owes are refused on a mesh
+    for arch in ("zamba2-1.2b", "xlstm-350m", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            Trainer(LM(get_arch(arch).smoke, torch.float32, "cpu"),
+                    DataConfig(seq_len=8, global_batch=2, vocab=8),
+                    TrainerConfig(), mesh=object())
 
 
 def test_train_launcher_runs_and_refuses_the_mesh(tmp_path, capsys):
@@ -246,10 +252,14 @@ def test_train_launcher_runs_and_refuses_the_mesh(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "finished at step 3" in out
     assert list_steps(d) == [2, 3]
-    for flag, val in (("--mesh", "single"), ("--pin", "ring")):
+    # --mesh trains the dense, moe and vlm families; the others are owed
+    # to item 14b and refused before any process group forms
+    for arch, flags in (("zamba2-1.2b", ("--mesh", "single")),
+                        ("xlstm-350m", ("--mesh", "multi", "--pin",
+                                        "ring"))):
         with pytest.raises(SystemExit) as e:
-            train_launch.main(["--arch", ARCH, "--smoke-dims", "--device",
-                               "cpu", flag, val])
+            train_launch.main(["--arch", arch, "--smoke-dims", "--device",
+                               "cpu", *flags])
         assert e.value.code == 2
         assert "item 14" in capsys.readouterr().err
 
