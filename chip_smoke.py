@@ -76,9 +76,10 @@ failure):
                from seed 0): 8 prompts of 512 tokens through
                ``Engine.generate`` with dense KV, 32 greedy tokens; the SSD
                kernel launches 38 times, flash 7;
-9. zamba2 scheduler - the same model behind ``BatchScheduler`` (8 slots,
-               dense KV, max_seq 1024): 16 requests of 64-512-token
-               prompts, budgets 16-48; every request completes, one host
+9. zamba2 scheduler - the same model behind ``BatchScheduler`` (6 slots,
+               dense KV, max_seq 1024): 8 requests of 64-512-token
+               prompts, budgets 16-48 (two wait in the queue for a slot
+               a retired request frees mid-decode); every request completes, one host
                sync per segment, ``scheduler.check()`` passes, tokens/s and
                mean TTFT are printed;
 10. zamba2 tokens - fp32, full width, 7 layers (two groups, the second
@@ -124,8 +125,9 @@ failure):
                tokens equal target-only greedy tokens, fused and streamed;
                in bf16 (phase 13's model) the accept rate, rounds, host
                syncs and tokens/s
-               beside target-only's; then a ``BatchScheduler`` (8 slots,
-               bf16 pages of 16, 16 requests, half with ``spec=True``):
+               beside target-only's; then a ``BatchScheduler`` (6 slots,
+               bf16 pages of 16, 8 requests, half with ``spec=True``; two
+               wait in the queue):
                every request completes, one host sync a segment,
                ``KVPool.check()`` and ``scheduler.check()`` pass.  Each run
                must launch #1 once a layer of each prefill, #2 (K+1) x 2
@@ -211,8 +213,9 @@ failure):
                weights from seed 0, dense state): (a) ``Engine.generate``
                on 8 prompts of 512 tokens, 32 greedy tokens, #5 launched 12
                times (once a pair) for the prefill and #4 32 times; (b)
-               ``BatchScheduler``, 8 requests of 64-512 tokens, budgets
-               16-48, 8 slots, #5 launched 12 times an admission; prefill
+               ``BatchScheduler``, 4 requests of 64-512 tokens, budgets
+               16-48, 3 slots (one waits in the queue), #5 launched 12
+               times an admission; prefill
                ms, decode tokens/s and segments printed; (c) fp32 at 4 of
                24 layers: greedy tokens card (#5 in fp32) against CPU
                equal, prefill logits within 1e-4 of max|logit|;
@@ -270,13 +273,13 @@ failure):
                the host), bf16 compute
                over fp32 masters, remat ``dots_no_batch``, AdamW with
                clipping, warmup then cosine, 8 x 512 synthetic tokens a
-               step: 12 steps through ``Trainer`` (one checkpoint, at 6),
-               4 with ``accum_steps=2``; step ms (median after 3 warm-up
+               step: 8 steps through ``Trainer`` (one checkpoint, at 4),
+               2 with ``accum_steps=2``; step ms (median after 3 warm-up
                steps), tokens/s, model FLOPs a step, MFU against 989
                TFLOP/s, peak ``max_memory_allocated``, launches a step
                and the device's idle share over two profiled steps, each
                beside the card's name and power limit; a fresh
-               ``Trainer`` resumed from step 6 to 12, its losses within
+               ``Trainer`` resumed from step 4 to 8, its losses within
                1e-2 of the uninterrupted run's; (b) fp32 card against
                CPU, qwen2-0.5b at full width and 2 of 24 layers, 3
                steps: every gradient finite and within 1e-4 (plus 1e-6
@@ -293,12 +296,13 @@ failure):
                its greedy tokens, admissions and segments equal a
                scheduler's on (a)'s in-memory weights, and it launches #1
                once a layer of each admission, #2 once a layer of each
-               decode step and #4 once a decode step.
+               decode step and #4 once a decode step.  Phase 26 (b)'s
+               ranks run beside (b)-(d), which time nothing.
 24. mesh      - sharded serving (``Engine(mesh=ServeMesh)``) and its
                fault tolerance: (a) qwen2-0.5b at full width and depth,
-               bf16, behind ``BatchScheduler`` (8 slots, model-dtype pages
-               of 16, the prefix cache off, 16 requests with ragged
-               prompts and budgets) through a (1, 1) ``ServeMesh`` over
+               bf16, behind ``BatchScheduler`` (6 slots, model-dtype pages
+               of 16, the prefix cache off, 8 requests with ragged
+               prompts and budgets, two waiting in the queue) through a (1, 1) ``ServeMesh`` over
                NCCL (a world of one), ``ft_confirm=2``, a chaos schedule
                with one ``heartbeat_flap`` and one ``device_death``; the
                sharded engine takes the full model as a host copy on the
@@ -360,17 +364,54 @@ failure):
                the mask beside it) and #2 and #3 at its per-device decode
                (KVH 8, G 1, Dh 128, 8 rows), bf16, against their plain
                versions, timed beside their bounds.
+26. family mesh - (a) zamba2-1.2b and xlstm-350m at full width and
+               depth, seamless-m4t-medium at 12 + 12 layers, bf16, each
+               through a (1, 1) ``ServeMesh`` over NCCL (a world of one;
+               the full model a host copy on the CPU, the card's bytes
+               its shard's) beside the unsharded engine: 4 equal-length
+               prompts of 64 tokens (seamless with source frames), 8
+               greedy tokens, and 6 ragged scheduler requests for the
+               hybrid and xlstm (the scheduler refuses encdec in both
+               packages): tokens and launches equal; zamba2-1.2b at full
+               width and 8 layers (two applications of the shared block)
+               through ``Trainer(mesh=)`` on (1, 1) beside the unsharded
+               ``Trainer``, 3 steps of 4 x 128 tokens, bf16 over fp32
+               masters: losses and grad norms within 1e-3 relative, no
+               kernel launched.  (b) three spawned ranks on ``cuda:0``
+               (gloo, host-staged), fp32, full width: zamba2 at 8
+               layers, xlstm at 2 pairs, seamless at 2 + 2, each on a
+               (1, 2) mesh plus a spare: ``generate`` (and the hybrid's
+               and xlstm's scheduler) tokens equal the unsharded engine's
+               on the card; a kill of rank 1 in the hybrid's scheduler
+               re-meshed onto the spare ([0, 2]), tokens equal; one
+               training step of each family on (1, 2): loss and grad norm
+               within 1e-5 relative (xlstm 1e-3); each rank's card bytes
+               against its shard's (half of the split weights plus the
+               leaves its layout keeps whole).  (b)'s ranks run beside
+               phase 23 (b)-(d), which time nothing, and are joined
+               before phase 24; their unsharded runs and the checks are
+               here.  (c) #5 at zamba2's (1, 2) prefill (32 of 64
+               heads, P = N = 64, 8 x 512) and xlstm's (2 of 4 heads, dk
+               = dv = 512), #1 at zamba2's shared block (16 of 32 heads,
+               Dh 64, causal) and seamless's encoder (8 of 16 heads, Dh
+               64, not causal, 64 frames), bf16, against their plain
+               versions, timed beside their bounds and #1 beside SDPA;
+               each row's launches a rank from (b).  (d) last, alone:
+               the perfctr CLI's ``main`` in this process, ``-g ROOFLINE
+               --arch zamba2-1.2b --shape decode_32k --execute``: the dry
+               run's record (one rank of the 16 x 16 mesh walked on
+               ``meta``) with status ``ok``, the SMOKE loss timed on the
+               card.
 
 Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs,
 18's suite (its launches counted in its process) and tuned generate, the
 serving runs of 19, 20, 21, 22 and 23's served checkpoint, 24's mesh
-runs and 25's moe mesh runs are the main paths: each is run with its
-kernels' launch counters set to 0 just before it and read just after, and
-fails if one of its kernels never launched (or, on the serving paths,
-launched another number of times than the path implies); the training
-runs of 23 and 25 go the other way round: they fail if any of #1-#7
-launched.  The last two
-lines of stdout are the kernel table as JSON (``launches`` from the path
+runs, 25's moe mesh runs and 26's serving runs are the main paths: each
+is run with its kernels' launch counters set to 0 just before it and
+read just after, and fails if one of its kernels never launched (or, on
+the serving paths, launched another number of times than the path
+implies); the training runs of 23, 25 and 26 (a) go the other way
+round: they fail if any of #1-#7 launched.  The last two lines of stdout are the kernel table as JSON (``launches`` from the path
 that carries each kernel, ``launches_by_path`` from every path that runs
 it) and the result line ``{"ok": true, "device": {...}}``.  It never
 imports JAX or the JAX package.
@@ -1125,6 +1166,14 @@ SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 
 
+def distinct(t: torch.Tensor) -> int:
+    """Bytes of ``t``'s distinct elements (a broadcast dim counts once)."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
+
+
 def ssd_tol(want: torch.Tensor) -> dict:
     tol = dict(SSD_TOL[want.dtype])
     if want.dtype == torch.float32:
@@ -1277,12 +1326,6 @@ def check_ssd(dev, timer):
     del a32, st32
     b, s, h, dk = args[0].shape
     dv = args[2].shape[3]
-
-    def distinct(t):
-        n = t.element_size()
-        for size, stride in zip(t.shape, t.stride()):
-            n *= size if stride else 1
-        return n
 
     state_bytes = 4 * (b * h * dk * dv + b * h * dk)
     nbytes = (sum(distinct(t) for t in args) + state_bytes      # in
@@ -1620,7 +1663,7 @@ def checked_scheduler(eng, work, want_fn, where):
         fail(f"{where}: launched {launches}, expected {want}")
     new_tokens = sum(len(t) for t in out.values())
     ttfts = [r.ttft for r in sched.completed.values()]
-    log(f"  {where}: {len(out)} requests "
+    log(f"  {where}: {len(out)} requests on {eng.cfg.batch_slots} slots "
         f"({sum(len(w[0]) for w in work)} prompt tokens), {new_tokens} "
         f"tokens in {wall * 1e3:.2f} ms = {new_tokens / wall:.1f} tokens/s; "
         f"mean TTFT {np.mean(ttfts) * 1e3:.2f} ms; segments "
@@ -1712,7 +1755,9 @@ def int8_decode_logits(lm_cpu, lm_gpu, prompts, where):
 # phases 8-10: zamba2-1.2b (hybrid: Mamba2 + a shared block), dense KV
 # ---------------------------------------------------------------------------
 
-ZAMBA_REQUESTS = 16
+#: phase 9: 8 requests (16 until phase 26 needed the time) on 6 slots,
+#: so two wait in the queue and take slots freed mid-decode
+ZAMBA_REQUESTS, ZAMBA_SLOTS = 8, 6
 
 
 def zamba_generate_path(dev):
@@ -1739,7 +1784,7 @@ def zamba_generate_path(dev):
 
 def zamba_scheduler_path(lm):
     """Main path 4: zamba2-1.2b behind ``BatchScheduler`` with dense KV:
-    16 requests of 64-512-token prompts, budgets 16-48, 8 slots; each
+    8 requests of 64-512-token prompts, budgets 16-48, 6 slots; each
     admission prefills one row at its exact length and merges its SSD
     state, conv tail and KV caches into the slot."""
     from repro_torch.models.lm import _hybrid_groups
@@ -1749,7 +1794,7 @@ def zamba_scheduler_path(lm):
     work = [(rng.integers(1, cfg.vocab, int(n)).tolist(), int(b), 1)
             for n, b in zip(rng.integers(64, 513, ZAMBA_REQUESTS),
                             rng.integers(16, 49, ZAMBA_REQUESTS))]
-    eng = Engine(lm, ServeConfig(max_seq=1024, batch_slots=8,
+    eng = Engine(lm, ServeConfig(max_seq=1024, batch_slots=ZAMBA_SLOTS,
                                  admission_chunk=8), device=lm.device)
     groups = len(_hybrid_groups(cfg.n_layers, cfg.attn_every))
     return checked_scheduler(
@@ -2019,7 +2064,9 @@ SAMPLED = (("top_k 50", dict(top_k=50)), ("top_p 0.9", dict(top_p=0.9)))
 TEMPERATURE = 0.7
 SPEC_K = 4
 DRAFT_LAYERS = 2
-SPEC_REQUESTS = 16
+#: phase 14's scheduler: 8 requests (16 until phase 26 needed the time)
+#: on 6 slots, so two wait in the queue
+SPEC_REQUESTS, SPEC_SLOTS = 8, 6
 
 
 def qwen2(dev, dtype, embed_scale=1.0):
@@ -2231,9 +2278,9 @@ def spec_path(dev, lm):
         f"rounds {st['rounds']}; rows equal to target-only {same} of "
         f"{len(prompts)}; launches {launches}")
 
-    # ---- the scheduler: 8 slots, bf16 pages, half the requests spec
+    # ---- the scheduler: 6 slots, bf16 pages, half the requests spec
     seng = Engine(lm, ServeConfig(page_size=PAGE_SIZE, max_seq=1024,
-                                  batch_slots=8, admission_chunk=8),
+                                  batch_slots=SPEC_SLOTS, admission_chunk=8),
                   spec=spec, draft_lm=draft)
     srng = np.random.default_rng(7)
     work = [(srng.integers(1, cfg.vocab, int(srng.integers(16, 257))
@@ -2279,7 +2326,7 @@ def spec_path(dev, lm):
         "argmax": seg * (SPEC_K + 3), "paged_decode_q8": 0, "ssd_scan": 0})
     new_tokens = sum(len(r.generated) for r in out.values())
     rate = m["draft_accepted"] / max(m["draft_proposed"], 1)
-    log(f"  spec scheduler: {SPEC_REQUESTS} requests "
+    log(f"  spec scheduler: {SPEC_REQUESTS} requests on {SPEC_SLOTS} slots "
         f"({sum(w[2] for w in work)} spec), {new_tokens} "
         f"tokens in {wall * 1e3:.2f} ms = {new_tokens / wall:.1f} tokens/s; "
         f"rounds {seg} = segments = host_syncs {seng.host_syncs - syncs0}; "
@@ -2906,15 +2953,15 @@ def registry_serving_path(dev, smi):
     return runs["default"][1], q8["default"][1]
 
 
-def selection_cost(lm, prompts, paged, smi, rounds=3):
+def selection_cost(lm, prompts, paged, smi, rounds=2):
     """What the registry costs a generate call, two ways: the host us of
     the engine's per-call context (one env snapshot, entered once a
     ``generate``) and of one ``registry.run`` against the runner the
     heuristic picks, and the wall of a fp32 ``generate`` with every
     ``registry.run`` against the same generate with selection bypassed
     (each family's default runner called straight), alternated in this
-    process (A B B A, ``rounds`` times: 3, 8 until phase 25 needed the
-    time)."""
+    process (A B B A, ``rounds`` times: 2; 8 until phase 25 and 3 until
+    phase 26 needed the time)."""
     from repro_torch.kernels import registry
     from repro_torch.serve.engine import Engine, ServeConfig
     eng = Engine(lm, ServeConfig(**paged))
@@ -3391,8 +3438,9 @@ def tuned_generate(dev, smi):
 # ---------------------------------------------------------------------------
 
 #: phases 19-22's scheduler runs take 8 requests (16 until phase 25
-#: needed the time)
-XLSTM_REQUESTS = 8
+#: needed the time), xlstm's 4 (8 until phase 26) on 3 slots, so one
+#: waits in the queue
+XLSTM_REQUESTS, XLSTM_SLOTS = 4, 3
 #: the dense configs' int8 scheduler run: phase 5's traffic, shortened
 DENSE_SCHED_REQUESTS = 8
 #: mistral-large-123b on one card: full width, 2 of its 88 layers
@@ -3442,7 +3490,7 @@ def xlstm_paths(dev):
     mLSTM/sLSTM pairs, d_model 1024, 4 heads of 512), bf16, dense state:
     (a) ``Engine.generate`` on 8 prompts of 512 tokens, 32 greedy tokens,
     #5 launched once a pair (12 times) for the prefill; (b) the
-    ``BatchScheduler`` on 8 requests of 64-512 tokens, budgets 16-48, 8
+    ``BatchScheduler`` on 4 requests of 64-512 tokens, budgets 16-48, 3
     slots, #5 launched 12 times an admission."""
     from repro_torch.configs.xlstm_350m import CONFIG
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -3459,7 +3507,7 @@ def xlstm_paths(dev):
     work = [(rng.integers(1, CONFIG.vocab, int(n)).tolist(), int(b), 1)
             for n, b in zip(rng.integers(64, 513, XLSTM_REQUESTS),
                             rng.integers(16, 49, XLSTM_REQUESTS))]
-    seng = Engine(lm, ServeConfig(max_seq=1024, batch_slots=8,
+    seng = Engine(lm, ServeConfig(max_seq=1024, batch_slots=XLSTM_SLOTS,
                                   admission_chunk=8), device=dev)
     sched = checked_scheduler(
         seng, work, lambda m: dict(none, ssd_scan=pairs * m["admissions"],
@@ -3887,11 +3935,11 @@ def vlm_encdec_token_check(dev):
 # phase 23: training
 # ---------------------------------------------------------------------------
 
-#: (a): qwen2-0.5b at full width and depth, 8 x 512 tokens a step, 12
-#: steps (a checkpoint at 6), then 4 more with 2 microbatches a step
-#: (20 and 10 until phase 25 needed the time)
+#: (a): qwen2-0.5b at full width and depth, 8 x 512 tokens a step, 8
+#: steps (a checkpoint at 4), then 2 more with 2 microbatches a step
+#: (20 and 10 until phase 25, 12 and 4 until phase 26 needed the time)
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
-TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_ACCUM_STEPS = 12, 6, 4
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_ACCUM_STEPS = 8, 4, 2
 TRAIN_WARM = 3                    # steps left out of the median step time
 TRAIN_SCHED = dict(peak_lr=3e-4, warmup_steps=5,
                    total_steps=TRAIN_STEPS + 2 + TRAIN_ACCUM_STEPS)
@@ -3936,8 +3984,8 @@ def train_main_path(dev, smi):
     masters, ``FeatureSet`` defaults (remat ``dots_no_batch``), AdamW with
     clipping, warmup then cosine, 8 x 512 synthetic tokens a step, the
     weights drawn on the host (phase 25 (a) trains a mesh from the same
-    draw): 12 steps through ``Trainer`` with one checkpoint, at step 6
-    (the one ``serve --ckpt-dir`` serves), then 4 steps with
+    draw): 8 steps through ``Trainer`` with one checkpoint, at step 4
+    (the one ``serve --ckpt-dir`` serves), then 2 steps with
     ``accum_steps=2``.  Prints the median
     step time after 3 warm-up steps, tokens/s, model FLOPs a step
     (``model_flops``: 6 N T + 12 L H Dh S T), MFU against 989 TFLOP/s,
@@ -4326,7 +4374,9 @@ def check_served_checkpoint(dev, served, ckpt, serving, smi):
 # phase 24: sharded serving and its fault tolerance
 # ---------------------------------------------------------------------------
 
-MESH_REQUESTS = 16
+#: (a): 8 requests (16 until phase 26 needed the time) on 6 slots, so
+#: two wait in the queue
+MESH_REQUESTS, MESH_SLOTS = 8, 6
 MESH_LAYERS = 4                   # (b): qwen2-0.5b at 4 of its 24 layers
 MESH_RANKS = 3                    # (b): a (1, 2) mesh plus one hot spare
 
@@ -4387,10 +4437,12 @@ def tensor_bytes(tensors):
 def sharded_engine(where, host, scfg, mesh, dev):
     """``Engine(host, mesh=)`` on ``dev``, checking that the card took
     this rank's blocks of the weights and nothing more: the shard's
-    weights are at most 1/m of the full model's plus the replicated
-    norms (1 MiB), and the bytes the engine allocated are the shard's
-    tensors (weights and buffers) plus at most 2% and 8 MiB of the
-    allocator's rounding, far below a second copy of the model."""
+    weights are at most 1/m of the full model's split weights plus the
+    weights its layout keeps whole on every rank (:func:`replicated_bytes`:
+    norms, the MoE router, Mamba2's B and C columns, the sLSTM's
+    recurrence) and 1 MiB, and the bytes the engine allocated are the
+    shard's tensors (weights and buffers) plus at most 2% and 8 MiB of
+    the allocator's rounding, far below a second copy of the model."""
     from repro_torch.serve.engine import Engine
     torch.cuda.synchronize(dev)
     before = torch.cuda.memory_allocated(dev)
@@ -4400,7 +4452,8 @@ def sharded_engine(where, host, scfg, mesh, dev):
     full, m = tensor_bytes(host.parameters()), eng._shard.tp.size
     shard = tensor_bytes(eng._shard.parameters())
     held = shard + tensor_bytes(eng._shard.buffers())
-    if (shard > full / m + (1 << 20) or took < held
+    rep = replicated_bytes(eng, host)
+    if (shard > (full - rep) / m + rep + (1 << 20) or took < held
             or took > held * 1.02 + (8 << 20)):
         fail(f"{where}: the sharded engine allocated {took} bytes on the "
              f"card for a shard of {shard} bytes of weights ({held} with "
@@ -4411,7 +4464,7 @@ def sharded_engine(where, host, scfg, mesh, dev):
 def mesh_one_rank(dev, smi):
     """Phase 24 (a): qwen2-0.5b at full width and depth, bf16, behind
     ``BatchScheduler`` through a (1, 1) ``ServeMesh`` over NCCL (a world
-    of one) and unsharded, on the same 16 requests; a chaos schedule with
+    of one) and unsharded, on the same 8 requests; a chaos schedule with
     one heartbeat flap (absorbed) and one device death (skipped: the last
     device)."""
     from repro_torch.configs.qwen2_0_5b import CONFIG
@@ -4424,8 +4477,8 @@ def mesh_one_rank(dev, smi):
         fail(f"phase 24 (a): backend {torch.distributed.get_backend()}, "
              f"expected nccl")
     lm = qwen2(dev, torch.bfloat16)
-    scfg = ServeConfig(page_size=PAGE_SIZE, max_seq=1024, batch_slots=8,
-                       prefix_cache=False)
+    scfg = ServeConfig(page_size=PAGE_SIZE, max_seq=1024,
+                       batch_slots=MESH_SLOTS, prefix_cache=False)
     work = mesh_work(CONFIG.vocab, MESH_REQUESTS, 24, 17, 256, 8, 32)
     plain = Engine(lm, scfg)
     mesh_sched(plain, work[:4])                             # warm-up
@@ -4469,8 +4522,8 @@ def mesh_one_rank(dev, smi):
              f"chaos notes {notes}")
     ntok = sum(len(t) for t in want.values())
     log(f"  (a) qwen2-0.5b bf16, 24 layers, (1, 1) mesh over nccl (world "
-        f"of 1), {len(work)} requests, {ntok} tokens: {ntok / wall:.1f} "
-        f"tokens/s beside {ntok / wall0:.1f} unsharded; tokens equal; "
+        f"of 1), {len(work)} requests on {MESH_SLOTS} slots, {ntok} "
+        f"tokens: {ntok / wall:.1f} tokens/s beside {ntok / wall0:.1f} unsharded; tokens equal; "
         f"launches {launches}; facts {facts}; heartbeats armed, chaos "
         f"{notes}, re-meshes 0; the full model on the host, the sharded "
         f"engine allocated {took} bytes on the card (the model's weights: "
@@ -5265,28 +5318,36 @@ def moe_mesh_two_ranks(smi):
     return ranks[0]["runs"]["int8"]["s_launches"]
 
 
+class Background:
+    """``fn()`` on a thread of its own from now on: :meth:`result` joins
+    it and returns its value, or raises its failure."""
+
+    def __init__(self, fn):
+        import threading
+        self._out = None
+        self._thread = threading.Thread(target=self._run, args=(fn,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self._out = (True, fn())
+        except BaseException as e:          # raised again in result()
+            self._out = (False, e)
+
+    def result(self):
+        self._thread.join()
+        ok, value = self._out
+        if not ok:
+            raise value
+        return value
+
+
 def concurrently(*fns):
     """Every ``fn()`` on a thread of its own, side by side; their results
     in order, or the first one's failure raised here."""
-    import threading
-    out = [None] * len(fns)
-
-    def run(i, fn):
-        try:
-            out[i] = (True, fn())
-        except BaseException as e:          # raised again below
-            out[i] = (False, e)
-
-    threads = [threading.Thread(target=run, args=(i, fn))
-               for i, fn in enumerate(fns)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for ok, res in out:
-        if not ok:
-            raise res
-    return [res for _, res in out]
+    running = [Background(fn) for fn in fns]
+    return [b.result() for b in running]
 
 
 def per_device_flash(dev, smi):
@@ -5324,6 +5385,584 @@ def per_device_flash(dev, smi):
         f"[{smi}]")
     return dict(name="flash_attention", ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the hybrid, xlstm and encdec families on a mesh; the dry run
+# ---------------------------------------------------------------------------
+
+FAM_ARCHS = ("zamba2-1.2b", "xlstm-350m", "seamless-m4t-medium")
+#: (a): full width and depth (seamless at its 12 + 12 layers), bf16: 4
+#: prompts of 64 tokens, 8 new; 6 scheduler requests (hybrid, xlstm)
+FAM_PROMPTS, FAM_PROMPT_LEN, FAM_NEW, FAM_REQUESTS = 4, 64, 8, 6
+#: (a): the (1, 1) Trainer: zamba2-1.2b at full width and 8 of its 38
+#: layers (two applications of the shared block), bf16 over fp32
+#: masters, 4 x 128 tokens a step, 3 steps
+FAM_TRAIN_LAYERS, FAM_TRAIN_BATCH, FAM_TRAIN_SEQ = 8, 4, 128
+FAM_TRAIN_STEPS = 3
+#: (b): fp32 at full width and reduced depth, ranks on cuda:0 over gloo:
+#: zamba2 at 8 layers (two applications of the shared block), xlstm at 2
+#: pairs, seamless at 2 + 2
+FAM_MESH_LAYERS = {"zamba2-1.2b": 8, "xlstm-350m": 4,
+                   "seamless-m4t-medium": 2}
+FAM_MESH_RANKS = 3                 # a (1, 2) mesh plus one spare
+FAM_MESH_PROMPTS, FAM_MESH_PROMPT_LEN, FAM_MESH_NEW = 3, 24, 6
+FAM_MESH_REQUESTS = 4
+FAM_MESH_BATCH, FAM_MESH_SEQ = 2, 32
+#: (b): one training step's loss and grad norm on (1, 2) against the
+#: unsharded step's, relative (xlstm-350m: its test tolerance,
+#: tests/test_torch_train_families.py)
+FAM_TRAIN_RTOL = {"default": 1e-5, "xlstm-350m": 1e-3}
+
+
+def fam_cfg(arch, layers=None):
+    """``arch``'s full config, at ``layers`` layers (seamless: ``layers``
+    encoder and ``layers`` decoder layers) when given."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).config
+    if layers is None:
+        return cfg
+    extra = {"enc_layers": layers} if cfg.family == "encdec" else {}
+    return dataclasses.replace(cfg, n_layers=layers, **extra)
+
+
+def fam_traffic(cfg, seed, rows, length, requests):
+    """Equal-length prompts (the recurrent and encdec families prefill
+    equal-length rows), the encdec family's source frames from the same
+    seed, and ragged scheduler requests."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, length).tolist()
+               for _ in range(rows)]
+    extra = None
+    if cfg.family == "encdec":
+        extra = {"src_embeds": rng.standard_normal(
+            (rows, max(length // cfg.src_ratio, 1), cfg.d_model),
+            np.float32)}
+    work = mesh_work(cfg.vocab, requests, seed + 1, 8, length, 4, 12)
+    return prompts, extra, work
+
+
+def counted_generate(eng, prompts, max_new, extra):
+    """(tokens, launches) of one ``generate`` with the counters set to 0
+    just before it and read just after."""
+    torch.cuda.synchronize()
+    reset_counters()
+    out = eng.generate(prompts, max_new, extra_batch=extra)
+    torch.cuda.synchronize()
+    return out, read_counters()
+
+
+def replicated_bytes(eng, host):
+    """Bytes of a sharded engine's weights that every rank of the model
+    axis holds whole: the leaves its layout keeps whole (norms, a width
+    the axis does not divide, the sLSTM's recurrence) and the whole parts
+    of the split ones (Mamba2's B and C columns, the mLSTM's xm half)."""
+    from repro_torch.models.layers import spec_tree_to_pspecs
+    from repro_torch.serve.engine import SERVE_RULES
+    full = dict(host.named_parameters())
+    shard = eng._shard
+    specs = shard.rank_pspecs(spec_tree_to_pspecs(
+        host.param_specs(), SERVE_RULES, eng.mesh, shapes=full), full)
+    splits = shard.model_splits()
+    total = 0
+    for k, p in shard.named_parameters():
+        if "model" not in str(specs[k]):
+            total += p.numel() * p.element_size()
+        elif k in splits:
+            sp = splits[k]
+            whole = sum(n for n, split in sp.parts if not split)
+            total += whole * p.numel() // p.shape[sp.dim] * p.element_size()
+    return total
+
+
+def family_mesh_one_rank(dev, smi):
+    """Phase 26 (a): zamba2-1.2b and xlstm-350m at full width and depth,
+    seamless-m4t-medium at 12 + 12 layers, bf16, through a (1, 1)
+    ``ServeMesh`` over NCCL (a world of one) beside the unsharded engine:
+    ``generate`` tokens and launches equal, and the scheduler's for the
+    hybrid and xlstm; then zamba2-1.2b at full width and 8 layers through
+    ``Trainer(mesh=)`` on a (1, 1) mesh beside the unsharded ``Trainer``:
+    losses and grad norms within :data:`MESH_TRAIN_RTOL`, no kernel
+    launched.  Returns each path's launches."""
+    import gc
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.serve.engine import Engine, ServeConfig
+    mesh_mod.init_process("cuda")
+    if torch.distributed.get_backend() != "nccl":
+        fail(f"phase 26 (a): backend {torch.distributed.get_backend()}")
+    by_path = {}
+    for i, arch in enumerate(FAM_ARCHS):
+        where = f"phase 26 (a) {arch}"
+        cfg = fam_cfg(arch)
+        lm = build_lm(cfg, dev)
+        scfg = ServeConfig(max_seq=256, batch_slots=4)
+        prompts, extra, work = fam_traffic(cfg, 260 + i, FAM_PROMPTS,
+                                           FAM_PROMPT_LEN, FAM_REQUESTS)
+        sched = cfg.family != "encdec"
+        plain = Engine(lm, scfg)
+        plain.generate(prompts, 2, extra_batch=extra)           # warm-up
+        want, l0 = counted_generate(plain, prompts, FAM_NEW, extra)
+        if sched:
+            _, s_want, wall0, sl0 = mesh_sched(plain, work)
+        host = host_copy(lm)
+        del plain, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        sm = mesh_mod.make_serve_mesh((1, 1))
+        eng, took, full = sharded_engine(where, host, scfg, sm, dev)
+        got, l1 = counted_generate(eng, prompts, FAM_NEW, extra)
+        if got != want or l1 != l0:
+            fail(f"{where}: generate on the (1, 1) mesh gave {got} with "
+                 f"launches {l1}; unsharded {want}, {l0}")
+        for k in ("flash_attention", "ssd_scan"):
+            if k in {"zamba2-1.2b": ("flash_attention", "ssd_scan"),
+                     "xlstm-350m": ("ssd_scan",),
+                     "seamless-m4t-medium": ("flash_attention",)}[arch] \
+                    and l1[k] < 1:
+                fail(f"{where}: {k} never launched")
+        by_path[f"{arch}_mesh_generate_1x1"] = l1
+        line = (f"  (a) {arch} bf16, {cfg.n_layers} layers, (1, 1) mesh "
+                f"over nccl: generate of {FAM_PROMPTS} x {FAM_PROMPT_LEN} "
+                f"+ {FAM_NEW} tokens equal the unsharded engine's, "
+                f"launches {l1}")
+        if sched:
+            _, s_got, wall, sl1 = mesh_sched(eng, work)
+            if s_got != s_want or sl1 != sl0:
+                fail(f"{where}: the (1, 1) mesh's scheduler gave other "
+                     f"tokens or launches ({sl1} against {sl0})")
+            ntok = sum(len(t) for t in s_want.values())
+            by_path[f"{arch}_mesh_scheduler_1x1"] = sl1
+            line += (f"; scheduler {len(work)} requests equal, "
+                     f"{ntok / wall:.1f} tokens/s beside "
+                     f"{ntok / wall0:.1f} unsharded, launches {sl1}")
+        log(line + f"; the engine allocated {took} bytes on the card for "
+            f"a {full}-byte model [{smi}]")
+        del eng, host
+        gc.collect()
+        torch.cuda.empty_cache()
+    family_mesh_trainer(dev, smi)
+    mesh_mod.leave_process_group()
+    return by_path
+
+
+def family_mesh_trainer(dev, smi):
+    """Phase 26 (a)'s training half (see :func:`family_mesh_one_rank`)."""
+    from repro_torch.core.features import default_features
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import Trainer, TrainerConfig, train_state_pspecs
+    cfg = fam_cfg("zamba2-1.2b", FAM_TRAIN_LAYERS)
+    feats = default_features()
+    host = LM(cfg, torch.bfloat16, "cpu", features=feats,
+              param_dtype=torch.float32)
+    host.init(torch.Generator().manual_seed(0))
+    data = train_data_cfg(cfg, FAM_TRAIN_BATCH, FAM_TRAIN_SEQ)
+
+    def trainer(lm, **kw):
+        return Trainer(lm, data, TrainerConfig(
+            total_steps=FAM_TRAIN_STEPS, log_every=FAM_TRAIN_STEPS),
+            AdamWConfig(), ScheduleConfig(**MESH_TRAIN_SCHED), **kw)
+
+    card = LM(cfg, torch.bfloat16, dev, features=feats,
+              param_dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    for f in (*counters().values(), *case_counters().values()):
+        f.launches = 0
+    tr0, st0, _ = with_state(lambda: trainer(card), dev)
+    held0 = state_bytes(st0)
+    tr0.run(st0)
+    want = tr0.history
+    del tr0, st0, card
+    torch.cuda.empty_cache()
+    mesh = mesh_mod.build_mesh([0], (1, 1), ("data", "model"))
+    tr1, st1, held1 = with_state(lambda: trainer(
+        host, mesh=mesh, state_shardings=train_state_pspecs(host, mesh)),
+        dev)
+    check_state_bytes("phase 26 (a) trainer", held1, st1)
+    tr1.run(st1)
+    got = tr1.history
+    del tr1, st1
+    torch.cuda.empty_cache()
+    for key in ("loss", "grad_norm"):
+        a, w = [r[key] for r in got], [r[key] for r in want]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, w))
+        if len(a) != FAM_TRAIN_STEPS or rel > MESH_TRAIN_RTOL:
+            fail(f"phase 26 (a) trainer: sharded {key} {a} against "
+                 f"unsharded {w}")
+    launched = all_counters()
+    if any(launched.values()):
+        fail(f"phase 26 (a) trainer: training launched a kernel: "
+             f"{launched}")
+    ms = [float(np.median([r["wall_s"] for r in h[1:]])) * 1e3
+          for h in (got, want)]
+    log(f"  (a) zamba2-1.2b trainer, bf16 over fp32 masters, "
+        f"{FAM_TRAIN_LAYERS} layers, {FAM_TRAIN_BATCH} x {FAM_TRAIN_SEQ} "
+        f"tokens, (1, 1) mesh over nccl: losses "
+        f"{[round(r['loss'], 5) for r in got]} beside "
+        f"{[round(r['loss'], 5) for r in want]}, grad norms "
+        f"{[round(r['grad_norm'], 4) for r in got]} beside "
+        f"{[round(r['grad_norm'], 4) for r in want]}; step {ms[0]:.2f} ms "
+        f"beside {ms[1]:.2f}; state on the card {held1} bytes beside "
+        f"{held0} [{smi}]")
+
+
+def _fam_step(lm, batch, layout=None, params=None):
+    """One fp32 AdamW step of ``lm`` over ``batch`` (on a mesh, of the
+    state ``params`` a ``layout`` holds): (loss, grad norm)."""
+    from repro_torch.optim import AdamWConfig, ScheduleConfig, init_opt_state
+    from repro_torch.train import step as step_mod
+    adamw = AdamWConfig()
+    if layout is None:
+        state = step_mod.init_train_state(lm, adamw)
+    else:
+        state = step_mod.TrainState(params, init_opt_state(params, adamw),
+                                    torch.zeros((), dtype=torch.int32,
+                                                device=lm.device))
+    fn = step_mod.make_train_step(lm, adamw,
+                                  ScheduleConfig(**MESH_TRAIN_SCHED),
+                                  layout=layout)
+    _, m = fn(state, batch)
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def fam_mesh_inputs(arch, i, dev):
+    """Phase 26 (b)'s inputs for the ``i``-th family, alike on every rank
+    and in the parent: (config, the full model on the CPU, prompts, the
+    source frames or None, scheduler work or None, a training batch on
+    the CPU).  The weights are drawn on ``dev`` from seed 0 (a CPU draw
+    of the fp32 models took ~13 s a rank) and copied to the host; the
+    card copy is freed before the caller measures the card."""
+    from repro_torch.data import make_source
+    from repro_torch.models.lm import LM
+    cfg = fam_cfg(arch, FAM_MESH_LAYERS[arch])
+    drawn = LM(cfg, torch.float32, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        drawn.embed.table.mul_(0.1)
+    host = host_copy(drawn)
+    del drawn
+    torch.cuda.empty_cache()
+    prompts, extra, work = fam_traffic(
+        cfg, 270 + i, FAM_MESH_PROMPTS, FAM_MESH_PROMPT_LEN,
+        FAM_MESH_REQUESTS)
+    data = train_data_cfg(cfg, FAM_MESH_BATCH, FAM_MESH_SEQ)
+    batch = {k: torch.as_tensor(np.asarray(v))
+             for k, v in next(iter(make_source(data))).items()}
+    return cfg, host, prompts, extra, \
+        (work if cfg.family != "encdec" else None), batch
+
+
+def family_mesh_refs(dev):
+    """Phase 26 (b)'s unsharded references, made in this process on the
+    card: each family's ``generate`` and scheduler tokens and one training
+    step's (loss, grad norm)."""
+    import gc
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Engine, ServeConfig
+    refs = {}
+    for i, arch in enumerate(FAM_ARCHS):
+        cfg, host, prompts, extra, work, batch = fam_mesh_inputs(arch, i,
+                                                                 dev)
+        lm = LM(cfg, torch.float32, dev, param_dtype=torch.float32)
+        lm.load_state_dict(host.state_dict())
+        plain = Engine(lm, ServeConfig(max_seq=128, batch_slots=4))
+        ref = {"generate": plain.generate(prompts, FAM_MESH_NEW,
+                                          extra_batch=extra)}
+        if work is not None:
+            ref["sched"] = mesh_sched(plain, work)[1]
+        ref["train"] = _fam_step(lm, {k: v.to(dev) for k, v in batch.items()})
+        refs[arch] = ref
+        del plain, lm, host
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _family_mesh_rank(rank, world, init_method):
+    """Phase 26 (b), one rank: each family at full width and reduced
+    depth, fp32, on ``cuda:0`` with every rank (gloo), on a (1, 2) mesh
+    plus one spare (the full model a host copy on the CPU): ``generate``
+    (and for the hybrid and xlstm the scheduler), a kill of
+    ``device_ids[1]`` for the hybrid; then one training step on the
+    (1, 2) mesh.  Returns the tokens, metrics and seconds; phase 26
+    compares them with the unsharded runs (:func:`family_mesh_refs`)."""
+    import gc
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.train import step as step_mod
+    t0 = time.perf_counter()
+    dev = mesh_mod.init_process("cuda:0", backend="gloo",
+                                init_method=init_method, rank=rank,
+                                world_size=world)
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank, "runs": {},
+           "secs": {"start": round(time.perf_counter() - t0, 1)}}
+    scfg = ServeConfig(max_seq=128, batch_slots=4)
+    for i, arch in enumerate(FAM_ARCHS):
+        t = time.perf_counter()
+        cfg, host, prompts, extra, work, batch = fam_mesh_inputs(arch, i,
+                                                                 dev)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        secs = {"weights": time.perf_counter() - t}
+        t = time.perf_counter()
+        run = {}
+        base = torch.cuda.memory_allocated(dev)
+        sm = mesh_mod.make_serve_mesh((1, 2))
+        eng, took, full = sharded_engine(f"phase 26 (b) rank {rank} {arch}",
+                                         host, scfg, sm, dev)
+        held = torch.cuda.memory_allocated(dev) - base
+        g, g_launches = counted_generate(eng, prompts, FAM_MESH_NEW, extra)
+        run.update(member=eng.member, generate=g,
+                   generate_launches=g_launches, card_bytes=held,
+                   shard_bytes=took, full_bytes=full,
+                   replicated=replicated_bytes(eng, host))
+        if work is not None:
+            _, run["sched"], _, run["sched_launches"] = mesh_sched(eng, work)
+        del eng
+        gc.collect()
+        secs["serve"] = time.perf_counter() - t
+        if arch == "zamba2-1.2b":
+            t = time.perf_counter()
+            km = mesh_mod.make_serve_mesh((1, 2))
+            keng, _, _ = sharded_engine(
+                f"phase 26 (b) rank {rank} {arch} kill", host, scfg, km, dev)
+            ksched, run["kill"], _, run["kill_launches"] = mesh_sched(
+                keng, work, kill=km.device_ids[1], ft_timeout_steps=1,
+                ft_confirm=1)
+            run.update(kill_remeshes=ksched.metrics["remeshes"],
+                       kill_ids=list(keng.serve_mesh.device_ids))
+            del keng, ksched
+            gc.collect()
+            secs["kill"] = time.perf_counter() - t
+        # one training step on (1, 2) (building a mesh is collective: the
+        # spare builds it too and trains nothing)
+        t = time.perf_counter()
+        mesh = mesh_mod.build_mesh(range(2), (1, 2), ("data", "model"))
+        if rank < 2:
+            tp, dp = mesh_mod.model_axis(mesh), mesh_mod.data_axis(mesh)
+            lm = LM(cfg, torch.float32, dev, param_dtype=torch.float32,
+                    tp=tp, dp=dp).requires_grad_(True)
+            specs = step_mod.train_state_pspecs(host, mesh).params
+            layout = step_mod.StateLayout(lm, specs, mesh,
+                                          dict(host.named_parameters()))
+            params = layout.init_params(
+                {k: v.to(dev) for k, v in host.named_parameters()})
+            run["train"] = _fam_step(lm, batch, layout, params)
+            del lm, layout, params
+            gc.collect()
+            torch.cuda.empty_cache()
+        secs["train"] = time.perf_counter() - t
+        out["runs"][arch] = run
+        out["secs"][arch] = {k: round(v, 1) for k, v in secs.items()}
+    return out
+
+
+def spawn_family_ranks():
+    """Phase 26 (b)'s three spawned ranks on the one card (gloo over CUDA
+    tensors, staged through the host), run beside phase 23 (b)-(d):
+    (every rank's results, seconds)."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    ranks = mesh_mod.spawn(_family_mesh_rank, FAM_MESH_RANKS, timeout_s=600)
+    return ranks, time.perf_counter() - t0
+
+
+def family_mesh_three_ranks(smi, refs, ranks, secs, refs_secs):
+    """Phase 26 (b): every rank's results (:func:`spawn_family_ranks`)
+    checked here against the unsharded runs (:func:`family_mesh_refs`).
+    Returns rank 0's launches by path."""
+    by_path = {}
+    for r in ranks:
+        rank = r["rank"]
+        for arch, run in r["runs"].items():
+            where = f"phase 26 (b) rank {rank} {arch}"
+            want = refs[arch]
+            member = rank < 2
+            if run["member"] != member:
+                fail(f"{where}: member {run['member']}")
+            if len({tuple(t) for t in want["generate"]}) < 2:
+                fail(f"{where}: the unsharded rows' tokens are all alike")
+            for got, ref in (("generate", "generate"), ("sched", "sched"),
+                             ("kill", "sched")):
+                if got in run and run[got] != want[ref]:
+                    fail(f"{where}: the sharded {got} tokens differ from "
+                         f"the unsharded engine's")
+            # the card holds the shard: 1/2 of the split weights plus
+            # the whole-held ones, never the whole model
+            if member and run["card_bytes"] > (
+                    (run["full_bytes"] - 2 * run["replicated"]) / 2
+                    + run["replicated"] + (32 << 20)):
+                fail(f"{where}: the card holds {run['card_bytes']} bytes "
+                     f"beside a sharded engine of a "
+                     f"{run['full_bytes']}-byte model "
+                     f"({run['replicated']} bytes whole on every rank)")
+            launched = run["generate_launches"]
+            if member:
+                need = {"zamba2-1.2b": ("flash_attention", "ssd_scan",
+                                       "argmax"),
+                        "xlstm-350m": ("ssd_scan", "argmax"),
+                        "seamless-m4t-medium": ("flash_attention",
+                                                "argmax")}[arch]
+                if any(launched[k] < 1 for k in need):
+                    fail(f"{where}: generate launched {launched}")
+                loss, norm = run["train"]
+                wl, wn = want["train"]
+                tol = FAM_TRAIN_RTOL.get(arch, FAM_TRAIN_RTOL["default"])
+                if abs(loss - wl) > tol * abs(wl) or \
+                        abs(norm - wn) > tol * abs(wn):
+                    fail(f"{where}: (1, 2) step loss {loss}, grad norm "
+                         f"{norm}; unsharded {wl}, {wn} (rtol {tol})")
+            elif any(launched.values()):
+                fail(f"{where}: the spare launched {launched}")
+            if arch == "zamba2-1.2b" and (run["kill_remeshes"] != 1
+                                          or run["kill_ids"] != [0, 2]):
+                fail(f"{where}: kill: {run['kill_remeshes']} re-meshes onto "
+                     f"{run['kill_ids']}")
+            if rank == 0:
+                by_path[f"{arch}_mesh_generate_1x2_rank0"] = launched
+                if "sched_launches" in run:
+                    by_path[f"{arch}_mesh_scheduler_1x2_rank0"] = \
+                        run["sched_launches"]
+    for arch in FAM_ARCHS:
+        runs = {r["rank"]: r["runs"][arch] for r in ranks}
+        r0 = runs[0]
+        line = (f"  (b) {arch} fp32, {FAM_MESH_LAYERS[arch]} layers, (1, 2) "
+                f"mesh + 1 spare on cuda:0 (gloo, host-staged): generate "
+                + ("and scheduler " if "sched" in r0 else "")
+                + f"tokens equal the unsharded engine's; rank 0 launched "
+                f"{r0['generate_launches']}; card bytes by rank "
+                f"{[runs[r]['card_bytes'] for r in sorted(runs)]} of a "
+                f"{r0['full_bytes']}-byte model ({r0['replicated']} bytes "
+                f"whole on each rank); one training step on (1, 2): loss "
+                f"{r0['train'][0]:.6f} / {refs[arch]['train'][0]:.6f}, grad "
+                f"norm {r0['train'][1]:.5f} / {refs[arch]['train'][1]:.5f}")
+        if arch == "zamba2-1.2b":
+            line += (f"; a kill of rank 1 re-meshed onto {r0['kill_ids']}, "
+                     f"tokens equal; ssd_scan launches by rank "
+                     f"{[runs[r]['kill_launches']['ssd_scan'] for r in sorted(runs)]}")
+        log(line + f" [{smi}]")
+    log(f"  (b) three ranks in {secs:.1f} s (run beside phase 23 (b)-(d), "
+        f"which time nothing), the unsharded runs here in {refs_secs:.1f} "
+        f"s; rank 0's seconds {ranks[0]['secs']}")
+    return by_path
+
+
+def per_device_families(dev, smi):
+    """Phase 26 (c): kernels #5 and #1 at this slice's per-device shapes
+    on a (1, 2) mesh, bf16, against their plain versions, timed beside
+    their bounds (and #1 beside SDPA): #5 at zamba2-1.2b's prefill (32 of
+    64 heads, P = N = 64, 8 x 512, B and C broadcast, a carried state)
+    and at xlstm-350m's (2 of 4 heads, dk = dv = 512, normalize), #1 at
+    zamba2's shared block (16 of 32 heads, Dh 64, causal, 8 x 512) and
+    at seamless-m4t-medium's encoder (8 of 16 heads, Dh 64, not causal,
+    8 x 64 frames).  Each row's launches a rank come from phase 26 (b)
+    (``arch`` names its path)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_flops, ssd_scan
+    from repro_torch.models.linear_scan import _chunked_linear_attention
+    timer = Timer(dev)
+    rng = np.random.default_rng(26)
+    rows = []
+
+    for arch, shape, normalize, kw in (
+            ("zamba2-1.2b", (ZAMBA_PROMPTS, ZAMBA_PROMPT_LEN, 32, 64, 64),
+             False, dict(broadcast=True)),
+            ("xlstm-350m", (8, 512, 2, 512, 512), True,
+             dict(positive=True))):
+        args, st = ssd_inputs(rng, dev, *shape, torch.bfloat16, state=True,
+                              **kw)
+        y, (c, n) = ssd_scan(*args, chunk=256, normalize=normalize,
+                             initial_state=st)
+        yp, (cp, np_) = _chunked_linear_attention(
+            *args, chunk_size=256, normalize=normalize, initial_state=st)
+        torch.cuda.synchronize()
+        for what, got, want in (("y", y, yp), ("C", c, cp), ("n", n, np_)):
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **ssd_tol(want),
+                                       msg=lambda m: f"{arch} {what}: {m}")
+        err = (y.float() - yp.float()).abs().max().item()
+        ms = timer.ms(lambda: ssd_scan(*args, chunk=256, normalize=normalize,
+                                       initial_state=st))
+        plain_ms = timer.ms(lambda: _chunked_linear_attention(
+            *args, chunk_size=256, normalize=normalize, initial_state=st))
+        b, s, h, dk = args[0].shape
+        dv = args[2].shape[3]
+        state = 4 * (b * h * dk * dv + b * h * dk)
+        nbytes = sum(distinct(t) for t in args) + 2 * state + distinct(
+            args[2])
+        bms, by = bound_ms(nbytes, float(ssd_flops(b, h, s, dk, dv, 256)))
+        log(f"  (c) ssd_scan bf16 per device at {arch}'s (1, 2) prefill "
+            f"{shape}: {ms:.4f} ms (plain {plain_ms:.4f}), bound {bms:.5f} "
+            f"ms by {by}, max|err| {err:.3g} [{smi}]")
+        rows.append(dict(
+            name=f"ssd_scan@{arch}/1x2", arch=arch, route="cuda",
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:35", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=None))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for arch, b, h, s, causal in (("zamba2-1.2b", 8, 16, 512, True),
+                                  ("seamless-m4t-medium", 8, 8, 64, False)):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, h, s, 64), np.float32)).to(dev, torch.bfloat16)
+            for _ in range(3))
+        err = close(f"flash at {arch}'s per-device [{b},{h},{s},64] "
+                    f"causal={causal}",
+                    flash_attention_bhsd(q, k, v, causal=causal),
+                    flash_attention_plain(q, k, v, causal=causal))
+        ms = timer.ms(lambda: flash_attention_bhsd(q, k, v, causal=causal))
+        plain_ms = timer.ms(lambda: flash_attention_plain(q, k, v,
+                                                          causal=causal))
+        library_ms = timer.ms(lambda: sdpa(q, k, v, is_causal=causal))
+        bms, by = flash_bound(q, k, [s] * b, causal=causal)
+        log(f"  (c) flash_attention bf16 per device at {arch}'s (1, 2) "
+            f"prefill [{b},{h},{s},64] causal={causal}: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}, SDPA {library_ms:.4f}), bound {bms:.5f} ms by "
+            f"{by} [{smi}]")
+        rows.append(dict(
+            name=f"flash_attention@{arch}/1x2", arch=arch, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:46",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=library_ms))
+    return rows
+
+
+def dryrun_on_the_card(smi):
+    """Phase 26 (d): the perfctr CLI's ``main`` in this process, ``-g
+    ROOFLINE --arch zamba2-1.2b --shape decode_32k --execute`` on the
+    card, after (b)'s ranks are done: the dry run's record (a meta walk
+    of one rank of the 16 x 16 mesh) with status ``ok`` and the SMOKE
+    config's loss timed on ``cuda``."""
+    from repro_torch.launch import perfctr as perfctr_cli
+    path = Path(TMP_ROOT) / "perfctr.json"
+    argv = ["-g", "ROOFLINE", "--arch", "zamba2-1.2b", "--shape",
+            "decode_32k", "--execute", "--cache-dir", fresh_root("dryrun"),
+            "--json", str(path)]
+    t0 = time.perf_counter()
+    rc, out = in_process(perfctr_cli.main, argv)
+    secs = time.perf_counter() - t0
+    rec = json.loads(path.read_text()) if path.exists() else None
+    if rc != 0 or rec is None or rec["status"] != "ok" or \
+            rec["device"] != "cuda" or not rec["wall_s"] or \
+            rec["events"].get("ICI_AR_COUNT", 0) < 1:
+        fail(f"phase 26 (d): perfctr exited {rc}, record {rec}: "
+             f"{out[-2000:]}")
+    ev = rec["events"]
+    log(f"  (d) perfctr -g ROOFLINE zamba2-1.2b/decode_32k/16x16 --execute "
+        f"in {secs:.1f} s (in this process, nothing beside it): status ok; "
+        f"one rank declares {ev['FLOPS_TOTAL']:.4g} FLOPs, "
+        f"{ev['BYTES_ACCESSED']:.4g} bytes, {ev['ICI_TOTAL_BYTES']:.4g} "
+        f"NVLink bytes in {ev['ICI_AR_COUNT']:.0f} all-reduces; the SMOKE "
+        f"loss {rec['wall_s'] * 1e3:.2f} ms a call on the card [{smi}]")
+    for line in out.splitlines():
+        if line.startswith(("| T_", "| Bound", "[cache:")):
+            log(f"    {line}")
 
 
 class PhaseClock:
@@ -5375,7 +6014,7 @@ def run_phases() -> int:
     dev = torch.device("cuda", 0)
     phase = PhaseClock()
 
-    phase("[1/25] probe")
+    phase("[1/26] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -5392,12 +6031,12 @@ def run_phases() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    phase("[2/25] build")
+    phase("[2/26] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    phase("[3/25] kernels vs plain versions")
+    phase("[3/26] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -5409,26 +6048,26 @@ def run_phases() -> int:
             f"{r['bound_by']})")
     del timer
 
-    phase("[4/25] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    phase("[4/26] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    phase("[5/25] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    phase("[5/26] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
           "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    phase("[6/25] fp32 token check: card paged / card dense / cpu paged")
+    phase("[6/26] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    phase("[7/25] fp32 scheduler token check: card scheduler / card generate "
+    phase("[7/26] fp32 scheduler token check: card scheduler / card generate "
           "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    phase("[8/25] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    phase("[8/26] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    phase("[9/25] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    phase("[9/26] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -5438,10 +6077,10 @@ def run_phases() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    phase("[10/25] fp32 zamba2 token check: card / cpu, 7 layers")
+    phase("[10/26] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    phase("[11/25] case-study kernels vs plain versions: STREAM triad, "
+    phase("[11/26] case-study kernels vs plain versions: STREAM triad, "
           "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -5451,14 +6090,14 @@ def run_phases() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    phase("[12/25] main path 5: the case studies through PerfCtr marker "
+    phase("[12/26] main path 5: the case studies through PerfCtr marker "
           "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    phase("[13/25] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    phase("[13/26] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
           "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -5466,11 +6105,11 @@ def run_phases() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    phase("[14/25] main path 7: speculative decoding, K = 4, 2-layer matched "
+    phase("[14/26] main path 7: speculative decoding, K = 4, 2-layer matched "
           "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    phase("[15/25] main path 8: serving snapshots and chaos: (a) fp32 "
+    phase("[15/26] main path 8: serving snapshots and chaos: (a) fp32 "
           "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
           "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -5478,13 +6117,13 @@ def run_phases() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    phase("[16/25] main path 9: the serving benches (serve, paged decode, "
+    phase("[16/26] main path 9: the serving benches (serve, paged decode, "
           "flash prefill, spec) at their default sizes, serve and spec at "
           "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[17/25] main path 10: the tool layer (topology, pin, features) "
+    phase("[17/26] main path 10: the tool layer (topology, pin, features) "
           "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
           "default kernels against the torch pins three ways")
     topology_check(dev, smi)
@@ -5493,7 +6132,7 @@ def run_phases() -> int:
     tool_benches(smi)
     torch.cuda.empty_cache()
 
-    phase("[18/25] main path 11: the registry's tune half: (a) every tunable "
+    phase("[18/26] main path 11: the registry's tune half: (a) every tunable "
           "family's card cell swept cold, each candidate held to its plain "
           "version; (b) warm in a fresh process; (c) the launcher's --tune "
           "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
@@ -5504,14 +6143,14 @@ def run_phases() -> int:
     tuned_gen_launches = tuned_generate(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[19/25] main path 12: xlstm-350m at full width and depth, dense "
+    phase("[19/26] main path 12: xlstm-350m at full width and depth, dense "
           "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
           "card vs cpu at 4 layers")
     xlstm_gen_launches, xlstm_sched_launches = xlstm_paths(dev)
     torch.cuda.empty_cache()
     xlstm_token_check(dev)
 
-    phase("[20/25] main path 13: the other dense configs, pages of 16: "
+    phase("[20/26] main path 13: the other dense configs, pages of 16: "
           "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
           "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
           "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
@@ -5520,7 +6159,7 @@ def run_phases() -> int:
     perf_report_and_example(smi)
     torch.cuda.empty_cache()
 
-    phase("[21/25] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
+    phase("[21/26] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
           "a2.7b at full width and depth, generate, one host sync, a decode "
           "step with no implicit sync; (b) its int8 scheduler with the prefix "
           "cache; (c) qwen3-moe-235b-a22b at 2 of 94 layers (G 16); (d) fp32 "
@@ -5529,7 +6168,7 @@ def run_phases() -> int:
     torch.cuda.empty_cache()
     moe_token_check(dev)
 
-    phase("[22/25] main path 15: the vlm and encdec families: (a) qwen2-vl-"
+    phase("[22/26] main path 15: the vlm and encdec families: (a) qwen2-vl-"
           "7b at full width and depth with patch embeddings, generate, then "
           "its int8 scheduler with the prefix cache; (b) seamless-m4t-medium "
           "at 12 + 12 layers with source embeddings, generate; (c) fp32 "
@@ -5538,13 +6177,17 @@ def run_phases() -> int:
     vlm_encdec_token_check(dev)
     torch.cuda.empty_cache()
 
-    phase("[23/25] main path 16: training: (a) qwen2-0.5b at full width and "
-          "depth, bf16 over fp32 masters, 8 x 512 tokens a step, 12 steps "
-          "through Trainer, 4 with accum_steps=2, resumed from step 6; (b) "
+    phase("[23/26] main path 16: training: (a) qwen2-0.5b at full width and "
+          "depth, bf16 over fp32 masters, 8 x 512 tokens a step, 8 steps "
+          "through Trainer, 2 with accum_steps=2, resumed from step 4; (b) "
           "fp32 card vs cpu, 2 layers, 3 steps; (c) one fp32 step of each "
-          "family, card vs cpu; (d) serve --ckpt-dir")
+          "family, card vs cpu; (d) serve --ckpt-dir; phase 26 (b)'s ranks "
+          "beside (b)-(d)")
     served, ckpt, train_fig, plain_train = train_main_path(dev, smi)
     serving = serve_checkpoint(ckpt)
+    # phase 26 (b)'s ranks run beside (b)-(d), which time nothing, and are
+    # joined before phase 24; phase 26 checks their results
+    fam_ranks = Background(spawn_family_ranks)
     try:
         train_card_cpu(dev)
         train_serve_launches = check_served_checkpoint(dev, served, ckpt,
@@ -5553,10 +6196,11 @@ def run_phases() -> int:
         if serving[0].poll() is None:
             serving[0].kill()
             serving[0].wait()
+    fam_ranks = fam_ranks.result()
     del served
     torch.cuda.empty_cache()
 
-    phase("[24/25] main path 17: sharded serving and its fault tolerance: "
+    phase("[24/26] main path 17: sharded serving and its fault tolerance: "
           "(a) qwen2-0.5b at full width and depth behind BatchScheduler "
           "through a (1, 1) ServeMesh over NCCL, a heartbeat flap absorbed; "
           "(b) 3 ranks on the card, a (1, 2) mesh plus a spare, fp32 and "
@@ -5567,7 +6211,7 @@ def run_phases() -> int:
     per_device_paged(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[25/25] main path 18: training on a mesh and the moe family on "
+    phase("[25/26] main path 18: training on a mesh and the moe family on "
           "a mesh: (a) qwen2-0.5b at full width and depth through "
           "Trainer(mesh=, state_shardings=) on a (1, 1) mesh over NCCL "
           "beside the unsharded Trainer; (b) 4 ranks on the card, "
@@ -5588,6 +6232,36 @@ def run_phases() -> int:
     per_device_flash(dev, smi)
     per_device_paged(dev, smi, kvh=8, g=1, dh=128, where="(d)",
                      what="qwen2-moe-a2.7b's per-device decode")
+    torch.cuda.empty_cache()
+
+    phase("[26/26] main path 19: the hybrid, xlstm and encdec families on "
+          "a mesh, and the dry run: (a) zamba2-1.2b and xlstm-350m at full "
+          "width and depth, seamless-m4t-medium at 12 + 12 layers, through "
+          "a (1, 1) ServeMesh over NCCL beside the unsharded engine, and "
+          "zamba2's Trainer(mesh=) on (1, 1); (b) 3 ranks on the card, each "
+          "family fp32 on a (1, 2) mesh plus a spare (generate, scheduler, "
+          "a hybrid kill re-meshed, one training step); (c) #5 and #1 at "
+          "the families' per-device shapes; (d) perfctr over the dry run's "
+          "zamba2 decode_32k cell, --execute on the card")
+    fam_launches = family_mesh_one_rank(dev, smi)
+    fam_rows = per_device_families(dev, smi)
+    # (b): the ranks ran in phase 23; the unsharded runs here; (d) alone
+    t0 = time.perf_counter()
+    fam_refs = family_mesh_refs(dev)
+    refs_secs = time.perf_counter() - t0
+    fam_mesh_launches = family_mesh_three_ranks(smi, fam_refs, *fam_ranks,
+                                                refs_secs)
+    torch.cuda.empty_cache()
+    dryrun_on_the_card(smi)
+    for r in fam_rows:
+        kernel, arch = r["name"].split("@")[0], r.pop("arch")
+        r["launches"] = fam_mesh_launches[
+            f"{arch}_mesh_generate_1x2_rank0"][kernel]
+        r["launches_by_path"] = {
+            p: c[kernel] for p, c in fam_mesh_launches.items()
+            if p.startswith(arch) and c.get(kernel)}
+        log(f"  {r['name']}: launches a rank {r['launches']} (phase 26 "
+            f"(b), rank 0's generate)")
     by_path = {"generate": gen_launches, "scheduler_int8": sched_launches,
                "zamba2_generate": zamba_launches,
                "sampled_generate": sampled_launches,
@@ -5604,7 +6278,8 @@ def run_phases() -> int:
                **moe_launches, **vlm_launches,
                "train_serve_ckpt": train_serve_launches,
                "mesh_scheduler_1x1": mesh_launches,
-               "moe_mesh_scheduler_int8_rank0": moe_mesh_launches}
+               "moe_mesh_scheduler_int8_rank0": moe_mesh_launches,
+               **fam_launches, **fam_mesh_launches}
     for r in rows:
         r["launches_by_path"] = (
             {"perfctr": r["launches"],
@@ -5612,6 +6287,7 @@ def run_phases() -> int:
             if r in case_rows else
             {p: c[r["name"]] for p, c in by_path.items()
              if c.get(r["name"])})
+    rows += fam_rows
 
     phase.stop()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -34,10 +34,20 @@ LAUNCHES            wrapper calls: kernel launches on the card, plain-
                     registry picks declares its work as ops, no launch)
 HBM_PEAK_BYTES      ``torch.cuda.max_memory_allocated`` over a measured
                     call (0 on the CPU)
+
+ICI_*_BYTES         a collective's wire bytes by kind (``AG`` all-gather,
+                    ``AR`` all-reduce, ``RS``, ``A2A``, ``CP`` point to
+                    point), the reference's ring model
+                    (:func:`wire_bytes`), and ICI_TOTAL_BYTES their sum
+ICI_*_COUNT         collectives by kind
 ==================  ======================================================
 
-Every other event of the JAX catalogue (collectives, fusion counts,
-remat duplicates) has no source here and reads 0.
+The collectives declare themselves (:func:`record_collective`, called by
+:class:`repro_torch.launch.mesh.MeshAxis` on every collective over more
+than one rank, and by the dry run's counting axes); the ``ICI`` names
+are the reference's, the link here is NVLink.  The other events of the
+JAX catalogue (fusion counts, remat duplicates) have no source here and
+read 0.
 """
 
 from __future__ import annotations
@@ -51,7 +61,8 @@ import torch
 
 __all__ = ["EventCounts", "DECLARED_EVENTS", "collect", "active",
            "record_launch", "record_ops", "record_launch_from",
-           "record_ops_from"]
+           "record_ops_from", "record_collective", "wire_bytes",
+           "COLLECTIVE_KINDS"]
 
 #: (flops, arg_bytes, out_bytes) of one call, from host values
 Model = Callable[..., Tuple[float, float, float]]
@@ -159,6 +170,43 @@ def record_ops(*, flops: float, arg_bytes: float, out_bytes: float,
     bytes count, it adds no launch."""
     for ev in _open():
         _add(ev.counts, flops, arg_bytes, out_bytes, f32)
+
+
+#: collective kind -> the short name of its ICI events
+COLLECTIVE_KINDS = {"all-gather": "AG", "all-reduce": "AR",
+                    "reduce-scatter": "RS", "all-to-all": "A2A",
+                    "collective-permute": "CP"}
+
+
+def wire_bytes(kind: str, result_bytes: int, group_size: int) -> int:
+    """Bytes one rank sends for one collective, the reference's ring model
+    (``repro/core/events.py``'s ``CollectiveOp.wire_bytes``): an
+    all-gather's (g-1)/g of its gathered result, an all-reduce's
+    2 (g-1)/g of its buffer, a reduce-scatter's (g-1) results, an
+    all-to-all's (g-1)/g, a point-to-point copy its whole buffer."""
+    g, b = max(int(group_size), 1), int(result_bytes)
+    if kind == "all-gather":
+        return b * (g - 1) // g
+    if kind == "all-reduce":
+        return 2 * b * (g - 1) // g
+    if kind == "reduce-scatter":
+        return b * (g - 1)
+    if kind == "all-to-all":
+        return b * (g - 1) // g
+    return b
+
+
+def record_collective(kind: str, result_bytes: int, group_size: int
+                      ) -> None:
+    """Declare one collective over ``group_size`` ranks whose result
+    buffer holds ``result_bytes``; a no-op when no collection is open."""
+    short = COLLECTIVE_KINDS[kind]
+    wire = wire_bytes(kind, result_bytes, group_size)
+    for ev in _open():
+        c = ev.counts
+        for k, v in ((f"ICI_{short}_BYTES", wire), (f"ICI_{short}_COUNT", 1),
+                     ("ICI_TOTAL_BYTES", wire)):
+            c[k] = c.get(k, 0.0) + v
 
 
 def record_launch_from(t: torch.Tensor, model: Model,

@@ -44,9 +44,11 @@ inputs from a seed, as the registry's tune probes do, or the cached time
 belongs to other data.  The function fingerprint hashes the source text
 plus a bounded repr of closure cells, as the reference's does.
 
-:meth:`sweep` keeps the reference's signature, but its default cell (a
-dry run of an (arch, shape) cell, ``launch/dryrun.run_cell``) is not
-ported (``ROADMAP.md``, item 14b): pass a ``cell_fn``.
+:meth:`sweep` keeps the reference's signature: its default cell is the
+dry run of an (arch, shape) cell (:func:`repro_torch.launch.dryrun.
+run_cell`, a shape-and-count walk of one rank on the ``meta`` device),
+each record stored whole under :meth:`cell_digest`, so a warm sweep
+walks nothing.
 """
 
 from __future__ import annotations
@@ -246,6 +248,14 @@ class ProfileSession:
         }
         return canonical_digest(material), material
 
+    def cell_digest(self, **cell_material) -> Tuple[str, Dict[str, Any]]:
+        """Digest for a whole dry-run cell record
+        (:func:`repro_torch.launch.dryrun.run_cell`)."""
+        material = {"kind": "dryrun-cell",
+                    "chip": (self.chip or hwinfo.H100_SXM).name,
+                    "toolchain": _toolchain(), **cell_material}
+        return canonical_digest(material), material
+
     @contextlib.contextmanager
     def _locked(self, digest: str):
         """Per-key lock: concurrent sweep workers never time the same
@@ -336,19 +346,22 @@ class ProfileSession:
         """Batched measurement: every (arch x shape) cell through a thread
         pool sharing this session's cache.
 
-        ``cell_fn(arch, shape) -> record`` is required: the reference's
-        default, ``launch/dryrun.run_cell``, is not ported (``ROADMAP.md``,
-        item 14b).  Per-group derived metrics are attached to each
+        ``cell_fn(arch, shape) -> record`` defaults to
+        :func:`repro_torch.launch.dryrun.run_cell` with this session
+        attached (record caching included); tests and custom drivers can
+        supply their own.  Per-group derived metrics are attached to each
         ``ok`` record that carries an event bag (and ``time_s``, when it
         has one).  Results come back in (arch-major, shape-minor) input
         order; a worker exception becomes a ``FAILED`` record, never an
         exception out of the sweep."""
-        del multi_pod, out_dir          # the dry run's options
         if cell_fn is None:
-            raise NotImplementedError(
-                "ProfileSession.sweep needs a cell_fn: its default, "
-                "launch/dryrun.run_cell, is not ported yet (ROADMAP.md, "
-                "item 14b: the dry run)")
+            from repro_torch.launch import dryrun
+
+            def cell_fn(arch: str, shape: str) -> Dict:
+                return dryrun.run_cell(arch, shape, multi_pod,
+                                       out_dir=out_dir, verbose=False,
+                                       session=self)
+
         cells = [(a, s) for a in archs for s in shapes]
         results: List[Optional[Dict]] = [None] * len(cells)
         with ThreadPoolExecutor(max_workers=max(1, parallel)) as ex:

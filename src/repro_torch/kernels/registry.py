@@ -147,7 +147,8 @@ import math
 import os
 import threading
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -164,7 +165,7 @@ from repro_torch.models.linear_scan import _chunked_linear_attention
 
 __all__ = [
     "KernelSpec", "TuneSpace", "TuneRecord", "register_impl",
-    "needs_grad",
+    "needs_grad", "tally",
     "register_family", "families", "impls", "get_spec", "describe",
     "use_impl", "parse_impl_spec", "override_for", "select", "run",
     "autotune", "best", "record", "clear_tune_table", "tune_table",
@@ -572,7 +573,23 @@ def run(family: str, *args, impl: Optional[str] = None, **kwargs):
     if impl is None:
         facts = fam.facts(*args, **kwargs) if fam.facts is not None else {}
         impl = select(family, **facts)
+    counts = getattr(_TLS, "tally", None)
+    if counts is not None:
+        counts[family] = counts.get(family, 0) + 1
     return get_spec(family, impl).fn(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[Dict[str, int]]:
+    """Count this thread's :func:`run` calls by family inside the block
+    (the dry run's launches by kernel family: each call is one kernel
+    launch on the card)."""
+    prev = getattr(_TLS, "tally", None)
+    _TLS.tally = counts = {}
+    try:
+        yield counts
+    finally:
+        _TLS.tally = prev
 
 
 # ---------------------------------------------------------------------------

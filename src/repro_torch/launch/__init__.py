@@ -1,1 +1,3 @@
-"""Launchers: ``python -m repro_torch.launch.serve``."""
+"""Launchers: ``python -m repro_torch.launch.<name>`` for ``serve``,
+``train``, ``dryrun``, ``roofline_report``, ``perfctr``, ``perf_report``,
+``topology``, ``pin`` and ``features``."""

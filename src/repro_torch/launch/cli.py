@@ -1,7 +1,11 @@
 """Shared CLI flags for the port's launchers.
 
-Copied from ``repro/launch/cli.py`` for what ``launch/serve.py`` and
-``launch/perf_report.py`` use:
+Copied from ``repro/launch/cli.py`` for what the launchers use: the
+serving and training launchers (``launch/serve.py``, ``launch/train.py``),
+the perf report (``launch/perf_report.py``) and the dry run's three
+(``launch/dryrun.py``, ``launch/roofline_report.py``,
+``launch/perfctr.py``: ``--impl``/``--tune``, ``--cache-dir``/
+``--no-cache``, ``--json``):
 
 * :func:`add_kv_args` — ``--kv-dtype {fp32,bf16,int8}`` and
   ``--no-prefix-cache`` over the paged KV cache (consume with

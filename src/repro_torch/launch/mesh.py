@@ -58,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import events
 from repro_torch.core import pin as pin_mod
 from repro_torch.core import topology as topo_mod
 
@@ -286,7 +287,8 @@ class _GatherOut(torch.autograd.Function):
 class MeshAxis:
     """This rank's line of the mesh along one axis: its process group,
     its size and this rank's index on it.  Over one rank every op is the
-    tensor itself.
+    tensor itself.  Each collective over more than one rank declares its
+    wire bytes (:func:`repro_torch.core.events.record_collective`).
 
     With no gradient to carry each op is the plain collective (the
     serving forward's cost).  Under autograd (grad mode on and an input
@@ -306,6 +308,8 @@ class MeshAxis:
         """The collective, in place on ``x`` where ``x`` is already on the
         wire (the serving forward's fresh partial sums), on a copy with
         ``fresh`` (an autograd input or gradient)."""
+        events.record_collective("all-reduce", x.numel() * x.element_size(),
+                                 self.size)
         w = _wire(x.contiguous())
         if fresh and w is x:
             w = w.clone()
@@ -314,6 +318,9 @@ class MeshAxis:
         return w.to(x.device) if w.device != x.device else w
 
     def _gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        events.record_collective(
+            "all-gather", x.numel() * x.element_size() * self.size,
+            self.size)
         w = _wire(x.contiguous())
         parts = [torch.empty_like(w) for _ in range(self.size)]
         dist.all_gather(parts, w, group=self.group)

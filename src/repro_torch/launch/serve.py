@@ -96,8 +96,9 @@ summary's ``launches`` counts the kernel wrappers' launches (#1 flash,
 #2 and #3 paged decode, #4 argmax) over the run.
 
 ``--mesh AxB`` serves sharded over a ``(data, model)`` mesh of ranks
-(``Engine(mesh=ServeMesh)``; the dense, moe and vlm families, the
-others raise citing item 14b): run it under ``torchrun
+(``Engine(mesh=ServeMesh)``; every family the scheduler serves, so
+not encdec, whose scheduler refusal is the reference's own): run it
+under ``torchrun
 --nproc-per-node N``, one rank a card over NCCL (``--device cpu``:
 gloo); with no torchrun environment and ``--mesh 1x1`` the process is a
 world of one.  Each rank builds (or restores

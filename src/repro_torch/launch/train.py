@@ -95,11 +95,6 @@ def main(argv=None) -> int:
             n_layers=max(int(cfg.n_layers * args.scale ** 0.5), 2))
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    from repro_torch.models.lm import KV_FAMILIES
-    if args.mesh and cfg.family not in KV_FAMILIES:
-        ap.error(f"--mesh: training the {cfg.family} family on a mesh is "
-                 f"not ported yet (ROADMAP.md, item 14b); the "
-                 f"{', '.join(KV_FAMILIES)} families are")
     try:
         feats = default_features().with_(remat_policy=args.remat)
     except ValueError as e:

@@ -16,12 +16,21 @@ kernel there either).  The encoder's self-attention goes through the
 registry's ``attention`` family (kernel #1 with ``causal=False`` on the
 card), where the JAX package runs plain array code: the route departs,
 the result does not.
+
+**Tensor parallelism** (``CrossAttnBlockConfig.tp``; the rank's config
+holds its heads, and ``d_ff / m`` under ``tp_mlp`` where the axis
+divides it).  Self-attention, cross-attention and the memory K/V split
+by heads (every rank projects its kv heads of the memory from the whole
+encoder output), the GELU MLP over ``d_ff`` (``w_up``, ``b_up`` column-
+parallel, ``w_down`` row-parallel); the row-parallel output bias
+``b_down`` is added once, after the reduce.  Under autograd every
+replicated tensor enters a split region through ``copy_in``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,13 +44,50 @@ from repro_torch.models.transformer import LayerNorm
 __all__ = ["CrossAttnBlockConfig", "GeluMLP", "EncoderBlock", "DecoderBlock",
            "cross_config", "cross_memory", "apply_encoder_block",
            "apply_decoder_block", "apply_decoder_block_prefill",
-           "apply_decoder_block_decode"]
+           "apply_decoder_block_decode", "encoder_block_specs",
+           "decoder_block_specs", "memory_specs"]
 
 
 class CrossAttnBlockConfig(NamedTuple):
     attn: AttnConfig              # self-attention config (causal: decoder)
     d_ff: int
     norm_eps: float = 1e-5
+    # tensor parallel (the rank's view): the model axis the heads split
+    # over, and the one d_ff splits over (None when it stays whole)
+    tp: Optional[Any] = None
+    tp_mlp: Optional[Any] = None
+
+
+def _ln_specs() -> dict:
+    return {"scale": ("act_embed",), "bias": ("act_embed",)}
+
+
+def _mlp_specs() -> dict:
+    return {"w_up": ("embed", "ff"), "b_up": ("ff",),
+            "w_down": ("ff", "embed"), "b_down": ("act_embed",)}
+
+
+def encoder_block_specs(cfg: CrossAttnBlockConfig) -> dict:
+    """Logical axes of one encoder block's weights (the reference's
+    ``encoder_block_specs``, ``repro/models/encdec.py:63-72``)."""
+    return {"ln1": _ln_specs(), "attn": attn_mod.attn_specs(cfg.attn),
+            "ln2": _ln_specs(), "mlp": _mlp_specs()}
+
+
+def decoder_block_specs(cfg: CrossAttnBlockConfig) -> dict:
+    """Logical axes of one decoder block's weights (the reference's
+    ``decoder_block_specs``, ``repro/models/encdec.py:110-121``)."""
+    return {"ln1": _ln_specs(), "attn": attn_mod.attn_specs(cfg.attn),
+            "ln_cross": _ln_specs(),
+            "cross": attn_mod.attn_specs(cfg.attn),
+            "ln2": _ln_specs(), "mlp": _mlp_specs()}
+
+
+def memory_specs() -> tuple:
+    """Logical axes of the cross memory's K and V (``repro/models/
+    encdec.py:131-133``)."""
+    return (("batch", "seq", "kv_heads", "head_dim"),
+            ("batch", "seq", "kv_heads", "head_dim"))
 
 
 def cross_config(cfg: CrossAttnBlockConfig) -> AttnConfig:
@@ -120,18 +166,34 @@ def _ln(x: torch.Tensor, ln: LayerNorm, cfg: CrossAttnBlockConfig
     return layer_norm(x, ln.scale, ln.bias, cfg.norm_eps)
 
 
+def _mlp(p: GeluMLP, x: torch.Tensor, cfg: CrossAttnBlockConfig
+         ) -> torch.Tensor:
+    """The GELU MLP; column- then row-parallel under ``cfg.tp_mlp``, its
+    output bias added once after the reduce."""
+    tp = cfg.tp_mlp
+    if tp is None:
+        return p(x)
+    y = gelu_mlp(tp.copy_in(x), p.w_up, p.b_up, p.w_down, None)
+    return tp.all_reduce(y) + cast(p.b_down, y.dtype)
+
+
 def apply_encoder_block(p: EncoderBlock, x: torch.Tensor,
                         cfg: CrossAttnBlockConfig) -> torch.Tensor:
     """One encoder block over x [B,S,d] (``cfg.attn.causal`` is False for
     the encoder)."""
-    h = x + attn_mod.attention(p.attn, _ln(x, p.ln1, cfg), cfg.attn)
-    return h + p.mlp(_ln(h, p.ln2, cfg))
+    h = x + attn_mod.attention(p.attn, _ln(x, p.ln1, cfg), cfg.attn,
+                               tp=cfg.tp)
+    return h + _mlp(p.mlp, _ln(h, p.ln2, cfg), cfg)
 
 
 def cross_memory(p_cross: attn_mod.Attention, enc_out: torch.Tensor,
-                 cfg: AttnConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                 cfg: AttnConfig, tp: Any = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder memory's K/V [B,S_src,KVH,Dh] for one decoder layer,
-    computed once a sequence (cached for decode)."""
+    computed once a sequence (cached for decode); on a model axis this
+    rank's kv heads, from the whole encoder output."""
+    if tp is not None:
+        enc_out = tp.copy_in(enc_out)
     b, s, d = enc_out.shape
     shape = (b, s, cfg.num_kv_heads, cfg.head_dim)
     dt = enc_out.dtype
@@ -141,15 +203,17 @@ def cross_memory(p_cross: attn_mod.Attention, enc_out: torch.Tensor,
 
 def _cross_attend(p_cross: attn_mod.Attention, x: torch.Tensor,
                   mem_k: torch.Tensor, mem_v: torch.Tensor,
-                  cfg: AttnConfig) -> torch.Tensor:
+                  cfg: AttnConfig, tp: Any = None) -> torch.Tensor:
     """Queries of x [B,S,d] over every memory position: no RoPE, no mask,
-    no bias."""
+    no bias; on a model axis this rank's heads, ``wo`` row-parallel."""
+    if tp is not None:
+        x = tp.copy_in(x)
     b, s, d = x.shape
     q = (x @ cast(p_cross.wq, x.dtype).reshape(d, -1)).view(
         b, s, cfg.num_heads, cfg.head_dim)
     out = attn_mod._full_attention_offset(
         q, mem_k.to(x.dtype), mem_v.to(x.dtype), 0, False, None)
-    return attn_mod._out_proj(p_cross, out)
+    return attn_mod._out_proj(p_cross, out, tp)
 
 
 def _decoder_tail(p: DecoderBlock, h: torch.Tensor, mem_k: torch.Tensor,
@@ -157,15 +221,16 @@ def _decoder_tail(p: DecoderBlock, h: torch.Tensor, mem_k: torch.Tensor,
                   ) -> torch.Tensor:
     """The cross-attention and FFN halves of a decoder block."""
     h = h + _cross_attend(p.cross, _ln(h, p.ln_cross, cfg), mem_k, mem_v,
-                          cfg.attn)
-    return h + p.mlp(_ln(h, p.ln2, cfg))
+                          cfg.attn, cfg.tp)
+    return h + _mlp(p.mlp, _ln(h, p.ln2, cfg), cfg)
 
 
 def apply_decoder_block(p: DecoderBlock, x: torch.Tensor,
                         mem_k: torch.Tensor, mem_v: torch.Tensor,
                         cfg: CrossAttnBlockConfig) -> torch.Tensor:
     """One decoder block over x [B,S,d] with no cache (the forward)."""
-    h = x + attn_mod.attention(p.attn, _ln(x, p.ln1, cfg), cfg.attn)
+    h = x + attn_mod.attention(p.attn, _ln(x, p.ln1, cfg), cfg.attn,
+                               tp=cfg.tp)
     return _decoder_tail(p, h, mem_k, mem_v, cfg)
 
 
@@ -177,7 +242,7 @@ def apply_decoder_block_prefill(p: DecoderBlock, x: torch.Tensor,
     ``cache`` (one layer's view, in place; ``LM._encdec_prefill``'s
     ``dec_one``, ``repro/models/lm.py:567-583``)."""
     a, new_cache = attn_mod.prefill_into_cache(
-        p.attn, _ln(x, p.ln1, cfg), cfg.attn, cache)
+        p.attn, _ln(x, p.ln1, cfg), cfg.attn, cache, tp=cfg.tp)
     return _decoder_tail(p, x + a, mem_k, mem_v, cfg), new_cache
 
 
@@ -187,5 +252,5 @@ def apply_decoder_block_decode(p: DecoderBlock, x: torch.Tensor,
                                ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode of a decoder block over its dense cache."""
     a, new_cache = attn_mod.decode_attention(
-        p.attn, _ln(x, p.ln1, cfg), cfg.attn, cache)
+        p.attn, _ln(x, p.ln1, cfg), cfg.attn, cache, tp=cfg.tp)
     return _decoder_tail(p, x + a, mem_k, mem_v, cfg), new_cache

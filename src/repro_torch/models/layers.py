@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +39,8 @@ import torch.nn.functional as F
 
 __all__ = ["ShardingRules", "DEFAULT_RULES", "logical_to_mesh",
            "spec_tree_to_pspecs", "shard_params_tree", "fit_spec",
-           "constrain",
+           "ModelSplit", "split_spec", "expand_split", "contract_split",
+           "whole_part_mask", "constrain",
            "embed_lookup", "cast", "truncated_normal_", "rms_norm",
            "layer_norm", "swiglu", "gelu_mlp", "rope_freqs", "apply_rope",
            "apply_mrope"]
@@ -187,6 +188,82 @@ def fit_spec(spec: Spec, full_shape: Sequence[int],
         out.append(None if not names else
                    names[0] if len(names) == 1 else names)
     return tuple(out)
+
+
+class ModelSplit(NamedTuple):
+    """How a rank's tensor-parallel module holds one leaf where that
+    departs from the derived spec: ``dim`` is the dim split over
+    ``model`` (None: the leaf is whole on every rank), made of ``parts``
+    concatenated, each ``(size, split)``: a split part gives each rank
+    its block, a whole part is on every rank.  Mamba2's ``in_proj``
+    columns ``[z | x | B | C | dt]`` hold ``z``, ``x`` and ``dt`` by heads
+    and ``B``, ``C`` whole, so a rank keeps ``[z_r | x_r | B | C |
+    dt_r]``."""
+
+    dim: Optional[int]
+    parts: Tuple[Tuple[int, bool], ...] = ()
+
+
+def split_spec(spec: Spec, split: ModelSplit) -> Spec:
+    """``spec`` with ``model`` moved to ``split.dim`` (or taken off)."""
+    out = [tuple(a for a in ((e,) if isinstance(e, str) else (e or ()))
+                 if a != "model") for e in spec]
+    if split.dim is not None:
+        if out[split.dim]:
+            raise ValueError(f"dim {split.dim} of {spec} splits over "
+                             f"{out[split.dim]} and model both")
+        out[split.dim] = ("model",)
+    return tuple(None if not e else e[0] if len(e) == 1 else e for e in out)
+
+
+def _part_pieces(x: torch.Tensor, split: ModelSplit):
+    """(piece, split) of each part along ``split.dim``."""
+    sizes = [n for n, _ in split.parts] or [x.shape[split.dim]]
+    flags = [s for _, s in split.parts] or [True]
+    return list(zip(x.split(sizes, dim=split.dim), flags))
+
+
+def expand_split(full: torch.Tensor, split: ModelSplit, m: int
+                 ) -> torch.Tensor:
+    """The whole leaf as the ``m`` ranks' blocks side by side along
+    ``split.dim`` (each rank's split parts, then its copy of the whole
+    ones, in part order), so that a contiguous cut over ``model`` gives
+    each rank its block.  The leaf itself when it has one part."""
+    if split.dim is None or len(split.parts) <= 1 or m == 1:
+        return full
+    pieces = _part_pieces(full, split)
+    return torch.cat([p.chunk(m, dim=split.dim)[r] if s else p
+                      for r in range(m) for p, s in pieces], dim=split.dim)
+
+
+def contract_split(blocks: torch.Tensor, split: ModelSplit, m: int
+                   ) -> torch.Tensor:
+    """The inverse of :func:`expand_split`: the ranks' blocks side by
+    side back into the whole leaf (a whole part from rank 0's block)."""
+    if split.dim is None or len(split.parts) <= 1 or m == 1:
+        return blocks
+    d = split.dim
+    local = ModelSplit(d, tuple((n // m if s else n, s)
+                                for n, s in split.parts))
+    per = [_part_pieces(b, local)
+           for b in blocks.chunk(m, dim=d)]
+    out = []
+    for j, (_, s) in enumerate(split.parts):
+        out.append(torch.cat([per[r][j][0] for r in range(m)], dim=d)
+                   if s else per[0][j][0])
+    return torch.cat(out, dim=d)
+
+
+def whole_part_mask(split: ModelSplit, m: int,
+                    local_shape: Sequence[int]) -> torch.Tensor:
+    """A 0/1 mask over a rank's block of a leaf split into ``parts``: 1
+    on its split parts, 0 on its copies of the whole parts (which count
+    once over the model axis, at index 0)."""
+    flags = torch.cat([torch.full((n // m if s else n,), float(s))
+                       for n, s in split.parts])
+    shape = [1] * len(local_shape)
+    shape[split.dim] = flags.numel()
+    return flags.view(shape)
 
 
 def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]],

@@ -66,28 +66,42 @@ every row), the K/V written into the cache, the dense engine's masked
 decode over its WHOLE ``[B, Smax, KVH, Dh]`` K and V buffers whatever the
 rows hold, the prefix-cache suffix prefill's gather of the table's pages,
 and the recurrent families' state (read and written).  So an event collection around
-a step counts the whole step, as the artifact does.
+a step counts the whole step, as the artifact does.  :meth:`LM.loss`
+declares a training step's model (:meth:`LM._declare_train`): three
+times its forward's FLOPs (PaLM's count: the GEMMs over every token,
+the head, each self-attention's full ``S x S`` and the MoE's capacity),
+four with ``remat_policy="full"`` (the recomputed forward), every
+weight read three times and its gradient written once; activations are
+not counted.
 
-**Tensor parallelism** (``LM(..., tp=axis)``; the dense, moe and vlm
-families, every family whose blocks are :class:`~repro_torch.models.
-transformer.Block`).  The JAX package shards one LM's arrays over a mesh
-and lets GSPMD partition its programs.  The port builds, on each rank of
-the mesh, an LM of the rank's blocks: ``tp`` is the rank's model axis
+**Tensor parallelism** (``LM(..., tp=axis)``; every family).  The JAX
+package shards one LM's arrays over a mesh and lets GSPMD partition its
+programs.  The port builds, on each rank of the mesh, an LM of the rank's
+blocks: ``tp`` is the rank's model axis
 (:class:`repro_torch.launch.mesh.ModelAxis`), the heads of ``wq``/``wk``/
 ``wv`` (and ``bq``/``bk``/``bv``) and of ``wo`` split over it, and so do
 ``d_ff``, ``vocab``, the MoE's experts and its shared expert's width
 where they divide (the divisibility guard of
 :func:`~repro_torch.models.layers.logical_to_mesh`; the heads always do,
-as the engine refuses a ``num_kv_heads`` the axis does not divide).  The
-rank's configs carry its head counts, so the kernels get local tensors
-(#1 and #2/#3 at ``num_kv_heads / m`` kv heads, G unchanged); the reduces
-after ``wo`` and after the MLP (the MoE's one reduce sums its experts and
-its shared expert), the vocab-parallel lookup and the gathered logits (so
-sampling and kernel #4 see whole rows) are the communication.  M-RoPE's
-sections split ``head_dim``, which no rule shards, so they survive the
-head split.  ``cfg`` stays the whole model's config;
-:meth:`LM.block_config` is the rank's.  :meth:`LM.param_specs` names
-every weight's logical axes (``repro/models/lm.py:207-237``).
+as the LM refuses a head count the axis does not divide).  The rank's
+configs carry its head counts (:meth:`LM.block_config`,
+:meth:`LM.mamba_config`, :meth:`LM.xlstm_config`, :meth:`LM.encdec_config`),
+so the kernels get local tensors (#1 and #2/#3 at ``num_kv_heads / m`` kv
+heads, G unchanged; #5 at ``H / m`` heads); the reduces after each
+row-parallel product, the vocab-parallel lookup and the gathered logits
+(so sampling and kernel #4 see whole rows) are the communication.
+M-RoPE's sections split ``head_dim``, which no rule shards, so they
+survive the head split.  The hybrid's Mamba2 blocks split by heads (the
+gated RMSNorm's sum of squares reduced over the axis) and its one shared
+block as a transformer block, at each of its applications; the xlstm's
+mLSTM by heads and its sLSTM only in its FFN (the recurrence stays whole
+on every rank, :mod:`repro_torch.models.xlstm`); the encdec's encoder,
+decoder, cross-attention and memory by heads.  Where a rank's layout
+departs from the derived spec's contiguous cut (Mamba2's concatenated
+``in_proj``, the mLSTM's heads), :meth:`LM.model_splits` says how, and
+the engine and the trainer cut and join those leaves by it.  ``cfg``
+stays the whole model's config.  :meth:`LM.param_specs` names every
+weight's logical axes (``repro/models/lm.py:207-237``).
 
 **Training on a mesh.**  The collectives carry gradients in Megatron's
 pattern (:class:`repro_torch.launch.mesh.MeshAxis`): every replicated
@@ -102,8 +116,7 @@ global batch's.  Under a split vocab the loss never gathers the logits:
 the cross entropy is vocab-parallel (the row max, the sum of
 exponentials and the gold logit, each reduced over ``model``), where a
 gather would make 2.5 GB of fp32 logits a rank at 8 x 512 tokens and
-vocab 151936.  ``generate`` keeps its gathered logits.  The hybrid,
-xlstm and encdec families under a mesh are item 14b.
+vocab 151936.  ``generate`` keeps its gathered logits.
 """
 
 from __future__ import annotations
@@ -126,8 +139,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import AttnConfig, KVCache
-from repro_torch.models.layers import (DEFAULT_RULES, ShardingRules, cast,
-                                      embed_lookup, layer_norm,
+from repro_torch.models.layers import (DEFAULT_RULES, ModelSplit,
+                                      ShardingRules, cast, contract_split,
+                                      embed_lookup, expand_split, fit_spec,
+                                      layer_norm, split_spec,
                                       spec_tree_to_pspecs, truncated_normal_)
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import Mamba2Config
@@ -190,6 +205,11 @@ class LMConfig:
 
     # ------------------------------------------------------------ derived
     @property
+    def sub_quadratic(self) -> bool:
+        """Whether long_500k decode is O(1)-state (xlstm/hybrid)."""
+        return self.family in ("xlstm", "hybrid")
+
+    @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
@@ -243,6 +263,25 @@ def _hybrid_groups(n_layers: int, every: int):
     return out
 
 
+def _split_heads(cfg: LMConfig) -> Dict[str, int]:
+    """The head counts a model axis must divide, by family."""
+    if cfg.family == "xlstm":
+        return {"num_heads": cfg.num_heads}
+    out = {"num_kv_heads": cfg.num_kv_heads}
+    if cfg.family == "hybrid":
+        out["ssm heads"] = cfg.mamba_config().num_heads
+    return out
+
+
+def _flat(tree: Dict[str, Any], prefix: str = ""):
+    """(dotted path, leaf) of a nested spec tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
 class Embed(nn.Module):
     def __init__(self, vocab: int, d: int, dtype: torch.dtype,
                  device: torch.device):
@@ -282,16 +321,12 @@ class LM(nn.Module):
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; families: "
                              f"{PORTED_FAMILIES}")
-        if (tp is not None or dp is not None) and (
-                cfg.family not in KV_FAMILIES):
-            raise NotImplementedError(
-                f"the {cfg.family} family on a mesh is not ported yet "
-                f"(ROADMAP.md, item 14b); the {', '.join(KV_FAMILIES)} "
-                f"families are")
-        if tp is not None and cfg.num_kv_heads % tp.size:
-            raise ValueError(
-                f"num_kv_heads={cfg.num_kv_heads} does not divide over the "
-                f"model axis ({tp.size} ranks)")
+        if tp is not None:
+            for what, n in _split_heads(cfg).items():
+                if n % tp.size:
+                    raise ValueError(
+                        f"{what}={n} does not divide over the model axis "
+                        f"({tp.size} ranks)")
         self.cfg = cfg
         self.dtype = dtype
         self.param_dtype = param_dtype or dtype
@@ -309,19 +344,19 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = LMHead(cfg.d_model, vocab, dtype, dev)
         if cfg.family == "xlstm":
-            xc = cfg.xlstm_config()
+            xc = self.xlstm_config()
             n_pairs = cfg.n_layers // 2
             self.mlstm = nn.ModuleList(xlstm_mod.MLSTMBlock(xc, dtype, dev)
                                        for _ in range(n_pairs))
             self.slstm = nn.ModuleList(xlstm_mod.SLSTMBlock(xc, dtype, dev)
                                        for _ in range(n_pairs))
         elif cfg.family == "hybrid":
-            mc = cfg.mamba_config()
+            mc = self.mamba_config()
             self.mamba = nn.ModuleList(ssm_mod.Mamba2Block(mc, dtype, dev)
                                        for _ in range(cfg.n_layers))
             self.shared_attn = tf_mod.Block(bc, dtype, dev)
         elif cfg.family == "encdec":
-            ec = cfg.encdec_config()
+            ec = self.encdec_config()
             enc_cfg = ec._replace(attn=ec.attn._replace(causal=False))
             self.encoder = nn.ModuleList(
                 encdec_mod.EncoderBlock(enc_cfg, dtype, dev)
@@ -361,28 +396,110 @@ class LM(nn.Module):
                                tp_mlp=tp)
         return bc._replace(attn=attn, tp=tp)
 
+    def mamba_config(self) -> Mamba2Config:
+        """The Mamba2 config this rank computes (its heads on a model
+        axis)."""
+        return self.cfg.mamba_config()._replace(tp=self.tp)
+
+    def xlstm_config(self) -> XLSTMConfig:
+        """The xLSTM config this rank computes: the mLSTM's heads on a
+        model axis, and the sLSTM's FFN where the axis divides it."""
+        xc = self.cfg.xlstm_config()
+        return xc._replace(tp=self.tp,
+                           tp_ff=self.tp if self._split(xc.d_ff) else None)
+
+    def encdec_config(self) -> encdec_mod.CrossAttnBlockConfig:
+        """The encoder/decoder block config this rank computes."""
+        bc = self.block_config()
+        return self.cfg.encdec_config()._replace(
+            attn=bc.attn, d_ff=bc.d_ff, tp=bc.tp,
+            tp_mlp=self.tp if bc.tp_mlp is not None else None)
+
     def param_specs(self) -> Dict[str, Tuple[str, ...]]:
         """Every weight's logical axes, keyed by parameter name (the
-        reference's ``param_specs`` tree, one :func:`~repro_torch.models.
-        transformer.block_specs` a layer where the JAX package stacks
-        them).  The dense, moe and vlm block layout; the hybrid, xlstm
-        and encdec families' specs are item 14b."""
+        reference's ``param_specs`` tree, ``repro/models/lm.py:207-235``,
+        one block's specs a layer where the JAX package stacks them)."""
         cfg = self.cfg
-        if cfg.family not in KV_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family} family's sharding specs are not ported "
-                f"yet (ROADMAP.md, item 14b)")
         norm = (("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias"))
         out: Dict[str, Tuple[str, ...]] = {"embed.table": ("vocab", "embed")}
         out.update({f"final_norm.{k}": ("act_embed",) for k in norm})
         if not cfg.tie_embeddings:
             out["lm_head.w"] = ("embed", "vocab")
-        one = tf_mod.block_specs(cfg.block_config())
-        for i in range(cfg.n_layers):
-            for mod, leaves in one.items():
-                out.update({f"blocks.{i}.{mod}.{k}": v
-                            for k, v in leaves.items()})
+
+        def put(prefix: str, tree: Dict[str, Any], n: Optional[int] = None):
+            for i in (range(n) if n is not None else (None,)):
+                head = prefix if i is None else f"{prefix}.{i}"
+                for path, spec in _flat(tree):
+                    out[f"{head}.{path}"] = spec
+
+        fam = cfg.family
+        if fam in KV_FAMILIES:
+            put("blocks", tf_mod.block_specs(cfg.block_config()),
+                cfg.n_layers)
+        elif fam == "xlstm":
+            xc = cfg.xlstm_config()
+            put("mlstm", xlstm_mod.mlstm_block_specs(xc), cfg.n_layers // 2)
+            put("slstm", xlstm_mod.slstm_block_specs(xc), cfg.n_layers // 2)
+        elif fam == "hybrid":
+            put("mamba", ssm_mod.mamba2_block_specs(cfg.mamba_config()),
+                cfg.n_layers)
+            put("shared_attn", tf_mod.block_specs(cfg.block_config()))
+        else:                                       # encdec
+            ec = cfg.encdec_config()
+            put("encoder", encdec_mod.encoder_block_specs(ec),
+                cfg.enc_layers or cfg.n_layers)
+            put("decoder", encdec_mod.decoder_block_specs(ec), cfg.n_layers)
+            out["enc_final_norm.scale"] = ("act_embed",)
+            out["enc_final_norm.bias"] = ("act_embed",)
         return out
+
+    def model_splits(self) -> Dict[str, ModelSplit]:
+        """The leaves this rank holds other than the derived spec's
+        contiguous cut on the model axis (Mamba2's ``in_proj`` and conv,
+        the mLSTM's head-split leaves), keyed by parameter name; empty
+        without a model axis.  Every other leaf is the derived spec's
+        block, or whole where the rank keeps it whole (:meth:`rank_pspecs`)."""
+        cfg = self.cfg
+        if self.tp is None or cfg.family not in ("hybrid", "xlstm"):
+            return {}
+        if cfg.family == "hybrid":
+            one, prefix, n = (ssm_mod.tp_splits(cfg.mamba_config()),
+                              "mamba", cfg.n_layers)
+        else:
+            one, prefix, n = (xlstm_mod.mlstm_tp_splits(cfg.xlstm_config()),
+                              "mlstm", cfg.n_layers // 2)
+        return {f"{prefix}.{i}.{k}": v for i in range(n)
+                for k, v in one.items()}
+
+    def rank_pspecs(self, pspecs: Dict[str, Any],
+                    full_shapes: Dict[str, Any]) -> Dict[str, Any]:
+        """The layout this rank really keeps, from the whole model's
+        derived specs ``pspecs``: a leaf of :meth:`model_splits` split on
+        its own dim, a leaf the rank holds whole (the MoE router, the
+        sLSTM recurrence, a width the axis does not divide) without
+        ``model`` (:func:`~repro_torch.models.layers.fit_spec`)."""
+        splits = self.model_splits()
+        local = dict(self.named_parameters())
+        return {k: (split_spec(v, splits[k]) if k in splits
+                    else fit_spec(v, full_shapes[k].shape, local[k].shape))
+                for k, v in pspecs.items()}
+
+    def expand_splits(self, tree: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Whole leaves with each of :meth:`model_splits` laid out as the
+        ranks' blocks side by side (:func:`~repro_torch.models.layers.
+        expand_split`), so a contiguous cut by :meth:`rank_pspecs` gives
+        this rank its block; :meth:`contract_splits` undoes it."""
+        splits, m = self.model_splits(), self.tp.size if self.tp else 1
+        return {k: expand_split(v, splits[k], m) if k in splits else v
+                for k, v in tree.items()}
+
+    def contract_splits(self, tree: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """The inverse of :meth:`expand_splits`."""
+        splits, m = self.model_splits(), self.tp.size if self.tp else 1
+        return {k: contract_split(v, splits[k], m) if k in splits else v
+                for k, v in tree.items()}
 
     def param_pspecs(self, mesh: Any, params_shape: Optional[Dict[str, Any]]
                      = None, rules: Optional[ShardingRules] = None
@@ -502,7 +619,7 @@ class LM(nn.Module):
                                       feats, positions3=pos3)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if fam == "xlstm":
-            xc = cfg.xlstm_config()
+            xc = self.xlstm_config()
 
             def pair(ms, h):
                 h = xlstm_mod.apply_mlstm_block(ms[0], h, xc)
@@ -511,7 +628,7 @@ class LM(nn.Module):
             return tf_mod.apply_layers(list(zip(self.mlstm, self.slstm)), x,
                                        pair, feats)
         if fam == "hybrid":
-            mc, bc = cfg.mamba_config(), cfg.block_config()
+            mc, bc = self.mamba_config(), self.block_config()
             aux = zero
             for lo, hi in _hybrid_groups(cfg.n_layers, cfg.attn_every):
                 x, a = tf_mod.apply_layers(
@@ -521,7 +638,7 @@ class LM(nn.Module):
                 x, a2 = tf_mod.apply_block(self.shared_attn, x, bc)
                 aux = aux + a + a2
             return x, aux
-        ec = cfg.encdec_config()                    # encdec
+        ec = self.encdec_config()                    # encdec
         enc_cfg = ec._replace(attn=ec.attn._replace(causal=False))
         mem, _ = tf_mod.apply_layers(
             self.encoder, batch["src_embeds"].to(self.dtype),
@@ -531,7 +648,8 @@ class LM(nn.Module):
         mem = layer_norm(mem, ln.scale, ln.bias, cfg.norm_eps)
 
         def dec_one(p, h):
-            mk, mv = encdec_mod.cross_memory(p.cross, mem, ec.attn)
+            mk, mv = encdec_mod.cross_memory(p.cross, mem, ec.attn,
+                                             ec.tp)
             return encdec_mod.apply_decoder_block(p, h, mk, mv, ec), zero
 
         x, _ = tf_mod.apply_layers(self.decoder, x, dec_one, feats)
@@ -551,6 +669,8 @@ class LM(nn.Module):
         entropy over labels ``>= 0`` (fp32) plus the aux loss; under a
         data axis the mean over the global batch (see the module
         note)."""
+        if events.active():
+            self._declare_train(batch)
         x = self._embed(batch["tokens"], batch.get("patch_embeds"))
         h, aux = self._backbone(x, batch)
         logits = self._head(h, gather=False).float()
@@ -598,7 +718,7 @@ class LM(nn.Module):
             raise ValueError("kv_dtype needs a paged KV cache "
                              "(page_size > 0)")
         if cfg.family == "xlstm":
-            xc, pairs = cfg.xlstm_config(), cfg.n_layers // 2
+            xc, pairs = self.xlstm_config(), cfg.n_layers // 2
             return {"mlstm": xlstm_mod.init_mlstm_state(
                         batch_size, xc, self.device, layers=pairs),
                     "slstm": xlstm_mod.init_slstm_state(
@@ -606,7 +726,7 @@ class LM(nn.Module):
         if cfg.family == "hybrid":
             groups = _hybrid_groups(cfg.n_layers, cfg.attn_every)
             return {"mamba": ssm_mod.init_mamba2_state(
-                        batch_size, cfg.mamba_config(), self.device,
+                        batch_size, self.mamba_config(), self.device,
                         layers=cfg.n_layers),
                     "attn_caches": attn_mod.init_kv_cache(
                         batch_size, max_seq, ac, self.dtype, self.device,
@@ -862,6 +982,36 @@ class LM(nn.Module):
         events.record_ops(flops=flops, arg_bytes=arg, out_bytes=out,
                           f32=self.dtype == torch.float32)
 
+    def _declare_train(self, batch: Dict[str, torch.Tensor]) -> None:
+        """Declare one training step's model over ``batch`` (see the
+        module note): no launch, its FLOPs and bytes, from shapes only."""
+        cfg = self.cfg
+        b, s = batch["tokens"].shape
+        t = b * s
+        ac = self.block_config().attn
+        elems, wbytes, hbytes = self._weight_model
+        fwd = 2.0 * (t * elems + t * cfg.d_model * self.local_vocab)
+        arg = wbytes + hbytes
+        # (query, key) pairs over the self-attention applications
+        pairs = s * s * {"xlstm": 0, "hybrid": len(_hybrid_groups(
+            cfg.n_layers, cfg.attn_every))}.get(cfg.family, cfg.n_layers)
+        if cfg.family == "encdec":                  # + encoder and cross
+            src = batch["src_embeds"].shape[1]
+            s_elems, s_bytes = self._source_weights
+            fwd += 2.0 * b * src * s_elems
+            arg += s_bytes
+            pairs += ((cfg.enc_layers or cfg.n_layers) * src * src
+                      + cfg.n_layers * s * src)
+        fwd += 4.0 * b * ac.num_heads * ac.head_dim * pairs
+        if cfg.family == "moe":
+            fwd += self._moe_ops(t)[0]
+        passes = 4.0 if self.features.remat_policy == "full" else 3.0
+        isz = self.embed.table.element_size()
+        events.record_ops(
+            flops=passes * fwd,
+            arg_bytes=3 * arg + t * (cfg.d_model * isz + 8),
+            out_bytes=arg, f32=self.dtype == torch.float32)
+
     def _encdec_prefill(self, x: torch.Tensor, src: torch.Tensor,
                         state: State) -> Tuple[torch.Tensor, State]:
         """The encdec prefill (``repro/models/lm.py:548-591``): the source
@@ -870,7 +1020,7 @@ class LM(nn.Module):
         its self-attention K/V written into the dense caches (in place).
         The returned state carries the new memory."""
         cfg = self.cfg
-        ec = cfg.encdec_config()
+        ec = self.encdec_config()
         enc_cfg = ec._replace(attn=ec.attn._replace(causal=False))
         mem = src.to(self.dtype)
         for blk in self.encoder:
@@ -880,7 +1030,8 @@ class LM(nn.Module):
         new = caches
         mem_k, mem_v = [], []
         for i, blk in enumerate(self.decoder):
-            mk, mv = encdec_mod.cross_memory(blk.cross, mem, ec.attn)
+            mk, mv = encdec_mod.cross_memory(blk.cross, mem, ec.attn,
+                                             ec.tp)
             x, new = encdec_mod.apply_decoder_block_prefill(
                 blk, x, mk, mv, tf_mod._dense_layer(caches, i), ec)
             mem_k.append(mk)
@@ -892,7 +1043,7 @@ class LM(nn.Module):
                        ) -> Tuple[torch.Tensor, State]:
         """One token through every decoder layer: dense self-attention
         decode, then cross-attention over the layer's memory."""
-        ec = self.cfg.encdec_config()
+        ec = self.encdec_config()
         caches: KVCache = state["caches"]
         new = caches
         for i, blk in enumerate(self.decoder):
@@ -926,7 +1077,7 @@ class LM(nn.Module):
         """The xlstm backbone over a segment (prefill) or one token: each
         mLSTM/sLSTM pair in turn, from and into that pair's slice of the
         state.  The state is updated IN PLACE, pair by pair."""
-        xc = self.cfg.xlstm_config()
+        xc = self.xlstm_config()
         C, n = state["mlstm"]
         sc = state["slstm"]
         for i, (mp, sp) in enumerate(zip(self.mlstm, self.slstm)):
@@ -951,7 +1102,7 @@ class LM(nn.Module):
         KV cache.  The state is updated IN PLACE, layer by layer; the
         returned state carries the caches' new length."""
         cfg = self.cfg
-        mc, bc = cfg.mamba_config(), cfg.block_config()
+        mc, bc = self.mamba_config(), self.block_config()
         ms = state["mamba"]
         C, n = ms["ssd"]
         conv = ms["conv"]

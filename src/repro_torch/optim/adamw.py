@@ -95,11 +95,11 @@ def global_norm(tree: Any, layout: Any = None,
         leaves = list(tree.values())
     else:
         leaves = list(tree)
-    norms = torch._foreach_norm(leaves, 2, dtype=torch.float64)
-    sq = torch.stack(norms).square()
     if layout is not None:
+        sq = layout.sq_norms(names, leaves)
         return layout.over_splits(names, sq, "sum").sum().sqrt().float()
-    return sq.sum().sqrt().float()
+    norms = torch._foreach_norm(leaves, 2, dtype=torch.float64)
+    return torch.stack(norms).square().sum().sqrt().float()
 
 
 def decays(name: str, p: torch.Tensor) -> bool:

@@ -104,8 +104,7 @@ an encdec model is refused by :class:`BatchScheduler` up front
 (:func:`check_schedulable`), where the JAX scheduler fails at its first
 admission.
 
-**Sharded serving** (``Engine(..., mesh=)``; the dense, moe and vlm
-families;
+**Sharded serving** (``Engine(..., mesh=)``; every family;
 ``repro/serve/engine.py:176-216``, ``:358-443``).  ``mesh`` is a bare
 ``DeviceMesh`` with a ``model`` axis (sharding only) or a
 :class:`repro_torch.launch.mesh.ServeMesh` (sharding plus the topology,
@@ -148,9 +147,14 @@ departures of mechanism (``ROADMAP.md``, queue 3):
 
 An moe model's experts split over the model axis with its heads (a
 re-mesh reloads a rank's experts from its host copy like any other
-block); the router stays whole on every rank.  The hybrid, xlstm and
-encdec families under a mesh are item 14b; spec on a sharded engine is
-refused by the reference too.
+block); the router stays whole on every rank.  The recurrent families'
+states split by heads as their blocks do (the hybrid's SSD state, conv
+tail and shared-block KV, the mLSTM's ``C``/``n``; the sLSTM's ``c``,
+``n``, ``h`` stay whole, as its recurrence does), and a re-mesh moves
+them point to point like a KV slice; the encdec family serves sharded
+through :meth:`Engine.generate` (its scheduler refusal is the
+reference's own limit).  Spec on a sharded engine is refused by the
+reference too.
 """
 
 from __future__ import annotations
@@ -342,11 +346,6 @@ class Engine:
                     f"num_kv_heads={lm.cfg.num_kv_heads} does not divide "
                     f"over the model axis ({msize} devices) — KV-head "
                     f"sharding needs whole head slices per device")
-            if lm.cfg.family not in MASKED_FAMILIES:
-                raise NotImplementedError(
-                    f"sharded serving of the {lm.cfg.family} family is not "
-                    f"ported yet (ROADMAP.md, item 14b); the "
-                    f"{', '.join(MASKED_FAMILIES)} families are")
             if spec is not None:
                 raise ValueError(
                     "speculative decoding on a sharded engine is not "
@@ -501,16 +500,16 @@ class Engine:
                       ) -> Optional[Dict[str, torch.Tensor]]:
         """This rank's blocks of full weights ``params`` (keyed by
         parameter name) on the engine's device, each cut as the rank's
-        shard holds it (:func:`~repro_torch.models.layers.fit_spec`: the
-        MoE router whole); None off the mesh."""
+        shard holds it (``LM.rank_pspecs``: the MoE router and the sLSTM
+        recurrence whole, Mamba2's ``in_proj`` and the mLSTM by heads);
+        None off the mesh."""
         from repro_torch.ft.elastic import reshard_tree
-        from repro_torch.models.layers import fit_spec, spec_tree_to_pspecs
+        from repro_torch.models.layers import spec_tree_to_pspecs
         pspecs = spec_tree_to_pspecs(self.full_lm.param_specs(), SERVE_RULES,
                                      self.mesh, shapes=params)
-        local = dict(self._shard.named_parameters())
-        pspecs = {k: fit_spec(v, params[k].shape, local[k].shape)
-                  for k, v in pspecs.items()}
-        return reshard_tree(params, pspecs, self.mesh, self.device)
+        return reshard_tree(self._shard.expand_splits(params),
+                            self._shard.rank_pspecs(pspecs, params),
+                            self.mesh, self.device)
 
     def _enter_mesh(self, axis: Any, load: bool) -> None:
         """Take this rank's place in ``self.mesh``: its model axis, and

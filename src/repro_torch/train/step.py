@@ -120,15 +120,16 @@ class StateLayout:
 
     ``lm`` is the rank's tensor-parallel LM on its device; ``specs`` the
     params' specs over the whole model (``train_state_pspecs(...).
-    params``), fit here to what ``lm`` holds (a leaf the LM keeps whole
-    on the model axis, the MoE router, is kept whole in the state too);
-    ``full_shapes`` the whole model's parameters (anything with a
-    ``.shape``), keyed by name."""
+    params``), fit here to what ``lm`` holds (``LM.rank_pspecs``: a leaf
+    the LM keeps whole on the model axis, the MoE router or the sLSTM
+    recurrence, is kept whole in the state too; Mamba2's ``in_proj`` and
+    the mLSTM's leaves are cut by heads, ``LM.model_splits``, through
+    ``LM.expand_splits``/``contract_splits``); ``full_shapes`` the whole
+    model's parameters (anything with a ``.shape``), keyed by name."""
 
     def __init__(self, lm: LM, specs: Mapping[str, Any], mesh: Any,
                  full_shapes: Mapping[str, Any]):
         from repro_torch.launch import mesh as mesh_mod
-        from repro_torch.models.layers import fit_spec
         self.lm = lm
         self.names, self.sizes = mesh_mod.mesh_layout(mesh)
         self.coord = mesh_mod.mesh_coordinate(mesh)
@@ -137,9 +138,9 @@ class StateLayout:
                              "rank of a training world holds a slice")
         self.axes = {a: mesh_mod.axis_of(mesh, a) for a in self.names}
         self.compute = dict(lm.named_parameters())
-        self.specs = {k: fit_spec(specs[k], full_shapes[k].shape,
-                                  p.shape)
-                      for k, p in self.compute.items()}
+        self.specs = lm.rank_pspecs({k: specs[k] for k in self.compute},
+                                    full_shapes)
+        self.splits = lm.model_splits()
         for k, p in self.compute.items():
             whole = torch.empty(full_shapes[k].shape, device="meta")
             want = tuple(self.cut(k, whole, skip=("data",)).shape)
@@ -159,12 +160,14 @@ class StateLayout:
 
     def cut(self, name: str, full: torch.Tensor,
             skip: Sequence[str] = ()) -> torch.Tensor:
-        """This rank's slice of the whole leaf ``full`` (a model-axis
+        """This rank's slice of the whole leaf ``full`` (of a model-axis
         block with ``skip=("model",)``)."""
         from repro_torch.ft.elastic import local_slice
         spec = self.specs[name]
         for a in skip:
             spec = _drop(spec, a)
+        if "model" not in skip and name in self.splits:
+            full = self.lm.expand_splits({name: full})[name]
         return local_slice(full, spec, self.names, self.sizes, self.coord)
 
     def init_params(self, full: Mapping[str, torch.Tensor]
@@ -243,7 +246,24 @@ class StateLayout:
                for k, t in tree.items()}
         if first and any(self.coord):
             return None
-        return {k: v.cpu() for k, v in out.items()}
+        return self.lm.contract_splits({k: v.cpu() for k, v in out.items()})
+
+    def sq_norms(self, names: Sequence[str],
+                 leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Each slice's sum of squares (fp64), a leaf of
+        :meth:`LM.model_splits` counting its copies of the whole parts
+        only at model index 0, so :meth:`over_splits` sums every element
+        of the whole leaf once."""
+        from repro_torch.models.layers import whole_part_mask
+        tp = self.lm.tp
+        out = []
+        for k, t in zip(names, leaves):
+            sp = self.splits.get(k)
+            if sp is not None and len(sp.parts) > 1 and tp.index:
+                t = t * whole_part_mask(sp, tp.size, t.shape).to(t.device)
+            out.append(t)
+        return torch.stack(torch._foreach_norm(out, 2,
+                                               dtype=torch.float64)).square()
 
 
 def _grads(lm: LM, params: Dict[str, torch.Tensor], batch: Batch

@@ -108,12 +108,6 @@ class Trainer:
         data configs of the rank's rows (one a microbatch when they
         interleave, see the module note)."""
         from repro_torch.launch import mesh as mesh_mod
-        from repro_torch.models.lm import KV_FAMILIES
-        if lm.cfg.family not in KV_FAMILIES:
-            raise NotImplementedError(
-                f"training the {lm.cfg.family} family on a mesh is not "
-                f"ported yet (ROADMAP.md, item 14b); the "
-                f"{', '.join(KV_FAMILIES)} families are")
         if lm.device.type != "cpu":
             raise ValueError(
                 f"a sharded trainer takes the full LM as its host copy on "

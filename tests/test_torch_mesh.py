@@ -339,8 +339,10 @@ def test_param_specs_and_pspecs_match_jax():
     from repro.models import transformer as jtf
     assert tf.stacked_specs(tf.block_specs(SMOKE.block_config())) == \
         jtf.stacked_specs(jtf.block_specs(JAX_SMOKE.block_config()))
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        LM(get_arch("xlstm-350m").smoke, torch.float32, "cpu").param_specs()
+    # every family has specs now (tests/test_torch_family_mesh.py); an
+    # unknown family is refused before any spec is asked for
+    with pytest.raises(ValueError, match="unknown family"):
+        LM(dataclasses.replace(SMOKE, family="rnn"), torch.float32, "cpu")
 
 
 def test_constrain_resolves_its_spec_and_returns_x():
@@ -418,18 +420,19 @@ def test_sharded_lm_holds_the_rank_sizes():
         cfg.d_ff % 2 == 0)
     st = lm.init_decode_state(2, 32, page_size=8)
     assert st["caches"].k_pages.shape[-2] == cfg.num_kv_heads // 2
-    # the moe and vlm families shard too (their pieces:
-    # tests/test_torch_moe_mesh.py); the hybrid family is item 14b's
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    # every family shards (tests/test_torch_moe_mesh.py,
+    # tests/test_torch_family_mesh.py); a head count the model axis does
+    # not divide is refused, the hybrid's kv heads first
+    with pytest.raises(ValueError, match="num_kv_heads=4 does not divide"):
         LM(get_arch("zamba2-1.2b").smoke, torch.float32, "cpu",
-           tp=_Axis(2, 0))
+           tp=_Axis(3, 0))
     with pytest.raises(ValueError, match="num_kv_heads"):
         LM(cfg, torch.float32, "cpu", tp=_Axis(3, 0))
     # a tensor-parallel LM trains (tests/test_torch_train_mesh.py); the
-    # xlstm family under a data axis is item 14b's
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    # xlstm family splits its mLSTM heads, which the axis must divide
+    with pytest.raises(ValueError, match="num_heads=4 does not divide"):
         LM(get_arch("xlstm-350m").smoke, torch.float32, "cpu",
-           dp=_Axis(2, 0))
+           tp=_Axis(3, 0), dp=_Axis(2, 0))
 
 
 def test_quantize_rows_take_the_whole_row_amax():
@@ -560,9 +563,9 @@ class FakeMesh:
 @pytest.mark.parametrize("arch,mesh,err,match", [
     ("qwen2-0.5b", FakeMesh(1, ("data",)), ValueError, "'model' axis"),
     ("qwen2-0.5b", FakeMesh(3), ValueError, "num_kv_heads"),
-    ("seamless-m4t-medium", FakeMesh(1), NotImplementedError, "item 14b"),
-    ("zamba2-1.2b", FakeMesh(1), NotImplementedError, "item 14b"),
-    ("xlstm-350m", FakeMesh(1), NotImplementedError, "item 14b"),
+    ("seamless-m4t-medium", FakeMesh(3), ValueError, "num_kv_heads"),
+    ("zamba2-1.2b", FakeMesh(1, ("data",)), ValueError, "'model' axis"),
+    ("xlstm-350m", FakeMesh(3), ValueError, "num_kv_heads"),
 ])
 def test_engine_mesh_validation(arch, mesh, err, match):
     lm = LM(get_arch(arch).smoke, torch.float32, "cpu")

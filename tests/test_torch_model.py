@@ -309,8 +309,12 @@ def test_zamba2_config_ports_verbatim():
         dataclasses.asdict(jax_zamba.SMOKE)
     for ours, theirs in ((ZAMBA_CONFIG, jax_zamba.CONFIG),
                          (ZAMBA_SMOKE, jax_zamba.SMOKE)):
-        assert ours.mamba_config()._asdict() == \
-            theirs.mamba_config()._asdict()
+        # the reference's fields; the port's ``tp`` (the rank's model
+        # axis) is None on an unsharded config
+        jmc = theirs.mamba_config()
+        assert {k: getattr(ours.mamba_config(), k) for k in jmc._fields} \
+            == jmc._asdict()
+        assert ours.mamba_config().tp is None
         mc = ours.mamba_config()
         assert (mc.d_inner, mc.num_heads, mc.conv_channels) == \
             (theirs.mamba_config().d_inner, theirs.mamba_config().num_heads,

@@ -148,10 +148,15 @@ def test_no_cache_always_runs(tmp_path):
     assert sess.lowerings == 2 and len(sess.cache) == 0
 
 
-def test_sweep_needs_a_cell_fn_until_item_14():
-    sess = ProfileSession()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sess.sweep(["qwen2-0.5b"], ["train_4k"])
+def test_sweep_needs_a_cell_fn_until_item_14(tmp_path):
+    # without a cell_fn a sweep runs the dry run (launch/dryrun.run_cell,
+    # its walk cached whole: tests/test_torch_dryrun.py)
+    sess = ProfileSession(cache_dir=str(tmp_path / "dry"))
+    (rec,) = sess.sweep(["zamba2-1.2b"], ["decode_32k"], parallel=1)
+    assert rec["status"] == "ok"
+    assert rec["cell"] == "zamba2-1.2b/decode_32k/16x16"
+    assert set(rec["derived"]) == {"ROOFLINE"} and sess.lowerings == 1
+    sess = ProfileSession(cache_dir=str(tmp_path / "c"))
 
     def cell(arch, shape):
         if shape == "bad":

@@ -183,7 +183,9 @@ def test_decode_step_matches_jax():
 def block():
     jcfg = JAX_SMOKE.mamba_config()
     cfg = SMOKE.mamba_config()
-    assert cfg._asdict() == jcfg._asdict()
+    # the reference's fields; the port's ``tp`` is None unsharded
+    assert {k: getattr(cfg, k) for k in jcfg._fields} == jcfg._asdict()
+    assert cfg.tp is None
     jp = jax.device_get(jax_ssm.init_mamba2_block(jax.random.PRNGKey(3),
                                                   jcfg))
     p = ssm.Mamba2Block(cfg, torch.float32, torch.device("cpu"))

@@ -234,10 +234,11 @@ def test_trainer_runs_and_resumes_exactly(tmp_path):
     for k, v in state.params.items():
         assert torch.equal(resumed.params[k], v), k
     assert all(np.isfinite(r["grad_norm"]) for r in full.history)
-    # the families item 14b still owes are refused on a mesh
+    # every family trains on a mesh (tests/test_torch_family_mesh.py);
+    # a sharded trainer still refuses a full LM that is not a host copy
     for arch in ("zamba2-1.2b", "xlstm-350m", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            Trainer(LM(get_arch(arch).smoke, torch.float32, "cpu"),
+        with pytest.raises(ValueError, match="host copy on the CPU"):
+            Trainer(LM(get_arch(arch).smoke, torch.float32, "meta"),
                     DataConfig(seq_len=8, global_batch=2, vocab=8),
                     TrainerConfig(), mesh=object())
 
@@ -252,16 +253,22 @@ def test_train_launcher_runs_and_refuses_the_mesh(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "finished at step 3" in out
     assert list_steps(d) == [2, 3]
-    # --mesh trains the dense, moe and vlm families; the others are owed
-    # to item 14b and refused before any process group forms
-    for arch, flags in (("zamba2-1.2b", ("--mesh", "single")),
-                        ("xlstm-350m", ("--mesh", "multi", "--pin",
-                                        "ring"))):
-        with pytest.raises(SystemExit) as e:
-            train_launch.main(["--arch", arch, "--smoke-dims", "--device",
-                               "cpu", *flags])
-        assert e.value.code == 2
-        assert "item 14" in capsys.readouterr().err
+    # --mesh trains every family; a world of one is refused by the
+    # production mesh's size
+    from repro_torch.launch import mesh as mesh_mod
+    for arch, flags, want in (
+            ("zamba2-1.2b", ("--mesh", "single"),
+             "(16, 16) needs a world of 256 ranks"),
+            ("xlstm-350m", ("--mesh", "multi", "--pin", "ring"),
+             "(2, 16, 16) needs a world of 512 ranks")):
+        try:
+            with pytest.raises(SystemExit) as e:
+                train_launch.main(["--arch", arch, "--smoke-dims",
+                                   "--device", "cpu", *flags])
+            assert e.value.code == 2
+            assert want in capsys.readouterr().err
+        finally:
+            mesh_mod.leave_process_group()
 
 
 def test_serve_ckpt_dir_serves_the_trained_params(tmp_path):

@@ -77,7 +77,10 @@ def test_xlstm_configs_port_verbatim():
     assert dataclasses.asdict(SMOKE) == dataclasses.asdict(jax_cfgs.SMOKE)
     for ours, theirs in ((CONFIG, jax_cfgs.CONFIG), (SMOKE, jax_cfgs.SMOKE)):
         xc, jxc = ours.xlstm_config(), theirs.xlstm_config()
-        assert xc._asdict() == jxc._asdict()
+        # the reference's fields; the port's ``tp``/``tp_ff`` (the rank's
+        # model axes) are None on an unsharded config
+        assert {k: getattr(xc, k) for k in jxc._fields} == jxc._asdict()
+        assert (xc.tp, xc.tp_ff) == (None, None)
         assert (xc.d_inner, xc.head_dim, xc.d_ff) == \
             (jxc.d_inner, jxc.head_dim, jxc.d_ff)
     xc = CONFIG.xlstm_config()
