@@ -402,11 +402,33 @@ failure):
                run's record (one rank of the 16 x 16 mesh walked on
                ``meta``) with status ``ok``, the SMOKE loss timed on the
                card.
+27. layouts - the reference's decode-state layout and sequence
+               parallelism.  (a) qwen2-vl-7b at full width and 2 of 28
+               layers, fp32, one train step of 2 x 384 tokens (its 256
+               patch positions first) through ``Trainer(mesh=)`` on a
+               (1, 2) mesh of two spawned ranks on ``cuda:0`` (gloo),
+               without and with ``act_seq -> model``: loss and grad norm
+               within 1e-5 relative of the unsharded step on the card;
+               each rank's peak allocated bytes printed both ways.  (b)
+               on the same ranks, qwen2-0.5b at full width and depth,
+               fp32: 8 prompts of 32 tokens prefilled on the card
+               (kernel #1), the cache cut into two sequence slices by
+               ``LM.state_pspecs``, then into ``kv_shard="headdim"``'s
+               head-dim halves, 16 greedy tokens (kernel #4) from each
+               cut: tokens equal
+               ``Engine.generate``'s unsharded, logits within 1e-4 of
+               max|logit|, each rank's KV bytes half the whole state's.
+               (c) the dry run's ``qwen2-0.5b/decode_32k/16x16`` and
+               ``zamba2-1.2b/long_500k/16x16`` walked in this process:
+               their KV cache a rank.  The ranks run beside phase 23
+               (b)-(d), which time nothing; the unsharded runs and the
+               checks are here.
 
 Phases 4, 5, 8, 9, 12, 13, 14, 15, each run of 16, 17's serving runs,
 18's suite (its launches counted in its process) and tuned generate, the
 serving runs of 19, 20, 21, 22 and 23's served checkpoint, 24's mesh
-runs, 25's moe mesh runs and 26's serving runs are the main paths: each
+runs, 25's moe mesh runs, 26's serving runs and 27's prefill and
+decodes are the main paths: each
 is run with its kernels' launch counters set to 0 just before it and
 read just after, and fails if one of its kernels never launched (or, on
 the serving paths, launched another number of times than the path
@@ -425,7 +447,10 @@ qwen2-0.5b at full depth, phase 23's 8 x 512 tokens, 6 steps on (2, 2),
 in bf16 over fp32 masters and in fp32, beside the unsharded runs on one
 card (their step ms); fp32 losses and grad norms within 1e-4 relative,
 bf16 losses within 1e-2 (each rank rounds its partial sums to bf16
-before the reduce), bf16 grad norms' gaps printed.
+before the reduce), bf16 grad norms' gaps printed; and the fp32 run
+again under sequence parallelism (``act_seq -> model``: NCCL's
+``reduce_scatter_tensor`` out of each row-parallel product), held to the
+same unsharded fp32 run within 1e-4.
 """
 
 from __future__ import annotations
@@ -4784,7 +4809,8 @@ MESH_TRAIN_METRIC_RTOL = {False: P23_METRIC_RTOL["default"], True: 1e-4}
 #: qwen2-0.5b at full depth, phase 23's 8 x 512 tokens and schedule, 6
 #: steps on (2, 2) in bf16 over fp32 masters and in fp32
 FOUR_CARD_RUNS = {"bf16": ((2, 2), 1, False, torch.bfloat16),
-                  "fp32": ((2, 2), 1, False, torch.float32)}
+                  "fp32": ((2, 2), 1, False, torch.float32),
+                  "fp32_sp": ((2, 2), 1, False, torch.float32)}
 #: the fp32 run's losses and grad norms against the unsharded fp32 run's,
 #: relative: only the order of fp32 sums differs, and a step that skips a
 #: leaf's update moves a loss by more than 1e-3.  The bf16 run rounds each
@@ -4919,13 +4945,18 @@ def mesh_train_plan(four_cards=False):
                 hold_params=True)
 
 
-def mesh_train_lm(plan, dtype, device):
-    """The plan's LM: ``dtype`` compute over fp32 parameters."""
+def mesh_train_lm(plan, dtype, device, name=""):
+    """The plan's LM: ``dtype`` compute over fp32 parameters; a run whose
+    ``name`` ends in ``_sp`` trains under sequence parallelism
+    (``act_seq -> model``)."""
     from repro_torch.core.features import default_features
+    from repro_torch.models.layers import DEFAULT_RULES
     from repro_torch.models.lm import LM
     feats = default_features().with_(remat_policy=plan["remat"])
+    rules = (DEFAULT_RULES.replace(act_seq=("model",))
+             if name.endswith("_sp") else DEFAULT_RULES)
     return LM(plan["cfg"], dtype, device, features=feats,
-              param_dtype=torch.float32)
+              param_dtype=torch.float32, rules=rules)
 
 
 def mesh_train_draw(plan):
@@ -4964,6 +4995,11 @@ def mesh_train_refs(dev, plan, path, limits):
                 for k, v in st.params.items()}
 
     for name, (_, accum, ef, dtype) in plan["runs"].items():
+        if name.endswith("_sp"):
+            # unsharded, sequence parallelism has nothing to split: the
+            # run without it is the reference
+            refs[name] = refs[name[:-3]]
+            continue
         lm = mesh_train_lm(plan, dtype, dev)
         lm.load_state_dict(weights)
         tr = mesh_trainer(lm, plan, plan["steps"], accum, ef)
@@ -5057,12 +5093,14 @@ def _train_mesh_rank(rank, world, init_method, plan, refs_path, ckpt_root):
         if rank >= n:
             continue
         where = f"phase 25 (b) rank {rank} {shape} {name}"
-        host = mesh_train_lm(plan, dtype, "cpu")
+        host = mesh_train_lm(plan, dtype, "cpu", name)
         host.load_state_dict(weights)
         tr, st, held = with_state(lambda: mesh_trainer(
             host, plan, steps, accum, ef, mesh=mesh,
             ckpt_dir=ckpt_root if name == plan["saved"] else None), dev)
         mine = check_state_bytes(where, held, st)
+        if tr.lm._sp != name.endswith("_sp"):
+            fail(f"{where}: sequence parallelism {tr.lm._sp}")
         st = tr.run(st)
         gaps = check(where, tr.history, name, 0)
         if plan["hold_params"]:
@@ -5965,6 +6003,275 @@ def dryrun_on_the_card(smi):
             log(f"    {line}")
 
 
+#: phase 27 (a): qwen2-vl-7b at full width and 2 of its 28 layers, fp32,
+#: one train step of 2 x 384 tokens (its 256 patch positions first) on a
+#: (1, 2) mesh of two gloo ranks on the card, with and without sequence
+#: parallelism (``act_seq -> model``)
+SP_LAYERS, SP_BATCH, SP_SEQ = 2, 2, 384
+#: (a): the loss and grad norm of the step with sequence parallelism
+#: against the step without it and the unsharded one's, relative (phase
+#: 25's fp32 bound)
+SP_RTOL = 1e-5
+#: (b): qwen2-0.5b at full width and depth, fp32: 8 prompts of 32 tokens
+#: prefilled on the card into a dense cache of 64 positions, then 16
+#: greedy tokens on a (1, 2) mesh of two gloo ranks from the cut state
+SEQ_PROMPTS, SEQ_PROMPT_LEN, SEQ_NEW, SEQ_MAX = 8, 32, 16, 64
+#: (c): the dry run's cells whose KV cache a rank phase 27 prints (the
+#: reference's decode-state layout: the sequence over the axes the batch
+#: leaves free)
+SEQ_WALK_CELLS = (("qwen2-0.5b", "decode_32k"), ("zamba2-1.2b", "long_500k"))
+
+
+def sp_vl_cfg():
+    from repro_torch.configs.qwen2_vl_7b import CONFIG
+    return dataclasses.replace(CONFIG, n_layers=SP_LAYERS)
+
+
+def sp_vl_draw(dev):
+    """(a)'s qwen2-vl-7b at 2 layers, fp32, drawn on ``dev`` from seed 0
+    (the same weights in every process on the one card)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.core.features import default_features
+    return LM(sp_vl_cfg(), torch.float32, dev,
+              features=default_features().with_(remat_policy="none"),
+              param_dtype=torch.float32).init(
+        torch.Generator(device=dev).manual_seed(0))
+
+
+def sp_trainer(lm, **kw):
+    from repro_torch.optim import AdamWConfig, ScheduleConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    return Trainer(lm, train_data_cfg(lm.cfg, SP_BATCH, SP_SEQ),
+                   TrainerConfig(total_steps=1, log_every=100,
+                                 ckpt_every=0),
+                   AdamWConfig(), ScheduleConfig(peak_lr=1e-3,
+                                                 warmup_steps=0,
+                                                 total_steps=10), **kw)
+
+
+def seq_prompts(vocab):
+    rng = np.random.default_rng(27)
+    return torch.from_numpy(rng.integers(
+        0, vocab, (SEQ_PROMPTS, SEQ_PROMPT_LEN)).astype(np.int32))
+
+
+def seq_decode(lm, state, tok, steps):
+    """``steps`` greedy tokens from ``tok`` [B, 1] (kernel #4 picks each):
+    (tokens [B, steps], each step's logits on the host)."""
+    from repro_torch.kernels.sampling import block_argmax
+    toks, logits = [], []
+    for _ in range(steps):
+        lg, state = lm.decode_step(tok, state)
+        logits.append(lg.float().cpu())
+        tok = block_argmax(lg)[:, None].to(torch.int32)
+        toks.append(tok)
+    return torch.cat(toks, 1).cpu(), logits, state
+
+
+def seq_prefill(dev):
+    """(b)'s qwen2-0.5b at full width and depth, fp32, drawn on ``dev`` from
+    seed 0 (the embedding x 0.1, as phase 6), its prompts prefilled on the
+    card (kernel #1): (the LM, the state, the first greedy token, the
+    prefill's launches)."""
+    from repro_torch.kernels.sampling import block_argmax
+    lm = qwen2(dev, torch.float32, embed_scale=0.1)
+    state = lm.init_decode_state(SEQ_PROMPTS, SEQ_MAX)
+    reset_counters()
+    with torch.no_grad():
+        lg, state = lm.prefill(
+            {"tokens": seq_prompts(lm.cfg.vocab).to(dev)}, state)
+        first = block_argmax(lg)[:, None].to(torch.int32)
+    torch.cuda.synchronize(dev)
+    launches = read_counters()
+    expect_launches("phase 27 (b) prefill", launches,
+                    {"flash_attention": lm.cfg.n_layers, "argmax": 1})
+    return lm, state, first, launches
+
+
+def _seq_layout_rank(rank, world, init_method, root):
+    """One rank of phase 27 (a) and (b), on ``cuda:0`` over gloo: (a)
+    qwen2-vl's step through ``Trainer(mesh=)`` on (1, 2) without and with
+    ``act_seq -> model`` (its peak allocated bytes each); (b) qwen2-0.5b
+    prefilled on the card, its state cut by ``LM.state_pspecs`` (the
+    sequence over the model axis, then ``kv_shard="headdim"``'s head-dim
+    cut), 16 greedy tokens from each cut, their logits written under
+    ``root`` for the parent to hold to the unsharded run's."""
+    import gc
+    from repro_torch.configs.qwen2_0_5b import CONFIG
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.layers import DEFAULT_RULES
+    from repro_torch.models.lm import LM
+    from repro_torch.train.step import train_state_pspecs
+    dev = mesh_mod.init_process("cuda:0", backend="gloo",
+                                init_method=init_method, rank=rank,
+                                world_size=world)
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)        # the ranks share the host's cores
+    mesh = mesh_mod.build_mesh(range(2), (1, 2), ("data", "model"))
+    out = {"rank": rank}
+    # (a)
+    lm = sp_vl_draw(dev)
+    host = LM(lm.cfg, torch.float32, "cpu", features=lm.features,
+              param_dtype=torch.float32)
+    host.load_state_dict(lm.state_dict())
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, rules in (("tp", DEFAULT_RULES),
+                       ("sp", DEFAULT_RULES.replace(act_seq=("model",)))):
+        host.rules = rules
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        tr = sp_trainer(host, mesh=mesh,
+                        state_shardings=train_state_pspecs(host, mesh))
+        tr.run(tr.init_state())
+        out[tag] = {k: float(tr.history[0][k])
+                    for k in ("loss", "grad_norm")}
+        out[tag].update(peak=torch.cuda.max_memory_allocated(dev) - base,
+                        sp=tr.lm._sp)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    del host
+    gc.collect()
+    # (b)
+    lm, state, first, out["prefill_launches"] = seq_prefill(dev)
+    host = host_copy(lm)
+    whole = {"caches": KVCache(*(t.cpu() for t in state["caches"]))}
+    del lm, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_kv = tensor_bytes((whole["caches"].k, whole["caches"].v))
+    for layout in ("seq", "headdim"):
+        rules = host.state_rules(whole, mesh, dryrun._rules_for(
+            None, dryrun.TrainPolicy(kv_shard=layout), "decode"))
+        lm = LM(CONFIG, torch.float32, dev, rules=rules,
+                tp=mesh_mod.model_axis(mesh), mesh=mesh)
+        with torch.no_grad():
+            own = dict(lm.named_parameters())
+            for k, v in lm.shard_params(dict(host.named_parameters()),
+                                        mesh).items():
+                own[k].copy_(v)
+            local = lm.cut_state(whole)
+            local = {"caches": KVCache(*(t.to(dev) for t in
+                                         local["caches"]))}
+            kv = tensor_bytes((local["caches"].k, local["caches"].v))
+            reset_counters()
+            toks, logits, _ = seq_decode(lm, local, first, SEQ_NEW)
+            torch.cuda.synchronize(dev)
+        path = str(Path(root) / f"rank{rank}-{layout}.pt")
+        torch.save(torch.stack(logits), path)
+        out[layout] = dict(tokens=toks.tolist(), logits=path, kv_bytes=kv,
+                           full_kv_bytes=full_kv,
+                           kv_shape=tuple(local["caches"].k.shape),
+                           launches=read_counters())
+        del lm, local
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def spawn_seq_layout_ranks():
+    """Phase 27's two ranks, started beside phase 23 (b)-(d), which time
+    nothing; joined and checked in phase 27."""
+    from repro_torch.launch import mesh as mesh_mod
+    root = fresh_root("seq-layout")
+    return mesh_mod.spawn(_seq_layout_rank, 2, (root,), timeout_s=600)
+
+
+def seq_layout_refs(dev, smi):
+    """Phase 27's unsharded runs on the card: (a) qwen2-vl's train step;
+    (b) qwen2-0.5b's prefill (kernel #1), then 16 greedy tokens and their
+    logits from the unsharded LM, and ``Engine.generate``'s tokens."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    tr = sp_trainer(sp_vl_draw(dev))
+    tr.run(tr.init_state())
+    sp_ref = {k: float(tr.history[0][k]) for k in ("loss", "grad_norm")}
+    sp_ref["peak"] = torch.cuda.max_memory_allocated(dev) - base
+    del tr
+    torch.cuda.empty_cache()
+    lm, state, first, launches = seq_prefill(dev)
+    with torch.no_grad():
+        toks, logits, _ = seq_decode(lm, state, first, SEQ_NEW)
+    eng = Engine(lm, ServeConfig(max_seq=SEQ_MAX, batch_slots=SEQ_PROMPTS),
+                 device=dev)
+    gen = eng.generate(seq_prompts(lm.cfg.vocab).tolist(), SEQ_NEW + 1)
+    want = torch.cat([first.cpu(), toks[:, :-1]], 1)
+    if [g[:SEQ_NEW] for g in gen] != want.tolist():
+        fail(f"phase 27 (b): the unsharded LM's greedy tokens "
+             f"{want.tolist()} differ from Engine.generate's {gen}")
+    del eng, lm, state
+    torch.cuda.empty_cache()
+    log(f"  unsharded on the card: (a) qwen2-vl-7b at {SP_LAYERS} layers, "
+        f"fp32, one step of {SP_BATCH} x {SP_SEQ} tokens: loss "
+        f"{sp_ref['loss']:.6f}, grad norm {sp_ref['grad_norm']:.6f}, peak "
+        f"allocated {sp_ref['peak']} bytes; (b) qwen2-0.5b fp32 prefill of "
+        f"{SEQ_PROMPTS} x {SEQ_PROMPT_LEN} (#1 {launches['flash_attention']}"
+        f" launches), {SEQ_NEW} greedy tokens equal Engine.generate's "
+        f"[{smi}]")
+    return sp_ref, toks, logits, launches
+
+
+def seq_layouts_on_the_card(dev, smi, ranks):
+    """Phase 27: (a) and (b)'s unsharded runs, then the two ranks' results
+    (:func:`spawn_seq_layout_ranks`, run beside phase 23) checked against
+    them; (c) the dry run's :data:`SEQ_WALK_CELLS` walked in this
+    process."""
+    from repro_torch.launch import dryrun
+    sp, toks, logits, prefill_launches = seq_layout_refs(dev, smi)
+    want = torch.stack(logits)
+    for r in ranks:
+        for tag in ("tp", "sp"):
+            gaps = {k: abs(r[tag][k] - sp[k]) / abs(sp[k])
+                    for k in ("loss", "grad_norm")}
+            if max(gaps.values()) > SP_RTOL or r[tag]["sp"] != (tag == "sp"):
+                fail(f"phase 27 (a) rank {r['rank']} {tag}: {r[tag]} "
+                     f"against the unsharded {sp}: gaps {gaps}")
+        log(f"  (a) rank {r['rank']}: loss {r['sp']['loss']:.6f}, grad norm "
+            f"{r['sp']['grad_norm']:.6f} with sequence parallelism, "
+            f"{r['tp']['loss']:.6f} / {r['tp']['grad_norm']:.6f} without, "
+            f"within {SP_RTOL} of the unsharded step; peak allocated "
+            f"{r['sp']['peak']} bytes with, {r['tp']['peak']} without "
+            f"(the unsharded step {sp['peak']}) [{smi}]")
+        expect_launches(f"phase 27 (b) rank {r['rank']} prefill",
+                        r["prefill_launches"], prefill_launches)
+        for layout in ("seq", "headdim"):
+            b = r[layout]
+            got = torch.load(b["logits"], weights_only=True)
+            worst = max(float((g - w).abs().max() / w.abs().max())
+                        for g, w in zip(got, want))
+            if b["tokens"] != toks.tolist() or worst > LOGITS_REL_TOL or \
+                    2 * b["kv_bytes"] != b["full_kv_bytes"] or \
+                    b["launches"]["argmax"] != SEQ_NEW:
+                fail(f"phase 27 (b) rank {r['rank']} {layout}: tokens "
+                     f"{b['tokens']} against {toks.tolist()}, logits "
+                     f"within {worst} of max|logit|, {b}")
+            log(f"  (b) rank {r['rank']} {layout}: {SEQ_NEW} greedy tokens "
+                f"equal the unsharded engine's, logits within {worst:.3g} "
+                f"of max|logit|; KV {b['kv_shape']} = {b['kv_bytes']} "
+                f"bytes, half of {b['full_kv_bytes']}")
+    for arch, shape in SEQ_WALK_CELLS:
+        rec = dryrun.run_cell(arch, shape, False, verbose=False)
+        if rec["status"] != "ok":
+            fail(f"phase 27 (c) {arch}/{shape}: {rec}")
+        w = rec["walk"]
+        log(f"  (c) {rec['cell']}: KV cache {w['kv_cache_shape']} = "
+            f"{w['kv_cache_bytes']} bytes a rank, the sequence over "
+            f"{w['cache_seq']} (the weights' model axis walked at "
+            f"{w['mesh_walked']['model']})")
+    r0 = ranks[0]
+    return {"seq_layout_prefill": prefill_launches,
+            "seq_layout_decode_rank0": r0["seq"]["launches"],
+            "headdim_decode_rank0": r0["headdim"]["launches"]}
+
+
 class PhaseClock:
     """Logs each phase's title when it starts and its seconds when the
     next one starts (or at :meth:`stop`)."""
@@ -6014,7 +6321,7 @@ def run_phases() -> int:
     dev = torch.device("cuda", 0)
     phase = PhaseClock()
 
-    phase("[1/26] probe")
+    phase("[1/27] probe")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"  device {torch.cuda.get_device_name(0)}, capability "
@@ -6031,12 +6338,12 @@ def run_phases() -> int:
         f"{chip.l2_bytes} B, HBM {chip.hbm_bw / 1e12} TB/s, agrees with "
         f"the device's properties")
 
-    phase("[2/26] build")
+    phase("[2/27] build")
     secs = _build.build_all()
     log(f"  built {list(_build.SOURCES)} in {secs:.2f} s into "
         f"{_build.build_dir()}")
 
-    phase("[3/26] kernels vs plain versions")
+    phase("[3/27] kernels vs plain versions")
     timer = Timer(dev)
     from repro_torch.configs.qwen2_0_5b import CONFIG
     rows = [check_flash(dev, timer), check_paged(dev, timer),
@@ -6048,26 +6355,26 @@ def run_phases() -> int:
             f"{r['bound_by']})")
     del timer
 
-    phase("[4/26] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
+    phase("[4/27] main path 1: qwen2-0.5b Engine.generate, paged, greedy")
     lm, gen_launches = main_path(dev)
 
-    phase("[5/26] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
+    phase("[5/27] main path 2: qwen2-0.5b BatchScheduler, int8 pages, "
           "prefix cache")
     sched_launches = scheduler_path(dev, lm)
     del lm
     torch.cuda.empty_cache()
 
-    phase("[6/26] fp32 token check: card paged / card dense / cpu paged")
+    phase("[6/27] fp32 token check: card paged / card dense / cpu paged")
     token_check(dev)
 
-    phase("[7/26] fp32 scheduler token check: card scheduler / card generate "
+    phase("[7/27] fp32 scheduler token check: card scheduler / card generate "
           "/ cpu scheduler; int8 logits card vs cpu")
     sched_token_check(dev)
 
-    phase("[8/26] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
+    phase("[8/27] main path 3: zamba2-1.2b Engine.generate, dense KV, greedy")
     lm, zamba_launches = zamba_generate_path(dev)
 
-    phase("[9/26] main path 4: zamba2-1.2b BatchScheduler, dense KV")
+    phase("[9/27] main path 4: zamba2-1.2b BatchScheduler, dense KV")
     zamba_scheduler_path(lm)
     del lm
     torch.cuda.empty_cache()
@@ -6077,10 +6384,10 @@ def run_phases() -> int:
                          "ssd_scan": zamba_launches}.get(
                              r["name"], gen_launches)[r["name"]]
 
-    phase("[10/26] fp32 zamba2 token check: card / cpu, 7 layers")
+    phase("[10/27] fp32 zamba2 token check: card / cpu, 7 layers")
     zamba_token_check(dev)
 
-    phase("[11/26] case-study kernels vs plain versions: STREAM triad, "
+    phase("[11/27] case-study kernels vs plain versions: STREAM triad, "
           "Jacobi-7")
     timer = Timer(dev)
     case_rows = [check_triad(dev, timer), check_jacobi(dev, timer)]
@@ -6090,14 +6397,14 @@ def run_phases() -> int:
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
 
-    phase("[12/26] main path 5: the case studies through PerfCtr marker "
+    phase("[12/27] main path 5: the case studies through PerfCtr marker "
           "regions (HBM, ROOFLINE), the bandwidth map")
     case_launches = perfctr_path(dev)
     for r in case_rows:
         r["launches"] = case_launches[r["name"]]
     rows += case_rows
 
-    phase("[13/26] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
+    phase("[13/27] main path 6: qwen2-0.5b sampled Engine.generate (top_k, "
           "top_p), paged")
     # the embedding scaled by 0.1 (as in phase 6): unscaled, the random
     # model echoes its last token with a near one-hot distribution, so
@@ -6105,11 +6412,11 @@ def run_phases() -> int:
     lm = qwen2(dev, torch.bfloat16, embed_scale=0.1)
     sampled_launches = sampled_path(dev, lm)
 
-    phase("[14/26] main path 7: speculative decoding, K = 4, 2-layer matched "
+    phase("[14/27] main path 7: speculative decoding, K = 4, 2-layer matched "
           "draft: fp32 parity, bf16 generate, mixed BatchScheduler")
     spec_launches, spec_sched_launches = spec_path(dev, lm)
 
-    phase("[15/26] main path 8: serving snapshots and chaos: (a) fp32 "
+    phase("[15/27] main path 8: serving snapshots and chaos: (a) fp32 "
           "kill / restore parity, (b) qwen2-0.5b int8 scheduler under the "
           "smoke schedule, killed and restored")
     snap_launches = snapshot_parity(dev, smi)
@@ -6117,13 +6424,13 @@ def run_phases() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    phase("[16/26] main path 9: the serving benches (serve, paged decode, "
+    phase("[16/27] main path 9: the serving benches (serve, paged decode, "
           "flash prefill, spec) at their default sizes, serve and spec at "
           "qwen2-0.5b full width")
     bench_launches = serving_benches(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[17/26] main path 10: the tool layer (topology, pin, features) "
+    phase("[17/27] main path 10: the tool layer (topology, pin, features) "
           "and the kernel registry on the serving path: qwen2-0.5b fp32, the "
           "default kernels against the torch pins three ways")
     topology_check(dev, smi)
@@ -6132,7 +6439,7 @@ def run_phases() -> int:
     tool_benches(smi)
     torch.cuda.empty_cache()
 
-    phase("[18/26] main path 11: the registry's tune half: (a) every tunable "
+    phase("[18/27] main path 11: the registry's tune half: (a) every tunable "
           "family's card cell swept cold, each candidate held to its plain "
           "version; (b) warm in a fresh process; (c) the launcher's --tune "
           "at qwen2-0.5b full width, cold then warm; (d) fp32 greedy on the "
@@ -6143,14 +6450,14 @@ def run_phases() -> int:
     tuned_gen_launches = tuned_generate(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[19/26] main path 12: xlstm-350m at full width and depth, dense "
+    phase("[19/27] main path 12: xlstm-350m at full width and depth, dense "
           "state: (a) Engine.generate, (b) BatchScheduler, (c) fp32 tokens "
           "card vs cpu at 4 layers")
     xlstm_gen_launches, xlstm_sched_launches = xlstm_paths(dev)
     torch.cuda.empty_cache()
     xlstm_token_check(dev)
 
-    phase("[20/26] main path 13: the other dense configs, pages of 16: "
+    phase("[20/27] main path 13: the other dense configs, pages of 16: "
           "qwen1.5-0.5b and stablelm-3b (LayerNorm, Dh 80) at full depth, "
           "generate and the int8 scheduler; mistral-large-123b at 2 of 88 "
           "layers (G 12); fp32 stablelm tokens card vs cpu at 2 layers")
@@ -6159,7 +6466,7 @@ def run_phases() -> int:
     perf_report_and_example(smi)
     torch.cuda.empty_cache()
 
-    phase("[21/26] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
+    phase("[21/27] main path 14: the moe family, pages of 16: (a) qwen2-moe-"
           "a2.7b at full width and depth, generate, one host sync, a decode "
           "step with no implicit sync; (b) its int8 scheduler with the prefix "
           "cache; (c) qwen3-moe-235b-a22b at 2 of 94 layers (G 16); (d) fp32 "
@@ -6168,7 +6475,7 @@ def run_phases() -> int:
     torch.cuda.empty_cache()
     moe_token_check(dev)
 
-    phase("[22/26] main path 15: the vlm and encdec families: (a) qwen2-vl-"
+    phase("[22/27] main path 15: the vlm and encdec families: (a) qwen2-vl-"
           "7b at full width and depth with patch embeddings, generate, then "
           "its int8 scheduler with the prefix cache; (b) seamless-m4t-medium "
           "at 12 + 12 layers with source embeddings, generate; (c) fp32 "
@@ -6177,17 +6484,18 @@ def run_phases() -> int:
     vlm_encdec_token_check(dev)
     torch.cuda.empty_cache()
 
-    phase("[23/26] main path 16: training: (a) qwen2-0.5b at full width and "
+    phase("[23/27] main path 16: training: (a) qwen2-0.5b at full width and "
           "depth, bf16 over fp32 masters, 8 x 512 tokens a step, 8 steps "
           "through Trainer, 2 with accum_steps=2, resumed from step 4; (b) "
           "fp32 card vs cpu, 2 layers, 3 steps; (c) one fp32 step of each "
-          "family, card vs cpu; (d) serve --ckpt-dir; phase 26 (b)'s ranks "
-          "beside (b)-(d)")
+          "family, card vs cpu; (d) serve --ckpt-dir; phase 26 (b)'s and "
+          "phase 27's ranks beside (b)-(d)")
     served, ckpt, train_fig, plain_train = train_main_path(dev, smi)
     serving = serve_checkpoint(ckpt)
     # phase 26 (b)'s ranks run beside (b)-(d), which time nothing, and are
     # joined before phase 24; phase 26 checks their results
     fam_ranks = Background(spawn_family_ranks)
+    seq_ranks = Background(spawn_seq_layout_ranks)
     try:
         train_card_cpu(dev)
         train_serve_launches = check_served_checkpoint(dev, served, ckpt,
@@ -6197,10 +6505,11 @@ def run_phases() -> int:
             serving[0].kill()
             serving[0].wait()
     fam_ranks = fam_ranks.result()
+    seq_ranks = seq_ranks.result()
     del served
     torch.cuda.empty_cache()
 
-    phase("[24/26] main path 17: sharded serving and its fault tolerance: "
+    phase("[24/27] main path 17: sharded serving and its fault tolerance: "
           "(a) qwen2-0.5b at full width and depth behind BatchScheduler "
           "through a (1, 1) ServeMesh over NCCL, a heartbeat flap absorbed; "
           "(b) 3 ranks on the card, a (1, 2) mesh plus a spare, fp32 and "
@@ -6211,7 +6520,7 @@ def run_phases() -> int:
     per_device_paged(dev, smi)
     torch.cuda.empty_cache()
 
-    phase("[25/26] main path 18: training on a mesh and the moe family on "
+    phase("[25/27] main path 18: training on a mesh and the moe family on "
           "a mesh: (a) qwen2-0.5b at full width and depth through "
           "Trainer(mesh=, state_shardings=) on a (1, 1) mesh over NCCL "
           "beside the unsharded Trainer; (b) 4 ranks on the card, "
@@ -6234,7 +6543,7 @@ def run_phases() -> int:
                      what="qwen2-moe-a2.7b's per-device decode")
     torch.cuda.empty_cache()
 
-    phase("[26/26] main path 19: the hybrid, xlstm and encdec families on "
+    phase("[26/27] main path 19: the hybrid, xlstm and encdec families on "
           "a mesh, and the dry run: (a) zamba2-1.2b and xlstm-350m at full "
           "width and depth, seamless-m4t-medium at 12 + 12 layers, through "
           "a (1, 1) ServeMesh over NCCL beside the unsharded engine, and "
@@ -6288,6 +6597,22 @@ def run_phases() -> int:
             {p: c[r["name"]] for p, c in by_path.items()
              if c.get(r["name"])})
     rows += fam_rows
+
+    phase("[27/27] main path 20: the reference's decode-state layouts and "
+          "sequence parallelism: (a) qwen2-vl-7b at full width and 2 "
+          "layers, fp32, one train step on a (1, 2) mesh of two gloo ranks "
+          "with and without act_seq -> model, beside the unsharded step; "
+          "(b) qwen2-0.5b at full width and depth, fp32, prefilled on the "
+          "card, its cache cut into two sequence slices by "
+          "LM.state_pspecs, then by kv_shard=headdim, 16 greedy tokens on "
+          "the two ranks; (c) the dry run's qwen2-0.5b/decode_32k and "
+          "zamba2-1.2b/long_500k cells walked here")
+    seq_launches = seq_layouts_on_the_card(dev, smi, seq_ranks)
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["launches_by_path"].update(
+            {p: c[r["name"]] for p, c in seq_launches.items()
+             if c.get(r["name"])})
 
     phase.stop()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

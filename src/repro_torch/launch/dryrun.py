@@ -27,7 +27,11 @@ launches nothing:
   declares the same work;
 * argument bytes are exact: the rank's slices of the parameters and the
   train or decode state, cut by the specs (``LM.rank_pspecs``, through
-  ``fit_spec``); ``peak_bytes_per_device`` and ``temp_bytes`` are an
+  ``fit_spec``; the prefill and decode state by ``LM.state_pspecs``, the
+  reference's ``_state_shardings``: a KV cache's sequence over the mesh
+  axes the batch leaves free, ``walk.cache_seq``, its bytes and shape a
+  rank ``walk.kv_cache_bytes`` / ``kv_cache_shape``);
+  ``peak_bytes_per_device`` and ``temp_bytes`` are an
   ESTIMATE, the most meta bytes live at once during the walk on top of
   the arguments (``memory_analysis.estimated`` names them);
 * the XLA-only structure counts (``FUSION_COUNT``, ``WHILE_COUNT``,
@@ -41,18 +45,28 @@ launches nothing:
 Where the port departs from the reference's cell, the record says so:
 
 * the port's tensor parallelism splits whole kv heads (and ssm and
-  mLSTM heads), so where the model axis of 16 does not divide them the
-  walk splits over the largest divisor that does and the rest of the
-  axis holds replicas (``mesh_walked``);
+  mLSTM heads; under ``kv_shard="headdim"`` each half of the head dim),
+  so where the model axis of 16 does not divide them the walk splits the
+  weights over the largest divisor that does and the rest of the axis
+  holds replicas (``mesh_walked``); the decode state is still cut over
+  the whole axis (``cache_seq``), and sequence parallelism splits over
+  the walked degree;
 * the serving walks (``prefill``, ``decode``) hold each weight's
   model-axis block whole over ``data`` (the port's serving rules,
   ``SERVE_RULES``: no FSDP), with the batch rows split as the
   reference's ``batch -> (pod, data)`` rule splits them;
-* the policy knobs the port does not implement are recorded and walked
-  without (``unported``): ``sequence_parallel`` and
-  ``kv_shard="headdim"``; ``accum_steps`` is cut to a divisor of the
-  rank's rows where it does not divide them (``accum_walked``); the
-  CLI sets only the knobs the walk honours;
+* every policy knob is walked (``unported`` stays empty):
+  ``sequence_parallel`` (``act_seq -> model``, :func:`_rules_for`) and
+  ``kv_shard="headdim"`` (the decode cells' ``cache_seq -> data``,
+  ``head_dim -> model``); ``accum_steps`` is cut to a divisor of the
+  rank's rows where it does not divide them (``accum_walked``); the CLI
+  sets only the knobs the walk honours (``--sp``, ``--kv-shard``
+  among them);
+* the decode state's departures (``LM.state_pspecs``): a rank re-lays
+  the recurrent states (the hybrid's Mamba2 state, the mLSTM's) from the
+  reference's cut into the heads its blocks compute and back around each
+  step, with declared all-gathers, and holds a ``headdim`` cut of the
+  head dim in pairs (RoPE's halves);
 * no pin strategy: the walk holds one rank at coordinate 0, so a
   device order changes nothing it counts (no ``pin_strategy``, no
   ``pin`` in the record);
@@ -160,12 +174,20 @@ class CountingAxis(mesh_mod.ModelAxis):
             self.size)
         return x.new_empty(shape)
 
+    def _reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] //= self.size
+        events.record_collective(
+            "reduce-scatter", x.numel() * x.element_size() // self.size,
+            self.size)
+        return x.new_empty(shape)
+
 
 class _WalkMesh:
     """A duck-typed mesh of ``shape`` over ``axes`` (``mesh_layout`` reads
     it) with this process's rank at coordinate 0 and no process groups."""
 
-    def __init__(self, shape, axes):
+    def __init__(self, shape, axes, index=None):
         me = (torch.distributed.get_rank()
               if torch.distributed.is_initialized() else 0)
         ranks = np.arange(int(np.prod(shape)))
@@ -175,6 +197,14 @@ class _WalkMesh:
             ranks[0] = me
         self.axis_names = tuple(axes)
         self.devices = ranks.reshape(shape)
+        index = tuple(index or (0,) * len(axes))
+        self._axes = {a: CountingAxis(n, i)
+                      for a, n, i in zip(axes, shape, index)}
+
+    def axis_of(self, name):
+        """This rank's counting axis ``name`` (``mesh.axis_of`` reads
+        it)."""
+        return self._axes[name]
 
     def get_group(self, name):
         return None
@@ -228,10 +258,12 @@ def _nbytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def _model_degree(cfg, m: int) -> int:
+def _model_degree(cfg, m: int, headdim: bool = False) -> int:
     """The largest divisor of the model axis ``m`` that divides every
-    head count the port's tensor parallelism splits."""
-    need = list(_split_heads(cfg).values())
+    head count the port's tensor parallelism splits (under
+    ``kv_shard="headdim"``, each half of the head dim for the
+    attention's heads)."""
+    need = list(_split_heads(cfg, headdim).values())
     return max(t for t in range(1, m + 1)
                if m % t == 0 and all(n % t == 0 for n in need))
 
@@ -246,11 +278,33 @@ def _rows(rules, mesh, b: int, s: int) -> int:
     return b // n
 
 
+def _rules_for(arch_id: str, policy: TrainPolicy, kind: str):
+    """The walk's rules for a cell of ``kind`` under ``policy``
+    (``repro/launch/dryrun.py:90-102``): the train rules, with
+    ``act_seq -> model`` under ``sequence_parallel``; the serving rules
+    (:data:`SERVE_RULES`), with ``kv_shard="headdim"``'s decode layout
+    (``cache_seq -> data``, ``head_dim -> model``, heads and kv heads
+    whole) for a decode cell."""
+    del arch_id                     # the policy already is the arch's
+    if kind == "train":
+        rules = DEFAULT_RULES
+        if policy.sequence_parallel:
+            rules = rules.replace(act_seq=("model",))
+        return rules
+    rules = SERVE_RULES
+    if kind == "decode" and policy.kv_shard == "headdim":
+        rules = rules.replace(cache_seq=("data",), head_dim=("model",),
+                              heads=None, kv_heads=None)
+    return rules
+
+
 def walk(cfg, kind: str, batch: Dict[str, torch.Tensor], *,
          mesh_shape=(1, 1), axes=("data", "model"), index=None,
          policy: TrainPolicy = DEFAULT_POLICY, features=None,
          rules=DEFAULT_RULES, dtype=torch.bfloat16, seq_len: int = 0,
-         device: str = "meta", mesh: Any = None) -> Dict[str, Any]:
+         device: str = "meta", mesh: Any = None,
+         state_shape=None, global_batch: Optional[int] = None
+         ) -> Dict[str, Any]:
     """One rank's walk of one step of ``cfg``: ``kind`` ``train`` (the
     train step over ``batch``, this rank's rows), ``prefill`` or
     ``decode`` (against a state of ``seq_len``), on a mesh of
@@ -260,17 +314,22 @@ def walk(cfg, kind: str, batch: Dict[str, torch.Tensor], *,
     the registry calls by family.  ``device="cpu"`` with a real ``mesh``
     (a ``DeviceMesh`` of the process group; its axes replace the
     counting ones) runs the same step on real tensors: the run a walk is
-    held to."""
+    held to.
+
+    A prefill or decode walks the rank's cut of the whole decode state
+    of ``global_batch`` rows (``batch``'s by default) under
+    ``LM.state_pspecs`` and ``rules``, on a mesh of ``state_shape``
+    (``mesh_shape`` by default; the production mesh where the weights'
+    model axis is walked at a smaller degree, ``mesh_walked``)."""
     from repro_torch.optim import AdamWConfig, ScheduleConfig, init_opt_state
     from repro_torch.train import step as step_mod
     if mesh is not None:
         axes, mesh_shape = mesh_mod.mesh_layout(mesh)
-        ranks = {a: mesh_mod.axis_of(mesh, a) for a in axes}
+        state_mesh = mesh
     else:
-        index = tuple(index or (0,) * len(axes))
-        ranks = {a: CountingAxis(n, i)
-                 for a, n, i in zip(axes, mesh_shape, index)}
-        mesh = _WalkMesh(mesh_shape, axes)
+        mesh = _WalkMesh(mesh_shape, axes, index)
+        state_mesh = _WalkMesh(state_shape or mesh_shape, axes, index)
+    ranks = {a: mesh_mod.axis_of(mesh, a) for a in axes}
     tp = ranks.get("model") or CountingAxis(1)
     dp = mesh_mod.DataAxis([ranks[a] for a in mesh_mod.BATCH_AXES
                             if a in ranks])
@@ -279,12 +338,11 @@ def walk(cfg, kind: str, batch: Dict[str, torch.Tensor], *,
     pdt = torch.float32 if train else dtype
     host = LM(cfg, dtype, device, features=feats, param_dtype=pdt,
               rules=rules)
-    lm = LM(cfg, dtype, device, features=feats, param_dtype=pdt,
-            rules=rules, tp=tp, dp=dp if train else None)
     info: Dict[str, Any] = {"n_params": host.num_params(),
                             "n_active_params": host.num_active_params()}
     if train:
-        lm.requires_grad_(True)
+        lm = LM(cfg, dtype, device, features=feats, param_dtype=pdt,
+                rules=rules, tp=tp, dp=dp).requires_grad_(True)
         specs = step_mod.train_state_pspecs(host, mesh).params
         layout = step_mod.StateLayout(lm, specs, mesh,
                                       dict(host.named_parameters()))
@@ -302,8 +360,18 @@ def walk(cfg, kind: str, batch: Dict[str, torch.Tensor], *,
         args = (state, batch)
         info["accum_walked"] = accum
     else:
-        b = batch["tokens"].shape[0]
-        state = lm.init_decode_state(b, seq_len)
+        whole = host.init_decode_state(
+            global_batch or batch["tokens"].shape[0], seq_len)
+        rules = host.state_rules(whole, state_mesh, rules)
+        lm = LM(cfg, dtype, device, features=feats, param_dtype=pdt,
+                rules=rules, tp=tp, mesh=state_mesh)
+        state = lm.cut_state(whole)
+        del whole
+        info["cache_seq"] = {a: lm._axis(a).size for a in
+                             (rules.lookup("cache_seq") or ())}
+        kvs = [x for x, kind in _state_leaves(state) if kind == "kv"]
+        info["kv_bytes"] = _nbytes(kvs)
+        info["kv_shape"] = list(kvs[0].shape) if kvs else None
         if kind == "prefill":
             def fn(st, bt):
                 return lm.prefill(bt, st)
@@ -323,6 +391,14 @@ def walk(cfg, kind: str, batch: Dict[str, torch.Tensor], *,
                 state_bytes=_nbytes(state), output_bytes=_nbytes(out),
                 temp_bytes=live.peak, peak_bytes=arg_bytes + live.peak)
     return info
+
+
+def _state_leaves(state):
+    """(leaf, kind) of a decode state (``lm._map_state``'s kinds)."""
+    from repro_torch.models.lm import _map_state
+    out = []
+    _map_state(lambda x, kind: out.append((x, kind)), state)
+    return out
 
 
 def skip_reason(spec, shape_name: str) -> Optional[str]:
@@ -408,10 +484,11 @@ def _walk_cell(spec, shape, multi_pod, policy, cell, mesh_name, arch_id,
     mesh_shape, axes = mesh_axes = mesh_mod.mesh_axes(multi_pod)
     cfg = _policy_config(spec, policy)
     train = shape.kind == "train"
+    rules = _rules_for(arch_id, policy, shape.kind)
+    headdim = "model" in (rules.lookup("head_dim") or ())
     m = dict(zip(axes, mesh_shape))["model"]
-    t = _model_degree(cfg, m)
+    t = _model_degree(cfg, m, headdim)
     walked = tuple(t if a == "model" else n for a, n in zip(axes, mesh_shape))
-    rules = DEFAULT_RULES if train else SERVE_RULES
     feats = default_features().with_(remat_policy=policy.remat)
     batch = input_specs(cfg, shape)
     mesh = _WalkMesh(mesh_shape, axes)
@@ -419,7 +496,8 @@ def _walk_cell(spec, shape, multi_pod, policy, cell, mesh_name, arch_id,
     batch = {k: v[:rows] for k, v in batch.items()}
     info = walk(cfg, shape.kind, batch, mesh_shape=walked, axes=axes,
                 policy=policy, features=feats, rules=rules,
-                seq_len=shape.seq_len)
+                seq_len=shape.seq_len, state_shape=mesh_shape,
+                global_batch=shape.global_batch)
     t_walk = time.time()
     ev = info["events"]
     ev.counts["HBM_PEAK_BYTES"] = float(info["peak_bytes"])
@@ -430,23 +508,23 @@ def _walk_cell(spec, shape, multi_pod, policy, cell, mesh_name, arch_id,
     num_devices = int(np.prod(mesh_shape))
     rt = analyze(ev, cell=cell, chip=CHIP, model_flops_total=mf,
                  num_devices=num_devices)
-    unported = {k: v for k, v in (
-        ("sequence_parallel", policy.sequence_parallel),
-        ("kv_shard", policy.kv_shard)) if v not in (False, "seq")}
     arg = info["argument_bytes"]
     return {
         "cell": cell,
         "status": "ok",
         "arch": arch_id, "shape": shape_name, "mesh": mesh_name,
         "kind": shape.kind,
-        "policy": dataclasses.asdict(policy) if train else None,
+        "policy": dataclasses.asdict(policy),
         "n_params": info["n_params"],
         "n_active_params": n_active,
         "walk": {"device": "meta", "rank_rows": rows,
                  "mesh_walked": dict(zip(axes, walked)),
                  "mesh_axes": dict(zip(mesh_axes[1], mesh_axes[0])),
                  "accum_walked": info.get("accum_walked"),
-                 "unported": unported},
+                 "cache_seq": info.get("cache_seq"),
+                 "kv_cache_bytes": info.get("kv_bytes"),
+                 "kv_cache_shape": info.get("kv_shape"),
+                 "unported": {}},
         "memory_analysis": {
             "argument_bytes": arg,
             "output_bytes": info["output_bytes"],
@@ -514,8 +592,11 @@ def main(argv=None) -> int:
     ap.add_argument("--accum", type=int, default=None)
     ap.add_argument("--remat", default=None,
                     choices=["none", "dots", "dots_no_batch", "full"])
+    ap.add_argument("--sp", type=int, default=None,
+                    help="sequence_parallel 0|1")
     ap.add_argument("--chunk-threshold", type=int, default=None)
     ap.add_argument("--chunk-size", type=int, default=None)
+    ap.add_argument("--kv-shard", default=None, choices=["seq", "headdim"])
     args = ap.parse_args(argv)
 
     cfg_over: Dict[str, Any] = {}
@@ -533,6 +614,10 @@ def main(argv=None) -> int:
             kw["accum_steps"] = args.accum
         if args.remat is not None:
             kw["remat"] = args.remat
+        if args.sp is not None:
+            kw["sequence_parallel"] = bool(args.sp)
+        if args.kv_shard is not None:
+            kw["kv_shard"] = args.kv_shard
         return dataclasses.replace(base, **kw) if kw else None
 
     archs = ([args.arch] if args.arch else

@@ -284,6 +284,54 @@ class _GatherOut(torch.autograd.Function):
         return g.narrow(dim, axis.index * n, n).contiguous(), None, None
 
 
+class _GatherSeq(torch.autograd.Function):
+    """Into a column-parallel region under sequence parallelism: the
+    forward gathers the ranks' slices of the sequence, the backward
+    reduce-scatters the region's partial gradients (each rank's region
+    sees only its heads' or columns' share of the whole sequence)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis._gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._reduce_scatter(g, ctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Out of a row-parallel region under sequence parallelism: the
+    forward sums the ranks' partial values and keeps this rank's slice of
+    the sequence, the backward gathers the slices' gradients (every
+    rank's partial value feeds every slice)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis._reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._gather(g, ctx.dim), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """A tensor every rank holds whole, cut to this rank's slice of the
+    sequence: no collective forward, the backward gathers the slices'
+    gradients (the whole tensor's gradient, on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        n = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._gather(g, ctx.dim), None, None
+
+
 class MeshAxis:
     """This rank's line of the mesh along one axis: its process group,
     its size and this rank's index on it.  Over one rank every op is the
@@ -298,7 +346,15 @@ class MeshAxis:
     sum) and :meth:`all_gather` leaves one by concatenation (backward:
     this rank's slice).  A replicated tensor that feeds a split region
     must enter it through :meth:`copy_in`, else its gradient, and every
-    gradient upstream of it, is this rank's share only."""
+    gradient upstream of it, is this rank's share only.
+
+    Sequence parallelism adds two pairs along a sequence dim:
+    :meth:`gather_seq` into a column-parallel region (forward all-gather,
+    backward reduce-scatter) and :meth:`reduce_scatter` out of a
+    row-parallel one (forward reduce-scatter, backward all-gather), and
+    :meth:`split`, a whole tensor cut to this rank's slice (backward
+    all-gather).  Gloo has no reduce-scatter: there it is an all-reduce
+    and a slice, declared as a reduce-scatter with its own wire bytes."""
 
     def __init__(self, group: Any, size: int, index: int):
         self.group, self.size, self.index = group, int(size), int(index)
@@ -325,6 +381,51 @@ class MeshAxis:
         parts = [torch.empty_like(w) for _ in range(self.size)]
         dist.all_gather(parts, w, group=self.group)
         return torch.cat(parts, dim=dim).to(x.device)
+
+    def _reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the axis of ``x``, this rank's block of ``dim``."""
+        n = x.shape[dim] // self.size
+        events.record_collective(
+            "reduce-scatter", x.numel() * x.element_size() // self.size,
+            self.size)
+        w = _wire(x.movedim(dim, 0).contiguous())
+        if dist.get_backend(self.group) == "gloo":
+            if w is x or w.data_ptr() == x.data_ptr():
+                w = w.clone()
+            dist.all_reduce(w, group=self.group)
+            out = w.narrow(0, self.index * n, n)
+        else:
+            out = w.new_empty((n,) + tuple(w.shape[1:]))
+            dist.reduce_scatter_tensor(out, w, group=self.group)
+        return out.movedim(0, dim).contiguous().to(x.device)
+
+    def gather_seq(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' slices of ``dim`` gathered into a column-parallel
+        region (see the class note)."""
+        if self.size == 1:
+            return x
+        if _needs_grad(x):
+            return _GatherSeq.apply(x, self, dim)
+        return self._gather(x, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' partial values summed, this rank's slice of ``dim``
+        (see the class note)."""
+        if self.size == 1:
+            return x
+        if _needs_grad(x):
+            return _ScatterSeq.apply(x, self, dim)
+        return self._reduce_scatter(x, dim)
+
+    def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of ``dim`` of a tensor every rank holds whole
+        (see the class note)."""
+        if self.size == 1:
+            return x
+        if _needs_grad(x):
+            return _SplitSeq.apply(x, self, dim)
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * n, n)
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """The sum (or ``op="max"``, never differentiated) over the
@@ -455,8 +556,11 @@ def mesh_coordinate(mesh: Any) -> Optional[Tuple[int, ...]]:
 def axis_of(mesh: Any, name: str) -> Optional[MeshAxis]:
     """This rank's :class:`MeshAxis` along ``name`` (a
     :class:`ModelAxis` for ``model``; size 1 when the mesh has no such
-    axis), or None when the rank is not in the mesh."""
+    axis), or None when the rank is not in the mesh.  A duck mesh with an
+    ``axis_of`` method (the dry run's counting mesh) gives its own."""
     mesh = mesh.mesh if isinstance(mesh, ServeMesh) else mesh
+    if callable(getattr(mesh, "axis_of", None)):
+        return mesh.axis_of(name)          # a duck mesh with its own axes
     names, sizes = mesh_layout(mesh)
     coord = mesh_coordinate(mesh)
     if coord is None:

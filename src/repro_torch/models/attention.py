@@ -62,12 +62,13 @@ from repro_torch.kernels import registry
 from repro_torch.models.layers import (apply_mrope, apply_rope, cast,
                                       truncated_normal_)
 
-__all__ = ["AttnConfig", "Attention", "KVCache", "init_kv_cache",
+__all__ = ["AttnConfig", "Attention", "KVCache", "KVLayout", "init_kv_cache",
            "prefill_into_cache", "decode_attention", "PagedKVCache",
            "init_paged_kv_cache", "prefill_into_paged_cache",
            "paged_decode_attention_token", "KV_QUANT_EPS",
            "quantize_kv_rows", "dequantize_gathered", "full_attention",
-           "attention", "flash_attention_train", "attn_specs"]
+           "attention", "flash_attention_train", "attn_specs",
+           "relay_kv", "split_attend"]
 
 NEG_INF = -2.0e38
 
@@ -146,11 +147,14 @@ def attn_specs(cfg: AttnConfig) -> dict:
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                  positions: torch.Tensor,
-                 positions3: Optional[torch.Tensor] = None):
+                 positions3: Optional[torch.Tensor] = None,
+                 head_dim: Any = None):
     """x [B,S,d] -> q [B,S,H,Dh], k/v [B,S,KVH,Dh], RoPE'd at ``positions``
     [B,S], or M-RoPE'd at ``positions3`` [3,B,S] when the config has
     ``mrope_sections`` and the caller passes them
-    (``repro/models/attention.py:108-113``)."""
+    (``repro/models/attention.py:108-113``).  ``head_dim``: the axis a
+    ``kv_shard="headdim"`` rank's paired cut of the head dim splits over
+    (:class:`KVLayout`); RoPE then rotates at the cut's frequencies."""
     b, s, d = x.shape
     dt = x.dtype
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -163,34 +167,45 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: AttnConfig,
         v = v + cast(p.bv, dt)
     if not cfg.use_rope:
         return q, k, v
+    pairs = None if head_dim is None else (head_dim.size, head_dim.index)
     if cfg.mrope_sections is not None and positions3 is not None:
+        if pairs is not None:
+            raise ValueError("kv_shard='headdim' is a decode layout: "
+                             "M-RoPE's positions come only at prefill")
         q = apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
         k = apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
     else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, pairs)
+        k = apply_rope(k, positions, cfg.rope_theta, pairs)
     return q, k, v
 
 
-def _out_proj(p: Attention, out: torch.Tensor, tp: Any = None
-              ) -> torch.Tensor:
+def _out_proj(p: Attention, out: torch.Tensor, tp: Any = None,
+              sp: bool = False) -> torch.Tensor:
     """[B,S,H,Dh] @ wo [H,Dh,d] -> [B,S,d].  Under tensor parallelism
     (``tp``, the model axis; the config then holds the rank's head
     counts) ``wo`` is row-parallel: this rank's heads give a partial sum,
-    reduced over the axis here (``wo`` has no bias to add after it)."""
+    reduced over the axis here (``wo`` has no bias to add after it), or
+    under sequence parallelism (``sp``) reduce-scattered over the
+    sequence."""
     b, s, h, dh = out.shape
     y = out.reshape(b, s, h * dh) @ cast(p.wo, out.dtype).reshape(h * dh,
                                                                   -1)
-    return y if tp is None else tp.all_reduce(y)
+    if tp is None:
+        return y
+    return tp.reduce_scatter(y, 1) if sp else tp.all_reduce(y)
 
 
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
+                scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,Sq,H,Dh], k: [B,Sk,KVH,Dh] -> scores [B,KVH,G,Sq,Sk] (q's
-    dtype)."""
+    dtype), times ``scale`` (divided by ``sqrt(Dh)`` by default)."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, dh).permute(0, 2, 3, 1, 4)
     kt = k.permute(0, 2, 3, 1)[:, :, None]                  # [B,KVH,1,Dh,Sk]
+    if scale is not None:
+        return (qg @ kt) * scale
     return (qg @ kt) / math.sqrt(dh)
 
 
@@ -209,6 +224,41 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # [(L,) B, Smax, KVH, Dh]; a layer's view drops L
     v: torch.Tensor          # [(L,) B, Smax, KVH, Dh]
     length: torch.Tensor     # [B] int32 — tokens filled so far, per row
+
+
+class KVLayout(NamedTuple):
+    """How a rank holds its dense caches (and the encdec memory) where
+    they follow the reference's decode-state layout (``LM.state_pspecs``)
+    instead of the engine's kv-head split; None fields are whole.
+
+    * ``seq``: the axes the cache's sequence dim is cut over (a
+      :class:`repro_torch.launch.mesh.DataAxis` of them, major to minor):
+      the rank holds positions ``[index * S_l, (index + 1) * S_l)``, attends
+      them and combines its partial softmax (max, then the sum of the
+      rescaled sums and weighted values: two all-reduces, the split-K
+      combine of ``csrc/paged_split.cuh``) over the axes;
+    * ``heads``: the model axis the rank's weights split heads over while
+      its cache holds every kv head (``kv_heads`` finds ``model`` taken by
+      ``cache_seq``): the new q/k/v are gathered over it before attending
+      and the output cut back to the rank's heads for the row-parallel
+      ``wo``;
+    * ``head_dim``: the model axis the head dim splits over
+      (``kv_shard="headdim"``): the rank holds a paired cut of every head
+      (block ``index`` of each half, so RoPE's pairs stay on the rank),
+      its scores are partial dot products all-reduced over the axis and
+      its output is its head-dim slice, ``wo`` row-parallel over it."""
+
+    seq: Any = None
+    heads: Any = None
+    head_dim: Any = None
+
+    def dh_full(self, dh: int) -> int:
+        """The whole head dim of a rank's ``dh``."""
+        return dh * (self.head_dim.size if self.head_dim is not None else 1)
+
+    def lo(self, s_local: int) -> int:
+        """The first position of this rank's sequence slice."""
+        return self.seq.index * s_local if self.seq is not None else 0
 
 
 def init_kv_cache(batch: int, max_seq: int, cfg: AttnConfig,
@@ -441,7 +491,7 @@ def _prefill_qkv_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
 
 def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
               positions3: Optional[torch.Tensor] = None,
-              tp: Any = None) -> torch.Tensor:
+              tp: Any = None, sp: bool = False) -> torch.Tensor:
     """Self-attention over x [B,S,d] -> [B,S,d] with no cache, RoPE'd at
     ``arange(S)`` (M-RoPE at ``positions3`` [3,B,S] for the vlm family;
     causal as ``cfg.causal`` says): the training block's and the
@@ -454,10 +504,12 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
     card (``causal=False`` for the encoder), the reference's plain choice
     on the CPU.  Under tensor parallelism (``tp``; the config holds the
     rank's heads) ``x`` enters through ``tp.copy_in`` and ``wo``'s partial
-    sums reduce over the axis."""
-    b, s, _ = x.shape
+    sums reduce over the axis; under sequence parallelism (``sp``) ``x``
+    is this rank's slice of the sequence, gathered into the heads
+    (``tp.gather_seq``), and the output reduce-scattered back to it."""
     if tp is not None:
-        x = tp.copy_in(x)
+        x = tp.gather_seq(x, 1) if sp else tp.copy_in(x)
+    b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions, positions3)
     if registry.needs_grad(q, k, v):
@@ -472,7 +524,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
                            causal=cfg.causal, kv_len=None,
                            chunk_size=cfg.chunk_size,
                            chunk_threshold=cfg.chunk_threshold)
-    return _out_proj(p, out, tp)
+    return _out_proj(p, out, tp, sp)
 
 
 def _new_lengths(lengths: Optional[torch.Tensor], b: int, s: int,
@@ -486,22 +538,36 @@ def prefill_into_cache(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                        cache: KVCache,
                        lengths: Optional[torch.Tensor] = None,
                        positions3: Optional[torch.Tensor] = None,
-                       tp: Any = None) -> Tuple[torch.Tensor, KVCache]:
+                       tp: Any = None, kv: Optional[KVLayout] = None
+                       ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill attention that also writes this segment's K/V into the
     cache (in place, at positions ``[0, S)``).  ``lengths`` [B] int32 marks
     each row's real prompt length: pad keys are masked out of every
     softmax and the cache records the true lengths.  ``positions3``
-    [3,B,S] are M-RoPE's position streams (the vlm family)."""
+    [3,B,S] are M-RoPE's position streams (the vlm family).  Under a
+    :class:`KVLayout` the attention runs as without one (this rank's
+    heads) and the K/V are re-laid into the rank's cut of the cache
+    (:func:`relay_kv`); ``kv_shard="headdim"`` is a decode layout and
+    prefills nothing."""
     b, s, _ = x.shape
+    if kv is not None and kv.head_dim is not None:
+        raise ValueError("kv_shard='headdim' is a decode layout: prefill "
+                         "under the serving layout, then cut the state")
     out, k, v = _prefill_qkv_attend(p, x, cfg, lengths, positions3)
-    cache.k[:, :s] = k.to(cache.k.dtype)
-    cache.v[:, :s] = v.to(cache.v.dtype)
+    if kv is None:
+        cache.k[:, :s] = k.to(cache.k.dtype)
+        cache.v[:, :s] = v.to(cache.v.dtype)
+    else:
+        n = cache.k.shape[1]
+        cache.k.copy_(relay_kv(k, kv, n).to(cache.k.dtype))
+        cache.v.copy_(relay_kv(v, kv, n).to(cache.v.dtype))
     y = _out_proj(p, out, tp)
     return y, cache._replace(length=_new_lengths(lengths, b, s, x.device))
 
 
 def decode_attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
-                     cache: KVCache, tp: Any = None
+                     cache: KVCache, tp: Any = None,
+                     kv: Optional[KVLayout] = None
                      ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode: x [B,1,d]; row b holds ``length[b]`` past tokens.
 
@@ -510,25 +576,113 @@ def decode_attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     ``length[b]`` masked (one softmax, the JAX package's dense path).  A
     row already at the buffer's end (an idle scheduler slot, or a
     segment's overshoot) drops its write, as a JAX scatter out of bounds
-    does."""
-    b = x.shape[0]
+    does.  Under a :class:`KVLayout` the cache is this rank's cut of the
+    reference's decode-state layout: the new token's K/V are written only
+    by the rank whose slice holds position ``length[b]`` (and by none at
+    the buffer's end), the rank attends its positions ``<= length[b]``
+    and the partial softmaxes combine over ``kv.seq``
+    (:func:`split_attend`)."""
+    kv = kv or KVLayout()
     length = cache.length
-    q, k, v = _project_qkv(p, x, cfg, length[:, None])
-    rows = torch.arange(b, device=x.device)
-    smax = cache.k.shape[1]
-    idx = torch.clamp(length, max=smax - 1).long()
-    keep = (length < smax)[:, None, None]
-    cache.k[rows, idx] = torch.where(keep, k[:, 0].to(cache.k.dtype),
-                                     cache.k[rows, idx])
-    cache.v[rows, idx] = torch.where(keep, v[:, 0].to(cache.v.dtype),
-                                     cache.v[rows, idx])
-    scores = _gqa_scores(q, cache.k.to(q.dtype)).float()
-    valid = (torch.arange(smax, device=x.device)[None, :]
-             <= length[:, None])                      # includes the new token
-    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = _gqa_out(probs, cache.v.to(q.dtype))
+    q, k, v = _project_qkv(p, x, cfg, length[:, None],
+                           head_dim=kv.head_dim)
+    q, k, v = _gather_heads(kv, q, k, v)
+    s = cache.k.shape[1]
+    lo = kv.lo(s)
+    _write_token(cache, k, v, length, lo)
+    pos = torch.arange(s, device=x.device)
+    valid = ((pos + lo if lo else pos)[None, :]
+             <= length[:, None])                     # includes the new token
+    out = split_attend(q, cache.k, cache.v, valid, kv)
+    out = _own_heads(kv, out, cfg.num_heads)
     return _out_proj(p, out, tp), cache._replace(length=length + 1)
+
+
+def _write_token(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor, lo: int = 0) -> None:
+    """Write the new token's K/V [B,1,KVH,Dh] at each row's position
+    ``length[b]``, index ``length[b] - lo`` of this cache's buffer (``lo``
+    the buffer's first position), in place: a row whose index lies
+    outside the buffer (another rank's slice, or past the end) drops its
+    write.  At ``lo == 0`` no index falls below the buffer, and the write
+    costs what the unsplit cache's does."""
+    rows = torch.arange(k.shape[0], device=k.device)
+    s = cache.k.shape[1]
+    loc = length - lo if lo else length
+    idx = loc.clamp(0, s - 1).long()
+    own = loc < s
+    if lo:
+        own = own & (loc >= 0)
+    own = own[:, None, None]
+    cache.k[rows, idx] = torch.where(own, k[:, 0].to(cache.k.dtype),
+                                     cache.k[rows, idx])
+    cache.v[rows, idx] = torch.where(own, v[:, 0].to(cache.v.dtype),
+                                     cache.v[rows, idx])
+
+
+def split_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: Optional[torch.Tensor], kv: KVLayout
+                 ) -> torch.Tensor:
+    """Attention of q [B,Sq,H,Dh] over this rank's keys k/v [B,Sk,KVH,Dh]
+    under ``kv`` (``valid`` [B,Sk] masks keys, None: all real): the
+    scores' head-dim partial sums all-reduced over ``kv.head_dim``, then a
+    softmax over the keys of every rank of ``kv.seq`` from this rank's
+    partial max, sum and weighted values, combined in fp32 by one max and
+    one sum all-reduce.  Every query must have a real key on some rank.
+    Returns [B,Sq,H,Dh] in q's dtype."""
+    if kv.head_dim is None:
+        scores = _gqa_scores(q, k.to(q.dtype)).float()       # [B,KVH,G,Sq,Sk]
+    else:
+        scores = kv.head_dim.all_reduce(
+            _gqa_scores(q, k.to(q.dtype), 1.0).float())
+        scores = scores * (1.0 / math.sqrt(kv.dh_full(q.shape[-1])))
+    if valid is not None:
+        scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    if kv.seq is None:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return _gqa_out(probs, v.to(q.dtype))
+    mx = kv.seq.all_reduce(scores.amax(-1, keepdim=True), op="max")
+    e = torch.exp(scores - mx)
+    if valid is not None:
+        e = torch.where(valid[:, None, None, None, :], e, 0.0)
+    num = _gqa_out(e, v.float())                             # [B,Sq,H,Dh]
+    b, kvh, g, sq, _ = e.shape
+    den = e.sum(-1).permute(0, 3, 1, 2).reshape(b, sq, kvh * g, 1)
+    both = kv.seq.all_reduce(torch.cat([num, den], dim=-1))
+    return (both[..., :-1] / both[..., -1:]).to(q.dtype)
+
+
+def _gather_heads(kv: KVLayout, *ts: torch.Tensor):
+    """Every head of a rank's q/k/v when its weights split heads and its
+    cache holds them all (``kv.heads``); the tensors themselves else."""
+    if kv.heads is None:
+        return ts
+    return tuple(kv.heads.all_gather(t, dim=2) for t in ts)
+
+
+def _own_heads(kv: KVLayout, out: torch.Tensor, h: int) -> torch.Tensor:
+    """This rank's ``h`` heads of a gathered output (for ``wo``)."""
+    if kv.heads is None:
+        return out
+    return out.narrow(2, kv.heads.index * h, h)
+
+
+def relay_kv(t: torch.Tensor, kv: Optional[KVLayout],
+             s_local: int) -> torch.Tensor:
+    """A prefill's K or V [B,S,KVH,Dh] in the engine's layout (this rank's
+    kv heads) re-laid into this rank's cut of the decode-state layout:
+    gathered over ``kv.heads`` (a declared all-gather), then cut to the
+    rank's ``s_local`` positions of the sequence (zeros past ``S``)."""
+    if kv is None:
+        return t
+    (t,) = _gather_heads(kv, t)
+    lo = kv.lo(s_local)
+    part = t[:, lo:lo + s_local]
+    if part.shape[1] < s_local:
+        pad = t.new_zeros((t.shape[0], s_local - part.shape[1])
+                          + tuple(t.shape[2:]))
+        part = torch.cat([part, pad], dim=1)
+    return part
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,11 @@ class CrossAttnBlockConfig(NamedTuple):
     # over, and the one d_ff splits over (None when it stays whole)
     tp: Optional[Any] = None
     tp_mlp: Optional[Any] = None
+    # the decode-state layouts of the self-attention caches and of the
+    # cross-attention memory (``attention.KVLayout``s, each from its own
+    # leaf's spec; None: the engine's kv-head split)
+    kv: Optional[Any] = None
+    mem_kv: Optional[Any] = None
 
 
 def _ln_specs() -> dict:
@@ -203,25 +208,33 @@ def cross_memory(p_cross: attn_mod.Attention, enc_out: torch.Tensor,
 
 def _cross_attend(p_cross: attn_mod.Attention, x: torch.Tensor,
                   mem_k: torch.Tensor, mem_v: torch.Tensor,
-                  cfg: AttnConfig, tp: Any = None) -> torch.Tensor:
+                  cfg: AttnConfig, tp: Any = None,
+                  kv: Optional[attn_mod.KVLayout] = None) -> torch.Tensor:
     """Queries of x [B,S,d] over every memory position: no RoPE, no mask,
-    no bias; on a model axis this rank's heads, ``wo`` row-parallel."""
+    no bias; on a model axis this rank's heads, ``wo`` row-parallel.
+    Under a :class:`~repro_torch.models.attention.KVLayout` the memory is
+    this rank's cut of it (a decode step's state): the queries attend it
+    and the partials combine (:func:`~repro_torch.models.attention.
+    split_attend`)."""
     if tp is not None:
         x = tp.copy_in(x)
     b, s, d = x.shape
     q = (x @ cast(p_cross.wq, x.dtype).reshape(d, -1)).view(
         b, s, cfg.num_heads, cfg.head_dim)
-    out = attn_mod._full_attention_offset(
-        q, mem_k.to(x.dtype), mem_v.to(x.dtype), 0, False, None)
+    kv = kv or attn_mod.KVLayout()
+    (q,) = attn_mod._gather_heads(kv, q)
+    out = attn_mod._own_heads(
+        kv, attn_mod.split_attend(q, mem_k, mem_v, None, kv), cfg.num_heads)
     return attn_mod._out_proj(p_cross, out, tp)
 
 
 def _decoder_tail(p: DecoderBlock, h: torch.Tensor, mem_k: torch.Tensor,
-                  mem_v: torch.Tensor, cfg: CrossAttnBlockConfig
-                  ) -> torch.Tensor:
-    """The cross-attention and FFN halves of a decoder block."""
+                  mem_v: torch.Tensor, cfg: CrossAttnBlockConfig,
+                  kv: Optional[attn_mod.KVLayout] = None) -> torch.Tensor:
+    """The cross-attention and FFN halves of a decoder block (``kv``: the
+    layout of a decode state's memory)."""
     h = h + _cross_attend(p.cross, _ln(h, p.ln_cross, cfg), mem_k, mem_v,
-                          cfg.attn, cfg.tp)
+                          cfg.attn, cfg.tp, kv)
     return h + _mlp(p.mlp, _ln(h, p.ln2, cfg), cfg)
 
 
@@ -242,7 +255,7 @@ def apply_decoder_block_prefill(p: DecoderBlock, x: torch.Tensor,
     ``cache`` (one layer's view, in place; ``LM._encdec_prefill``'s
     ``dec_one``, ``repro/models/lm.py:567-583``)."""
     a, new_cache = attn_mod.prefill_into_cache(
-        p.attn, _ln(x, p.ln1, cfg), cfg.attn, cache, tp=cfg.tp)
+        p.attn, _ln(x, p.ln1, cfg), cfg.attn, cache, tp=cfg.tp, kv=cfg.kv)
     return _decoder_tail(p, x + a, mem_k, mem_v, cfg), new_cache
 
 
@@ -252,5 +265,5 @@ def apply_decoder_block_decode(p: DecoderBlock, x: torch.Tensor,
                                ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode of a decoder block over its dense cache."""
     a, new_cache = attn_mod.decode_attention(
-        p.attn, _ln(x, p.ln1, cfg), cfg.attn, cache, tp=cfg.tp)
-    return _decoder_tail(p, x + a, mem_k, mem_v, cfg), new_cache
+        p.attn, _ln(x, p.ln1, cfg), cfg.attn, cache, tp=cfg.tp, kv=cfg.kv)
+    return _decoder_tail(p, x + a, mem_k, mem_v, cfg, cfg.mem_kv), new_cache

@@ -389,11 +389,23 @@ def rope_freqs(head_dim: int, theta: float = 10000.0,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
+               theta: float = 10000.0,
+               pairs: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Half-split rotary embedding.  x: [..., S, H, Dh]; positions: [..., S]
-    integer, per row.  Computed in fp32, cast back to ``x``'s dtype."""
+    integer, per row.  Computed in fp32, cast back to ``x``'s dtype.
+
+    ``pairs=(m, r)``: x's last dim is a rank's paired cut of a head dim
+    ``m`` times as wide (``kv_shard="headdim"``): the ``r``-th of ``m``
+    blocks of the first half followed by the same block of the second,
+    so every dim's rotation partner is on the rank and only the
+    frequencies are the block's."""
     dh = x.shape[-1]
-    inv = rope_freqs(dh, theta, x.device)                        # [Dh/2]
+    if pairs is None:
+        inv = rope_freqs(dh, theta, x.device)                    # [Dh/2]
+    else:
+        m, r = pairs
+        inv = rope_freqs(dh * m, theta, x.device)[r * dh // 2:
+                                                  (r + 1) * dh // 2]
     ang = positions[..., None].float() * inv                     # [..., S, Dh/2]
     cos = torch.cos(ang)[..., None, :]                           # broadcast heads
     sin = torch.sin(ang)[..., None, :]

@@ -117,6 +117,53 @@ the cross entropy is vocab-parallel (the row max, the sum of
 exponentials and the gold logit, each reduced over ``model``), where a
 gather would make 2.5 GB of fp32 logits a rank at 8 x 512 tokens and
 vocab 151936.  ``generate`` keeps its gathered logits.
+
+**Sequence parallelism** (``act_seq -> model`` in the LM's rules, a model
+axis of more than one rank; ``repro/models/transformer.py:99-113``,
+``repro/models/lm.py:346-355``).  The training forward cuts the
+embeddings (after the vlm family's patch merge; M-RoPE's positions are
+the whole sequence's) to this rank's slice of the sequence, and the
+transformer blocks keep it there: the residual and the norms on the slice
+(the norms' leaves through ``copy_in``, so their gradients sum over the
+ranks' slices), an all-gather over the sequence into the attention's and
+a split SwiGLU's column-parallel products, a reduce-scatter out of
+``wo`` and ``w_down`` (:meth:`~repro_torch.launch.mesh.MeshAxis.
+gather_seq`, :meth:`~repro_torch.launch.mesh.MeshAxis.reduce_scatter`).
+The MoE sees the whole sequence (its capacity and aux loss are the call's
+tokens) and reduce-scatters its output; the hybrid's Mamba2 groups run on
+the gathered sequence between its shared blocks, the xlstm and encdec
+backbones on the whole sequence (the reference constrains only their
+embedding output and logits).  The final norm runs on the slice, and the
+head on the gathered sequence, so the vocab-parallel loss is unchanged:
+the reference's logits ``("batch", "act_seq", "vocab")`` hold the same
+bytes a rank with the vocab whole.
+
+**The decode state's layout** (``LM(..., mesh=)``; ``repro/models/lm.py:
+434-449``, ``repro/launch/dryrun.py:115-124``).  :meth:`LM.state_specs`
+names every state leaf's axes by its rank, as the reference does, and
+:meth:`LM.state_pspecs` maps them onto a mesh: a KV cache's sequence takes
+the axes the batch leaves free (``cache_seq -> ("data", "model")``), so
+``kv_heads`` finds ``model`` taken and stays whole.  An LM given the mesh
+decodes (and prefills into) this rank's cut of such a state
+(:meth:`LM.cut_state`, which keeps the layout on the LM) under rules that
+name the axes the state was cut by (:meth:`LM.state_rules`: the
+divisibility guard makes the layout depend on the whole sizes, which a
+rank's slice does not show).  The caches and the encdec memory each
+follow their own leaf's spec (the guard may cut a memory of
+``max_seq // src_ratio`` positions by kv heads where it cuts the caches
+by positions), and the memory holds the state's ``S_src`` positions, so
+a prefill under the layout takes a source of that length only.  A rank
+gathers its heads' new q/k/v over the model axis, attends its slice of
+the positions and combines the partial softmaxes over the sequence's axes
+(:class:`~repro_torch.models.attention.KVLayout`); only the rank that
+holds position ``length[b]`` writes the new token.  Under
+``kv_shard="headdim"``'s rules (``head_dim -> model``, heads whole) the
+attention's weights and the cache hold a paired cut of the head dim, the
+scores reduce over the model axis and ``wo`` is row-parallel over the
+head dim.  The recurrent states (Mamba2's, the mLSTM's) are re-laid from
+the reference's cut into the heads the blocks compute and back around a
+step (:meth:`LM._relaid`).  The engines pass no mesh and keep their
+kv-head split, as the reference's do (``repro/serve/engine.py:378-388``).
 """
 
 from __future__ import annotations
@@ -124,7 +171,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Tuple, Union)
 
 import torch
 from torch import nn
@@ -138,12 +186,14 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.attention import AttnConfig, KVCache
+from repro_torch.models.attention import (AttnConfig, KVCache, KVLayout,
+                                         PagedKVCache)
 from repro_torch.models.layers import (DEFAULT_RULES, ModelSplit,
                                       ShardingRules, cast, contract_split,
                                       embed_lookup, expand_split, fit_spec,
-                                      layer_norm, split_spec,
-                                      spec_tree_to_pspecs, truncated_normal_)
+                                      layer_norm, logical_to_mesh,
+                                      split_spec, spec_tree_to_pspecs,
+                                      truncated_normal_)
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import Mamba2Config
 from repro_torch.models.transformer import BlockConfig
@@ -263,14 +313,76 @@ def _hybrid_groups(n_layers: int, every: int):
     return out
 
 
-def _split_heads(cfg: LMConfig) -> Dict[str, int]:
-    """The head counts a model axis must divide, by family."""
+def _split_heads(cfg: LMConfig, headdim: bool = False) -> Dict[str, int]:
+    """The head counts a model axis must divide, by family; under
+    ``kv_shard="headdim"`` (``headdim``) the attention splits each half
+    of the head dim instead of its heads."""
     if cfg.family == "xlstm":
         return {"num_heads": cfg.num_heads}
-    out = {"num_kv_heads": cfg.num_kv_heads}
+    out = ({"head_dim / 2": cfg.resolved_head_dim // 2} if headdim
+           else {"num_kv_heads": cfg.num_kv_heads})
     if cfg.family == "hybrid":
         out["ssm heads"] = cfg.mamba_config().num_heads
     return out
+
+
+#: attention leaves a ``kv_shard="headdim"`` rank cuts on the head dim,
+#: and that dim
+HEADDIM_LEAVES = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1,
+                  "bv": 1}
+
+
+def _state_leaf_axes(ndim: int) -> Tuple[Optional[str], ...]:
+    """The reference's logical axes of a decode-state leaf, by its rank
+    (``repro/models/lm.py:434-449``)."""
+    if ndim == 5:
+        return ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    if ndim == 4:
+        return ("layers", "batch", "heads", None)
+    if ndim == 3:
+        return ("layers", "batch", None)
+    if ndim == 2:
+        return ("layers", "batch")
+    return (None,) * ndim
+
+
+def _map_state(fn: Callable, state: Any, *others: Any) -> Any:
+    """``fn(leaf, kind, *other_leaves)`` over every tensor of a decode
+    state (dicts, tuples and cache tuples; ``others`` trees of the same
+    structure), the same structure back.  ``kind`` is ``"kv"`` for a KV
+    buffer (a cache's ``k``/``v``, the encdec memory), ``"shared"`` for a
+    leaf the port holds once for every layer where the reference stacks
+    it (a cache's ``length``, a page table) and ``"state"`` else."""
+    def walk(t, kind, *o):
+        if t is None:
+            return None
+        if isinstance(t, torch.Tensor):
+            return fn(t, kind, *o)
+        if isinstance(t, (KVCache, PagedKVCache)):
+            kinds = {"k": "kv", "v": "kv", "k_pages": "kv",
+                     "v_pages": "kv", "length": "shared",
+                     "page_table": "shared"}
+            return type(t)(*[walk(v, kinds.get(f, "state"),
+                                  *(x[i] for x in o))
+                             for i, (f, v) in enumerate(zip(t._fields, t))])
+        if isinstance(t, Mapping):
+            return {k: walk(v, "kv" if k in ("mem_k", "mem_v") else kind,
+                            *(x[k] for x in o)) for k, v in t.items()}
+        return type(t)(walk(v, kind, *(x[i] for x in o))
+                       for i, v in enumerate(t))
+    return walk(state, "state", *others)
+
+
+def _names(entry: Any) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def _paired_cut(x: torch.Tensor, dim: int, m: int, r: int) -> torch.Tensor:
+    """Block ``r`` of ``m`` of each half of ``dim``, side by side: a
+    ``kv_shard="headdim"`` rank's cut of the head dim (RoPE pairs dim
+    ``i`` with ``i + Dh/2``, so a contiguous cut would hold one half)."""
+    return torch.cat([h.chunk(m, dim)[r] for h in x.chunk(2, dim)], dim=dim)
 
 
 def _flat(tree: Dict[str, Any], prefix: str = ""):
@@ -303,6 +415,19 @@ class LMHead(nn.Module):
 State = Dict[str, Any]
 
 
+class StateCut(NamedTuple):
+    """The decode-state layout an LM with a mesh holds its states in (set
+    by :meth:`LM.cut_state`): the whole state's mesh specs
+    (:meth:`LM.state_pspecs`), the KV caches' and the encdec memory's
+    :class:`~repro_torch.models.attention.KVLayout` (None: attended as the
+    engine's layout is), and the memory's whole source length."""
+
+    specs: Any
+    kv: Optional[KVLayout]
+    mem: Optional[KVLayout]
+    s_src: int
+
+
 class LM(nn.Module):
     """The causal LM.  Parameter names mirror the JAX params tree
     (``embed.table``, ``final_norm.scale``, ``blocks.{i}.attn.wq``,
@@ -316,13 +441,15 @@ class LM(nn.Module):
                  features: Optional[FeatureSet] = None,
                  param_dtype: Optional[torch.dtype] = None,
                  rules: ShardingRules = DEFAULT_RULES, tp: Any = None,
-                 dp: Any = None):
+                 dp: Any = None, mesh: Any = None):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; families: "
                              f"{PORTED_FAMILIES}")
+        self.rules = rules
+        self.tp = tp
         if tp is not None:
-            for what, n in _split_heads(cfg).items():
+            for what, n in _split_heads(cfg, self._headdim).items():
                 if n % tp.size:
                     raise ValueError(
                         f"{what}={n} does not divide over the model axis "
@@ -332,9 +459,9 @@ class LM(nn.Module):
         self.param_dtype = param_dtype or dtype
         self.features = features or default_features()
         self.device = resolve_device(device)
-        self.rules = rules
-        self.tp = tp
         self.dp = dp
+        self.mesh = mesh
+        self._cut: Optional[StateCut] = None
         dev = self.device
         bc = self.block_config()
         dtype = self.param_dtype
@@ -374,6 +501,26 @@ class LM(nn.Module):
         """Whether a dim of size ``n`` splits over the model axis."""
         return self.tp is not None and n % self.tp.size == 0
 
+    def _on_model(self, logical: str) -> bool:
+        """Whether the LM's rules map ``logical`` onto the model axis (and
+        the LM has one of more than one rank)."""
+        return (self.tp is not None and self.tp.size > 1
+                and "model" in (self.rules.lookup(logical) or ()))
+
+    @property
+    def _headdim(self) -> bool:
+        """``kv_shard="headdim"``'s rules (``head_dim -> model``): the
+        attention splits each half of the head dim over the model axis
+        and keeps every head."""
+        return self._on_model("head_dim")
+
+    @property
+    def _sp(self) -> bool:
+        """Sequence parallelism (``act_seq -> model``): the training
+        forward keeps the hidden state between blocks as this rank's
+        slice of the sequence."""
+        return self._on_model("act_seq")
+
     @property
     def local_vocab(self) -> int:
         """Vocab rows this rank holds (all of them unless vocab splits)."""
@@ -384,13 +531,16 @@ class LM(nn.Module):
         """The block config this rank computes: the model's, or under
         tensor parallelism its head counts (and a SwiGLU's ``d_ff`` where
         it splits) with the model and data axes attached."""
-        bc = self.cfg.block_config()._replace(dp=self.dp)
+        bc = self.cfg.block_config()._replace(dp=self.dp, sp=self._sp)
         tp = self.tp
         if tp is None:
             return bc
         m = tp.size
-        attn = bc.attn._replace(num_heads=bc.attn.num_heads // m,
-                                num_kv_heads=bc.attn.num_kv_heads // m)
+        if self._headdim:
+            attn = bc.attn._replace(head_dim=bc.attn.head_dim // m)
+        else:
+            attn = bc.attn._replace(num_heads=bc.attn.num_heads // m,
+                                    num_kv_heads=bc.attn.num_kv_heads // m)
         if bc.mlp == "swiglu" and self._split(bc.d_ff):
             return bc._replace(attn=attn, d_ff=bc.d_ff // m, tp=tp,
                                tp_mlp=tp)
@@ -456,20 +606,38 @@ class LM(nn.Module):
     def model_splits(self) -> Dict[str, ModelSplit]:
         """The leaves this rank holds other than the derived spec's
         contiguous cut on the model axis (Mamba2's ``in_proj`` and conv,
-        the mLSTM's head-split leaves), keyed by parameter name; empty
-        without a model axis.  Every other leaf is the derived spec's
-        block, or whole where the rank keeps it whole (:meth:`rank_pspecs`)."""
+        the mLSTM's head-split leaves; under ``kv_shard="headdim"`` the
+        attention's paired cut of the head dim and Mamba2's head leaves),
+        keyed by parameter name; empty without a model axis.  Every other
+        leaf is the derived spec's block, or whole where the rank keeps it
+        whole (:meth:`rank_pspecs`)."""
         cfg = self.cfg
-        if self.tp is None or cfg.family not in ("hybrid", "xlstm"):
-            return {}
+        out: Dict[str, ModelSplit] = {}
+        if self.tp is None:
+            return out
+        if self._headdim:
+            half = cfg.resolved_head_dim // 2
+            for name, _ in self.named_parameters():
+                mod, _, leaf = name.rpartition(".")
+                if mod.endswith((".attn", ".cross")) \
+                        and leaf in HEADDIM_LEAVES:
+                    out[name] = ModelSplit(HEADDIM_LEAVES[leaf],
+                                           ((half, True), (half, True)))
+        if cfg.family not in ("hybrid", "xlstm"):
+            return out
         if cfg.family == "hybrid":
             one, prefix, n = (ssm_mod.tp_splits(cfg.mamba_config()),
                               "mamba", cfg.n_layers)
+            if self._headdim:
+                # heads -> None: the Mamba2 blocks still split by heads
+                one = dict(one, **{k: ModelSplit(0) for k in
+                                   ("A_log", "D", "dt_bias")})
         else:
             one, prefix, n = (xlstm_mod.mlstm_tp_splits(cfg.xlstm_config()),
                               "mlstm", cfg.n_layers // 2)
-        return {f"{prefix}.{i}.{k}": v for i in range(n)
-                for k, v in one.items()}
+        out.update({f"{prefix}.{i}.{k}": v for i in range(n)
+                    for k, v in one.items()})
+        return out
 
     def rank_pspecs(self, pspecs: Dict[str, Any],
                     full_shapes: Dict[str, Any]) -> Dict[str, Any]:
@@ -511,6 +679,204 @@ class LM(nn.Module):
                   else params_shape)
         return spec_tree_to_pspecs(self.param_specs(), rules or self.rules,
                                    mesh, shapes=shapes)
+
+    def shard_params(self, params: Dict[str, torch.Tensor],
+                     mesh: Any = None) -> Optional[Dict[str, torch.Tensor]]:
+        """This rank's blocks of the whole weights ``params`` (keyed by
+        parameter name) on ``mesh`` (:attr:`mesh` by default) under the
+        LM's rules, each cut as the rank holds it (:meth:`rank_pspecs`,
+        :meth:`expand_splits`); None off the mesh."""
+        from repro_torch.ft.elastic import reshard_tree
+        mesh = self.mesh if mesh is None else mesh
+        pspecs = self.param_pspecs(mesh, params)
+        return reshard_tree(self.expand_splits(params),
+                            self.rank_pspecs(pspecs, params), mesh)
+
+    # ================================================ decode-state layout
+    def state_specs(self, state: State) -> Any:
+        """Logical axes of every decode-state leaf, the state's structure
+        back (the reference's ``LM.state_specs``, ``repro/models/lm.py:
+        434-449``): by the leaf's rank, a 5-D leaf ``("layers", "batch",
+        "cache_seq", "kv_heads", "head_dim")``, a 4-D ``("layers",
+        "batch", "heads", None)``, a 3-D ``("layers", "batch", None)``, a
+        2-D ``("layers", "batch")``.  So the hybrid's Mamba2 ``C`` and the
+        mLSTM's ``C`` take the cache's axes, the conv tail ``[L,B,K-1,C']``
+        the heads', and the encdec memory splits along its source
+        sequence.  A cache's ``length`` (and page table), which the port
+        holds once for every layer where the reference stacks it, takes
+        the stacked leaf's axes without ``"layers"``."""
+        def axes(x, kind):
+            if kind == "shared":
+                return _state_leaf_axes(x.dim() + 1)[1:]
+            return _state_leaf_axes(x.dim())
+        return _map_state(axes, state)
+
+    def state_pspecs(self, state: State, mesh: Any,
+                     rules: Optional[ShardingRules] = None) -> Any:
+        """Every decode-state leaf's mesh spec on ``mesh``: its
+        :meth:`state_specs` axes through ``logical_to_mesh`` with the
+        leaf's sizes (the divisibility guard), as the reference's dry run
+        cuts a decode or prefill cell's state (``repro/launch/dryrun.py:
+        115-124``); ``state`` the whole state (meta tensors will do)."""
+        rules = rules or self.rules
+        return _map_state(
+            lambda x, kind, ax: logical_to_mesh(ax, rules, mesh,
+                                                dim_sizes=tuple(x.shape)),
+            state, self.state_specs(state))
+
+    def state_rules(self, state: State, mesh: Any,
+                    rules: Optional[ShardingRules] = None) -> ShardingRules:
+        """``rules`` (the LM's by default) with ``batch`` and ``cache_seq``
+        set to the mesh axes the whole ``state``'s KV cache takes them on
+        under :meth:`state_pspecs` (the batch from any leaf where the
+        family has no cache): the rules a rank's LM decodes its cut of
+        that state by.  A rank sees only its slice, and the divisibility
+        guard makes the layout depend on the whole sizes (a batch of 8 on
+        a data axis of 16 leaves ``data`` to the sequence, one of 128 takes
+        it), so the rules carry the layout the state was cut by."""
+        rules = rules or self.rules
+        specs = self.state_pspecs(state, mesh, rules)
+        found: Dict[str, Any] = {}
+
+        def note(x, kind, spec):
+            if kind == "kv" and x.dim() == 5 and "cache_seq" not in found:
+                found["batch"], found["cache_seq"] = spec[1], spec[2]
+            elif x.dim() >= 2 and kind != "shared":
+                found.setdefault("batch", spec[1])
+        _map_state(note, state, specs)
+        return rules.replace(**{k: _names(v) or None
+                                for k, v in found.items()})
+
+    def _axis(self, name: str) -> Any:
+        """This rank's axis ``name`` of :attr:`mesh`."""
+        from repro_torch.launch import mesh as mesh_mod
+        return mesh_mod.axis_of(self.mesh, name)
+
+    def _coords(self) -> Tuple[Tuple[str, ...], Tuple[int, ...],
+                               Tuple[int, ...]]:
+        """(axis names, sizes, this rank's coordinate) of :attr:`mesh`."""
+        from repro_torch.launch.mesh import mesh_layout
+        names, sizes = mesh_layout(self.mesh)
+        return names, sizes, tuple(self._axis(n).index for n in names)
+
+    def cut_state(self, state: State) -> State:
+        """This rank's block of a whole decode ``state`` under
+        :meth:`state_pspecs` on :attr:`mesh` (the LM's rules): every leaf
+        the reference's cut, but a KV buffer's head dim under
+        ``kv_shard="headdim"``, which the rank holds as its weights do, a
+        paired cut (block ``tp.index`` of each half; the same bytes).  The
+        LM keeps the layout (:class:`StateCut`) and decodes and prefills
+        into states of this cut from then on."""
+        from repro_torch.ft.elastic import local_slice
+        names, sizes, coord = self._coords()
+        specs = self.state_pspecs(state, self.mesh)
+        self._cut = self._layout_of(state, specs)
+
+        def cut(x, kind, spec):
+            if kind == "kv" and self._headdim and _names(spec[-1]):
+                x = _paired_cut(x, x.dim() - 1, self.tp.size, self.tp.index)
+                spec = spec[:-1] + (None,)
+            return local_slice(x, spec, names, sizes, coord).contiguous()
+        return _map_state(cut, state, specs)
+
+    def _layout_of(self, state: State, specs: Any) -> StateCut:
+        """The :class:`StateCut` of a whole ``state`` cut by ``specs``: the
+        caches' and the memory's :class:`~repro_torch.models.attention.
+        KVLayout` each from its own leaf's spec (the divisibility guard
+        may cut them differently)."""
+        caches = state.get("caches", state.get("attn_caches"))
+        if isinstance(caches, PagedKVCache):
+            raise ValueError("the decode-state layout holds dense caches; "
+                             "a paged state keeps the engine's layout")
+        cspecs = specs.get("caches", specs.get("attn_caches"))
+        mem = state.get("mem_k")
+        return StateCut(
+            specs, None if caches is None else self._kv_layout(cspecs.k),
+            None if mem is None else self._kv_layout(specs["mem_k"]),
+            0 if mem is None else mem.shape[2])
+
+    def _kv_layout(self, spec: Any) -> Optional[KVLayout]:
+        """The :class:`~repro_torch.models.attention.KVLayout` of a KV leaf
+        ``[L, B, S, KVH, Dh]`` cut by ``spec``, for this rank's weights:
+        the axes its sequence is cut over; the model axis to gather the
+        new q/k/v's heads over where the weights split heads and the leaf
+        holds every kv head; the head dim's under ``kv_shard="headdim"``.
+        None where the rank attends as the engine's layout does."""
+        from repro_torch.launch.mesh import DataAxis
+        split = self.tp is not None and self.tp.size > 1
+        heads_cut = "model" in _names(spec[3])
+        if heads_cut and not (split and not self._headdim):
+            raise ValueError("the state splits kv heads over the model axis "
+                             "but this rank's weights hold every head")
+        if self._headdim and "model" not in _names(spec[4]):
+            raise ValueError("kv_shard='headdim' weights need the state's "
+                             "head dim cut over the model axis")
+        seq = [self._axis(a) for a in _names(spec[2])]
+        kv = KVLayout(
+            seq=DataAxis(seq) if any(a.size > 1 for a in seq) else None,
+            heads=self.tp if split and not self._headdim and not heads_cut
+            else None,
+            head_dim=self.tp if self._headdim else None)
+        return kv if any(kv) else None
+
+    def _state_layout(self) -> Optional[StateCut]:
+        """The layout of the states this LM decodes (:meth:`cut_state`),
+        None without a mesh."""
+        if self.mesh is None:
+            return None
+        if self._cut is None:
+            raise ValueError("an LM with a mesh decodes its cut of a whole "
+                             "state: cut the state with LM.cut_state first")
+        return self._cut
+
+    def _relaid(self, state: Any, specs: Any, cuts: Any,
+                to_compute: bool, out: Any = None) -> Any:
+        """The recurrent leaves of ``state`` moved between the
+        decode-state layout (``specs``, :meth:`state_pspecs`) and the
+        compute layout a step uses (``cuts``: per leaf the dim its heads
+        split over the model axis and the :class:`~repro_torch.models.
+        layers.ModelSplit` parts of a concatenated leaf, or None for a
+        leaf the step holds whole).  To the compute layout: gathered over
+        every axis the spec cuts (the batch's rows stay this rank's), then
+        cut by heads; back: gathered over the model axis, then cut by the
+        spec, into ``out``'s leaves in place.  Each gather is a declared
+        all-gather."""
+        from repro_torch.ft.elastic import gather_slice, local_slice
+        names, sizes, coord = self._coords()
+        axes = {a: self._axis(a) for a in names}
+        tp = self.tp
+        m = tp.size if tp is not None else 1
+
+        def move(x, kind, spec, cut, *dst):
+            dim, parts = cut if cut is not None else (None, None)
+            if to_compute:
+                full = gather_slice(x, spec, axes, skip=_names(spec[1]))
+                if dim is None or m == 1:
+                    return full
+                if parts:
+                    full = expand_split(full, ModelSplit(dim, parts), m)
+                return full.chunk(m, dim)[tp.index].contiguous()
+            full = x
+            if dim is not None and m > 1:
+                full = tp.all_gather(x, dim)
+                if parts:
+                    full = contract_split(full, ModelSplit(dim, parts), m)
+            spec = tuple(None if i == 1 else e for i, e in enumerate(spec))
+            dst[0].copy_(local_slice(full, spec, names, sizes, coord))
+            return dst[0]
+        others = (specs, cuts) if out is None else (specs, cuts, out)
+        return _map_state(move, state, *others)
+
+    def _recurrent_cuts(self) -> Any:
+        """:meth:`_relaid`'s compute cuts of the recurrent state: the
+        hybrid's SSD ``C``/``n`` by heads (dim 2) and its conv tail by its
+        channels (dim 3, ``[x | B | C]`` with B and C whole); the mLSTM's
+        ``C``/``n`` by heads; the sLSTM's whole."""
+        if self.cfg.family == "hybrid":
+            xbc = ssm_mod.tp_splits(self.cfg.mamba_config())["conv_b"].parts
+            return {"ssd": ((2, None), (2, None)), "conv": (3, xbc)}
+        return {"mlstm": ((2, None), (2, None)),
+                "slstm": (None, None, None)}
 
     # ================================================================ init
     def init(self, generator: Optional[torch.Generator] = None) -> "LM":
@@ -554,6 +920,14 @@ class LM(nn.Module):
             x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
         return x
 
+    def _embed_seq(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The training forward's embeddings: under sequence parallelism
+        this rank's slice of the sequence, cut after the vlm family's
+        patch merge (the M-RoPE positions are the whole sequence's, read
+        from the tokens)."""
+        x = self._embed(batch["tokens"], batch.get("patch_embeds"))
+        return self.tp.split(x, 1) if self._sp else x
+
     def _vlm_positions3(self, tokens: torch.Tensor) -> torch.Tensor:
         """M-RoPE position streams [3,B,S] (``repro/models/lm.py:260-273``):
         the first ``n_patches`` positions take (0, h, w) on the patch
@@ -574,11 +948,15 @@ class LM(nn.Module):
         """Logits of the final hidden states; under a split vocab this
         rank's columns, gathered into whole rows unless ``gather`` is
         False (the vocab-parallel loss)."""
-        x = tf_mod.apply_norm(x, self.final_norm, self.cfg.norm_eps)
+        sp = self.tp if self._sp else None
+        x = tf_mod.apply_norm(x, self.final_norm, self.cfg.norm_eps, sp)
         w = (self.embed.table.T if self.cfg.tie_embeddings
              else self.lm_head.w)
         split = self._split(self.cfg.vocab)
-        if split:
+        if sp is not None:
+            # the sequence gathered: the head's rows are every position's
+            x = sp.gather_seq(x, 1) if split else sp.all_gather(x, 1)
+        elif split:
             x = self.tp.copy_in(x)
         logits = x @ cast(w, x.dtype)
         if split and gather:
@@ -609,16 +987,47 @@ class LM(nn.Module):
     def _backbone(self, x: torch.Tensor, batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Token embeddings -> final hidden states, no caches.  Returns
-        (h, aux loss)."""
+        (h, aux loss).  Under sequence parallelism ``x`` and ``h`` are this
+        rank's slice of the sequence: the transformer blocks keep it
+        between and inside them (:func:`~repro_torch.models.transformer.
+        apply_block`), the hybrid's Mamba2 groups run on the gathered
+        sequence between its shared blocks, and the xlstm and encdec
+        backbones on the gathered sequence (the reference constrains only
+        their embedding output and logits)."""
         cfg, feats = self.cfg, self.features
         fam = cfg.family
+        sp = self.tp if self._sp else None
+        if sp is not None and fam in ("xlstm", "encdec"):
+            h, aux = self._backbone_whole(sp.all_gather(x, 1), batch)
+            return sp.split(h, 1), aux
         if fam in KV_FAMILIES:
             pos3 = (self._vlm_positions3(batch["tokens"]) if fam == "vlm"
                     else None)
             return tf_mod.apply_stack(self.blocks, x, self.block_config(),
                                       feats, positions3=pos3)
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        if fam == "xlstm":
+        if fam == "hybrid":
+            mc, bc = self.mamba_config(), self.block_config()
+            aux = zero
+            for lo, hi in _hybrid_groups(cfg.n_layers, cfg.attn_every):
+                x = x if sp is None else sp.all_gather(x, 1)
+                x, a = tf_mod.apply_layers(
+                    self.mamba[lo:hi], x,
+                    lambda p, h: (ssm_mod.apply_mamba2_block(p, h, mc), zero),
+                    feats)
+                x = x if sp is None else sp.split(x, 1)
+                x, a2 = tf_mod.apply_block(self.shared_attn, x, bc)
+                aux = aux + a + a2
+            return x, aux
+        return self._backbone_whole(x, batch)
+
+    def _backbone_whole(self, x: torch.Tensor,
+                        batch: Dict[str, torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The xlstm and encdec backbones over the whole sequence."""
+        cfg, feats = self.cfg, self.features
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "xlstm":
             xc = self.xlstm_config()
 
             def pair(ms, h):
@@ -627,17 +1036,6 @@ class LM(nn.Module):
 
             return tf_mod.apply_layers(list(zip(self.mlstm, self.slstm)), x,
                                        pair, feats)
-        if fam == "hybrid":
-            mc, bc = self.mamba_config(), self.block_config()
-            aux = zero
-            for lo, hi in _hybrid_groups(cfg.n_layers, cfg.attn_every):
-                x, a = tf_mod.apply_layers(
-                    self.mamba[lo:hi], x,
-                    lambda p, h: (ssm_mod.apply_mamba2_block(p, h, mc), zero),
-                    feats)
-                x, a2 = tf_mod.apply_block(self.shared_attn, x, bc)
-                aux = aux + a + a2
-            return x, aux
         ec = self.encdec_config()                    # encdec
         enc_cfg = ec._replace(attn=ec.attn._replace(causal=False))
         mem, _ = tf_mod.apply_layers(
@@ -659,8 +1057,7 @@ class LM(nn.Module):
         """Logits [B,S,V] over every position of ``batch["tokens"]`` (the
         vlm family's ``patch_embeds`` and the encdec family's
         ``src_embeds`` as in :meth:`prefill`)."""
-        x = self._embed(batch["tokens"], batch.get("patch_embeds"))
-        h, _ = self._backbone(x, batch)
+        h, _ = self._backbone(self._embed_seq(batch), batch)
         return self._head(h)
 
     def loss(self, batch: Dict[str, torch.Tensor]
@@ -671,8 +1068,7 @@ class LM(nn.Module):
         note)."""
         if events.active():
             self._declare_train(batch)
-        x = self._embed(batch["tokens"], batch.get("patch_embeds"))
-        h, aux = self._backbone(x, batch)
+        h, aux = self._backbone(self._embed_seq(batch), batch)
         logits = self._head(h, gather=False).float()
         labels = batch["labels"]
         weights = (labels >= 0).float()
@@ -791,6 +1187,7 @@ class LM(nn.Module):
                 raise ValueError(
                     f"the {fam} family prefills equal-length rows: it takes "
                     f"no lengths or prefix_len ({why})")
+            layout = self._state_layout()
             if fam == "encdec":
                 if "src_embeds" not in batch:
                     raise ValueError(
@@ -798,12 +1195,12 @@ class LM(nn.Module):
                         "batch['src_embeds'] [B, S_src, d_model], the "
                         "frontend stub's frame embeddings")
                 src = batch["src_embeds"]
-                x, new_state = self._encdec_prefill(x, src, state)
+                x, new_state = self._encdec_prefill(x, src, state, layout)
                 extra = src.numel()
             else:
                 stack = (self._hybrid_stack if fam == "hybrid"
                          else self._xlstm_stack)
-                x, new_state = stack(x, state, prefill=True)
+                x, new_state = stack(x, state, prefill=True, layout=layout)
                 extra = 0
             if events.active():
                 self._declare_ops(tokens, new_state, prefill=True,
@@ -811,7 +1208,7 @@ class LM(nn.Module):
             return self._head(x if all_logits else x[:, -1]), new_state
         pos3 = self._vlm_positions3(tokens) if fam == "vlm" else None
         x, caches = tf_mod.apply_stack_decode(
-            self.blocks, x, self.block_config(), state["caches"],
+            self.blocks, x, self._kv_block_config(state), state["caches"],
             block_fn=functools.partial(tf_mod.apply_block_prefill,
                                        lengths=lengths,
                                        prefix_len=batch.get("prefix_len"),
@@ -840,14 +1237,24 @@ class LM(nn.Module):
         if self.cfg.family in ("hybrid", "xlstm"):
             stack = (self._hybrid_stack if self.cfg.family == "hybrid"
                      else self._xlstm_stack)
-            x, new_state = stack(x, state, prefill=False)
+            x, new_state = stack(x, state, prefill=False,
+                                 layout=self._state_layout())
             return self._head(x)[:, 0], new_state
         if self.cfg.family == "encdec":
-            x, new_state = self._encdec_decode(x, state)
+            x, new_state = self._encdec_decode(x, state,
+                                               self._state_layout())
             return self._head(x)[:, 0], new_state
         x, caches = tf_mod.apply_stack_decode(
-            self.blocks, x, self.block_config(), state["caches"])
+            self.blocks, x, self._kv_block_config(state), state["caches"])
         return self._head(x)[:, 0], {"caches": caches}
+
+    def _kv_block_config(self, state: State) -> BlockConfig:
+        """:meth:`block_config` with the caches' layout of ``state``
+        (:meth:`_state_layout`; the engine's kv-head split without a
+        mesh)."""
+        layout = self._state_layout()
+        bc = self.block_config()
+        return bc if layout is None else bc._replace(kv=layout.kv)
 
     # ============================================================== sizes
     def num_params(self) -> int:
@@ -923,8 +1330,6 @@ class LM(nn.Module):
         memory."""
         cfg = self.cfg
         b, s = tokens.shape
-        ac = self.block_config().attn
-        h, kvh, dh = ac.num_heads, ac.num_kv_heads, ac.head_dim
         isz = self.embed.table.element_size()
         elems, wbytes, hbytes = self._weight_model
         heads = b * s if all_logits else b
@@ -933,11 +1338,13 @@ class LM(nn.Module):
         arg = (wbytes + hbytes + b * s * (cfg.d_model * isz + 4)
                + extra_elems * isz)
         out = heads * vocab * isz
+        g = cfg.num_heads // cfg.num_kv_heads
         if cfg.family == "encdec":
             mem = state["mem_k"]
             s_src, L = mem.shape[2], mem.shape[0]
-            mem_bytes = 2 * L * b * s_src * kvh * dh * mem.element_size()
-            flops += 4.0 * L * b * h * s * s_src * dh   # cross-attention
+            mkvh, mdh = mem.shape[-2], mem.shape[-1]
+            mem_bytes = 2 * L * b * s_src * mkvh * mdh * mem.element_size()
+            flops += 4.0 * L * b * mkvh * g * s * s_src * mdh  # cross-attn
             arg += mem_bytes                            # the memory, read
             if prefill:
                 s_elems, s_bytes = self._source_weights
@@ -964,11 +1371,20 @@ class LM(nn.Module):
             return
         caches = (state["attn_caches"] if cfg.family == "hybrid"
                   else state["caches"])
+        # the kv heads and head dim the rank's cache holds (all of them
+        # under the decode-state layout's sequence cut, the head-dim cut
+        # under kv_shard="headdim")
+        kvh, dh = caches[0].shape[-2], caches[0].shape[-1]
+        h = kvh * g
         row_kv = kvh * dh * caches[0].element_size()   # one token, K or V
         layers = caches[0].shape[0]
         paged = isinstance(caches, attn_mod.PagedKVCache)
         scale = 4 if paged and caches.quantized else 0
-        out += 2 * layers * b * s * (row_kv + scale)   # the K/V written
+        # a prefill into the decode-state layout writes the rank's whole
+        # slice of the sequence (zeros past the prompt)
+        written = (caches.k.shape[2] if prefill and not paged
+                   and self.mesh is not None else s)
+        out += 2 * layers * b * written * (row_kv + scale)  # K/V written
         if prefill and suffix:
             # the plain suffix prefill gathers every page the table lists
             ctx = caches.page_table.shape[1] * caches.page_size
@@ -1013,14 +1429,28 @@ class LM(nn.Module):
             out_bytes=arg, f32=self.dtype == torch.float32)
 
     def _encdec_prefill(self, x: torch.Tensor, src: torch.Tensor,
-                        state: State) -> Tuple[torch.Tensor, State]:
+                        state: State, layout: Any = None
+                        ) -> Tuple[torch.Tensor, State]:
         """The encdec prefill (``repro/models/lm.py:548-591``): the source
         through the encoder and its final LayerNorm, each decoder layer's
         memory K/V from it, then the decoder over the target tokens with
         its self-attention K/V written into the dense caches (in place).
-        The returned state carries the new memory."""
+        The returned state carries the new memory, re-laid into this
+        rank's cut of the decode-state layout under one (``layout``,
+        :meth:`_state_layout`); the layout's memory holds the state's
+        ``S_src`` positions, so a source of another length is refused
+        (padding would add keys the decode cannot mask)."""
         cfg = self.cfg
-        ec = self.encdec_config()
+        kv = mem_kv = None
+        if layout is not None:
+            if src.shape[1] != layout.s_src:
+                raise ValueError(
+                    f"the decode-state layout holds a memory of "
+                    f"{layout.s_src} source positions (max_seq // "
+                    f"src_ratio), not {src.shape[1]}: prefill a source of "
+                    f"the state's length, or without a mesh")
+            kv, mem_kv = layout.kv, layout.mem
+        ec = self.encdec_config()._replace(kv=kv)
         enc_cfg = ec._replace(attn=ec.attn._replace(causal=False))
         mem = src.to(self.dtype)
         for blk in self.encoder:
@@ -1034,16 +1464,20 @@ class LM(nn.Module):
                                              ec.tp)
             x, new = encdec_mod.apply_decoder_block_prefill(
                 blk, x, mk, mv, tf_mod._dense_layer(caches, i), ec)
-            mem_k.append(mk)
-            mem_v.append(mv)
+            s_src = state["mem_k"].shape[2]
+            mem_k.append(attn_mod.relay_kv(mk, mem_kv, s_src))
+            mem_v.append(attn_mod.relay_kv(mv, mem_kv, s_src))
         return x, {"caches": caches._replace(length=new.length),
                    "mem_k": torch.stack(mem_k), "mem_v": torch.stack(mem_v)}
 
-    def _encdec_decode(self, x: torch.Tensor, state: State
-                       ) -> Tuple[torch.Tensor, State]:
+    def _encdec_decode(self, x: torch.Tensor, state: State,
+                       layout: Any = None) -> Tuple[torch.Tensor, State]:
         """One token through every decoder layer: dense self-attention
-        decode, then cross-attention over the layer's memory."""
+        decode, then cross-attention over the layer's memory (this rank's
+        cut of both under a ``layout``, :meth:`_state_layout`)."""
         ec = self.encdec_config()
+        if layout is not None:
+            ec = ec._replace(kv=layout.kv, mem_kv=layout.mem)
         caches: KVCache = state["caches"]
         new = caches
         for i, blk in enumerate(self.decoder):
@@ -1072,11 +1506,20 @@ class LM(nn.Module):
         n = cfg.n_layers
         return n * flops, n * f32, n * buf
 
-    def _xlstm_stack(self, x: torch.Tensor, state: State, prefill: bool
-                     ) -> Tuple[torch.Tensor, State]:
+    def _xlstm_stack(self, x: torch.Tensor, state: State, prefill: bool,
+                     layout: Any = None) -> Tuple[torch.Tensor, State]:
         """The xlstm backbone over a segment (prefill) or one token: each
         mLSTM/sLSTM pair in turn, from and into that pair's slice of the
-        state.  The state is updated IN PLACE, pair by pair."""
+        state.  The state is updated IN PLACE, pair by pair.  Under a
+        decode-state ``layout`` (:meth:`_state_layout`) the state is
+        re-laid into the compute layout first and cut back after
+        (:meth:`_relaid`)."""
+        if layout is not None:
+            specs, cuts = layout.specs, self._recurrent_cuts()
+            comp = self._relaid(state, specs, cuts, True)
+            x, comp = self._xlstm_stack(x, comp, prefill)
+            self._relaid(comp, specs, cuts, False, out=state)
+            return x, state
         xc = self.xlstm_config()
         C, n = state["mlstm"]
         sc = state["slstm"]
@@ -1095,15 +1538,23 @@ class LM(nn.Module):
                 dst.copy_(src)
         return x, state
 
-    def _hybrid_stack(self, x: torch.Tensor, state: State, prefill: bool
-                      ) -> Tuple[torch.Tensor, State]:
+    def _hybrid_stack(self, x: torch.Tensor, state: State, prefill: bool,
+                      layout: Any = None) -> Tuple[torch.Tensor, State]:
         """The hybrid backbone over a segment (prefill) or one token: each
         group of Mamba2 layers, then the shared block into the group's own
         KV cache.  The state is updated IN PLACE, layer by layer; the
-        returned state carries the caches' new length."""
+        returned state carries the caches' new length.  Under a
+        decode-state ``layout`` (:meth:`_state_layout`) the shared block
+        attends its cut of the caches, and the Mamba2 state is re-laid
+        into the compute layout first and cut back after
+        (:meth:`_relaid`)."""
         cfg = self.cfg
         mc, bc = self.mamba_config(), self.block_config()
         ms = state["mamba"]
+        if layout is not None:
+            specs, cuts = layout.specs["mamba"], self._recurrent_cuts()
+            bc = bc._replace(kv=layout.kv)
+            held, ms = ms, self._relaid(ms, specs, cuts, True)
         C, n = ms["ssd"]
         conv = ms["conv"]
         caches: KVCache = state["attn_caches"]
@@ -1127,5 +1578,7 @@ class LM(nn.Module):
             block_fn = (tf_mod.apply_block_prefill if prefill
                         else tf_mod.apply_block_decode)
             x, new = block_fn(self.shared_attn, x, bc, view)
+        if layout is not None:
+            ms = self._relaid(ms, specs, cuts, False, out=held)
         return x, {"mamba": ms,
                    "attn_caches": caches._replace(length=new.length)}

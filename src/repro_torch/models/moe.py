@@ -226,12 +226,16 @@ def route(m: MoE, xt: torch.Tensor, cfg: MoEConfig, dp=None) -> Routing:
 
 
 def moe_mlp(m: MoE, x: torch.Tensor, cfg: MoEConfig, constrain_fn=None,
-            *, tp=None, dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            *, tp=None, dp=None, sp: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> (out [B,S,D], aux loss, fp32 scalar), the semantics of
     ``repro.models.moe.moe_mlp``.  The three expert products are batched
     matrix products over the ``[E, cap, D]`` buffer (this rank's
     ``[E / m, cap, D]`` under a model axis ``tp``; ``dp`` the data axis:
-    see the module note)."""
+    see the module note).  Under sequence parallelism (``sp``) ``x`` is
+    the whole sequence every rank gathered (the capacity and the aux loss
+    are the whole call's tokens) and the output is this rank's slice of
+    it: the split parts reduce-scattered, a whole part cut."""
     b, s, d = x.shape
     t, e, k = b * s, cfg.num_experts, cfg.top_k
     dt = x.dtype
@@ -282,17 +286,24 @@ def moe_mlp(m: MoE, x: torch.Tensor, cfg: MoEConfig, constrain_fn=None,
         if split_s:
             coef = tp.copy_in(coef)
         parts.append((sh * coef.to(dt), split_s))
-    return _sum_parts(parts, tp).view(b, s, d), r.aux
+    parts = [(p.view(b, s, d), split) for p, split in parts]
+    return _sum_parts(parts, tp, sp), r.aux
 
 
-def _sum_parts(parts, tp) -> torch.Tensor:
-    """The routed and shared outputs, ``(tensor, split)`` pairs, summed:
-    the split ones are partial sums over the model axis, reduced once; a
-    part every rank computes whole is added after the reduce."""
+def _sum_parts(parts, tp, sp: bool = False) -> torch.Tensor:
+    """The routed and shared outputs, ``(tensor, split)`` pairs of
+    ``[B,S,D]``, summed: the split ones are partial sums over the model
+    axis, reduced once (reduce-scattered over the sequence under ``sp``);
+    a part every rank computes whole is added after the reduce (its
+    slice under ``sp``)."""
     partial = [p for p, split in parts if split]
-    out = tp.all_reduce(sum(partial[1:], partial[0])) if partial else None
+    out = None
+    if partial:
+        total = sum(partial[1:], partial[0])
+        out = tp.reduce_scatter(total, 1) if sp else tp.all_reduce(total)
     for p, split in parts:
         if not split:
+            p = tp.split(p, 1) if sp else p
             out = p if out is None else out + p
     return out
 

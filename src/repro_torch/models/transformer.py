@@ -69,6 +69,13 @@ class BlockConfig(NamedTuple):
     # the data axis a training batch splits over (the MoE's capacity and
     # aux loss are the global batch's); None when serving
     dp: Optional[object] = None
+    # how the rank holds its dense KV cache where it follows the
+    # reference's decode-state layout (an ``attention.KVLayout``); None:
+    # the engine's kv-head split
+    kv: Optional[object] = None
+    # sequence parallelism (``act_seq -> model``): the training blocks
+    # take and give this rank's slice of the sequence
+    sp: bool = False
 
 
 class RMSNorm(nn.Module):
@@ -99,11 +106,16 @@ def make_norm(kind: str, d: int, dtype: torch.dtype,
     raise ValueError(f"unknown norm {kind!r} (rmsnorm | layernorm)")
 
 
-def apply_norm(x: torch.Tensor, ln: nn.Module, eps: float) -> torch.Tensor:
-    """``ln`` over ``x``: LayerNorm when it carries a bias, else RMSNorm."""
+def apply_norm(x: torch.Tensor, ln: nn.Module, eps: float,
+               sp: Optional[object] = None) -> torch.Tensor:
+    """``ln`` over ``x``: LayerNorm when it carries a bias, else RMSNorm.
+    Under sequence parallelism ``x`` is this rank's slice of the
+    sequence, and the norm's leaves enter through ``sp.copy_in`` (the
+    model axis): their gradients sum over the ranks' slices."""
+    wrap = (lambda w: w) if sp is None else sp.copy_in
     if isinstance(ln, LayerNorm):
-        return layer_norm(x, ln.scale, ln.bias, eps)
-    return rms_norm(x, ln.scale, eps)
+        return layer_norm(x, wrap(ln.scale), wrap(ln.bias), eps)
+    return rms_norm(x, wrap(ln.scale), eps)
 
 
 class SwiGLU(nn.Module):
@@ -196,7 +208,10 @@ def apply_block(p: Block, x: torch.Tensor, cfg: BlockConfig, *,
     """Pre-norm block, the training path (no cache): returns (y, aux
     loss), the aux an fp32 scalar (zero unless the MLP is an MoE).  Under
     tensor parallelism the attention and a split MLP take their input
-    through ``copy_in`` and reduce their partial sums."""
+    through ``copy_in`` and reduce their partial sums; under sequence
+    parallelism (``cfg.sp``) :func:`_apply_block_sp`."""
+    if cfg.sp:
+        return _apply_block_sp(p, x, cfg, positions3)
     h = x + attn_mod.attention(p.attn, _norm(x, p.ln1, cfg), cfg.attn,
                                positions3=positions3, tp=cfg.tp)
     if cfg.mlp == "moe":
@@ -209,6 +224,41 @@ def apply_block(p: Block, x: torch.Tensor, cfg: BlockConfig, *,
                    mp.w_up, mp.w_down)
         m = m if tp is None else tp.all_reduce(m)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return h + m, aux
+
+
+def _apply_block_sp(p: Block, x: torch.Tensor, cfg: BlockConfig,
+                    positions3: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training block under sequence parallelism (``act_seq ->
+    model``, ``repro/models/transformer.py:99-113``): ``x`` and the output
+    are this rank's slice of the sequence, and so are the residual and
+    the norms (their leaves' gradients summed over the model axis).  The
+    attention and a split SwiGLU gather the sequence into their
+    column-parallel products and reduce-scatter their row-parallel ones;
+    the MoE sees the whole sequence (its capacity and aux loss are the
+    call's tokens: gathered with ``all_gather``, whose backward keeps
+    this rank's slice of the gradient the MoE makes whole) and
+    reduce-scatters its output; a SwiGLU the axis does not split runs on
+    the slice, its weights through ``copy_in``."""
+    tp = cfg.tp
+    h = x + attn_mod.attention(p.attn, apply_norm(x, p.ln1, cfg.norm_eps,
+                                                  tp),
+                               cfg.attn, positions3=positions3, tp=tp,
+                               sp=True)
+    hn = apply_norm(h, p.ln2, cfg.norm_eps, tp)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.mlp == "moe":
+        m, aux = moe_mod.moe_mlp(p.moe, tp.all_gather(hn, 1), cfg.moe,
+                                 tp=tp, dp=cfg.dp, sp=True)
+    elif cfg.tp_mlp is not None:
+        mp = p.mlp
+        m = tp.reduce_scatter(swiglu(tp.gather_seq(hn, 1), mp.w_gate,
+                                     mp.w_up, mp.w_down), 1)
+    else:
+        mp = p.mlp
+        m = swiglu(hn, tp.copy_in(mp.w_gate), tp.copy_in(mp.w_up),
+                   tp.copy_in(mp.w_down))
     return h + m, aux
 
 
@@ -286,7 +336,7 @@ def apply_block_prefill(p: Block, x: torch.Tensor, cfg: BlockConfig,
     else:
         a, new_cache = attn_mod.prefill_into_cache(
             p.attn, _norm(x, p.ln1, cfg), cfg.attn, cache, lengths=lengths,
-            positions3=positions3, tp=cfg.tp)
+            positions3=positions3, tp=cfg.tp, kv=cfg.kv)
     h = x + a
     return h + _block_mlp(p, h, cfg), new_cache
 
@@ -295,7 +345,8 @@ def apply_block_decode(p: Block, x: torch.Tensor, cfg: BlockConfig,
                        cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
     """Dense one-token decode of one block (``decode_attention``)."""
     a, new_cache = attn_mod.decode_attention(p.attn, _norm(x, p.ln1, cfg),
-                                             cfg.attn, cache, tp=cfg.tp)
+                                             cfg.attn, cache, tp=cfg.tp,
+                                             kv=cfg.kv)
     h = x + a
     return h + _block_mlp(p, h, cfg), new_cache
 

@@ -14,7 +14,10 @@ answer the same question.
   the same step declares (fp32);
 * the counting axis's collectives on a (1, 2) cell equal, kind by kind,
   those two gloo ranks declare running the same step
-  (``tests/torch_family_mesh_ranks.py``);
+  (``tests/torch_family_mesh_ranks.py``): the prefill and decode walks
+  over a state cut by ``LM.state_pspecs`` (the sequence over the model
+  axis), and also a decode under ``kv_shard="headdim"`` and a train
+  step under ``act_seq -> model``;
 * a sweep without a ``cell_fn`` runs cold, then warm from the cache
   with no walks;
 * the CLIs: ``dryrun`` writes records, ``roofline_report`` renders them
@@ -140,6 +143,24 @@ def test_counting_axis_matches_the_gloo_ranks(gloo_collectives, arch,
     assert want["ICI_AR_COUNT"] > 0
     for r in gloo_collectives:
         assert r[(arch, kind)] == want
+
+
+@pytest.mark.parametrize("arch,kind,layout", ranks.WALK_LAYOUTS)
+def test_counting_axis_matches_the_gloo_ranks_under_layouts(
+        gloo_collectives, arch, kind, layout):
+    cfg = get_arch(arch).smoke
+    walked = dryrun.walk(cfg, kind, ranks.walk_batch(cfg, kind, "meta"),
+                         mesh_shape=(1, 2), seq_len=ranks.WALK_SEQ,
+                         dtype=torch.float32,
+                         rules=ranks.walk_rules(kind, layout),
+                         policy=dryrun.TrainPolicy(accum_steps=1))
+    want = {k: v for k, v in walked["events"].counts.items()
+            if k.startswith("ICI_")}
+    assert want["ICI_AR_COUNT"] > 0
+    if layout == "sp":
+        assert want["ICI_RS_COUNT"] > 0
+    for r in gloo_collectives:
+        assert r[(arch, kind, layout)] == want
 
 
 def test_sweep_runs_cold_then_warm(tmp_path):

@@ -240,6 +240,26 @@ WALK_ARCHS = ("qwen2-moe-a2.7b", "zamba2-1.2b", "xlstm-350m",
               "seamless-m4t-medium")
 WALK_KINDS = ("train", "prefill", "decode")
 WALK_SEQ = 16
+#: the walks under the reference's other layouts: a decode under
+#: ``kv_shard="headdim"`` and a train step under ``act_seq -> model``
+#: (the prefill and decode walks above cut their state by
+#: ``LM.state_pspecs``: the sequence over the model axis)
+WALK_LAYOUTS = (("qwen2-moe-a2.7b", "decode", "headdim"),
+                ("zamba2-1.2b", "decode", "headdim"),
+                ("seamless-m4t-medium", "decode", "headdim"),
+                ("qwen2-moe-a2.7b", "train", "sp"),
+                ("qwen2-vl-7b", "train", "sp"),
+                ("zamba2-1.2b", "train", "sp"))
+
+
+def walk_rules(kind, layout):
+    """The walk's rules for one of :data:`WALK_LAYOUTS`."""
+    from repro_torch.launch import dryrun
+    pol = dryrun.TrainPolicy(accum_steps=1,
+                             kv_shard="headdim" if layout == "headdim"
+                             else "seq",
+                             sequence_parallel=layout == "sp")
+    return dryrun._rules_for(None, pol, kind)
 
 
 def walk_batch(cfg, kind, device):
@@ -273,4 +293,14 @@ def walk_world(rank, world, init_method):
             out[(arch, kind)] = {k: v for k, v in
                                  info["events"].counts.items()
                                  if k.startswith("ICI_")}
+    for arch, kind, layout in WALK_LAYOUTS:
+        cfg = get_arch(arch).smoke
+        info = dryrun.walk(cfg, kind, walk_batch(cfg, kind, "cpu"),
+                           mesh=mesh, device="cpu", seq_len=WALK_SEQ,
+                           dtype=torch.float32,
+                           rules=walk_rules(kind, layout),
+                           policy=dryrun.TrainPolicy(accum_steps=1))
+        out[(arch, kind, layout)] = {k: v for k, v in
+                                     info["events"].counts.items()
+                                     if k.startswith("ICI_")}
     return out
