@@ -21,7 +21,10 @@ The three modes keep the paper's shape:
 
 Rates divide a region's summed events by the summed time of the calls
 that produced them (``Measurement.time_s``), LIKWID's total-over-total.
-Marker regions nest per thread, as in the reference.
+Marker regions nest per thread, as in the reference.  A marker region
+and a timed region also open the program's span of that name
+(:func:`repro_torch.core.marker.span`, ``repro.<region>`` on the
+profiler's timeline while a ``torch.profiler`` session runs).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from repro_torch.core import events as events_mod
 from repro_torch.core import hwinfo
 from repro_torch.core.events import EventCounts
 from repro_torch.core.groups import get_group
+from repro_torch.core.marker import span
 from repro_torch.device import resolve_device
 
 __all__ = ["Measurement", "PerfCtr", "measure", "CallClock"]
@@ -189,7 +193,8 @@ class PerfCtr:
         stack = _region_stack()
         stack.append(token)
         try:
-            yield token
+            with span(region):
+                yield token
         finally:
             stack.pop()
 
@@ -213,7 +218,7 @@ class PerfCtr:
         events of the launches inside it (CUDA events on the card,
         ``perf_counter`` on the CPU).  The block counts as one call."""
         clock = CallClock(self.device)
-        with events_mod.collect() as ev:
+        with span(region), events_mod.collect() as ev:
             with clock.call():
                 yield
         m = Measurement(region=region, events=ev, chip=self.chip,

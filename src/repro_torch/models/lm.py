@@ -179,6 +179,7 @@ from torch import nn
 
 from repro_torch.core import events
 from repro_torch.core.features import FeatureSet, default_features
+from repro_torch.core.marker import span
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import encdec as encdec_mod
@@ -1065,19 +1066,22 @@ class LM(nn.Module):
         """(total, {"ce", "aux", "ntok"}): the mean next-token cross
         entropy over labels ``>= 0`` (fp32) plus the aux loss; under a
         data axis the mean over the global batch (see the module
-        note)."""
+        note).  Under a profiler the head and the cross entropy, from
+        the backbone's output through ``ce``, are the span
+        ``model.head_loss`` (:func:`repro_torch.core.marker.span`)."""
         if events.active():
             self._declare_train(batch)
         h, aux = self._backbone(self._embed_seq(batch), batch)
-        logits = self._head(h, gather=False).float()
-        labels = batch["labels"]
-        weights = (labels >= 0).float()
-        nll = self._nll(logits, labels) * weights
-        total, n = nll.sum(), weights.sum()
-        if self.dp is not None:
-            total, n = self.dp.all_reduce(total), self.dp.all_reduce(n)
-        ntok = torch.clamp(n, min=1.0)
-        ce = total / ntok
+        with span("model.head_loss") as s:
+            logits = self._head(s.input(h), gather=False).float()
+            labels = batch["labels"]
+            weights = (labels >= 0).float()
+            nll = self._nll(logits, labels) * weights
+            total, n = nll.sum(), weights.sum()
+            if self.dp is not None:
+                total, n = self.dp.all_reduce(total), self.dp.all_reduce(n)
+            ntok = torch.clamp(n, min=1.0)
+            ce = s.output(total / ntok)
         return ce + aux, {"ce": ce, "aux": aux, "ntok": ntok}
 
     # ============================================================== serve

@@ -24,6 +24,10 @@ saves the outputs of ``aten.mm``/``addmm``/``bmm``/``baddbmm``
 products, not the attention's batched ones), everything else
 recomputed; both through ``torch.utils.checkpoint`` with
 ``use_reentrant=False`` and ``create_selective_checkpoint_contexts``.
+Under a profiler the training block's attention is the span
+``model.attention`` (:func:`repro_torch.core.marker.span`), its normed
+input and its output marked for the backward; a recompute shows as the
+span again.
 
 KV caches carry a leading layers axis; each layer reads and writes its own
 slice IN PLACE (the JAX package threads the stacked cache through a scan
@@ -41,6 +45,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.features import FeatureSet
+from repro_torch.core.marker import span
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (AttnConfig, KVCache, PagedKVCache)
@@ -212,8 +217,11 @@ def apply_block(p: Block, x: torch.Tensor, cfg: BlockConfig, *,
     parallelism (``cfg.sp``) :func:`_apply_block_sp`."""
     if cfg.sp:
         return _apply_block_sp(p, x, cfg, positions3)
-    h = x + attn_mod.attention(p.attn, _norm(x, p.ln1, cfg), cfg.attn,
-                               positions3=positions3, tp=cfg.tp)
+    xn = _norm(x, p.ln1, cfg)
+    with span("model.attention") as s:
+        a = s.output(attn_mod.attention(p.attn, s.input(xn), cfg.attn,
+                                        positions3=positions3, tp=cfg.tp))
+    h = x + a
     if cfg.mlp == "moe":
         m, aux = moe_mod.moe_mlp(p.moe, _norm(h, p.ln2, cfg), cfg.moe,
                                  tp=cfg.tp, dp=cfg.dp)
@@ -242,10 +250,12 @@ def _apply_block_sp(p: Block, x: torch.Tensor, cfg: BlockConfig,
     reduce-scatters its output; a SwiGLU the axis does not split runs on
     the slice, its weights through ``copy_in``."""
     tp = cfg.tp
-    h = x + attn_mod.attention(p.attn, apply_norm(x, p.ln1, cfg.norm_eps,
-                                                  tp),
-                               cfg.attn, positions3=positions3, tp=tp,
-                               sp=True)
+    xn = apply_norm(x, p.ln1, cfg.norm_eps, tp)
+    with span("model.attention") as s:
+        a = s.output(attn_mod.attention(p.attn, s.input(xn), cfg.attn,
+                                        positions3=positions3, tp=tp,
+                                        sp=True))
+    h = x + a
     hn = apply_norm(h, p.ln2, cfg.norm_eps, tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.mlp == "moe":

@@ -16,6 +16,11 @@ parameter no path reaches gets a zero gradient, as ``jax.grad`` gives.
 Nothing in the step reads a number back to the host: the step counter,
 the rate and the metrics stay 0-d device tensors.
 
+Under a ``torch.profiler`` session the step records its spans
+(:func:`repro_torch.core.marker.span`): ``train.step`` around the whole
+call, ``train.optimizer`` from the rate through the update (the global
+norm and the clip included), and the model's own inside ``LM.loss``.
+
 **On a mesh** (``make_train_step(..., layout=)``; ``repro/train/step.py:
 45-55`` and the GSPMD step the reference jits with ``state_shardings``).
 The LM is a rank's tensor-parallel one (``LM(tp=, dp=)``) and the state
@@ -39,6 +44,7 @@ from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
 import torch
 
 from repro_torch.core import roofline
+from repro_torch.core.marker import span
 from repro_torch.models.lm import LM
 from repro_torch.optim import (AdamWConfig, OptState, ScheduleConfig,
                                apply_updates, init_opt_state, lr_at)
@@ -289,6 +295,11 @@ def make_train_step(lm: LM, adamw: AdamWConfig, sched: ScheduleConfig,
 
     def train_step(state: TrainState, batch: Batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with span("train.step"):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Batch
+              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = state.params
         if layout is not None:
             layout.gather(params)
@@ -318,9 +329,10 @@ def make_train_step(lm: LM, adamw: AdamWConfig, sched: ScheduleConfig,
         if layout is not None:
             layout.release()
             grads = layout.reduce_grads(grads)
-        lr = lr_at(state.opt.step, sched)
-        new_params, new_opt, om = apply_updates(state.params, grads,
-                                                state.opt, lr, adamw, layout)
+        with span("train.optimizer"):
+            lr = lr_at(state.opt.step, sched)
+            new_params, new_opt, om = apply_updates(
+                state.params, grads, state.opt, lr, adamw, layout)
         metrics = {"loss": loss, "step": state.step, **om}
         metrics.update({k: v for k, v in aux.items() if k != "ntok"})
         return TrainState(new_params, new_opt, state.step + 1), metrics

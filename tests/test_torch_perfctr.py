@@ -273,6 +273,44 @@ def test_global_marker_convenience(monkeypatch):
     assert marker.global_perfctr().regions == {}
 
 
+def test_marker_and_timed_regions_open_the_programs_span():
+    ctr = perfctr.PerfCtr(chip=H100, device="cpu")
+    b = torch.ones(256)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with ctr.marker("m"):
+            ctr.probe(stream_triad, b, b, repeats=1)
+        with ctr.region_timer("t"):
+            stream_triad(b, b)
+    spans = [e for e in prof.events()
+             if e.name.startswith(marker.SPAN_PREFIX)]
+    assert sorted(e.name for e in spans) == ["repro.m", "repro.t"]
+    assert not any(e.is_user_annotation for e in spans)
+    with ctr.region_timer("t"):                 # no profiler: regions only
+        stream_triad(b, b)
+    assert ctr.regions["t"].calls == 2 and ctr.regions["m"].calls == 1
+
+
+def test_an_instrumented_engine_shows_its_regions_as_spans():
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import (DECODE_REGION, PREFILL_REGION,
+                                          Engine, ServeConfig)
+    cfg = get_arch("qwen2-0.5b").smoke
+    lm = LM(cfg, torch.float32, "cpu")
+    lm.init(torch.Generator().manual_seed(0))
+    eng = Engine(lm, ServeConfig(max_seq=32, batch_slots=2), device="cpu")
+    eng.instrument(perfctr.PerfCtr(chip=H100, device="cpu"), prompt_len=4)
+    prompts = [[1, 2, 3, 4, 5], [6, 7, 8]]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        eng.generate(prompts, 3)
+    names = {e.name for e in prof.events()
+             if e.name.startswith(marker.SPAN_PREFIX)}
+    assert names == {marker.SPAN_PREFIX + PREFILL_REGION,
+                     marker.SPAN_PREFIX + DECODE_REGION}
+
+
 def test_measuring_without_a_gpu_raises_unless_asked_for_the_cpu(
         monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
