@@ -49,7 +49,17 @@ failure):
                (``library_ms``; the port never calls it); the host's
                microseconds a call for flash and argmax beside their
                library calls, and for both paged wrappers with their
-               split;
+               split; the training attention's kernels
+               (``csrc/flash_attention_train.cu``: forward, dQ, dK/dV)
+               against their fp32 plain twin at the benchmark cell's
+               [10, 2048, 14/2, 64], at Dh 80 and 128 and on strided
+               views, causal and not (each output to its own limit,
+               ``FLASH_TRAIN_TOL``: out and the gradients a row at a
+               time, lse to 1e-5; the naive bf16 route they replace
+               printed beside), one launch of each kernel a call, and at
+               the cell's shape each kernel's device time beside the
+               FLOP bound, and the plain twin's, the naive route's and
+               SDPA's forward and backward (all under the profiler);
 4. generate  - qwen2-0.5b at full width (24 layers, bf16, random weights
                from seed 0) serving 8 ragged prompts through
                ``Engine.generate`` with a paged KV cache, greedy, 32 new
@@ -289,7 +299,11 @@ failure):
                step of each family at its SMOKE config, card against CPU,
                the same checks; kernels #1-#7 launch no time over
                (a)-(c): training runs the differentiable twins, as the
-               reference's runs no Pallas kernel; (d) ``python -m
+               reference's runs no Pallas kernel, and (a)'s bf16 steps
+               the training attention's kernels (2L forward launches and
+               L of each backward kernel a step under remat
+               ``dots_no_batch``, counted over the two profiled steps);
+               (d) ``python -m
                repro_torch.launch.serve --ckpt-dir`` on (a)'s
                checkpoints in a subprocess (it serves while (b) and (c)
                run): its restore gives (a)'s final weights bit for bit,
@@ -764,6 +778,202 @@ def check_flash(dev, timer):
                 replaces="src/repro/kernels/flash_attention.py:46",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms)
+
+
+#: the training kernels' cases (B, S, H, KVH, Dh), each causal and not:
+#: the benchmark cell's qwen2-0.5b at 10 x 2048 tokens (G 7, Dh 64), one
+#: query tile short of a full one, stablelm-3b's Dh 80 (G 1) and
+#: qwen2-vl-7b's Dh 128 (G 7) at S off every tile, and q, k, v as strided
+#: views of wider tensors
+FLASH_TRAIN_CELL = (10, 2048, 14, 2, 64)
+FLASH_TRAIN_CASES = (FLASH_TRAIN_CELL, (1, 100, 4, 2, 64),
+                     (2, 1000, 32, 32, 80), (2, 777, 28, 4, 128))
+#: the kernels against the fp32 plain twin on the same bf16 inputs.  out,
+#: dq, dk, dv: the worst row of ``flash_train_row_err`` (a row's error over
+#: its own norm), the backward's twin given the kernel's own bf16 out (D =
+#: rowsum(dO * O) of an early causal row, over few keys, cancels against
+#: dP, and the out's own rounding is out's to answer for).  The kernels
+#: round out, dq, dk, dv to bf16 (2^-9 relative) and P and dS to bf16
+#: before their products; a CPU emulation of those roundings at [1, 2048,
+#: 7/1, 64] reads 0.0031-0.0044 a row, and the H100 at every case out
+#: 0.0029-0.0035, dq 0.0037-0.0048, dk 0.0034-0.0044, dv 0.0031-0.0039, so
+#: 0.03 leaves 6x above the worst; a 64-key tile left out of one 64-row
+#: query tile reads 0.56-0.69 in out and dq, of a key tile's queries
+#: 0.89-1.05 in dk (19x or more below).  lse: max|got - want| / max|want|,
+#: read 1.7e-7 to 2.2e-7 on the H100 (1e-5: 45x above); the same missing
+#: tile moves it by 7e-3 to 1.3e-2 (700x below)
+FLASH_TRAIN_TOL = dict(out=0.03, lse=1e-5, dq=0.03, dk=0.03, dv=0.03)
+
+
+def flash_train_row_err(got, want, floor=1e-2):
+    """The worst row's ``|got - want| / (|want| + floor * rms|want|)``
+    over the last dim (a row: one position and head); ``floor`` keeps a
+    row whose gradient is near zero from dividing by it."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    n = w.norm(dim=-1)
+    rms = n.square().mean().sqrt()
+    return ((g - w).norm(dim=-1) / (n + floor * rms)).max().item()
+
+
+def flash_train_flops(b, s, h, dh, causal, backward=False):
+    """FLOPs the attention needs: two products (QK^T, PV) forward, five
+    backward (S, dP, dV, dK, dQ), 2 Dh a (query, key) pair the mask keeps
+    and a head."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return (10.0 if backward else 4.0) * b * h * dh * pairs
+
+
+def check_flash_train(dev):
+    """Phase 3's training kernels (``csrc/flash_attention_train.cu``):
+    forward and backward against the fp32 plain twin at
+    :data:`FLASH_TRAIN_CASES`, each output to its own limit in
+    :data:`FLASH_TRAIN_TOL`, and beside them the route they replace (the
+    naive path in bf16 under autograd) against the same twin; one launch
+    of each kernel a call.  Then, at the cell's shape, causal, the device
+    ms (profiler, every kernel a call launched) of the kernels beside the
+    FLOP bound, of the plain twin, the naive route and SDPA's forward and
+    backward (``library_ms``; the port never calls it)."""
+    from repro_torch.bench.profile_generate import _profiled
+    from repro_torch.core.devtime import device_time_us
+    from repro_torch.kernels import flash_attention_train as ft
+    from repro_torch.models.attention import _full_attention_offset
+    rng = np.random.default_rng(5)
+    worst = 0.0
+
+    def rnd(b, s, n, dh, pad=0):
+        x = torch.from_numpy(rng.standard_normal(
+            (b, s, n + pad, dh), np.float32)).to(dev, torch.bfloat16)
+        return x[:, :, pad:] if pad else x
+
+    def errs(names, got, want):
+        return {n: (((g.float() - w).abs().max() / w.abs().max()).item()
+                    if n == "lse" else flash_train_row_err(g, w))
+                for n, g, w in zip(names, got, want)}
+
+    for b, s, h, kvh, dh in FLASH_TRAIN_CASES:
+        pad = 2 if (b, s) == (1, 100) else 0
+        for causal in (True, False):
+            q, k, v = rnd(b, s, h, dh, pad), rnd(b, s, kvh, dh, pad), \
+                rnd(b, s, kvh, dh, pad)
+            do = rnd(b, s, h, dh)
+            before = dict(ft.LAUNCHES)
+            out, lse = ft.flash_train_forward(q, k, v, causal=causal)
+            grads = ft.flash_train_backward(q, k, v, out, lse, do,
+                                            causal=causal)
+            torch.cuda.synchronize()
+            launched = {n: ft.LAUNCHES[n] - before[n] for n in before}
+            if launched != {"fwd": 1, "bwd_dq": 1, "bwd_dkdv": 1}:
+                fail(f"flash_train launches {launched}")
+            f32 = [t.float() for t in (q, k, v)]
+            w_out, w_lse = ft.flash_train_plain_forward(*f32, causal=causal)
+            want = (w_out, w_lse) + ft.flash_train_plain_backward(
+                *f32, out.float(), w_lse, do.float(), causal=causal)
+            got = errs(("out", "lse", "dq", "dk", "dv"), (out, lse) + grads,
+                       want)
+            # the route the training step took before: the naive path's
+            # bf16 ops under autograd, against the same twin
+            qn, kn, vn = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            on = _full_attention_offset(qn, kn, vn, 0, causal, None, "naive")
+            gn = torch.autograd.grad(on, (qn, kn, vn), do)
+            naive = errs(("out", "dq", "dk", "dv"), (on,) + gn,
+                         want[:1] + want[2:])
+            del on, gn, qn, kn, vn
+            name = (f"flash_train b{b} s{s} h{h}/{kvh} dh{dh} "
+                    f"causal={causal}{' strided views' if pad else ''}")
+            log(f"  {name}: worst row's error (lse: max|err| / max|want|) "
+                + ", ".join(f"{n} {e:.3g}" for n, e in got.items())
+                + "; the naive bf16 path "
+                + ", ".join(f"{n} {e:.3g}" for n, e in naive.items()))
+            bad = {n: e for n, e in got.items()
+                   if not e <= FLASH_TRAIN_TOL[n]}
+            if bad:
+                fail(f"{name}: over {FLASH_TRAIN_TOL}: {bad}")
+            worst = max(worst, *got.values())
+            del want, w_out, w_lse, out, lse, grads
+            torch.cuda.empty_cache()
+
+    # the cell's shape, causal: device ms a call, every kernel it launched
+    b, s, h, kvh, dh = FLASH_TRAIN_CELL
+    q, k, v, do = rnd(b, s, h, dh), rnd(b, s, kvh, dh), rnd(b, s, kvh, dh), \
+        rnd(b, s, h, dh)
+    reps = 5
+
+    def device_ms(fn):
+        """(device ms a call of ``fn``, each kernel's device ms a call)"""
+        fn()
+        torch.cuda.synchronize()
+        _, avgs = _profiled(lambda: [fn() for _ in range(reps)])
+        each = {a.key: device_time_us(a) / reps / 1e3 for a in avgs}
+        return sum(each.values()), each
+
+    def kernels():
+        o, l_ = ft.flash_train_forward(q, k, v, causal=True)
+        ft.flash_train_backward(q, k, v, o, l_, do, causal=True)
+
+    ms, each = device_ms(kernels)
+    dev_ms = {n: sum(t for key, t in each.items()
+                     if f"flash_train_{n}_kernel" in key)
+              for n in ("fwd", "bwd_dq", "bwd_dkdv")}
+    out, lse = ft.flash_train_forward(q, k, v, causal=True)
+    f_fwd = flash_train_flops(b, s, h, dh, True)
+    f_bwd = flash_train_flops(b, s, h, dh, True, backward=True)
+    io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+    fb, fby = bound_ms(io, f_fwd)
+    bb, bby = bound_ms(2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                       f_bwd)
+    pf = [t.float() for t in (q, k, v)]
+
+    def plain():
+        po, pl = ft.flash_train_plain_forward(*pf)
+        ft.flash_train_plain_backward(*pf, po, pl, do.float())
+
+    plain_ms, _ = device_ms(plain)
+    del pf
+    torch.cuda.empty_cache()
+    qn, kn, vn = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def naive():
+        on = _full_attention_offset(qn, kn, vn, 0, True, None, "naive")
+        torch.autograd.grad(on, (qn, kn, vn), do)
+
+    naive_ms, _ = device_ms(naive)
+    del qn, kn, vn
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+
+    def library():
+        lo = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(lo, (qs, ks, vs), do.transpose(1, 2))
+
+    try:
+        library_ms, _ = device_ms(library)
+        lib = f"SDPA {library_ms:.4f} ms"
+    except (RuntimeError, TypeError) as e:  # a yardstick only: say why
+        library_ms = None
+        lib = f"SDPA not available ({str(e).splitlines()[0]})"
+    log(f"  flash_train [{b}, {s}, {h}/{kvh}, {dh}] causal: device ms "
+        + ", ".join(f"{n} {t:.4f}" for n, t in dev_ms.items())
+        + f"; every kernel of a forward and backward {ms:.4f}")
+    fwd_dev = dev_ms["fwd"]
+    bwd_dev = dev_ms["bwd_dq"] + dev_ms["bwd_dkdv"]
+    log(f"  bound: forward {fb:.4f} ms ({f_fwd / 1e9:.1f} GFLOP, by {fby}),"
+        f" backward {bb:.4f} ms ({f_bwd / 1e9:.1f} GFLOP, by {bby}); "
+        f"share of the bound: forward {fb / fwd_dev:.3f}, backward "
+        f"{bb / bwd_dev:.3f} [{gpu_name_and_limit()}]")
+    log(f"  yardsticks, forward + backward, device ms: plain twin fp32 "
+        f"{plain_ms:.4f}, the naive bf16 route {naive_ms:.4f}, {lib}")
+    log(f"  host us a call: forward wrapper "
+        f"{host_us(lambda: ft.flash_train_forward(q, k, v), n=50):.2f}, "
+        f"backward wrapper (two launches) "
+        f"{host_us(lambda: ft.flash_train_backward(q, k, v, out, lse, do), n=50):.2f}")
+    return dict(name="flash_attention_train", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_train.cu",
+                replaces="none (the JAX package trains through plain ops)",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=fb + bb, bound_by=fby, library_ms=library_ms)
 
 
 def plan_table(lens, extra, ps, rng=None, width=None):
@@ -4093,7 +4303,17 @@ def train_main_path(dev, smi):
             state, m = rest.step_fn(state, b)
         m["loss"].item()
 
+    from repro_torch.kernels import flash_attention_train as ft
+    before = dict(ft.LAUNCHES)
     wall_ms, avgs = _profiled(two_steps)
+    # the training attention's kernels, a step: 2L forward (the remat
+    # recomputes it) and L of each backward kernel
+    per_step = {k: (n - before[k]) / 2 for k, n in ft.LAUNCHES.items()}
+    nl = CONFIG.n_layers
+    if per_step != {"fwd": 2 * nl, "bwd_dq": nl, "bwd_dkdv": nl}:
+        fail(f"train: the training attention's kernels launched "
+             f"{per_step} a step")
+    fig["flash_train_launches_per_step"] = per_step
     busy_ms = sum(device_time_us(a) for a in avgs) / 1e3
     fig.update(launches_per_step=sum(a.count for a in avgs) / 2,
                idle_share=1.0 - busy_ms / wall_ms,
@@ -6349,7 +6569,8 @@ def run_phases() -> int:
     rows = [check_flash(dev, timer), check_paged(dev, timer),
             check_paged_q8(dev, timer),
             check_argmax(dev, timer, CONFIG.vocab), check_ssd(dev, timer)]
-    for r in rows:
+    train_row = check_flash_train(dev)
+    for r in rows + [train_row]:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} by "
             f"{r['bound_by']})")
@@ -6491,6 +6712,9 @@ def run_phases() -> int:
           "family, card vs cpu; (d) serve --ckpt-dir; phase 26 (b)'s and "
           "phase 27's ranks beside (b)-(d)")
     served, ckpt, train_fig, plain_train = train_main_path(dev, smi)
+    train_row["launches"] = train_fig["flash_train_launches_per_step"]
+    train_row["launches_by_path"] = {"train_step_2x": {
+        k: 2 * n for k, n in train_row["launches"].items()}}
     serving = serve_checkpoint(ckpt)
     # phase 26 (b)'s ranks run beside (b)-(d), which time nothing, and are
     # joined before phase 24; phase 26 checks their results
@@ -6613,6 +6837,7 @@ def run_phases() -> int:
         r["launches_by_path"].update(
             {p: c[r["name"]] for p, c in seq_launches.items()
              if c.get(r["name"])})
+    rows.append(train_row)
 
     phase.stop()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

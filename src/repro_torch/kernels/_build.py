@@ -38,7 +38,7 @@ __all__ = ["SOURCES", "CSRC", "SMEM_OPT_IN", "build_dir", "build_all",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention", "paged_decode", "paged_decode_q8", "argmax",
-           "stream_triad", "jacobi7", "ssd_scan")
+           "stream_triad", "jacobi7", "ssd_scan", "flash_attention_train")
 _HEADERS = ("common.cuh", "paged_split.cuh", "tensor_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

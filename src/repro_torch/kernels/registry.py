@@ -13,7 +13,7 @@ paged_decode families, :data:`LEGACY_ATTN_MAP`), then the heuristic.
 through the same context.
 
 Impl names name the port's routes, one to one with the reference's
-(:data:`REFERENCE_NAMES`):
+(:data:`REFERENCE_NAMES`), beside the port's own (:data:`PORT_ONLY`):
 
 =============  ===================  ====================================
 family         reference            port
@@ -22,6 +22,9 @@ attention      pallas_flash         cuda_flash   (kernel #1)
                jnp_flash            torch_flash  (the autograd twin)
                full                 full         (masked softmax over
                                                  materialized scores)
+               (none)               cuda_flash_train  (the training
+                                                 kernels, forward and
+                                                 backward)
 paged_decode   pallas_paged         cuda_paged   (kernel #2)
                jnp_paged            torch_paged
                pallas_paged_q8      cuda_paged_q8  (kernel #3)
@@ -37,20 +40,28 @@ sampling       pallas_greedy/topk/  cuda_greedy/topk/topp  (kernel #4
                jnp_greedy/topk/topp torch_greedy/topk/topp
 =============  ===================  ====================================
 
-**Gradients** (``repro/kernels/registry.py:963-991``).  The kernels are
-loaded through ``ctypes``: what they return has no ``grad_fn``, so a
+**Gradients** (``repro/kernels/registry.py:963-991``).  Kernels #1-#7
+are loaded through ``ctypes``: what they return has no ``grad_fn``, so a
 training step through one would drop its gradient without an error.
 The ``attention`` and ``ssd_scan`` families therefore take a
 ``differentiable`` fact, which :func:`run` sets when autograd records
 the call (:func:`needs_grad`: grad mode on and an input that requires a
-gradient).  With it, the heuristics return ``torch_flash`` (the flash
-core as an autograd ``Function``, the reference's ``jnp_flash``) and
-``torch_scan`` (the reference's ``jnp_scan``, "the grad path").
-``cuda_flash`` and ``cuda_ssd`` raise when called with it, or with an
-input that needs a gradient, and :func:`select` refuses a pin to either
-under it, so neither ``use_impl`` nor ``REPRO_IMPL`` can route training
-into a kernel.  (The reference lets a pin beat ``differentiable``; its
-Pallas kernels then fail in autodiff instead.)
+gradient).  With it, the ``ssd_scan`` heuristic returns ``torch_scan``
+(the reference's ``jnp_scan``, "the grad path"), and the ``attention``
+heuristic returns ``cuda_flash_train`` where the call's facts meet the
+training kernels' conditions (the card, bf16, a head dim they build, no
+query offset or ragged lengths, whole GQA groups:
+``flash_attention_train.takes``), else ``torch_flash`` (the flash core as
+an autograd ``Function``, the reference's ``jnp_flash``).
+``cuda_flash_train`` is the port's own impl, with no reference name: the
+training kernels' forward and backward as an autograd ``Function``
+(``kernels/flash_attention_train.py``; the JAX package trains through
+plain ops and has no such kernel).  ``cuda_flash`` and ``cuda_ssd`` raise
+when called with ``differentiable``, or with an input that needs a
+gradient, and :func:`select` refuses a pin to either under it, so
+neither ``use_impl`` nor ``REPRO_IMPL`` can route training into a
+kernel without a gradient.  (The reference lets a pin beat
+``differentiable``; its Pallas kernels then fail in autodiff instead.)
 
 Both packages read the same ``REPRO_IMPL``, so :func:`parse_impl_spec`,
 :func:`use_impl` and :func:`get_spec` also take the reference's names and
@@ -156,6 +167,7 @@ from repro_torch.core import hwinfo
 from repro_torch.core.artifact_cache import ArtifactCache, canonical_digest
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import flash_attention_train as flash_train_mod
 from repro_torch.kernels import jacobi7 as jacobi_mod
 from repro_torch.kernels import paged_decode as paged_mod
 from repro_torch.kernels import sampling as sampling_mod
@@ -171,6 +183,7 @@ __all__ = [
     "autotune", "best", "record", "clear_tune_table", "tune_table",
     "dump_tune_table", "LEGACY_ATTN_MAP", "REFERENCE_NAMES",
     "legacy_mapping", "env_snapshot", "SMEM_PER_BLOCK", "resolve",
+    "PORT_ONLY", "call_facts", "carry_pins",
     "served_sites", "best_at", "MESH_FACTS", "use_mesh_facts",
     "mesh_facts", "mesh_key_tag",
 ]
@@ -288,6 +301,10 @@ REFERENCE_NAMES: Dict[str, Dict[str, str]] = {
                  "jnp_topp": "torch_topp", "pallas_greedy": "cuda_greedy",
                  "pallas_topk": "cuda_topk", "pallas_topp": "cuda_topp"},
 }
+
+
+#: the port's impls that have no reference name, per family
+PORT_ONLY: Dict[str, Tuple[str, ...]] = {"attention": ("cuda_flash_train",)}
 
 
 def register_impl(family: str, name: str, *,
@@ -429,6 +446,24 @@ def use_impl(spec: Optional[str] = None, **impl_kw: Optional[str]):
         _TLS.impls = prev
 
 
+def carry_pins(fn: Callable) -> Callable:
+    """``fn`` run under the pins in force now (:func:`use_impl`'s and
+    :func:`env_snapshot`'s thread-local state), whatever thread calls it
+    later.  Autograd runs a card's backward, and with it a checkpoint's
+    recompute, on its own device thread, where the caller's pins are not
+    set: the recompute must take the forward's route."""
+    pins = (getattr(_TLS, "impls", None), getattr(_TLS, "env", None))
+
+    def pinned(*args, **kwargs):
+        prev = (getattr(_TLS, "impls", None), getattr(_TLS, "env", None))
+        _TLS.impls, _TLS.env = pins
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _TLS.impls, _TLS.env = prev
+    return pinned
+
+
 @contextlib.contextmanager
 def env_snapshot():
     """Read ``REPRO_IMPL`` and ``REPRO_ATTN_IMPL`` once for everything run
@@ -566,13 +601,18 @@ def select(family: str, **facts) -> str:
     return fam.heuristic(**facts)
 
 
+def call_facts(family: str, *args, **kwargs) -> Dict[str, Any]:
+    """The static facts of a call on model-layout args, as the family's
+    fact extractor gives them (empty for a family without one)."""
+    fam = _family(family)
+    return fam.facts(*args, **kwargs) if fam.facts is not None else {}
+
+
 def run(family: str, *args, impl: Optional[str] = None, **kwargs):
     """Run ``family`` on model-layout args; ``impl=None`` self-selects
-    via the family's fact extractor + :func:`select`."""
-    fam = _family(family)
+    via :func:`call_facts` + :func:`select`."""
     if impl is None:
-        facts = fam.facts(*args, **kwargs) if fam.facts is not None else {}
-        impl = select(family, **facts)
+        impl = select(family, **call_facts(family, *args, **kwargs))
     counts = getattr(_TLS, "tally", None)
     if counts is not None:
         counts[family] = counts.get(family, 0) + 1
@@ -1240,20 +1280,28 @@ _ATTENTION_LAYOUT = ("q [B,Sq,H,Dh]; k/v [B,Sk,KVH,Dh] -> [B,Sq,H,Dh]; "
 
 def _attention_facts(q, k, v, *, causal: bool = True,
                      chunk_threshold: int = 2048,
-                     differentiable: bool = False,
-                     **_kw) -> Dict[str, Any]:
+                     differentiable: bool = False, q_offset: int = 0,
+                     kv_len=None, **_kw) -> Dict[str, Any]:
     return dict(sq=q.shape[1], sk=k.shape[1], dh=q.shape[-1], causal=causal,
                 flash_min_seq=chunk_threshold, backend=q.device.type,
-                differentiable=differentiable or needs_grad(q, k, v))
+                differentiable=differentiable or needs_grad(q, k, v),
+                dtype=q.dtype, q_offset=q_offset, ragged=kv_len is not None,
+                heads=q.shape[2], kv_heads=k.shape[2])
 
 
 def _attention_heuristic(*, sq: int, sk: int, dh: int, causal: bool = True,
                          backend: Optional[str] = None,
                          flash_min_seq: Optional[int] = None,
-                         differentiable: bool = False) -> str:
-    del sk, dh, causal              # part of the contract, unused for now
+                         differentiable: bool = False, dtype=None,
+                         q_offset: int = 0, ragged: bool = False,
+                         heads: int = 1, kv_heads: int = 1) -> str:
+    del sk, causal                  # part of the contract, unused for now
     if differentiable:
-        return "torch_flash"        # the kernel has no gradient
+        if _backend(backend) == "cuda" and flash_train_mod.takes(
+                dtype=dtype, dh=dh, q_offset=q_offset, ragged=ragged,
+                heads=heads, kv_heads=kv_heads):
+            return "cuda_flash_train"
+        return "torch_flash"        # kernel #1 has no gradient
     if _backend(backend) == "cuda":
         return "cuda_flash"         # raises for a head dim it lacks
     if flash_min_seq is not None and sq > flash_min_seq:
@@ -1330,6 +1378,23 @@ def _run_full(q, k, v, *, q_offset: int = 0, causal: bool = True,
     flash_mod.declare_flash(qb, kb, kv_len, causal=causal,
                             q_offset=q_offset, launch=False)
     return out
+
+
+@register_impl("attention", "cuda_flash_train", layout=_ATTENTION_LAYOUT,
+               oracle="repro_torch.kernels.flash_attention_train."
+                      "flash_train_plain_forward",
+               supports=lambda per_device_heads=None, **f:
+                   _heads_ok(per_device_heads))
+def _run_cuda_flash_train(q, k, v, *, q_offset: int = 0,
+                          causal: bool = True, kv_len=None,
+                          chunk_size: int = 512, chunk_threshold: int = 2048,
+                          blocks=None, differentiable: bool = False):
+    """flash_train - the training kernels: forward, dQ, dK/dV, autograd."""
+    if q_offset != 0 or kv_len is not None:
+        raise ValueError("cuda_flash_train takes self-attention from "
+                         "position 0 over every key: no q_offset, no "
+                         "kv_len")
+    return flash_train_mod.flash_train(q, k, v, causal=causal)
 
 
 # ===========================================================================

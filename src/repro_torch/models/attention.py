@@ -34,8 +34,20 @@ does.  Dense decode has no kernel in the JAX package either; it is plain
 PyTorch.
 
 **Training** (``repro/models/attention.py:137-406``).  :func:`attention`
-under grad (autograd on and an input that needs a gradient) follows the
-reference's train path: ``_full_attention_offset`` up to
+under grad (autograd on and an input that needs a gradient) asks the
+registry (``differentiable=True``).  On the card, for bf16 at a head dim
+the training kernels build (64, 80, 128), it takes ``cuda_flash_train``:
+the hand-written flash forward and backward of
+``kernels/flash_attention_train.py`` as a ``torch.autograd.Function``
+(the logsumexp saved, P recomputed in the backward, no ``[., S, S]``
+tensor), which the JAX package does not have.  A pin to
+``cuda_flash_train`` takes them wherever it is set; a pin to any other
+impl (``cuda_flash``, ``torch_flash``, ``full``, from ``use_impl``,
+``REPRO_IMPL`` or ``REPRO_ATTN_IMPL``, typically set for serving) only
+keeps the kernels out, so that a serving pin never fails a training
+step.  Every call the kernels do not take (the CPU, fp32, another head
+dim, such a pin) follows the reference's train path, as it did before
+the kernels existed: ``_full_attention_offset`` up to
 ``chunk_threshold`` queries, ``_chunked_attention`` above, each with
 ``softmax_mode`` ``naive`` (mask, fp32 softmax, cast) or ``fused``
 (scale folded into q, additive mask, unnormalised probs in the compute
@@ -44,10 +56,10 @@ or ``kernel``: the registry with ``differentiable=True``, which picks
 ``torch_flash``, the flash core as a ``torch.autograd.Function``
 (:class:`_FlashCore`: an online-softmax forward that saves the
 logsumexp, a backward that recomputes each tile and never saves the
-``[., Sq, Sk]`` stack).  The hand-written kernels carry no gradient (they
-are loaded through ``ctypes``), so the registry never selects one under
-grad and refuses a pin to one.  Without grad, :func:`attention` keeps
-its registry route (the encoder's serving forward).
+``[., Sq, Sk]`` stack).  Kernel #1 (``cuda_flash``) carries no gradient
+(it is loaded through ``ctypes``), so the registry never selects it
+under grad and refuses a pin to it.  Without grad, :func:`attention`
+keeps its registry route (the encoder's serving forward).
 """
 
 from __future__ import annotations
@@ -489,6 +501,26 @@ def _prefill_qkv_attend(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     return out, k, v
 
 
+def _train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: AttnConfig) -> torch.Tensor:
+    """:func:`attention`'s core under grad (see the module note): the
+    training kernels where a pin names them or, unpinned, the registry's
+    heuristic picks them; else the reference's train path with
+    ``cfg.softmax_mode``, which any other pin keeps as well."""
+    impl = registry.override_for("attention")
+    if impl is None:
+        impl = registry.select("attention", **registry.call_facts(
+            "attention", q, k, v, causal=cfg.causal, differentiable=True))
+    if impl == "cuda_flash_train":
+        return registry.run("attention", q, k, v, impl=impl,
+                            causal=cfg.causal, differentiable=True)
+    if q.shape[1] > cfg.chunk_threshold:
+        return _chunked_attention(q, k, v, cfg.chunk_size, cfg.causal,
+                                  cfg.softmax_mode)
+    return _full_attention_offset(q, k, v, 0, cfg.causal, None,
+                                  cfg.softmax_mode)
+
+
 def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
               positions3: Optional[torch.Tensor] = None,
               tp: Any = None, sp: bool = False) -> torch.Tensor:
@@ -497,9 +529,10 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
     causal as ``cfg.causal`` says): the training block's and the
     encoder's forward (``repro/models/attention.py:389-406``).
 
-    Under grad it is the reference's train path (see the module note:
-    ``_full_attention_offset`` or ``_chunked_attention`` with
-    ``cfg.softmax_mode``).  Without grad it goes through the registry's
+    Under grad it is the training kernels on the card in bf16, else the
+    reference's train path (see the module note: ``_full_attention_offset``
+    or ``_chunked_attention`` with ``cfg.softmax_mode``).  Without grad it
+    goes through the registry's
     ``attention`` family, as a serving prefill does: kernel #1 on the
     card (``causal=False`` for the encoder), the reference's plain choice
     on the CPU.  Under tensor parallelism (``tp``; the config holds the
@@ -513,12 +546,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig, *,
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions, positions3)
     if registry.needs_grad(q, k, v):
-        if s > cfg.chunk_threshold:
-            out = _chunked_attention(q, k, v, cfg.chunk_size, cfg.causal,
-                                     cfg.softmax_mode)
-        else:
-            out = _full_attention_offset(q, k, v, 0, cfg.causal, None,
-                                         cfg.softmax_mode)
+        out = _train_attention(q, k, v, cfg)
     else:
         out = registry.run("attention", q, k, v, q_offset=0,
                            causal=cfg.causal, kv_len=None,

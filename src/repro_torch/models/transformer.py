@@ -24,6 +24,9 @@ saves the outputs of ``aten.mm``/``addmm``/``bmm``/``baddbmm``
 products, not the attention's batched ones), everything else
 recomputed; both through ``torch.utils.checkpoint`` with
 ``use_reentrant=False`` and ``create_selective_checkpoint_contexts``.
+The recompute runs under the forward's kernel pins
+(``registry.carry_pins``): autograd recomputes a card's layer on its own
+device thread, where a ``use_impl`` pin of the caller is not set.
 Under a profiler the training block's attention is the span
 ``model.attention`` (:func:`repro_torch.core.marker.span`), its normed
 input and its output marked for the backward; a recompute shows as the
@@ -46,6 +49,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.features import FeatureSet
 from repro_torch.core.marker import span
+from repro_torch.kernels import registry
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (AttnConfig, KVCache, PagedKVCache)
@@ -298,7 +302,13 @@ def remat(fn: Callable, features: FeatureSet) -> Callable:
             _save_policy(_DOTS[policy]))
     elif policy != "full":
         raise ValueError(f"unknown remat_policy {policy!r}")
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+    def checkpointed(*args):
+        # the recompute runs on autograd's thread: it keeps the forward's
+        # kernel pins, so both take one route
+        return ckpt.checkpoint(registry.carry_pins(fn), *args,
+                               use_reentrant=False, **kw)
+    return checkpointed
 
 
 def apply_layers(layers, x: torch.Tensor, fn: Callable,

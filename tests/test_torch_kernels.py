@@ -920,4 +920,4 @@ def test_build_paths_are_content_keyed_and_under_build_dir():
         assert so.name.startswith(f"{name}-") and so.suffix == ".so"
         assert so == _build._so_path(name)          # stable hash
     assert len({_build._so_path(n) for n in _build.SOURCES}) == \
-        len(_build.SOURCES) == 7
+        len(_build.SOURCES) == 8

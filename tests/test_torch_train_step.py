@@ -20,11 +20,15 @@ qwen2-0.5b (dense), qwen2-moe-a2.7b (moe) and qwen2-vl-7b (vlm) at their
 * gradients equal under every ``remat_policy`` (1e-6 relative);
 * bf16 compute over fp32 masters: fp32 gradients, the tied embedding's
   two uses summed in fp32, the loss within 2e-2 of the JAX bf16 model's;
-* the registry: no ``cuda_*`` impl is selected or runs under grad (a pin
-  raises), and a training step with the backend taken for the card
-  launches no kernel.
+* the registry: under grad no impl without a gradient is selected or
+  runs (a pin to ``cuda_flash`` or ``cuda_ssd`` raises); the training
+  kernels (``cuda_flash_train``) are selected on the card in bf16 at a
+  head dim they build, and a training step with the backend taken for
+  the card launches no kernel in fp32 and calls the training kernels'
+  wrappers once a layer in bf16.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -46,6 +50,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.features import default_features
 from repro_torch.data import DataConfig, make_source
 from repro_torch.kernels import flash_attention, registry, ssd_scan
+from repro_torch.kernels import flash_attention_train as flash_train
 from repro_torch.models import attention as attn
 from repro_torch.models.lm import LM
 from repro_torch.optim import AdamWConfig, ScheduleConfig
@@ -377,10 +382,20 @@ def _ssd(grad):
 
 @pytest.mark.parametrize("backend", ["cpu", "cuda"])
 def test_select_differentiable_never_returns_a_kernel(backend):
+    # under grad no kernel without a gradient is selected: the training
+    # kernels (cuda_flash_train, an autograd Function) only on the card in
+    # bf16 at a head dim they build; fp32, the CPU and other head dims keep
+    # the differentiable twins
     assert registry.select("attention", sq=8, sk=8, dh=16, backend=backend,
                            differentiable=True) == "torch_flash"
     assert registry.select("ssd_scan", backend=backend,
                            differentiable=True) == "torch_scan"
+    train = dict(sq=8, sk=8, dh=64, heads=4, kv_heads=2, backend=backend,
+                 differentiable=True)
+    assert registry.select("attention", dtype=torch.bfloat16, **train) == (
+        "cuda_flash_train" if backend == "cuda" else "torch_flash")
+    assert registry.select("attention", dtype=torch.float32,
+                           **train) == "torch_flash"
     assert registry.select("attention", sq=8, sk=8, dh=16,
                            backend="cuda") == "cuda_flash"
     for fam, impl in (("attention", "cuda_flash"), ("ssd_scan", "cuda_ssd")):
@@ -388,6 +403,8 @@ def test_select_differentiable_never_returns_a_kernel(backend):
             with pytest.raises(RuntimeError, match="no gradient"):
                 registry.select(fam, sq=8, sk=8, dh=16, backend=backend,
                                 differentiable=True)
+            with pytest.raises(RuntimeError, match="no gradient"):
+                registry.select(fam, dtype=torch.bfloat16, **train)
             assert registry.select(fam, sq=8, sk=8, dh=16,
                                    backend=backend) == impl
 
@@ -420,19 +437,41 @@ def test_kernel_pins_raise_under_grad(monkeypatch):
                                   "xlstm-350m"])
 def test_a_train_step_on_the_card_backend_launches_no_kernel(arch,
                                                              monkeypatch):
-    # every heuristic answers as on the card; a training step must still
-    # take the differentiable twins, so no kernel wrapper counts a launch
+    # every heuristic answers as on the card.  In fp32 a training step
+    # takes the differentiable twins, so no kernel wrapper counts a launch
+    # and the training kernels' wrappers are not called; in bf16 at a head
+    # dim they build, every attention of the step goes to them (one
+    # forward and one backward call a layer without remat), and kernels
+    # #1 and #5 still launch nothing
     monkeypatch.setattr(registry, "_backend", lambda backend=None: "cuda")
-    cfg = get_arch(arch).smoke
-    lm = LM(cfg, torch.float32, "cpu",
-            features=default_features().with_(remat_policy="none"))
-    lm.init(torch.Generator().manual_seed(0))
-    state = init_train_state(lm, AdamWConfig())
-    step = make_train_step(lm, AdamWConfig(), ScheduleConfig(**SCHED))
-    tb, _ = _batch(cfg)
-    before = (flash_attention.flash_attention_bhsd.launches,
-              ssd_scan.ssd_scan.launches)
-    state, m = step(state, tb)
-    assert np.isfinite(m["loss"].item())
-    assert (flash_attention.flash_attention_bhsd.launches,
-            ssd_scan.ssd_scan.launches) == before
+    calls = {"attention": 0, "fwd": 0, "bwd": 0}
+    for name, mod, key in (("_train_attention", attn, "attention"),
+                           ("flash_train_forward", flash_train, "fwd"),
+                           ("flash_train_backward", flash_train, "bwd")):
+        def counted(*a, _real=getattr(mod, name), _key=key, **kw):
+            calls[_key] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = get_arch(arch).smoke
+        if dtype == torch.bfloat16:
+            cfg = dataclasses.replace(cfg, head_dim=64)
+        lm = LM(cfg, dtype, "cpu",
+                features=default_features().with_(remat_policy="none"),
+                param_dtype=torch.float32)
+        lm.init(torch.Generator().manual_seed(0))
+        state = init_train_state(lm, AdamWConfig())
+        step = make_train_step(lm, AdamWConfig(), ScheduleConfig(**SCHED))
+        tb, _ = _batch(cfg)
+        before = (flash_attention.flash_attention_bhsd.launches,
+                  ssd_scan.ssd_scan.launches, dict(flash_train.LAUNCHES))
+        calls.update(attention=0, fwd=0, bwd=0)
+        state, m = step(state, tb)
+        assert np.isfinite(m["loss"].item())
+        assert (flash_attention.flash_attention_bhsd.launches,
+                ssd_scan.ssd_scan.launches,
+                dict(flash_train.LAUNCHES)) == before
+        n = calls["attention"]
+        assert n == (0 if arch == "xlstm-350m" else 2), (arch, calls)
+        want = n if dtype == torch.bfloat16 else 0
+        assert (calls["fwd"], calls["bwd"]) == (want, want), (dtype, calls)
